@@ -1,0 +1,72 @@
+"""GNSS system descriptors (port of `gpuacceleratedtracking_tpu.models.system`).
+
+A system is a frozen descriptor holding the host-side numpy code table and the
+scalar constants. Callers move the table to a device with
+``torch.as_tensor(system.codes, device=...)``. Only GPS L1 C/A is registered so
+far; the other families follow the JAX package's registry in later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+
+from . import gpsl1
+
+
+@dataclasses.dataclass(frozen=True)
+class GNSSSystem:
+    """Immutable GNSS signal description.
+
+    Attributes:
+      name: registry name, e.g. ``"GPSL1"``.
+      codes: ``[code_length, num_prns]`` float32 matrix of +/-1 chips.
+      code_frequency: chipping rate in chips/s.
+      center_frequency: nominal carrier in Hz.
+      code_length: chips per primary code period.
+      codes_per_ms: primary code periods per millisecond (1 for L1 C/A).
+      secondary_code: optional +/-1 overlay, one sign per primary period.
+    """
+
+    name: str
+    codes: np.ndarray
+    code_frequency: float
+    center_frequency: float
+    code_length: int
+    codes_per_ms: int = 1
+    secondary_code: np.ndarray | None = None
+
+    @property
+    def num_prns(self) -> int:
+        return self.codes.shape[1]
+
+    def code_period(self) -> float:
+        return self.code_length / self.code_frequency
+
+
+@functools.lru_cache(maxsize=None)
+def GPSL1() -> GNSSSystem:
+    return GNSSSystem(
+        name="GPSL1",
+        codes=gpsl1.code_table(),
+        code_frequency=gpsl1.CODE_FREQUENCY,
+        center_frequency=gpsl1.CENTER_FREQUENCY,
+        code_length=gpsl1.CODE_LENGTH,
+    )
+
+
+# Name -> constructor registry.
+GNSS_REGISTRY = {
+    "GPSL1": GPSL1,
+}
+
+
+def get_system(name: str) -> GNSSSystem:
+    try:
+        return GNSS_REGISTRY[name]()
+    except KeyError:
+        raise KeyError(
+            f"Unknown GNSS system {name!r}; known: {sorted(GNSS_REGISTRY)}"
+        ) from None
