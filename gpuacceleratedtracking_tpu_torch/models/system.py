@@ -2,8 +2,9 @@
 
 A system is a frozen descriptor holding the host-side numpy code table and the
 scalar constants. Callers move the table to a device with
-``torch.as_tensor(system.codes, device=...)``. Only GPS L1 C/A is registered so
-far; the other families follow the JAX package's registry in later slices.
+``torch.as_tensor(system.codes, device=...)``. GPS L1 C/A and GPS L5 are
+registered so far; the other families follow the JAX package's registry in
+later slices.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import functools
 
 import numpy as np
 
-from . import gpsl1
+from . import gpsl1, gpsl5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +27,7 @@ class GNSSSystem:
       code_frequency: chipping rate in chips/s.
       center_frequency: nominal carrier in Hz.
       code_length: chips per primary code period.
-      codes_per_ms: primary code periods per millisecond (1 for L1 C/A).
+      codes_per_ms: primary code periods per millisecond (1 for L1 C/A and L5).
       secondary_code: optional +/-1 overlay, one sign per primary period.
     """
 
@@ -57,9 +58,23 @@ def GPSL1() -> GNSSSystem:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def GPSL5(quadrature: bool = False, with_secondary: bool = True) -> GNSSSystem:
+    """GPS L5: I5 (data, NH10 overlay) or, with ``quadrature``, Q5 (pilot, NH20)."""
+    return GNSSSystem(
+        name="GPSL5",
+        codes=gpsl5.code_table(quadrature),
+        code_frequency=gpsl5.CODE_FREQUENCY,
+        center_frequency=gpsl5.CENTER_FREQUENCY,
+        code_length=gpsl5.CODE_LENGTH,
+        secondary_code=gpsl5.neuman_hofman(quadrature) if with_secondary else None,
+    )
+
+
 # Name -> constructor registry.
 GNSS_REGISTRY = {
     "GPSL1": GPSL1,
+    "GPSL5": GPSL5,
 }
 
 

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, which is loaded with ``ctypes``. The
-build runs at first use, into ``build/torch_kernels/`` at the repository root;
-the library's name carries a hash of the sources and flags, so a stale build
-is never loaded. Nothing is built or loaded when this module is imported.
+Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, which is loaded with
+``ctypes``. The builds run at first use, one ``nvcc`` per source, all started
+together, into ``build/torch_kernels/`` at the repository root; a library's
+name carries a hash of its source and the flags, so a stale build is never
+loaded. Nothing is built or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -31,15 +32,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C entry points: name -> (argtypes, restype).
+# C entry points per source: source stem -> {name: (argtypes, restype)}.
 SIGNATURES = {
-    "bank_rows_launch": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code params base deltas partial out_re out_im
-         _I, _I, _I, _I, _I, _I,               # ants taps samples k code_length tile
-         _F, _F,                               # rho_nom fcar_nom_cyc
-         _P],                                  # stream
-        _I,
-    ),
+    "bank_rows": {
+        "bank_rows_launch": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code params base deltas partial out_re out_im
+             _I, _I, _I, _I, _I, _I,               # ants taps samples k code_length tile
+             _F, _F,                               # rho_nom fcar_nom_cyc
+             _P],                                  # stream
+            _I,
+        ),
+    },
+    "bank_comp": {
+        "bank_comp_launch": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code params base deltas partial out_re out_im
+             _I, _I, _I, _I, _I, _I, _I, _I,       # ants taps samples k code_length phase_tile span bf16
+             _F, _F,                               # rho_nom fcar_nom_cyc
+             _P],                                  # stream
+            _I,
+        ),
+    },
 }
 
 
@@ -56,50 +68,59 @@ def nvcc_path() -> str:
 
 
 def _sources() -> list[pathlib.Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+    return [CSRC_DIR / f"{stem}.cu" for stem in SIGNATURES]
 
 
-def library_path() -> pathlib.Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(source: pathlib.Path) -> pathlib.Path:
+    """Where the library for ``source`` and the current flags lives."""
     digest = hashlib.sha256()
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
+    digest.update(source.name.encode())
+    digest.update(source.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libtorch_kernels_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile ``csrc/*.cu`` unless the hashed library exists; return its path.
+def build() -> list[pathlib.Path]:
+    """Compile every ``csrc/*.cu`` whose hashed library is missing; return the
+    libraries' paths, one per source.
 
-    The compiler's ``-Xptxas -v`` report (registers, shared memory and spills
-    per kernel) is kept beside the library, as ``<library>.log``.
+    One ``nvcc`` per source, all started together. Each compiler's
+    ``-Xptxas -v`` report (registers, shared memory and spills per kernel) is
+    kept beside its library, as ``<library>.log``.
     """
-    out = library_path()
-    if out.exists():
-        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    outs = [library_path(src) for src in _sources()]
+    jobs = []
+    for src, out in zip(_sources(), outs):
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, proc, tmp, out))
+    failures = []
+    for cmd, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's C signature."""
-    lib = ctypes.CDLL(str(build()))
-    for name, (argtypes, restype) in SIGNATURES.items():
+@functools.lru_cache(maxsize=None)
+def load_library(stem: str) -> ctypes.CDLL:
+    """Build if needed, load the library of ``csrc/<stem>.cu``, and declare
+    its entry points' C signatures."""
+    build()
+    lib = ctypes.CDLL(str(library_path(CSRC_DIR / f"{stem}.cu")))
+    for name, (argtypes, restype) in SIGNATURES[stem].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype

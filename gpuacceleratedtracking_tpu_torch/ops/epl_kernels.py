@@ -1,16 +1,25 @@
-"""The bank correlator kernel's wrapper, its plain version, and bank routing.
+"""The bank correlator kernels' wrappers, their plain versions, and bank routing.
 
-Port of `gpuacceleratedtracking_tpu.ops.pallas_epl`'s main-path pieces:
+Port of `gpuacceleratedtracking_tpu.ops.pallas_epl`'s bank routes:
 `correlate_pallas_bank_rows` (the per-row bank kernel's wrapper),
-`bank_algorithm_for` and `correlate_pallas_bank_auto`.
+`correlate_pallas_bank` (the transition kernel's wrapper), `bank_algorithm_for`
+and `correlate_pallas_bank_auto`. The composite route, `pallas_bank_comp`,
+lives in `bank_comp`.
 
-`correlate_pallas_bank_rows` dispatches on where its tensors lie. CUDA tensors
-launch the hand-written kernel ``csrc/bank_rows.cu`` (built at first use by
-`_build`) or raise; CPU tensors run `correlate_bank_rows_reference`, the plain
-PyTorch version of the same formula with the same f32 phase arithmetic. Every
-launch adds one to ``correlate_pallas_bank_rows.launches``.
+The rows and transition routes compute one contract and share one kernel,
+``csrc/bank_rows.cu``: its per-sample chip lookup from shared memory has no
+chip-rate ceiling, so it serves the transition kernel's regime (below one chip
+per sample: GPS L5, GPS L1 below ~6 MHz) as it is. The routes differ only in
+the envelope each enforces, as the JAX kernels do, and in the launch count
+each keeps.
 
-Phase arithmetic shared by the kernel and the plain version: the block is cut
+Each wrapper dispatches on where its tensors lie. CUDA tensors launch the
+hand-written kernel (built at first use by `_build`) or raise; CPU tensors run
+`correlate_bank_rows_reference`, the plain PyTorch version of the same formula
+with the same f32 phase arithmetic. Every launch adds one to the route's
+wrapper's ``launches``.
+
+Phase arithmetic shared by the kernels and the plain versions: the block is cut
 into tiles of `TILE` samples; per tile a nominal base (carrier cycles and code
 chips at the tile start, for the nominal rates) is computed exactly in float64
 on the host, and each channel adds an f32 residual:
@@ -29,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -38,13 +48,22 @@ from . import _build, registry
 from .replica import rate
 
 TILE = 4096                  # samples per CTA of the CUDA kernel (and per phase base)
-MAX_CODE_LENGTH = 12288      # the code column must fit 48 KB of shared memory
+MAX_CODE_LENGTH = 12288      # the code column must fit 48 KB of shared memory (GPS L5: 10230)
 KERNEL_ANTENNAS = (1, 2, 3, 4)
 KERNEL_TAPS = (3, 5, 7)
 _LANES = 128
 _TWO_PI = 2.0 * math.pi
 # Elements of one [channels, N] intermediate per chunk of the plain version.
 _CHUNK_ELEMENTS = 1 << 24
+
+
+def _max_chips_per_sample(sampling_frequency, nominal_code_frequency,
+                          max_chips_per_sample) -> float:
+    if max_chips_per_sample is not None:
+        return max_chips_per_sample
+    if nominal_code_frequency is None:
+        return 0.65
+    return float(nominal_code_frequency) / float(sampling_frequency) * 1.001
 
 
 def _check_rows_geometry(
@@ -55,15 +74,11 @@ def _check_rows_geometry(
     """The JAX rows kernel's chip-rate rule (`pallas_epl._rows_geometry`).
 
     A 128-sample row may touch at most 23 chips (< ~0.17 chips/sample). The
-    CUDA kernel has no such limit; the rule is kept so that routing and
-    errors match the JAX package until the transition kernel is ported.
+    CUDA kernel has no such limit; the rule is kept on the rows and composite
+    routes so that routing and errors match the JAX package.
     """
-    if max_chips_per_sample is None:
-        max_chips_per_sample = (
-            float(nominal_code_frequency) / float(sampling_frequency) * 1.001
-            if nominal_code_frequency is not None
-            else 0.65
-        )
+    max_chips_per_sample = _max_chips_per_sample(
+        sampling_frequency, nominal_code_frequency, max_chips_per_sample)
     if max_chips_per_sample >= 1.0:
         raise ValueError("rows kernel requires < 1 chip per sample")
     num_j = int(math.floor(max_chips_per_sample * (_LANES - 1))) + 2
@@ -72,6 +87,23 @@ def _check_rows_geometry(
             f"rows kernel needs num_j={num_j} chips/row; use pallas_bank for"
             " chip rates above ~0.17 chips/sample"
         )
+
+
+def _check_transition_geometry(
+    span: int,
+    sampling_frequency: float,
+    nominal_code_frequency: float | None,
+    max_chips_per_sample: float | None,
+) -> None:
+    """The JAX transition kernel's envelope (`pallas_epl.correlate_pallas_bank`,
+    `_transition_geometry`): tap span < 128 samples, < 1 chip per sample."""
+    if span >= _LANES:
+        raise ValueError(
+            f"tap span {span} >= {_LANES}; use the XLA bank path for wide spans"
+        )
+    if _max_chips_per_sample(sampling_frequency, nominal_code_frequency,
+                             max_chips_per_sample) >= 1.0:
+        raise ValueError("transition kernel requires < 1 chip per sample")
 
 
 def _is_bf16(z_dtype) -> bool:
@@ -91,7 +123,7 @@ def bank_algorithm_for(
 
     The rows kernel for single-antenna f32 banks at high sample rates, the
     composite kernel for multi-antenna banks or bf16 z-planes, the transition
-    kernel at low rates. Only the rows kernel is ported so far.
+    kernel at low rates (above ~0.17 chips/sample).
     """
     try:
         _check_rows_geometry(
@@ -106,7 +138,8 @@ def bank_algorithm_for(
 
 
 def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torch.Tensor:
-    """Per-channel code columns ``[K, Lc]`` f32, contiguous.
+    """Per-channel code columns ``[K, Lc]`` f32, contiguous: the code table
+    of all three bank routes.
 
     Hoist out of tracking loops: PRNs are loop constants.
     """
@@ -151,16 +184,32 @@ def _channel_params(carrier_frequency, sampling_frequency, carrier_phase,
 
 
 class BankRowsCall:
-    """Everything the kernel and its plain version take, computed once per call
-    from the registry signature's arguments."""
+    """Everything a bank kernel and its plain version take, computed once per
+    call from the registry signature's arguments.
+
+    ``route`` names the wrapper the call is for, ``pallas_bank_rows``,
+    ``pallas_bank`` or ``pallas_bank_comp``: it picks the envelope that is
+    enforced and the launch count that a launch adds to. The composite route
+    evaluates its phases over ``N + span`` samples (`bank_comp`), so its tile
+    base covers those.
+    """
 
     def __init__(self, signal_re, signal_im, codes, prn, carrier_frequency,
                  sampling_frequency, carrier_phase, code_frequency, code_phase,
                  sample_shifts, code_length, nominal_code_frequency=None,
                  nominal_carrier_frequency=0.0, max_chips_per_sample=None,
-                 code_tiles=None):
+                 code_tiles=None, route="pallas_bank_rows"):
         fs = float(sampling_frequency)
-        _check_rows_geometry(fs, nominal_code_frequency, max_chips_per_sample)
+        span = int(max(sample_shifts)) - int(min(sample_shifts))
+        if route == "pallas_bank":
+            _check_transition_geometry(span, fs, nominal_code_frequency,
+                                       max_chips_per_sample)
+        elif route in ("pallas_bank_rows", "pallas_bank_comp"):
+            _check_rows_geometry(fs, nominal_code_frequency, max_chips_per_sample)
+        else:
+            raise ValueError(f"unknown bank route {route!r}")
+        self.route = route
+        self.span = span
         self.squeeze = signal_re.ndim == 1
         if self.squeeze:
             signal_re, signal_im = signal_re[None], signal_im[None]
@@ -177,7 +226,8 @@ class BankRowsCall:
                                      code_frequency, code_phase, d_min,
                                      self.device)
         self.num_k = self.params.shape[0]
-        self.num_tiles = -(-self.num_samples // TILE)
+        phase_samples = self.num_samples + (span if route == "pallas_bank_comp" else 0)
+        self.num_tiles = -(-phase_samples // TILE)
         self.rho_nom = (float(nominal_code_frequency) / fs
                         if nominal_code_frequency is not None else 0.0)
         self.fcar_nom_cyc = float(nominal_carrier_frequency) / fs
@@ -232,7 +282,7 @@ def _bank_rows_plain(bank: BankRowsCall) -> tuple[torch.Tensor, torch.Tensor]:
     return out_re, out_im
 
 
-def _check_kernel_inputs(bank: BankRowsCall) -> None:
+def _check_kernel_inputs(bank: BankRowsCall, kernel: str = "bank_rows") -> None:
     tensors = {"signal_re": bank.sre, "signal_im": bank.sim,
                "code_tiles": bank.code_tiles, "params": bank.params}
     for name, t in tensors.items():
@@ -247,7 +297,7 @@ def _check_kernel_inputs(bank: BankRowsCall) -> None:
                          f"{tuple(bank.sim.shape)}")
     if bank.num_ants not in KERNEL_ANTENNAS or len(bank.deltas) not in KERNEL_TAPS:
         raise ValueError(
-            f"bank_rows kernel takes A in {KERNEL_ANTENNAS} and L in "
+            f"{kernel} kernel takes A in {KERNEL_ANTENNAS} and L in "
             f"{KERNEL_TAPS}, got A={bank.num_ants}, L={len(bank.deltas)}"
         )
     if bank.code_tiles.shape != (bank.num_k, bank.code_length):
@@ -258,21 +308,25 @@ def _check_kernel_inputs(bank: BankRowsCall) -> None:
     if bank.code_length > MAX_CODE_LENGTH:
         raise ValueError(f"code_length {bank.code_length} > {MAX_CODE_LENGTH}")
     if bank.num_samples >= 1 << 24 or bank.num_k > 65535:
-        raise ValueError("bank_rows kernel takes N < 2^24 and K <= 65535")
+        raise ValueError(f"{kernel} kernel takes N < 2^24 and K <= 65535")
 
 
 def correlate_bank_rows_reference(
     signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
     carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
     nominal_code_frequency=None, nominal_carrier_frequency=0.0,
-    max_chips_per_sample=None, code_tiles=None,
+    max_chips_per_sample=None, code_tiles=None, route="pallas_bank_rows",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of `correlate_pallas_bank_rows`, on any device."""
+    """The plain PyTorch version of `correlate_pallas_bank_rows`, on any device.
+
+    It is the plain version of `correlate_pallas_bank` too, on that route's
+    envelope: ``route="pallas_bank"``.
+    """
     bank = BankRowsCall(signal_re, signal_im, codes, prn, carrier_frequency,
                         sampling_frequency, carrier_phase, code_frequency,
                         code_phase, sample_shifts, code_length,
                         nominal_code_frequency, nominal_carrier_frequency,
-                        max_chips_per_sample, code_tiles)
+                        max_chips_per_sample, code_tiles, route)
     return bank.finish(*_bank_rows_plain(bank))
 
 
@@ -299,29 +353,36 @@ def correlate_pallas_bank_rows(
     plain version; CUDA tensors launch ``csrc/bank_rows.cu`` or raise.
     ``code_tiles``: `prepare_bank_code_tiles_rows` output, hoisted by loops.
     """
-    bank = BankRowsCall(signal_re, signal_im, codes, prn, carrier_frequency,
-                        sampling_frequency, carrier_phase, code_frequency,
-                        code_phase, sample_shifts, code_length,
-                        nominal_code_frequency, nominal_carrier_frequency,
-                        max_chips_per_sample, code_tiles)
+    return _run_bank_rows(BankRowsCall(
+        signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
+        carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
+        nominal_code_frequency, nominal_carrier_frequency, max_chips_per_sample,
+        code_tiles, route="pallas_bank_rows"))
+
+
+def _run_bank_rows(bank: BankRowsCall) -> tuple[torch.Tensor, torch.Tensor]:
     if bank.device.type == "cpu":
         return bank.finish(*_bank_rows_plain(bank))
     if bank.device.type != "cuda":
-        raise ValueError(f"bank_rows runs on CPU or CUDA tensors, not {bank.device}")
+        raise ValueError(f"{bank.route} runs on CPU or CUDA tensors, not {bank.device}")
     return bank.finish(*launch_bank_rows(bank))
 
 
 def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/bank_rows.cu`` for a prepared call on CUDA tensors.
 
-    Returns ``[K, A, L]`` accumulators and adds one to
-    ``correlate_pallas_bank_rows.launches``. Raises on anything the kernel
-    does not take, and if the launch fails.
+    Returns ``[K, A, L]`` accumulators and adds one to the launch count of the
+    call's route (``correlate_pallas_bank_rows.launches`` or
+    ``correlate_pallas_bank.launches``). Raises on anything the kernel does
+    not take, and if the launch fails.
     """
     if bank.device.type != "cuda":
         raise ValueError(f"the bank_rows kernel takes CUDA tensors, not {bank.device}")
+    wrapper = _ROWS_KERNEL_ROUTES.get(bank.route)
+    if wrapper is None:
+        raise ValueError(f"the bank_rows kernel does not serve route {bank.route!r}")
     _check_kernel_inputs(bank)
-    lib = _build.load_library()
+    lib = _build.load_library("bank_rows")
     shape = (bank.num_k, bank.num_ants, len(bank.deltas))
     out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
     out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
@@ -339,11 +400,52 @@ def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
     )
     if err != 0:
         raise RuntimeError(f"bank_rows_launch failed with CUDA error {err}")
-    correlate_pallas_bank_rows.launches += 1
+    wrapper.launches += 1
     return out_re, out_im
 
 
 correlate_pallas_bank_rows.launches = 0
+
+
+def correlate_pallas_bank(
+    signal_re: torch.Tensor,
+    signal_im: torch.Tensor,
+    codes: torch.Tensor,
+    prn: torch.Tensor,
+    carrier_frequency: torch.Tensor,
+    sampling_frequency,
+    carrier_phase: torch.Tensor,
+    code_frequency: torch.Tensor,
+    code_phase: torch.Tensor,
+    sample_shifts: Sequence[int],
+    code_length: int,
+    nominal_code_frequency: float | None = None,
+    nominal_carrier_frequency: float = 0.0,
+    max_chips_per_sample: float | None = None,
+    code_tiles: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-channel EPL bank in the transition kernel's regime (< 1 chip/sample).
+
+    The contract and envelope of the JAX `correlate_pallas_bank`: tap span
+    < 128 samples and < 1 chip per sample, else `ValueError`. CPU tensors run
+    the plain version; CUDA tensors launch ``csrc/bank_rows.cu`` (whose
+    per-sample chip lookup covers any chip rate below one per sample) and add
+    one to ``correlate_pallas_bank.launches``, or raise.
+    """
+    return _run_bank_rows(BankRowsCall(
+        signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
+        carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
+        nominal_code_frequency, nominal_carrier_frequency, max_chips_per_sample,
+        code_tiles, route="pallas_bank"))
+
+
+correlate_pallas_bank.launches = 0
+
+# The routes the bank_rows kernel serves, and whose launch count it adds to.
+_ROWS_KERNEL_ROUTES = {
+    "pallas_bank_rows": correlate_pallas_bank_rows,
+    "pallas_bank": correlate_pallas_bank,
+}
 
 
 def correlate_pallas_bank_auto(
@@ -366,8 +468,9 @@ def correlate_pallas_bank_auto(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bank correlator with per-scenario kernel selection (`bank_algorithm_for`).
 
-    Raises `NotImplementedError` where the scenario routes to a kernel that is
-    not ported yet, rather than running another path.
+    ``z_dtype`` (``torch.bfloat16`` or ``"bf16"``) asks for the composite
+    kernel's bf16 planes; where the scenario resolves to another kernel, that
+    is said with a `UserWarning` and the bank runs in f32.
     """
     algo = bank_algorithm_for(
         signal_re.shape[-1], float(sampling_frequency), code_length,
@@ -375,20 +478,30 @@ def correlate_pallas_bank_auto(
         num_ants=signal_re.shape[0] if signal_re.ndim == 2 else 1,
         z_dtype=z_dtype,
     )
-    if algo != "pallas_bank_rows":
-        raise NotImplementedError(
-            f"pallas_bank_auto resolves this scenario to {algo!r}, which is not "
-            "ported to the PyTorch package yet (ROADMAP.md, Queue 2)"
-        )
-    return correlate_pallas_bank_rows(
+    extra = {}
+    if algo == "pallas_bank_comp":
+        from .bank_comp import correlate_pallas_bank_comp as fn
+
+        extra = {"z_dtype": z_dtype}
+    else:
+        fn = correlate_pallas_bank_rows if algo == "pallas_bank_rows" else correlate_pallas_bank
+        if _is_bf16(z_dtype):
+            warnings.warn(
+                f"z_dtype=bfloat16 requested but the resolved kernel {algo!r} "
+                "does not support bf16 accumulator planes; running in f32",
+                stacklevel=2,
+            )
+    return fn(
         signal_re, signal_im, codes, prn, carrier_frequency,
         sampling_frequency, carrier_phase, code_frequency, code_phase,
         sample_shifts, code_length,
         nominal_code_frequency=nominal_code_frequency,
         nominal_carrier_frequency=nominal_carrier_frequency,
         max_chips_per_sample=max_chips_per_sample, code_tiles=code_tiles,
+        **extra,
     )
 
 
+registry.register("pallas_bank", correlate_pallas_bank)
 registry.register("pallas_bank_rows", correlate_pallas_bank_rows)
 registry.register("pallas_bank_auto", correlate_pallas_bank_auto)

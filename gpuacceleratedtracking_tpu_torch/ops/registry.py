@@ -21,8 +21,7 @@ ALGORITHMS: Dict[str, Callable] = {}
 
 # Registered by the JAX package, not ported yet (ROADMAP.md, Queue 2).
 NOT_PORTED = {
-    "unfused_xla", "pallas_taps", "pallas_fused", "pallas_bank",
-    "pallas_bank_onehot", "pallas_bank_comp",
+    "unfused_xla", "pallas_taps", "pallas_fused", "pallas_bank_onehot",
 }
 
 
@@ -31,9 +30,9 @@ def register(name: str, fn: Callable) -> None:
 
 
 def get(name: str) -> Callable:
-    # The kernel module registers itself; import it on first use.
+    # The kernel modules register themselves; import them on first use.
     if name not in ALGORITHMS and name.startswith("pallas"):
-        from . import epl_kernels  # noqa: F401
+        from . import bank_comp, epl_kernels  # noqa: F401
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"correlator {name!r} is not ported to the PyTorch package yet "
@@ -48,7 +47,7 @@ def get(name: str) -> Callable:
 
 
 def names() -> list[str]:
-    from . import epl_kernels  # noqa: F401
+    from . import bank_comp, epl_kernels  # noqa: F401
 
     return sorted(ALGORITHMS)
 

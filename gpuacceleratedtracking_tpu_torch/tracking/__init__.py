@@ -1,6 +1,10 @@
-"""Closed-loop tracking: discriminators, loop filters, C/N0, block loops."""
+"""Closed-loop tracking: discriminators, loop filters, C/N0, block loops,
+dual-component (GPS L5) banks, overlay sync and lock detection."""
 
 from . import cn0, discriminators, loop_filter
+from .dual import DualTrackOutput, dual_config, track_bank_dual
+from .lock import detect_bit_boundary, phase_lock_metric
+from .secondary import detect_secondary_offset, detect_secondary_offset_windowed
 from .state import (
     TrackConfig,
     TrackOutput,
@@ -16,6 +20,13 @@ __all__ = [
     "cn0",
     "discriminators",
     "loop_filter",
+    "DualTrackOutput",
+    "dual_config",
+    "track_bank_dual",
+    "detect_bit_boundary",
+    "phase_lock_metric",
+    "detect_secondary_offset",
+    "detect_secondary_offset_windowed",
     "TrackConfig",
     "TrackOutput",
     "TrackState",

@@ -43,8 +43,9 @@ class TrackConfig:
     secondary_code: tuple = ()
     # PLL discriminator: "costas" (data-tolerant) or "atan2" (pilot).
     pll_discriminator: str = "costas"
-    # Accumulator z-plane dtype of the composite bank kernel: only "f32" is
-    # ported; "bf16" needs that kernel (ROADMAP.md, Queue 2).
+    # Accumulator z-plane dtype of the composite bank kernel: "f32" or
+    # "bf16" (the tracking-grade mode; bank algorithms other than
+    # pallas_bank_comp / pallas_bank_auto warn and run in f32).
     z_dtype: str = "f32"
     # Coherent post-integration window in blocks (loop closes once per window).
     coherent_blocks: int = 1

@@ -10,6 +10,7 @@ stacked ``[B, ...]`` outputs.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -21,16 +22,45 @@ from . import discriminators, loop_filter
 from .loop_filter import LoopFilterState
 from .state import TrackConfig, TrackOutput, TrackState
 
-_BANK_KERNELS = ("pallas_bank_rows", "pallas_bank_auto")
+# Bank algorithms served by a hand-written kernel: they take the nominal
+# rates and the hoisted per-channel code columns.
+_BANK_KERNELS = ("pallas_bank", "pallas_bank_rows", "pallas_bank_comp",
+                 "pallas_bank_auto")
 
 
-def _check_config(config: TrackConfig) -> None:
+def _bank_kernel_kwargs(config: TrackConfig) -> dict:
+    """Keyword arguments of a bank-signature correlator from the config.
+
+    ``z_dtype="bf16"`` goes to the composite kernel (``pallas_bank_comp``, or
+    ``pallas_bank_auto``, which warns itself if the scenario resolves
+    elsewhere); any other algorithm ignores it, and says so with a warning.
+    """
+    kwargs = {}
+    if config.algorithm in _BANK_KERNELS:
+        kwargs["nominal_code_frequency"] = config.code_frequency
+        kwargs["nominal_carrier_frequency"] = config.intermediate_frequency
     if config.z_dtype == "bf16":
-        raise NotImplementedError(
-            "TrackConfig(z_dtype='bf16') needs the composite bank kernel, which "
-            "is not ported to the PyTorch package yet (ROADMAP.md, Queue 2, "
-            "correlate_pallas_bank_comp)"
-        )
+        if config.algorithm in ("pallas_bank_comp", "pallas_bank_auto"):
+            kwargs["z_dtype"] = torch.bfloat16
+        else:
+            warnings.warn(
+                f"TrackConfig(z_dtype='bf16') is ignored by algorithm "
+                f"{config.algorithm!r} (only the composite bank kernel has "
+                "bf16 accumulator planes); tracking runs in f32",
+                stacklevel=2,
+            )
+    return kwargs
+
+
+def _bank_code_tile_kwargs(config: TrackConfig, codes: torch.Tensor,
+                           prn: torch.Tensor) -> dict:
+    """The per-channel code columns of a bank kernel, gathered once per run:
+    PRNs are loop constants. All three bank routes take the same table."""
+    if config.algorithm not in _BANK_KERNELS:
+        return {}
+    from ..ops.epl_kernels import prepare_bank_code_tiles_rows
+
+    return {"code_tiles": prepare_bank_code_tiles_rows(codes, prn)}
 
 
 def track_step(
@@ -46,7 +76,6 @@ def track_step(
     ``signal_*``: ``[N]`` or ``[A, N]``; discriminators run on the beamformed
     accumulators (``ant_weights``: optional ``(w_re, w_im)`` ``[A]``).
     """
-    _check_config(config)
     corr = registry.get(config.algorithm)
     accum_re, accum_im = corr(
         signal_re, signal_im, codes, state.prn,
@@ -262,12 +291,11 @@ def track_bank(
 
     ``states`` carries a leading channel axis ``[K]``; the signal is shared by
     all channels. A bank algorithm correlates the whole bank in one call per
-    block (one kernel launch for ``pallas_bank_rows`` / ``pallas_bank_auto`` on
-    CUDA tensors); the per-channel algorithm ``fused_xla`` runs batched over
-    ``[K]``. ``ant_weights``: optional ``(w_re, w_im)`` of shape ``[A]``
-    (shared) or ``[K, A]`` (per channel).
+    block (one kernel launch for ``pallas_bank*`` on CUDA tensors); the
+    per-channel algorithm ``fused_xla`` runs batched over ``[K]``.
+    ``ant_weights``: optional ``(w_re, w_im)`` of shape ``[A]`` (shared) or
+    ``[K, A]`` (per channel).
     """
-    _check_config(config)
     num_k = states.prn.shape[0]
     device = signal_re.device
     if ant_weights is not None:
@@ -278,16 +306,8 @@ def track_bank(
         )
 
     corr = registry.get(config.algorithm)
-    kwargs = {}
-    if config.algorithm in _BANK_KERNELS:
-        from ..ops.epl_kernels import prepare_bank_code_tiles_rows
-
-        kwargs = {
-            "nominal_code_frequency": config.code_frequency,
-            "nominal_carrier_frequency": config.intermediate_frequency,
-            # PRNs are loop constants: gather the code columns once.
-            "code_tiles": prepare_bank_code_tiles_rows(codes, states.prn),
-        }
+    kwargs = _bank_kernel_kwargs(config)
+    kwargs.update(_bank_code_tile_kwargs(config, codes, states.prn))
 
     outs = _Stacked(signal_re.shape[0])
     for b in range(signal_re.shape[0]):

@@ -151,18 +151,19 @@ def test_golden_prompt_is_exactly_n(num_ants):
 
 
 @pytest.mark.parametrize("fs", [2.5e6, 4.096e6, 5.0e6, 6.5536e6, 8.192e6,
-                                16.384e6, 32.768e6, 131.072e6, 262.144e6])
+                                16.384e6, 32.768e6, 65.536e6, 131.072e6, 262.144e6])
 def test_bank_algorithm_for_agrees_with_jax(fs):
     n = int(round(fs * 1e-3))
-    for num_ants in (1, 2):
-        for j_z, t_z in ((jnp.float32, torch.float32), (jnp.bfloat16, "bf16")):
-            want = pallas_epl.bank_algorithm_for(
-                n, fs, SYSTEM.code_length, SYSTEM.code_frequency,
-                num_ants=num_ants, z_dtype=j_z)
-            got = epl_kernels.bank_algorithm_for(
-                n, fs, SYSTEM.code_length, SYSTEM.code_frequency,
-                num_ants=num_ants, z_dtype=t_z)
-            assert got == want, (fs, num_ants, t_z)
+    for system in (SYSTEM, jmodels.GPSL5()):
+        for num_ants in (1, 2, 4):
+            for j_z, t_z in ((jnp.float32, torch.float32), (jnp.bfloat16, "bf16")):
+                want = pallas_epl.bank_algorithm_for(
+                    n, fs, system.code_length, system.code_frequency,
+                    num_ants=num_ants, z_dtype=j_z)
+                got = epl_kernels.bank_algorithm_for(
+                    n, fs, system.code_length, system.code_frequency,
+                    num_ants=num_ants, z_dtype=t_z)
+                assert got == want, (system.name, fs, num_ants, t_z)
 
 
 def test_low_rate_rejected():
@@ -173,19 +174,31 @@ def test_low_rate_rejected():
 
 
 def test_auto_raises_for_unported_routes():
-    c = _case(2500, 2, 1, None, 0)
-    with pytest.raises(NotImplementedError, match="pallas_bank.*Queue 2"):
-        _run_port("pallas_bank_auto", c)
+    # Every route the router resolves is ported now: the scenarios that once
+    # raised NotImplementedError run their route's plain version on the CPU.
+    from gpuacceleratedtracking_tpu_torch.ops import bank_comp
+
+    c = _case(2500, 2, 1, None, 0)   # 0.41 chips/sample: the transition route
+    kw = {"nominal_code_frequency": SYSTEM.code_frequency}
+    for x, y in zip(_run_port("pallas_bank_auto", c),
+                    epl_kernels.correlate_pallas_bank(*_args(c), **kw)):
+        np.testing.assert_array_equal(x, y.numpy())
     c = _case(8192, 2, 2, None, 0)   # multi-antenna routes to the composite kernel
-    with pytest.raises(NotImplementedError, match="pallas_bank_comp"):
-        _run_port("pallas_bank_auto", c)
+    for x, y in zip(_run_port("pallas_bank_auto", c),
+                    bank_comp.correlate_pallas_bank_comp(*_args(c), **kw)):
+        np.testing.assert_array_equal(x, y.numpy())
 
 
 def test_launch_counter_stays_zero_on_cpu():
-    before = epl_kernels.correlate_pallas_bank_rows.launches
+    from gpuacceleratedtracking_tpu_torch.ops import bank_comp
+
+    counted = (epl_kernels.correlate_pallas_bank_rows, epl_kernels.correlate_pallas_bank,
+               bank_comp.correlate_pallas_bank_comp)
     _run_port("pallas_bank_rows", _case(8192, 2, 1, None, 1))
     _run_port("pallas_bank_auto", _case(8192, 2, 1, None, 1))
-    assert epl_kernels.correlate_pallas_bank_rows.launches == before == 0
+    _run_port("pallas_bank_auto", _case(2500, 2, 1, None, 1))
+    _run_port("pallas_bank_auto", _case(8192, 2, 2, None, 1))
+    assert [fn.launches for fn in counted] == [0, 0, 0]
 
 
 def test_tile_base_is_exact_nominal_phase():

@@ -22,11 +22,27 @@ def test_gpsl1_code_table_bit_equal():
 
 
 def test_registry_and_constants():
-    j, t = jmodels.GPSL1(), tmodels.get_system("GPSL1")
-    assert (t.code_frequency, t.center_frequency, t.code_length) == (
-        j.code_frequency, j.center_frequency, j.code_length)
+    for name in ("GPSL1", "GPSL5"):
+        j, t = jmodels.get_system(name), tmodels.get_system(name)
+        assert (t.code_frequency, t.center_frequency, t.code_length) == (
+            j.code_frequency, j.center_frequency, j.code_length)
+    # Families the port has not registered yet.
     with pytest.raises(KeyError, match="Unknown GNSS system"):
-        tmodels.get_system("GPSL5")
+        tmodels.get_system("GLONASSL1")
+
+
+@pytest.mark.parametrize("quadrature", [False, True])
+def test_gpsl5_code_tables_and_overlays_bit_equal(quadrature):
+    j = jmodels.GPSL5(quadrature=quadrature)
+    t = tmodels.GPSL5(quadrature=quadrature)
+    assert t.codes.dtype == j.codes.dtype == np.float32
+    assert t.codes.shape == j.codes.shape == (10230, 37)
+    np.testing.assert_array_equal(t.codes, j.codes)
+    np.testing.assert_array_equal(t.secondary_code, j.secondary_code)
+    np.testing.assert_array_equal(
+        tmodels.gpsl5.neuman_hofman(quadrature),
+        jmodels.gpsl5.neuman_hofman(quadrature))
+    assert tmodels.GPSL5(quadrature, with_secondary=False).secondary_code is None
 
 
 @pytest.mark.parametrize("fs", [2.5e6, 32.768e6, 262.144e6])
@@ -115,7 +131,11 @@ def test_port_imports_without_jax():
         "import gpuacceleratedtracking_tpu_torch\n"
         "import gpuacceleratedtracking_tpu_torch.ops.epl_kernels\n"
         "import gpuacceleratedtracking_tpu_torch.ops._build\n"
+        "import gpuacceleratedtracking_tpu_torch.ops.bank_comp\n"
         "import gpuacceleratedtracking_tpu_torch.tracking.track\n"
+        "import gpuacceleratedtracking_tpu_torch.tracking.dual\n"
+        "import gpuacceleratedtracking_tpu_torch.tracking.secondary\n"
+        "import gpuacceleratedtracking_tpu_torch.tracking.lock\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('gpuacceleratedtracking_tpu.')"
         " or m == 'gpuacceleratedtracking_tpu']\n"

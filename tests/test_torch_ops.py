@@ -165,7 +165,8 @@ def test_xla_bank_chunks_like_one_batch(monkeypatch):
 
 def test_registry_names_and_unported():
     assert tregistry.names() == [
-        "fused_xla", "pallas_bank_auto", "pallas_bank_rows", "xla_bank"]
+        "fused_xla", "pallas_bank", "pallas_bank_auto", "pallas_bank_comp",
+        "pallas_bank_rows", "xla_bank"]
     assert tregistry.BANK_ALGORITHMS == jregistry.BANK_ALGORITHMS
     for name in sorted(tregistry.NOT_PORTED):
         assert name in jregistry.names()

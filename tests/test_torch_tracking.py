@@ -215,10 +215,25 @@ def test_loop_update_matches_jax_vmap(name):
 
 
 def test_bf16_z_is_not_ported():
-    cfg = ttracking.TrackConfig.for_system(tmodels.GPSL1(), 8.192e6, 8192,
+    # TrackConfig(z_dtype="bf16") is ported: through pallas_bank_auto it runs
+    # the composite route with bf16 planes (on the CPU, its plain version).
+    from gpuacceleratedtracking_tpu_torch.ops import bank_comp
+
+    system = tmodels.GPSL1()
+    cfg = ttracking.TrackConfig.for_system(system, 8.192e6, 8192,
                                            algorithm="pallas_bank_auto",
                                            z_dtype="bf16")
-    sre = torch.zeros(1, 8192)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttracking.track_bank(cfg, torch.as_tensor(tmodels.GPSL1().codes),
-                             ttracking.init_state(np.arange(2)), sre, sre)
+    signal, _ = tmodels.gen_signal(system, 0, 300.0, 8192)
+    sre, sim = (x[None] for x in tmodels.soa(signal))
+    codes = torch.as_tensor(system.codes)
+    states = ttracking.init_state(np.arange(2), carrier_doppler=300.0)
+    _, out = ttracking.track_bank(cfg, codes, states, sre, sim)
+    want = bank_comp.correlate_bank_comp_reference(
+        sre[0], sim[0], codes, states.prn,
+        cfg.intermediate_frequency + states.carrier_doppler,
+        cfg.sampling_frequency, states.carrier_phase,
+        cfg.code_frequency + states.code_doppler, states.code_phase,
+        cfg.sample_shifts, cfg.code_length,
+        nominal_code_frequency=cfg.code_frequency, z_dtype="bf16")
+    torch.testing.assert_close(out.accum_re[0], want[0], rtol=0, atol=0)
+    assert abs(float(out.prompt_re[0, 0]) - 8192) < 4e-3 * 8192
