@@ -18,8 +18,13 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      N=20000, a wide span at A=2, K=1024 at A=4 L=7, and bf16 z-planes at
      K=64 A=4 L=7 against the f32 plain version;
    - the transition route (``pallas_bank``, served by ``bank_rows.cu``): GPS
-     L5 K=128, the L5 A=4 L=7 cell at K=8, GPS L1 at 4.096 MHz K=64.
-4. Main paths, each through the entry point a user calls, with every launch
+     L5 K=128, the L5 A=4 L=7 cell at K=8, GPS L1 at 4.096 MHz K=64;
+   - the one-hot route (``pallas_bank_onehot``, served by ``bank_rows.cu``):
+     K=2 with the span (-160, 0, 170) at N=4096, and K=1024 at N=32768;
+   - ``taps`` and ``fused`` (one channel): the cases of tests/test_pallas.py
+     (golden N=2500, PRN 5 with offsets, A=4, L=7, GPS L5, a wide span,
+     N=1000, L=7 natively at N=131072) and N=2^18 at A=4, L=7.
+4. Main paths, each through the entry points a user calls, with every launch
    count set to 0 just before it and read just after:
    - rows: ``track_bank`` on a K=1024 GPS L1 bank at 32.768 MHz through
      ``pallas_bank_auto``, 20 noiseless blocks of an 8-satellite signal (one
@@ -38,10 +43,25 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      component. A Costas run without wipe-off feeds
      ``detect_secondary_offset``, which must recover the planted phases; the
      pilot-driven run aligned with them must show lock
-     (``phase_lock_metric``) and the planted symbols in the data prompts.
+     (``phase_lock_metric``) and the planted symbols in the data prompts;
+   - C, the paper's per-channel kernel sweep: ``bench.run_sweep`` over
+     ``bench.run_kernel_benchmark`` on the grids of
+     scripts/run_benchmarks_gpsl1.py (N = 2^11..2^18, M in {1, 4},
+     L in {3, 7}, fused_xla / unfused_xla / pallas_fused / pallas_taps: 128
+     configurations) and scripts/run_benchmarks_gpsl5.py (N = 2^15..2^18: 64),
+     on the GPU with ``reps="auto"``; every kernel call must have launched
+     ``taps.cu`` or ``fused.cu``. One JSON file per configuration goes to
+     ``kernel_sweep/`` beside ``--out`` (else under ``build/``);
+   - D, closed loops on the new kernels: ``track`` on one GPS L1 satellite
+     through ``pallas_fused`` (600 blocks at 50 dB-Hz from a 20 Hz / 0.2 chip
+     start hold lock), ``track_bank`` with ``pallas_fused`` at K=8 against
+     ``fused_xla``, ``track_bank`` with ``pallas_bank_onehot`` at K=1024 (one
+     launch per block, against ``xla_bank``), and the port's
+     ``run_track_benchmark`` (K=1024) and ``run_dual_track_benchmark`` (K=64).
 5. Times (CUDA events, after warm-up; medians and minima): each kernel vs its
-   plain version at its main-path shape, and the closed-loop block of each
-   path.
+   plain version at main-path shapes (the per-channel kernels and their plain
+   versions also as device time from a CUDA graph replay), and the
+   closed-loop block of each path.
 
 Its last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -53,6 +73,7 @@ import argparse
 import dataclasses
 import json
 import math
+import pathlib
 import re
 import statistics
 import subprocess
@@ -83,6 +104,9 @@ L5_CODE_PHASES = np.array([0.0, 3.5, 7.25, 11.0, 14.5, 18.75, 22.0, 26.5])
 # Per-component sigma for 45 dB-Hz per L5 component at 32.768 MHz.
 L5_NOISE_STD = math.sqrt(L1_FS / 10 ** 4.5 / 2)
 TIMING_REPS = 20
+# Trials per sweep configuration: 3 keeps the 192-configuration sweep near
+# 2 minutes of chip time (7, the scripts' default, takes ~4).
+SWEEP_TRIALS = 3
 DEVICE = "cuda"
 
 
@@ -105,11 +129,14 @@ def nvidia_smi() -> str:
 
 def counters():
     """Every kernel's launch count, by kernel name."""
-    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, epl_kernels
+    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels
 
     return {"bank_rows": epl_kernels.correlate_pallas_bank_rows,
             "bank_comp": bank_comp.correlate_pallas_bank_comp,
-            "bank_transition": epl_kernels.correlate_pallas_bank}
+            "bank_transition": epl_kernels.correlate_pallas_bank,
+            "bank_onehot": epl_kernels.correlate_pallas_bank_onehot,
+            "taps": channel_kernels.correlate_pallas_taps,
+            "fused": channel_kernels.correlate_pallas_fused}
 
 
 def reset_counts() -> None:
@@ -119,6 +146,11 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def only(**launches) -> dict:
+    """The counts expected when just the named kernels ran."""
+    return {name: launches.get(name, 0) for name in counters()}
 
 
 def random_case(system, n, k, seed, num_ants=1, taps=3, fs=None):
@@ -301,6 +333,113 @@ def transition_cells(seed):
     return worst
 
 
+# Phase 3, the per-channel kernels: the cases of tests/test_pallas.py:42-110
+# and :715-726, and the sweep's top corner.
+# name -> (GNSS, N, A, taps or shifts, prn, f_carrier, carrier phase, code phase)
+CHANNEL_CELLS = {
+    "golden_n2500": ("GPSL1", 2500, 1, 3, 0, 1500.0, 0.0, 0.0),
+    "offsets_prn5_n4096": ("GPSL1", 4096, 1, 3, 5, -2345.0, 0.9, 517.3),
+    "a4_n2500": ("GPSL1", 2500, 4, 3, 0, 1500.0, 0.0, 0.0),
+    "l7_n8192": ("GPSL1", 8192, 1, 7, 0, 1500.0, 0.0, 0.0),
+    "l5_n32768": ("GPSL5", 32768, 1, 3, 3, 2000.0, 0.0, 0.0),
+    "wide_span_n4096": ("GPSL1", 4096, 1, (-150, 0, 163), 0, 1500.0, 0.0, 0.0),
+    "sub_tile_n1000": ("GPSL1", 1000, 1, 3, 0, 500.0, 0.0, 0.0),
+    "wide_n131072_l7": ("GPSL1", 131072, 1, 7, 0, 1500.0, 0.0, 0.0),
+    "n262144_a4_l7": ("GPSL1", 262144, 4, 7, 0, 1500.0, 0.0, 0.0),
+}
+
+
+def channel_args(gnss, n, a, taps, prn, fcar, phicar, phicode):
+    """The registry signature's arguments for one channel, on the card."""
+    from gpuacceleratedtracking_tpu_torch.models import (
+        EPLCorrelator, correlator_sample_shifts, gen_signal, get_system, soa)
+
+    system = get_system(gnss)
+    signal, fs = gen_signal(system, prn, fcar, n, num_ants=None if a == 1 else a,
+                            start_code_phase=phicode, start_carrier_phase=phicar,
+                            device=DEVICE)
+    if isinstance(taps, int):
+        taps = correlator_sample_shifts(system, EPLCorrelator(taps), fs)
+    t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=DEVICE)  # noqa: E731
+    return (*soa(signal), torch.as_tensor(system.codes, device=DEVICE), t(prn, torch.int32),
+            t(fcar), fs, t(phicar), t(system.code_frequency), t(phicode),
+            tuple(int(d) for d in taps), system.code_length)
+
+
+def channel_cells():
+    """Phase 3, ``taps`` and ``fused``: each cell through the wrapper and the
+    plain version. Both compute the same phases and chips with the same
+    roundings, so they differ in summation order only: within 1e-6 of the
+    block length (+1e-3). The golden cells must also hold the JAX golden
+    tolerance (rtol 3.5e-4 of [1476, 2500, 1476])."""
+    from gpuacceleratedtracking_tpu_torch.ops import channel_kernels
+
+    worst = {"taps": 0.0, "fused": 0.0}
+    golden = torch.tensor([1476.0, 2500.0, 1476.0], device=DEVICE)
+    for name, cell in CHANNEL_CELLS.items():
+        args = channel_args(*cell)
+        n, a = cell[1], cell[2]
+        num_taps = len(args[-2])
+        tol = 1e-6 * n + 1e-3
+        for kind in ("taps", "fused"):
+            fn = getattr(channel_kernels, f"correlate_pallas_{kind}")
+            before = fn.launches
+            got = fn(*args)
+            torch.cuda.synchronize()
+            check(fn.launches == before + 1, f"{kind} {name} launched once")
+            want = getattr(channel_kernels, f"correlate_{kind}_reference")(*args)
+            err = 0.0
+            for g, w in zip(got, want):
+                check(g.shape == w.shape == ((num_taps,) if a == 1 else (a, num_taps)),
+                      f"{kind} {name} shape")
+                check(bool(torch.isfinite(g).all()), f"{kind} {name} finite")
+                err = max(err, float((g - w).abs().max()))
+            check(err <= tol, f"{kind} {name}: kernel vs plain {err!r} <= {tol!r}")
+            note = ""
+            if name in ("golden_n2500", "a4_n2500"):
+                prompt = got[0].reshape(-1, 3)
+                check(bool(((prompt - golden).abs() <= 3.5e-4 * golden).all()),
+                      f"{kind} {name}: golden within rtol 3.5e-4, got {prompt.tolist()}")
+                note = f"; EPL re {prompt[0].tolist()}, im {got[1].reshape(-1, 3)[0].tolist()}"
+            worst[kind] = max(worst[kind], err)
+            log(f"[kernel] {kind} {name}: {cell[0]} N={n} A={a} L={num_taps}: "
+                f"max|kernel-plain|={err!r} (bound {tol!r}){note} ok")
+    return worst
+
+
+def onehot_cells(system, seed):
+    """Phase 3, the one-hot route (``bank_rows.cu``, no envelope, no nominal
+    rates): the wide-span K=2 cell of tests/test_pallas.py:370-394 and
+    K=1024 at N=32768, within the rows route's tolerance."""
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+
+    worst = 0.0
+    for i, (name, n, k, shifts) in enumerate((("wide_span_k2", 4096, 2, (-160, 0, 170)),
+                                              ("k1024", N_1MS, NUM_K, None))):
+        case = random_case(system, n, k, seed + 60 + i)
+        del case["nominal_code_frequency"]
+        if shifts is not None:
+            case["sample_shifts"] = shifts
+            golden(case, system, k)
+        before = epl_kernels.correlate_pallas_bank_onehot.launches
+        got = epl_kernels.correlate_pallas_bank_onehot(**case)
+        torch.cuda.synchronize()
+        check(epl_kernels.correlate_pallas_bank_onehot.launches == before + 1,
+              f"onehot {name} launched once")
+        want = epl_kernels.correlate_bank_rows_reference(**case, route="pallas_bank_onehot")
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape == (k, 3), f"onehot {name} shape")
+            check(bool(torch.isfinite(g).all()), f"onehot {name} finite")
+            err = max(err, float((g - w).abs().max()))
+            check(bool(((g - w).abs() <= 4.5 + 2e-3 * w.abs()).all()),
+                  f"onehot {name}: kernel vs plain within rtol=2e-3 atol=4.5")
+        worst = max(worst, err)
+        log(f"[kernel] bank_onehot {name}: N={n} K={k} shifts={case['sample_shifts']}: "
+            f"max|kernel-plain|={err!r} (atol 4.5, rtol 2e-3) ok")
+    return worst
+
+
 def bank_states(system, init_errors: bool, num_taps: int = 3):
     from gpuacceleratedtracking_tpu_torch.tracking import init_state
 
@@ -365,7 +504,7 @@ def main_path(system, seed, num_blocks_lock: int = 600):
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts["bank_rows"]
-    check(counts == {"bank_rows": 20, "bank_comp": 0, "bank_transition": 0},
+    check(counts == only(bank_rows=20),
           f"20 bank_rows launches in 20 blocks and no other kernel, got {counts}")
     for field, x in out._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"main path {field} finite")
@@ -434,7 +573,7 @@ def array_path(system, seed, num_blocks_lock: int = 300):
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts["bank_comp"]
-    check(counts == {"bank_rows": 0, "bank_comp": 20, "bank_transition": 0},
+    check(counts == only(bank_comp=20),
           f"20 bank_comp launches in 20 blocks and no other kernel, got {counts}")
     for field, x in out._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"path A {field} finite")
@@ -606,8 +745,7 @@ def dual_path(seed, num_blocks: int = 200):
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts["bank_transition"]
-    check(counts == {"bank_rows": 0, "bank_comp": 0,
-                     "bank_transition": sync_blocks + num_blocks},
+    check(counts == only(bank_transition=sync_blocks + num_blocks),
           f"one 128-channel pallas_bank launch per block and no other kernel, got {counts}")
     for field, x in out.pilot._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"path B {field} finite")
@@ -630,6 +768,164 @@ def dual_path(seed, num_blocks: int = 200):
     return launches, sre, sim, found
 
 
+def sweep_path(out_dir):
+    """Phase 4, C: the paper's per-channel kernel sweep through the port's
+    `run_sweep` + `run_kernel_benchmark`, the grids of
+    scripts/run_benchmarks_gpsl1.py and run_benchmarks_gpsl5.py on the card.
+    Returns the two kernels' launch counts and the results."""
+    from gpuacceleratedtracking_tpu_torch.bench import run_kernel_benchmark, run_sweep
+
+    algorithms = ["fused_xla", "unfused_xla", "pallas_fused", "pallas_taps"]
+    grids = {"GPSL1": [2 ** e for e in range(11, 19)],
+             "GPSL5": [2 ** e for e in range(15, 19)]}
+    expected = {"taps": 0, "fused": 0}
+    results = []
+    reset_counts()
+    for gnss, sizes in grids.items():
+        params = {"GNSS": gnss, "num_samples": sizes, "num_ants": [1, 4],
+                  "num_correlators": [3, 7], "algorithm": algorithms,
+                  "processor": "GPU", "reps": "auto", "trials": SWEEP_TRIALS}
+        paths = run_sweep(params, run_kernel_benchmark, out_dir, resume=False,
+                          progress=False, skip_errors=False)
+        for path in paths:
+            r = json.loads(path.read_text())
+            tag = (f"{r['GNSS']} N={r['num_samples']} M={r['num_ants']} "
+                   f"L={r['num_correlators']} {r['algorithm']}")
+            check("error" not in r, f"sweep {tag}: {r.get('error')}")
+            check(all(math.isfinite(r[k]) and r[k] >= 0 for k in ("Minimum", "Median")),
+                  f"sweep {tag}: finite times")
+            check(r["backend"] == "cuda" and r["gpu_name"], f"sweep {tag} ran on the card")
+            if r["algorithm"].startswith("pallas_"):
+                # Warm-up and every trial run reps + 2 reps calls.
+                calls = 3 * r["reps_resolved"] * (SWEEP_TRIALS + 1)
+                expected[r["algorithm"][len("pallas_"):]] += calls
+            results.append(r)
+            log(f"[sweep] {tag}: median {r['Median'] * 1e3!r} ms, min {r['Minimum'] * 1e3!r} ms, "
+                f"realtime_ratio {r['realtime_ratio']!r} (reps {r['reps_resolved']})")
+    counts = read_counts()
+    check(len(results) == 192, f"192 sweep configs, got {len(results)}")
+    check(counts == only(**expected) and min(expected.values()) > 0,
+          f"the sweep's kernel calls all launched taps.cu / fused.cu and no other kernel: "
+          f"got {counts}, want {only(**expected)}")
+    log(f"[sweep] 192 configs, launches={counts}; results in {out_dir}")
+    return counts, results
+
+
+def channel_loops(system, seed, sre, sim, num_blocks_lock: int = 600):
+    """Phase 4, D: closed loops on the per-channel kernels and the one-hot
+    route through `track` / `track_bank`, and the port's closed-loop
+    benchmarks. Returns the one-hot route's launch count."""
+    from gpuacceleratedtracking_tpu_torch.bench import (
+        run_dual_track_benchmark, run_track_benchmark)
+    from gpuacceleratedtracking_tpu_torch.models import gen_signal, soa
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, init_state, track, track_bank)
+
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    fs = L1_FS
+    nsat = len(SAT_DOPPLERS)
+
+    # One satellite through `track` on pallas_fused: 600 noisy blocks at
+    # 50 dB-Hz from a 20 Hz / 0.2 chip start.
+    prn, dop, phi = 3, float(SAT_DOPPLERS[5]), float(SAT_CODE_PHASES[5])
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    f_code = system.code_frequency * (1 + dop / system.center_frequency)
+    signal, _ = gen_signal(system, prn, dop, N_1MS * num_blocks_lock,
+                           duration=num_blocks_lock * 1e-3, start_code_phase=phi,
+                           code_frequency=f_code, noise_std=NOISE_STD, generator=gen,
+                           device=DEVICE)
+    one_re, one_im = (x.reshape(num_blocks_lock, N_1MS) for x in soa(signal))
+    del signal
+    config = TrackConfig.for_system(system, fs, N_1MS, algorithm="pallas_fused")
+    state = init_state(prn, carrier_doppler=dop + 20.0, code_phase=phi - 0.2, device=DEVICE)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = track(config, codes, state, one_re, one_im)
+    torch.cuda.synchronize()
+    block_ms = (time.perf_counter() - t0) / num_blocks_lock * 1e3
+    counts = read_counts()
+    check(counts == only(fused=num_blocks_lock),
+          f"track: one fused launch per block and no other kernel, got {counts}")
+    del one_re, one_im
+    mean_dop = float(out.carrier_doppler[-50:].double().mean())
+    mag = float(torch.hypot(out.prompt_re[-50:], out.prompt_im[-50:]).double().mean())
+    log(f"[loops] track, 1 satellite (PRN {prn + 1}), N={N_1MS}, {num_blocks_lock} blocks at "
+        f"50 dB-Hz via pallas_fused: {block_ms!r} ms per block (host clock, first call "
+        f"included); launches={counts}; truth {dop!r} Hz, mean Doppler "
+        f"(last 50) {mean_dop!r} Hz, mean |prompt| {mag!r}, C/N0 "
+        f"{float(out.cn0_dbhz[-1])!r} dB-Hz")
+    check(abs(mean_dop - dop) < 5.0, "track via pallas_fused: Doppler within 5 Hz")
+    check(mag > N_1MS / 2, "track via pallas_fused: |prompt| > N/2")
+    check(bool(torch.isfinite(out.prompt_re).all()), "track via pallas_fused finite")
+
+    # K=8 bank on the 8 satellites: K launches per block, against fused_xla.
+    states = init_state(np.arange(nsat), carrier_doppler=SAT_DOPPLERS + 20.0,
+                        code_phase=SAT_CODE_PHASES - 0.2, device=DEVICE)
+    outs = {}
+    for algo in ("pallas_fused", "fused_xla"):
+        reset_counts()
+        _, outs[algo] = track_bank(TrackConfig.for_system(system, fs, N_1MS, algorithm=algo),
+                                   codes, states, sre, sim)
+        torch.cuda.synchronize()
+        want = only(fused=nsat * sre.shape[0]) if algo == "pallas_fused" else only()
+        check(read_counts() == want, f"track_bank {algo}: launches {read_counts()}")
+    diff = (outs["pallas_fused"].prompt_re - outs["fused_xla"].prompt_re).abs()
+    check(bool((diff <= 40.0 + 5e-3 * outs["fused_xla"].prompt_re.abs()).all()),
+          f"track_bank K=8 pallas_fused vs fused_xla within rtol=5e-3 atol=40 "
+          f"({float(diff.max())!r})")
+    log(f"[loops] track_bank K={nsat} N={N_1MS} {sre.shape[0]} blocks via pallas_fused "
+        f"({nsat} launches per block) vs fused_xla: max|d prompt_re| {float(diff.max())!r}")
+
+    # K=1024 through the one-hot route: one launch per block, against xla_bank.
+    states = bank_states(system, init_errors=True)
+    reset_counts()
+    _, out = track_bank(TrackConfig.for_system(system, fs, N_1MS,
+                                               algorithm="pallas_bank_onehot"),
+                        codes, states, sre, sim)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = counts["bank_onehot"]
+    check(counts == only(bank_onehot=sre.shape[0]),
+          f"one onehot launch per block and no other kernel, got {counts}")
+    _, ref = track_bank(TrackConfig.for_system(system, fs, N_1MS, algorithm="xla_bank"),
+                        codes, states, sre, sim)
+    torch.cuda.synchronize()
+    diff = (out.prompt_re - ref.prompt_re).abs()
+    bound = 40.0 + 5e-3 * ref.prompt_re.abs()
+    check(bool((diff[0] <= bound[0]).all()),
+          f"onehot block 0 prompt_re vs xla_bank ({float(diff[0].max())!r})")
+    check(bool((diff[:, :nsat] <= bound[:, :nsat]).all()),
+          f"onehot locked prompt_re vs xla_bank ({float(diff[:, :nsat].max())!r})")
+    log(f"[loops] track_bank K={NUM_K} N={N_1MS} {sre.shape[0]} blocks via pallas_bank_onehot: "
+        f"launches={counts}; vs xla_bank: block 0 max|d prompt_re| {float(diff[0].max())!r}, "
+        f"8 locked channels {float(diff[:, :nsat].max())!r}")
+    del out, ref
+
+    # The port's closed-loop benchmarks.
+    benches = {"track_pallas_fused_block_ms": block_ms}
+    for name, fn, cfg, kernel in (
+            ("track", run_track_benchmark,
+             {"GNSS": "GPSL1", "num_samples": N_1MS, "num_channels": NUM_K,
+              "algorithm": "pallas_bank_auto"}, "bank_rows"),
+            ("dual_track", run_dual_track_benchmark,
+             {"GNSS": "GPSL5", "num_samples": N_1MS, "num_channels": DUAL_K,
+              "algorithm": "pallas_bank_auto"}, "bank_transition")):
+        reset_counts()
+        r = fn(dict(cfg, processor="GPU", blocks=8, trials=7))
+        counts = read_counts()
+        check(counts[kernel] > 0 and sum(counts.values()) == counts[kernel],
+              f"{name} benchmark launched {kernel} only: {counts}")
+        check(math.isfinite(r["realtime_channels"]) and r["realtime_channels"] > 0,
+              f"{name} benchmark realtime_channels")
+        benches[name] = {k: r[k] for k in ("Median", "Minimum", "realtime_channels",
+                                           "samples_per_s")}
+        log(f"[loops] run_{name}_benchmark {cfg}: median {r['Median'] * 1e3!r} ms/block "
+            f"(min {r['Minimum'] * 1e3!r}), realtime_channels {r['realtime_channels']!r}, "
+            f"launches {counts}")
+    return launches, benches
+
+
 def ptxas_summary(log_path):
     """One line per compiled kernel from nvcc's ``-Xptxas -v`` report:
     its name and template arguments, registers, and spills."""
@@ -637,7 +933,8 @@ def ptxas_summary(log_path):
         return []
     lines, kernel = [], None
     for line in log_path.read_text().splitlines():
-        entry = re.search(r"Compiling entry function '\S*?\d+(bank_[a-z_]+?(?:kernel|finish))"
+        entry = re.search(r"Compiling entry function '\S*?\d+"
+                          r"((?:bank_[a-z_]+?|taps_|fused_)(?:kernel|finish))"
                           r"(I(?:L[ib]\d+E)+E)?", line)
         if entry:
             args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
@@ -667,9 +964,27 @@ def time_cuda(fn, reps=TIMING_REPS, warmup=3):
     return statistics.median(times), min(times)
 
 
-def kernel_vs_plain(name, launch, plain, card, per_rep=10, samples=None):
+def graph_ms(fn, per_graph=20):
+    """Device milliseconds per call of ``fn``: ``per_graph`` calls captured in
+    one CUDA graph, replayed, so no host work enters the span: (median, min)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    med, mn = time_cuda(graph.replay, warmup=2)
+    return med / per_graph, mn / per_graph
+
+
+def kernel_vs_plain(name, launch, plain, card, per_rep=10, samples=None, graphs=False):
     """Kernel alone (``per_rep`` launches back to back) vs the plain version,
-    in turns: plain, kernel, kernel, plain."""
+    in turns: plain, kernel, kernel, plain. With ``graphs``, also each one's
+    device time from a CUDA graph replay (the host's per-call work left out)."""
     def kern():
         for _ in range(per_rep):
             launch()
@@ -686,6 +1001,11 @@ def kernel_vs_plain(name, launch, plain, card, per_rep=10, samples=None):
     if samples:
         res["msamples_per_s"] = samples / (k_med * 1e-3) / 1e6
         rate = f"; kernel {res['msamples_per_s']!r} Msample-channels/s"
+    if graphs:
+        res["kernel_graph_ms"], res["kernel_graph_min_ms"] = graph_ms(launch)
+        res["plain_graph_ms"], res["plain_graph_min_ms"] = graph_ms(plain)
+        rate += (f"; device time (CUDA graph) kernel {res['kernel_graph_ms']!r} ms, plain "
+                 f"{res['plain_graph_ms']!r} ms")
     log(f"[time] {name}: kernel median {k_med!r} ms (min {k_min!r}); plain median "
         f"{p_med!r} ms (min {p_min!r}){rate} [{card}]")
     return res
@@ -694,7 +1014,7 @@ def kernel_vs_plain(name, launch, plain, card, per_rep=10, samples=None):
 def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
     """Phase 5: kernels vs their plain versions, and the closed-loop blocks."""
     from gpuacceleratedtracking_tpu_torch.models import GPSL5
-    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, epl_kernels
+    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels
     from gpuacceleratedtracking_tpu_torch.tracking import (
         TrackConfig, dual_config, loop_update, track_bank, track_bank_dual)
 
@@ -734,6 +1054,39 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
         lambda: epl_kernels.launch_bank_rows(prepared),
         lambda: epl_kernels.correlate_bank_rows_reference(**case, route="pallas_bank"),
         card, samples=2 * DUAL_K * N_1MS)
+    del case, prepared
+
+    # The per-channel kernels alone at the sweep's corners, and the one-hot
+    # route at K=1024. The plain versions of taps and fused take no host copy,
+    # so their device time is read from a CUDA graph too.
+    for n in (N_1MS, N_WIDE):
+        for a, taps in ((1, 3), (NUM_ANTS, 7)):
+            args = channel_args("GPSL1", n, a, taps, 0, 1500.0, 0.3, 17.5)
+            for kind in ("taps", "fused"):
+                call = channel_kernels.ChannelCall(*args, kind)
+                launch = getattr(channel_kernels, f"launch_{kind}")
+                plain = getattr(channel_kernels, f"correlate_{kind}_reference")
+                wrapper = getattr(channel_kernels, f"correlate_pallas_{kind}")
+                res = kernel_vs_plain(f"{kind} N={n} A={a} L={taps}", lambda: launch(call),
+                                      lambda: plain(*args), card, samples=n, graphs=True)
+                w = time_cuda(lambda: wrapper(*args))
+                res.update(wrapper_ms=w[0], wrapper_min_ms=w[1])
+                log(f"[time] {kind} N={n} A={a} L={taps}: wrapper call incl. per-call "
+                    f"set-up median {w[0]!r} ms (min {w[1]!r}) [{card}]")
+                results[f"{kind}_n{n}_a{a}_l{taps}"] = res
+    del args, call
+
+    case = random_case(system, N_1MS, NUM_K, seed + 400)
+    del case["nominal_code_frequency"]
+    case["code_tiles"] = epl_kernels.prepare_bank_code_tiles_rows(case["codes"], case["prn"])
+    prepared = epl_kernels.BankRowsCall(**case, route="pallas_bank_onehot")
+    results["bank_onehot"] = kernel_vs_plain(
+        f"bank_onehot (pallas_bank_onehot) K={NUM_K} N={N_1MS}",
+        lambda: epl_kernels.launch_bank_rows(prepared),
+        lambda: epl_kernels.correlate_bank_rows_reference(**case, route="pallas_bank_onehot"),
+        card, samples=NUM_K * N_1MS)
+    results["bank_onehot"]["kernel_graph_ms"], results["bank_onehot"]["kernel_graph_min_ms"] = (
+        graph_ms(lambda: epl_kernels.launch_bank_rows(prepared)))
     del case, prepared
 
     codes = torch.as_tensor(system.codes, device=DEVICE)
@@ -820,35 +1173,62 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     errs = {"bank_rows": kernel_cells(system, args.seed),
             "bank_comp": comp_cells(system, args.seed),
-            "bank_transition": transition_cells(args.seed)}
+            "bank_transition": transition_cells(args.seed),
+            "bank_onehot": onehot_cells(system, args.seed),
+            **channel_cells()}
     log(f"[phase] kernel cells in {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     rows_launches, sre, sim = main_path(system, args.seed)
     launches = {"bank_rows": rows_launches}
     launches["bank_comp"] = array_path(system, args.seed)
     launches["bank_transition"], sre_l5, sim_l5, l5_offsets = dual_path(args.seed)
-    log(f"[phase] main paths in {time.perf_counter() - t0!r} s")
+    log(f"[phase] main paths A, B and rows in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    sweep_dir = (pathlib.Path(args.out).parent if args.out else pathlib.Path("build")) / \
+        "kernel_sweep"
+    sweep_counts, sweep = sweep_path(sweep_dir)
+    launches.update(taps=sweep_counts["taps"], fused=sweep_counts["fused"])
+    log(f"[phase] main path C, the kernel sweep, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    launches["bank_onehot"], benches = channel_loops(system, args.seed, sre, sim)
+    log(f"[phase] main path D, per-channel and one-hot loops, in "
+        f"{time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     times = timings(system, args.seed, sre, sim, sre_l5, sim_l5, l5_offsets, card)
+    times.update(benches)
     log(f"[phase] timings in {time.perf_counter() - t0!r} s")
 
+    # A bank kernel's time dwarfs its host work, so CUDA events around eager
+    # calls read it. A per-channel kernel runs for microseconds and its plain
+    # version is host-bound, so both are read from a replayed CUDA graph.
+    eager, graph = ("kernel_ms", "plain_ms", "CUDA events, eager calls"), \
+        ("kernel_graph_ms", "plain_graph_ms", "device time, CUDA graph replay")
+    top = f"n{N_WIDE}_a{NUM_ANTS}_l7"
     entries = [
         ("bank_rows", "gpuacceleratedtracking_tpu_torch/csrc/bank_rows.cu",
-         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:1448", times[f"bank_rows_n{N_1MS}"]),
+         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:1448", times[f"bank_rows_n{N_1MS}"],
+         eager),
         ("bank_comp", "gpuacceleratedtracking_tpu_torch/csrc/bank_comp.cu",
-         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:1886", times["bank_comp_f32"]),
+         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:1886", times["bank_comp_f32"], eager),
         ("bank_transition", "gpuacceleratedtracking_tpu_torch/csrc/bank_rows.cu",
-         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:602", times["bank_transition"]),
+         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:602", times["bank_transition"], eager),
+        ("bank_onehot", "gpuacceleratedtracking_tpu_torch/csrc/bank_rows.cu",
+         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:410", times["bank_onehot"], eager),
+        ("taps", "gpuacceleratedtracking_tpu_torch/csrc/taps.cu",
+         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:90", times[f"taps_{top}"], graph),
+        ("fused", "gpuacceleratedtracking_tpu_torch/csrc/fused.cu",
+         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:238", times[f"fused_{top}"], graph),
     ]
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": errs[name],
-        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-    } for name, source, replaces, t in entries]}
+        "ms": t[kernel_key], "plain_ms": t[plain_key], "clock": clock,
+    } for name, source, replaces, t, (kernel_key, plain_key, clock) in entries]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": card, "build_s": build_s,
-                       "kernels": kernels["kernels"], "times": times}, f, indent=1)
+                       "kernels": kernels["kernels"], "times": times,
+                       "sweep": sweep}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,35 @@
+"""Benchmark harness: timing protocol, dict-driven benchmarks, sweeps.
+
+The exports of `gpuacceleratedtracking_tpu.bench`, less acquisition (not
+ported yet) and the TPU launch-shape autotuner.
+"""
+
+from .timing import TrialStats, benchmark
+from .harness import (
+    REALTIME_BOUND_S,
+    add_metadata,
+    run_dual_track_benchmark,
+    run_kernel_benchmark,
+    run_reduction_benchmark,
+    run_replica_benchmark,
+    run_track_benchmark,
+)
+from .sweep import collect_results, dict_list, run_sweep, savename
+from .results import eval_results
+
+__all__ = [
+    "TrialStats",
+    "benchmark",
+    "REALTIME_BOUND_S",
+    "add_metadata",
+    "run_dual_track_benchmark",
+    "run_kernel_benchmark",
+    "run_reduction_benchmark",
+    "run_replica_benchmark",
+    "run_track_benchmark",
+    "collect_results",
+    "dict_list",
+    "run_sweep",
+    "savename",
+    "eval_results",
+]

@@ -1,0 +1,349 @@
+"""Benchmark harness: kernel, closed-loop, reduction and replica benchmarks,
+dict-driven.
+
+Port of `gpuacceleratedtracking_tpu.bench.harness` with the same config keys
+(``processor / GNSS / num_samples / num_ants / num_correlators / algorithm``
+…) and the same result keys (``Minimum`` … ``Maximum``, ``realtime_ratio``,
+``samples_per_s``, ``realtime_channels``, ``bank_channels``).
+
+``processor`` selects where the tensors live: ``"GPU"`` (the first CUDA
+device; a host without one raises) or ``"CPU"``. Any other value raises.
+
+Timing is differential (`timing.benchmark_differential`): one timed call
+holds ``reps`` back-to-back calls of the workload, as a user's loop would
+make them, with per-call inputs that differ (the phase offsets are device
+tensors, ``offs[i]``, so no host-to-device copy enters the span).
+Acquisition (`run_acquire_benchmark`) waits for the acquisition port; the
+TPU launch-shape autotuner is not ported (the port's kernels have no launch
+knobs).
+"""
+
+from __future__ import annotations
+
+import functools
+import pathlib
+import platform
+import subprocess
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..models import EPLCorrelator, correlator_sample_shifts, gen_signal, get_system, soa
+from ..ops import registry
+from ..ops import replica as replica_ops
+from ..ops.reduce import get_reduction
+from .timing import benchmark_differential
+
+REALTIME_BOUND_S = 1e-3  # process 1 ms of signal in under 1 ms
+
+
+@functools.lru_cache(maxsize=None)
+def _git_sha() -> Optional[str]:
+    try:
+        return subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            timeout=5, cwd=str(pathlib.Path(__file__).parent),
+        ).stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+@functools.lru_cache(maxsize=None)
+def _card() -> tuple[Optional[str], Optional[str]]:
+    """The first card's name and power limit as ``nvidia-smi`` reports them,
+    or ``(None, None)`` where it is missing."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return None, None
+    name, _, limit = out.rpartition(",")
+    return name.strip(), limit.strip()
+
+
+def add_metadata(results: dict, processor: str, algorithm: str) -> dict:
+    """Environment metadata: the host, torch and CUDA versions, and the device
+    with, on a GPU, the card's name and power limit from ``nvidia-smi``."""
+    gpu = processor.upper() == "GPU"
+    name, limit = _card() if gpu else (None, None)
+    results.update(
+        {
+            "os": platform.platform(),
+            "cpu_model": platform.processor() or platform.machine(),
+            "backend": "cuda" if gpu else "cpu",
+            "device_kind": torch.cuda.get_device_name(0) if gpu else platform.machine(),
+            "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda,
+            "gpu_name": name,
+            "power_limit": limit,
+            "processor": processor,
+            "algorithm": algorithm,
+            "git_sha": _git_sha(),
+        }
+    )
+    return results
+
+
+def resolve_device(processor: str) -> torch.device:
+    """``"GPU"``: the first CUDA device (raises without one); ``"CPU"``."""
+    kind = str(processor).upper()
+    if kind == "CPU":
+        return torch.device("cpu")
+    if kind == "GPU":
+        if not torch.cuda.is_available():
+            raise RuntimeError("processor='GPU' needs a CUDA device; none is available")
+        return torch.device("cuda", 0)
+    raise ValueError(f"processor must be 'GPU' or 'CPU', got {processor!r}")
+
+
+def _finish(config: dict, stats, processor: str, algorithm: str, **derived) -> dict:
+    results = dict(config)
+    results.update(stats.to_dict())
+    results.update(derived)
+    return add_metadata(results, processor, algorithm)
+
+
+def run_kernel_benchmark(config: dict) -> dict:
+    """Benchmark one correlator algorithm for one scenario dict.
+
+    Keys: ``GNSS`` ("GPSL1"/"GPSL5"), ``num_samples``, ``num_ants``,
+    ``num_correlators``, ``algorithm`` (registry name), ``processor``
+    ("GPU"/"CPU"), optional ``reps`` (or ``"auto"``) and ``trials``. Bank
+    algorithms run at K=1. Times are per call.
+    """
+    system = get_system(config["GNSS"])
+    num_samples = int(config["num_samples"])
+    num_ants = int(config.get("num_ants", 1))
+    num_correlators = int(config.get("num_correlators", 3))
+    algorithm = config.get("algorithm", "fused_xla")
+    processor = config.get("processor", "GPU")
+    reps = config.get("reps", 20)
+    if reps == "auto":
+        # More calls at small N, where one call is tens of microseconds.
+        reps = int(min(128, max(8, (1 << 22) // num_samples)))
+    reps = int(reps)
+    trials = int(config.get("trials", 7))
+    device = resolve_device(processor)
+
+    fs = num_samples / 1e-3
+    shifts = tuple(int(s) for s in correlator_sample_shifts(
+        system, EPLCorrelator(num_correlators), fs))
+    signal, _ = gen_signal(system, 0, 1500.0, num_samples, num_ants=num_ants,
+                           device=device)
+    sre, sim = soa(signal)
+    codes = torch.as_tensor(system.codes, device=device)
+    corr = functools.partial(registry.get(algorithm), sample_shifts=shifts,
+                             code_length=system.code_length)
+    if algorithm == "pallas_bank":
+        corr = functools.partial(corr, nominal_code_frequency=system.code_frequency)
+    # Channel parameters as device tensors: [1] for the bank signature (K=1,
+    # so the sweep covers every registry algorithm on equal terms), 0-d else.
+    shape = (1,) if algorithm in registry.BANK_ALGORITHMS else ()
+    prn = torch.zeros(shape, dtype=torch.int32, device=device)
+    fcar = torch.full(shape, 1500.0, dtype=torch.float32, device=device)
+    fcode = torch.full(shape, system.code_frequency, dtype=torch.float32, device=device)
+
+    def make_fn(r):
+        offs = torch.linspace(0.0, 0.1, r, dtype=torch.float32, device=device)
+        offs = offs.reshape((r,) + shape)
+
+        def run():
+            out = None
+            for i in range(r):
+                out = corr(sre, sim, codes, prn, fcar, fs, offs[i], fcode, offs[i])
+            return out
+
+        return run, ()
+
+    stats = benchmark_differential(make_fn, reps, trials=trials)
+    # Derived rates use the median: a differential minimum can clamp to 0.
+    floor = max(stats.median, 1e-9)
+    return _finish(config, stats, processor, algorithm, reps_resolved=reps,
+                   reps_mode="calls", realtime_ratio=floor / REALTIME_BOUND_S,
+                   samples_per_s=num_samples * num_ants / floor)
+
+
+def _blocks(signal: torch.Tensor, num_blocks: int, num_samples: int):
+    """``[B, N]`` or ``[B, A, N]`` contiguous planes of a ``[A, B*N]`` signal."""
+    sre, sim = soa(signal)
+    num_ants = sre.shape[0]
+    if num_ants == 1:
+        return sre.reshape(num_blocks, num_samples), sim.reshape(num_blocks, num_samples)
+    return tuple(x.reshape(num_ants, num_blocks, num_samples).transpose(0, 1).contiguous()
+                 for x in (sre, sim))
+
+
+def run_track_benchmark(config: dict) -> dict:
+    """Benchmark the closed tracking loop: per-block correlate + DLL/PLL/FLL.
+
+    One timed unit is a 1 ms block of a K-channel bank through `track_bank`:
+    bank correlation, discriminators, loop filters and NCO advance. Keys:
+    ``GNSS``, ``num_samples`` (per block), ``num_channels``, ``num_ants``,
+    ``num_correlators``, ``algorithm`` (bank algorithms run one kernel launch
+    per block), ``processor``, optional ``blocks``/``trials``. Timing is
+    differential over B vs 2B blocks; times are per block.
+    """
+    from ..tracking import TrackConfig, init_state, track_bank
+
+    system = get_system(config["GNSS"])
+    num_samples = int(config["num_samples"])
+    num_channels = int(config.get("num_channels", 1))
+    num_ants = int(config.get("num_ants", 1))
+    num_correlators = int(config.get("num_correlators", 3))
+    algorithm = config.get("algorithm", "pallas_bank")
+    processor = config.get("processor", "GPU")
+    blocks = int(config.get("blocks", 8))
+    trials = int(config.get("trials", 7))
+    device = resolve_device(processor)
+
+    fs = num_samples / 1e-3
+    cfg = TrackConfig.for_system(system, fs, num_samples, num_correlators=num_correlators,
+                                 algorithm=algorithm)
+    prns = np.arange(num_channels) % system.codes.shape[1]
+    dops = np.linspace(-4000.0, 4000.0, num_channels)
+    states = init_state(prns, carrier_doppler=dops, num_taps=num_correlators, device=device)
+    codes = torch.as_tensor(system.codes, device=device)
+
+    def make_fn(b):
+        signal, _ = gen_signal(system, 0, 1500.0, num_samples * b, num_ants=num_ants,
+                               duration=b * 1e-3, device=device)
+        sre, sim = _blocks(signal, b, num_samples)
+        return (lambda: track_bank(cfg, codes, states, sre, sim)), ()
+
+    stats = benchmark_differential(make_fn, blocks, trials=trials)
+    floor = max(stats.median, 1e-9)
+    return _finish(config, stats, processor, algorithm,
+                   realtime_ratio=floor / REALTIME_BOUND_S,
+                   samples_per_s=num_channels * num_samples * num_ants / floor,
+                   realtime_channels=num_channels * REALTIME_BOUND_S / floor)
+
+
+def run_dual_track_benchmark(config: dict) -> dict:
+    """Benchmark the closed dual-component (data + pilot) GPS L5 loop.
+
+    K dual channels run as one 2K-channel bank call per block
+    (`tracking.track_bank_dual`), with the overlay wipe-off and the
+    pilot-driven atan2 loop closure in the timed path. Keys as
+    `run_track_benchmark`; ``num_channels`` counts dual channels
+    (``bank_channels = 2 K``), and ``realtime_channels`` is dual channels.
+    """
+    from ..models import GPSL5
+    from ..tracking import TrackConfig, dual_config, init_state, track_bank_dual
+
+    num_samples = int(config["num_samples"])
+    num_channels = int(config.get("num_channels", 1))
+    num_correlators = int(config.get("num_correlators", 3))
+    algorithm = config.get("algorithm", "pallas_bank_auto")
+    processor = config.get("processor", "GPU")
+    blocks = int(config.get("blocks", 8))
+    trials = int(config.get("trials", 7))
+    device = resolve_device(processor)
+
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    fs = num_samples / 1e-3
+    cfg = dual_config(TrackConfig.for_system(
+        sys_i, fs, num_samples, num_correlators=num_correlators,
+        algorithm=algorithm, use_secondary=False,
+    ))
+    prns = np.arange(num_channels) % sys_i.codes.shape[1]
+    dops = np.linspace(-4000.0, 4000.0, num_channels)
+    states = init_state(prns, carrier_doppler=dops, num_taps=num_correlators, device=device)
+    codes_i = torch.as_tensor(sys_i.codes, device=device)
+    codes_q = torch.as_tensor(sys_q.codes, device=device)
+
+    def make_fn(b):
+        signal, _ = gen_signal(sys_i, 0, 1500.0, num_samples * b, duration=b * 1e-3,
+                               secondary_code=sys_i.secondary_code, device=device)
+        sre, sim = (x.reshape(b, num_samples) for x in soa(signal))
+        return (lambda: track_bank_dual(cfg, codes_i, codes_q, states, sre, sim)), ()
+
+    stats = benchmark_differential(make_fn, blocks, trials=trials)
+    floor = max(stats.median, 1e-9)
+    return _finish(config, stats, processor, algorithm,
+                   bank_channels=2 * num_channels,
+                   realtime_ratio=floor / REALTIME_BOUND_S,
+                   samples_per_s=2 * num_channels * num_samples / floor,
+                   realtime_channels=num_channels * REALTIME_BOUND_S / floor)
+
+
+def run_reduction_benchmark(config: dict) -> dict:
+    """Benchmark a reduction fusion degree over ``[N, A, L]`` product planes.
+
+    Keys: ``num_samples``, ``num_ants``, ``num_correlators``, ``algorithm``
+    ("pure"/"cplx"/"cplx_multi"), ``processor``, optional ``reps``/``trials``.
+    """
+    num_samples = int(config["num_samples"])
+    num_ants = int(config.get("num_ants", 4))
+    num_correlators = int(config.get("num_correlators", 3))
+    algorithm = config.get("algorithm", "cplx_multi")
+    processor = config.get("processor", "GPU")
+    reps = config.get("reps", 20)
+    if reps == "auto":
+        reps = int(min(8192, max(256, (1 << 24) // num_samples)))
+    reps = int(reps)
+    trials = int(config.get("trials", 7))
+    device = resolve_device(processor)
+
+    red = get_reduction(algorithm)
+    shape = (num_samples, num_ants, num_correlators)
+    gen = torch.Generator(device=device)
+    prod_re = torch.randn(shape, generator=gen.manual_seed(0), device=device)
+    prod_im = torch.randn(shape, generator=gen.manual_seed(1), device=device)
+
+    def make_fn(r):
+        scales = torch.linspace(1.0, 1.01, r, dtype=torch.float32, device=device)
+
+        def run():
+            out = None
+            for i in range(r):
+                out = red(prod_re * scales[i], prod_im * scales[i])
+            return out
+
+        return run, ()
+
+    stats = benchmark_differential(make_fn, reps, trials=trials)
+    return _finish(config, stats, processor, algorithm)
+
+
+def run_replica_benchmark(config: dict) -> dict:
+    """Benchmark code-replica generation: exact vs quantized-NCO lookup.
+
+    ``algorithm`` is ``"exact"`` (`gen_code_replica`) or ``"quantized"``
+    (`gen_code_replica_quantized`, the texture-lookup analog). Keys:
+    ``GNSS``, ``num_samples``, ``processor``, optional ``reps``/``trials``.
+    """
+    system = get_system(config["GNSS"])
+    num_samples = int(config["num_samples"])
+    algorithm = config.get("algorithm", "exact")
+    processor = config.get("processor", "GPU")
+    reps = config.get("reps", 20)
+    if reps == "auto":
+        reps = int(min(4096, max(32, (1 << 23) // num_samples)))
+    reps = int(reps)
+    trials = int(config.get("trials", 7))
+    fs = num_samples / 1e-3
+    device = resolve_device(processor)
+
+    gen = (replica_ops.gen_code_replica if algorithm == "exact"
+           else replica_ops.gen_code_replica_quantized)
+    codes = torch.as_tensor(system.codes, device=device)
+    prn = torch.zeros((), dtype=torch.int32, device=device)
+    fcode = torch.tensor(system.code_frequency, dtype=torch.float32, device=device)
+
+    def make_fn(r):
+        phases = torch.linspace(0.0, 0.5, r, dtype=torch.float32, device=device)
+
+        def run():
+            out = None
+            for i in range(r):
+                out = gen(codes, prn, fcode, fs, phases[i], num_samples, -1, 1,
+                          system.code_length)
+            return out
+
+        return run, ()
+
+    stats = benchmark_differential(make_fn, reps, trials=trials)
+    return _finish(config, stats, processor, algorithm)

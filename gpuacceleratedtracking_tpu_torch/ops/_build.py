@@ -52,6 +52,22 @@ SIGNATURES = {
             _I,
         ),
     },
+    "taps": {
+        "taps_launch": (
+            [_P, _P, _P, _P, _P, _P, _P,           # sre sim taps params scratch out_re out_im
+             _I, _I, _I, _I,                       # ants taps samples tile
+             _P],                                  # stream
+            _I,
+        ),
+    },
+    "fused": {
+        "fused_launch": (
+            [_P, _P, _P, _P, _P, _P, _P, _P,       # sre sim code params deltas scratch out_re out_im
+             _I, _I, _I, _I, _I,                   # ants taps samples code_length tile
+             _P],                                  # stream
+            _I,
+        ),
+    },
 }
 
 
@@ -72,10 +88,13 @@ def _sources() -> list[pathlib.Path]:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    """Where the library for ``source`` and the current flags lives."""
+    """Where the library for ``source``, the shared headers and the current
+    flags lives."""
     digest = hashlib.sha256()
     digest.update(source.name.encode())
     digest.update(source.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 

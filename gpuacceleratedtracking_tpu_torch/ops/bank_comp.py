@@ -29,17 +29,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Sequence
 
 import torch
 
 from . import _build, registry
 from .epl_kernels import TILE, BankRowsCall, _check_kernel_inputs, _deltas, _is_bf16
+from .replica import _TWO_PI_F32
 
 COMP_TILE = 1024             # composite samples per CTA of the CUDA kernel; divides TILE
 MAX_SPAN = 4096              # the signal tile's halo must fit shared memory
-_TWO_PI_F32 = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
 # Elements of one [channels, N + span] intermediate per chunk of the plain version.
 _CHUNK_ELEMENTS = 1 << 24
 
@@ -104,7 +103,7 @@ def _bank_comp_plain(bank: BankCompCall) -> tuple[torch.Tensor, torch.Tensor]:
         pc_frac = pc - pc_whole
         cyc = j * f_cyc[:, None, None] + ph_car[:, :, None]             # [kc, nt, T]
         cyc = cyc - torch.floor(cyc)
-        theta = f32(2.0 * math.pi) * cyc
+        theta = cyc * _TWO_PI_F32
         x = j * rho[:, None, None] + pc_frac[:, :, None]
         chip = torch.floor(x).long() + pc_whole.long()[:, :, None]
         chip = torch.remainder(chip, bank.code_length).view(k1 - k0, -1)

@@ -9,6 +9,8 @@ PyTorch versions that the bank kernel is held against.
 - ``correlate_xla_bank`` — the bank signature: ``[K]`` channel parameters
   against one shared block, as an explicit batch over ``[K]`` (chunked so
   K=1024 fits in memory).
+- ``correlate_unfused`` — every stage materialized in device memory, then a
+  separate sum: the cost of not fusing.
 
 The tap MAC is a float32 ``einsum`` (TF32 is off for float32 matmuls unless
 ``torch.backends.cuda.matmul.allow_tf32`` is set).
@@ -135,3 +137,43 @@ def correlate_xla_bank(
         outs_re.append(are)
         outs_im.append(aim)
     return torch.cat(outs_re), torch.cat(outs_im)
+
+
+def correlate_unfused(
+    signal_re: torch.Tensor,
+    signal_im: torch.Tensor,
+    codes: torch.Tensor,
+    prn,
+    carrier_frequency,
+    sampling_frequency,
+    carrier_phase,
+    code_frequency,
+    code_phase,
+    sample_shifts: Sequence[int],
+    code_length: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unfused pipeline with materialized intermediates (2330-family analog).
+
+    Carrier replica, code replica, downconverted signal and the per-sample
+    products ``[..., (A,) L, N]`` are each written to memory by their own
+    operations, then summed in a separate pass: eager PyTorch keeps the stage
+    boundaries that the JAX version pins with optimization barriers. Shapes
+    as `correlate_fused`, including ``[K]`` channel parameters.
+    """
+    num_samples = signal_re.shape[-1]
+    cos, sin = replica_ops.gen_carrier_replica(
+        carrier_frequency, sampling_frequency, carrier_phase, num_samples,
+        signal_re.device,
+    )
+    code_rep = replica_ops.gen_code_replica(
+        codes, prn, code_frequency, sampling_frequency, code_phase,
+        num_samples, int(min(sample_shifts)), int(max(sample_shifts)), code_length,
+    )
+    taps = _tap_matrix(code_rep, sample_shifts, num_samples)       # [..., L, N]
+    if signal_re.ndim == 2:                      # [A, N]: carrier over antennas
+        cos, sin = cos.unsqueeze(-2), sin.unsqueeze(-2)
+        taps = taps.unsqueeze(-3)                # [..., 1, L, N]
+    dw_re, dw_im = downconvert(signal_re, signal_im, cos, sin)
+    prod_re = dw_re.unsqueeze(-2) * taps
+    prod_im = dw_im.unsqueeze(-2) * taps
+    return prod_re.sum(dim=-1), prod_im.sum(dim=-1)

@@ -2,16 +2,18 @@
 
 Port of `gpuacceleratedtracking_tpu.ops.pallas_epl`'s bank routes:
 `correlate_pallas_bank_rows` (the per-row bank kernel's wrapper),
-`correlate_pallas_bank` (the transition kernel's wrapper), `bank_algorithm_for`
-and `correlate_pallas_bank_auto`. The composite route, `pallas_bank_comp`,
-lives in `bank_comp`.
+`correlate_pallas_bank` (the transition kernel's wrapper),
+`correlate_pallas_bank_onehot` (the one-hot bank kernel's wrapper),
+`bank_algorithm_for` and `correlate_pallas_bank_auto`. The composite route,
+`pallas_bank_comp`, lives in `bank_comp`.
 
-The rows and transition routes compute one contract and share one kernel,
-``csrc/bank_rows.cu``: its per-sample chip lookup from shared memory has no
-chip-rate ceiling, so it serves the transition kernel's regime (below one chip
-per sample: GPS L5, GPS L1 below ~6 MHz) as it is. The routes differ only in
-the envelope each enforces, as the JAX kernels do, and in the launch count
-each keeps.
+The rows, transition and one-hot routes compute one contract and share one
+kernel, ``csrc/bank_rows.cu``: its per-sample chip lookup from shared memory
+has no chip-rate ceiling and no tap-span limit, so it serves the transition
+kernel's regime (below one chip per sample: GPS L5, GPS L1 below ~6 MHz) and
+the one-hot kernel's (any span, any rate) as it is. The routes differ only in
+the envelope each enforces, as the JAX kernels do, in whether they take
+nominal rates, and in the launch count each keeps.
 
 Each wrapper dispatches on where its tensors lie. CUDA tensors launch the
 hand-written kernel (built at first use by `_build`) or raise; CPU tensors run
@@ -45,14 +47,13 @@ import numpy as np
 import torch
 
 from . import _build, registry
-from .replica import rate
+from .replica import _TWO_PI_F32, code_columns, rate
 
 TILE = 4096                  # samples per CTA of the CUDA kernel (and per phase base)
 MAX_CODE_LENGTH = 12288      # the code column must fit 48 KB of shared memory (GPS L5: 10230)
 KERNEL_ANTENNAS = (1, 2, 3, 4)
 KERNEL_TAPS = (3, 5, 7)
 _LANES = 128
-_TWO_PI = 2.0 * math.pi
 # Elements of one [channels, N] intermediate per chunk of the plain version.
 _CHUNK_ELEMENTS = 1 << 24
 
@@ -143,7 +144,7 @@ def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torc
 
     Hoist out of tracking loops: PRNs are loop constants.
     """
-    return codes.T[prn.long()].contiguous()
+    return code_columns(codes, prn)
 
 
 @functools.lru_cache(maxsize=64)
@@ -175,7 +176,7 @@ def _channel_params(carrier_frequency, sampling_frequency, carrier_phase,
     return torch.stack(
         [
             rate(carrier_frequency, sampling_frequency, device),
-            f32(carrier_phase) / float(np.float32(_TWO_PI)),
+            f32(carrier_phase) / _TWO_PI_F32,
             rho,
             f32(code_phase) + rho * float(d_min),
         ],
@@ -188,8 +189,9 @@ class BankRowsCall:
     call from the registry signature's arguments.
 
     ``route`` names the wrapper the call is for, ``pallas_bank_rows``,
-    ``pallas_bank`` or ``pallas_bank_comp``: it picks the envelope that is
-    enforced and the launch count that a launch adds to. The composite route
+    ``pallas_bank``, ``pallas_bank_onehot`` (no envelope) or
+    ``pallas_bank_comp``: it picks the envelope that is enforced and the
+    launch count that a launch adds to. The composite route
     evaluates its phases over ``N + span`` samples (`bank_comp`), so its tile
     base covers those.
     """
@@ -206,7 +208,7 @@ class BankRowsCall:
                                        max_chips_per_sample)
         elif route in ("pallas_bank_rows", "pallas_bank_comp"):
             _check_rows_geometry(fs, nominal_code_frequency, max_chips_per_sample)
-        else:
+        elif route != "pallas_bank_onehot":
             raise ValueError(f"unknown bank route {route!r}")
         self.route = route
         self.span = span
@@ -267,7 +269,7 @@ def _bank_rows_plain(bank: BankRowsCall) -> tuple[torch.Tensor, torch.Tensor]:
         pc_frac = pc - pc_whole
         cyc = j * f_cyc[:, None, None] + ph_car[:, :, None]             # [kc, nt, T]
         cyc = cyc - torch.floor(cyc)
-        theta = f32(_TWO_PI) * cyc
+        theta = cyc * _TWO_PI_F32
         cos, sin = torch.cos(theta).unsqueeze(1), torch.sin(theta).unsqueeze(1)
         dw_re = s_re * cos + s_im * sin                                  # [kc, A, nt, T]
         dw_im = s_im * cos - s_re * sin
@@ -319,8 +321,10 @@ def correlate_bank_rows_reference(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of `correlate_pallas_bank_rows`, on any device.
 
-    It is the plain version of `correlate_pallas_bank` too, on that route's
-    envelope: ``route="pallas_bank"``.
+    It is the plain version of `correlate_pallas_bank` and
+    `correlate_pallas_bank_onehot` too, on those routes' envelopes:
+    ``route="pallas_bank"`` or ``route="pallas_bank_onehot"`` (the latter
+    without nominal rates).
     """
     bank = BankRowsCall(signal_re, signal_im, codes, prn, carrier_frequency,
                         sampling_frequency, carrier_phase, code_frequency,
@@ -372,8 +376,9 @@ def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/bank_rows.cu`` for a prepared call on CUDA tensors.
 
     Returns ``[K, A, L]`` accumulators and adds one to the launch count of the
-    call's route (``correlate_pallas_bank_rows.launches`` or
-    ``correlate_pallas_bank.launches``). Raises on anything the kernel does
+    call's route (``correlate_pallas_bank_rows.launches``,
+    ``correlate_pallas_bank.launches`` or
+    ``correlate_pallas_bank_onehot.launches``). Raises on anything the kernel does
     not take, and if the launch fails.
     """
     if bank.device.type != "cuda":
@@ -441,10 +446,44 @@ def correlate_pallas_bank(
 
 correlate_pallas_bank.launches = 0
 
+
+def correlate_pallas_bank_onehot(
+    signal_re: torch.Tensor,
+    signal_im: torch.Tensor,
+    codes: torch.Tensor,
+    prn: torch.Tensor,
+    carrier_frequency: torch.Tensor,
+    sampling_frequency,
+    carrier_phase: torch.Tensor,
+    code_frequency: torch.Tensor,
+    code_phase: torch.Tensor,
+    sample_shifts: Sequence[int],
+    code_length: int,
+    code_tiles: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-channel EPL bank with a per-sample chip lookup, at any tap span and
+    chip rate.
+
+    The contract of the JAX `correlate_pallas_bank_onehot`: no envelope and
+    no nominal rates, so every phase is the channel's f32 phase from the
+    block start. CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/bank_rows.cu`` (whose shared-memory lookup is the one-hot gather's
+    counterpart) and add one to ``correlate_pallas_bank_onehot.launches``, or
+    raise. ``code_tiles``: `prepare_bank_code_tiles_rows` output.
+    """
+    return _run_bank_rows(BankRowsCall(
+        signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
+        carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
+        code_tiles=code_tiles, route="pallas_bank_onehot"))
+
+
+correlate_pallas_bank_onehot.launches = 0
+
 # The routes the bank_rows kernel serves, and whose launch count it adds to.
 _ROWS_KERNEL_ROUTES = {
     "pallas_bank_rows": correlate_pallas_bank_rows,
     "pallas_bank": correlate_pallas_bank,
+    "pallas_bank_onehot": correlate_pallas_bank_onehot,
 }
 
 
@@ -503,5 +542,6 @@ def correlate_pallas_bank_auto(
 
 
 registry.register("pallas_bank", correlate_pallas_bank)
+registry.register("pallas_bank_onehot", correlate_pallas_bank_onehot)
 registry.register("pallas_bank_rows", correlate_pallas_bank_rows)
 registry.register("pallas_bank_auto", correlate_pallas_bank_auto)

@@ -7,8 +7,8 @@ Every implementation is a callable with one uniform signature::
        code_frequency, code_phase,
        sample_shifts, code_length) -> (accum_re, accum_im)
 
-Only what is ported is registered. A name that the JAX package registers but
-this package has not ported yet raises `NotImplementedError`.
+Every name that the JAX package registers is registered here; the kernel
+modules register themselves when first imported.
 """
 
 from __future__ import annotations
@@ -19,11 +19,6 @@ from . import correlate
 
 ALGORITHMS: Dict[str, Callable] = {}
 
-# Registered by the JAX package, not ported yet (ROADMAP.md, Queue 2).
-NOT_PORTED = {
-    "unfused_xla", "pallas_taps", "pallas_fused", "pallas_bank_onehot",
-}
-
 
 def register(name: str, fn: Callable) -> None:
     ALGORITHMS[name] = fn
@@ -32,12 +27,7 @@ def register(name: str, fn: Callable) -> None:
 def get(name: str) -> Callable:
     # The kernel modules register themselves; import them on first use.
     if name not in ALGORITHMS and name.startswith("pallas"):
-        from . import bank_comp, epl_kernels  # noqa: F401
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"correlator {name!r} is not ported to the PyTorch package yet "
-            "(ROADMAP.md, Queue 2)"
-        )
+        from . import bank_comp, channel_kernels, epl_kernels  # noqa: F401
     try:
         return ALGORITHMS[name]
     except KeyError:
@@ -47,12 +37,13 @@ def get(name: str) -> Callable:
 
 
 def names() -> list[str]:
-    from . import bank_comp, epl_kernels  # noqa: F401
+    from . import bank_comp, channel_kernels, epl_kernels  # noqa: F401
 
     return sorted(ALGORITHMS)
 
 
 register("fused_xla", correlate.correlate_fused)
+register("unfused_xla", correlate.correlate_unfused)
 register("xla_bank", correlate.correlate_xla_bank)
 
 # Algorithms with the bank signature ([K]-array channel parameters and a

@@ -9,6 +9,7 @@ stacked ``[B, ...]`` outputs.
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from typing import Optional
@@ -22,10 +23,14 @@ from . import discriminators, loop_filter
 from .loop_filter import LoopFilterState
 from .state import TrackConfig, TrackOutput, TrackState
 
-# Bank algorithms served by a hand-written kernel: they take the nominal
-# rates and the hoisted per-channel code columns.
+# Bank algorithms served by a hand-written kernel that take the nominal rates
+# (``pallas_bank_onehot`` takes none, as in the JAX package) and, with it, the
+# hoisted per-channel code columns.
 _BANK_KERNELS = ("pallas_bank", "pallas_bank_rows", "pallas_bank_comp",
                  "pallas_bank_auto")
+# Per-channel algorithms served by a hand-written kernel: a bank runs them one
+# channel at a time.
+_CHANNEL_KERNELS = ("pallas_taps", "pallas_fused")
 
 
 def _bank_kernel_kwargs(config: TrackConfig) -> dict:
@@ -55,8 +60,8 @@ def _bank_kernel_kwargs(config: TrackConfig) -> dict:
 def _bank_code_tile_kwargs(config: TrackConfig, codes: torch.Tensor,
                            prn: torch.Tensor) -> dict:
     """The per-channel code columns of a bank kernel, gathered once per run:
-    PRNs are loop constants. All three bank routes take the same table."""
-    if config.algorithm not in _BANK_KERNELS:
+    PRNs are loop constants. All four bank routes take the same table."""
+    if config.algorithm not in _BANK_KERNELS + ("pallas_bank_onehot",):
         return {}
     from ..ops.epl_kernels import prepare_bank_code_tiles_rows
 
@@ -279,6 +284,18 @@ def track(
     return state, outs.result()
 
 
+def _per_channel(corr, signal_re, signal_im, codes, prn, carrier_frequency,
+                 sampling_frequency, carrier_phase, code_frequency, code_phase,
+                 sample_shifts, code_length):
+    """A per-channel correlator over ``[K]`` channel parameters, one call per
+    channel, stacked into ``[K, (A,) L]``."""
+    outs = [corr(signal_re, signal_im, codes, prn[k], carrier_frequency[k],
+                 sampling_frequency, carrier_phase[k], code_frequency[k],
+                 code_phase[k], sample_shifts, code_length)
+            for k in range(prn.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
 def track_bank(
     config: TrackConfig,
     codes: torch.Tensor,
@@ -291,10 +308,13 @@ def track_bank(
 
     ``states`` carries a leading channel axis ``[K]``; the signal is shared by
     all channels. A bank algorithm correlates the whole bank in one call per
-    block (one kernel launch for ``pallas_bank*`` on CUDA tensors); the
-    per-channel algorithm ``fused_xla`` runs batched over ``[K]``.
-    ``ant_weights``: optional ``(w_re, w_im)`` of shape ``[A]`` (shared) or
-    ``[K, A]`` (per channel).
+    block (one kernel launch for ``pallas_bank*`` on CUDA tensors). The plain
+    per-channel algorithms ``fused_xla`` and ``unfused_xla`` run batched over
+    ``[K]``. The per-channel kernels ``pallas_taps`` and ``pallas_fused`` run
+    one channel at a time: K launches per block, where the JAX package maps
+    them with `vmap` — for banks use a bank algorithm. ``ant_weights``:
+    optional ``(w_re, w_im)`` of shape ``[A]`` (shared) or ``[K, A]`` (per
+    channel).
     """
     num_k = states.prn.shape[0]
     device = signal_re.device
@@ -306,6 +326,8 @@ def track_bank(
         )
 
     corr = registry.get(config.algorithm)
+    if config.algorithm in _CHANNEL_KERNELS:
+        corr = functools.partial(_per_channel, corr)
     kwargs = _bank_kernel_kwargs(config)
     kwargs.update(_bank_code_tile_kwargs(config, codes, states.prn))
 

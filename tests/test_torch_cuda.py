@@ -1,4 +1,4 @@
-"""The CUDA bank kernels on the card, against their plain PyTorch versions.
+"""The CUDA kernels on the card, against their plain PyTorch versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -12,9 +12,9 @@ import torch
 from gpuacceleratedtracking_tpu_torch.models import (
     GPSL1, GPSL5, EPLCorrelator, correlator_sample_shifts, gen_signal, gen_signal_mixed,
     soa)
-from gpuacceleratedtracking_tpu_torch.ops import bank_comp, epl_kernels
+from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels, registry
 from gpuacceleratedtracking_tpu_torch.tracking import (
-    TrackConfig, dual_config, init_state, track_bank, track_bank_dual)
+    TrackConfig, dual_config, init_state, track, track_bank, track_bank_dual)
 
 pytestmark = pytest.mark.cuda
 
@@ -246,3 +246,139 @@ def test_track_bank_dual_launches_once_per_block(cuda):
     assert epl_kernels.correlate_pallas_bank.launches == before + blocks
     assert out.pilot.prompt_re.shape == (blocks, k)
     assert float(out.pilot.prompt_re[-1, 0]) > 0.5 * n
+
+
+# tests/test_pallas.py:42-110 and :715-726, plus the sweep's top corner.
+# name -> (system, N, A, taps or shifts, prn, f_carrier, carrier phase, code phase)
+CHANNEL_CASES = {
+    "golden": (SYSTEM, 2500, 1, 3, 0, 1500.0, 0.0, 0.0),
+    "offsets": (SYSTEM, 4096, 1, 3, 5, -2345.0, 0.9, 517.3),
+    "multi_antenna": (SYSTEM, 2500, 4, 3, 0, 1500.0, 0.0, 0.0),
+    "seven_taps": (SYSTEM, 8192, 1, 7, 0, 1500.0, 0.0, 0.0),
+    "l5": (GPSL5(), 32768, 1, 3, 3, 2000.0, 0.0, 0.0),
+    "wide_span": (SYSTEM, 4096, 1, (-150, 0, 163), 0, 1500.0, 0.0, 0.0),
+    "sub_tile": (SYSTEM, 1000, 1, 3, 0, 500.0, 0.0, 0.0),
+    "wide_n131072_l7": (SYSTEM, 131072, 1, 7, 0, 1500.0, 0.0, 0.0),
+    "n262144_a4_l7": (SYSTEM, 262144, 4, 7, 0, 1500.0, 0.0, 0.0),
+}
+
+
+def _channel_args(device, name):
+    system, n, a, taps, prn, fcar, phicar, phicode = CHANNEL_CASES[name]
+    signal, fs = gen_signal(system, prn, fcar, n, num_ants=None if a == 1 else a,
+                            start_code_phase=phicode, start_carrier_phase=phicar,
+                            device=device)
+    if isinstance(taps, int):
+        taps = correlator_sample_shifts(system, EPLCorrelator(taps), fs)
+    t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=device)  # noqa: E731
+    return (*soa(signal), torch.as_tensor(system.codes, device=device),
+            t(prn, torch.int32), t(fcar), fs, t(phicar), t(system.code_frequency),
+            t(phicode), tuple(int(s) for s in taps), system.code_length)
+
+
+@pytest.mark.parametrize("kernel", ["taps", "fused"])
+@pytest.mark.parametrize("name", sorted(CHANNEL_CASES))
+def test_channel_kernel_matches_plain_version(cuda, name, kernel):
+    # Same phase and chip arithmetic as the plain version: the sums differ
+    # in order only (relative 1e-6 of the block length).
+    fn = getattr(channel_kernels, f"correlate_pallas_{kernel}")
+    plain = getattr(channel_kernels, f"correlate_{kernel}_reference")
+    args = _channel_args(cuda, name)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args)
+    n = args[0].shape[-1]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.device.type == "cuda"
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * n + 1e-3)
+    if name in ("golden", "multi_antenna"):
+        torch.testing.assert_close(got[0].reshape(-1, 3),
+                                   torch.tensor([[1476.0, 2500.0, 1476.0]], device=cuda)
+                                   .expand(got[0].numel() // 3, 3), rtol=3.5e-4, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["taps", "fused"])
+def test_channel_kernel_is_deterministic(cuda, kernel):
+    fn = getattr(channel_kernels, f"correlate_pallas_{kernel}")
+    args = _channel_args(cuda, "n262144_a4_l7")
+    a, b = fn(*args), fn(*args)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+ONEHOT_CASES = {
+    "wide_span_k2": dict(n=4096, k=2, shifts=(-160, 0, 170)),
+    "k1024": dict(n=32768, k=1024, seed=7),
+    "low_rate_k5": dict(n=2500, k=5, seed=8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ONEHOT_CASES))
+def test_onehot_route_matches_plain_version(cuda, name):
+    case = _case(cuda, **ONEHOT_CASES[name])
+    del case["nominal_code_frequency"]
+    before = (epl_kernels.correlate_pallas_bank_onehot.launches,
+              epl_kernels.correlate_pallas_bank_rows.launches)
+    got = epl_kernels.correlate_pallas_bank_onehot(**case)
+    torch.cuda.synchronize()
+    assert (epl_kernels.correlate_pallas_bank_onehot.launches,
+            epl_kernels.correlate_pallas_bank_rows.launches) == (before[0] + 1, before[1])
+    want = epl_kernels.correlate_bank_rows_reference(**case, route="pallas_bank_onehot")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=4.5)
+
+
+def test_track_with_pallas_fused_launches_once_per_block(cuda):
+    n, blocks = 8192, 6
+    sig, fs = gen_signal(SYSTEM, 0, 700.0, n * blocks, duration=blocks * 1e-3, device=cuda)
+    sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    state = init_state(0, carrier_doppler=700.0, device=cuda)
+    outs = {}
+    for algo in ("pallas_fused", "fused_xla"):
+        config = TrackConfig.for_system(SYSTEM, fs, n, algorithm=algo)
+        before = channel_kernels.correlate_pallas_fused.launches
+        _, outs[algo] = track(config, codes, state, sre, sim)
+        torch.cuda.synchronize()
+        launched = channel_kernels.correlate_pallas_fused.launches - before
+        assert launched == (blocks if algo == "pallas_fused" else 0)
+    torch.testing.assert_close(outs["pallas_fused"].prompt_re, outs["fused_xla"].prompt_re,
+                               rtol=5e-3, atol=10.0)
+
+
+def test_track_bank_onehot_launches_once_per_block(cuda):
+    n, blocks, k = 8192, 5, 16
+    dops = np.linspace(-4000.0, 4000.0, k)
+    dops[:3] = [-900.0, 100.0, 1500.0]
+    sig, fs = gen_signal_mixed(SYSTEM, [0, 1, 2], dops[:3], n * blocks,
+                               duration=blocks * 1e-3, device=cuda)
+    sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    states = init_state(np.arange(k) % 32, carrier_doppler=dops, device=cuda)
+    outs = {}
+    for algo in ("pallas_bank_onehot", "xla_bank"):
+        config = TrackConfig.for_system(SYSTEM, fs, n, algorithm=algo)
+        before = epl_kernels.correlate_pallas_bank_onehot.launches
+        _, outs[algo] = track_bank(config, codes, states, sre, sim)
+        torch.cuda.synchronize()
+        launched = epl_kernels.correlate_pallas_bank_onehot.launches - before
+        assert launched == (blocks if algo == "pallas_bank_onehot" else 0)
+    got, want = outs["pallas_bank_onehot"], outs["xla_bank"]
+    torch.testing.assert_close(got.prompt_re[:, :3], want.prompt_re[:, :3],
+                               rtol=5e-3, atol=10.0)
+
+
+def test_per_channel_calls_do_not_wait_on_the_card(cuda):
+    # A tracking loop issues these calls block after block: none may read a
+    # device value on the host or copy a host value to the card.
+    args = _channel_args(cuda, "offsets")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for algo in ("pallas_fused", "pallas_taps", "fused_xla", "unfused_xla"):
+            registry.get(algo)(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -174,5 +174,10 @@ def test_unknown_route_and_cpu_launch_are_refused():
     with pytest.raises(ValueError, match="CUDA tensors"):
         epl_kernels.launch_bank_rows(bank)
     with pytest.raises(ValueError, match="unknown bank route"):
-        epl_kernels.BankRowsCall(*_args(c), route="pallas_bank_onehot")
+        epl_kernels.BankRowsCall(*_args(c), route="pallas_bank_nope")
+    # The one-hot route is ported and takes any span and rate (its tests:
+    # tests/test_torch_bank_onehot.py); the kernel still refuses CPU tensors.
+    onehot = epl_kernels.BankRowsCall(*_args(c), route="pallas_bank_onehot")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        epl_kernels.launch_bank_rows(onehot)
     assert epl_kernels.correlate_pallas_bank.launches == 0
