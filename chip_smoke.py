@@ -59,12 +59,25 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      launch per block, against ``xla_bank``), and the port's
      ``run_track_benchmark`` (K=1024) and ``run_dual_track_benchmark`` (K=64).
 5. Times (CUDA events, after warm-up; medians and minima): each kernel vs its
-   plain version at main-path shapes (the per-channel kernels and their plain
-   versions also as device time from a CUDA graph replay), and the
-   closed-loop block of each path.
+   plain version at main-path shapes (every kernel, and the per-channel
+   kernels' plain versions, also as device time from a CUDA graph replay:
+   ``ms`` in the ``kernels`` line, ``eager_ms`` beside it), the closed-loop
+   block of each path, and for ``bank_comp`` the library yardstick: one
+   ``torch.matmul`` of a materialized ``[2K, U]`` Z against ``[U, 2AL]`` S
+   (f32 with TF32 off, and bf16), which the port never calls.
 
 Its last lines are one JSON object describing the kernels, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+and power limit, and ``{"ok": true, "device": {...}}``. Each kernel's entry
+holds its launches on its main path and per block (or per call), its largest
+error against its plain version, its device time (``ms``; ``eager_ms`` with
+the host's launch work) and its plain version's (``plain_ms``; ``clock``
+says how each was read), ``library_ms`` (null where no single PyTorch call computes
+the function), and ``bound_ms``: the least time the card could take for the
+same work, the larger of this run's input and output bytes over 3.35 TB/s
+and the correlator's floating-point operations over the peak of their type
+(``bound_by`` "bytes" or "operations"; ``bound_unit`` "memory", "f32"
+(67 TFLOP/s), "tf32x3" (three TF32 tensor-core passes, 495 TFLOP/s each) or
+"bf16" (989 TFLOP/s): the H100 SXM's published dense peaks).
 """
 
 from __future__ import annotations
@@ -104,6 +117,9 @@ L5_CODE_PHASES = np.array([0.0, 3.5, 7.25, 11.0, 14.5, 18.75, 22.0, 26.5])
 # Per-component sigma for 45 dB-Hz per L5 component at 32.768 MHz.
 L5_NOISE_STD = math.sqrt(L1_FS / 10 ** 4.5 / 2)
 TIMING_REPS = 20
+# Published dense peaks of one H100 SXM: FLOP/s per operand type, bytes/s of HBM3.
+PEAK_FLOPS = {"f32": 67e12, "tf32x3": 495e12 / 3, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
 # Trials per sweep configuration: 3 keeps the 192-configuration sweep near
 # 2 minutes of chip time (7, the scripts' default, takes ~4).
 SWEEP_TRIALS = 3
@@ -981,6 +997,37 @@ def graph_ms(fn, per_graph=20):
     return med / per_graph, mn / per_graph
 
 
+def bound(flops, unit, *tensors, out_elems=0):
+    """The least time for a kernel's work: its floating-point operations at
+    the peak of ``unit``, or its bytes (each input tensor read once, each of
+    ``out_elems`` f32 outputs written once) at the memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + 4 * out_elems
+    t_ops, t_mem = flops / PEAK_FLOPS[unit], nbytes / PEAK_BYTES
+    ops = t_ops >= t_mem
+    return {"bound_ms": max(t_ops, t_mem) * 1e3, "bound_by": "operations" if ops else "bytes",
+            "bound_unit": unit if ops else "memory", "flops": flops, "bytes": nbytes}
+
+
+def bank_bound(bank, unit="f32", comp=False):
+    """`bound` of a bank kernel's call: the correlator's arithmetic, (6 + 4L)
+    FLOP per antenna, sample and channel (derotation and L complex tap MACs);
+    for the composite kernel the ``[2K, U] x [U, 2AL]`` product's 8 FLOP per
+    antenna, tap, sample and channel."""
+    k, a, taps, n = bank.num_k, bank.num_ants, len(bank.deltas), bank.num_samples
+    flops = 8 * k * a * taps * n if comp else (6 + 4 * taps) * a * k * n
+    return bound(flops, unit, bank.sre, bank.sim, bank.code_tiles, bank.params, bank.base,
+                 out_elems=2 * k * a * taps)
+
+
+def device_time(name, launch, card):
+    """A bank kernel's device time per launch, from a CUDA graph replay: an
+    eager launch also carries the wrapper's host work (~0.03 ms), which hides
+    a kernel that runs for less."""
+    med, mn = graph_ms(launch)
+    log(f"[time] {name}: kernel device time (CUDA graph) median {med!r} ms (min {mn!r}) [{card}]")
+    return {"kernel_graph_ms": med, "kernel_graph_min_ms": mn}
+
+
 def kernel_vs_plain(name, launch, plain, card, per_rep=10, samples=None, graphs=False):
     """Kernel alone (``per_rep`` launches back to back) vs the plain version,
     in turns: plain, kernel, kernel, plain. With ``graphs``, also each one's
@@ -1028,6 +1075,8 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
             f"bank_rows K={NUM_K} N={n}", lambda: epl_kernels.launch_bank_rows(prepared),
             lambda: epl_kernels.correlate_bank_rows_reference(**case), card,
             samples=NUM_K * n)
+        res.update(bank_bound(prepared), **device_time(
+            f"bank_rows K={NUM_K} N={n}", lambda: epl_kernels.launch_bank_rows(prepared), card))
         w = time_cuda(lambda: epl_kernels.correlate_pallas_bank_rows(**case))
         res.update(wrapper_ms=w[0], wrapper_min_ms=w[1])
         log(f"[time] bank_rows K={NUM_K} N={n}: wrapper call incl. per-call set-up "
@@ -1043,7 +1092,22 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
             lambda: bank_comp.launch_bank_comp(prepared),
             lambda: bank_comp.correlate_bank_comp_reference(**case, z_dtype=z), card,
             samples=NUM_K * N_1MS)
-    del case, prepared
+        results[f"bank_comp_{z}"].update(
+            bank_bound(prepared, "tf32x3" if z == "f32" else "bf16", comp=True),
+            **device_time(f"bank_comp z={z}", lambda: bank_comp.launch_bank_comp(prepared), card))
+    # The library yardstick: the contraction alone, [2K, U] x [U, 2AL], with Z
+    # already built (the kernel builds it too), as one torch.matmul.
+    num_u = N_1MS + prepared.span
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    z_planes = torch.randn((2 * NUM_K, num_u), generator=gen, device=DEVICE)
+    s_planes = torch.randn((num_u, 2 * NUM_ANTS * 7), generator=gen, device=DEVICE)
+    for z, (zp, sp) in (("f32", (z_planes, s_planes)),
+                        ("bf16", (z_planes.bfloat16(), s_planes.bfloat16()))):
+        med, mn = time_cuda(lambda: torch.matmul(zp, sp))
+        results[f"bank_comp_{z}"].update(library_ms=med, library_min_ms=mn)
+        log(f"[time] bank_comp library yardstick: torch.matmul [{2 * NUM_K}, {num_u}] x "
+            f"[{num_u}, {2 * NUM_ANTS * 7}] {z} (TF32 off) median {med!r} ms (min {mn!r}) [{card}]")
+    del case, prepared, z_planes, s_planes
 
     l5 = GPSL5()
     case = random_case(l5, N_1MS, 2 * DUAL_K, seed + 300)
@@ -1054,6 +1118,8 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
         lambda: epl_kernels.launch_bank_rows(prepared),
         lambda: epl_kernels.correlate_bank_rows_reference(**case, route="pallas_bank"),
         card, samples=2 * DUAL_K * N_1MS)
+    results["bank_transition"].update(bank_bound(prepared), **device_time(
+        "bank_transition", lambda: epl_kernels.launch_bank_rows(prepared), card))
     del case, prepared
 
     # The per-channel kernels alone at the sweep's corners, and the one-hot
@@ -1069,6 +1135,8 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
                 wrapper = getattr(channel_kernels, f"correlate_pallas_{kind}")
                 res = kernel_vs_plain(f"{kind} N={n} A={a} L={taps}", lambda: launch(call),
                                       lambda: plain(*args), card, samples=n, graphs=True)
+                res.update(bound((6 + 4 * taps) * a * n, "f32", call.sre, call.sim,
+                                 call.replica, call.params, out_elems=2 * a * taps))
                 w = time_cuda(lambda: wrapper(*args))
                 res.update(wrapper_ms=w[0], wrapper_min_ms=w[1])
                 log(f"[time] {kind} N={n} A={a} L={taps}: wrapper call incl. per-call "
@@ -1085,8 +1153,8 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
         lambda: epl_kernels.launch_bank_rows(prepared),
         lambda: epl_kernels.correlate_bank_rows_reference(**case, route="pallas_bank_onehot"),
         card, samples=NUM_K * N_1MS)
-    results["bank_onehot"]["kernel_graph_ms"], results["bank_onehot"]["kernel_graph_min_ms"] = (
-        graph_ms(lambda: epl_kernels.launch_bank_rows(prepared)))
+    results["bank_onehot"].update(bank_bound(prepared), **device_time(
+        "bank_onehot", lambda: epl_kernels.launch_bank_rows(prepared), card))
     del case, prepared
 
     codes = torch.as_tensor(system.codes, device=DEVICE)
@@ -1198,11 +1266,14 @@ def main(argv=None) -> int:
     times.update(benches)
     log(f"[phase] timings in {time.perf_counter() - t0!r} s")
 
-    # A bank kernel's time dwarfs its host work, so CUDA events around eager
-    # calls read it. A per-channel kernel runs for microseconds and its plain
-    # version is host-bound, so both are read from a replayed CUDA graph.
-    eager, graph = ("kernel_ms", "plain_ms", "CUDA events, eager calls"), \
-        ("kernel_graph_ms", "plain_graph_ms", "device time, CUDA graph replay")
+    # `ms` is each kernel's device time from a replayed CUDA graph: an eager
+    # launch also carries the wrapper's host work, which on a busy host can
+    # rival a bank kernel's time (`eager_ms` keeps the eager reading). The
+    # plain bank versions copy host values to the card and cannot be
+    # captured, so their `plain_ms` is eager; the per-channel ones are
+    # captured too.
+    eager = ("plain_ms", "ms: device time, CUDA graph replay; plain_ms: CUDA events, eager calls")
+    graph = ("plain_graph_ms", "ms and plain_ms: device time, CUDA graph replay")
     top = f"n{N_WIDE}_a{NUM_ANTS}_l7"
     entries = [
         ("bank_rows", "gpuacceleratedtracking_tpu_torch/csrc/bank_rows.cu",
@@ -1219,11 +1290,27 @@ def main(argv=None) -> int:
         ("fused", "gpuacceleratedtracking_tpu_torch/csrc/fused.cu",
          "gpuacceleratedtracking_tpu/ops/pallas_epl.py:238", times[f"fused_{top}"], graph),
     ]
+    # Closed-loop blocks of each bank kernel's main path (rows: 20, A: 20,
+    # B: 60 sync + 200 tracking, D's one-hot bank: 20); the per-channel
+    # kernels' main path is the sweep, one launch per correlator call.
+    per_block = {"bank_rows": (20, "block"), "bank_comp": (20, "block"),
+                 "bank_transition": (260, "block"), "bank_onehot": (sre.shape[0], "block"),
+                 "taps": (None, "call"), "fused": (None, "call")}
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": errs[name],
-        "ms": t[kernel_key], "plain_ms": t[plain_key], "clock": clock,
-    } for name, source, replaces, t, (kernel_key, plain_key, clock) in entries]}
+        "ms": t["kernel_graph_ms"], "eager_ms": t["kernel_ms"], "plain_ms": t[plain_key],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_unit": t["bound_unit"],
+        "launches_per_block": (launches[name] / per_block[name][0] if per_block[name][0]
+                               else 1.0),
+        "per": per_block[name][1], "library_ms": t.get("library_ms"), "clock": clock,
+    } for name, source, replaces, t, (plain_key, clock) in entries]}
+    comp_bf16 = times["bank_comp_bf16"]
+    kernels["kernels"][1].update(ms_bf16=comp_bf16["kernel_graph_ms"],
+                                 eager_ms_bf16=comp_bf16["kernel_ms"],
+                                 plain_ms_bf16=comp_bf16["plain_ms"],
+                                 bound_ms_bf16=comp_bf16["bound_ms"],
+                                 library_ms_bf16=comp_bf16["library_ms"])
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": card, "build_s": build_s,

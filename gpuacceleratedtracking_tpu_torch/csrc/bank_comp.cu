@@ -9,172 +9,353 @@
 //   S_{a,l}[u] = s[a, u - delta_l]                      (0 outside [0, N))
 //   acc[k,a,l] = e^{+2 pi i f_k delta_l} * sum_{u < N + span} S_{a,l}[u] Z_k[u]
 //
-// What bounds it on the H100: instruction issue and shared-memory bandwidth.
-// Per (channel, antenna) the MAC over a sample is 2 + 2L shared-memory loads
-// and 4L FMAs (L taps, four real products of [zc, zs] x [S_re, S_im]); at
-// K=1024, A=4, L=7, N=32768 that is ~3.8 G FMAs per block. Device memory
-// carries only the signal block (read once per CTA from L2), the code
-// columns and the per-tile partials.
+// The sum is the product [2K, U] x [U, 2AL] of the planes zc = cos * code,
+// zs = sin * code against S_re and S_im, as the TPU kernel's MXU
+// contraction (pallas_epl.py:2086-2090); the recombination
+// m = (zc.S_re + zs.S_im) + i (zc.S_im - zs.S_re) and the rotation run in a
+// second kernel.
 //
-// What the design does about it: the TPU kernel's XLA prologue built 2AL
-// shifted signal planes in HBM (56 planes, 7.3 MB per block at A=4, L=7)
-// plus a last-tile halo input; here each CTA copies its signal tile with a
-// halo of `span` samples into shared memory once, and reads S_{a,l}[u] as
-// s[a][u - delta_l] from it, zero outside [0, N), so every u with
-// 0 <= u - delta_l < N is summed and no halo correction is needed. The grid
-// is (composite tile of kTile samples x group of kGroup channels). Phase 1
-// builds the group's Z planes in shared memory with the phase arithmetic of
-// bank_rows.cu (f64-exact tile base on the host, f32 residual rounded with
-// __fmul_rn/__fadd_rn, whole chips and fraction apart), so Z's chip
-// boundaries land on the plain version's samples. Phase 2 gives each warp one
-// (channel, antenna) unit at a time: its lanes stride over the tile's samples
-// (neighbouring lanes on neighbouring shared-memory words), keep the 4L sums
-// in registers, and reduce them with warp shuffles into the unit's per-tile
-// partial. A second kernel sums the partials in tile order, recombines them
-// and applies the rotation: no atomics, deterministic. bf16 mode rounds Z and
-// S to bf16 as they are stored; the products are exact in f32 and sum in
-// f32. No tensor cores yet, and no TF32 anywhere. Build without
-// --use_fast_math.
+// What bounds it on the H100: at K=1024, A=4, L=7, N=32768 the product is
+// 7.5 GFLOP: 7.6 us of bf16 tensor-core peak, 46 us as three TF32 passes.
+// Around it, Z costs a carrier (row x lane phasors, bank.cuh), a chip and
+// its sign per (channel, sample), ~35 M of them per block, and each k-step
+// loads (and in f32 splits) its B fragments. `mma.sync` issues well below
+// the `wgmma` peak, so the f32 mode's 11.4 M TF32 mma are a large share of
+// a block and the bf16 mode's 1.9 M a small one; the rest is Z and B and
+// their latency at 8 (f32) or 16 (bf16) warps per SM. `wgmma` would need Z
+// staged through shared memory in its 64-row layout; it is left for later.
+// (Laying the signal tile out so that B loads hit 32 distinct banks, not 8,
+// was measured no faster.)
+//
+// Design:
+// - A CTA takes kTile = 1024 composite samples and kGroup = 64 channels;
+//   4 warps, each two m16 tiles of 8 channels (rows 0-7: zc, rows 8-15: zs
+//   of the same channels). Every B fragment (the shifted signal, shared by
+//   all channels) is loaded once per k-step and used by 16 channels.
+// - B comes from the haloed signal tile staged in shared memory once per
+//   CTA: S_{a,l}[u] = tile[a][u - u0 + span - delta_l], zero outside [0, N),
+//   so no halo correction is needed. The 2AL planes are padded to n8 tiles
+//   (56 stays 56, 42 -> 48); padding columns read as zero.
+// - Z goes straight into the A fragments in registers: each lane builds its
+//   own fragment elements (one channel, 2 or 4 samples per k-step). The
+//   k-steps walk a row-block of 8 (tf32) or 16 (bf16) in-row positions
+//   through the tile's 8 rows, so a lane's lane phasors are fixed for 8
+//   k-steps; row phasors sit in shared memory (64 channels x 8 rows).
+//   Inside the chip-rate envelope (bank::chips_near for all of a warp's
+//   channels over the tile) a Z element's chip wraps with one unsigned min;
+//   else the general wrap runs. A chip flips the carrier's sign bits with
+//   one logic op each.
+// - bf16 mode: m16n8k16 bf16 x bf16 -> f32. Z and S are rounded to bf16 as
+//   in the plain version; their products are exact in f32, so this is the
+//   same function summed in another order.
+// - f32 mode: m16n8k8 TF32 with the 3xTF32 split, x = big + small with big
+//   the top 10 mantissa bits of x and small = x - big (bank::tf32_split):
+//   acc += a_s b_b + a_b b_s + a_b b_b, f32-class accuracy (plain TF32 would
+//   keep ~3 digits).
+// - f32 mode: each row-block (8 k-steps of three products) accumulates into
+//   fresh registers, added to the tile's sums after it, so the tensor
+//   cores' accumulation rounding acts on short partial sums. Accumulating
+//   straight into the tile's sums read a golden prompt of 32767.32 for
+//   32768 on the H100 (2.1e-5 off), the row-blocks 32767.96. bf16 mode
+//   accumulates straight into the tile's sums (bf16's own rounding is far
+//   larger), which frees the second set of sums: 128 registers a thread
+//   instead of ~190 at A=4, L=7, and 4 CTAs per SM instead of 2.
+// - f32 mode unrolls its rows by four, so that a warp has the next k-steps'
+//   Z and B to issue while a k-step's three dependent products run
+//   (~220 registers; bf16 gains nothing from it).
+// - Per-tile partials, summed over tiles in a fixed order by the second
+//   kernel: no atomics, deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "bank.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kGroup = 8;        // channels per CTA
-constexpr int kTile = 1024;      // composite samples per CTA (COMP_TILE); divides the phase tile
-constexpr float kTwoPi = 6.28318548202514648f;  // float32(2 pi)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMTiles = 2;                       // m16 tiles (8 channels each) per warp
+constexpr int kGroup = kWarps * kMTiles * 8;     // channels per CTA
+constexpr int kTile = 1024;                      // composite samples per CTA (COMP_TILE)
+constexpr int kRows = kTile / bank::kRow;        // carrier rows per tile
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int A, int L, bool BF16>
 __global__ void __launch_bounds__(kThreads)
-bank_comp_kernel(const float* __restrict__ sre,        // [A, N]
-                 const float* __restrict__ sim,        // [A, N]
-                 const float* __restrict__ code_tiles, // [K, Lc]
-                 const float4* __restrict__ params,    // [K]: f_cyc, phi_cyc, rho, phi_code
-                 const float2* __restrict__ base,      // [phase tiles]: carrier cyc, code chips
-                 const int* __restrict__ deltas,       // [L]
-                 float* __restrict__ partial,          // [K, tiles, A, L, 4]
-                 int num_samples, int num_k, int code_length, int phase_tile,
+bank_comp_kernel(const float* __restrict__ sre,          // [A, N]
+                 const float* __restrict__ sim,          // [A, N]
+                 const unsigned* __restrict__ code,      // [K, words] packed columns
+                 const float4* __restrict__ params,      // [K]: f_cyc, phi_cyc, rho, phi_code
+                 const float2* __restrict__ base,        // [phase tiles]: carrier cyc, code chips
+                 const int* __restrict__ deltas,         // [L]
+                 float* __restrict__ partial,            // [K, tiles, A, L, 4]
+                 int num_samples, int num_k, int code_length, int words, int phase_tile,
                  int span, float rho_nom, float fcar_nom_cyc) {
+  constexpr int AL = A * L;
+  constexpr int NT = (2 * AL + 7) / 8;           // n8 tiles over the 2AL planes
+  constexpr int KS = BF16 ? 16 : 8;              // samples per k-step
+  constexpr int NC = BF16 ? 4 : 2;               // Z samples per lane per k-step
+  constexpr int NB = bank::kRow / KS;            // row-blocks per row
+  constexpr bool kFlush = !BF16;                 // f32: row-block sums in fresh registers
+  constexpr int kMT = kMTiles;
+
   extern __shared__ float smem[];
-  float* zc = smem;                          // [kGroup][kTile]  cos * code
-  float* zs = zc + kGroup * kTile;           // [kGroup][kTile]  sin * code
   const int width = kTile + span;
-  float* s_re = zs + kGroup * kTile;         // [A][width]: s[a][u0 - span + i]
-  float* s_im = s_re + A * width;
+  // f32: the tile's re and im values; bf16: words (bf16(s[i]), bf16(s[i + 1])).
+  float* s_re = smem;                                          // [A][width]
+  float* s_im = s_re + A * width;                              // [A][width]
+  float2* row_ph = reinterpret_cast<float2*>(s_im + A * width);  // [kGroup][kRows]
+  unsigned* code_s = reinterpret_cast<unsigned*>(row_ph + kGroup * kRows);  // [kGroup][words]
 
   const int t = blockIdx.x;
   const int num_tiles = gridDim.x;
   const int k0 = blockIdx.y * kGroup;
   const int u0 = t * kTile;
+  const int pt = u0 / phase_tile;
+  const int j0 = u0 - pt * phase_tile;                         // tile start in its phase tile
+  const float2 b = base[pt];
+  const float n0 = static_cast<float>(pt * phase_tile);        // exact below 2^24
+  const float lcf = static_cast<float>(code_length);
 
-  // The signal tile and its halo, zero outside [0, N).
+  // The signal tile and its halo: tile[a][i] = s[a][u0 - span + i].
   for (int i = threadIdx.x; i < A * width; i += kThreads) {
     const int a = i / width;
-    const int n = u0 - span + (i - a * width);
-    float xr = 0.0f, xi = 0.0f;
-    if (n >= 0 && n < num_samples) {
-      xr = sre[static_cast<size_t>(a) * num_samples + n];
-      xi = sim[static_cast<size_t>(a) * num_samples + n];
-    }
+    const int p = i - a * width;
+    const int n = u0 - span + p;
+    const size_t row = static_cast<size_t>(a) * num_samples;
+    const bool in0 = n >= 0 && n < num_samples;
+    const float xr = in0 ? sre[row + n] : 0.0f;
+    const float xi = in0 ? sim[row + n] : 0.0f;
     if (BF16) {
-      xr = round_bf16(xr);
-      xi = round_bf16(xi);
+      const bool in1 = p + 1 < width && n + 1 >= 0 && n + 1 < num_samples;
+      reinterpret_cast<unsigned*>(s_re)[i] = pack_bf16(xr, in1 ? sre[row + n + 1] : 0.0f);
+      reinterpret_cast<unsigned*>(s_im)[i] = pack_bf16(xi, in1 ? sim[row + n + 1] : 0.0f);
+    } else {
+      s_re[i] = xr;
+      s_im[i] = xi;
     }
-    s_re[i] = xr;
-    s_im[i] = xi;
   }
-
-  // Phase 1: Z planes. The tile lies inside one phase tile of the host's base.
-  const int pt = u0 / phase_tile;
-  const int j0 = u0 - pt * phase_tile;
-  const float2 b = base[pt];
-  const float n0 = static_cast<float>(pt * phase_tile);  // exact below 2^24
-  const float lc = static_cast<float>(code_length);
-  for (int g = 0; g < kGroup; ++g) {
-    // A padded group repeats the last channel; its units are skipped below.
-    const int k = min(k0 + g, num_k - 1);
-    const float4 p = params[k];
-    const float ph_car = __fadd_rn(__fadd_rn(p.y, b.x),
-                                   __fmul_rn(__fsub_rn(p.x, fcar_nom_cyc), n0));
-    float pc = __fadd_rn(__fadd_rn(p.w, b.y),
-                         __fmul_rn(__fsub_rn(p.z, rho_nom), n0));
-    pc = __fsub_rn(pc, __fmul_rn(lc, floorf(__fdiv_rn(pc, lc))));
-    const float pc_whole = floorf(pc);
-    const float pc_frac = __fsub_rn(pc, pc_whole);
-    const int chip0 = static_cast<int>(pc_whole);
-    const float* col = code_tiles + static_cast<size_t>(k) * code_length;
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const float j = static_cast<float>(j0 + i);
-      float cyc = __fadd_rn(__fmul_rn(j, p.x), ph_car);
-      cyc = __fsub_rn(cyc, floorf(cyc));
-      float sn, cs;
-      sincospif(__fmul_rn(2.0f, cyc), &sn, &cs);
-      const float x = __fadd_rn(__fmul_rn(j, p.z), pc_frac);
-      int ci = static_cast<int>(floorf(x)) + chip0;
-      if (ci < 0) ci += code_length;
-      if (ci >= code_length) ci %= code_length;
-      const float c = __ldg(col + ci);
-      float zr = cs * c;   // exact: c is +/-1
-      float zi = sn * c;
-      if (BF16) {
-        zr = round_bf16(zr);
-        zi = round_bf16(zi);
-      }
-      zc[g * kTile + i] = zr;
-      zs[g * kTile + i] = zi;
-    }
+  // The group's code columns, and row phasors (a padded group repeats the
+  // last channel).
+  const int group_words = min(num_k - k0, kGroup) * words;
+  for (int i = threadIdx.x; i < group_words; i += kThreads) {
+    code_s[i] = code[static_cast<size_t>(k0) * words + i];
+  }
+  for (int i = threadIdx.x; i < kGroup * kRows; i += kThreads) {
+    const int g = i / kRows;
+    const int r = i - g * kRows;
+    const bank::Phases ch = bank::tile_phases(params[min(k0 + g, num_k - 1)], b, n0, lcf,
+                                              rho_nom, fcar_nom_cyc);
+    row_ph[i] = bank::row_phasor(ch, static_cast<float>(j0 + bank::kRow * r));
   }
   __syncthreads();
 
-  // Phase 2: one (channel, antenna) unit per warp at a time.
-  int dl[L];
-#pragma unroll
-  for (int l = 0; l < L; ++l) dl[l] = deltas[l];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int unit = warp; unit < kGroup * A; unit += kWarps) {
-    const int g = unit / A;
-    const int a = unit - g * A;
-    const int k = k0 + g;
-    if (k >= num_k) continue;                         // warp-uniform
-    const float* zcg = zc + g * kTile;
-    const float* zsg = zs + g * kTile;
-    const float* sr = s_re + a * width + span;        // sr[i] = s[a][u0 + i]
-    const float* si = s_im + a * width + span;
-    float acc[L][4];
+  if (k0 + warp * kMT * 8 >= num_k) return;                   // a warp of padding channels
+  const int gq = lane >> 2;                                    // fragment row (channel) in the tile
+  const int tq = lane & 3;
+
+  int gl[kMT];                                             // channel in the group
+  bank::Phases ch[kMT];
+  const unsigned* col[kMT];
 #pragma unroll
-    for (int l = 0; l < L; ++l)
+  for (int mt = 0; mt < kMT; ++mt) {
+    gl[mt] = (warp * kMT + mt) * 8 + gq;
+    const int g = min(gl[mt], num_k - 1 - k0);
+    ch[mt] = bank::tile_phases(params[k0 + g], b, n0, lcf, rho_nom, fcar_nom_cyc);
+    col[mt] = code_s + g * words;
+  }
+  // This lane's B column in each n8 tile: plane p = 8 nt + gq (S_re planes,
+  // then S_im, each (antenna, tap)-major), its offset in the signal tile at
+  // u = u0 (negative: a padding column, read as zero).
+  int boff[NT];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[l][q] = 0.0f;
-    for (int i = lane; i < kTile; i += 32) {
-      const float c = zcg[i];
-      const float s = zsg[i];
+  for (int nt = 0; nt < NT; ++nt) {
+    const int p = 8 * nt + gq;
+    boff[nt] = -1;
+    if (p < 2 * AL) {
+      const int al = p % AL;
+      boff[nt] = (p < AL ? 0 : A * width) + (al / L) * width + span - deltas[al % L];
+    }
+  }
+  // In-row positions of this lane's Z samples in a row-block (fragment columns).
+  int cpos[NC];
 #pragma unroll
-      for (int l = 0; l < L; ++l) {
-        const float xr = sr[i - dl[l]];
-        const float xi = si[i - dl[l]];
-        acc[l][0] += c * xr;   // zc . S_re
-        acc[l][1] += s * xi;   // zs . S_im
-        acc[l][2] += c * xi;   // zc . S_im
-        acc[l][3] += s * xr;   // zs . S_re
+  for (int c = 0; c < NC; ++c) cpos[c] = BF16 ? 2 * tq + (c & 1) + 8 * (c >> 1) : tq + 4 * c;
+
+  float acc[kMT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  // The tile's sums. kNear: every chip of the warp's channels in this tile
+  // lies in [0, 2 Lc) (bank::chips_near; always so inside the route's
+  // chip-rate envelope), and its wrap is one unsigned min.
+  auto tile_sums = [&](auto near) {
+    constexpr bool kNear = decltype(near)::value;
+#pragma unroll 1
+    for (int rb = 0; rb < NB; ++rb) {
+      float2 lp[kMT][NC];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          lp[mt][c] = bank::lane_phasor(ch[mt], static_cast<float>(rb * KS + cpos[c]));
+      float blk_[kMT][NT][4];
+      float (&blk)[kMT][NT][4] = kFlush ? blk_ : acc;
+      if (kFlush) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) blk[mt][nt][e] = 0.0f;
+      }
+
+      // f32: four rows per iteration let a warp overlap the three dependent
+      // products of one k-step with the next k-steps' Z and B; bf16 gains
+      // nothing and would lose a CTA per SM to the registers.
+      constexpr int kRowUnroll = BF16 ? 1 : 4;
+#pragma unroll 1
+      for (int r0 = 0; r0 < kRows; r0 += kRowUnroll) {
+#pragma unroll
+      for (int rr = 0; rr < kRowUnroll; ++rr) {
+        const int r = r0 + rr;
+        const int ur = r * bank::kRow + rb * KS;                 // k-step's first sample - u0
+        // A fragments: Z of this lane's channel at its NC samples.
+        unsigned a_big[kMT][4], a_small[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          const float2 row = row_ph[gl[mt] * kRows + r];
+          float zc[NC], zs[NC];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const float2 cr = bank::carrier(row, lp[mt][c]);
+            const float u = static_cast<float>(j0 + ur + cpos[c]);
+            const int ci = kNear ? bank::chip_index_near(ch[mt], u, code_length)
+                                 : bank::chip_index(ch[mt], u, code_length);
+            const unsigned rot = bank::chip_rotated(col[mt], ci);
+            zc[c] = bank::times_chip_rotated(cr.x, rot);
+            zs[c] = bank::times_chip_rotated(cr.y, rot);
+          }
+          if (BF16) {
+            a_big[mt][0] = pack_bf16(zc[0], zc[1]);
+            a_big[mt][1] = pack_bf16(zs[0], zs[1]);
+            a_big[mt][2] = pack_bf16(zc[2 % NC], zc[3 % NC]);
+            a_big[mt][3] = pack_bf16(zs[2 % NC], zs[3 % NC]);
+          } else {
+            bank::tf32_split(zc[0], &a_big[mt][0], &a_small[mt][0]);
+            bank::tf32_split(zs[0], &a_big[mt][1], &a_small[mt][1]);
+            bank::tf32_split(zc[1], &a_big[mt][2], &a_small[mt][2]);
+            bank::tf32_split(zs[1], &a_big[mt][3], &a_small[mt][3]);
+          }
+        }
+        // B fragments (the shifted signal, shared by both m tiles), then the
+        // products, one pass over all (m, n) tiles at a time so that
+        // consecutive mma are independent.
+        unsigned b_big[NT][2], b_small[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const bool on = boff[nt] >= 0;
+          const int at = boff[nt] + ur;
+          if (BF16) {
+            const unsigned* w = reinterpret_cast<const unsigned*>(smem);
+            b_big[nt][0] = on ? w[at + 2 * tq] : 0u;
+            b_big[nt][1] = on ? w[at + 2 * tq + 8] : 0u;
+          } else {
+            bank::tf32_split(on ? smem[at + tq] : 0.0f, &b_big[nt][0], &b_small[nt][0]);
+            bank::tf32_split(on ? smem[at + tq + 4] : 0.0f, &b_big[nt][1], &b_small[nt][1]);
+          }
+        }
+        if (BF16) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+              mma_bf16(blk[mt][nt], a_big[mt], b_big[nt][0], b_big[nt][1]);
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+              mma_tf32(blk[mt][nt], a_small[mt], b_big[nt][0], b_big[nt][1]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+              mma_tf32(blk[mt][nt], a_big[mt], b_small[nt][0], b_small[nt][1]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+              mma_tf32(blk[mt][nt], a_big[mt], b_big[nt][0], b_big[nt][1]);
+        }
+      }
+      }
+      if (kFlush) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += blk_[mt][nt][e];
       }
     }
-    float* out = partial + ((static_cast<size_t>(k) * num_tiles + t) * A + a) * L * 4;
+  };
+  bool in_envelope = true;
 #pragma unroll
-    for (int l = 0; l < L; ++l)
+  for (int mt = 0; mt < kMT; ++mt)
+    in_envelope = in_envelope &&
+                  bank::chips_near(ch[mt], static_cast<float>(j0 + kTile - 1), code_length);
+  if (__all_sync(0xffffffffu, in_envelope)) {
+    tile_sums(std::true_type{});
+  } else {
+    tile_sums(std::false_type{});
+  }
+
+  // D fragment: e = 0, 1 -> zc row, planes 8 nt + 2 tq + e; e = 2, 3 -> zs row.
+  // partial[k, t, al, q]: q = 0 zc.S_re, 1 zs.S_im, 2 zc.S_im, 3 zs.S_re.
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float v = acc[l][q];
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int k = k0 + gl[mt];
+    if (k >= num_k) continue;
+    float* out = partial + (static_cast<size_t>(k) * num_tiles + t) * AL * 4;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-        if (lane == 0) out[l * 4 + q] = v;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = 8 * nt + 2 * tq + (e & 1);
+        if (p >= 2 * AL) continue;
+        const bool zs_row = e >= 2;
+        const int q = p < AL ? (zs_row ? 3 : 0) : (zs_row ? 1 : 2);
+        out[(p % AL) * 4 + q] = acc[mt][nt][e];
       }
   }
 }
@@ -205,7 +386,7 @@ __global__ void bank_comp_finish(const float* __restrict__ partial,
   }
   const float m_re = __fadd_rn(s0, s1);
   const float m_im = __fsub_rn(s2, s3);
-  const float omega = __fmul_rn(__fmul_rn(kTwoPi, params[k].x),
+  const float omega = __fmul_rn(__fmul_rn(bank::kTwoPi, params[k].x),
                                 static_cast<float>(deltas[l]));
   float sw, cw;
   sincosf(omega, &sw, &cw);
@@ -215,19 +396,19 @@ __global__ void bank_comp_finish(const float* __restrict__ partial,
 
 template <int A, int L, bool BF16>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre,
-                   const float* sim, const float* code_tiles, const float* params,
-                   const float* base, const int* deltas, float* partial,
-                   int num_samples, int num_k, int code_length, int phase_tile,
-                   int span, float rho_nom, float fcar_nom_cyc) {
+                   const float* sim, const unsigned* code, const float* params,
+                   const float* base, const int* deltas, float* partial, int num_samples,
+                   int num_k, int code_length, int words, int phase_tile, int span,
+                   float rho_nom, float fcar_nom_cyc) {
   // Above 48 KB, dynamic shared memory needs the kernel's opt-in.
   cudaError_t err = cudaFuncSetAttribute(bank_comp_kernel<A, L, BF16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   bank_comp_kernel<A, L, BF16><<<grid, kThreads, smem, stream>>>(
-      sre, sim, code_tiles, reinterpret_cast<const float4*>(params),
-      reinterpret_cast<const float2*>(base), deltas, partial, num_samples,
-      num_k, code_length, phase_tile, span, rho_nom, fcar_nom_cyc);
+      sre, sim, code, reinterpret_cast<const float4*>(params),
+      reinterpret_cast<const float2*>(base), deltas, partial, num_samples, num_k,
+      code_length, words, phase_tile, span, rho_nom, fcar_nom_cyc);
   return cudaGetLastError();
 }
 
@@ -236,31 +417,31 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre
 // Launch the bank on `stream`. Returns the first CUDA error of the two launches
 // (cudaErrorInvalidValue for an antenna/tap count with no instantiation, or a
 // phase tile that kTile does not divide).
-extern "C" int bank_comp_launch(const float* sre, const float* sim,
-                                const float* code_tiles, const float* params,
-                                const float* base, const int* deltas,
+extern "C" int bank_comp_launch(const float* sre, const float* sim, const int* code,
+                                const float* params, const float* base, const int* deltas,
                                 float* partial, float* out_re, float* out_im,
-                                int num_ants, int num_taps, int num_samples,
-                                int num_k, int code_length, int phase_tile,
-                                int span, int bf16, float rho_nom,
-                                float fcar_nom_cyc, void* stream) {
+                                int num_ants, int num_taps, int num_samples, int num_k,
+                                int code_length, int phase_tile, int span, int bf16,
+                                float rho_nom, float fcar_nom_cyc, void* stream) {
   if (phase_tile % kTile != 0 || span < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int num_tiles = (num_samples + span + kTile - 1) / kTile;
+  const int words = (code_length + 31) / 32;
   const dim3 grid(num_tiles, (num_k + kGroup - 1) / kGroup);
-  const size_t smem = (2 * static_cast<size_t>(kGroup) * kTile +
-                       2 * static_cast<size_t>(num_ants) * (kTile + span)) * sizeof(float);
+  const size_t smem = 2 * static_cast<size_t>(num_ants) * (kTile + span) * sizeof(float) +
+                      static_cast<size_t>(kGroup) * kRows * sizeof(float2) +
+                      static_cast<size_t>(kGroup) * words * sizeof(unsigned);
+  const unsigned* words_ptr = reinterpret_cast<const unsigned*>(code);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define BANK_COMP_CASE(A_, L_)                                                      \
-  if (num_ants == A_ && num_taps == L_) {                                           \
-    err = bf16 ? launch<A_, L_, true>(grid, smem, s, sre, sim, code_tiles, params,  \
-                                      base, deltas, partial, num_samples, num_k,    \
-                                      code_length, phase_tile, span, rho_nom,       \
-                                      fcar_nom_cyc)                                 \
-               : launch<A_, L_, false>(grid, smem, s, sre, sim, code_tiles, params, \
-                                       base, deltas, partial, num_samples, num_k,   \
-                                       code_length, phase_tile, span, rho_nom,      \
-                                       fcar_nom_cyc);                               \
+#define BANK_COMP_CASE(A_, L_)                                                          \
+  if (num_ants == A_ && num_taps == L_) {                                               \
+    err = bf16 ? launch<A_, L_, true>(grid, smem, s, sre, sim, words_ptr, params, base, \
+                                      deltas, partial, num_samples, num_k, code_length, \
+                                      words, phase_tile, span, rho_nom, fcar_nom_cyc)   \
+               : launch<A_, L_, false>(grid, smem, s, sre, sim, words_ptr, params,      \
+                                       base, deltas, partial, num_samples, num_k,       \
+                                       code_length, words, phase_tile, span, rho_nom,   \
+                                       fcar_nom_cyc);                                   \
   }
   BANK_COMP_CASE(1, 3) BANK_COMP_CASE(1, 5) BANK_COMP_CASE(1, 7)
   BANK_COMP_CASE(2, 3) BANK_COMP_CASE(2, 5) BANK_COMP_CASE(2, 7)

@@ -1,88 +1,122 @@
 // K-channel Early/Prompt/Late bank correlator for Hopper (sm_90a).
 //
 // Replaces: gpuacceleratedtracking_tpu/ops/pallas_epl.py::_bank_rows_kernel
-// (wrapper correlate_pallas_bank_rows). Same contract: one shared f32 SoA
-// block [A, N] against K channels, f32 accumulators [K, A, L]:
+// (wrapper correlate_pallas_bank_rows); it also serves the routes of
+// _bank_transition_kernel (pallas_bank) and _bank_kernel (pallas_bank_onehot),
+// which compute the same contract: one shared f32 SoA block [A, N] against K
+// channels, f32 accumulators [K, A, L]:
 //
-//   acc[k,a,l] = sum_n s[a,n] * conj(exp(i 2pi (f_k n + theta_k)))
+//   acc[k,a,l] = sum_n s[a,n] * conj(carrier_k[n])
 //                      * code_k[floor((n + delta_l) * rho_k + phi_k) mod Lc]
 //
 // with delta_l = d_l - d_min >= 0 and phi_k = code_phase_k + rho_k * d_min.
 //
-// What bounds it on the H100: instruction throughput, not memory. At K=1024,
-// N=32768 a block is ~33.5 M sample-channel products, each one sincospi,
-// L chip lookups and 2*A*L multiply-adds; the signal block (256 KB) is
-// shared by every channel and stays in L2, so device-memory traffic is
-// ~N*A*8 bytes per block.
+// What bounds it on the H100: instruction issue. Per sample and channel the
+// work is (6 + 4L) A flops of derotation and tap MACs (0.6 GFLOP at K=1024,
+// A=1, L=3, N=32768: 9 us at the f32 peak); device memory carries only the
+// 0.26 MB signal block, the packed code columns and the per-chunk partials.
 //
-// What the design does about it: the TPU kernel's one-hot MXU row gathers,
-// boundary compare-adds and halo rolls exist because TPU gathers and dynamic
-// rolls are slow; here each thread looks its chip up directly in a
-// shared-memory copy of the channel's code column, so any tap span needs no
-// halo. The grid is (sample tile x channel); each thread strides over the
-// tile's samples, keeps 2*A*L sums in registers, and the CTA reduces them
-// with warp shuffles and shared memory into a per-tile partial. A second
-// kernel sums the partials over tiles in a fixed order: no atomics, so the
-// result is deterministic.
-//
-// Phases follow the JAX kernel: a per-tile nominal base computed exactly in
-// float64 on the host plus an f32 residual per channel. The phase arithmetic
-// uses explicitly rounded __fmul_rn/__fadd_rn so nvcc cannot contract it into
-// FMAs: the kernel then rounds exactly like the plain PyTorch version
-// (correlate_bank_rows_reference), and a chip boundary lands on the same
-// sample in both. Build without --use_fast_math.
+// What the design does about it (bank.cuh holds the shared arithmetic):
+// - A CTA takes 8 channels, one per warp (2AL sums in each lane's
+//   registers), and a chunk of up to 4 consecutive 1024-sample tiles of one
+//   phase tile (fewer where the grid would hold under ~1024 CTAs, as for 128
+//   GPS L5 channels). Per tile the signal is staged in shared memory once
+//   and read by all 8 channels; a channel's phases, lane phasors and sums
+//   carry over the chunk's tiles. Lanes run over samples.
+// - Each sample's chip is computed once, into the warp's replica row
+//   rep[m] = +/-1 for m in [0, 1024 + span) of the tile: tap l reads
+//   rep[i + delta_l]. (j + delta_l) is an exact small integer, so this
+//   rounds bit for bit like the per-tap formula. The CTA's packed code
+//   columns sit in shared memory. Where a channel's chips over the tile stay
+//   in [0, 2 Lc) (always inside the routes' chip-rate envelopes, checked per
+//   channel and tile), the row is built by a loop of ~15 instructions per
+//   position (one unsigned min for the wrap, one rotate and one logic op
+//   for the +/-1); else by the general wrap (bank.cuh).
+// - The carrier is the row x lane phasor product: a lane's samples
+//   i = 32 q + lane sit at four fixed in-row positions, so its four lane
+//   phasors are computed once per channel and the row phasor (8 per tile)
+//   arrives by shuffle. No sincos per sample.
+// The CTA's sums go to per-chunk partials, which a second kernel sums over
+// chunks in a fixed order: no atomics, deterministic.
 
 #include <cuda_runtime.h>
+
+#include "bank.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = kThreads / 32;      // channels per CTA: one per warp
+constexpr int kTile = 1024;                // samples per tile (ROWS_TILE); divides the phase tile
+constexpr int kRows = kTile / bank::kRow;  // carrier rows per tile
+constexpr int kMaxChunk = 4;               // tiles per CTA at most
+constexpr int kMinCtas = 1024;             // chunks shorten until the grid holds this many CTAs
 
+// One channel's replica row rep[m] = chip of phase-tile position j0 + m,
+// m in [0, width), one lane per position. kNear: bank::chips_near holds, and
+// the wrap is one unsigned min (the routes' envelopes); else the general
+// wrap. The position steps exactly in f32.
+template <bool kNear>
+__device__ __forceinline__ void replica_row(float* rep, const unsigned* col,
+                                            const bank::Phases& ch, int j0, int width,
+                                            int code_length, int lane) {
+  float mf = static_cast<float>(j0 + lane);
+#pragma unroll 4
+  for (int m = lane; m < width; m += 32, mf += 32.0f) {
+    const int ci = kNear ? bank::chip_index_near(ch, mf, code_length)
+                         : bank::chip_index(ch, mf, code_length);
+    rep[m] = bank::chip_value(col, ci);
+  }
+}
+
+// A CTA takes a chunk of `chunk` consecutive tiles, all in one phase tile,
+// and kWarps channels, one per warp. A channel's phases, lane phasors and
+// sums carry across the chunk's tiles; the signal tile is restaged per tile.
 template <int A, int L>
 __global__ void __launch_bounds__(kThreads)
-bank_rows_kernel(const float* __restrict__ sre,        // [A, N]
-                 const float* __restrict__ sim,        // [A, N]
-                 const float* __restrict__ code_tiles, // [K, Lc]
-                 const float4* __restrict__ params,    // [K]: f_cyc, phi_cyc, rho, phi_code
-                 const float2* __restrict__ base,      // [tiles]: carrier cyc, code chips
-                 const int* __restrict__ deltas,       // [L]
-                 float* __restrict__ partial,          // [K, tiles, A, L, 2]
-                 int num_samples, int code_length, int tile,
-                 float rho_nom, float fcar_nom_cyc) {
-  extern __shared__ float code[];                      // [Lc]
-  __shared__ float red[kWarps][2 * A * L];
+bank_rows_kernel(const float* __restrict__ sre,          // [A, N]
+                 const float* __restrict__ sim,          // [A, N]
+                 const unsigned* __restrict__ code,      // [K, words] packed columns
+                 const float4* __restrict__ params,      // [K]: f_cyc, phi_cyc, rho, phi_code
+                 const float2* __restrict__ base,        // [phase tiles]: carrier cyc, code chips
+                 const int* __restrict__ deltas,         // [L]
+                 float* __restrict__ partial,            // [K, chunks, A, L, 2]
+                 int num_samples, int num_k, int code_length, int words,
+                 int phase_tile, int span, int chunk, float rho_nom, float fcar_nom_cyc) {
+  extern __shared__ float smem[];
+  const int width = kTile + span;            // replica row: positions [0, kTile + span)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* s_re = smem;                        // [A][kTile]
+  float* s_im = s_re + A * kTile;            // [A][kTile]
+  float* rep = s_im + A * kTile + warp * width;
+  unsigned* code_s =                         // [kWarps][words]
+      reinterpret_cast<unsigned*>(s_im + A * kTile + kWarps * width);
 
-  const int t = blockIdx.x;
-  const int k = blockIdx.y;
-  const int num_tiles = gridDim.x;
+  const int num_tiles = (num_samples + kTile - 1) / kTile;
+  const int t0 = blockIdx.x * chunk;
+  const int t_end = min(t0 + chunk, num_tiles);
+  const int k0 = blockIdx.y * kWarps;
+  const int group_words = min(num_k - k0, kWarps) * words;
+  for (int i = threadIdx.x; i < group_words; i += kThreads) {
+    code_s[i] = code[static_cast<size_t>(k0) * words + i];
+  }
 
-  const float* col = code_tiles + static_cast<size_t>(k) * code_length;
-  for (int i = threadIdx.x; i < code_length; i += kThreads) code[i] = col[i];
-
-  float dl[L];
+  int dl[L];
 #pragma unroll
-  for (int l = 0; l < L; ++l) dl[l] = static_cast<float>(deltas[l]);
-
-  const float4 p = params[k];
-  const float2 b = base[t];
-  const int n_begin = t * tile;
-  const float n0 = static_cast<float>(n_begin);  // exact below 2^24
-  const float lc = static_cast<float>(code_length);
-
-  // Tile-start phases: exact nominal base + f32 residual (pallas_epl.py
-  // _group_row_phasors / _row_chip_setup), code phase wrapped to [0, Lc).
-  const float ph_car = __fadd_rn(__fadd_rn(p.y, b.x),
-                                 __fmul_rn(__fsub_rn(p.x, fcar_nom_cyc), n0));
-  float pc = __fadd_rn(__fadd_rn(p.w, b.y),
-                       __fmul_rn(__fsub_rn(p.z, rho_nom), n0));
-  pc = __fsub_rn(pc, __fmul_rn(lc, floorf(__fdiv_rn(pc, lc))));
-  // Whole chips and fraction apart: the per-sample sum then carries only the
-  // fraction, and keeps f32 resolution however large the chip index.
-  const float pc_whole = floorf(pc);
-  const float pc_frac = __fsub_rn(pc, pc_whole);
-  const int chip0 = static_cast<int>(pc_whole);
-  __syncthreads();
+  for (int l = 0; l < L; ++l) dl[l] = deltas[l];
+  const int pt = t0 * kTile / phase_tile;
+  const float2 b = base[pt];
+  const float n0 = static_cast<float>(pt * phase_tile);   // exact below 2^24
+  const int k = k0 + warp;
+  const bool active = k < num_k;                          // warp-uniform
+  const unsigned* col = code_s + warp * words;
+  const bank::Phases ch = bank::tile_phases(params[min(k, num_k - 1)], b, n0,
+                                            static_cast<float>(code_length), rho_nom,
+                                            fcar_nom_cyc);
+  float2 lp[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) lp[q] = bank::lane_phasor(ch, static_cast<float>(32 * q + lane));
 
   float acc_re[A][L];
   float acc_im[A][L];
@@ -91,40 +125,58 @@ bank_rows_kernel(const float* __restrict__ sre,        // [A, N]
 #pragma unroll
     for (int l = 0; l < L; ++l) acc_re[a][l] = acc_im[a][l] = 0.0f;
 
-  const int n_end = min(n_begin + tile, num_samples);
-  for (int n = n_begin + static_cast<int>(threadIdx.x); n < n_end; n += kThreads) {
-    const float j = static_cast<float>(n - n_begin);
-    float cyc = __fadd_rn(__fmul_rn(j, p.x), ph_car);
-    cyc = __fsub_rn(cyc, floorf(cyc));
-    float sn, cs;
-    sincospif(__fmul_rn(2.0f, cyc), &sn, &cs);
-
-    float rep[L];
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float x = __fadd_rn(__fmul_rn(__fadd_rn(j, dl[l]), p.z), pc_frac);
-      int ci = static_cast<int>(floorf(x)) + chip0;
-      if (ci < 0) ci += code_length;
-      if (ci >= code_length) ci %= code_length;
-      rep[l] = code[ci];
+  for (int t = t0; t < t_end; ++t) {
+    const int n_begin = t * kTile;
+    const int j0 = n_begin - pt * phase_tile;             // tile start in its phase tile
+    __syncthreads();                                      // the last tile's reads are done
+    for (int i = threadIdx.x; i < A * kTile; i += kThreads) {
+      const int a = i / kTile;
+      const int n = n_begin + (i - a * kTile);
+      const bool in = n < num_samples;
+      s_re[i] = in ? sre[static_cast<size_t>(a) * num_samples + n] : 0.0f;
+      s_im[i] = in ? sim[static_cast<size_t>(a) * num_samples + n] : 0.0f;
     }
+    __syncthreads();
+    if (!active) continue;
+
+    if (bank::chips_near(ch, static_cast<float>(j0 + width - 1), code_length)) {
+      replica_row<true>(rep, col, ch, j0, width, code_length, lane);
+    } else {
+      replica_row<false>(rep, col, ch, j0, width, code_length, lane);
+    }
+    // Lane r < kRows holds row r's phasor; the others compute a copy.
+    const float2 rp = bank::row_phasor(ch, static_cast<float>(j0 + bank::kRow * (lane % kRows)));
+    __syncwarp();
+
+#pragma unroll 1
+    for (int r = 0; r < kRows; ++r) {
+      const float2 row = make_float2(__shfl_sync(0xffffffffu, rp.x, r),
+                                     __shfl_sync(0xffffffffu, rp.y, r));
 #pragma unroll
-    for (int a = 0; a < A; ++a) {
-      const float xr = sre[static_cast<size_t>(a) * num_samples + n];
-      const float xi = sim[static_cast<size_t>(a) * num_samples + n];
-      const float dr = xr * cs + xi * sn;
-      const float di = xi * cs - xr * sn;
+      for (int q = 0; q < 4; ++q) {
+        const int i = r * bank::kRow + 32 * q + lane;
+        const float2 c = bank::carrier(row, lp[q]);
+        float chip[L];
 #pragma unroll
-      for (int l = 0; l < L; ++l) {
-        acc_re[a][l] += dr * rep[l];
-        acc_im[a][l] += di * rep[l];
+        for (int l = 0; l < L; ++l) chip[l] = rep[i + dl[l]];
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          const float xr = s_re[a * kTile + i];
+          const float xi = s_im[a * kTile + i];
+          const float dr = xr * c.x + xi * c.y;
+          const float di = xi * c.x - xr * c.y;
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            acc_re[a][l] += dr * chip[l];
+            acc_im[a][l] += di * chip[l];
+          }
+        }
       }
     }
   }
+  if (!active) return;
 
-  // CTA reduction: warp shuffles, then the warps' sums in a fixed order.
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  float* out = partial + (static_cast<size_t>(k) * gridDim.x + blockIdx.x) * (2 * A * L);
 #pragma unroll
   for (int a = 0; a < A; ++a)
 #pragma unroll
@@ -137,83 +189,95 @@ bank_rows_kernel(const float* __restrict__ sre,        // [A, N]
         vi += __shfl_down_sync(0xffffffffu, vi, off);
       }
       if (lane == 0) {
-        red[warp][(a * L + l) * 2] = vr;
-        red[warp][(a * L + l) * 2 + 1] = vi;
+        out[(a * L + l) * 2] = vr;
+        out[(a * L + l) * 2 + 1] = vi;
       }
     }
-  __syncthreads();
-  if (threadIdx.x < 2 * A * L) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
-    partial[(static_cast<size_t>(k) * num_tiles + t) * (2 * A * L) + threadIdx.x] = s;
-  }
 }
 
-// Sum the per-tile partials in tile order: out[k, a, l] (re and im planes).
+// Sum the per-chunk partials in chunk order: out[k, a, l] (re and im planes).
 __global__ void bank_rows_finish(const float* __restrict__ partial,
                                  float* __restrict__ out_re,
                                  float* __restrict__ out_im,
-                                 int num_k, int num_tiles, int al) {
+                                 int num_k, int num_chunks, int al) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= num_k * al) return;
   const int k = idx / al;
   const int r = idx - k * al;
-  const float* p = partial + static_cast<size_t>(k) * num_tiles * al * 2 + r * 2;
+  const float* p = partial + static_cast<size_t>(k) * num_chunks * al * 2 + r * 2;
   float sr = 0.0f, si = 0.0f;
-  for (int t = 0; t < num_tiles; ++t) {
-    sr += p[static_cast<size_t>(t) * al * 2];
-    si += p[static_cast<size_t>(t) * al * 2 + 1];
+  for (int c = 0; c < num_chunks; ++c) {
+    sr += p[static_cast<size_t>(c) * al * 2];
+    si += p[static_cast<size_t>(c) * al * 2 + 1];
   }
   out_re[idx] = sr;
   out_im[idx] = si;
 }
 
 template <int A, int L>
-void launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre,
-            const float* sim, const float* code_tiles, const float* params,
-            const float* base, const int* deltas, float* partial,
-            int num_samples, int code_length, int tile, float rho_nom,
-            float fcar_nom_cyc) {
+cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre,
+                   const float* sim, const unsigned* code, const float* params,
+                   const float* base, const int* deltas, float* partial, int num_samples,
+                   int num_k, int code_length, int words, int phase_tile, int span,
+                   int chunk, float rho_nom, float fcar_nom_cyc) {
+  // Above 48 KB, dynamic shared memory needs the kernel's opt-in.
+  cudaError_t err = cudaFuncSetAttribute(bank_rows_kernel<A, L>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   bank_rows_kernel<A, L><<<grid, kThreads, smem, stream>>>(
-      sre, sim, code_tiles, reinterpret_cast<const float4*>(params),
-      reinterpret_cast<const float2*>(base), deltas, partial, num_samples,
-      code_length, tile, rho_nom, fcar_nom_cyc);
+      sre, sim, code, reinterpret_cast<const float4*>(params),
+      reinterpret_cast<const float2*>(base), deltas, partial, num_samples, num_k,
+      code_length, words, phase_tile, span, chunk, rho_nom, fcar_nom_cyc);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch the bank on `stream`. Returns cudaGetLastError() after both launches
-// (cudaErrorInvalidValue for an antenna/tap count with no instantiation).
-extern "C" int bank_rows_launch(const float* sre, const float* sim,
-                                const float* code_tiles, const float* params,
-                                const float* base, const int* deltas,
+// Launch the bank on `stream`. Returns the first CUDA error of the two
+// launches (cudaErrorInvalidValue for an antenna/tap count with no
+// instantiation, or a phase tile that kTile does not divide).
+extern "C" int bank_rows_launch(const float* sre, const float* sim, const int* code,
+                                const float* params, const float* base, const int* deltas,
                                 float* partial, float* out_re, float* out_im,
-                                int num_ants, int num_taps, int num_samples,
-                                int num_k, int code_length, int tile,
-                                float rho_nom, float fcar_nom_cyc,
-                                void* stream) {
-  const int num_tiles = (num_samples + tile - 1) / tile;
-  const dim3 grid(num_tiles, num_k);
-  const size_t smem = static_cast<size_t>(code_length) * sizeof(float);
+                                int num_ants, int num_taps, int num_samples, int num_k,
+                                int code_length, int phase_tile, int span,
+                                float rho_nom, float fcar_nom_cyc, void* stream) {
+  if (phase_tile % kTile != 0 || span < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int num_tiles = (num_samples + kTile - 1) / kTile;
+  const int words = (code_length + 31) / 32;
+  // Chunks of 4, 2 or 1 tiles: they must divide the phase tile, and a grid
+  // under kMinCtas CTAs leaves SMs idle in its last wave.
+  const int groups = (num_k + kWarps - 1) / kWarps;
+  const int tiles_per_phase = phase_tile / kTile;
+  int chunk = kMaxChunk;
+  while (chunk > 1 && (tiles_per_phase % chunk != 0 ||
+                       (num_tiles + chunk - 1) / chunk * groups < kMinCtas)) {
+    chunk /= 2;
+  }
+  const int num_chunks = (num_tiles + chunk - 1) / chunk;
+  const dim3 grid(num_chunks, groups);
+  const size_t smem = (2 * static_cast<size_t>(num_ants) * kTile +
+                       static_cast<size_t>(kWarps) * (kTile + span) +
+                       static_cast<size_t>(kWarps) * words) * sizeof(float);
+  const unsigned* words_ptr = reinterpret_cast<const unsigned*>(code);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BANK_ROWS_CASE(A_, L_)                                                 \
-  if (num_ants == A_ && num_taps == L_) {                                      \
-    launch<A_, L_>(grid, smem, s, sre, sim, code_tiles, params, base, deltas,  \
-                   partial, num_samples, code_length, tile, rho_nom,           \
-                   fcar_nom_cyc);                                              \
-  } else
+  cudaError_t err = cudaErrorInvalidValue;
+#define BANK_ROWS_CASE(A_, L_)                                                        \
+  if (num_ants == A_ && num_taps == L_) {                                             \
+    err = launch<A_, L_>(grid, smem, s, sre, sim, words_ptr, params, base, deltas,    \
+                         partial, num_samples, num_k, code_length, words, phase_tile, \
+                         span, chunk, rho_nom, fcar_nom_cyc);                         \
+  }
   BANK_ROWS_CASE(1, 3) BANK_ROWS_CASE(1, 5) BANK_ROWS_CASE(1, 7)
   BANK_ROWS_CASE(2, 3) BANK_ROWS_CASE(2, 5) BANK_ROWS_CASE(2, 7)
   BANK_ROWS_CASE(3, 3) BANK_ROWS_CASE(3, 5) BANK_ROWS_CASE(3, 7)
   BANK_ROWS_CASE(4, 3) BANK_ROWS_CASE(4, 5) BANK_ROWS_CASE(4, 7)
-  { return static_cast<int>(cudaErrorInvalidValue); }
 #undef BANK_ROWS_CASE
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int al = num_ants * num_taps;
   const int total = num_k * al;
-  bank_rows_finish<<<(total + 255) / 256, 256, 0, s>>>(partial, out_re, out_im,
-                                                       num_k, num_tiles, al);
+  bank_rows_finish<<<(total + 255) / 256, 256, 0, s>>>(partial, out_re, out_im, num_k,
+                                                       num_chunks, al);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,9 @@ complex carrier, for 1-D ``[N]``, 2-D ``[A, N]`` (antennas) and 3-D
   carrier[n]      = exp(i * (2*pi * f_carrier / f_s * n + start_carrier_phase))
   signal[..., n]  = chip[n] * carrier[n]            (identical across antennas)
 
-The sample axis is last. Everything is made on ``device``; noise comes from an
-explicit ``torch.Generator``.
+The sample axis is last. Everything is made on ``device``, the card unless the
+caller asks for the CPU (``device="cpu"``); noise comes from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import device as _device
 from ..ops.replica import code_phase_steps, rate
 from .system import GNSSSystem
 
@@ -88,12 +90,13 @@ def gen_signal(
     generator: Optional[torch.Generator] = None,
     secondary_code=None,
     secondary_phase: int = 0,
-    device=None,
+    device=_device.DEFAULT,
 ):
     """Generate a synthetic GNSS signal block on ``device``.
 
     Args mirror the JAX `gen_signal`; ``generator`` replaces the PRNG key and
-    is required when ``noise_std > 0``.
+    is required when ``noise_std > 0``. ``device`` defaults to the card and
+    raises without one (`gpuacceleratedtracking_tpu_torch.device`).
 
     Returns:
       (signal, sampling_frequency): complex64 ``[N]``, ``[A, N]``, ``[K, N]`` or
@@ -102,7 +105,7 @@ def gen_signal(
     sampling_frequency = num_samples / duration
     f_code = float(code_frequency if code_frequency is not None
                    else system.code_frequency)
-    codes = torch.as_tensor(system.codes, device=device)
+    codes = torch.as_tensor(system.codes, device=_device.resolve(device))
     chips = upsample_code(
         codes, prn, num_samples, f_code, sampling_frequency,
         float(start_code_phase), system.code_length,
@@ -152,13 +155,14 @@ def gen_signal_mixed(
     intermediate_frequency: float = 0.0,
     noise_std: float = 0.0,
     generator: Optional[torch.Generator] = None,
-    device=None,
+    device=_device.DEFAULT,
 ):
     """Sum of K Doppler-shifted satellite signals — one RF front-end stream.
 
     Each satellite's code rate is scaled coherently with its carrier Doppler
     (``1 + doppler/f_center``). Returns ``(signal [.., N], sampling_frequency)``.
     """
+    device = _device.resolve(device)
     prns = np.asarray(prns)
     dopplers = np.asarray(dopplers, np.float64)
     if start_code_phases is None:

@@ -37,7 +37,7 @@ SIGNATURES = {
     "bank_rows": {
         "bank_rows_launch": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code params base deltas partial out_re out_im
-             _I, _I, _I, _I, _I, _I,               # ants taps samples k code_length tile
+             _I, _I, _I, _I, _I, _I, _I,           # ants taps samples k code_length phase_tile span
              _F, _F,                               # rho_nom fcar_nom_cyc
              _P],                                  # stream
             _I,

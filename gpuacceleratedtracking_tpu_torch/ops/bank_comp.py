@@ -14,8 +14,9 @@ contract (`epl_kernels`), rounded in another order. The sum is kept as the
 four real products of ``[zc, zs] x [S_re, S_im]`` (``zc = cos * code``,
 ``zs = sin * code``), recombined as ``m_re = zc.S_re + zs.S_im``,
 ``m_im = zc.S_im - zs.S_re``, then rotated. Z's phases use the rows route's
-tile base and f32 arithmetic over ``u``, so Z's chip boundaries fall on the
-samples where the rows route puts those of its earliest tap.
+tile base, row x lane carrier and replica-row chips over ``u``
+(`epl_kernels`), so Z's chip boundaries fall on the samples where the rows
+route puts those of its earliest tap.
 
 ``z_dtype`` bf16 rounds Z and S to bf16 before the products and accumulates in
 f32: the JAX tracking-grade mode (``z_dtype=bf16``, default-precision MACs).
@@ -28,17 +29,17 @@ CUDA tensors launch ``csrc/bank_comp.cu`` and add one to
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence
 
 import torch
 
 from . import _build, registry
-from .epl_kernels import TILE, BankRowsCall, _check_kernel_inputs, _deltas, _is_bf16
+from .epl_kernels import (
+    TILE, BankRowsCall, _check_kernel_inputs, _deltas, _is_bf16, _replica_chips,
+    _row_lane_carrier, _tile_phases, unpack_code_columns)
 from .replica import _TWO_PI_F32
 
 COMP_TILE = 1024             # composite samples per CTA of the CUDA kernel; divides TILE
-MAX_SPAN = 4096              # the signal tile's halo must fit shared memory
 # Elements of one [channels, N + span] intermediate per chunk of the plain version.
 _CHUNK_ELEMENTS = 1 << 24
 
@@ -79,37 +80,23 @@ def _shifted_planes(bank: BankCompCall) -> torch.Tensor:
 
 def _bank_comp_plain(bank: BankCompCall) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-sample PyTorch evaluation of the composite formula, chunked over
-    channels: Z planes, one ``[2Kc, U] x [U, 2AL]`` product, the recombination
-    and the rotation."""
+    channels: Z planes (row x lane carrier, replica-row chips), one
+    ``[2Kc, U] x [U, 2AL]`` product, the recombination and the rotation."""
     dev, tile, nt = bank.device, TILE, bank.num_tiles
-    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
     s_planes = _shifted_planes(bank)                                  # [2AL, U]
-    j = torch.arange(tile, dtype=torch.float32, device=dev)
-    n0 = torch.arange(nt, dtype=torch.float32, device=dev) * tile
-    lc = f32(float(bank.code_length))
-    f_nom, rho_nom = f32(bank.fcar_nom_cyc), f32(bank.rho_nom)
+    cols = unpack_code_columns(bank.code_tiles, bank.code_length)
     al = bank.num_ants * len(bank.deltas)
     raw = torch.empty(bank.num_k, 2, 2 * al, dtype=torch.float32, device=dev)
     per_chunk = max(1, _CHUNK_ELEMENTS // (nt * tile))
     for k0 in range(0, bank.num_k, per_chunk):
         k1 = min(k0 + per_chunk, bank.num_k)
-        f_cyc, phi_cyc, rho, phi_code = bank.params[k0:k1].unbind(-1)
-        ph_car = ((phi_cyc[:, None] + bank.base[None, :, 0])
-                  + (f_cyc - f_nom)[:, None] * n0[None, :])            # [kc, nt]
-        pc = ((phi_code[:, None] + bank.base[None, :, 1])
-              + (rho - rho_nom)[:, None] * n0[None, :])
-        pc = pc - lc * torch.floor(pc / lc)
-        pc_whole = torch.floor(pc)
-        pc_frac = pc - pc_whole
-        cyc = j * f_cyc[:, None, None] + ph_car[:, :, None]             # [kc, nt, T]
-        cyc = cyc - torch.floor(cyc)
-        theta = cyc * _TWO_PI_F32
-        x = j * rho[:, None, None] + pc_frac[:, :, None]
-        chip = torch.floor(x).long() + pc_whole.long()[:, :, None]
-        chip = torch.remainder(chip, bank.code_length).view(k1 - k0, -1)
-        rep = torch.gather(bank.code_tiles[k0:k1], 1, chip)            # [kc, U]
-        z = torch.cat([_to_z(torch.cos(theta).view(k1 - k0, -1) * rep, bank.bf16),
-                       _to_z(torch.sin(theta).view(k1 - k0, -1) * rep, bank.bf16)])
+        ph_car, pc_whole, pc_frac = _tile_phases(bank, k0, k1)
+        cos, sin = _row_lane_carrier(bank.params[k0:k1, 0], ph_car)      # [kc, nt, T]
+        chip = _replica_chips(bank.params[k0:k1, 2], pc_whole, pc_frac, tile,
+                              bank.code_length)
+        rep = torch.gather(cols[k0:k1], 1, chip.view(k1 - k0, -1))      # [kc, U]
+        z = torch.cat([_to_z(cos.view(k1 - k0, -1) * rep, bank.bf16),
+                       _to_z(sin.view(k1 - k0, -1) * rep, bank.bf16)])
         raw[k0:k1] = (z @ s_planes.T).view(2, k1 - k0, 2 * al).transpose(0, 1)
     shape = (bank.num_k, bank.num_ants, len(bank.deltas))
     zc_sre, zc_sim = raw[:, 0, :al].view(shape), raw[:, 0, al:].view(shape)
@@ -153,7 +140,7 @@ def correlate_pallas_bank_comp(
     """Composite-plane K-channel EPL bank against one shared ``[N]`` / ``[A, N]`` block.
 
     The contract and chip-rate envelope of `correlate_pallas_bank_rows` (any
-    tap span up to `MAX_SPAN` samples, < ~0.17 chips/sample, else
+    tap span up to `epl_kernels.MAX_SPAN` samples, < ~0.17 chips/sample, else
     `ValueError`), rounded in the composite order. ``z_dtype``:
     ``torch.float32`` or ``"f32"``, ``torch.bfloat16`` or ``"bf16"``.
     ``code_tiles``: `epl_kernels.prepare_bank_code_tiles_rows` output.
@@ -180,8 +167,6 @@ def launch_bank_comp(bank: BankCompCall) -> tuple[torch.Tensor, torch.Tensor]:
     if bank.device.type != "cuda":
         raise ValueError(f"the bank_comp kernel takes CUDA tensors, not {bank.device}")
     _check_kernel_inputs(bank, kernel="bank_comp")
-    if bank.span > MAX_SPAN:
-        raise ValueError(f"bank_comp kernel takes a tap span <= {MAX_SPAN}, got {bank.span}")
     lib = _build.load_library("bank_comp")
     shape = (bank.num_k, bank.num_ants, len(bank.deltas))
     num_ctiles = -(-(bank.num_samples + bank.span) // COMP_TILE)

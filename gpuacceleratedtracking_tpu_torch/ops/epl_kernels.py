@@ -29,10 +29,21 @@ on the host, and each channel adds an f32 residual:
     ph_car = (phi_cyc + base_car) + (f_cyc - f_nom) * n0
     p_code = (phi_code + base_code) + (rho - rho_nom) * n0,  wrapped to [0, Lc)
              = c0 + frac,  c0 = floor(p_code)
-    carrier cycles at tile sample j: j * f_cyc + ph_car   (wrapped to [0, 1))
-    chip of tap l at tile sample j:  (floor((j + delta_l) * rho + frac) + c0) mod Lc
+    carrier at tile sample j = 128 r + i, the JAX kernels' row x lane product
+    (`pallas_epl._group_row_phasors`, `_group_lane_phasors`):
+        row  = e^{2 pi i frac(128 r * f_cyc + ph_car)},  lane = e^{2 pi i frac(f_cyc * i)}
+        cos  = row_c * lane_c - row_s * lane_s,  sin = row_s * lane_c + row_c * lane_s
+    replica row: chip(m) = (floor(m * rho + frac) + c0) mod Lc, m >= 0
+    tap l at tile sample j reads chip(j + delta_l)
 
-each product and sum rounded to f32 on its own (no fused multiply-add).
+each product and sum rounded to f32 on its own (no fused multiply-add). The
+replica row is the per-tap formula ``floor((j + delta_l) * rho + frac)``
+evaluated once per position: ``j + delta_l`` is an exact small integer, so
+both round alike, bit for bit.
+
+The code tables of all bank routes are packed, one bit per chip
+(`pack_code_columns`), and checked to hold only +/-1 chips when they are
+prepared.
 """
 
 from __future__ import annotations
@@ -49,11 +60,13 @@ import torch
 from . import _build, registry
 from .replica import _TWO_PI_F32, code_columns, rate
 
-TILE = 4096                  # samples per CTA of the CUDA kernel (and per phase base)
-MAX_CODE_LENGTH = 12288      # the code column must fit 48 KB of shared memory (GPS L5: 10230)
+TILE = 4096                  # samples per phase base
+ROWS_TILE = 1024             # samples per tile of the bank_rows kernel; divides TILE
+MAX_CODE_LENGTH = 12288      # longest code the kernels take (GPS L5: 10230)
+MAX_SPAN = 4096              # widest tap span: the kernels' replica rows fit shared memory
 KERNEL_ANTENNAS = (1, 2, 3, 4)
 KERNEL_TAPS = (3, 5, 7)
-_LANES = 128
+_LANES = 128                 # samples per carrier row
 # Elements of one [channels, N] intermediate per chunk of the plain version.
 _CHUNK_ELEMENTS = 1 << 24
 
@@ -138,13 +151,36 @@ def bank_algorithm_for(
     return "pallas_bank_rows"
 
 
-def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torch.Tensor:
-    """Per-channel code columns ``[K, Lc]`` f32, contiguous: the code table
-    of all three bank routes.
+def pack_code_columns(cols: torch.Tensor) -> torch.Tensor:
+    """``[K, Lc]`` +/-1 chips as ``[K, ceil(Lc / 32)]`` int32 words, bit ``b``
+    of word ``w`` set where chip ``32 w + b`` is -1. Raises `ValueError` if an
+    entry is not +/-1 (one host read of the device)."""
+    if not bool(((cols == 1.0) | (cols == -1.0)).all()):
+        raise ValueError("bank code tables hold +/-1 chips only")
+    num_k, code_length = cols.shape
+    words = -(-code_length // 32)
+    bits = torch.nn.functional.pad((cols < 0).to(torch.int64), (0, 32 * words - code_length))
+    shifts = torch.arange(32, dtype=torch.int64, device=cols.device)
+    packed = (bits.view(num_k, words, 32) << shifts).sum(-1)
+    packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed)
+    return packed.to(torch.int32).contiguous()
 
-    Hoist out of tracking loops: PRNs are loop constants.
+
+def unpack_code_columns(words: torch.Tensor, code_length: int) -> torch.Tensor:
+    """The ``[K, Lc]`` f32 +/-1 chips of `pack_code_columns` words."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[..., None] >> shifts) & 1
+    return (1 - 2 * bits.flatten(-2)[..., :code_length]).to(torch.float32)
+
+
+def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torch.Tensor:
+    """Per-channel code columns, packed one bit per chip (`pack_code_columns`):
+    ``[K, ceil(Lc / 32)]`` int32, the code table of all four bank routes.
+
+    Raises if a chip is not +/-1. Hoist out of tracking loops: PRNs are loop
+    constants, and the check reads the device once.
     """
-    return code_columns(codes, prn)
+    return pack_code_columns(code_columns(codes, prn))
 
 
 @functools.lru_cache(maxsize=64)
@@ -242,56 +278,98 @@ class BankRowsCall:
         return acc_re, acc_im
 
 
-def _bank_rows_plain(bank: BankRowsCall) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-sample PyTorch evaluation of the kernel's formula, chunked over channels."""
-    dev, tile, nt = bank.device, TILE, bank.num_tiles
+def _tile_phases(bank: BankRowsCall, k0: int, k1: int):
+    """Channels ``k0:k1``'s f32 phases at each phase-tile start: the carrier
+    cycles ``ph_car`` and the code phase's whole chips ``c0`` and fraction,
+    each ``[kc, nt]``."""
+    dev = bank.device
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    n0 = torch.arange(bank.num_tiles, dtype=torch.float32, device=dev) * TILE
+    lc = f32(float(bank.code_length))
+    f_cyc, phi_cyc, rho, phi_code = bank.params[k0:k1].unbind(-1)
+    ph_car = ((phi_cyc[:, None] + bank.base[None, :, 0])
+              + (f_cyc - f32(bank.fcar_nom_cyc))[:, None] * n0[None, :])
+    pc = ((phi_code[:, None] + bank.base[None, :, 1])
+          + (rho - f32(bank.rho_nom))[:, None] * n0[None, :])
+    pc = pc - lc * torch.floor(pc / lc)
+    pc_whole = torch.floor(pc)
+    return ph_car, pc_whole, pc - pc_whole
+
+
+def _row_lane_carrier(f_cyc: torch.Tensor, ph_car: torch.Tensor):
+    """``(cos, sin)`` ``[kc, nt, TILE]`` of the carrier at each tile sample
+    ``j = 128 r + i``: the row phasor ``e^{2 pi i frac(128 r f + ph_car)}``
+    times the lane phasor ``e^{2 pi i frac(f i)}``, one transcendental per row
+    and per lane, as the JAX bank kernels build it."""
+    dev = f_cyc.device
+    n_row = torch.arange(0, TILE, _LANES, dtype=torch.float32, device=dev)
+    cyc = n_row * f_cyc[:, None, None] + ph_car[:, :, None]                  # [kc, nt, R]
+    theta = (cyc - torch.floor(cyc)) * _TWO_PI_F32
+    row_c, row_s = torch.cos(theta)[..., None], torch.sin(theta)[..., None]
+    cyc = f_cyc[:, None] * torch.arange(_LANES, dtype=torch.float32, device=dev)
+    theta = (cyc - torch.floor(cyc)) * _TWO_PI_F32                           # [kc, 128]
+    lane_c, lane_s = torch.cos(theta)[:, None, None], torch.sin(theta)[:, None, None]
+    cos = row_c * lane_c - row_s * lane_s
+    sin = row_s * lane_c + row_c * lane_s
+    return cos.flatten(-2), sin.flatten(-2)
+
+
+def _replica_chips(rho: torch.Tensor, pc_whole: torch.Tensor, pc_frac: torch.Tensor,
+                   length: int, code_length: int) -> torch.Tensor:
+    """The replica row: chip index ``(floor(m * rho + frac) + c0) mod Lc`` of
+    every phase-tile position ``m`` in ``[0, length)``, ``[kc, nt, length]``."""
+    m = torch.arange(length, dtype=torch.float32, device=rho.device)
+    x = m * rho[:, None, None] + pc_frac[:, :, None]
+    chip = torch.floor(x).long() + pc_whole.long()[:, :, None]
+    return torch.remainder(chip, code_length)
+
+
+def _bank_rows_plain(bank: BankRowsCall) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample PyTorch evaluation of the kernel's formula, chunked over
+    channels: the row x lane carrier and one replica row of ``TILE + span``
+    chips per tile, which tap l reads at offset ``delta_l``."""
+    dev, tile, nt, span = bank.device, TILE, bank.num_tiles, bank.span
     pad = nt * tile - bank.num_samples
     s_re = torch.nn.functional.pad(bank.sre, (0, pad)).view(bank.num_ants, nt, tile)
     s_im = torch.nn.functional.pad(bank.sim, (0, pad)).view(bank.num_ants, nt, tile)
-    j = torch.arange(tile, dtype=torch.float32, device=dev)
-    n0 = torch.arange(nt, dtype=torch.float32, device=dev) * tile
-    lc = f32(float(bank.code_length))
-    f_nom, rho_nom = f32(bank.fcar_nom_cyc), f32(bank.rho_nom)
     num_taps = len(bank.deltas)
     out_re = torch.empty(bank.num_k, bank.num_ants, num_taps, dtype=torch.float32, device=dev)
     out_im = torch.empty_like(out_re)
-    per_chunk = max(1, _CHUNK_ELEMENTS // (nt * tile * bank.num_ants))
+    cols = unpack_code_columns(bank.code_tiles, bank.code_length)
+    per_chunk = max(1, _CHUNK_ELEMENTS // (nt * (tile + span) * bank.num_ants))
     for k0 in range(0, bank.num_k, per_chunk):
         k1 = min(k0 + per_chunk, bank.num_k)
-        f_cyc, phi_cyc, rho, phi_code = bank.params[k0:k1].unbind(-1)
-        ph_car = ((phi_cyc[:, None] + bank.base[None, :, 0])
-                  + (f_cyc - f_nom)[:, None] * n0[None, :])            # [kc, nt]
-        pc = ((phi_code[:, None] + bank.base[None, :, 1])
-              + (rho - rho_nom)[:, None] * n0[None, :])
-        pc = pc - lc * torch.floor(pc / lc)
-        pc_whole = torch.floor(pc)
-        pc_frac = pc - pc_whole
-        cyc = j * f_cyc[:, None, None] + ph_car[:, :, None]             # [kc, nt, T]
-        cyc = cyc - torch.floor(cyc)
-        theta = cyc * _TWO_PI_F32
-        cos, sin = torch.cos(theta).unsqueeze(1), torch.sin(theta).unsqueeze(1)
+        ph_car, pc_whole, pc_frac = _tile_phases(bank, k0, k1)
+        cos, sin = _row_lane_carrier(bank.params[k0:k1, 0], ph_car)
+        cos, sin = cos.unsqueeze(1), sin.unsqueeze(1)
         dw_re = s_re * cos + s_im * sin                                  # [kc, A, nt, T]
         dw_im = s_im * cos - s_re * sin
-        cols = bank.code_tiles[k0:k1]
+        chip = _replica_chips(bank.params[k0:k1, 2], pc_whole, pc_frac, tile + span,
+                              bank.code_length)
+        rep = torch.gather(cols[k0:k1], 1, chip.view(k1 - k0, -1))
+        rep = rep.view(k1 - k0, 1, nt, tile + span)
         for l, delta in enumerate(bank.deltas):
-            x = (j + float(delta)) * rho[:, None, None] + pc_frac[:, :, None]
-            chip = torch.floor(x).long() + pc_whole.long()[:, :, None]
-            chip = torch.remainder(chip, bank.code_length)
-            rep = torch.gather(cols, 1, chip.view(k1 - k0, -1)).view(k1 - k0, 1, nt, tile)
-            out_re[k0:k1, :, l] = (dw_re * rep).sum(dim=(-2, -1))
-            out_im[k0:k1, :, l] = (dw_im * rep).sum(dim=(-2, -1))
+            tap = rep[..., delta:delta + tile]
+            out_re[k0:k1, :, l] = (dw_re * tap).sum(dim=(-2, -1))
+            out_im[k0:k1, :, l] = (dw_im * tap).sum(dim=(-2, -1))
     return out_re, out_im
 
 
 def _check_kernel_inputs(bank: BankRowsCall, kernel: str = "bank_rows") -> None:
-    tensors = {"signal_re": bank.sre, "signal_im": bank.sim,
-               "code_tiles": bank.code_tiles, "params": bank.params}
-    for name, t in tensors.items():
+    words = -(-bank.code_length // 32)
+    if bank.code_tiles.shape != (bank.num_k, words):
+        raise ValueError(
+            f"code_tiles shape {tuple(bank.code_tiles.shape)} != {(bank.num_k, words)}: "
+            "pass prepare_bank_code_tiles_rows output"
+        )
+    tensors = {"signal_re": (bank.sre, torch.float32), "signal_im": (bank.sim, torch.float32),
+               "code_tiles": (bank.code_tiles, torch.int32),
+               "params": (bank.params, torch.float32)}
+    for name, (t, dtype) in tensors.items():
         if t.device != bank.device:
             raise ValueError(f"{name} is on {t.device}, the signal on {bank.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {str(dtype).split('.')[-1]}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if bank.sim.shape != bank.sre.shape:
@@ -302,13 +380,10 @@ def _check_kernel_inputs(bank: BankRowsCall, kernel: str = "bank_rows") -> None:
             f"{kernel} kernel takes A in {KERNEL_ANTENNAS} and L in "
             f"{KERNEL_TAPS}, got A={bank.num_ants}, L={len(bank.deltas)}"
         )
-    if bank.code_tiles.shape != (bank.num_k, bank.code_length):
-        raise ValueError(
-            f"code_tiles shape {tuple(bank.code_tiles.shape)} != "
-            f"{(bank.num_k, bank.code_length)}"
-        )
     if bank.code_length > MAX_CODE_LENGTH:
         raise ValueError(f"code_length {bank.code_length} > {MAX_CODE_LENGTH}")
+    if bank.span > MAX_SPAN:
+        raise ValueError(f"{kernel} kernel takes a tap span <= {MAX_SPAN}, got {bank.span}")
     if bank.num_samples >= 1 << 24 or bank.num_k > 65535:
         raise ValueError(f"{kernel} kernel takes N < 2^24 and K <= 65535")
 
@@ -389,9 +464,10 @@ def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
     _check_kernel_inputs(bank)
     lib = _build.load_library("bank_rows")
     shape = (bank.num_k, bank.num_ants, len(bank.deltas))
+    num_ctiles = -(-bank.num_samples // ROWS_TILE)     # partials: at most one per tile
     out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
     out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
-    partial = torch.empty(shape[:1] + (bank.num_tiles,) + shape[1:] + (2,),
+    partial = torch.empty(shape[:1] + (num_ctiles,) + shape[1:] + (2,),
                           dtype=torch.float32, device=bank.device)
     deltas = _deltas(bank.deltas, bank.device)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
@@ -400,7 +476,7 @@ def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
         bank.params.data_ptr(), bank.base.data_ptr(), deltas.data_ptr(),
         partial.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
         bank.num_ants, len(bank.deltas), bank.num_samples, bank.num_k,
-        bank.code_length, TILE, ctypes.c_float(bank.rho_nom),
+        bank.code_length, TILE, bank.span, ctypes.c_float(bank.rho_nom),
         ctypes.c_float(bank.fcar_nom_cyc), stream,
     )
     if err != 0:

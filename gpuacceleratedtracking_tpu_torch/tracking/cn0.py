@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import device as _device
+
 
 class CN0State(NamedTuple):
     prompts_re: torch.Tensor  # [..., window]
@@ -18,7 +20,8 @@ class CN0State(NamedTuple):
     index: torch.Tensor       # [...] int32, count of prompts seen
 
 
-def init(window: int = 20, device=None) -> CN0State:
+def init(window: int = 20, device=_device.DEFAULT) -> CN0State:
+    device = _device.resolve(device)
     return CN0State(
         torch.zeros(window, dtype=torch.float32, device=device),
         torch.zeros(window, dtype=torch.float32, device=device),

@@ -19,14 +19,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as _device
+
 
 class LoopFilterState(NamedTuple):
     x1: torch.Tensor  # velocity integrator
     x2: torch.Tensor  # acceleration integrator (3rd order only)
 
 
-def init(value=0.0, device=None) -> LoopFilterState:
-    """Initial state; ``value`` seeds the velocity integrator."""
+def init(value=0.0, device=_device.DEFAULT) -> LoopFilterState:
+    """Initial state on ``device`` (the card by default); ``value`` seeds the
+    velocity integrator."""
+    device = _device.resolve(device)
     value = torch.as_tensor(value, dtype=torch.float32, device=device)
     return LoopFilterState(value, torch.zeros_like(value))
 

@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import device as _device
 from ..models.correlator import EPLCorrelator, correlator_sample_shifts
 from ..models.system import GNSSSystem
 from . import cn0 as cn0_mod
@@ -166,14 +167,16 @@ def init_state(
     cn0_window: int = 20,
     ms_elapsed=0,
     num_taps: int = 3,
-    device=None,
+    device=_device.DEFAULT,
 ) -> TrackState:
-    """Build an initial state on ``device``; array arguments make a channel bank.
+    """Build an initial state on ``device`` (the card unless the caller asks
+    for the CPU); array arguments make a channel bank.
 
     The PLL velocity integrator is seeded with ``carrier_doppler`` (the
     acquisition handoff), and ``ms_elapsed`` seeds the block counter for
     secondary-code alignment.
     """
+    device = _device.resolve(device)
     prn = torch.as_tensor(np.asarray(prn), dtype=torch.int32, device=device)
     batch = prn.shape
 
@@ -208,9 +211,11 @@ _NESTED = {"pll_filter": LoopFilterState, "dll_filter": LoopFilterState,
            "cn0": cn0_mod.CN0State}
 
 
-def state_from_numpy(tree, device=None) -> TrackState:
+def state_from_numpy(tree, device=_device.DEFAULT) -> TrackState:
     """A `TrackState` on ``device`` from a tree of numpy arrays with the JAX
-    field names (``jax.tree.map(np.asarray, jax_state)``). Dtypes are kept."""
+    field names (``jax.tree.map(np.asarray, jax_state)``). Dtypes are kept;
+    ``device`` defaults to the card."""
+    device = _device.resolve(device)
 
     def conv(x):
         return torch.from_numpy(np.array(x, copy=True)).to(device)

@@ -146,10 +146,11 @@ def test_hoisted_code_tiles_give_the_same_result():
 
 def test_jax_prepares_its_own_table():
     # The JAX kernel's padded [K, ceil(Lc/128), 128] planes hold the same
-    # columns as the port's [K, Lc] table.
+    # columns as the port's packed [K, ceil(Lc/32)] table.
     prn = np.array([0, 7, 31])
     jax_tiles = np.asarray(pallas_epl.prepare_bank_code_tiles_onehot(
         jnp.asarray(SYSTEM.codes), jnp.asarray(prn), code_length=SYSTEM.code_length))
     port = epl_kernels.prepare_bank_code_tiles_rows(torch.as_tensor(SYSTEM.codes),
-                                                    torch.as_tensor(prn)).numpy()
+                                                    torch.as_tensor(prn))
+    port = epl_kernels.unpack_code_columns(port, SYSTEM.code_length).numpy()
     np.testing.assert_array_equal(jax_tiles.reshape(3, -1)[:, :SYSTEM.code_length], port)

@@ -14,7 +14,8 @@ from gpuacceleratedtracking_tpu_torch.models import (
     soa)
 from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels, registry
 from gpuacceleratedtracking_tpu_torch.tracking import (
-    TrackConfig, dual_config, init_state, track, track_bank, track_bank_dual)
+    TrackConfig, dual_config, init_state, state_from_numpy, track, track_bank,
+    track_bank_dual)
 
 pytestmark = pytest.mark.cuda
 
@@ -138,6 +139,7 @@ COMP_CASES = {
     "wide_span_a2": dict(n=8192, k=3, num_ants=2, shifts=(-160, 0, 170), seed=6),
     "seven_taps_a4": dict(n=32768, k=16, taps=7, num_ants=4, seed=2),
     "five_taps_a3": dict(n=16384, k=9, taps=5, num_ants=3, seed=4),
+    "k1024_a4_l7": dict(n=32768, k=1024, taps=7, num_ants=4, seed=8),
 }
 
 
@@ -145,7 +147,8 @@ COMP_CASES = {
 @pytest.mark.parametrize("name", sorted(COMP_CASES))
 def test_comp_kernel_matches_plain_version(cuda, name, z_dtype):
     # Same Z phase arithmetic as the plain version; the sums differ in order
-    # only (4 real products per sample, reduced per warp, then per tile).
+    # only (tensor-core products per 1024-sample tile, then summed over
+    # tiles; f32 as three TF32 passes, bf16 products exact in f32).
     case = _case(cuda, **COMP_CASES[name])
     before = bank_comp.correlate_pallas_bank_comp.launches
     got = bank_comp.correlate_pallas_bank_comp(**case, z_dtype=z_dtype)
@@ -156,6 +159,26 @@ def test_comp_kernel_matches_plain_version(cuda, name, z_dtype):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.device.type == "cuda"
         torch.testing.assert_close(g, w, rtol=0, atol=3e-5 * scale + 1e-3)
+
+
+@pytest.mark.parametrize("route", ["pallas_bank_rows", "f32", "bf16"])
+def test_channels_outside_the_envelope_take_the_general_chip_wrap(cuda, route):
+    # The wrappers check the nominal chip rate only; a channel's own rate can
+    # still leave the envelope (a negative rate, or ~2 chips per sample).
+    # Such a channel's chips leave [0, 2 Lc) and take the general wrap.
+    case = _case(cuda, 16384, 5, num_ants=1 if route == "pallas_bank_rows" else 2, seed=11)
+    case["code_frequency"][:2] = torch.tensor([-SYSTEM.code_frequency,
+                                               70 * SYSTEM.code_frequency], device=cuda)
+    if route == "pallas_bank_rows":
+        got = epl_kernels.correlate_pallas_bank_rows(**case)
+        want = epl_kernels.correlate_bank_rows_reference(**case)
+        tol = dict(rtol=2e-3, atol=4.5)
+    else:
+        got = bank_comp.correlate_pallas_bank_comp(**case, z_dtype=route)
+        want = bank_comp.correlate_bank_comp_reference(**case, z_dtype=route)
+        tol = dict(rtol=0, atol=3e-5 * float(want[0].abs().max()) + 1e-3)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **tol)
 
 
 def test_comp_golden_prompt(cuda):
@@ -176,6 +199,41 @@ def test_comp_kernel_is_deterministic(cuda):
     b = bank_comp.correlate_pallas_bank_comp(**case)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_comp_kernel_is_deterministic_in_bf16(cuda):
+    case = _case(cuda, 32768, 1024, num_ants=4, taps=7, seed=3)
+    a = bank_comp.correlate_pallas_bank_comp(**case, z_dtype="bf16")
+    b = bank_comp.correlate_pallas_bank_comp(**case, z_dtype="bf16")
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["l1_k1024", "l5_k128"])
+def test_rows_kernel_takes_packed_columns(cuda, name):
+    # The code table prepared once (as track_bank does), one bit per chip.
+    system, k = (SYSTEM, 1024) if name == "l1_k1024" else (GPSL5(), 128)
+    case = _case(cuda, 32768, k, system=system, seed=9)
+    case["code_tiles"] = epl_kernels.prepare_bank_code_tiles_rows(case["codes"], case["prn"])
+    assert case["code_tiles"].shape == (k, -(-system.code_length // 32))
+    got = epl_kernels.correlate_pallas_bank_auto(**case)
+    torch.cuda.synchronize()
+    route = "pallas_bank_rows" if name == "l1_k1024" else "pallas_bank"
+    want = epl_kernels.correlate_bank_rows_reference(**case, route=route)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=4.5)
+
+
+def test_constructors_default_to_the_card(cuda):
+    signal, _ = gen_signal(SYSTEM, 0, 1500.0, 4096)
+    mixed, _ = gen_signal_mixed(SYSTEM, [0, 1], [100.0, -200.0], 4096)
+    state = init_state(np.arange(4), carrier_doppler=100.0)
+    from gpuacceleratedtracking_tpu_torch.tracking import cn0, loop_filter, state_to_numpy
+    state2 = state_from_numpy(state_to_numpy(state))
+    tensors = [signal, mixed, cn0.init(20).prompts_re, loop_filter.init(1.0).x1,
+               *(x for x in state if isinstance(x, torch.Tensor)),
+               *(x for x in state2 if isinstance(x, torch.Tensor))]
+    assert all(x.device.type == "cuda" for x in tensors)
 
 
 TRANSITION_CASES = {
@@ -312,6 +370,9 @@ ONEHOT_CASES = {
     "wide_span_k2": dict(n=4096, k=2, shifts=(-160, 0, 170)),
     "k1024": dict(n=32768, k=1024, seed=7),
     "low_rate_k5": dict(n=2500, k=5, seed=8),
+    # ~2 chips per sample: a tile's chips pass 2 Lc, so the kernels take the
+    # general chip wrap instead of the envelope's single subtraction.
+    "two_chips_per_sample_k3": dict(n=500, k=3, seed=9),
 }
 
 

@@ -160,7 +160,7 @@ def test_track_bank_dual_matches_jax(jax_dual):
                                           sys_i.code_frequency) == "pallas_bank"
     cfg = ttracking.dual_config(ttracking.TrackConfig.for_system(
         sys_i, fs, N_DUAL, algorithm="pallas_bank_auto", use_secondary=False))
-    st = ttracking.init_state(np.array(DUAL_PRNS), carrier_doppler=np.array(DUAL_DOPS) + 5.0)
+    st = ttracking.init_state(np.array(DUAL_PRNS), carrier_doppler=np.array(DUAL_DOPS) + 5.0, device="cpu")
     final, got = ttracking.track_bank_dual(
         cfg, torch.as_tensor(sys_i.codes), torch.as_tensor(sys_q.codes), st,
         torch.as_tensor(sre), torch.as_tensor(sim))
@@ -184,7 +184,7 @@ def test_track_bank_dual_refuses_overlay_in_config():
     with pytest.raises(ValueError, match="dual_config"):
         ttracking.track_bank_dual(cfg, torch.as_tensor(sys_i.codes),
                                   torch.as_tensor(tmodels.GPSL5(True).codes),
-                                  ttracking.init_state(np.array([0])),
+                                  ttracking.init_state(np.array([0]), device="cpu"),
                                   torch.zeros(1, 16384), torch.zeros(1, 16384))
 
 
@@ -195,7 +195,7 @@ def test_noiseless_symbol_recovery_exact():
     sys_i, sys_q = tmodels.GPSL5(), tmodels.GPSL5(quadrature=True)
     cfg = ttracking.dual_config(ttracking.TrackConfig.for_system(
         sys_i, n / 1e-3, n, algorithm="pallas_bank_auto", use_secondary=False))
-    st = ttracking.init_state(np.array([prn]), carrier_doppler=np.array([dop + 10.0]))
+    st = ttracking.init_state(np.array([prn]), carrier_doppler=np.array([dop + 10.0]), device="cpu")
     _, out = ttracking.track_bank_dual(cfg, torch.as_tensor(sys_i.codes),
                                        torch.as_tensor(sys_q.codes), st,
                                        torch.as_tensor(sre), torch.as_tensor(sim))

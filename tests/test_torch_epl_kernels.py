@@ -137,7 +137,7 @@ def test_golden_prompt_is_exactly_n(num_ants):
     fs = n / 1e-3
     system = tmodels.GPSL1()
     signal, _ = tmodels.gen_signal(system, 0, 1500.0, n,
-                                   num_ants=None if num_ants == 1 else num_ants)
+                                   num_ants=None if num_ants == 1 else num_ants, device="cpu")
     sre, sim = tmodels.soa(signal)
     shifts = tuple(int(s) for s in tmodels.correlator_sample_shifts(
         system, tmodels.EPLCorrelator(3), fs))

@@ -66,7 +66,7 @@ def test_gen_signal_matches_jax(N, phi_code, phi_car, fcar):
         start_code_phase=phi_code, start_carrier_phase=phi_car)
     got, fs_t = tmodels.gen_signal(
         tmodels.GPSL1(), 0, fcar, N,
-        start_code_phase=phi_code, start_carrier_phase=phi_car)
+        start_code_phase=phi_code, start_carrier_phase=phi_car, device="cpu")
     assert fs_t == fs_j
     assert got.dtype == torch.complex64 and got.shape == (N,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
@@ -76,7 +76,7 @@ def test_gen_signal_bank_and_antennas_match_jax():
     want, _ = jmodels.gen_signal(jmodels.GPSL1(), np.arange(4), 700.0, 2048,
                                  num_ants=2)
     got, _ = tmodels.gen_signal(tmodels.GPSL1(), np.arange(4), 700.0, 2048,
-                                num_ants=2)
+                                num_ants=2, device="cpu")
     assert got.shape == (4, 2, 2048)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
 
@@ -86,7 +86,7 @@ def test_gen_signal_mixed_matches_jax():
     want, fs_j = jmodels.gen_signal_mixed(
         jmodels.GPSL1(), prns, dops, 8192, start_code_phases=phases)
     got, fs_t = tmodels.gen_signal_mixed(
-        tmodels.GPSL1(), prns, dops, 8192, start_code_phases=phases)
+        tmodels.GPSL1(), prns, dops, 8192, start_code_phases=phases, device="cpu")
     assert fs_t == fs_j
     # Three summed unit signals: a chip flip at a floor boundary is +/-2.
     diff = np.abs(got.numpy() - np.asarray(want))
@@ -100,25 +100,25 @@ def test_gen_signal_secondary_overlay_matches_jax():
     want, _ = jmodels.gen_signal(jmodels.GPSL1(), 3, 250.0, 4 * 4096,
                                  duration=4e-3, **kw)
     got, _ = tmodels.gen_signal(tmodels.GPSL1(), 3, 250.0, 4 * 4096,
-                                duration=4e-3, **kw)
+                                duration=4e-3, **kw, device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
 
 
 def test_gen_signal_noise_uses_generator():
     sys_t = tmodels.GPSL1()
     a, _ = tmodels.gen_signal(sys_t, 0, 1500.0, 2500, noise_std=0.5,
-                              generator=torch.Generator().manual_seed(3))
+                              generator=torch.Generator().manual_seed(3), device="cpu")
     b, _ = tmodels.gen_signal(sys_t, 0, 1500.0, 2500, noise_std=0.5,
-                              generator=torch.Generator().manual_seed(3))
+                              generator=torch.Generator().manual_seed(3), device="cpu")
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     power = float((a.abs() ** 2).mean())
     assert power == pytest.approx(1.0 + 2 * 0.25, rel=0.1)
     with pytest.raises(ValueError, match="Generator"):
-        tmodels.gen_signal(sys_t, 0, 1500.0, 2500, noise_std=0.5)
+        tmodels.gen_signal(sys_t, 0, 1500.0, 2500, noise_std=0.5, device="cpu")
 
 
 def test_soa_planes():
-    sig, _ = tmodels.gen_signal(tmodels.GPSL1(), 0, 1500.0, 2048, num_ants=2)
+    sig, _ = tmodels.gen_signal(tmodels.GPSL1(), 0, 1500.0, 2048, num_ants=2, device="cpu")
     re, im = tmodels.soa(sig)
     assert re.dtype == im.dtype == torch.float32
     assert re.is_contiguous() and im.is_contiguous()

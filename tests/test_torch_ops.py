@@ -23,7 +23,7 @@ CODES = torch.as_tensor(SYSTEM.codes)
 
 
 def _golden_signal(num_ants=None):
-    signal, fs = tmodels.gen_signal(SYSTEM, 0, 1500.0, 2500, num_ants=num_ants)
+    signal, fs = tmodels.gen_signal(SYSTEM, 0, 1500.0, 2500, num_ants=num_ants, device="cpu")
     return (*tmodels.soa(signal), fs)
 
 
@@ -78,7 +78,7 @@ def _numpy_oracle(prn, carrier_freq, fs, carrier_phase, code_phase, shifts, sign
 def test_fused_matches_float64_oracle(fcar, phicar, phicode, prn):
     signal, fs = tmodels.gen_signal(SYSTEM, prn, fcar, 4096,
                                     start_code_phase=phicode,
-                                    start_carrier_phase=phicar)
+                                    start_carrier_phase=phicar, device="cpu")
     sre, sim = tmodels.soa(signal)
     shifts = tmodels.correlator_sample_shifts(SYSTEM, tmodels.EPLCorrelator(3), fs)
     are, aim = _fused(sre, sim, fs, shifts, prn=prn, fcar=fcar, phicar=phicar,

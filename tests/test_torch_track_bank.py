@@ -47,7 +47,7 @@ def scenario():
 def _port_track_bank(sre, sim, algorithm):
     system = tmodels.GPSL1()
     config = ttracking.TrackConfig.for_system(system, FS, N, algorithm=algorithm)
-    states = ttracking.init_state(np.arange(K), carrier_doppler=DOPS)
+    states = ttracking.init_state(np.arange(K), carrier_doppler=DOPS, device="cpu")
     return ttracking.track_bank(config, torch.as_tensor(system.codes), states,
                                 torch.as_tensor(sre), torch.as_tensor(sim))
 
@@ -86,11 +86,11 @@ def test_single_channel_track_converges():
     signal, _ = tmodels.gen_signal(system, 0, true_doppler, n * num_ms,
                                    duration=num_ms * 1e-3,
                                    code_frequency=code_freq_true,
-                                   start_carrier_phase=0.3)
+                                   start_carrier_phase=0.3, device="cpu")
     sre, sim = (x.reshape(num_ms, n) for x in tmodels.soa(signal))
     config = ttracking.TrackConfig.for_system(system, fs, n, dll_bandwidth=3.0)
     state = ttracking.init_state(0, carrier_doppler=true_doppler + 30.0,
-                                 code_phase=(-0.3) % system.code_length)
+                                 code_phase=(-0.3) % system.code_length, device="cpu")
     _, out = ttracking.track(config, torch.as_tensor(system.codes), state, sre, sim)
 
     dop = out.carrier_doppler.numpy()

@@ -58,7 +58,7 @@ def test_track_matches_jax_track_on_pallas_fused(single, algorithm):
     sre, sim, want = single
     system = tmodels.GPSL1()
     config = ttracking.TrackConfig.for_system(system, FS, N, algorithm=algorithm)
-    state = ttracking.init_state(0, carrier_doppler=DOPPLER + 5.0, code_phase=39.9)
+    state = ttracking.init_state(0, carrier_doppler=DOPPLER + 5.0, code_phase=39.9, device="cpu")
     final, out = ttracking.track(config, torch.as_tensor(system.codes), state,
                                  torch.as_tensor(sre), torch.as_tensor(sim))
     assert out.accum_re.shape == (NUM_MS, 3) and int(final.ms_elapsed) == NUM_MS
@@ -80,7 +80,7 @@ def test_track_bank_per_channel_matches_fused_xla(algorithm):
     system = tmodels.GPSL1()
     codes = torch.as_tensor(system.codes)
     states = ttracking.init_state(np.arange(2), carrier_doppler=DOPS[:2],
-                                  code_phase=np.array([0.0, 300.0]))
+                                  code_phase=np.array([0.0, 300.0]), device="cpu")
     outs = {}
     for algo in (algorithm, "fused_xla"):
         config = ttracking.TrackConfig.for_system(system, FS, N, algorithm=algo)
@@ -105,7 +105,7 @@ def test_track_bank_onehot_matches_jax_track_bank():
     _, want = jtracking.track_bank(jcfg, jnp.asarray(jsys.codes), jstates,
                                    jnp.asarray(sre), jnp.asarray(sim))
     tcfg = ttracking.TrackConfig.for_system(tsys, FS, N, algorithm="pallas_bank_onehot")
-    tstates = ttracking.init_state(np.arange(3), carrier_doppler=DOPS)
+    tstates = ttracking.init_state(np.arange(3), carrier_doppler=DOPS, device="cpu")
     _, got = ttracking.track_bank(tcfg, torch.as_tensor(tsys.codes), tstates,
                                   torch.as_tensor(sre), torch.as_tensor(sim))
     np.testing.assert_allclose(got.prompt_re.numpy(), np.asarray(want.prompt_re),
@@ -122,7 +122,7 @@ def test_onehot_gets_code_tables_but_no_nominal_rates():
     codes = torch.as_tensor(tmodels.GPSL1().codes)
     assert ttrack._bank_kernel_kwargs(cfg) == {}
     tiles = ttrack._bank_code_tile_kwargs(cfg, codes, torch.arange(3))["code_tiles"]
-    assert tiles.shape == (3, 1023)
+    assert tiles.shape == (3, 32) and tiles.dtype == torch.int32   # 1023 chips, 1 bit each
     for algo in ("pallas_fused", "pallas_taps", "unfused_xla"):
         cfg = ttracking.TrackConfig.for_system(tmodels.GPSL1(), FS, N, algorithm=algo)
         assert ttrack._bank_kernel_kwargs(cfg) == {}

@@ -58,7 +58,7 @@ def _port_run(sre, sim, ant_weights=None, **config_kw):
     system = tmodels.GPSL1()
     config = ttracking.TrackConfig.for_system(system, FS, N, algorithm="pallas_bank_auto",
                                               **config_kw)
-    states = ttracking.init_state(np.arange(K), carrier_doppler=DOPS)
+    states = ttracking.init_state(np.arange(K), carrier_doppler=DOPS, device="cpu")
     return ttracking.track_bank(config, torch.as_tensor(system.codes), states,
                                 torch.as_tensor(sre), torch.as_tensor(sim),
                                 ant_weights=ant_weights)

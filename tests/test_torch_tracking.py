@@ -79,7 +79,7 @@ def test_loop_filter_steps(order, fll_bandwidth):
         for a, b in zip(t_state, j_state):
             _close(a, b, atol=1e-4)
     with pytest.raises(ValueError):
-        tlf.step(tlf.init(), 0.0, 1e-3, 1.0, order=4)
+        tlf.step(tlf.init(device="cpu"), 0.0, 1e-3, 1.0, order=4)
 
 
 def test_cn0_ring_buffer_and_estimate():
@@ -130,7 +130,7 @@ def _random_state_tree(seed, k, num_taps=3, ms_elapsed=None):
 
 def test_state_numpy_round_trip_is_bit_exact():
     tree = _random_state_tree(3, 8)
-    state = ttracking.state_from_numpy(tree)
+    state = ttracking.state_from_numpy(tree, device="cpu")
     assert isinstance(state, ttracking.TrackState)
     assert state.prn.dtype == torch.int32 and state.cn0.index.dtype == torch.int32
     back = ttracking.state_to_numpy(state)
@@ -144,7 +144,7 @@ def test_init_state_matches_jax():
     want = jax.tree.map(np.asarray, jtracking.init_state(
         np.arange(5), carrier_doppler=dops, code_phase=3.5, ms_elapsed=2))
     got = ttracking.state_to_numpy(ttracking.init_state(
-        np.arange(5), carrier_doppler=dops, code_phase=3.5, ms_elapsed=2))
+        np.arange(5), carrier_doppler=dops, code_phase=3.5, ms_elapsed=2, device="cpu"))
     for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
@@ -189,7 +189,7 @@ def test_loop_update_matches_jax_vmap(name):
                         for _ in range(2))
 
     jstate = jax.tree.map(jnp.asarray, tree)
-    tstate = ttracking.state_from_numpy(tree)
+    tstate = ttracking.state_from_numpy(tree, device="cpu")
     # Three consecutive blocks, feeding each side its own state back.
     for step in range(3):
         a_re, a_im = are * (1 + 0.1 * step), aim * (1 - 0.1 * step)
@@ -223,10 +223,10 @@ def test_bf16_z_is_not_ported():
     cfg = ttracking.TrackConfig.for_system(system, 8.192e6, 8192,
                                            algorithm="pallas_bank_auto",
                                            z_dtype="bf16")
-    signal, _ = tmodels.gen_signal(system, 0, 300.0, 8192)
+    signal, _ = tmodels.gen_signal(system, 0, 300.0, 8192, device="cpu")
     sre, sim = (x[None] for x in tmodels.soa(signal))
     codes = torch.as_tensor(system.codes)
-    states = ttracking.init_state(np.arange(2), carrier_doppler=300.0)
+    states = ttracking.init_state(np.arange(2), carrier_doppler=300.0, device="cpu")
     _, out = ttracking.track_bank(cfg, codes, states, sre, sim)
     want = bank_comp.correlate_bank_comp_reference(
         sre[0], sim[0], codes, states.prn,
