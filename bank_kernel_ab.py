@@ -1,133 +1,166 @@
 #!/usr/bin/env python3
-"""Old-vs-new timing of the bank kernels on one card, in one process.
+"""Old-vs-new timing of the port's kernels on one card, in one process.
 
 Usage::
 
     mkdir -p build/old_csrc
-    git show <commit>:gpuacceleratedtracking_tpu_torch/csrc/bank_rows.cu > build/old_csrc/bank_rows.cu
-    git show <commit>:gpuacceleratedtracking_tpu_torch/csrc/bank_comp.cu > build/old_csrc/bank_comp.cu
-    python3 bank_kernel_ab.py --old build/old_csrc [--out chiprun_out/ab.json]
+    git archive <commit> gpuacceleratedtracking_tpu_torch/csrc \\
+      | tar -x --strip-components=2 -C build/old_csrc
+    python3 bank_kernel_ab.py --old build/old_csrc [--kernels taps fused] \\
+      [--params-interface] [--out chiprun_out/ab.json]
 
-``--old`` holds an earlier version of ``csrc/bank_rows.cu`` and
-``csrc/bank_comp.cu`` with the C interface they had before the code columns
-were packed: f32 ``[K, Lc]`` code columns, and the rows kernel's partials per
-4096-sample tile. They are built here with nvcc beside the current kernels.
-Both versions run on the same inputs at the main paths' shapes, in turns
-(old, new, new, old), each turn 20 CUDA-event-timed repetitions of 10
-back-to-back launches: once as eager launches, once as the replay of a CUDA
-graph of the 10 launches (device time, without the host's per-launch work,
-which is most of an eager launch below ~0.04 ms). The script prints
-per-launch medians and minima and the largest difference between the two
-versions' outputs. It then times the current rows and composite kernels'
-device time side by side over A in {1, 2, 4} and L in {3, 7} (K=1024,
-N=32768 at 32.768 MHz), the evidence a routing rule needs.
-The old sources are not part of the repository; put them in a directory that
-``.gitignore`` lists, such as ``build/``.
+``--old`` holds an earlier ``csrc/`` (its ``.cu`` sources and the headers
+they include). The script times each kernel whose old source it finds there
+(``bank_rows``, ``bank_comp``, ``taps``, ``fused``; ``--kernels`` picks
+some) against the current one. The old sources are built here with nvcc
+beside the current kernels and launched through the current launch
+functions with the old library in place of the new (`with_library`), so
+they must take the current C interface. The one exception is
+``--params-interface``: old ``taps.cu`` / ``fused.cu`` from before the
+kernels took the raw channel parameters, launched by `params_launcher` with
+a ``[4]`` f32 parameter tensor from `_channel_params`, the PRN's f32 code
+column, a device array of tap offsets, separate real and imaginary outputs
+and a scratch whose last word, the finish counter, must be zero at each
+launch (that launcher clears it with one 4-byte memset, which its timings
+include).
+
+Both versions run on the same inputs, in turns (old, new, new, old), each
+turn 20 CUDA-event-timed repetitions of 10 back-to-back launches: once as
+eager launches, once as the replay of a CUDA graph of the 10 launches
+(device time, without the host's per-launch work, which is most of an eager
+launch below ~0.04 ms). The script prints per-launch medians and minima and
+the largest difference between the two versions' outputs.
+
+- Bank kernels, at the main paths' shapes (K=1024, N=32768 GPS L1: rows,
+  one-hot, composite A=4 L=7 f32 and bf16; rows at N=2^18; GPS L5 K=128
+  transition), then the current rows and composite kernels' device time
+  side by side over A in {1, 2, 4} and L in {3, 7}, the evidence a routing
+  rule needs.
+- Per-channel kernels, at the paper sweep's corners N=32768 A=1 L=3 (where
+  most of its launches are) and N=2^18 A=4 L=7, and its smallest block
+  N=2^11; with the host time of a wrapper call (2000 calls enqueued without
+  a sync), the device time of a one-element PyTorch add (the floor any
+  launch pays), and the current kernels under other work splits (one
+  cluster per 4, 8 or 16 tiles) beside `work_split`'s, the evidence its
+  shape rule rests on.
+
+The old sources are not part of the repository; put them in a directory
+that ``.gitignore`` lists, such as ``build/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 REPS = 20
 PER_REP = 10
+KERNELS = ("bank_rows", "bank_comp", "taps", "fused")
 
 
-def build_old(old_dir: pathlib.Path) -> dict:
-    """nvcc each old source into ``old_dir``; the old C signatures."""
+def build_old(old_dir: pathlib.Path, stems, params_interface: bool) -> dict:
+    """nvcc each old source into ``old_dir``; the loaded libraries, their
+    entry points declared with the current C signatures (or, for
+    ``taps``/``fused`` with ``params_interface``, the parameter-tensor ones)."""
     from gpuacceleratedtracking_tpu_torch.ops import _build
 
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sigs = {
-        "bank_rows": ("bank_rows_launch", [P] * 9 + [I] * 6 + [F, F, P]),
-        "bank_comp": ("bank_comp_launch", [P] * 9 + [I] * 8 + [F, F, P]),
-    }
+    P, I = ctypes.c_void_p, ctypes.c_int
+    params_sigs = {"taps": {"taps_launch": ([P] * 7 + [I] * 4 + [P], I)},
+                   "fused": {"fused_launch": ([P] * 8 + [I] * 5 + [P], I)}}
     procs = {}
-    for stem in sigs:
+    for stem in stems:
         out = old_dir / f"libold_{stem}.so"
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out), str(old_dir / f"{stem}.cu")]
         procs[stem] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
-    fns = {}
+    libs = {}
     for stem, (out, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the old {stem}:\n{log}")
-        name, argtypes = sigs[stem]
-        fn = getattr(ctypes.CDLL(str(out)), name)
-        fn.argtypes, fn.restype = argtypes, I
-        fns[stem] = fn
-    return fns
+        lib = ctypes.CDLL(str(out))
+        sigs = params_sigs[stem] if params_interface and stem in params_sigs \
+            else _build.SIGNATURES[stem]
+        for name, (argtypes, restype) in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        libs[stem] = lib
+    return libs
 
 
-def case(system, n, k, num_ants, taps, seed):
-    """Bank inputs on the card: PRN 0 at 1500 Hz, random channels."""
-    from gpuacceleratedtracking_tpu_torch.models import (
-        EPLCorrelator, correlator_sample_shifts, gen_signal, soa)
+def with_library(libs: dict, launch):
+    """``launch`` (a current launch function's call) run with the libraries
+    in ``libs`` in place of the current ones of the same sources."""
+    from gpuacceleratedtracking_tpu_torch.ops import _build
 
-    rng = np.random.default_rng(seed)
-    fs = n / 1e-3
-    signal, _ = gen_signal(system, 0, 1500.0, n, num_ants=None if num_ants == 1 else num_ants)
-    sre, sim = soa(signal)
-    t = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device="cuda")  # noqa: E731
-    return dict(
-        signal_re=sre, signal_im=sim, codes=t(system.codes),
-        prn=t(np.arange(k) % 32, torch.int32),
-        carrier_frequency=t(1500.0 + rng.uniform(-4000.0, 4000.0, k)),
-        sampling_frequency=fs,
-        carrier_phase=t(rng.uniform(0, 2 * np.pi, k)),
-        code_frequency=t(system.code_frequency + rng.uniform(-3, 3, k)),
-        code_phase=t(rng.uniform(0, system.code_length, k)),
-        sample_shifts=tuple(int(s) for s in correlator_sample_shifts(
-            system, EPLCorrelator(taps), fs)),
-        code_length=system.code_length,
-        nominal_code_frequency=system.code_frequency,
-    )
+    def run():
+        current = _build.load_library
+        _build.load_library = lambda stem: libs[stem] if stem in libs else current(stem)
+        try:
+            return launch()
+        finally:
+            _build.load_library = current
+    return run
 
 
-def old_launcher(fns, bank, cols, comp: bool, bf16: bool = False):
-    """A callable launching the old kernel on a prepared call with f32 code
-    columns ``cols``; it returns the outputs."""
-    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+def params_launcher(lib, call):
+    """A callable launching an old per-channel kernel of the parameter-tensor
+    interface on a prepared `ChannelCall`; it returns the outputs."""
+    from gpuacceleratedtracking_tpu_torch.ops import channel_kernels, epl_kernels
 
-    shape = (bank.num_k, bank.num_ants, len(bank.deltas))
-    out_re = torch.empty(shape, dtype=torch.float32, device="cuda")
+    a, taps, n = call.num_ants, len(call.deltas), call.num_samples
+    tile = channel_kernels.TILE
+    out_re = torch.empty((a, taps), dtype=torch.float32, device="cuda")
     out_im = torch.empty_like(out_re)
-    deltas = epl_kernels._deltas(bank.deltas, bank.device)
-    rho, fcar = ctypes.c_float(bank.rho_nom), ctypes.c_float(bank.fcar_nom_cyc)
-    common = [bank.sre.data_ptr(), bank.sim.data_ptr(), cols.data_ptr(), bank.params.data_ptr(),
-              bank.base.data_ptr(), deltas.data_ptr()]
-    if comp:
-        tiles = -(-(bank.num_samples + bank.span) // 1024)
-        partial = torch.empty(shape[:1] + (tiles,) + shape[1:] + (4,), device="cuda")
-        args = common + [partial.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-                         bank.num_ants, len(bank.deltas), bank.num_samples, bank.num_k,
-                         bank.code_length, epl_kernels.TILE, bank.span, int(bf16), rho, fcar]
-        fn = fns["bank_comp"]
+    num_tiles = -(-n // tile)
+    scratch = torch.zeros(num_tiles * 2 * a * taps + 1, dtype=torch.float32, device="cuda")
+    counter = scratch[-1:]
+    params = call.params.contiguous()
+    if call.kernel == "taps":
+        args = [call.sre.data_ptr(), call.sim.data_ptr(), call.replica.data_ptr(),
+                params.data_ptr(), scratch.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+                a, taps, n, tile]
+        fn = lib.taps_launch
     else:
-        partial = torch.empty(shape[:1] + (bank.num_tiles,) + shape[1:] + (2,), device="cuda")
-        args = common + [partial.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-                         bank.num_ants, len(bank.deltas), bank.num_samples, bank.num_k,
-                         bank.code_length, epl_kernels.TILE, rho, fcar]
-        fn = fns["bank_rows"]
+        column = call.column.contiguous()
+        deltas = epl_kernels._deltas(call.deltas, call.device)
+        args = [call.sre.data_ptr(), call.sim.data_ptr(), column.data_ptr(),
+                params.data_ptr(), deltas.data_ptr(), scratch.data_ptr(), out_re.data_ptr(),
+                out_im.data_ptr(), a, taps, n, call.code_length, tile]
+        fn = lib.fused_launch
 
     def launch():
-        # The current stream at each call, so that a CUDA graph can capture it.
+        counter.zero_()
         if fn(*args, torch.cuda.current_stream().cuda_stream) != 0:
             raise RuntimeError("old kernel launch failed")
         return out_re, out_im
 
-    launch.keep = (cols, partial)
+    launch.keep = (params, scratch, args)
     return launch
+
+
+@contextlib.contextmanager
+def forced_split(split):
+    """The per-channel launches inside take ``split`` in place of
+    `work_split`'s."""
+    from gpuacceleratedtracking_tpu_torch.ops import channel_kernels
+
+    current = channel_kernels.work_split
+    channel_kernels.work_split = lambda num_samples: split
+    try:
+        yield
+    finally:
+        channel_kernels.work_split = current
 
 
 def time_ms(fn, graph=False) -> tuple[float, float]:
@@ -178,36 +211,63 @@ def in_turns(a, b) -> dict:
     return res
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--old", required=True,
-                        help="directory of the old bank_rows.cu, bank_comp.cu")
-    parser.add_argument("--out", help="also write the results as JSON here")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("bank_kernel_ab needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
+def compare(name, old, new, card, extra=None) -> dict:
+    """Time ``old`` against ``new`` in turns; print and return the result."""
+    diff = max(float((x - y).abs().max()) for x, y in zip(old(), new()))
+    scale = float(new()[0].abs().max())
+    res = in_turns(old, new)
+    res.update(max_abs_diff=diff, scale=scale, **(extra or {}))
+    print(f"[ab] {name}: eager old {res['old_ms']!r} ms (min {res['old_min_ms']!r}), new "
+          f"{res['new_ms']!r} ms (min {res['new_min_ms']!r}); device time old "
+          f"{res['old_device_ms']!r} ms (min {res['old_device_min_ms']!r}), new "
+          f"{res['new_device_ms']!r} ms (min {res['new_device_min_ms']!r}); "
+          f"max|old-new| {diff!r} (largest |acc| {scale!r})"
+          + "".join(f"; {k} {v!r}" for k, v in (extra or {}).items()) + f" [{card}]",
+          flush=True)
+    return res
+
+
+def bank_case(system, n, k, num_ants, taps, seed):
+    """Bank inputs on the card: PRN 0 at 1500 Hz, random channels."""
+    from gpuacceleratedtracking_tpu_torch.models import (
+        EPLCorrelator, correlator_sample_shifts, gen_signal, soa)
+
+    rng = np.random.default_rng(seed)
+    fs = n / 1e-3
+    signal, _ = gen_signal(system, 0, 1500.0, n, num_ants=None if num_ants == 1 else num_ants)
+    sre, sim = soa(signal)
+    t = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device="cuda")  # noqa: E731
+    return dict(
+        signal_re=sre, signal_im=sim, codes=t(system.codes),
+        prn=t(np.arange(k) % 32, torch.int32),
+        carrier_frequency=t(1500.0 + rng.uniform(-4000.0, 4000.0, k)),
+        sampling_frequency=fs,
+        carrier_phase=t(rng.uniform(0, 2 * np.pi, k)),
+        code_frequency=t(system.code_frequency + rng.uniform(-3, 3, k)),
+        code_phase=t(rng.uniform(0, system.code_length, k)),
+        sample_shifts=tuple(int(s) for s in correlator_sample_shifts(
+            system, EPLCorrelator(taps), fs)),
+        code_length=system.code_length,
+        nominal_code_frequency=system.code_frequency,
+    )
+
+
+def bank_prepared(c, route, z=None):
+    """A prepared bank call and its current launch."""
+    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, epl_kernels
+
+    c = dict(c, code_tiles=epl_kernels.prepare_bank_code_tiles_rows(c["codes"], c["prn"]))
+    if route == "pallas_bank_onehot":
+        del c["nominal_code_frequency"]
+    if route == "pallas_bank_comp":
+        bank = bank_comp.BankCompCall(**c, z_dtype=z)
+        return bank, lambda: bank_comp.launch_bank_comp(bank)
+    bank = epl_kernels.BankRowsCall(**c, route=route)
+    return bank, lambda: epl_kernels.launch_bank_rows(bank)
+
+
+def bank_ab(libs, card) -> dict:
     from gpuacceleratedtracking_tpu_torch.models import GPSL1, GPSL5
-    from gpuacceleratedtracking_tpu_torch.ops import _build, bank_comp, epl_kernels
-    from gpuacceleratedtracking_tpu_torch.ops.replica import code_columns
-
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"[ab] {card}", flush=True)
-    fns = build_old(pathlib.Path(args.old))
-    _build.build()
-
-    def prepared(c, route, z=None):
-        c = dict(c, code_tiles=epl_kernels.prepare_bank_code_tiles_rows(c["codes"], c["prn"]))
-        if route == "pallas_bank_onehot":
-            del c["nominal_code_frequency"]
-        if route == "pallas_bank_comp":
-            bank = bank_comp.BankCompCall(**c, z_dtype=z)
-            new = lambda: bank_comp.launch_bank_comp(bank)  # noqa: E731
-        else:
-            bank = epl_kernels.BankRowsCall(**c, route=route)
-            new = lambda: epl_kernels.launch_bank_rows(bank)  # noqa: E731
-        return bank, new
 
     cells = [
         # name, system, N, K, A, L, route, z
@@ -218,31 +278,21 @@ def main(argv=None) -> int:
         ("comp_k1024_a4_l7_f32", GPSL1(), 32768, 1024, 4, 7, "pallas_bank_comp", "f32"),
         ("comp_k1024_a4_l7_bf16", GPSL1(), 32768, 1024, 4, 7, "pallas_bank_comp", "bf16"),
     ]
-    results = {"card": card, "ab": {}, "rows_vs_comp": {}}
+    results = {"ab": {}, "rows_vs_comp": {}}
     for i, (name, system, n, k, a, taps, route, z) in enumerate(cells):
-        c = case(system, n, k, a, taps, seed=i)
-        bank, new = prepared(c, route, z)
-        comp = route == "pallas_bank_comp"
-        old = old_launcher(fns, bank, code_columns(c["codes"], c["prn"]), comp, bf16=z == "bf16")
-        diff = max(float((x - y).abs().max()) for x, y in zip(old(), new()))
-        scale = float(new()[0].abs().max())
-        res = in_turns(old, new)
-        res.update(max_abs_diff=diff, scale=scale)
-        results["ab"][name] = res
-        print(f"[ab] {name}: eager old {res['old_ms']!r} ms (min {res['old_min_ms']!r}), new "
-              f"{res['new_ms']!r} ms (min {res['new_min_ms']!r}); device time old "
-              f"{res['old_device_ms']!r} ms (min {res['old_device_min_ms']!r}), new "
-              f"{res['new_device_ms']!r} ms (min {res['new_device_min_ms']!r}); "
-              f"max|old-new| {diff!r} (largest |acc| {scale!r}) [{card}]", flush=True)
-        del bank, new, old, c
+        stem = "bank_comp" if route == "pallas_bank_comp" else "bank_rows"
+        if stem not in libs:
+            continue
+        _, new = bank_prepared(bank_case(system, n, k, a, taps, seed=i), route, z)
+        results["ab"][name] = compare(name, with_library(libs, new), new, card)
 
     # Device times, in turns rows, comp f32, comp bf16, then the reverse.
     for a in (1, 2, 4):
         for taps in (3, 7):
-            c = case(GPSL1(), 32768, 1024, a, taps, seed=10 + a + taps)
-            _, rows = prepared(c, "pallas_bank_rows")
-            _, comp = prepared(c, "pallas_bank_comp", "f32")
-            _, comp16 = prepared(c, "pallas_bank_comp", "bf16")
+            c = bank_case(GPSL1(), 32768, 1024, a, taps, seed=10 + a + taps)
+            _, rows = bank_prepared(c, "pallas_bank_rows")
+            _, comp = bank_prepared(c, "pallas_bank_comp", "f32")
+            _, comp16 = bank_prepared(c, "pallas_bank_comp", "bf16")
             r1, c1, h1 = (time_ms(f, graph=True) for f in (rows, comp, comp16))
             h2, c2, r2 = (time_ms(f, graph=True) for f in (comp16, comp, rows))
             res = {"rows_device_ms": statistics.median([r1[0], r2[0]]),
@@ -252,6 +302,122 @@ def main(argv=None) -> int:
             print(f"[ab] K=1024 N=32768 A={a} L={taps}, device time: rows "
                   f"{res['rows_device_ms']!r} ms, comp f32 {res['comp_f32_device_ms']!r} ms, "
                   f"comp bf16 {res['comp_bf16_device_ms']!r} ms [{card}]", flush=True)
+    return results
+
+
+def host_us(fn, calls=2000) -> float:
+    """Host time per call of ``fn`` in us: ``calls`` calls enqueued back to
+    back with no sync in between, so the host's work per call, not the
+    card's, sets the span (the kernels take a few us, a call tens)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def channel_args(n, a, taps, seed):
+    """One GPS L1 channel's registry arguments on the card, parameters as
+    device tensors."""
+    from gpuacceleratedtracking_tpu_torch.models import (
+        GPSL1, EPLCorrelator, correlator_sample_shifts, gen_signal, soa)
+
+    rng = np.random.default_rng(seed)
+    system = GPSL1()
+    signal, fs = gen_signal(system, 0, 1500.0, n, num_ants=None if a == 1 else a)
+    t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device="cuda")  # noqa: E731
+    shifts = correlator_sample_shifts(system, EPLCorrelator(taps), fs)
+    return (*soa(signal), torch.as_tensor(system.codes, device="cuda"), t(0, torch.int32),
+            t(1500.0 + rng.uniform(-100, 100)), fs, t(rng.uniform(0, 6.28)),
+            t(system.code_frequency), t(rng.uniform(0, 1023)),
+            tuple(int(s) for s in shifts), system.code_length)
+
+
+def channel_ab(libs, params_interface: bool, card) -> dict:
+    from gpuacceleratedtracking_tpu_torch.ops import channel_kernels
+
+    kinds = [kind for kind in ("taps", "fused") if kind in libs]
+    cells = [("n32768_a1_l3", 32768, 1, 3), ("n262144_a4_l7", 1 << 18, 4, 7),
+             ("n2048_a1_l3", 2048, 1, 3)]
+    results = {"ab": {}, "splits": {}}
+    for i, (name, n, a, taps) in enumerate(cells):
+        cargs = channel_args(n, a, taps, seed=i)
+        for kind in kinds:
+            call = channel_kernels.ChannelCall(*cargs, kind)
+            launch = getattr(channel_kernels, f"launch_{kind}")
+            new = lambda: launch(call)  # noqa: E731
+            old = params_launcher(libs[kind], call) if params_interface \
+                else with_library(libs, new)
+            wrapper = getattr(channel_kernels, f"correlate_pallas_{kind}")
+            results["ab"][f"{kind}_{name}"] = compare(
+                f"{kind} {name}", old, new, card,
+                {"wrapper_host_us": host_us(lambda: wrapper(*cargs))})
+
+    # The floor under these times: a one-element PyTorch add, timed the same
+    # way (a graph of 10 launches), is what any kernel launch costs.
+    one = torch.zeros(1, device="cuda")
+    med, mn = time_ms(lambda: one.add_(1.0), graph=True)
+    results["launch_floor"] = {"device_ms": med, "device_min_ms": mn}
+    print(f"[ab] launch floor, a one-element add: device time {med!r} ms (min {mn!r}) "
+          f"[{card}]", flush=True)
+
+    # The current kernels under other splits, device time: clusters of 4, 8
+    # or 16 CTAs, beside the split `work_split` takes.
+    for n, a, taps in ((8192, 1, 3), (16384, 1, 3), (32768, 1, 3), (1 << 18, 4, 7)):
+        cargs = channel_args(n, a, taps, seed=n)
+        tiles = -(-n // channel_kernels.TILE)
+        splits = {f"cluster{c}": channel_kernels.Split(tiles, -(-tiles // c) * c, c)
+                  for c in (4, 8, 16)}
+        splits["work_split"] = channel_kernels.work_split(n)
+        for kind in ("taps", "fused"):
+            call = channel_kernels.ChannelCall(*cargs, kind)
+            launch = getattr(channel_kernels, f"launch_{kind}")
+            row = {}
+            for key, split in splits.items():
+                with forced_split(split):
+                    med, mn = time_ms(lambda: launch(call), graph=True)
+                row[key] = {"split": [split.grid, split.cluster],
+                            "device_ms": med, "device_min_ms": mn}
+            results["splits"][f"{kind}_n{n}_a{a}_l{taps}"] = row
+            print(f"[ab] split {kind} N={n} A={a} L={taps}, device time (grid, cluster): "
+                  + ", ".join(f"{key} {tuple(v['split'])}: {v['device_ms']!r} ms"
+                              for key, v in row.items()) + f" [{card}]", flush=True)
+    return results
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--old", required=True, help="directory of the old csrc/ sources")
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=KERNELS,
+                        help="the kernels to time, of those whose old source is found")
+    parser.add_argument("--params-interface", action="store_true",
+                        help="the old taps.cu / fused.cu take a [4] parameter tensor")
+    parser.add_argument("--out", help="also write the results as JSON here")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("bank_kernel_ab needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from gpuacceleratedtracking_tpu_torch.ops import _build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[ab] {card}", flush=True)
+    old_dir = pathlib.Path(args.old)
+    stems = [s for s in args.kernels if (old_dir / f"{s}.cu").exists()]
+    if not stems:
+        raise RuntimeError(f"no old source of {args.kernels} in {old_dir}")
+    libs = build_old(old_dir, stems, args.params_interface)
+    _build.build()
+
+    results = {"card": card}
+    if {"bank_rows", "bank_comp"} & set(libs):
+        results["bank"] = bank_ab(libs, card)
+    if {"taps", "fused"} & set(libs):
+        results["channel"] = channel_ab(libs, args.params_interface, card)
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(results, indent=1))
     return 0

@@ -23,7 +23,11 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      K=2 with the span (-160, 0, 170) at N=4096, and K=1024 at N=32768;
    - ``taps`` and ``fused`` (one channel): the cases of tests/test_pallas.py
      (golden N=2500, PRN 5 with offsets, A=4, L=7, GPS L5, a wide span,
-     N=1000, L=7 natively at N=131072) and N=2^18 at A=4, L=7.
+     N=1000, L=7 natively at N=131072), N=2^18 at A=4, L=7, the sweep's
+     launch-weighted corner N=32768 and its smallest block N=2^11, ragged
+     blocks at A=4 (N=20000, and N=2^11+1, which takes the scalar loads),
+     ~2 chips per sample and a negative chip rate (the general chip wrap),
+     and a span past the fused kernel's replica row (its per-tap lookup).
 4. Main paths, each through the entry points a user calls, with every launch
    count set to 0 just before it and read just after:
    - rows: ``track_bank`` on a K=1024 GPS L1 bank at 32.768 MHz through
@@ -50,7 +54,10 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      L in {3, 7}, fused_xla / unfused_xla / pallas_fused / pallas_taps: 128
      configurations) and scripts/run_benchmarks_gpsl5.py (N = 2^15..2^18: 64),
      on the GPU with ``reps="auto"``; every kernel call must have launched
-     ``taps.cu`` or ``fused.cu``. One JSON file per configuration goes to
+     ``taps.cu`` or ``fused.cu``. The blocks of N <= 32768 run first, then
+     the larger ones, each part with the counts set to 0 before it and read
+     after it (``launches_n_le_32768`` in the ``kernels`` line is the first
+     part's count). One JSON file per configuration goes to
      ``kernel_sweep/`` beside ``--out`` (else under ``build/``);
    - D, closed loops on the new kernels: ``track`` on one GPS L1 satellite
      through ``pallas_fused`` (600 blocks at 50 dB-Hz from a 20 Hz / 0.2 chip
@@ -61,7 +68,10 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
 5. Times (CUDA events, after warm-up; medians and minima): each kernel vs its
    plain version at main-path shapes (every kernel, and the per-channel
    kernels' plain versions, also as device time from a CUDA graph replay:
-   ``ms`` in the ``kernels`` line, ``eager_ms`` beside it), the closed-loop
+   ``ms`` in the ``kernels`` line, ``eager_ms`` beside it; for ``taps`` and
+   ``fused`` at both sweep corners, N=32768 A=1 L=3 and N=2^18 A=4 L=7, with
+   the wrapper call's time and its device ops per call from torch.profiler,
+   under ``corners``), the closed-loop
    block of each path, and for ``bank_comp`` the library yardstick: one
    ``torch.matmul`` of a materialized ``[2K, U]`` Z against ``[U, 2AL]`` S
    (f32 with TF32 off, and bf16), which the port never calls.
@@ -362,11 +372,19 @@ CHANNEL_CELLS = {
     "sub_tile_n1000": ("GPSL1", 1000, 1, 3, 0, 500.0, 0.0, 0.0),
     "wide_n131072_l7": ("GPSL1", 131072, 1, 7, 0, 1500.0, 0.0, 0.0),
     "n262144_a4_l7": ("GPSL1", 262144, 4, 7, 0, 1500.0, 0.0, 0.0),
+    "n32768_l3": ("GPSL1", 32768, 1, 3, 7, -1200.0, 1.1, 311.7),
+    "n2048": ("GPSL1", 2048, 1, 3, 2, 900.0, 0.4, 17.25),
+    "ragged_n20000_a4": ("GPSL1", 20000, 4, 3, 1, 300.0, 2.0, 600.5),
+    "ragged_n2049_a4_l5": ("GPSL1", 2049, 4, 5, 1, 300.0, 2.0, 600.5),
+    "two_chips_per_sample_n512": ("GPSL1", 512, 1, 3, 0, 100.0, 0.0, 3.5),
+    "negative_rate_a2": ("GPSL1", 8192, 2, 3, 0, 100.0, 0.0, 3.5, -1.023e6),
+    "span_past_the_row": ("GPSL1", 8192, 1, (-4000, 0, 4000), 0, 1500.0, 0.0, 0.0),
 }
 
 
-def channel_args(gnss, n, a, taps, prn, fcar, phicar, phicode):
-    """The registry signature's arguments for one channel, on the card."""
+def channel_args(gnss, n, a, taps, prn, fcar, phicar, phicode, fcode=None):
+    """The registry signature's arguments for one channel, on the card
+    (``fcode``: the code frequency, by default the system's)."""
     from gpuacceleratedtracking_tpu_torch.models import (
         EPLCorrelator, correlator_sample_shifts, gen_signal, get_system, soa)
 
@@ -378,8 +396,8 @@ def channel_args(gnss, n, a, taps, prn, fcar, phicar, phicode):
         taps = correlator_sample_shifts(system, EPLCorrelator(taps), fs)
     t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=DEVICE)  # noqa: E731
     return (*soa(signal), torch.as_tensor(system.codes, device=DEVICE), t(prn, torch.int32),
-            t(fcar), fs, t(phicar), t(system.code_frequency), t(phicode),
-            tuple(int(d) for d in taps), system.code_length)
+            t(fcar), fs, t(phicar), t(system.code_frequency if fcode is None else fcode),
+            t(phicode), tuple(int(d) for d in taps), system.code_length)
 
 
 def channel_cells():
@@ -787,44 +805,54 @@ def dual_path(seed, num_blocks: int = 200):
 def sweep_path(out_dir):
     """Phase 4, C: the paper's per-channel kernel sweep through the port's
     `run_sweep` + `run_kernel_benchmark`, the grids of
-    scripts/run_benchmarks_gpsl1.py and run_benchmarks_gpsl5.py on the card.
-    Returns the two kernels' launch counts and the results."""
+    scripts/run_benchmarks_gpsl1.py and run_benchmarks_gpsl5.py on the card,
+    in two parts: the blocks of N <= N_1MS, where most of the sweep's
+    launches are, then the larger ones, each read from the launch counters
+    of its own run. Returns the two kernels' launch counts in all and in the
+    first part, and the results."""
     from gpuacceleratedtracking_tpu_torch.bench import run_kernel_benchmark, run_sweep
 
     algorithms = ["fused_xla", "unfused_xla", "pallas_fused", "pallas_taps"]
     grids = {"GPSL1": [2 ** e for e in range(11, 19)],
              "GPSL5": [2 ** e for e in range(15, 19)]}
-    expected = {"taps": 0, "fused": 0}
     results = []
-    reset_counts()
-    for gnss, sizes in grids.items():
-        params = {"GNSS": gnss, "num_samples": sizes, "num_ants": [1, 4],
-                  "num_correlators": [3, 7], "algorithm": algorithms,
-                  "processor": "GPU", "reps": "auto", "trials": SWEEP_TRIALS}
-        paths = run_sweep(params, run_kernel_benchmark, out_dir, resume=False,
-                          progress=False, skip_errors=False)
-        for path in paths:
-            r = json.loads(path.read_text())
-            tag = (f"{r['GNSS']} N={r['num_samples']} M={r['num_ants']} "
-                   f"L={r['num_correlators']} {r['algorithm']}")
-            check("error" not in r, f"sweep {tag}: {r.get('error')}")
-            check(all(math.isfinite(r[k]) and r[k] >= 0 for k in ("Minimum", "Median")),
-                  f"sweep {tag}: finite times")
-            check(r["backend"] == "cuda" and r["gpu_name"], f"sweep {tag} ran on the card")
-            if r["algorithm"].startswith("pallas_"):
-                # Warm-up and every trial run reps + 2 reps calls.
-                calls = 3 * r["reps_resolved"] * (SWEEP_TRIALS + 1)
-                expected[r["algorithm"][len("pallas_"):]] += calls
-            results.append(r)
-            log(f"[sweep] {tag}: median {r['Median'] * 1e3!r} ms, min {r['Minimum'] * 1e3!r} ms, "
-                f"realtime_ratio {r['realtime_ratio']!r} (reps {r['reps_resolved']})")
-    counts = read_counts()
+    parts = {}
+    for part, keep in (("small", lambda n: n <= N_1MS), ("large", lambda n: n > N_1MS)):
+        expected = {"taps": 0, "fused": 0}
+        reset_counts()
+        for gnss, sizes in grids.items():
+            params = {"GNSS": gnss, "num_samples": [n for n in sizes if keep(n)],
+                      "num_ants": [1, 4], "num_correlators": [3, 7], "algorithm": algorithms,
+                      "processor": "GPU", "reps": "auto", "trials": SWEEP_TRIALS}
+            paths = run_sweep(params, run_kernel_benchmark, out_dir, resume=False,
+                              progress=False, skip_errors=False)
+            for path in paths:
+                r = json.loads(path.read_text())
+                tag = (f"{r['GNSS']} N={r['num_samples']} M={r['num_ants']} "
+                       f"L={r['num_correlators']} {r['algorithm']}")
+                check("error" not in r, f"sweep {tag}: {r.get('error')}")
+                check(all(math.isfinite(r[k]) and r[k] >= 0 for k in ("Minimum", "Median")),
+                      f"sweep {tag}: finite times")
+                check(r["backend"] == "cuda" and r["gpu_name"], f"sweep {tag} ran on the card")
+                if r["algorithm"].startswith("pallas_"):
+                    # Warm-up and every trial run reps + 2 reps calls.
+                    calls = 3 * r["reps_resolved"] * (SWEEP_TRIALS + 1)
+                    expected[r["algorithm"][len("pallas_"):]] += calls
+                results.append(r)
+                log(f"[sweep] {tag}: median {r['Median'] * 1e3!r} ms, min "
+                    f"{r['Minimum'] * 1e3!r} ms, realtime_ratio {r['realtime_ratio']!r} "
+                    f"(reps {r['reps_resolved']})")
+        counts = read_counts()
+        check(counts == only(**expected) and min(expected.values()) > 0,
+              f"the sweep's kernel calls ({part} blocks) all launched taps.cu / fused.cu and "
+              f"no other kernel: got {counts}, want {only(**expected)}")
+        parts[part] = counts
     check(len(results) == 192, f"192 sweep configs, got {len(results)}")
-    check(counts == only(**expected) and min(expected.values()) > 0,
-          f"the sweep's kernel calls all launched taps.cu / fused.cu and no other kernel: "
-          f"got {counts}, want {only(**expected)}")
-    log(f"[sweep] 192 configs, launches={counts}; results in {out_dir}")
-    return counts, results
+    total = {name: parts["small"][name] + parts["large"][name] for name in counters()}
+    small = {name: parts["small"][name] for name in ("taps", "fused")}
+    log(f"[sweep] 192 configs, launches={total}, of which at N <= {N_1MS}: {small} "
+        f"(counted in a run of their own); results in {out_dir}")
+    return total, small, results
 
 
 def channel_loops(system, seed, sre, sim, num_blocks_lock: int = 600):
@@ -961,6 +989,21 @@ def ptxas_summary(log_path):
             lines.append(f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}")
             kernel = None
     return lines
+
+
+def device_ops_per_call(fn, calls=10):
+    """Device ops (kernels, copies, memsets) per call of ``fn``, counted by
+    torch.profiler over ``calls`` calls after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ops) / calls
 
 
 def time_cuda(fn, reps=TIMING_REPS, warmup=3):
@@ -1135,12 +1178,17 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
                 wrapper = getattr(channel_kernels, f"correlate_pallas_{kind}")
                 res = kernel_vs_plain(f"{kind} N={n} A={a} L={taps}", lambda: launch(call),
                                       lambda: plain(*args), card, samples=n, graphs=True)
-                res.update(bound((6 + 4 * taps) * a * n, "f32", call.sre, call.sim,
-                                 call.replica, call.params, out_elems=2 * a * taps))
+                # The inputs the kernel reads: the signal, the tap matrix or
+                # the PRN's code column, and the channel parameters.
+                replica = call.replica if kind == "taps" else call.column
+                res.update(bound((6 + 4 * taps) * a * n, "f32", call.sre, call.sim, replica,
+                                 call.params, out_elems=2 * a * taps))
                 w = time_cuda(lambda: wrapper(*args))
-                res.update(wrapper_ms=w[0], wrapper_min_ms=w[1])
+                ops = device_ops_per_call(lambda: wrapper(*args))
+                res.update(wrapper_ms=w[0], wrapper_min_ms=w[1], device_ops_per_call=ops)
                 log(f"[time] {kind} N={n} A={a} L={taps}: wrapper call incl. per-call "
-                    f"set-up median {w[0]!r} ms (min {w[1]!r}) [{card}]")
+                    f"set-up median {w[0]!r} ms (min {w[1]!r}); {ops!r} device ops per "
+                    f"wrapper call (torch.profiler) [{card}]")
                 results[f"{kind}_n{n}_a{a}_l{taps}"] = res
     del args, call
 
@@ -1254,7 +1302,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sweep_dir = (pathlib.Path(args.out).parent if args.out else pathlib.Path("build")) / \
         "kernel_sweep"
-    sweep_counts, sweep = sweep_path(sweep_dir)
+    sweep_counts, sweep_small, sweep = sweep_path(sweep_dir)
     launches.update(taps=sweep_counts["taps"], fused=sweep_counts["fused"])
     log(f"[phase] main path C, the kernel sweep, in {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
@@ -1305,6 +1353,16 @@ def main(argv=None) -> int:
                                else 1.0),
         "per": per_block[name][1], "library_ms": t.get("library_ms"), "clock": clock,
     } for name, source, replaces, t, (plain_key, clock) in entries]}
+    # taps and fused at both sweep corners: the launch-weighted one and the top.
+    corner_keys = {"ms": "kernel_graph_ms", "eager_ms": "kernel_ms", "plain_ms": "plain_graph_ms",
+                   "bound_ms": "bound_ms", "bound_by": "bound_by", "wrapper_ms": "wrapper_ms",
+                   "device_ops_per_call": "device_ops_per_call"}
+    for entry in kernels["kernels"][4:]:
+        name = entry["name"]
+        entry["launches_n_le_32768"] = sweep_small[name]
+        entry["corners"] = {
+            corner: {key: times[f"{name}_{corner}"][src] for key, src in corner_keys.items()}
+            for corner in (f"n{N_1MS}_a1_l3", top)}
     comp_bf16 = times["bank_comp_bf16"]
     kernels["kernels"][1].update(ms_bf16=comp_bf16["kernel_graph_ms"],
                                  eager_ms_bf16=comp_bf16["kernel_ms"],

@@ -9,93 +9,93 @@
 //
 //   acc[a,l] = sum_n s[a,n] * conj(exp(i 2pi (f n + theta))) * taps[l,n].
 //
-// What bounds it on the H100: device memory. Per sample it reads 8A bytes of
-// signal and 4L bytes of replica and does one sincospi and 2AL multiply-adds;
-// at N = 2^18, A = 4, L = 7 that is 15.7 MB (~5 us at 3.35 TB/s). Below
-// N ~ 2^16 the launch and the host's per-call set-up (the replica is built by
-// plain PyTorch ops) dominate.
+// What bounds it on the H100: device memory at the top of the paper's sweep.
+// Per sample it reads 8A bytes of signal and 4L bytes of replica and does
+// one sincospi and 2AL multiply-adds; at N = 2^18, A = 4, L = 7 that is
+// 15.7 MB (4.7 us at 3.35 TB/s). Below N ~ 2^16, where most calls are, the
+// kernel is latency: memory round trips, barriers and the cross-CTA finish.
 //
-// What the design does about it: the TPU kernel's row x lane carrier
-// factorization exists to keep transcendentals off the TPU's vector unit;
-// here each thread evaluates sincospif per sample and reads the signal and
-// the L replica rows coalesced, once each. The grid spreads the channel over
-// sample tiles, and one launch does the whole reduction (channel.cuh).
+// What the design does about it (channel.cuh holds the shared parts): the
+// launch is the whole call (the CTAs derive the carrier parameters from the
+// raw inputs); each thread's signal and tap-row loads, 16-byte vectors, are
+// all in flight before any arithmetic, one memory round trip per CTA; the
+// transpose warp sum, the cluster sum through distributed shared memory and
+// for more than one cluster a last-cluster finish in a fixed order. The
+// sincospif per sample stays (the tap rows, not the carrier, are the bytes).
 
 #include "channel.cuh"
 
 namespace {
 
+using channel::kPer;
 using channel::kThreads;
+using channel::kTile;
 
 template <int A, int L>
-__global__ void __launch_bounds__(kThreads)
-taps_kernel(const float* __restrict__ sre,        // [A, N]
-            const float* __restrict__ sim,        // [A, N]
-            const float* __restrict__ taps,       // [L, N]
-            const float4* __restrict__ params,    // [1]: f_cyc, phi_cyc, (rho, phi_code unused)
-            float* __restrict__ partial,          // [tiles, A, L, 2]
-            unsigned int* __restrict__ counter,   // zero before the launch
-            float* __restrict__ out_re,           // [A, L]
-            float* __restrict__ out_im,           // [A, L]
-            int num_samples, int tile) {
-  const float4 p = params[0];
-  const int n_begin = blockIdx.x * tile;
-  const float ph_car = channel::tile_carrier(p.x, p.y, n_begin);
+__global__ void __launch_bounds__(kThreads) taps_kernel(const channel::Args p) {
+  const int tid = threadIdx.x;
+  const int n_begin = blockIdx.x * kTile;
+  const int n = n_begin + kPer * tid;        // this thread's first sample
+  const channel::Raw raw = channel::read_raw(p);
+  float4 xr[A], xi[A], tap[L];
+  channel::load_rows<A>(p.sre, p.num_samples, n, p.vec, xr);
+  channel::load_rows<A>(p.sim, p.num_samples, n, p.vec, xi);
+  channel::load_rows<L>(p.table, p.num_samples, n, p.vec, tap);
+  channel::cluster_arrive();
+
+  const channel::Params q = channel::derive(p, raw);
+  const float ph_car = channel::tile_carrier(q.f_cyc, q.phi_cyc, n_begin);
 
   float acc[2 * A * L];
 #pragma unroll
   for (int i = 0; i < 2 * A * L; ++i) acc[i] = 0.0f;
-
-  const int n_end = min(n_begin + tile, num_samples);
-  for (int n = n_begin + static_cast<int>(threadIdx.x); n < n_end; n += kThreads) {
-    const float j = static_cast<float>(n - n_begin);
-    float sn, cs;
-    channel::carrier(j, p.x, ph_car, &sn, &cs);
-    float rep[L];
 #pragma unroll
-    for (int l = 0; l < L; ++l) rep[l] = taps[static_cast<size_t>(l) * num_samples + n];
+  for (int s = 0; s < kPer; ++s) {
+    float sn, cs;
+    channel::carrier(static_cast<float>(kPer * tid + s), q.f_cyc, ph_car, &sn, &cs);
 #pragma unroll
     for (int a = 0; a < A; ++a) {
-      const float xr = sre[static_cast<size_t>(a) * num_samples + n];
-      const float xi = sim[static_cast<size_t>(a) * num_samples + n];
-      const float dr = xr * cs + xi * sn;
-      const float di = xi * cs - xr * sn;
+      const float x_re = channel::lane_of(xr[a], s);
+      const float x_im = channel::lane_of(xi[a], s);
+      const float dr = x_re * cs + x_im * sn;
+      const float di = x_im * cs - x_re * sn;
 #pragma unroll
       for (int l = 0; l < L; ++l) {
-        acc[(a * L + l) * 2] += dr * rep[l];
-        acc[(a * L + l) * 2 + 1] += di * rep[l];
+        const float chip = channel::lane_of(tap[l], s);
+        acc[(a * L + l) * 2] += dr * chip;
+        acc[(a * L + l) * 2 + 1] += di * chip;
       }
     }
   }
-  channel::reduce_tiles<2 * A * L>(acc, partial, counter, out_re, out_im);
+  channel::finish<2 * A * L>(acc, p);
 }
 
 }  // namespace
 
-// Launch the taps correlator on `stream`. `scratch` holds tiles * 2AL floats
-// of partials followed by one zeroed word, the finish counter. Returns
-// cudaGetLastError() (cudaErrorInvalidValue for an antenna/tap count with no
-// instantiation).
-extern "C" int taps_launch(const float* sre, const float* sim, const float* taps,
-                           const float* params, float* scratch, float* out_re,
-                           float* out_im, int num_ants, int num_taps, int num_samples,
-                           int tile, void* stream) {
-  const int num_tiles = (num_samples + tile - 1) / tile;
-  float* partial = scratch;
-  unsigned int* counter = reinterpret_cast<unsigned int*>(
-      scratch + static_cast<size_t>(num_tiles) * 2 * num_ants * num_taps);
+// Launch the taps correlator on `stream` over `grid` CTAs, one tile each, in
+// clusters of `cluster` (ops/channel_kernels.py::work_split). `taps`: the [L, N] tap
+// matrix. The carrier parameters are read through their pointers where those
+// are not null, else taken by value. `scratch` and `out` as for fused_launch.
+// Returns the first CUDA error (cudaErrorInvalidValue for an antenna/tap
+// count with no instantiation).
+extern "C" int taps_launch(const float* sre, const float* sim, const float* taps, float* out,
+                           float* scratch, const float* fcar_ptr, const float* phicar_ptr,
+                           float fcar, float phicar, double fs, int num_ants, int num_taps,
+                           int num_samples, int vec, int grid, int cluster, void* stream) {
+  const int no_deltas[channel::kMaxTaps] = {};
+  const channel::Args args = channel::make_args(
+      sre, sim, taps, out, scratch, nullptr, fcar_ptr, phicar_ptr, nullptr, nullptr, 0, 0,
+      fcar, phicar, 0.0f, 0.0f, fs, no_deltas, 0, 0, num_samples, 1, 1, vec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TAPS_CASE(A_, L_)                                                          \
-  if (num_ants == A_ && num_taps == L_) {                                          \
-    taps_kernel<A_, L_><<<num_tiles, kThreads, 0, s>>>(                            \
-        sre, sim, taps, reinterpret_cast<const float4*>(params), partial, counter, \
-        out_re, out_im, num_samples, tile);                                        \
-  } else
+  cudaError_t err = cudaErrorInvalidValue;
+#define TAPS_CASE(A_, L_)                                                                 \
+  if (num_ants == A_ && num_taps == L_) {                                                 \
+    err = channel::launch<taps_kernel<A_, L_>>(args, grid, cluster, 0, s);                \
+  }
   TAPS_CASE(1, 3) TAPS_CASE(1, 5) TAPS_CASE(1, 7)
   TAPS_CASE(2, 3) TAPS_CASE(2, 5) TAPS_CASE(2, 7)
   TAPS_CASE(3, 3) TAPS_CASE(3, 5) TAPS_CASE(3, 7)
   TAPS_CASE(4, 3) TAPS_CASE(4, 5) TAPS_CASE(4, 7)
-  { return static_cast<int>(cudaErrorInvalidValue); }
 #undef TAPS_CASE
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -1,7 +1,8 @@
 """The port's default device: the card.
 
 The constructors that make tensors from host values (`models.gen_signal`,
-`models.gen_signal_mixed`, `tracking.init_state`, `tracking.state_from_numpy`,
+`models.gen_signal_mixed`, `models.gen_carrier`, `tracking.init_state`,
+`tracking.state_from_numpy`,
 `tracking.cn0.init`, `tracking.loop_filter.init`) take ``device="cuda"`` by
 default and raise where there is no card; they never fall back to the CPU. A
 CPU run asks for it with ``device="cpu"``. Functions that take tensors follow

@@ -58,13 +58,15 @@ def gen_carrier(
     carrier_frequency,
     sampling_frequency,
     start_carrier_phase,
-    device=None,
+    device=_device.DEFAULT,
 ) -> torch.Tensor:
-    """Unit-amplitude complex carrier ``exp(i(2 pi f/fs n + phi0))`` as complex64.
+    """Unit-amplitude complex carrier ``exp(i(2 pi f/fs n + phi0))`` as complex64,
+    on ``device`` (the card unless the caller asks for the CPU).
 
     The per-sample cycle count is wrapped before the 2*pi multiply to keep
     f32 accuracy at large N.
     """
+    device = _device.resolve(device)
     n = torch.arange(num_samples, dtype=torch.float32, device=device)
     f_cyc = rate(carrier_frequency, sampling_frequency, device)
     phi_cyc = torch.tensor(float(start_carrier_phase) / (2 * math.pi),

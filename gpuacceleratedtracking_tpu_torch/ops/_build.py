@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # C entry points per source: source stem -> {name: (argtypes, restype)}.
 SIGNATURES = {
@@ -54,19 +55,26 @@ SIGNATURES = {
     },
     "taps": {
         "taps_launch": (
-            [_P, _P, _P, _P, _P, _P, _P,           # sre sim taps params scratch out_re out_im
-             _I, _I, _I, _I,                       # ants taps samples tile
+            [_P, _P, _P, _P, _P,                   # sre sim taps out scratch
+             _P, _P, _F, _F, _D,                   # fcar_ptr phicar_ptr fcar phicar fs
+             _I, _I, _I, _I, _I, _I,               # ants taps samples vec grid cluster
              _P],                                  # stream
             _I,
         ),
+        "channel_capture_id": ([_P], ctypes.c_ulonglong),   # stream -> capture id or 0
     },
     "fused": {
         "fused_launch": (
-            [_P, _P, _P, _P, _P, _P, _P, _P,       # sre sim code params deltas scratch out_re out_im
-             _I, _I, _I, _I, _I,                   # ants taps samples code_length tile
+            [_P, _P, _P, _P, _P,                   # sre sim codes out scratch
+             _P, _P, _P, _P, _P,                   # prn fcar phicar fcode phicode pointers
+             _I, _I, _F, _F, _F, _F, _D,           # prn prn_is64 fcar phicar fcode phicode fs
+             _P, _I,                               # deltas (host int[L]) d_min
+             _I, _I, _I, _I, _I, _I,               # ants taps samples code_length prns vec
+             _I, _I,                               # grid cluster
              _P],                                  # stream
             _I,
         ),
+        "channel_capture_id": ([_P], ctypes.c_ulonglong),
     },
 }
 

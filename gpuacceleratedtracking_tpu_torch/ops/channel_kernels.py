@@ -15,6 +15,15 @@ by `_build`) or raise; CPU tensors run the plain version
 in PyTorch with the same f32 phase arithmetic. Every launch adds one to the
 wrapper's ``launches``.
 
+Launch contract: a `pallas_fused` call is one device op, the kernel. The
+kernel takes the raw channel parameters (Python scalars by value, one-element
+device tensors by pointer), derives ``(f_cyc, phi_cyc, rho, phi_code)`` with
+the roundings of `_channel_params`, reads the PRN's column from the code
+table itself, and takes the tap offsets by value; its scratch comes from a
+cache (`_scratch`). A `pallas_taps` call adds the plain replica ops that
+build its tap matrix. Nothing here reads a device value on the host or
+copies a host value to the card, so a tracking loop never waits on the card.
+
 Phase arithmetic shared by the kernels and the plain versions: the block is
 cut into tiles of `TILE` samples; per tile the carrier cycles ``f_cyc * n0``
 and code chips ``rho * n0`` at the tile start are computed exactly in float64
@@ -23,40 +32,87 @@ from the channel's own rates (``csrc/channel.cuh``), then
     carrier cycles at tile sample j: j * f_cyc + (phi_cyc + f32(frac(f_cyc * n0))),
                                      wrapped to [0, 1)
     phi_code + rho * n0 = c0 + frac    (whole chips added as integers, c0 in [0, Lc))
-    chip of tap l at tile sample j:  (floor((j + delta_l) * rho + frac) + c0) mod Lc
+    replica row of the tile:  chip(m) = (floor(m * rho + frac) + c0) mod Lc, m >= 0
+    tap l at tile sample j reads chip(j + delta_l)
 
 each product and sum rounded to f32 on its own (no fused multiply-add). The
-channel parameters stay device tensors: nothing here reads a device value
-on the host, so a tracking loop never waits on the card.
+row is the per-tap formula ``floor((j + delta_l) * rho + frac)`` evaluated
+once per position; ``j + delta_l`` is an exact small integer, so both round
+alike, bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 from typing import Sequence
 
 import torch
 
 from . import _build, registry
 from .correlate import _tap_matrix
-from .epl_kernels import KERNEL_ANTENNAS, KERNEL_TAPS, _channel_params, _deltas
+from .epl_kernels import KERNEL_ANTENNAS, KERNEL_TAPS, _channel_params
 from .replica import _TWO_PI_F32, code_columns, gen_code_replica
 
-TILE = 1024                  # samples per CTA: N = 2048 spans 2 CTAs, N = 2^18 spans 256
+TILE = 1024                  # samples per phase tile and CTA: N = 2^18 spans 256 CTAs
+MAX_CLUSTER = 16             # a channel of up to 16 tiles is one thread block cluster
+CLUSTER = 8                  # larger channels: clusters of 8, one partial each
+_SCRATCH_HEAD = 4            # floats before the partials: the finish counter, padded
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a launch covers a channel's tiles: CTA ``b`` (256 threads) takes
+    tile ``b`` (CTAs past the last tile add zeros), and each ``cluster``
+    consecutive CTAs form a thread block cluster."""
+    tiles: int
+    grid: int
+    cluster: int
+
+    @property
+    def clusters(self) -> int:
+        return self.grid // self.cluster
+
+
+def work_split(num_samples: int) -> Split:
+    """The kernels' work split for ``num_samples`` samples, one tile per
+    CTA. Up to `MAX_CLUSTER` tiles are one cluster (a power of two of CTAs),
+    whose CTAs sum through distributed shared memory and write the result.
+    Past that, clusters of `CLUSTER`, which leave one partial each for the
+    last cluster to sum (at N = 2^18, 256 CTAs: two per SM of an H100)."""
+    tiles = -(-int(num_samples) // TILE)
+    if tiles < 1:
+        raise ValueError("a per-channel kernel needs at least one sample")
+    cluster = 1 << (tiles - 1).bit_length() if tiles <= MAX_CLUSTER else CLUSTER
+    return Split(tiles, -(-tiles // cluster) * cluster, cluster)
+
+
+def _one_channel(kernel, *params) -> None:
+    """Raise unless every channel parameter holds one value."""
+    for p in params:
+        if isinstance(p, torch.Tensor) and p.numel() != 1:
+            raise ValueError(f"{kernel} correlates one channel; got parameters of "
+                             f"{p.numel()} channels")
 
 
 class ChannelCall:
-    """Everything a per-channel kernel and its plain version take, computed
-    once per call from the registry signature's arguments.
+    """Everything a per-channel kernel and its plain version take, from the
+    registry signature's arguments.
 
     ``kernel`` is ``"taps"`` (the ``[L, N]`` tap matrix is built here, by the
     plain replica path, as the JAX wrapper builds it) or ``"fused"`` (the
-    PRN's ``[Lc]`` code column is taken here; the kernel makes the replica).
-    The channel parameters are scalars or one-element tensors.
+    kernel makes the replica from the code table). The channel parameters are
+    scalars or one-element tensors and stay as given: the kernels derive
+    their f32 parameters themselves, and the plain versions' `params` and
+    `column` are computed on first use.
     """
 
     def __init__(self, signal_re, signal_im, codes, prn, carrier_frequency,
                  sampling_frequency, carrier_phase, code_frequency, code_phase,
                  sample_shifts, code_length, kernel):
+        if kernel not in ("taps", "fused"):
+            raise ValueError(f"unknown per-channel kernel {kernel!r}")
         self.kernel = kernel
         self.squeeze = signal_re.ndim == 1
         if self.squeeze:
@@ -64,27 +120,35 @@ class ChannelCall:
         self.sre, self.sim = signal_re, signal_im
         self.device = signal_re.device
         self.num_ants, self.num_samples = signal_re.shape
-        d_min = int(min(sample_shifts))
-        self.deltas = tuple(int(d) - d_min for d in sample_shifts)
+        self.codes, self.prn = codes, prn
+        self.carrier_frequency, self.carrier_phase = carrier_frequency, carrier_phase
+        self.code_frequency, self.code_phase = code_frequency, code_phase
+        _one_channel(kernel, prn, carrier_frequency, carrier_phase, code_frequency,
+                     code_phase)
+        self.d_min = int(min(sample_shifts))
+        self.deltas = tuple(int(d) - self.d_min for d in sample_shifts)
+        self.span = max(self.deltas)
         self.code_length = int(code_length)
-        fs = float(sampling_frequency)
-        self.params = _channel_params(carrier_frequency, fs, carrier_phase,
-                                      code_frequency, code_phase, d_min,
-                                      self.device).reshape(-1)
-        if self.params.shape != (4,):
-            raise ValueError(
-                f"{kernel} correlates one channel; got parameters of "
-                f"{self.params.numel() // 4} channels")
+        self.fs = float(sampling_frequency)
         self.num_tiles = -(-self.num_samples // TILE)
         if kernel == "taps":
-            rep = gen_code_replica(codes, prn, code_frequency, fs, code_phase,
-                                   self.num_samples, d_min, int(max(sample_shifts)),
+            rep = gen_code_replica(codes, prn, code_frequency, self.fs, code_phase,
+                                   self.num_samples, self.d_min, int(max(sample_shifts)),
                                    self.code_length)
             self.replica = _tap_matrix(rep, sample_shifts, self.num_samples)
-        elif kernel == "fused":
-            self.replica = code_columns(codes, prn).reshape(-1)
-        else:
-            raise ValueError(f"unknown per-channel kernel {kernel!r}")
+
+    @functools.cached_property
+    def params(self) -> torch.Tensor:
+        """``[4]`` f32 ``(f_cyc, phi_cyc, rho, phi_code)`` (`_channel_params`),
+        for the plain versions."""
+        return _channel_params(self.carrier_frequency, self.fs, self.carrier_phase,
+                               self.code_frequency, self.code_phase, self.d_min,
+                               self.device).reshape(-1)
+
+    @functools.cached_property
+    def column(self) -> torch.Tensor:
+        """The PRN's ``[Lc]`` code column, for the plain fused version."""
+        return code_columns(self.codes, self.prn).reshape(-1)
 
     def finish(self, out_re, out_im):
         if self.squeeze:
@@ -114,6 +178,15 @@ def _tile_phases(call: ChannelCall):
     return ph_car, chip0, frac - f_whole
 
 
+def _replica_row(call: ChannelCall, chip0: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+    """``[tiles, TILE + span]`` chip indices of the tiles' replica rows,
+    ``(floor(m * rho + frac) + c0) mod Lc`` at position m — ``csrc/fused.cu``'s
+    row; tap l at tile sample j reads position ``j + delta_l``."""
+    m = torch.arange(TILE + call.span, dtype=torch.float32, device=call.device)
+    x = m * call.params[2] + frac[:, None]
+    return torch.remainder(torch.floor(x).long() + chip0[:, None], call.code_length)
+
+
 def _wipe_off(call: ChannelCall, ph_car: torch.Tensor):
     """``[A, tiles, TILE]`` wiped-off planes over the zero-padded block."""
     nt = call.num_tiles
@@ -139,15 +212,12 @@ def _taps_plain(call: ChannelCall) -> tuple[torch.Tensor, torch.Tensor]:
 def _fused_plain(call: ChannelCall) -> tuple[torch.Tensor, torch.Tensor]:
     ph_car, chip0, frac = _tile_phases(call)
     dw_re, dw_im = _wipe_off(call, ph_car)
-    j = torch.arange(TILE, dtype=torch.float32, device=call.device)
-    rho = call.params[2]
+    row = call.column[_replica_row(call, chip0, frac)]                   # [nt, T + span]
     shape = (call.num_ants, len(call.deltas))
     out_re = torch.empty(shape, dtype=torch.float32, device=call.device)
     out_im = torch.empty_like(out_re)
     for l, delta in enumerate(call.deltas):
-        x = (j + float(delta)) * rho + frac[:, None]                     # [nt, T]
-        chip = torch.floor(x).long() + chip0[:, None]
-        rep = call.replica[torch.remainder(chip, call.code_length)]
+        rep = row[:, delta:delta + TILE]
         out_re[:, l] = (dw_re * rep).sum(dim=(-2, -1))
         out_im[:, l] = (dw_im * rep).sum(dim=(-2, -1))
     return out_re, out_im
@@ -157,8 +227,9 @@ _PLAIN = {"taps": _taps_plain, "fused": _fused_plain}
 
 
 def _check_kernel_inputs(call: ChannelCall) -> None:
+    table = call.replica if call.kernel == "taps" else call.codes
     tensors = {"signal_re": call.sre, "signal_im": call.sim,
-               "replica": call.replica, "params": call.params}
+               "replica" if call.kernel == "taps" else "codes": table}
     for name, t in tensors.items():
         if t.device != call.device:
             raise ValueError(f"{name} is on {t.device}, the signal on {call.device}")
@@ -174,41 +245,128 @@ def _check_kernel_inputs(call: ChannelCall) -> None:
             f"{call.kernel} kernel takes A in {KERNEL_ANTENNAS} and L in "
             f"{KERNEL_TAPS}, got A={call.num_ants}, L={len(call.deltas)}"
         )
-    want = ((len(call.deltas), call.num_samples) if call.kernel == "taps"
-            else (call.code_length,))
-    if call.replica.shape != want:
-        raise ValueError(f"replica shape {tuple(call.replica.shape)} != {want}")
-    if call.num_samples >= 1 << 24:
-        raise ValueError(f"{call.kernel} kernel takes N < 2^24")
+    if call.kernel == "taps":
+        want = (len(call.deltas), call.num_samples)
+        if call.replica.shape != want:
+            raise ValueError(f"replica shape {tuple(call.replica.shape)} != {want}")
+    elif call.codes.ndim != 2 or call.codes.shape[0] != call.code_length:
+        raise ValueError(f"codes must be [Lc={call.code_length}, P], got "
+                         f"{tuple(call.codes.shape)}")
+    if not 0 < call.num_samples < 1 << 24:
+        raise ValueError(f"{call.kernel} kernel takes 0 < N < 2^24")
 
 
-def _launch(call: ChannelCall, kernel: str) -> tuple[torch.Tensor, torch.Tensor]:
+# Scratch of eager launches per (device, stream, size), and of the launches
+# of the CUDA graph capture under way per (device, stream, size, capture id):
+# word 0 is the finish counter, which a launch finds at zero and leaves at
+# zero, then the per-cluster partials.
+_SCRATCH: dict = {}
+_CAPTURE_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, stream: int, capture: int, num_floats: int) -> torch.Tensor:
+    """The zeroed scratch of a launch on ``stream`` that takes ``num_floats``,
+    under the CUDA graph capture ``capture`` (0: none).
+
+    Two kernels running at once must not share a scratch: both would count
+    on word 0 and overwrite each other's partials. Launches on one stream run
+    one after the other, so eager launches share one buffer per stream. A
+    captured launch runs wherever and whenever its graph is replayed, beside
+    other graphs captured on the same stream, so each capture takes buffers
+    of its own, made and zeroed inside the capture (one zero fill in the
+    graph per stream and size). They lie in the graph's private memory pool,
+    which holds them for as long as the graph lives, so only the capture
+    under way keeps them here.
+    """
+    if capture:
+        if any(key[3] != capture for key in _CAPTURE_SCRATCH):
+            _CAPTURE_SCRATCH.clear()
+        cache, key = _CAPTURE_SCRATCH, (device, stream, num_floats, capture)
+    else:
+        cache, key = _SCRATCH, (device, stream, num_floats)
+    buf = cache.get(key)
+    if buf is None:
+        buf = cache[key] = torch.zeros(num_floats, dtype=torch.float32, device=device)
+    return buf
+
+
+@functools.lru_cache(maxsize=64)
+def _deltas_arg(deltas: tuple) -> ctypes.Array:
+    return (ctypes.c_int * len(deltas))(*deltas)
+
+
+def _param_arg(x, device: torch.device, keep: list):
+    """``(pointer, value)`` of one channel parameter: a CUDA tensor by
+    pointer (as f32), anything else by value."""
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+        if x.device != device:
+            raise ValueError(f"a channel parameter is on {x.device}, the signal on {device}")
+        if x.dtype != torch.float32:
+            x = x.float()
+            keep.append(x)
+        return x.data_ptr(), 0.0
+    return None, float(x)
+
+
+def _prn_arg(prn, device: torch.device, num_prns: int, keep: list):
+    """``(pointer, value, is_int64)`` of the PRN: a CUDA tensor by pointer
+    (the kernel traps on one outside ``[0, P)``), anything else by value,
+    with Python's negative indexing."""
+    if isinstance(prn, torch.Tensor) and prn.device.type == "cuda":
+        if prn.device != device:
+            raise ValueError(f"prn is on {prn.device}, the signal on {device}")
+        if prn.dtype not in (torch.int32, torch.int64):
+            prn = prn.long()
+            keep.append(prn)
+        return prn.data_ptr(), 0, int(prn.dtype == torch.int64)
+    value = int(prn)
+    if not -num_prns <= value < num_prns:
+        raise IndexError(f"PRN {value} is outside a table of {num_prns} codes")
+    return None, value % num_prns, 0
+
+
+def _launch(call: ChannelCall, kernel: str):
     if call.device.type != "cuda":
         raise ValueError(f"the {kernel} kernel takes CUDA tensors, not {call.device}")
     if call.kernel != kernel:
         raise ValueError(f"a call prepared for {call.kernel!r} cannot launch {kernel!r}")
     _check_kernel_inputs(call)
+    split = work_split(call.num_samples)
     lib = _build.load_library(kernel)
     num_taps = len(call.deltas)
     out = torch.empty((2, call.num_ants, num_taps), dtype=torch.float32, device=call.device)
-    # Per-tile partials, then one zeroed word: the kernel's finish counter.
-    scratch = torch.zeros(call.num_tiles * 2 * call.num_ants * num_taps + 1,
-                          dtype=torch.float32, device=call.device)
-    stream = torch.cuda.current_stream(call.device).cuda_stream
+    # The current stream's handle (what torch.cuda.current_stream(device)
+    # .cuda_stream gives, without building a Stream object per call).
+    stream = torch._C._cuda_getCurrentRawStream(call.device.index)
+    scratch = 0                            # a one-cluster grid takes none
+    if split.clusters > 1:
+        scratch = _scratch(call.device, stream, lib.channel_capture_id(stream),
+                           _SCRATCH_HEAD + split.clusters * 2 * call.num_ants * num_taps
+                           ).data_ptr()
+    keep = []
+    fcar = _param_arg(call.carrier_frequency, call.device, keep)
+    phicar = _param_arg(call.carrier_phase, call.device, keep)
+    table = call.replica if kernel == "taps" else call.codes
+    rows = (call.sre, call.sim, table) if kernel == "taps" else (call.sre, call.sim)
+    vec = int(call.num_samples % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows))
     if kernel == "taps":
         err = lib.taps_launch(
-            call.sre.data_ptr(), call.sim.data_ptr(), call.replica.data_ptr(),
-            call.params.data_ptr(), scratch.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), call.num_ants, num_taps, call.num_samples, TILE, stream)
+            call.sre.data_ptr(), call.sim.data_ptr(), table.data_ptr(), out.data_ptr(),
+            scratch, fcar[0], phicar[0], fcar[1], phicar[1], call.fs, call.num_ants,
+            num_taps, call.num_samples, vec, split.grid, split.cluster, stream)
     else:
+        prn = _prn_arg(call.prn, call.device, table.shape[1], keep)
+        fcode = _param_arg(call.code_frequency, call.device, keep)
+        phicode = _param_arg(call.code_phase, call.device, keep)
         err = lib.fused_launch(
-            call.sre.data_ptr(), call.sim.data_ptr(), call.replica.data_ptr(),
-            call.params.data_ptr(), _deltas(call.deltas, call.device).data_ptr(),
-            scratch.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            call.num_ants, num_taps, call.num_samples, call.code_length, TILE, stream)
+            call.sre.data_ptr(), call.sim.data_ptr(), table.data_ptr(), out.data_ptr(),
+            scratch, prn[0], fcar[0], phicar[0], fcode[0], phicode[0], prn[1], prn[2],
+            fcar[1], phicar[1], fcode[1], phicode[1], call.fs, _deltas_arg(call.deltas),
+            call.d_min, call.num_ants, num_taps, call.num_samples, call.code_length,
+            table.shape[1], vec, split.grid, split.cluster, stream)
     if err != 0:
         raise RuntimeError(f"{kernel}_launch failed with CUDA error {err}")
-    return out[0], out[1]
+    return out.unbind(0)
 
 
 def launch_taps(call: ChannelCall) -> tuple[torch.Tensor, torch.Tensor]:
@@ -282,7 +440,7 @@ def correlate_pallas_taps(
 
     ``signal_*``: ``[N]`` or ``[A, N]``. Returns ``[L]`` / ``[A, L]`` f32
     accumulators. CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise. The kernel's scratch is cached as `_scratch` says.
     """
     return _run(ChannelCall(signal_re, signal_im, codes, prn, carrier_frequency,
                             sampling_frequency, carrier_phase, code_frequency,
@@ -307,7 +465,14 @@ def correlate_pallas_fused(
 
     ``signal_*``: ``[N]`` or ``[A, N]``. Returns ``[L]`` / ``[A, L]`` f32
     accumulators. CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise. On the card a call is one device op: the kernel reads
+    the raw channel parameters (device tensors by pointer) and the PRN's
+    column itself. Its scratch, a finish counter that every launch leaves at
+    zero and the per-cluster partials (a channel of more than 16 tiles), is
+    cached per (device, stream, size) for eager launches and per capture for
+    launches captured in a CUDA graph (`_scratch`): two kernels that may run
+    at once, on two streams or in two graphs, never share one, since both
+    would count on the one counter and overwrite each other's partials.
     """
     return _run(ChannelCall(signal_re, signal_im, codes, prn, carrier_frequency,
                             sampling_frequency, carrier_phase, code_frequency,

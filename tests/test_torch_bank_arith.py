@@ -117,6 +117,7 @@ def _constructors(device):
         "gen_signal": lambda: tmodels.gen_signal(system, 0, 1500.0, 2048, **kw)[0],
         "gen_signal_mixed": lambda: tmodels.gen_signal_mixed(system, [0, 1], [100.0, -200.0],
                                                              2048, **kw)[0],
+        "gen_carrier": lambda: tmodels.gen_carrier(2048, 1500.0, 2.048e6, 0.3, **kw),
         "init_state": lambda: ttracking.init_state(np.arange(3), carrier_doppler=250.0,
                                                    **kw).carrier_doppler,
         "state_from_numpy": lambda: ttracking.state_from_numpy(tree, **kw).carrier_doppler,
@@ -125,7 +126,7 @@ def _constructors(device):
     }
 
 
-CONSTRUCTORS = ["cn0.init", "gen_signal", "gen_signal_mixed", "init_state",
+CONSTRUCTORS = ["cn0.init", "gen_carrier", "gen_signal", "gen_signal_mixed", "init_state",
                 "loop_filter.init", "state_from_numpy"]
 
 
@@ -138,6 +139,7 @@ def test_constructors_on_the_cpu_when_asked(name):
         "gen_signal": lambda: np.asarray(jmodels.gen_signal(jmodels.GPSL1(), 0, 1500.0, 2048)[0]),
         "gen_signal_mixed": lambda: np.asarray(jmodels.gen_signal_mixed(
             jmodels.GPSL1(), [0, 1], [100.0, -200.0], 2048)[0]),
+        "gen_carrier": lambda: np.asarray(jmodels.gen_carrier(2048, 1500.0, 2.048e6, 0.3)),
         "init_state": lambda: np.full(3, 250.0, np.float32),
         "state_from_numpy": lambda: np.array([1.0, 2.0, 3.0], np.float32),
         "cn0.init": lambda: np.zeros(20, np.float32),

@@ -5,13 +5,18 @@ neither jax nor the JAX package, so it runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import pathlib
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
 
 from gpuacceleratedtracking_tpu_torch.models import (
-    GPSL1, GPSL5, EPLCorrelator, correlator_sample_shifts, gen_signal, gen_signal_mixed,
-    soa)
+    GPSL1, GPSL5, EPLCorrelator, correlator_sample_shifts, gen_carrier, gen_signal,
+    gen_signal_mixed, soa)
 from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels, registry
 from gpuacceleratedtracking_tpu_torch.tracking import (
     TrackConfig, dual_config, init_state, state_from_numpy, track, track_bank,
@@ -227,10 +232,11 @@ def test_rows_kernel_takes_packed_columns(cuda, name):
 def test_constructors_default_to_the_card(cuda):
     signal, _ = gen_signal(SYSTEM, 0, 1500.0, 4096)
     mixed, _ = gen_signal_mixed(SYSTEM, [0, 1], [100.0, -200.0], 4096)
+    carrier = gen_carrier(4096, 1500.0, 4.096e6, 0.3)
     state = init_state(np.arange(4), carrier_doppler=100.0)
     from gpuacceleratedtracking_tpu_torch.tracking import cn0, loop_filter, state_to_numpy
     state2 = state_from_numpy(state_to_numpy(state))
-    tensors = [signal, mixed, cn0.init(20).prompts_re, loop_filter.init(1.0).x1,
+    tensors = [signal, mixed, carrier, cn0.init(20).prompts_re, loop_filter.init(1.0).x1,
                *(x for x in state if isinstance(x, torch.Tensor)),
                *(x for x in state2 if isinstance(x, torch.Tensor))]
     assert all(x.device.type == "cuda" for x in tensors)
@@ -318,11 +324,22 @@ CHANNEL_CASES = {
     "sub_tile": (SYSTEM, 1000, 1, 3, 0, 500.0, 0.0, 0.0),
     "wide_n131072_l7": (SYSTEM, 131072, 1, 7, 0, 1500.0, 0.0, 0.0),
     "n262144_a4_l7": (SYSTEM, 262144, 4, 7, 0, 1500.0, 0.0, 0.0),
+    # The sweep's launch-weighted corner, its smallest block, ragged blocks
+    # (N % 4 != 0 takes the scalar loads), ~2 chips per sample and a
+    # negative chip rate (the general chip wrap), and a span past the fused
+    # kernel's replica row (its per-tap lookup branch).
+    "n32768_l3": (SYSTEM, 32768, 1, 3, 7, -1200.0, 1.1, 311.7),
+    "n2048": (SYSTEM, 2048, 1, 3, 2, 900.0, 0.4, 17.25),
+    "ragged_n20000_a4": (SYSTEM, 20000, 4, 3, 1, 300.0, 2.0, 600.5),
+    "ragged_n2049_a4": (SYSTEM, 2049, 4, 5, 1, 300.0, 2.0, 600.5),
+    "two_chips_per_sample": (SYSTEM, 512, 1, 3, 0, 100.0, 0.0, 3.5),
+    "negative_rate": (SYSTEM, 8192, 2, 3, 0, 100.0, 0.0, 3.5, -SYSTEM.code_frequency),
+    "span_past_the_row": (SYSTEM, 8192, 1, (-4000, 0, 4000), 0, 1500.0, 0.0, 0.0),
 }
 
 
-def _channel_args(device, name):
-    system, n, a, taps, prn, fcar, phicar, phicode = CHANNEL_CASES[name]
+def _channel_args(device, name, prn_dtype=torch.int32):
+    system, n, a, taps, prn, fcar, phicar, phicode, *fcode = CHANNEL_CASES[name]
     signal, fs = gen_signal(system, prn, fcar, n, num_ants=None if a == 1 else a,
                             start_code_phase=phicode, start_carrier_phase=phicar,
                             device=device)
@@ -330,15 +347,22 @@ def _channel_args(device, name):
         taps = correlator_sample_shifts(system, EPLCorrelator(taps), fs)
     t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=device)  # noqa: E731
     return (*soa(signal), torch.as_tensor(system.codes, device=device),
-            t(prn, torch.int32), t(fcar), fs, t(phicar), t(system.code_frequency),
-            t(phicode), tuple(int(s) for s in taps), system.code_length)
+            prn if prn_dtype is int else t(prn, prn_dtype), t(fcar), fs, t(phicar),
+            t(fcode[0] if fcode else system.code_frequency), t(phicode),
+            tuple(int(s) for s in taps), system.code_length)
+
+
+def _assert_channel_close(got, want, n):
+    # Same phase and chip arithmetic: the sums differ in order only
+    # (relative 1e-6 of the block length).
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.device.type == "cuda"
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * n + 1e-3)
 
 
 @pytest.mark.parametrize("kernel", ["taps", "fused"])
 @pytest.mark.parametrize("name", sorted(CHANNEL_CASES))
 def test_channel_kernel_matches_plain_version(cuda, name, kernel):
-    # Same phase and chip arithmetic as the plain version: the sums differ
-    # in order only (relative 1e-6 of the block length).
     fn = getattr(channel_kernels, f"correlate_pallas_{kernel}")
     plain = getattr(channel_kernels, f"correlate_{kernel}_reference")
     args = _channel_args(cuda, name)
@@ -347,10 +371,7 @@ def test_channel_kernel_matches_plain_version(cuda, name, kernel):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     want = plain(*args)
-    n = args[0].shape[-1]
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and g.device.type == "cuda"
-        torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * n + 1e-3)
+    _assert_channel_close(got, want, args[0].shape[-1])
     if name in ("golden", "multi_antenna"):
         torch.testing.assert_close(got[0].reshape(-1, 3),
                                    torch.tensor([[1476.0, 2500.0, 1476.0]], device=cuda)
@@ -364,6 +385,151 @@ def test_channel_kernel_is_deterministic(cuda, kernel):
     a, b = fn(*args), fn(*args)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("prn_dtype", [int, torch.int32, torch.int64])
+def test_fused_kernel_takes_the_prn_as_an_int_or_a_tensor(cuda, prn_dtype):
+    args = _channel_args(cuda, "offsets", prn_dtype=prn_dtype)
+    got = channel_kernels.correlate_pallas_fused(*args)
+    want = channel_kernels.correlate_fused_reference(*_channel_args(cuda, "offsets"))
+    _assert_channel_close(got, want, 4096)
+
+
+def test_fused_kernel_traps_on_a_device_prn_out_of_range(cuda):
+    # As index_select's device assert would: the kernel reads the PRN on the
+    # card and traps, which ends the process's CUDA context, so the call
+    # runs in a process of its own.
+    code = textwrap.dedent("""
+        import torch
+        from gpuacceleratedtracking_tpu_torch.models import GPSL1
+        from gpuacceleratedtracking_tpu_torch.ops import channel_kernels
+        x = torch.ones(2048, device="cuda")
+        codes = torch.as_tensor(GPSL1().codes, device="cuda")
+        prn = torch.tensor(codes.shape[1], dtype=torch.int32, device="cuda")
+        channel_kernels.correlate_pallas_fused(x, x, codes, prn, 0.0, 2.048e6, 0.0, 1.023e6,
+                                               0.0, (-1, 0, 1), 1023)
+        torch.cuda.synchronize()
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert proc.returncode != 0 and "Error" in proc.stderr, proc.stderr[-2000:]
+
+
+def _offset_calls(device, name, count):
+    """``count`` calls' arguments that differ in their carrier and code
+    phases, device tensors as the sweep passes them (``offs[i]``)."""
+    args = list(_channel_args(device, name))
+    offs = torch.linspace(0.0, 0.1, count, dtype=torch.float32, device=device)
+    calls = []
+    for i in range(count):
+        args[6], args[8] = offs[i], offs[i] + 311.7
+        calls.append(tuple(args))
+    return calls
+
+
+@pytest.mark.parametrize("kernel", ["taps", "fused"])
+@pytest.mark.parametrize("name", ["n2048", "n32768_l3", "n262144_a4_l7"])
+def test_channel_kernel_back_to_back_and_in_a_cuda_graph(cuda, kernel, name):
+    # The finish counter is left at zero by every launch and the scratch is
+    # cached: 50 calls with no sync in between, and 20 captured in one CUDA
+    # graph and replayed twice, all equal the plain version.
+    fn = getattr(channel_kernels, f"correlate_pallas_{kernel}")
+    plain = getattr(channel_kernels, f"correlate_{kernel}_reference")
+    calls = _offset_calls(cuda, name, 50)
+    n = calls[0][0].shape[-1]
+    want = [plain(*c) for c in calls]
+    got = [fn(*c) for c in calls]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_channel_close(g, w, n)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*calls[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [fn(*c) for c in calls[:20]]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(captured, want):
+            _assert_channel_close(g, w, n)
+
+
+@pytest.mark.parametrize("kernel", ["taps", "fused"])
+def test_channel_kernel_on_two_streams_at_once(cuda, kernel):
+    fn = getattr(channel_kernels, f"correlate_pallas_{kernel}")
+    plain = getattr(channel_kernels, f"correlate_{kernel}_reference")
+    calls = _offset_calls(cuda, "n262144_a4_l7", 2)
+    want = [plain(*c) for c in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(10):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(fn(*calls[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for g in got[i]:
+            _assert_channel_close(g, want[i], 1 << 18)
+
+
+@pytest.mark.parametrize("kernel", ["taps", "fused"])
+@pytest.mark.parametrize("name", ["n32768_l3", "n262144_a4_l7"])
+def test_channel_kernel_in_two_cuda_graphs_on_two_streams(cuda, kernel, name):
+    # Two graphs captured on torch's one capture stream at the same shape
+    # (more than one cluster, so the kernels count and leave partials),
+    # replayed at once on two streams: each capture holds a scratch of its
+    # own, so neither overwrites the other's counter or partials.
+    fn = getattr(channel_kernels, f"correlate_pallas_{kernel}")
+    plain = getattr(channel_kernels, f"correlate_{kernel}_reference")
+    calls = _offset_calls(cuda, name, 2)
+    n = calls[0][0].shape[-1]
+    want = [plain(*c) for c in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*calls[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    for c in calls:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append([fn(*c) for _ in range(10)])
+        graphs.append(graph)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(5):
+        for graph, s in zip(graphs, streams):
+            with torch.cuda.stream(s):
+                graph.replay()
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            _assert_channel_close(got, want[i], n)
+
+
+def test_pallas_fused_call_is_one_device_op(cuda):
+    # The kernel derives its parameters and reads the PRN's column itself:
+    # a wrapper call issues the kernel and nothing else on the card.
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _channel_args(cuda, "n32768_l3")
+    channel_kernels.correlate_pallas_fused(*args)
+    torch.cuda.synchronize()
+    calls = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            channel_kernels.correlate_pallas_fused(*args)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("fused_kernel" in name for name in device_ops) == calls
+    assert len(device_ops) <= 2 * calls, device_ops
 
 
 ONEHOT_CASES = {
