@@ -65,6 +65,36 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      ``fused_xla``, ``track_bank`` with ``pallas_bank_onehot`` at K=1024 (one
      launch per block, against ``xla_bank``), and the port's
      ``run_track_benchmark`` (K=1024) and ``run_dual_track_benchmark`` (K=64).
+   - E, the families: GLONASS L1OF, Galileo E1-C and BeiDou B1I through
+     ``pallas_bank_auto`` against the plain version at N=32768 K=256 (the rows
+     route) and at their low rates (E1 and B1I at 8.192 MHz, GLONASS at
+     2.048 MHz with code phases 505..510.9 of its 511 chips, so the replica
+     wraps the code twice: the transition route); then each family's K=256
+     closed loop at 32.768 MHz with 8 planted satellites (overlays included):
+     20 noiseless blocks against ``xla_bank``, 300 blocks at 50 dB-Hz that
+     must lock, the block time and real-time channels, and
+     ``run_track_benchmark`` at K in {64, 256};
+   - F, acquisition: ``run_acquire_benchmark`` (GPS L1, 32 PRNs) at N =
+     32768, 2^17 and 2^18, ms per call, and ``acquire`` on 4 planted
+     satellites at each N (PRNs, Doppler bins and code phases found);
+   - G, the cold start of scripts/run_coldstart.py: its L1, L5 and B1I int8
+     captures (seeds and truth) written to a temporary directory, decoded by
+     the native ``runtime.IQFile`` (the run fails without it), acquired over
+     every PRN; L1 through ``StreamTracker`` with a checkpoint and a cold
+     resume; L5 pilot pull-in, ``detect_secondary_offset``, then
+     ``track_bank_dual``; B1I Costas pull-in,
+     ``detect_secondary_offset_windowed``, then the NH20-wiped track. The
+     script's checks: the accepted PRNs, Doppler errors under 10 Hz, the NH
+     phases, and the nav symbols (L5, by the data prompt's sign) and bits
+     (B1I, by differential decisions, which hold on a channel that is
+     frequency but not phase locked); ``steady_block_s`` and the real-time
+     factor of each leg;
+   - H, streaming: a GPS L1 int8 capture at N=32768 through ``StreamTracker``
+     into a K=256 bank, its ``steady_block_s`` beside the bare ``track_bank``
+     block time of the same bank;
+   - I, the dual bank on the per-channel kernels: ``track_bank_dual`` at K=4
+     through ``pallas_fused`` and ``pallas_taps`` (2K launches per block)
+     against ``xla_bank``, on noiseless GPS L5 blocks.
 5. Times (CUDA events, after warm-up; medians and minima): each kernel vs its
    plain version at main-path shapes (every kernel, and the per-channel
    kernels' plain versions, also as device time from a CUDA graph replay:
@@ -78,7 +108,9 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
 
 Its last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Each kernel's entry
-holds its launches on its main path and per block (or per call), its largest
+holds its launches on the paths run (``launches``, and per path in
+``launches_by_path``, each path counted from 0 just before it), its launches
+per block (or per call) on its first path, its largest
 error against its plain version, its device time (``ms``; ``eager_ms`` with
 the host's launch work) and its plain version's (``plain_ms``; ``clock``
 says how each was read), ``library_ms`` (null where no single PyTorch call computes
@@ -193,7 +225,7 @@ def random_case(system, n, k, seed, num_ants=1, taps=3, fs=None):
     return dict(
         signal_re=sre, signal_im=sim,
         codes=torch.as_tensor(system.codes, device=DEVICE),
-        prn=t(np.arange(k) % 32, torch.int32),
+        prn=t(np.arange(k) % min(32, system.num_prns), torch.int32),
         carrier_frequency=t(1500.0 + rng.uniform(-4000.0, 4000.0, k)),
         sampling_frequency=fs,
         carrier_phase=t(rng.uniform(0, 2 * np.pi, k)),
@@ -679,10 +711,11 @@ def array_path(system, seed, num_blocks_lock: int = 300):
     return launches
 
 
-def l5_dual_blocks(num_blocks, offsets, navs, generator):
+def l5_dual_blocks(num_blocks, offsets, navs, generator, noise_std=L5_NOISE_STD):
     """``[B, N]`` planes: 8 GPS L5 satellites, I5 = code x NH10 x nav and Q5 =
     code x NH20 in quadrature, satellite s starting at overlay phase
-    ``offsets[s]`` (its millisecond count mod 20), plus noise."""
+    ``offsets[s]`` (its millisecond count mod 20), plus noise of
+    ``noise_std`` per component (none at 0)."""
     from gpuacceleratedtracking_tpu_torch.models import GPSL5, gen_signal, gpsl5, soa
 
     sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
@@ -702,8 +735,9 @@ def l5_dual_blocks(num_blocks, offsets, navs, generator):
                               start_carrier_phase=np.pi / 2, **common)
         sig = sig_i + sig_q
         total = sig if total is None else total + sig
-    noise = torch.randn(total.shape + (2,), generator=generator, device=DEVICE)
-    total += L5_NOISE_STD * torch.complex(noise[..., 0], noise[..., 1])
+    if noise_std:
+        noise = torch.randn(total.shape + (2,), generator=generator, device=DEVICE)
+        total += noise_std * torch.complex(noise[..., 0], noise[..., 1])
     sre, sim = (x.reshape(num_blocks, N_1MS) for x in soa(total))
     return sre, sim
 
@@ -970,6 +1004,704 @@ def channel_loops(system, seed, sre, sim, num_blocks_lock: int = 600):
     return launches, benches
 
 
+# --- The cold-start slice: the GLONASS L1OF, Galileo E1-C and BeiDou B1I
+# families, PCPS acquisition, the cold-start legs, streaming, and the dual
+# bank on the per-channel kernels.
+
+FAMILY_K = 256
+FAMILY_NAMES = ("GLONASSL1", "GALILEOE1C", "BEIDOUB1I")
+# Planted code phases per family, in its own chips: spread over the code for
+# GLONASS (no overlay); near 0 for the overlay families, so that a block
+# integrates one overlay sign (E1-C: CS25 per 4 ms period; B1I: NH20 per ms).
+FAMILY_CODE_PHASES = {
+    "GLONASSL1": SAT_CODE_PHASES * 511.0 / 1023.0,
+    "GALILEOE1C": np.array([0.0, 1.5, 3.25, 5.0, 6.5, 8.75, 10.0, 12.5]),
+    "BEIDOUB1I": np.array([0.0, 2.5, 4.25, 6.0, 7.5, 9.75, 11.0, 13.5]),
+}
+# Low-rate cells (the transition route): E1 and B1I at 8.192 MHz, GLONASS at
+# 2.048 MHz, where a 2048-sample block covers 512 of its 511 chips, with code
+# phases near 510 chips so that the replica wraps the code twice.
+LOW_RATE_N = {"GLONASSL1": 2048, "GALILEOE1C": 8192, "BEIDOUB1I": 8192}
+ACQ_SIZES = (32768, 1 << 17, 1 << 18)
+ACQ_PRNS = np.array([2, 7, 13, 21])
+ACQ_DOPPLERS = np.array([-2400.0, -700.0, 850.0, 3100.0])
+ACQ_CODE_PHASES = np.array([120.0, 512.3, 41.7, 987.2])
+STREAM_BLOCKS = 240
+
+
+def family_config(system, n, algorithm="pallas_bank_auto"):
+    """The family cells' tracking configuration (the pilot E1-C on atan2)."""
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig
+
+    extra = {"pll_discriminator": "atan2"} if system.name == "GALILEOE1C" else {}
+    return TrackConfig.for_system(system, n / 1e-3, n, algorithm=algorithm, **extra)
+
+
+def family_cells(seed):
+    """The families through `pallas_bank_auto` against the plain version, at
+    N=32768 K=256 (the rows route) and the low-rate cell (the transition
+    route); the JAX suite's envelopes (9.0 at Galileo's doubled transition
+    density, tests/test_galileo.py:172-175; 4.5 elsewhere)."""
+    from gpuacceleratedtracking_tpu_torch.models import get_system
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+
+    worst = {"bank_rows": 0.0, "bank_transition": 0.0}
+    for i, name in enumerate(FAMILY_NAMES):
+        system = get_system(name)
+        for n, k, route, kernel in ((N_1MS, FAMILY_K, "pallas_bank_rows", "bank_rows"),
+                                    (LOW_RATE_N[name], 64, "pallas_bank", "bank_transition")):
+            case = random_case(system, n, k, seed + 500 + 2 * i + (n == N_1MS))
+            if name == "GLONASSL1" and n == LOW_RATE_N[name]:
+                case["code_phase"] = torch.linspace(505.0, 510.9, k, device=DEVICE)
+            check(epl_kernels.bank_algorithm_for(n, case["sampling_frequency"],
+                                                 system.code_length, system.code_frequency)
+                  == route, f"{name} N={n} routes to {route}")
+            before = read_counts()
+            got = epl_kernels.correlate_pallas_bank_auto(**case)
+            torch.cuda.synchronize()
+            after = read_counts()
+            check({key: after[key] - before[key] for key in after} == only(**{kernel: 1}),
+                  f"{name} N={n}: one {kernel} launch and no other")
+            want = epl_kernels.correlate_bank_rows_reference(**case, route=route)
+            atol = 9.0 if name.startswith("GALILEO") else 4.5
+            err = 0.0
+            for g, w in zip(got, want):
+                check(g.shape == w.shape == (k, 3), f"{name} N={n} shape")
+                check(bool(torch.isfinite(g).all()), f"{name} N={n} finite")
+                err = max(err, float((g - w).abs().max()))
+                check(bool(((g - w).abs() <= atol + 2e-3 * w.abs()).all()),
+                      f"{name} N={n}: kernel vs plain within rtol=2e-3 atol={atol}")
+            worst[kernel] = max(worst[kernel], err)
+            phases = (f", code phases {float(case['code_phase'].min())!r}.."
+                      f"{float(case['code_phase'].max())!r} chips of {system.code_length}"
+                      if name == "GLONASSL1" and n < N_1MS else "")
+            log(f"[family] {kernel} {name} N={n} K={k} via pallas_bank_auto -> {route}: "
+                f"max|kernel-plain|={err!r} (atol {atol}, rtol 2e-3){phases} ok")
+    return worst
+
+
+def family_blocks(system, num_blocks, n=N_1MS, noise_std=0.0, generator=None,
+                  init_errors=False):
+    """``[B, N]`` planes of 8 satellites of ``system`` (overlay included where
+    the system has one) and a K=256 bank state whose first 8 channels hold
+    them, Doppler and code phase off by 20 Hz and 0.2 chips if asked."""
+    from gpuacceleratedtracking_tpu_torch.models import gen_signal, soa
+    from gpuacceleratedtracking_tpu_torch.tracking import init_state
+
+    phases = FAMILY_CODE_PHASES[system.name]
+    total = None
+    for prn, (dop, phi) in enumerate(zip(SAT_DOPPLERS, phases)):
+        sig, _ = gen_signal(system, prn, float(dop), n * num_blocks,
+                            duration=num_blocks * 1e-3, start_code_phase=float(phi),
+                            code_frequency=system.code_frequency
+                            * (1 + dop / system.center_frequency),
+                            secondary_code=system.secondary_code, device=DEVICE)
+        total = sig if total is None else total + sig
+    if noise_std:
+        noise = torch.randn(total.shape + (2,), generator=generator, device=DEVICE)
+        total += noise_std * torch.complex(noise[..., 0], noise[..., 1])
+        del noise
+    sre, sim = (x.reshape(num_blocks, n) for x in soa(total))
+    nsat = len(SAT_DOPPLERS)
+    dops = np.linspace(-4000.0, 4000.0, FAMILY_K)
+    code_phases = np.zeros(FAMILY_K)
+    dops[:nsat] = SAT_DOPPLERS + (20.0 if init_errors else 0.0)
+    code_phases[:nsat] = (phases - (0.2 if init_errors else 0.0)) % system.code_length
+    states = init_state(np.arange(FAMILY_K) % system.num_prns, carrier_doppler=dops,
+                        code_phase=code_phases, device=DEVICE)
+    return sre, sim, states
+
+
+def family_loops(seed, card, num_blocks_lock: int = 300):
+    """Closed loops at K=256, N=32768 for each family, as `main_path` does: 20
+    noiseless blocks through the kernel against `xla_bank` (locked channels
+    over every block, all channels in block 0), a noisy lock run, the block
+    time, and `run_track_benchmark` at K in {64, 256}. Returns the rows
+    kernel's launches, counted per run, and the timings."""
+    from gpuacceleratedtracking_tpu_torch.bench import run_track_benchmark
+    from gpuacceleratedtracking_tpu_torch.models import get_system
+    from gpuacceleratedtracking_tpu_torch.tracking import track_bank
+
+    nsat = len(SAT_DOPPLERS)
+    launches, results = 0, {}
+    for i, name in enumerate(FAMILY_NAMES):
+        system = get_system(name)
+        codes = torch.as_tensor(system.codes, device=DEVICE)
+        config = family_config(system, N_1MS)
+        sre, sim, states = family_blocks(system, 20, init_errors=True)
+        reset_counts()
+        _, out = track_bank(config, codes, states, sre, sim)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts == only(bank_rows=20),
+              f"{name}: 20 bank_rows launches in 20 blocks and no other kernel, got {counts}")
+        launches += counts["bank_rows"]
+        for field, x in out._asdict().items():
+            check(bool(torch.isfinite(x.float()).all()), f"{name} loop {field} finite")
+        _, ref = track_bank(family_config(system, N_1MS, "xla_bank"), codes, states, sre, sim)
+        torch.cuda.synchronize()
+        diff = (out.prompt_re - ref.prompt_re).abs()
+        bound = 40.0 + 5e-3 * ref.prompt_re.abs()
+        d_first, d_locked = float(diff[0].max()), float(diff[:, :nsat].max())
+        check(bool((diff[0] <= bound[0]).all()),
+              f"{name} block 0 prompt_re vs xla_bank within rtol=5e-3 atol=40 ({d_first!r})")
+        check(bool((diff[:, :nsat] <= bound[:, :nsat]).all()),
+              f"{name} locked prompt_re vs xla_bank within rtol=5e-3 atol=40 ({d_locked!r})")
+        log(f"[family loop] {name} track_bank K={FAMILY_K} N={N_1MS} 20 blocks via "
+            f"pallas_bank_auto (overlay {len(config.secondary_code)} signs, "
+            f"{config.pll_discriminator}): launches={counts}; vs xla_bank: block 0 "
+            f"max|d prompt_re|={d_first!r}, 8 locked channels {d_locked!r}")
+
+        # Lock from a 20 Hz / 0.2 chip start at 50 dB-Hz.
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 600 + i)
+        nre, nim, _ = family_blocks(system, num_blocks_lock, noise_std=NOISE_STD, generator=gen)
+        reset_counts()
+        _, out = track_bank(config, codes, states, nre, nim)
+        torch.cuda.synchronize()
+        launches += read_counts()["bank_rows"]
+        del nre, nim
+        dop = out.carrier_doppler[-50:, :nsat].double().mean(0).cpu().numpy()
+        mag = torch.hypot(out.prompt_re[-50:, :nsat], out.prompt_im[-50:, :nsat])
+        mag = mag.double().mean(0).cpu().numpy()
+        dop_err = np.abs(dop - SAT_DOPPLERS)
+        log(f"[family lock] {name} {num_blocks_lock} blocks at 50 dB-Hz: Doppler errors "
+            f"(last 50) {dop_err.tolist()} Hz, mean |prompt| {mag.tolist()}")
+        check(bool(np.all(dop_err < 5.0)), f"{name} Doppler within 5 Hz: {dop_err.tolist()}")
+        check(bool(np.all(mag > N_1MS / 2)), f"{name} |prompt| > N/2: {mag.tolist()}")
+
+        # Block time on the noiseless blocks, 10 blocks per timed call.
+        states = family_blocks(system, 1)[2]
+        med, mn = time_cuda(lambda: track_bank(config, codes, states, sre[:10], sim[:10]),
+                            warmup=2)
+        entry = {"block_ms": med / 10, "block_min_ms": mn / 10,
+                 "realtime_channels": FAMILY_K / (med / 10)}
+        log(f"[time] closed-loop block {name} K={FAMILY_K} N={N_1MS}: median "
+            f"{entry['block_ms']!r} ms (min {entry['block_min_ms']!r}); real-time channels "
+            f"{entry['realtime_channels']!r} [{card}]")
+        for k in (64, FAMILY_K):
+            reset_counts()
+            r = run_track_benchmark({"GNSS": name, "num_samples": N_1MS, "num_channels": k,
+                                     "algorithm": "pallas_bank_auto", "processor": "GPU",
+                                     "blocks": 8, "trials": 7})
+            counts = read_counts()
+            check(counts["bank_rows"] > 0 and sum(counts.values()) == counts["bank_rows"],
+                  f"run_track_benchmark {name} K={k} launched bank_rows only: {counts}")
+            entry[f"bench_k{k}"] = {key: r[key] for key in ("Median", "Minimum",
+                                                           "realtime_channels")}
+            log(f"[time] run_track_benchmark {name} K={k} N={N_1MS}: median "
+                f"{r['Median'] * 1e3!r} ms/block (min {r['Minimum'] * 1e3!r}), "
+                f"realtime_channels {r['realtime_channels']!r} [{card}]")
+        results[name] = entry
+        del sre, sim, out, ref
+    return launches, results
+
+
+def acquisition_path(seed, card):
+    """`run_acquire_benchmark` for GPS L1 at N in ACQ_SIZES, 32 PRNs on the
+    card (ms per call), and `acquire` on a 4-satellite mix at 50 dB-Hz at the
+    same N: the planted PRNs, Doppler bins and code phases are found."""
+    from gpuacceleratedtracking_tpu_torch.acquire import acquire
+    from gpuacceleratedtracking_tpu_torch.bench import run_acquire_benchmark
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, gen_signal_mixed, soa
+
+    system = GPSL1()
+    results = {}
+    for n in ACQ_SIZES:
+        r = run_acquire_benchmark({"GNSS": "GPSL1", "num_samples": n, "num_prns": 32,
+                                   "processor": "GPU", "trials": 5})
+        check(r["backend"] == "cuda" and r["num_prns"] == 32, f"acquire N={n} on the card")
+        fs = n / 1e-3
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 700)
+        sig, _ = gen_signal_mixed(system, ACQ_PRNS, ACQ_DOPPLERS, n,
+                                  start_code_phases=ACQ_CODE_PHASES,
+                                  noise_std=math.sqrt(fs / 1e5 / 2), generator=gen,
+                                  device=DEVICE)
+        res = acquire(system, *soa(sig), np.arange(32), fs)
+        ops, device_ms = device_profile(lambda: acquire(system, *soa(sig), np.arange(32), fs),
+                                        calls=3)
+        metric = res.peak_metric.cpu().numpy()
+        hits = np.flatnonzero(metric > 20.0)
+        step = 2.0 / 3.0 / 1e-3
+        dop = res.carrier_doppler.cpu().numpy()[ACQ_PRNS]
+        phase_err = np.abs(res.code_phase.cpu().numpy()[ACQ_PRNS] - ACQ_CODE_PHASES)
+        phase_err = np.minimum(phase_err, system.code_length - phase_err)
+        log(f"[acquire] GPS L1 N={n}: 32 PRNs x {r['num_bins']} bins: median "
+            f"{r['Median'] * 1e3!r} ms per call (min {r['Minimum'] * 1e3!r}); {ops!r} device ops "
+            f"per call, {device_ms!r} ms of summed device time (torch.profiler) [{card}]; planted "
+            f"{ACQ_PRNS.tolist()} found {hits.tolist()}, Doppler {dop.tolist()} Hz, "
+            f"code phase errors {phase_err.tolist()} chips, metrics {metric[ACQ_PRNS].tolist()}")
+        check(hits.tolist() == ACQ_PRNS.tolist(), f"N={n}: accepted PRNs {hits.tolist()}")
+        check(bool(np.all(np.abs(dop - ACQ_DOPPLERS) <= step / 2 + 1e-3)),
+              f"N={n}: nearest Doppler bins")
+        check(bool(np.all(phase_err < 0.25)), f"N={n}: code phases within 0.25 chips")
+        results[f"n{n}"] = {"ms": r["Median"] * 1e3, "min_ms": r["Minimum"] * 1e3,
+                            "num_bins": r["num_bins"], "device_ops": ops,
+                            "device_ms": device_ms}
+        del sig, res
+    return results
+
+
+# The captures of scripts/run_coldstart.py:79-104, with their seeds and truth.
+COLD_L1 = dict(fs=8.192e6, n=8192, ms=600, prns=[2, 7, 13, 21],
+               dops=[-2400.0, -700.0, 850.0, 3100.0], phases=[120.0, 512.3, 41.7, 987.2],
+               sigma=11.4, scale=3.7, seed=11)
+COLD_L5 = dict(fs=32.768e6, n=32768, ms=280, prns=[4, 11], dops=[-1600.0, 2200.0],
+               phases=[2048.0, 7777.5], nh_phase=[3, 7], sigma=22.8, scale=1.8, seed=56)
+COLD_B1I = dict(fs=8.192e6, n=8192, ms=400, prns=[8, 25], dops=[-1800.0, 950.0],
+                phases=[333.4, 1402.1], nh_phase=[5, 12], sigma=11.4, scale=3.7, seed=78)
+
+
+def write_int8(path, signal, sigma, scale, seed):
+    """Quantize complex + AWGN to interleaved int8, as the script's front-end
+    model does (numpy noise from ``seed``)."""
+    signal = signal.cpu().numpy()
+    rng = np.random.default_rng(seed)
+    inter = np.empty(2 * signal.size, np.float32)
+    inter[0::2] = (np.real(signal) + sigma * rng.standard_normal(signal.shape)) * scale
+    inter[1::2] = (np.imag(signal) + sigma * rng.standard_normal(signal.shape)) * scale
+    np.clip(np.rint(inter), -127, 127).astype(np.int8).tofile(path)
+
+
+def synthesize_l1(path):
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, gen_signal
+
+    system, c = GPSL1(), COLD_L1
+    total = None
+    for prn, dop, phi in zip(c["prns"], c["dops"], c["phases"]):
+        s, _ = gen_signal(system, prn, dop, c["n"] * c["ms"], duration=c["ms"] * 1e-3,
+                          start_code_phase=phi, code_frequency=system.code_frequency
+                          * (1.0 + dop / system.center_frequency), device=DEVICE)
+        total = s if total is None else total + s
+    write_int8(path, total, c["sigma"], c["scale"], c["seed"])
+
+
+def synthesize_l5(path):
+    """I5 (data x NH10 x 100 sps nav) + Q5 (pilot x NH20, in quadrature);
+    returns the nav symbols per millisecond."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL5, gen_signal
+
+    sys_i, sys_q, c = GPSL5(), GPSL5(quadrature=True), COLD_L5
+    nav = np.repeat(np.random.default_rng(55).choice([-1.0, 1.0], c["ms"] // 10), 10)
+    total = None
+    for prn, dop, phi, nh0 in zip(c["prns"], c["dops"], c["phases"], c["nh_phase"]):
+        common = dict(duration=c["ms"] * 1e-3, start_code_phase=phi, device=DEVICE,
+                      code_frequency=sys_i.code_frequency
+                      * (1.0 + dop / sys_i.center_frequency))
+        overlay = sys_i.secondary_code[(np.arange(c["ms"]) + nh0) % 10] * nav
+        s_i, _ = gen_signal(sys_i, prn, dop, c["n"] * c["ms"], secondary_code=overlay,
+                            **common)
+        s_q, _ = gen_signal(sys_q, prn, dop, c["n"] * c["ms"],
+                            secondary_code=sys_q.secondary_code, secondary_phase=nh0,
+                            start_carrier_phase=np.pi / 2, **common)
+        total = s_i + s_q if total is None else total + s_i + s_q
+    write_int8(path, total, c["sigma"], c["scale"], c["seed"])
+    return nav
+
+
+def synthesize_b1i(path):
+    """B1I D1: primary x NH20 x 50 bps nav, bit edges on the NH cycle;
+    returns each satellite's bits."""
+    from gpuacceleratedtracking_tpu_torch.models import BeiDouB1I, gen_signal
+
+    system, c = BeiDouB1I(with_secondary=False), COLD_B1I
+    nh20 = BeiDouB1I().secondary_code
+    rng = np.random.default_rng(77)
+    total, bits_all = None, []
+    for prn, dop, phi, nh0 in zip(c["prns"], c["dops"], c["phases"], c["nh_phase"]):
+        bits = rng.choice([-1.0, 1.0], c["ms"] // 20 + 2)
+        p = np.arange(c["ms"])
+        overlay = nh20[(p + nh0) % 20] * bits[(p + nh0) // 20]
+        s, _ = gen_signal(system, prn, dop, c["n"] * c["ms"], duration=c["ms"] * 1e-3,
+                          start_code_phase=phi, secondary_code=overlay, device=DEVICE,
+                          code_frequency=system.code_frequency
+                          * (1.0 + dop / system.center_frequency))
+        total = s if total is None else total + s
+        bits_all.append(bits)
+    write_int8(path, total, c["sigma"], c["scale"], c["seed"])
+    return bits_all
+
+
+def read_blocks(path, n, count, start_block=0, scale=1.0):
+    """``count`` blocks from ``start_block`` of an int8 capture, decoded by
+    the port's `runtime.IQFile`, on the card."""
+    from gpuacceleratedtracking_tpu_torch.runtime import IQFile
+
+    with IQFile(path, "int8", scale) as f:
+        f.read(start_block * n)
+        out = [f.read(n) for _ in range(count)]
+    return tuple(torch.as_tensor(np.stack([o[i] for o in out]), device=DEVICE)
+                 for i in (0, 1))
+
+
+def track_chunked(step, states, path, n, count, start_block, scale, chunk=40):
+    """The script's `_track_chunked`: ``chunk`` blocks per call, state carried
+    over, each call fenced and timed; returns the final state, the stacked
+    outputs and the median per-block time (the steady streaming rate)."""
+    outs, per_block = [], []
+    done = 0
+    while done < count:
+        b = min(chunk, count - done)
+        sre, sim = read_blocks(path, n, b, start_block + done, scale)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, out = step(states, sre, sim)
+        torch.cuda.synchronize()
+        per_block.append((time.perf_counter() - t0) / b)
+        outs.append(out)
+        done += b
+    stacked = type(outs[0])(*(torch.cat(xs) if isinstance(xs[0], torch.Tensor)
+                              else type(xs[0])(*(torch.cat(ys) for ys in zip(*xs)))
+                              for xs in zip(*outs)))
+    return states, stacked, statistics.median(per_block)
+
+
+def acquire_band(system, path, n, fs, rounds=6, accept=20.0, doppler_step=150.0):
+    """The script's `acquire_band`: noncoherent PCPS over every PRN of the
+    system on the card, accepted by deflection metric."""
+    from gpuacceleratedtracking_tpu_torch.acquire import acquire
+
+    sre, sim = read_blocks(path, n, rounds)
+    res = acquire(system, sre, sim, np.arange(system.num_prns), fs, doppler_step=doppler_step)
+    hits = np.flatnonzero(res.peak_metric.cpu().numpy() > accept)
+    return res, hits
+
+
+def subset(res, hits):
+    idx = torch.as_tensor(hits, device=res.prn.device)
+    return type(res)(*(x[idx] for x in res))
+
+
+def symbols_match(decided, planted):
+    """Whether the decided symbol signs are a run of the planted symbols, up to
+    one global sign (the carrier loop's 180-degree ambiguity)."""
+    decided = np.asarray(decided)
+    m = len(decided)
+    return any(np.array_equal(decided, s * planted[o:o + m])
+               for o in range(len(planted) - m + 1) for s in (1.0, -1.0))
+
+
+def coldstart_l1(path, work_dir, card):
+    """L1: acquisition over 32 PRNs, then `StreamTracker` on the rows route
+    with a checkpoint mid-run and a cold resume from it."""
+    from gpuacceleratedtracking_tpu_torch.acquire import to_track_states
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1
+    from gpuacceleratedtracking_tpu_torch.runtime import IQFile, StreamTracker, blocks
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, init_state
+
+    system, c = GPSL1(), COLD_L1
+    res, hits = acquire_band(system, path, c["n"], c["fs"])
+    dops = res.carrier_doppler.cpu().numpy()
+    log(f"[coldstart L1] acquisition over 32 PRNs: accepted {hits.tolist()} (planted "
+        f"{sorted(c['prns'])}), Doppler {dops[hits].tolist()} Hz, metrics "
+        f"{res.peak_metric.cpu().numpy()[hits].tolist()}")
+    check(hits.tolist() == sorted(c["prns"]), f"L1 accepted PRNs {hits.tolist()}")
+    states = to_track_states(subset(res, hits), device=DEVICE)
+    config = TrackConfig.for_system(system, c["fs"], c["n"], algorithm="pallas_bank_auto")
+    ckpt = work_dir / "l1_checkpoint.npz"
+    scale = 1.0 / c["scale"]
+    tracker = StreamTracker(config, system.codes, states, blocks_per_dispatch=60,
+                            checkpoint_path=ckpt, checkpoint_every=100, measure_dispatch=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    with IQFile(path, "int8", scale) as f:
+        first = tracker.run(blocks(f, c["n"]), max_blocks=c["ms"] // 2)
+    tracker.save_checkpoint(first.blocks_processed)
+    resumed = StreamTracker(config, system.codes, init_state(hits, device=DEVICE),
+                            blocks_per_dispatch=60, checkpoint_path=ckpt,
+                            measure_dispatch=True)
+    done = resumed.load_checkpoint()
+    with IQFile(path, "int8", scale) as f:
+        f.read(done * c["n"])
+        second = resumed.run(blocks(f, c["n"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_blocks = first.blocks_processed + second.blocks_processed
+    check(n_blocks == c["ms"] and done == first.blocks_processed,
+          f"L1 streamed {n_blocks} blocks, resumed at {done}")
+    check(counts == only(bank_rows=n_blocks),
+          f"L1 stream: one bank_rows launch per block and no other kernel, got {counts}")
+    dop = np.concatenate([first.stacked().carrier_doppler, second.stacked().carrier_doppler])
+    dop_err = dop[-20:].mean(axis=0) - np.asarray([d for _, d in sorted(zip(c["prns"],
+                                                                           c["dops"]))])
+    steady = statistics.median(first.dispatch_block_s[1:] + second.dispatch_block_s[1:])
+    log(f"[coldstart L1] StreamTracker K={len(hits)} N={c['n']}: {n_blocks} blocks, "
+        f"checkpoint at {done} and cold resume; launches={counts}; Doppler errors "
+        f"{dop_err.tolist()} Hz; steady_block_s {steady!r} (real-time factor "
+        f"{1e-3 / steady!r}); wall {wall!r} s [{card}]")
+    check(bool(np.all(np.abs(dop_err) < 10.0)), f"L1 Doppler errors {dop_err.tolist()}")
+    return counts, {"steady_block_s": steady, "realtime_factor": 1e-3 / steady,
+                    "doppler_error_hz": dop_err.tolist()}
+
+
+def coldstart_l5(path, nav, card):
+    """L5: pilot acquisition, pilot pull-in, NH20 sync, dual-component track."""
+    from gpuacceleratedtracking_tpu_torch.acquire import to_track_states
+    from gpuacceleratedtracking_tpu_torch.models import GPSL5
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, detect_secondary_offset, dual_config, track_bank, track_bank_dual)
+
+    sys_i, sys_q, c = GPSL5(), GPSL5(quadrature=True), COLD_L5
+    scale = 1.0 / c["scale"]
+    res, hits = acquire_band(sys_q, path, c["n"], c["fs"], rounds=16, doppler_step=50.0)
+    log(f"[coldstart L5] pilot acquisition over 37 PRNs: accepted {hits.tolist()} (planted "
+        f"{sorted(c['prns'])}), Doppler {res.carrier_doppler.cpu().numpy()[hits].tolist()} Hz")
+    check(hits.tolist() == sorted(c["prns"]), f"L5 accepted PRNs {hits.tolist()}")
+    states = to_track_states(subset(res, hits), device=DEVICE)
+    sync_blocks, settle = 160, 100
+    cfg_sync = TrackConfig.for_system(sys_q, c["fs"], c["n"], algorithm="pallas_bank",
+                                      use_secondary=False)
+    codes_i = torch.as_tensor(sys_i.codes, device=DEVICE)
+    codes_q = torch.as_tensor(sys_q.codes, device=DEVICE)
+    reset_counts()
+    st1, out1, _ = track_chunked(lambda st, a, b: track_bank(cfg_sync, codes_q, st, a, b),
+                                 states, path, c["n"], sync_blocks, 0, scale)
+    offset, conf = detect_secondary_offset(out1.prompt_re[settle:], sys_q.secondary_code)
+    offset = ((offset.long() - settle) % 20).cpu().numpy()
+    conf = conf.cpu().numpy()
+    # As for B1I below: past half a code period, the block-dominant overlay
+    # sign is the next period's.
+    order = np.argsort(c["prns"])
+    planted = [c["nh_phase"][i] for i in order]
+    expected = [(c["nh_phase"][i] + (c["phases"][i] > sys_q.code_length / 2)) % 20
+                for i in order]
+    log(f"[coldstart L5] NH20 offsets {offset.tolist()} (planted {planted}, block-dominant "
+        f"{expected}), confidence {conf.tolist()}")
+    check(offset.tolist() == expected, "L5 NH20 phases recovered")
+    check(bool(np.all(conf > 0.75)), f"L5 NH20 sync confidence {conf.tolist()}")
+    st_dual = st1._replace(ms_elapsed=torch.as_tensor(sync_blocks + offset, dtype=torch.int32,
+                                                      device=DEVICE))
+    cfg_dual = dual_config(cfg_sync)
+    rest = c["ms"] - sync_blocks
+    _, out2, steady = track_chunked(
+        lambda st, a, b: track_bank_dual(cfg_dual, codes_i, codes_q, st, a, b),
+        st_dual, path, c["n"], rest, sync_blocks, scale)
+    counts = read_counts()
+    check(counts == only(bank_transition=sync_blocks + rest),
+          f"L5: one transition launch per block and no other kernel, got {counts}")
+    dop = out2.pilot.carrier_doppler.cpu().numpy()
+    dop_err = dop[-20:].mean(axis=0) - np.asarray([d for _, d in sorted(zip(c["prns"],
+                                                                           c["dops"]))])
+    d = out2.data_prompt_re.cpu().numpy()
+    s0 = (10 - sync_blocks % 10) % 10
+    ok_symbols = []
+    for ch in range(d.shape[1]):
+        dd = d[s0:, ch]
+        decided = np.sign(dd[: len(dd) // 10 * 10].reshape(-1, 10).sum(axis=1))
+        ok_symbols.append(symbols_match(decided, nav[::10]))
+    log(f"[coldstart L5] dual track {rest} blocks: launches={counts}; Doppler errors "
+        f"{dop_err.tolist()} Hz; nav symbols recovered {ok_symbols}; steady_block_s "
+        f"{steady!r} (real-time factor {1e-3 / steady!r}) [{card}]")
+    check(bool(np.all(np.abs(dop_err) < 10.0)), f"L5 Doppler errors {dop_err.tolist()}")
+    check(all(ok_symbols), "L5 nav symbols recovered")
+    return counts, {"steady_block_s": steady, "realtime_factor": 1e-3 / steady,
+                    "doppler_error_hz": dop_err.tolist(), "nh20_offsets": offset.tolist()}
+
+
+def coldstart_b1i(path, bits, card):
+    """B1I D1: Costas pull-in, data-robust NH20 sync, NH-wiped track, bits."""
+    from gpuacceleratedtracking_tpu_torch.acquire import to_track_states
+    from gpuacceleratedtracking_tpu_torch.models import BeiDouB1I
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, detect_secondary_offset_windowed, track_bank)
+
+    system, sys_nh, c = BeiDouB1I(with_secondary=False), BeiDouB1I(), COLD_B1I
+    scale = 1.0 / c["scale"]
+    res, hits = acquire_band(system, path, c["n"], c["fs"], rounds=16, doppler_step=50.0)
+    log(f"[coldstart B1I] acquisition over 37 PRNs: accepted {hits.tolist()} (planted "
+        f"{sorted(c['prns'])}), Doppler {res.carrier_doppler.cpu().numpy()[hits].tolist()} Hz")
+    check(hits.tolist() == sorted(c["prns"]), f"B1I accepted PRNs {hits.tolist()}")
+    states = to_track_states(subset(res, hits), device=DEVICE)
+    sync_blocks, settle = 180, 120
+    cfg_sync = TrackConfig.for_system(system, c["fs"], c["n"], algorithm="pallas_bank",
+                                      use_secondary=False)
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    reset_counts()
+    st1, out1, _ = track_chunked(lambda st, a, b: track_bank(cfg_sync, codes, st, a, b),
+                                 states, path, c["n"], sync_blocks, 0, scale)
+    off, conf = detect_secondary_offset_windowed(out1.prompt_re[settle:],
+                                                 sys_nh.secondary_code)
+    best_off = ((off.long() - settle) % 20).cpu().numpy()
+    conf = conf.cpu().numpy()
+    # A channel whose code phase is past half a period has its NH boundary
+    # mid-block: the block-dominant overlay sign is the next period's.
+    order = np.argsort(c["prns"])
+    expected = [(c["nh_phase"][i] + (1 if c["phases"][i] > system.code_length / 2 else 0)) % 20
+                for i in order]
+    log(f"[coldstart B1I] NH20 offsets {best_off.tolist()} (expected {expected}), "
+        f"confidence {conf.tolist()}")
+    check(best_off.tolist() == expected, "B1I NH20 phases recovered")
+    check(bool(np.all(conf > 0.75)), f"B1I NH20 sync confidence {conf.tolist()}")
+    st2 = st1._replace(ms_elapsed=torch.as_tensor(sync_blocks + best_off, dtype=torch.int32,
+                                                  device=DEVICE))
+    cfg_track = TrackConfig.for_system(sys_nh, c["fs"], c["n"], algorithm="pallas_bank")
+    rest = c["ms"] - sync_blocks
+    _, out2, steady = track_chunked(lambda st, a, b: track_bank(cfg_track, codes, st, a, b),
+                                    st2, path, c["n"], rest, sync_blocks, scale)
+    counts = read_counts()
+    check(counts == only(bank_transition=sync_blocks + rest),
+          f"B1I: one transition launch per block and no other kernel, got {counts}")
+    dop = out2.carrier_doppler.cpu().numpy()
+    dop_err = dop[-20:].mean(axis=0) - np.asarray([c["dops"][i] for i in order])
+    z = torch.complex(out2.prompt_re, out2.prompt_im).cpu().numpy()
+    ok_coherent, ok_bits = [], []
+    for ch, i in enumerate(order):
+        s0 = int((20 - (sync_blocks + best_off[ch]) % 20) % 20)
+        zz = z[s0:, ch]
+        zz = zz[: len(zz) // 20 * 20].reshape(-1, 20).sum(axis=1)    # one sum per bit
+        ok_coherent.append(symbols_match(np.sign(zz.real), bits[i]))
+        # Differential decisions: bit j times bit j-1 is the sign of
+        # Re(z_j conj z_{j-1}), which holds on a channel that is frequency
+        # locked but still rotating (the reference leaves PRN 8 ~1.7 Hz off).
+        flips = np.sign((zz[1:] * np.conj(zz[:-1])).real)
+        planted = bits[i][1:] * bits[i][:-1]
+        m = len(flips)
+        ok_bits.append(any(np.array_equal(flips, planted[o:o + m])
+                           for o in range(len(planted) - m + 1)))
+    log(f"[coldstart B1I] NH-wiped track {rest} blocks: launches={counts}; Doppler errors "
+        f"{dop_err.tolist()} Hz; nav bits recovered (differential) {ok_bits}, by the "
+        f"prompt's sign {ok_coherent}; steady_block_s {steady!r} "
+        f"(real-time factor {1e-3 / steady!r}) [{card}]")
+    check(bool(np.all(np.abs(dop_err) < 10.0)), f"B1I Doppler errors {dop_err.tolist()}")
+    check(all(ok_bits), "B1I nav bits recovered")
+    return counts, {"steady_block_s": steady, "realtime_factor": 1e-3 / steady,
+                    "doppler_error_hz": dop_err.tolist(), "nh20_offsets": best_off.tolist()}
+
+
+def coldstart_path(card):
+    """The cold-start receiver after scripts/run_coldstart.py: int8 captures
+    written to a temporary directory, decoded by the port's native
+    `runtime.IQFile`, acquired and tracked on the card."""
+    import tempfile
+
+    from gpuacceleratedtracking_tpu_torch import runtime
+
+    check(runtime.native_available(), "the native IQ decoder builds and loads")
+    launches, results = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        synthesize_l1(work / "gpsl1_8192kHz.int8")
+        nav = synthesize_l5(work / "gpsl5_32768kHz.int8")
+        bits = synthesize_b1i(work / "bdsb1i_8192kHz.int8")
+        for leg, run in (("l1", lambda: coldstart_l1(work / "gpsl1_8192kHz.int8", work, card)),
+                         ("l5", lambda: coldstart_l5(work / "gpsl5_32768kHz.int8", nav, card)),
+                         ("b1i", lambda: coldstart_b1i(work / "bdsb1i_8192kHz.int8", bits,
+                                                       card))):
+            launches[leg], results[leg] = run()
+    return launches, results
+
+
+def streaming_path(seed, card):
+    """An L1 int8 capture at N=32768 through `StreamTracker` into a K=256
+    bank (rows route); its steady per-block time beside the bare `track_bank`
+    block time of the same bank on device-resident blocks."""
+    import tempfile
+
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, gen_signal_mixed
+    from gpuacceleratedtracking_tpu_torch.runtime import IQFile, StreamTracker, blocks
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, init_state, track_bank
+
+    system = GPSL1()
+    nsat = len(SAT_DOPPLERS)
+    scale = 3.0     # int8 LSBs per unit amplitude: clips at ~3.3 noise sigma
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 800)
+    sig, fs = gen_signal_mixed(system, np.arange(nsat), SAT_DOPPLERS, N_1MS * STREAM_BLOCKS,
+                               duration=STREAM_BLOCKS * 1e-3, start_code_phases=SAT_CODE_PHASES,
+                               noise_std=NOISE_STD, generator=gen, device=DEVICE)
+    dops = np.linspace(-4000.0, 4000.0, FAMILY_K)
+    phases = np.zeros(FAMILY_K)
+    dops[:nsat], phases[:nsat] = SAT_DOPPLERS, SAT_CODE_PHASES
+    states = init_state(np.arange(FAMILY_K) % 32, carrier_doppler=dops, code_phase=phases,
+                        device=DEVICE)
+    config = TrackConfig.for_system(system, fs, N_1MS, algorithm="pallas_bank_auto")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "gpsl1_32768kHz.int8"
+        inter = torch.view_as_real(sig).reshape(-1) * scale
+        inter.round().clamp(-127, 127).to(torch.int8).cpu().numpy().tofile(path)
+        del inter, sig
+        tracker = StreamTracker(config, system.codes, states, blocks_per_dispatch=20,
+                                measure_dispatch=True)
+        reset_counts()
+        with IQFile(path, "int8", 1.0 / scale) as f:
+            result = tracker.run(blocks(f, N_1MS))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        t0 = time.perf_counter()
+        with IQFile(path, "int8", 1.0 / scale) as f:
+            num_read = sum(1 for _ in blocks(f, N_1MS))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / num_read   # host read + decode
+        sre, sim = read_blocks(path, N_1MS, 20, 0, 1.0 / scale)
+    check(result.blocks_processed == STREAM_BLOCKS, "streamed every block")
+    check(counts == only(bank_rows=STREAM_BLOCKS),
+          f"stream: one bank_rows launch per block and no other kernel, got {counts}")
+    out = result.stacked()
+    dop_err = np.abs(out.carrier_doppler[-50:, :nsat].astype(np.float64).mean(0) - SAT_DOPPLERS)
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    med, mn = time_cuda(lambda: track_bank(config, codes, states, sre, sim), warmup=2)
+    bare = med / 20
+    steady = result.steady_block_s
+    log(f"[stream] StreamTracker K={FAMILY_K} N={N_1MS} {STREAM_BLOCKS} blocks of an int8 "
+        f"capture, 20 per dispatch: launches={counts}; Doppler errors (8 satellites, last 50) "
+        f"{dop_err.tolist()} Hz; steady_block_s {steady!r} (real-time factor "
+        f"{1e-3 / steady!r}); bare track_bank block {bare!r} ms (min {mn / 20!r}); file read "
+        f"and decode alone {decode_ms!r} ms per block [{card}]")
+    check(bool(np.all(dop_err < 5.0)), f"stream Doppler within 5 Hz: {dop_err.tolist()}")
+    check(bool(np.isfinite(out.prompt_re).all()), "stream outputs finite")
+    return counts, {"steady_block_s": steady, "realtime_factor": 1e-3 / steady,
+                    "bare_block_ms": bare, "bare_block_min_ms": mn / 20,
+                    "decode_ms": decode_ms}
+
+
+def dual_per_channel_path(seed, num_k: int = 4, num_blocks: int = 20):
+    """`track_bank_dual` at K=4 on `pallas_fused` and `pallas_taps`: 2K
+    launches per block, agreement with `xla_bank` on noiseless blocks of the
+    8 L5 satellites (the first 4 tracked). The fused kernel derives its chips
+    in its own f32 arithmetic, as the JAX one does: a chip-boundary flip moves
+    a prompt by twice a sample (|s| <= 8 sqrt 2 here), so the bound is
+    rtol=5e-3 atol=40, which noise of 45 dB-Hz per sample would swamp."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL5
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, dual_config, init_state, track_bank_dual)
+
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    codes_i = torch.as_tensor(sys_i.codes, device=DEVICE)
+    codes_q = torch.as_tensor(sys_q.codes, device=DEVICE)
+    rng = np.random.default_rng(seed + 900)
+    offsets = rng.integers(0, 20, len(L5_PRNS))
+    navs = rng.choice([-1.0, 1.0], (len(L5_PRNS), (20 + num_blocks) // 10 + 1))
+    sre, sim = l5_dual_blocks(num_blocks, offsets, navs, None, noise_std=0.0)
+    states = init_state(L5_PRNS[:num_k], carrier_doppler=L5_DOPPLERS[:num_k],
+                        code_phase=L5_CODE_PHASES[:num_k], ms_elapsed=offsets[:num_k],
+                        device=DEVICE)
+    outs, launches = {}, {}
+    for algo in ("pallas_fused", "pallas_taps", "xla_bank"):
+        config = dual_config(TrackConfig.for_system(sys_i, L1_FS, N_1MS, algorithm=algo,
+                                                    use_secondary=False))
+        reset_counts()
+        _, outs[algo] = track_bank_dual(config, codes_i, codes_q, states, sre, sim)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        kernel = algo[len("pallas_"):] if algo != "xla_bank" else None
+        want = only(**{kernel: 2 * num_k * num_blocks}) if kernel else only()
+        check(counts == want, f"dual {algo}: 2K launches per block, got {counts}")
+        if kernel:
+            launches[kernel] = counts[kernel]
+    for algo in ("pallas_fused", "pallas_taps"):
+        d_p = (outs[algo].pilot.prompt_re - outs["xla_bank"].pilot.prompt_re).abs()
+        d_d = (outs[algo].data_prompt_re - outs["xla_bank"].data_prompt_re).abs()
+        ref = outs["xla_bank"].pilot.prompt_re.abs()
+        check(bool((d_p <= 40.0 + 5e-3 * ref).all()),
+              f"dual {algo} pilot prompt vs xla_bank within rtol=5e-3 atol=40 "
+              f"({float(d_p.max())!r})")
+        check(bool((d_d <= 40.0 + 5e-3 * outs["xla_bank"].data_prompt_re.abs()).all()),
+              f"dual {algo} data prompt vs xla_bank ({float(d_d.max())!r})")
+        log(f"[dual per-channel] track_bank_dual K={num_k} N={N_1MS} {num_blocks} noiseless "
+            f"blocks via "
+            f"{algo}: {2 * num_k} launches per block; vs xla_bank max|d pilot prompt_re| "
+            f"{float(d_p.max())!r}, max|d data prompt_re| {float(d_d.max())!r}")
+    return launches
+
+
 def ptxas_summary(log_path):
     """One line per compiled kernel from nvcc's ``-Xptxas -v`` report:
     its name and template arguments, registers, and spills."""
@@ -991,9 +1723,10 @@ def ptxas_summary(log_path):
     return lines
 
 
-def device_ops_per_call(fn, calls=10):
-    """Device ops (kernels, copies, memsets) per call of ``fn``, counted by
-    torch.profiler over ``calls`` calls after a warm-up call."""
+def device_profile(fn, calls=10):
+    """Device ops (kernels, copies, memsets) per call of ``fn`` and their
+    summed device milliseconds per call, from torch.profiler over ``calls``
+    calls after a warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1003,7 +1736,7 @@ def device_ops_per_call(fn, calls=10):
             fn()
         torch.cuda.synchronize()
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(ops) / calls
+    return len(ops) / calls, sum(e.time_range.elapsed_us() for e in ops) / 1e3 / calls
 
 
 def time_cuda(fn, reps=TIMING_REPS, warmup=3):
@@ -1184,7 +1917,7 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
                 res.update(bound((6 + 4 * taps) * a * n, "f32", call.sre, call.sim, replica,
                                  call.params, out_elems=2 * a * taps))
                 w = time_cuda(lambda: wrapper(*args))
-                ops = device_ops_per_call(lambda: wrapper(*args))
+                ops = device_profile(lambda: wrapper(*args))[0]
                 res.update(wrapper_ms=w[0], wrapper_min_ms=w[1], device_ops_per_call=ops)
                 log(f"[time] {kind} N={n} A={a} L={taps}: wrapper call incl. per-call "
                     f"set-up median {w[0]!r} ms (min {w[1]!r}); {ops!r} device ops per "
@@ -1309,6 +2042,36 @@ def main(argv=None) -> int:
     launches["bank_onehot"], benches = channel_loops(system, args.seed, sre, sim)
     log(f"[phase] main path D, per-channel and one-hot loops, in "
         f"{time.perf_counter() - t0!r} s")
+
+    # The cold-start slice. Each path's launches are counted from 0 just
+    # before it and read just after; `by_path` keeps them per kernel.
+    by_path = {"bank_rows": {"rows": launches["bank_rows"]},
+               "bank_comp": {"A": launches["bank_comp"]},
+               "bank_transition": {"B": launches["bank_transition"]},
+               "bank_onehot": {"D": launches["bank_onehot"]},
+               "taps": {"C": launches["taps"]}, "fused": {"C": launches["fused"]}}
+    t0 = time.perf_counter()
+    for kernel, err in family_cells(args.seed).items():
+        errs[kernel] = max(errs[kernel], err)
+    by_path["bank_rows"]["families"], family_times = family_loops(args.seed, card)
+    log(f"[phase] E, the families, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    acquisition = acquisition_path(args.seed, card)
+    log(f"[phase] F, acquisition, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    cold_counts, coldstart = coldstart_path(card)
+    by_path["bank_rows"]["coldstart_l1"] = cold_counts["l1"]["bank_rows"]
+    by_path["bank_transition"]["coldstart_l5"] = cold_counts["l5"]["bank_transition"]
+    by_path["bank_transition"]["coldstart_b1i"] = cold_counts["b1i"]["bank_transition"]
+    log(f"[phase] G, the cold start, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    stream_counts, streaming = streaming_path(args.seed, card)
+    by_path["bank_rows"]["streaming"] = stream_counts["bank_rows"]
+    dual_counts = dual_per_channel_path(args.seed)
+    by_path["taps"]["dual"], by_path["fused"]["dual"] = dual_counts["taps"], dual_counts["fused"]
+    log(f"[phase] H and I, streaming and the per-channel dual bank, in "
+        f"{time.perf_counter() - t0!r} s")
+
     t0 = time.perf_counter()
     times = timings(system, args.seed, sre, sim, sre_l5, sim_l5, l5_offsets, card)
     times.update(benches)
@@ -1346,7 +2109,8 @@ def main(argv=None) -> int:
                  "taps": (None, "call"), "fused": (None, "call")}
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches[name], "max_abs_err": errs[name],
+        "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+        "max_abs_err": errs[name],
         "ms": t["kernel_graph_ms"], "eager_ms": t["kernel_ms"], "plain_ms": t[plain_key],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_unit": t["bound_unit"],
         "launches_per_block": (launches[name] / per_block[name][0] if per_block[name][0]
@@ -1373,6 +2137,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": card, "build_s": build_s,
                        "kernels": kernels["kernels"], "times": times,
+                       "families": family_times, "acquisition": acquisition,
+                       "coldstart": coldstart, "streaming": streaming,
                        "sweep": sweep}, f, indent=1)
     print(json.dumps(kernels))
     print(card)

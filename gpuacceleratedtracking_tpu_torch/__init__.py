@@ -2,12 +2,13 @@
 
 A port of `gpuacceleratedtracking_tpu` (JAX/Pallas, the reference) to PyTorch,
 with its TPU kernels rewritten by hand for NVIDIA Hopper. The layout mirrors
-the reference (`models/`, `ops/`, `tracking/`, `bench/`), one port module per
-reference module. This package never imports jax.
+the reference (`models/`, `ops/`, `tracking/`, `bench/`, `acquire/`,
+`runtime/`), one port module per reference module. This package never
+imports jax.
 """
 
 __version__ = "0.1.0"
 
-from . import bench, models, ops, tracking
+from . import acquire, bench, models, ops, runtime, tracking
 
-__all__ = ["bench", "models", "ops", "tracking", "__version__"]
+__all__ = ["acquire", "bench", "models", "ops", "runtime", "tracking", "__version__"]

@@ -1,13 +1,14 @@
 """Benchmark harness: timing protocol, dict-driven benchmarks, sweeps.
 
-The exports of `gpuacceleratedtracking_tpu.bench`, less acquisition (not
-ported yet) and the TPU launch-shape autotuner.
+The exports of `gpuacceleratedtracking_tpu.bench`, less the TPU launch-shape
+autotuner.
 """
 
 from .timing import TrialStats, benchmark
 from .harness import (
     REALTIME_BOUND_S,
     add_metadata,
+    run_acquire_benchmark,
     run_dual_track_benchmark,
     run_kernel_benchmark,
     run_reduction_benchmark,
@@ -22,6 +23,7 @@ __all__ = [
     "benchmark",
     "REALTIME_BOUND_S",
     "add_metadata",
+    "run_acquire_benchmark",
     "run_dual_track_benchmark",
     "run_kernel_benchmark",
     "run_reduction_benchmark",

@@ -13,8 +13,8 @@ Timing is differential (`timing.benchmark_differential`): one timed call
 holds ``reps`` back-to-back calls of the workload, as a user's loop would
 make them, with per-call inputs that differ (the phase offsets are device
 tensors, ``offs[i]``, so no host-to-device copy enters the span).
-Acquisition (`run_acquire_benchmark`) waits for the acquisition port; the
-TPU launch-shape autotuner is not ported (the port's kernels have no launch
+Acquisition (`run_acquire_benchmark`) times one full PCPS call. The TPU
+launch-shape autotuner is not ported (the port's kernels have no launch
 knobs).
 """
 
@@ -33,7 +33,7 @@ from ..models import EPLCorrelator, correlator_sample_shifts, gen_signal, get_sy
 from ..ops import registry
 from ..ops import replica as replica_ops
 from ..ops.reduce import get_reduction
-from .timing import benchmark_differential
+from .timing import benchmark, benchmark_differential
 
 REALTIME_BOUND_S = 1e-3  # process 1 ms of signal in under 1 ms
 
@@ -267,6 +267,47 @@ def run_dual_track_benchmark(config: dict) -> dict:
                    realtime_ratio=floor / REALTIME_BOUND_S,
                    samples_per_s=2 * num_channels * num_samples / floor,
                    realtime_channels=num_channels * REALTIME_BOUND_S / floor)
+
+
+def run_acquire_benchmark(config: dict) -> dict:
+    """Benchmark PCPS acquisition: circular correlation over a Doppler grid,
+    K PRNs searched at once, noncoherent round summation (`acquire.acquire`,
+    `torch.fft`: cuFFT on the card).
+
+    Keys: ``GNSS``, ``num_samples``, ``num_prns``, ``processor``
+    ("GPU"/"CPU"), ``rounds`` (noncoherent), ``max_doppler``/``doppler_step``,
+    ``trials``. The unit is one full acquisition call (all PRNs x all bins x
+    rounds).
+    """
+    from ..acquire import acquire
+
+    system = get_system(config["GNSS"])
+    num_samples = int(config["num_samples"])
+    num_prns = int(config.get("num_prns", 8))
+    rounds = int(config.get("rounds", 1))
+    trials = int(config.get("trials", 7))
+    processor = config.get("processor", "GPU")
+    max_doppler = float(config.get("max_doppler", 5000.0))
+    fs = num_samples / 1e-3
+    doppler_step = float(config.get("doppler_step", 2.0 / (3.0 * (num_samples / fs))))
+    num_bins = int(2 * max_doppler / doppler_step) + 1
+    device = resolve_device(processor)
+
+    signal, _ = gen_signal(system, 0, 1200.0, num_samples * rounds,
+                           duration=rounds * 1e-3, device=device)
+    sre, sim = soa(signal)
+    if rounds > 1:
+        sre = sre.reshape(rounds, num_samples)
+        sim = sim.reshape(rounds, num_samples)
+    prns = np.arange(num_prns) % system.codes.shape[1]
+
+    def run():
+        return acquire(system, sre, sim, prns, fs, max_doppler=max_doppler,
+                       doppler_step=doppler_step, fft_mode="fft")
+
+    stats = benchmark(run, trials=trials)
+    return _finish(config, stats, processor, "pcps", num_bins=num_bins, rounds=rounds,
+                   num_prns=num_prns, fft_mode="fft")
 
 
 def run_reduction_benchmark(config: dict) -> dict:

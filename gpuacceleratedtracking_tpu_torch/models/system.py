@@ -2,9 +2,9 @@
 
 A system is a frozen descriptor holding the host-side numpy code table and the
 scalar constants. Callers move the table to a device with
-``torch.as_tensor(system.codes, device=...)``. GPS L1 C/A and GPS L5 are
-registered so far; the other families follow the JAX package's registry in
-later slices.
+``torch.as_tensor(system.codes, device=...)``. The registry holds the JAX
+package's six names: GPS L1 C/A, GPS L5, GLONASS L1OF, Galileo E1-B/E1-C and
+BeiDou B1I.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import functools
 
 import numpy as np
 
-from . import gpsl1, gpsl5
+from . import beidou_b1i, galileo_e1, glonass_l1, gpsl1, gpsl5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,10 +71,69 @@ def GPSL5(quadrature: bool = False, with_secondary: bool = True) -> GNSSSystem:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def GLONASSL1() -> GNSSSystem:
+    """GLONASS L1OF: FDMA, one shared 511-chip m-sequence, 1 ms period.
+
+    The ``prn`` column index is the FDMA frequency-channel slot (``k + 7`` for
+    channel ``k``); `glonass_l1.carrier_frequency(k)` gives its carrier. The
+    columns are identical: satellites are separated in frequency.
+    """
+    return GNSSSystem(
+        name="GLONASSL1",
+        codes=glonass_l1.code_table(),
+        code_frequency=glonass_l1.CODE_FREQUENCY,
+        center_frequency=glonass_l1.CENTER_FREQUENCY,
+        code_length=glonass_l1.CODE_LENGTH,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def GalileoE1(pilot: bool = False, with_secondary: bool = True) -> GNSSSystem:
+    """Galileo E1 OS, BOC(1,1) folded into the code table: 8184 half-chips at
+    2.046 Mcps, a 4 ms primary period, phases in half-chips.
+
+    ``pilot=True`` is E1-C (dataless, CS25 overlay; track it with the atan2
+    PLL discriminator), else E1-B (data). The primary codes are stand-ins for
+    the ICD memory tables (see `models.galileo_e1`).
+    """
+    return GNSSSystem(
+        name="GALILEOE1C" if pilot else "GALILEOE1B",
+        codes=galileo_e1.code_table(pilot),
+        code_frequency=galileo_e1.CODE_FREQUENCY,
+        center_frequency=galileo_e1.CENTER_FREQUENCY,
+        code_length=galileo_e1.CODE_LENGTH,
+        secondary_code=(
+            galileo_e1.secondary_code() if pilot and with_secondary else None
+        ),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def BeiDouB1I(with_secondary: bool = True) -> GNSSSystem:
+    """BeiDou B1I: 2046-chip register-generated codes, 1 ms period.
+
+    D1 satellites (PRN >= 6) carry the NH20 overlay; ``with_secondary=False``
+    for the GEO (D2, PRN 1..5) satellites, which have none.
+    """
+    return GNSSSystem(
+        name="BEIDOUB1I",
+        codes=beidou_b1i.code_table(),
+        code_frequency=beidou_b1i.CODE_FREQUENCY,
+        center_frequency=beidou_b1i.CENTER_FREQUENCY,
+        code_length=beidou_b1i.CODE_LENGTH,
+        secondary_code=beidou_b1i.secondary_code() if with_secondary else None,
+    )
+
+
 # Name -> constructor registry.
 GNSS_REGISTRY = {
     "GPSL1": GPSL1,
     "GPSL5": GPSL5,
+    "GLONASSL1": GLONASSL1,
+    "GALILEOE1B": GalileoE1,
+    "GALILEOE1C": functools.partial(GalileoE1, pilot=True),
+    "BEIDOUB1I": BeiDouB1I,
 }
 
 

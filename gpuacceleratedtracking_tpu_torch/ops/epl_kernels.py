@@ -153,9 +153,13 @@ def bank_algorithm_for(
 
 def pack_code_columns(cols: torch.Tensor) -> torch.Tensor:
     """``[K, Lc]`` +/-1 chips as ``[K, ceil(Lc / 32)]`` int32 words, bit ``b``
-    of word ``w`` set where chip ``32 w + b`` is -1. Raises `ValueError` if an
-    entry is not +/-1 (one host read of the device)."""
-    if not bool(((cols == 1.0) | (cols == -1.0)).all()):
+    of word ``w`` set where chip ``32 w + b`` is -1. An entry other than +/-1
+    raises `ValueError` on the CPU; on the card it fails a device-side assert,
+    so a tracking run that packs its table per call never waits on the card."""
+    valid = ((cols == 1.0) | (cols == -1.0)).all()
+    if cols.is_cuda:
+        torch._assert_async(valid, "bank code tables hold +/-1 chips only")
+    elif not bool(valid):
         raise ValueError("bank code tables hold +/-1 chips only")
     num_k, code_length = cols.shape
     words = -(-code_length // 32)
@@ -177,8 +181,8 @@ def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torc
     """Per-channel code columns, packed one bit per chip (`pack_code_columns`):
     ``[K, ceil(Lc / 32)]`` int32, the code table of all four bank routes.
 
-    Raises if a chip is not +/-1. Hoist out of tracking loops: PRNs are loop
-    constants, and the check reads the device once.
+    Checks that every chip is +/-1 (`pack_code_columns`). Hoist out of
+    tracking loops: PRNs are loop constants.
     """
     return pack_code_columns(code_columns(codes, prn))
 

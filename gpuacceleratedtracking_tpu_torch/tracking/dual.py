@@ -9,13 +9,16 @@ component is demodulated with the pilot-driven NCOs.
 
 The K dual channels run as one 2K-channel bank: data codes in columns
 ``[0, P)`` and pilot codes in ``[P, 2P)`` of one combined code table, so a
-block is one bank call (one kernel launch on CUDA tensors), and the loop
-closure is one batched `loop_update` over ``[K]``.
+block is one bank call (one kernel launch on CUDA tensors; the per-channel
+kernels ``pallas_taps`` and ``pallas_fused`` run one channel at a time, 2K
+launches, as in `track_bank`), and the loop closure is one batched
+`loop_update` over ``[K]``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -24,7 +27,8 @@ import torch
 from ..models import gpsl5
 from ..ops import registry
 from .state import TrackConfig, TrackOutput, TrackState
-from .track import _bank_code_tile_kwargs, _bank_kernel_kwargs, _Stacked, loop_update
+from .track import (_CHANNEL_KERNELS, _bank_code_tile_kwargs, _bank_kernel_kwargs,
+                    _per_channel, _Stacked, loop_update)
 
 
 class DualTrackOutput(NamedTuple):
@@ -73,6 +77,8 @@ def track_bank_dual(
     sp = _overlay(pilot_secondary, gpsl5.neuman_hofman(True), device)
     prn2 = torch.cat([states.prn, states.prn + codes_data.shape[1]])
     corr = registry.get(config.algorithm)
+    if config.algorithm in _CHANNEL_KERNELS:
+        corr = functools.partial(_per_channel, corr)   # 2K launches per block
     kwargs = _bank_kernel_kwargs(config)
     kwargs.update(_bank_code_tile_kwargs(config, codes, prn2))
     pidx = config.prompt_index

@@ -98,12 +98,23 @@ def _beamform(accum_re, accum_im, ant_weights, single_antenna: bool):
         return accum_re, accum_im
     if ant_weights is None:
         return accum_re.sum(dim=-2), accum_im.sum(dim=-2)
-    w_re, w_im = (torch.as_tensor(w, dtype=torch.float32,
-                                  device=accum_re.device)[..., :, None]
-                  for w in ant_weights)
+    w_re, w_im = (_as_f32(w, accum_re.device)[..., :, None] for w in ant_weights)
     bf_re = (w_re * accum_re + w_im * accum_im).sum(dim=-2)
     bf_im = (w_re * accum_im - w_im * accum_re).sum(dim=-2)
     return bf_re, bf_im
+
+
+def _as_f32(x, device: torch.device) -> torch.Tensor:
+    """``x`` as an f32 tensor on ``device`` (a no-op for one already there)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _overlay_table(secondary_code: tuple, device: torch.device) -> torch.Tensor:
+    """The overlay signs as an f32 tensor on ``device``, copied once per code
+    and device: `loop_update` runs every block, and a copy from host memory
+    would make each block wait on the card."""
+    return torch.tensor(secondary_code, dtype=torch.float32, device=device)
 
 
 def _select(mask, new, old):
@@ -135,7 +146,7 @@ def loop_update(
 
     # Secondary-code (overlay) wipe-off, indexed by the block counter.
     if config.secondary_code:
-        sc = torch.tensor(config.secondary_code, dtype=torch.float32, device=device)
+        sc = _overlay_table(config.secondary_code, device)
         sign = sc[torch.remainder(state.ms_elapsed, len(config.secondary_code)).long()]
         sign = sign.reshape(sign.shape + (1,) * (accum_re.ndim - sign.ndim))
         accum_re = accum_re * sign
@@ -276,6 +287,8 @@ def track(
 
     Returns the final state and per-block stacked outputs.
     """
+    if ant_weights is not None:
+        ant_weights = tuple(_as_f32(w, signal_re.device) for w in ant_weights)
     outs = _Stacked(signal_re.shape[0])
     for b in range(signal_re.shape[0]):
         state, out = track_step(config, codes, state, signal_re[b], signal_im[b],
@@ -320,10 +333,8 @@ def track_bank(
     device = signal_re.device
     if ant_weights is not None:
         num_ants = signal_re.shape[-2] if signal_re.ndim == 3 else 1
-        ant_weights = tuple(
-            torch.as_tensor(w, dtype=torch.float32, device=device)
-            .expand(num_k, num_ants) for w in ant_weights
-        )
+        ant_weights = tuple(_as_f32(w, device).expand(num_k, num_ants)
+                            for w in ant_weights)
 
     corr = registry.get(config.algorithm)
     if config.algorithm in _CHANNEL_KERNELS:

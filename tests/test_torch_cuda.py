@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from gpuacceleratedtracking_tpu_torch.models import (
-    GPSL1, GPSL5, EPLCorrelator, correlator_sample_shifts, gen_carrier, gen_signal,
+    GPSL1, GPSL5, BeiDouB1I, GalileoE1, GLONASSL1, EPLCorrelator, correlator_sample_shifts, gen_carrier, gen_signal,
     gen_signal_mixed, soa)
 from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels, registry
 from gpuacceleratedtracking_tpu_torch.tracking import (
@@ -609,3 +609,153 @@ def test_per_channel_calls_do_not_wait_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# The GLONASS L1OF, Galileo E1 and BeiDou B1I cells through pallas_bank_auto:
+# name -> (system, N, K, seed, code phases or None, route). At 2.048 MHz a
+# 2048-sample block covers 512 GLONASS chips, so phases past 510 chips wrap
+# the 511-chip code twice (the general chip wrap).
+FAMILY_CASES = {
+    "glonass_wrap_n2048": (GLONASSL1(), 2048, 8, 31,
+                           np.linspace(505.0, 510.9, 8), "pallas_bank"),
+    "glonass_n32768_k256": (GLONASSL1(), 32768, 256, 32, None, "pallas_bank_rows"),
+    "galileo_e1c_n8192": (GalileoE1(pilot=True), 8192, 64, 33, None, "pallas_bank"),
+    "galileo_e1c_n32768_k256": (GalileoE1(pilot=True), 32768, 256, 34, None,
+                                "pallas_bank_rows"),
+    "beidou_n8192": (BeiDouB1I(), 8192, 64, 35, None, "pallas_bank"),
+    "beidou_n32768_k256": (BeiDouB1I(), 32768, 256, 36, None, "pallas_bank_rows"),
+}
+
+
+def _family_case(device, name):
+    system, n, k, seed, phases, route = FAMILY_CASES[name]
+    case = _case(device, n, k, seed=seed, system=system)
+    case["prn"] = case["prn"] % system.num_prns
+    if phases is not None:
+        case["code_phase"] = torch.as_tensor(phases, dtype=torch.float32, device=device)
+    return case, route
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_CASES))
+def test_family_cells_match_plain_version(cuda, name):
+    # The JAX suite's envelopes: 9.0 at Galileo's doubled transition density
+    # (tests/test_galileo.py:172-175), the rows tolerance 4.5 elsewhere.
+    case, route = _family_case(cuda, name)
+    assert epl_kernels.bank_algorithm_for(
+        case["signal_re"].shape[-1], case["sampling_frequency"], case["code_length"],
+        case["nominal_code_frequency"]) == route
+    counter = epl_kernels._ROWS_KERNEL_ROUTES[route]
+    before = counter.launches
+    got = epl_kernels.correlate_pallas_bank_auto(**case)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = epl_kernels.correlate_bank_rows_reference(**case, route=route)
+    atol = 9.0 if name.startswith("galileo") else 4.5
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=atol)
+
+
+def test_acquire_on_the_card_matches_the_cpu(cuda):
+    from gpuacceleratedtracking_tpu_torch.acquire import acquire
+
+    prns, dops = np.array([2, 9, 17]), np.array([1250.0, -2400.0, 300.0])
+    phases = np.array([100.25, 511.0, 900.5])
+    gen = torch.Generator().manual_seed(7)
+    sig, fs = gen_signal_mixed(SYSTEM, prns, dops, 4 * 8192, duration=4e-3,
+                               start_code_phases=phases, noise_std=2.0, generator=gen,
+                               device="cpu")
+    sre, sim = (x.reshape(4, 8192) for x in soa(sig))
+    want = acquire(SYSTEM, sre, sim, np.arange(32), fs, doppler_step=100.0)
+    got = acquire(SYSTEM, sre.to(cuda), sim.to(cuda), np.arange(32), fs, doppler_step=100.0)
+    assert got.carrier_doppler.device.type == "cuda"
+    torch.testing.assert_close(got.carrier_doppler.cpu(), want.carrier_doppler, rtol=0, atol=0)
+    torch.testing.assert_close(got.code_phase.cpu(), want.code_phase, rtol=0, atol=1e-4)
+    found = got.peak_metric.cpu().numpy() > 20.0
+    assert np.flatnonzero(found).tolist() == sorted(prns.tolist())
+    torch.testing.assert_close(got.peak_metric.cpu()[prns], want.peak_metric[prns], rtol=1e-3,
+                               atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["taps", "fused"])
+def test_track_bank_dual_on_the_per_channel_kernels(cuda, kernel):
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    n, blocks, k = 8192, 3, 4
+    fs = n / 1e-3
+    sig_i, _ = gen_signal(sys_i, 3, 900.0, n * blocks, duration=blocks * 1e-3,
+                          secondary_code=sys_i.secondary_code, device=cuda)
+    sig_q, _ = gen_signal(sys_q, 3, 900.0, n * blocks, duration=blocks * 1e-3,
+                          secondary_code=sys_q.secondary_code,
+                          start_carrier_phase=np.pi / 2, device=cuda)
+    sre, sim = (x.reshape(blocks, n) for x in soa(sig_i + sig_q))
+    codes = (torch.as_tensor(sys_i.codes, device=cuda), torch.as_tensor(sys_q.codes, device=cuda))
+    states = init_state(np.arange(k) + 3, carrier_doppler=np.full(k, 900.0), device=cuda)
+    outs = {}
+    for algo in (f"pallas_{kernel}", "xla_bank"):
+        config = dual_config(TrackConfig.for_system(sys_i, fs, n, algorithm=algo,
+                                                    use_secondary=False))
+        fn = getattr(channel_kernels, f"correlate_pallas_{kernel}")
+        before = fn.launches
+        _, outs[algo] = track_bank_dual(config, *codes, states, sre, sim)
+        torch.cuda.synchronize()
+        assert fn.launches - before == (2 * k * blocks if algo != "xla_bank" else 0)
+    got, want = outs[f"pallas_{kernel}"], outs["xla_bank"]
+    torch.testing.assert_close(got.pilot.prompt_re[:, 0], want.pilot.prompt_re[:, 0],
+                               rtol=5e-3, atol=10.0)
+    torch.testing.assert_close(got.data_prompt_re[:, 0], want.data_prompt_re[:, 0],
+                               rtol=5e-3, atol=10.0)
+
+
+def test_loop_update_with_an_overlay_does_not_wait_on_the_card(cuda):
+    # The overlay table is copied to the card once per (code, device): the
+    # first call builds it, later blocks only read it.
+    from gpuacceleratedtracking_tpu_torch.tracking import loop_update
+
+    config = TrackConfig.for_system(BeiDouB1I(), 8.192e6, 8192)
+    assert len(config.secondary_code) == 20
+    states = init_state(np.arange(64), carrier_doppler=np.linspace(-3000, 3000, 64), device=cuda)
+    acc = torch.randn((64, 3), generator=torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda) * 1000.0
+    states, _ = loop_update(config, states, acc, acc)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            states, _ = loop_update(config, states, acc, acc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_stream_dispatch_does_not_wait_on_the_card(cuda):
+    # A StreamTracker chunk (pinned staging, side-stream copy, track_bank on
+    # the rows kernel) without measure_dispatch queues its work and returns.
+    from gpuacceleratedtracking_tpu_torch.runtime import StreamTracker
+
+    n, bpd = 32768, 4
+    config = TrackConfig.for_system(BeiDouB1I(), n / 1e-3, n, algorithm="pallas_bank_auto")
+    states = init_state(np.arange(16), carrier_doppler=np.linspace(-3000, 3000, 16),
+                        device=cuda)
+    codes = torch.as_tensor(BeiDouB1I().codes, device=cuda)
+    tracker = StreamTracker(config, codes, states, blocks_per_dispatch=bpd)
+    rng = np.random.default_rng(0)
+    chunks = [rng.standard_normal((2, bpd, n)).astype(np.float32) for _ in range(3)]
+    tracker.process(*chunks[0])
+    torch.cuda.synchronize()
+    start = tracker.states
+    before = epl_kernels.correlate_pallas_bank_rows.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [tracker.process(*c) for c in chunks[1:]]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert epl_kernels.correlate_pallas_bank_rows.launches == before + 2 * bpd
+    # The staged chunks give what the same blocks give copied directly (the
+    # pinned buffers are reused from chunk to chunk).
+    states = start
+    for c, out in zip(chunks[1:], outs):
+        states, ref = track_bank(config, codes, states, torch.as_tensor(c[0], device=cuda),
+                                 torch.as_tensor(c[1], device=cuda))
+        torch.testing.assert_close(out.prompt_re, ref.prompt_re, rtol=0, atol=0)
+        torch.testing.assert_close(out.carrier_doppler, ref.carrier_doppler, rtol=0, atol=0)

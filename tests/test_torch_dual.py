@@ -205,3 +205,52 @@ def test_noiseless_symbol_recovery_exact():
     # Lock holds over the last 60 blocks (three 20-block windows).
     lock = ttracking.phase_lock_metric(out.pilot.prompt_re[-60:], out.pilot.prompt_im[-60:])
     assert (lock > 0.8).all(), lock
+
+
+# The per-channel kernels in a dual bank: 2K one-channel calls per block,
+# against the JAX `track_bank_dual`, which vmaps them (its Pallas kernels in
+# interpret mode). GPS L5 I5+Q5 at 2.048 MHz, K=2, B=2, N=2048.
+N_PER_CHANNEL, B_PER_CHANNEL = 2048, 2
+
+
+@pytest.fixture(scope="module")
+def jax_dual_per_channel():
+    sre, sim, _ = _dual_signal(B_PER_CHANNEL, N_PER_CHANNEL, DUAL_DOPS[:2], DUAL_PRNS[:2])
+    sys_i, sys_q = jmodels.GPSL5(), jmodels.GPSL5(quadrature=True)
+    out = {}
+    for algo in ("pallas_taps", "pallas_fused"):
+        cfg = jtracking.dual_config(jtracking.TrackConfig.for_system(
+            sys_i, N_PER_CHANNEL / 1e-3, N_PER_CHANNEL, algorithm=algo, use_secondary=False))
+        st = jtracking.init_state(np.array(DUAL_PRNS[:2]),
+                                  carrier_doppler=np.array(DUAL_DOPS[:2]) + 5.0)
+        _, o = jtracking.track_bank_dual(cfg, jnp.asarray(sys_i.codes),
+                                         jnp.asarray(sys_q.codes), st, jnp.asarray(sre),
+                                         jnp.asarray(sim))
+        out[algo] = o
+    return sre, sim, out
+
+
+@pytest.mark.parametrize("algo", ["pallas_taps", "pallas_fused"])
+def test_track_bank_dual_on_the_per_channel_kernels_matches_jax(jax_dual_per_channel, algo):
+    sre, sim, want = jax_dual_per_channel
+    want = want[algo]
+    sys_i, sys_q = tmodels.GPSL5(), tmodels.GPSL5(quadrature=True)
+    cfg = ttracking.dual_config(ttracking.TrackConfig.for_system(
+        sys_i, N_PER_CHANNEL / 1e-3, N_PER_CHANNEL, algorithm=algo, use_secondary=False))
+    st = ttracking.init_state(np.array(DUAL_PRNS[:2]),
+                              carrier_doppler=np.array(DUAL_DOPS[:2]) + 5.0, device="cpu")
+    _, got = ttracking.track_bank_dual(cfg, torch.as_tensor(sys_i.codes),
+                                       torch.as_tensor(sys_q.codes), st,
+                                       torch.as_tensor(sre), torch.as_tensor(sim))
+    assert got.pilot.prompt_re.shape == got.data_prompt_re.shape == (B_PER_CHANNEL, 2)
+    # Both sides compute the same chips and phases one channel at a time and
+    # differ in summation order only: prompts within 0.05 (|P| <= ~2150),
+    # loop state within 1e-3.
+    for field in ("prompt_re", "prompt_im", "carrier_doppler", "code_phase"):
+        np.testing.assert_allclose(getattr(got.pilot, field).numpy(),
+                                   np.asarray(getattr(want.pilot, field)),
+                                   rtol=1e-6, atol=0.05 if "prompt" in field else 1e-3,
+                                   err_msg=field)
+    for field in ("data_prompt_re", "data_prompt_im"):
+        np.testing.assert_allclose(getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+                                   rtol=1e-6, atol=0.05, err_msg=field)

@@ -22,13 +22,14 @@ def test_gpsl1_code_table_bit_equal():
 
 
 def test_registry_and_constants():
-    for name in ("GPSL1", "GPSL5"):
+    assert set(tmodels.GNSS_REGISTRY) == set(jmodels.GNSS_REGISTRY)
+    for name in jmodels.GNSS_REGISTRY:
         j, t = jmodels.get_system(name), tmodels.get_system(name)
         assert (t.code_frequency, t.center_frequency, t.code_length) == (
             j.code_frequency, j.center_frequency, j.code_length)
-    # Families the port has not registered yet.
+    # A name neither package registers.
     with pytest.raises(KeyError, match="Unknown GNSS system"):
-        tmodels.get_system("GLONASSL1")
+        tmodels.get_system("GPSL2C")
 
 
 @pytest.mark.parametrize("quadrature", [False, True])

@@ -2,6 +2,7 @@
 interop and `loop_update` vs the JAX package."""
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from gpuacceleratedtracking_tpu_torch import tracking as ttracking
 from gpuacceleratedtracking_tpu_torch.tracking import cn0 as tcn0
 from gpuacceleratedtracking_tpu_torch.tracking import discriminators as tdisc
 from gpuacceleratedtracking_tpu_torch.tracking import loop_filter as tlf
+from gpuacceleratedtracking_tpu_torch.ops import registry as tregistry
 
 torch.set_num_threads(1)
 
@@ -237,3 +239,69 @@ def test_bf16_z_is_not_ported():
         nominal_code_frequency=cfg.code_frequency, z_dtype="bf16")
     torch.testing.assert_close(out.accum_re[0], want[0], rtol=0, atol=0)
     assert abs(float(out.prompt_re[0, 0]) - 8192) < 4e-3 * 8192
+
+
+def _outputs_equal(a, b):
+    for field, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y), field
+
+
+def test_overlay_table_is_built_once_and_the_trajectory_is_unchanged():
+    # loop_update reads the overlay signs from a table cached per (code,
+    # device). A run equals, bit for bit, one that builds the table afresh
+    # every block, as loop_update did before the cache.
+    # The module, not the `track` function the package exports under its name.
+    ttrack = importlib.import_module("gpuacceleratedtracking_tpu_torch.tracking.track")
+
+    system = tmodels.BeiDouB1I()
+    n, blocks, dops = 2048, 6, np.array([800.0, -1400.0])
+    cfg = ttracking.TrackConfig.for_system(system, n / 1e-3, n, algorithm="xla_bank")
+    assert len(cfg.secondary_code) == 20
+    sig, _ = tmodels.gen_signal_mixed(system, np.arange(2), dops, n * blocks,
+                                      duration=blocks * 1e-3, device="cpu")
+    sre, sim = (x.reshape(blocks, n) for x in tmodels.soa(sig))
+    codes = torch.as_tensor(system.codes)
+    states = ttracking.init_state(np.arange(2), carrier_doppler=dops + 10.0, ms_elapsed=7,
+                                  device="cpu")
+    ttrack._overlay_table.cache_clear()
+    final, out = ttracking.track_bank(cfg, codes, states, sre, sim)
+    info = ttrack._overlay_table.cache_info()
+    assert (info.misses, info.hits) == (1, blocks - 1)
+
+    corr = tregistry.get("xla_bank")
+    st, ref = states, []
+    for b in range(blocks):
+        ttrack._overlay_table.cache_clear()
+        acc = corr(sre[b], sim[b], codes, st.prn, cfg.intermediate_frequency + st.carrier_doppler,
+                   cfg.sampling_frequency, st.carrier_phase, cfg.code_frequency + st.code_doppler,
+                   st.code_phase, cfg.sample_shifts, cfg.code_length)
+        st, o = ttracking.loop_update(cfg, st, *acc)
+        ref.append(o)
+    _outputs_equal(out, ttracking.TrackOutput(*(torch.stack(x) for x in zip(*ref))))
+    for x, y in zip(jax.tree.leaves(ttracking.state_to_numpy(final)),
+                    jax.tree.leaves(ttracking.state_to_numpy(st))):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_track_converts_ant_weights_once_and_the_trajectory_is_unchanged():
+    # `track` converts host steering weights once; the run equals, bit for
+    # bit, per-block `track_step` calls that convert them every block.
+    system = tmodels.GPSL1()
+    n, blocks = 2048, 4
+    sig, fs = tmodels.gen_signal(system, 3, 700.0, n * blocks, num_ants=2,
+                                 duration=blocks * 1e-3, device="cpu")
+    sre, sim = (x.reshape(2, blocks, n).transpose(0, 1).contiguous() for x in tmodels.soa(sig))
+    codes = torch.as_tensor(system.codes)
+    cfg = ttracking.TrackConfig.for_system(system, fs, n, algorithm="fused_xla")
+    state = ttracking.init_state(3, carrier_doppler=710.0, device="cpu")
+    weights = (np.array([1.0, 0.5]), np.array([0.0, -0.25]))
+    _, out = ttracking.track(cfg, codes, state, sre, sim, ant_weights=weights)
+    _, out_t = ttracking.track(cfg, codes, state, sre, sim,
+                               ant_weights=tuple(torch.as_tensor(w, dtype=torch.float32)
+                                                 for w in weights))
+    st, ref = state, []
+    for b in range(blocks):
+        st, o = ttracking.track_step(cfg, codes, st, sre[b], sim[b], weights)
+        ref.append(o)
+    _outputs_equal(out, ttracking.TrackOutput(*(torch.stack(x) for x in zip(*ref))))
+    _outputs_equal(out, out_t)
