@@ -94,7 +94,30 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      block time of the same bank;
    - I, the dual bank on the per-channel kernels: ``track_bank_dual`` at K=4
      through ``pallas_fused`` and ``pallas_taps`` (2K launches per block)
-     against ``xla_bank``, on noiseless GPS L5 blocks.
+     against ``xla_bank``, on noiseless GPS L5 blocks;
+   - J, the distributed layer (``parallel``) on a mesh of every visible card
+     in turn, or of ``cuda:0`` repeated on a one-card machine: J0 each kernel
+     against its plain version at the shard-local shapes below; J1 the
+     counterpart of the JAX dry run (``__graft_entry__.py:91-185``: the L1
+     rows bank at N=8192 on (chan 2, time 2), whose shards must route to the
+     rows kernel, against ``track_bank``, and the GPS L5 dual bank at
+     N=16384 on the channel axis against ``track_bank_dual``); J2 the K=1024
+     GPS L1 bank on ``main_path``'s 20 noiseless blocks on meshes 2 x 1, 1 x 2
+     and 2 x 2 against ``track_bank`` (one rows launch per shard and block),
+     100 blocks at 50 dB-Hz on 2 x 2 in which the 8 satellites hold lock, and
+     each mesh's block time beside the unsharded block; J3 the K=1024 A=4
+     L=7 bank through ``bank_comp`` on 2 x 2; J4 the K=64 L5 dual bank on
+     chan 2; J5 ``correlate_sharded`` through ``pallas_taps`` and
+     ``pallas_fused`` at N=2^18 A=4 L=7 over ant 4 x time 2 and N=2^17 over
+     time 8, against the unsharded call; J6 the one-hot route at K=64 on
+     2 x 2. Each kernel's launches here are ``parallel`` in
+     ``launches_by_path``;
+   - K, the figures: ``bench.plots.plot_kernel_benchmarks`` from C's
+     ``kernel_sweep/`` records and ``plot_track_benchmark`` from the
+     ``run_track_benchmark`` records of D and E (written to
+     ``figures/track_records/``), each PNG over 10 KB, into ``figures/``
+     beside ``kernel_sweep/``. Where matplotlib is not installed the frames
+     are checked and the script says that no figure was drawn.
 5. Times (CUDA events, after warm-up; medians and minima): each kernel vs its
    plain version at main-path shapes (every kernel, and the per-channel
    kernels' plain versions, also as device time from a CUDA graph replay:
@@ -209,6 +232,12 @@ def read_counts() -> dict:
 def only(**launches) -> dict:
     """The counts expected when just the named kernels ran."""
     return {name: launches.get(name, 0) for name in counters()}
+
+
+def json_record(result: dict) -> dict:
+    """A benchmark result with every value as JSON gives it back (numpy
+    scalars as Python numbers), as `run_sweep` writes its records."""
+    return json.loads(json.dumps(result, default=float))
 
 
 def random_case(system, n, k, seed, num_ants=1, taps=3, fs=None):
@@ -998,6 +1027,7 @@ def channel_loops(system, seed, sre, sim, num_blocks_lock: int = 600):
               f"{name} benchmark realtime_channels")
         benches[name] = {k: r[k] for k in ("Median", "Minimum", "realtime_channels",
                                            "samples_per_s")}
+        benches[name]["record"] = json_record(r)
         log(f"[loops] run_{name}_benchmark {cfg}: median {r['Median'] * 1e3!r} ms/block "
             f"(min {r['Minimum'] * 1e3!r}), realtime_channels {r['realtime_channels']!r}, "
             f"launches {counts}")
@@ -1188,6 +1218,7 @@ def family_loops(seed, card, num_blocks_lock: int = 300):
                   f"run_track_benchmark {name} K={k} launched bank_rows only: {counts}")
             entry[f"bench_k{k}"] = {key: r[key] for key in ("Median", "Minimum",
                                                            "realtime_channels")}
+            entry[f"bench_k{k}"]["record"] = json_record(r)
             log(f"[time] run_track_benchmark {name} K={k} N={N_1MS}: median "
                 f"{r['Median'] * 1e3!r} ms/block (min {r['Minimum'] * 1e3!r}), "
                 f"realtime_channels {r['realtime_channels']!r} [{card}]")
@@ -1702,6 +1733,461 @@ def dual_per_channel_path(seed, num_k: int = 4, num_blocks: int = 20):
     return launches
 
 
+# --- The distributed layer (phase J) and the figure layer (phase K).
+
+def mesh_devices(count):
+    """``count`` mesh devices: every visible card in turn where there are two
+    or more, else cuda:0 repeated (one card then runs every shard)."""
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(count)]
+
+
+def within(name, got, want, atol, rtol):
+    """Check ``|got - want| <= atol + rtol |want|`` everywhere; the largest
+    difference."""
+    diff = (got - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= atol + rtol * want.abs()).all()),
+          f"{name} within rtol={rtol} atol={atol} ({err!r})")
+    return err
+
+
+def close_prompts(name, got, want, nsat, atol=40.0, rtol=5e-3):
+    """Prompts of block 0 on every channel and of every block on the ``nsat``
+    locked ones (a channel with no signal runs a chaotic loop, where one f32
+    rounding apart in block 0 grows into another trajectory)."""
+    return (within(f"{name} block 0 prompt_re", got[0], want[0], atol, rtol),
+            within(f"{name} locked prompt_re", got[:, :nsat], want[:, :nsat], atol, rtol))
+
+
+def shard_cells(seed):
+    """J0: the six kernels at the shard-local shapes phase J gives them, each
+    against its plain version, with phase 3's tolerances."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, GPSL5
+    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels
+
+    l1, l5 = GPSL1(), GPSL5()
+    bank_cells = [
+        # kernel, cell, system, N, fs, K, A, L: J2's 2 x 2 shard, J1's, J3's,
+        # J4's, J1's L5 leg, J6's
+        ("bank_rows", "j2_k512_n16384", l1, 16384, L1_FS, NUM_K // 2, 1, 3),
+        ("bank_rows", "j1_k1_n4096", l1, 4096, 8.192e6, 1, 1, 3),
+        ("bank_comp", "j3_k512_a4_l7_n16384", l1, 16384, L1_FS, NUM_K // 2, NUM_ANTS, 7),
+        ("bank_transition", "j4_l5_k64_n32768", l5, N_1MS, L1_FS, DUAL_K, 1, 3),
+        ("bank_transition", "j1_l5_k2_n16384", l5, 16384, 16.384e6, 2, 1, 3),
+        ("bank_onehot", "j6_k32_n4096", l1, 4096, 8.192e6, 32, 1, 3),
+    ]
+    runs = {
+        "bank_rows": (epl_kernels.correlate_pallas_bank_rows, "pallas_bank_rows"),
+        "bank_transition": (epl_kernels.correlate_pallas_bank, "pallas_bank"),
+        "bank_onehot": (epl_kernels.correlate_pallas_bank_onehot, "pallas_bank_onehot"),
+    }
+    worst = {}
+    for i, (kernel, cell, system, n, fs, k, a, taps) in enumerate(bank_cells):
+        case = random_case(system, n, k, seed + 1100 + i, num_ants=a, taps=taps, fs=fs)
+        if kernel == "bank_comp":
+            fn = bank_comp.correlate_pallas_bank_comp
+            got, want = fn(**case), bank_comp.correlate_bank_comp_reference(**case)
+            atol, rtol = 3e-5 * float(want[0].abs().max()) + 1e-3, 0.0
+        else:
+            fn, route = runs[kernel]
+            if kernel == "bank_onehot":
+                del case["nominal_code_frequency"]
+            got = fn(**case)
+            want = epl_kernels.correlate_bank_rows_reference(**case, route=route)
+            atol, rtol = 4.5, 2e-3
+        torch.cuda.synchronize()
+        err = max(within(f"[J0] {kernel} {cell}", g, w, atol, rtol) for g, w in zip(got, want))
+        check(got[0].shape == ((k, taps) if a == 1 else (k, a, taps)), f"[J0] {cell} shape")
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+        log(f"[J0] {kernel} {cell}: {system.name} N={n} K={k} A={a} L={taps}: "
+            f"max|kernel-plain|={err!r} ok")
+    # J5's shards: N=2^18 A=4 over ant 4 x time 2, N=2^17 over time 8.
+    for cell, n, taps in (("j5_n131072_l7", 1 << 17, 7), ("j5_n16384_l3", 1 << 14, 3)):
+        args = channel_args("GPSL1", n, 1, taps, 0, 1500.0, 0.3, 17.5)
+        for kind in ("taps", "fused"):
+            got = getattr(channel_kernels, f"correlate_pallas_{kind}")(*args)
+            want = getattr(channel_kernels, f"correlate_{kind}_reference")(*args)
+            torch.cuda.synchronize()
+            err = max(within(f"[J0] {kind} {cell}", g, w, 1e-6 * n + 1e-3, 0.0)
+                      for g, w in zip(got, want))
+            worst[kind] = max(worst.get(kind, 0.0), err)
+            log(f"[J0] {kind} {cell}: N={n} A=1 L={taps}: max|kernel-plain|={err!r} ok")
+    return worst
+
+
+def dryrun_leg():
+    """J1, the counterpart of the JAX dry run (`__graft_entry__.py:91-185`) on a
+    (chan 2, time 2) mesh: the L1 rows bank at N=8192 (whose shards must route
+    to the rows kernel) against `track_bank`, and the GPS L5 dual bank at
+    N=16384 on the channel axis against `track_bank_dual`, at its tolerances."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, GPSL5, gen_signal, soa
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+    from gpuacceleratedtracking_tpu_torch.parallel import (
+        channel_time_mesh, track_bank_dual_sharded, track_bank_sharded)
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, dual_config, init_state, track_bank, track_bank_dual)
+
+    num_chan, num_time, blocks = 2, 2, 2
+    mesh = channel_time_mesh(num_chan, num_time, devices=mesh_devices(num_chan * num_time))
+    system = GPSL1()
+    num_k, n = max(num_chan, 2), 8192
+    fs = n / 1e-3
+    dops = np.linspace(-1000.0, 1000.0, num_k)
+    signal, _ = gen_signal(system, 0, float(dops[0]), n * blocks, duration=blocks * 1e-3,
+                           device=DEVICE)
+    sre, sim = (x.reshape(blocks, n) for x in soa(signal))
+    config = TrackConfig.for_system(system, fs, n, algorithm="pallas_bank_auto")
+    routed = epl_kernels.bank_algorithm_for(n // num_time, fs, system.code_length,
+                                            system.code_frequency)
+    check(routed == "pallas_bank_rows", f"J1 shards route to the rows kernel, got {routed}")
+    states = init_state(np.arange(num_k) % 32, carrier_doppler=dops, device=DEVICE)
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    reset_counts()
+    _, out = track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(bank_rows=num_chan * num_time * blocks),
+          f"J1: one rows launch per shard and block, got {counts}")
+    check(out.prompt_re.shape == (blocks, num_k), "J1 prompt shape")
+    _, ref = track_bank(config, codes, states, sre, sim)
+    torch.cuda.synchronize()
+    d_p = within("J1 prompt_re", out.prompt_re, ref.prompt_re, 1e-2 * n, 2e-3)
+    d_d = within("J1 carrier_doppler", out.carrier_doppler, ref.carrier_doppler, 1e-2, 2e-3)
+
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    n5 = 16384
+    sig5, _ = gen_signal(sys_i, 0, 700.0, n5 * blocks, duration=blocks * 1e-3,
+                         secondary_code=sys_i.secondary_code, device=DEVICE)
+    s5re, s5im = (x.reshape(blocks, n5) for x in soa(sig5))
+    cfg5 = dual_config(TrackConfig.for_system(sys_i, n5 / 1e-3, n5, algorithm="pallas_bank_auto",
+                                              use_secondary=False))
+    states5 = init_state(np.arange(num_chan) % sys_i.codes.shape[1],
+                         carrier_doppler=np.linspace(-900.0, 900.0, num_chan), device=DEVICE)
+    codes_i = torch.as_tensor(sys_i.codes, device=DEVICE)
+    codes_q = torch.as_tensor(sys_q.codes, device=DEVICE)
+    reset_counts()
+    final_s, out_s = track_bank_dual_sharded(cfg5, codes_i, codes_q, states5, s5re, s5im,
+                                             mesh=mesh)
+    torch.cuda.synchronize()
+    counts5 = read_counts()
+    check(counts5 == only(bank_transition=num_chan * blocks),
+          f"J1 L5: one transition launch per channel shard and block, got {counts5}")
+    final_u, out_u = track_bank_dual(cfg5, codes_i, codes_q, states5, s5re, s5im)
+    torch.cuda.synchronize()
+    d5 = max(within("J1 L5 pilot prompt_re", out_s.pilot.prompt_re, out_u.pilot.prompt_re,
+                    1e-2, 1e-5),
+             within("J1 L5 data prompt_re", out_s.data_prompt_re, out_u.data_prompt_re,
+                    1e-2, 1e-5))
+    d5c = within("J1 L5 code phase", final_s.code_phase, final_u.code_phase, 1e-4, 0.0)
+    log(f"[J1] dry run on {[str(d) for d in mesh.devices.flat]}: L1 K={num_k} N={n} {blocks} "
+        f"blocks on (chan {num_chan}, time {num_time}), route {routed}, launches "
+        f"{counts['bank_rows']}; vs track_bank max|d prompt_re| {d_p!r}, max|d Doppler| "
+        f"{d_d!r}; L5 dual K={num_chan} N={n5} launches {counts5['bank_transition']}, vs "
+        f"track_bank_dual max|d prompt| {d5!r}, max|d code phase| {d5c!r} ok")
+    return {"bank_rows": counts["bank_rows"], "bank_transition": counts5["bank_transition"]}
+
+
+def block_time(name, run, channels, card, blocks=10):
+    """Closed-loop block time of ``run`` (``blocks`` blocks per call) and the
+    real-time channels at 1 ms blocks."""
+    med, mn = time_cuda(run, warmup=2)
+    entry = {"block_ms": med / blocks, "block_min_ms": mn / blocks,
+             "realtime_channels": channels / (med / blocks)}
+    log(f"[J time] {name}: block median {entry['block_ms']!r} ms (min "
+        f"{entry['block_min_ms']!r}); real-time channels {entry['realtime_channels']!r} [{card}]")
+    return entry
+
+
+def sharded_bank_path(system, seed, sre, sim, card, num_blocks_lock: int = 100):
+    """J2: the K=1024 GPS L1 bank at N=32768 on `main_path`'s 20 noiseless
+    8-satellite blocks, on meshes 2 x 1, 1 x 2 and 2 x 2 against unsharded
+    `track_bank` (one rows launch per shard and block); 100 blocks at
+    50 dB-Hz on 2 x 2 from the true state, in which the 8 satellites hold
+    lock; block times of each mesh beside the unsharded block."""
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, track_bank
+
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    config = TrackConfig.for_system(system, L1_FS, N_1MS, algorithm="pallas_bank_auto")
+    states = bank_states(system, init_errors=True)
+    nsat = len(SAT_DOPPLERS)
+    blocks = sre.shape[0]
+    _, ref = track_bank(config, codes, states, sre, sim)
+    torch.cuda.synchronize()
+    launches, meshes = 0, {}
+    for chan, time_ in ((2, 1), (1, 2), (2, 2)):
+        mesh = channel_time_mesh(chan, time_, devices=mesh_devices(chan * time_))
+        meshes[f"{chan}x{time_}"] = mesh
+        check(epl_kernels.bank_algorithm_for(N_1MS // time_, L1_FS, system.code_length,
+                                             system.code_frequency) == "pallas_bank_rows",
+              "J2 shards route to the rows kernel")
+        reset_counts()
+        _, out = track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts == only(bank_rows=chan * time_ * blocks),
+              f"J2 {chan}x{time_}: one rows launch per shard and block, got {counts}")
+        launches += counts["bank_rows"]
+        for field, x in out._asdict().items():
+            check(bool(torch.isfinite(x.float()).all()), f"J2 {chan}x{time_} {field} finite")
+        # Channel shards alone change only the kernel's summation grouping
+        # (its tiles per CTA follow the grid, so K); time shards also start
+        # each shard from advanced phases. Both within the main path's bound.
+        d0, dl = close_prompts(f"J2 {chan}x{time_}", out.prompt_re, ref.prompt_re, nsat)
+        note = f"block 0 max|d prompt_re| {d0!r}, 8 locked channels {dl!r}"
+        log(f"[J2] track_bank_sharded K={NUM_K} N={N_1MS} {blocks} blocks on chan {chan} x "
+            f"time {time_}: {counts['bank_rows']} rows launches ({chan * time_} per block); "
+            f"vs track_bank {note}")
+    del out, ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1000)
+    noisy_re, noisy_im, _ = mixed_blocks(system, num_blocks_lock, NOISE_STD, gen)
+    reset_counts()
+    _, out = track_bank_sharded(config, codes, bank_states(system, init_errors=False),
+                                noisy_re, noisy_im, mesh=meshes["2x2"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(bank_rows=4 * num_blocks_lock), f"J2 lock run launches {counts}")
+    launches += counts["bank_rows"]
+    del noisy_re, noisy_im
+    dop = out.carrier_doppler[-50:, :nsat].double().mean(0).cpu().numpy()
+    mag = torch.hypot(out.prompt_re[-50:, :nsat], out.prompt_im[-50:, :nsat])
+    mag = mag.double().mean(0).cpu().numpy()
+    dop_err = np.abs(dop - SAT_DOPPLERS)
+    log(f"[J2 lock] 2x2, {num_blocks_lock} blocks at 50 dB-Hz: Doppler errors (last 50) "
+        f"{dop_err.tolist()} Hz, mean |prompt| {mag.tolist()}")
+    check(bool(np.all(dop_err < 5.0)), f"J2 Doppler within 5 Hz: {dop_err.tolist()}")
+    check(bool(np.all(mag > N_1MS / 2)), f"J2 |prompt| > N/2: {mag.tolist()}")
+    del out
+
+    states = bank_states(system, init_errors=False)
+    times = {"unsharded": block_time(
+        f"rows K={NUM_K} unsharded", lambda: track_bank(config, codes, states, sre[:10],
+                                                        sim[:10]), NUM_K, card)}
+    for key, mesh in meshes.items():
+        times[key] = block_time(
+            f"rows K={NUM_K} mesh {key}",
+            lambda: track_bank_sharded(config, codes, states, sre[:10], sim[:10], mesh=mesh),
+            NUM_K, card)
+        times[key]["launches_per_block"] = mesh.size
+    return launches, times
+
+
+def sharded_array_path(system, card, blocks: int = 20):
+    """J3: the K=1024 A=4 L=7 bank through `bank_comp` on 2 x 2 against
+    unsharded `track_bank` with no steering weights (the JAX sharded bank
+    takes none: both sum the antennas uniformly)."""
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, track_bank
+
+    sre, sim, fs = mixed_blocks(system, blocks, num_ants=NUM_ANTS)
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    config = TrackConfig.for_system(system, fs, N_1MS, num_correlators=7,
+                                    algorithm="pallas_bank_auto")
+    states = bank_states(system, init_errors=True, num_taps=7)
+    mesh = channel_time_mesh(2, 2, devices=mesh_devices(4))
+    _, ref = track_bank(config, codes, states, sre, sim)
+    reset_counts()
+    _, out = track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(bank_comp=4 * blocks), f"J3: one comp launch per shard and block, "
+          f"got {counts}")
+    check(out.accum_re.shape == (blocks, NUM_K, NUM_ANTS, 7), "J3 accum shape")
+    d0, dl = close_prompts("J3 2x2", out.prompt_re, ref.prompt_re, len(SAT_DOPPLERS))
+    log(f"[J3] track_bank_sharded K={NUM_K} A={NUM_ANTS} L=7 N={N_1MS} {blocks} blocks on "
+        f"2x2: {counts['bank_comp']} comp launches (4 per block); vs track_bank block 0 "
+        f"max|d prompt_re| {d0!r}, 8 locked channels {dl!r}")
+    del out, ref
+    states = bank_states(system, init_errors=False, num_taps=7)
+    times = {"unsharded": block_time(
+        f"array K={NUM_K} A={NUM_ANTS} L=7 unsharded",
+        lambda: track_bank(config, codes, states, sre[:10], sim[:10]), NUM_K, card),
+        "2x2": block_time(
+        f"array K={NUM_K} A={NUM_ANTS} L=7 mesh 2x2",
+        lambda: track_bank_sharded(config, codes, states, sre[:10], sim[:10], mesh=mesh),
+        NUM_K, card)}
+    times["2x2"]["launches_per_block"] = 4
+    return counts["bank_comp"], times
+
+
+def sharded_dual_path(sre_l5, sim_l5, l5_offsets, card, blocks: int = 20):
+    """J4: the K=64 GPS L5 dual bank at 32.768 MHz on chan 2 against
+    `track_bank_dual` (path B's aligned tracking blocks and states)."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL5
+    from gpuacceleratedtracking_tpu_torch.parallel import (
+        channel_time_mesh, track_bank_dual_sharded)
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, dual_config, track_bank_dual)
+
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    codes_i = torch.as_tensor(sys_i.codes, device=DEVICE)
+    codes_q = torch.as_tensor(sys_q.codes, device=DEVICE)
+    config = dual_config(TrackConfig.for_system(sys_i, L1_FS, N_1MS, algorithm="pallas_bank_auto",
+                                                use_secondary=False))
+    states = dual_states(l5_offsets, L5_DOPPLERS)
+    sre, sim = sre_l5[:blocks], sim_l5[:blocks]
+    mesh = channel_time_mesh(2, 1, devices=mesh_devices(2))
+    final_u, ref = track_bank_dual(config, codes_i, codes_q, states, sre, sim)
+    reset_counts()
+    final_s, out = track_bank_dual_sharded(config, codes_i, codes_q, states, sre, sim, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(bank_transition=2 * blocks),
+          f"J4: one transition launch per channel shard and block, got {counts}")
+    d_p = within("J4 pilot prompt_re", out.pilot.prompt_re, ref.pilot.prompt_re, 1e-2, 1e-5)
+    d_d = within("J4 data prompt_re", out.data_prompt_re, ref.data_prompt_re, 1e-2, 1e-5)
+    d_c = within("J4 code phase", final_s.code_phase, final_u.code_phase, 1e-4, 0.0)
+    log(f"[J4] track_bank_dual_sharded K={DUAL_K} N={N_1MS} {blocks} blocks on chan 2: "
+        f"{counts['bank_transition']} transition launches (2 per block, {DUAL_K} bank "
+        f"channels each); vs track_bank_dual max|d pilot prompt| {d_p!r}, data {d_d!r}, "
+        f"code phase {d_c!r}")
+    times = {"unsharded": block_time(
+        f"L5 dual K={DUAL_K} unsharded",
+        lambda: track_bank_dual(config, codes_i, codes_q, states, sre[:10], sim[:10]),
+        DUAL_K, card),
+        "chan2": block_time(
+        f"L5 dual K={DUAL_K} mesh chan 2",
+        lambda: track_bank_dual_sharded(config, codes_i, codes_q, states, sre[:10], sim[:10],
+                                        mesh=mesh), DUAL_K, card)}
+    times["chan2"]["launches_per_block"] = 2
+    return counts["bank_transition"], times
+
+
+def sharded_correlate_path():
+    """J5: `correlate_sharded` through `pallas_taps` and `pallas_fused` at
+    N=2^18 A=4 L=7 over ant 4 x time 2 and N=2^17 A=1 L=3 over time 8,
+    against the unsharded kernel call, at the JAX package's large-block
+    tolerance (tests/test_parallel.py:104-121)."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1
+    from gpuacceleratedtracking_tpu_torch.ops import channel_kernels
+    from gpuacceleratedtracking_tpu_torch.parallel import correlate_sharded, make_mesh
+
+    system = GPSL1()
+    launches = {"taps": 0, "fused": 0}
+    for n, a, taps, axes in ((N_WIDE, NUM_ANTS, 7, {"ant": 4, "time": 2}),
+                             (1 << 17, 1, 3, {"time": 8})):
+        args = channel_args("GPSL1", n, a, taps, 4, -2200.0, 0.7, 311.25)
+        mesh = make_mesh(axes, devices=mesh_devices(8))
+        for kind in ("taps", "fused"):
+            want = getattr(channel_kernels, f"correlate_pallas_{kind}")(*args)
+            torch.cuda.synchronize()
+            reset_counts()
+            got = correlate_sharded(*args, mesh=mesh, algorithm=f"pallas_{kind}",
+                                    nominal_code_frequency=system.code_frequency,
+                                    ant_axis="ant" if "ant" in axes else None)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts == only(**{kind: 8}), f"J5 {kind} {axes}: 8 launches, got {counts}")
+            launches[kind] += counts[kind]
+            err = 0.0
+            for g, w in zip(got, want):
+                check(g.shape == w.shape and bool(torch.isfinite(g).all()), f"J5 {kind} shape")
+                err = max(err, within(f"J5 {kind} N={n} {axes}", g, w, 5.0, 2e-3))
+            log(f"[J5] correlate_sharded {kind} N={n} A={a} L={taps} over {axes}: 8 launches; "
+                f"vs the unsharded call max|d| {err!r}")
+    return launches
+
+
+def sharded_onehot_path(system, blocks: int = 10, k: int = 64, n: int = 8192):
+    """J6: `track_bank_sharded` on `pallas_bank_onehot` at K=64, N=8192 on
+    2 x 2, 3 satellites tracked, against unsharded `track_bank`."""
+    from gpuacceleratedtracking_tpu_torch.models import gen_signal_mixed, soa
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, init_state, track_bank
+
+    dops = np.linspace(-4000.0, 4000.0, k)
+    dops[:3] = [-900.0, 100.0, 1500.0]
+    sig, fs = gen_signal_mixed(system, [0, 1, 2], dops[:3], n * blocks,
+                               duration=blocks * 1e-3, device=DEVICE)
+    sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    states = init_state(np.arange(k) % 32, carrier_doppler=dops, device=DEVICE)
+    config = TrackConfig.for_system(system, fs, n, algorithm="pallas_bank_onehot")
+    _, ref = track_bank(config, codes, states, sre, sim)
+    reset_counts()
+    _, out = track_bank_sharded(config, codes, states, sre, sim,
+                                mesh=channel_time_mesh(2, 2, devices=mesh_devices(4)))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(bank_onehot=4 * blocks), f"J6: one onehot launch per shard and "
+          f"block, got {counts}")
+    d0, dl = close_prompts("J6 2x2", out.prompt_re, ref.prompt_re, 3, atol=10.0)
+    log(f"[J6] track_bank_sharded K={k} N={n} {blocks} blocks via pallas_bank_onehot on 2x2: "
+        f"{counts['bank_onehot']} launches; vs track_bank block 0 max|d prompt_re| {d0!r}, 3 "
+        f"locked channels {dl!r}")
+    return counts["bank_onehot"]
+
+
+def parallel_path(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
+    """Phase J, the distributed layer: each leg with the counts set to 0 just
+    before it and read just after. Returns each kernel's launches in all legs,
+    the largest kernel-vs-plain errors at the shard-local shapes, and the
+    block times."""
+    devices = mesh_devices(8)
+    log(f"[J] mesh devices {sorted({str(d) for d in devices})}: "
+        + ("distinct cards" if torch.cuda.device_count() >= 2
+           else "one card, repeated (no cross-device copy runs)"))
+    errs = shard_cells(seed)
+    launches = dict.fromkeys(counters(), 0)
+    for kernel, count in dryrun_leg().items():
+        launches[kernel] += count
+    count, times = sharded_bank_path(system, seed, sre, sim, card)
+    launches["bank_rows"] += count
+    count, times_a = sharded_array_path(system, card)
+    launches["bank_comp"] += count
+    count, times_l5 = sharded_dual_path(sre_l5, sim_l5, l5_offsets, card)
+    launches["bank_transition"] += count
+    for kernel, count in sharded_correlate_path().items():
+        launches[kernel] += count
+    launches["bank_onehot"] += sharded_onehot_path(system)
+    check(all(launches.values()), f"phase J launched every kernel: {launches}")
+    return launches, errs, {"rows_K1024": times, "array_K1024_A4_L7": times_a,
+                            "l5_dual_K64": times_l5,
+                            "cards": torch.cuda.device_count()}
+
+
+def figures_path(fig_dir, sweep_dir, track_records, card):
+    """Phase K, the figure layer: the kernel sweep's records (phase C's
+    `kernel_sweep/`) and the `run_track_benchmark` records of phases D and E
+    as the frames of `plot_kernel_benchmarks` and `plot_track_benchmark`.
+    The track records are written beside the figures, one JSON file each as
+    `run_sweep` writes them. Where matplotlib is installed, both figures are
+    drawn and must exceed 10 KB; where it is not, that is said and the
+    frames stay on disk for `python -m gpuacceleratedtracking_tpu_torch.bench.plots`."""
+    import importlib.util
+
+    from gpuacceleratedtracking_tpu_torch.bench import collect_results, plots, savename
+
+    track_dir = fig_dir / "track_records"
+    track_dir.mkdir(parents=True, exist_ok=True)
+    for record in track_records:
+        config = {k: record[k] for k in ("GNSS", "num_samples", "num_channels", "algorithm")}
+        (track_dir / savename("TrackBenchmark", config)).write_text(json.dumps(record, indent=1))
+    kernel_df, track_df = collect_results(sweep_dir), collect_results(track_dir)
+    panels = kernel_df.groupby(["GNSS", "num_ants", "num_correlators"]).ngroups
+    check(len(kernel_df) == 192 and panels == 8, f"kernel frame: {len(kernel_df)} rows, "
+          f"{panels} panels (192, 8)")
+    check(len(track_df) == len(track_records) and bool(np.isfinite(track_df.Median).all()),
+          f"track frame: {len(track_df)} finite rows")
+    result = {"kernel_rows": len(kernel_df), "track_rows": len(track_df),
+              "dir": str(fig_dir)}
+    if importlib.util.find_spec("matplotlib") is None:
+        log(f"[K] matplotlib is not installed here: no figure drawn; the frames are in "
+            f"{sweep_dir} and {track_dir} ({len(kernel_df)} kernel and {len(track_df)} track "
+            "records) for `python -m gpuacceleratedtracking_tpu_torch.bench.plots`")
+        return dict(result, drawn=False)
+    paths = [plots.plot_kernel_benchmarks(kernel_df, str(fig_dir / "kernel_benchmarks.png"),
+                                          title=f"port on {card}"),
+             plots.plot_track_benchmark(track_df, str(fig_dir / "track_benchmarks.png"))]
+    sizes = {pathlib.Path(p).name: pathlib.Path(p).stat().st_size for p in paths}
+    check(all(size > 10_000 for size in sizes.values()), f"figures over 10 KB: {sizes}")
+    log(f"[K] drew {sizes} into {fig_dir}")
+    return dict(result, drawn=True, sizes=sizes)
+
+
 def ptxas_summary(log_path):
     """One line per compiled kernel from nvcc's ``-Xptxas -v`` report:
     its name and template arguments, registers, and spills."""
@@ -2072,6 +2558,21 @@ def main(argv=None) -> int:
     log(f"[phase] H and I, streaming and the per-channel dual bank, in "
         f"{time.perf_counter() - t0!r} s")
 
+    # The distributed layer and the figure layer.
+    t0 = time.perf_counter()
+    par_counts, par_errs, parallel = parallel_path(system, args.seed, sre, sim, sre_l5, sim_l5,
+                                                   l5_offsets, card)
+    for kernel, count in par_counts.items():
+        by_path[kernel]["parallel"] = count
+        errs[kernel] = max(errs[kernel], par_errs[kernel])
+    log(f"[phase] J, the distributed layer, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    track_records = [benches[name]["record"] for name in ("track", "dual_track")]
+    track_records += [entry[f"bench_k{k}"]["record"] for entry in family_times.values()
+                      for k in (64, FAMILY_K)]
+    figures = figures_path(sweep_dir.parent / "figures", sweep_dir, track_records, card)
+    log(f"[phase] K, the figures, in {time.perf_counter() - t0!r} s")
+
     t0 = time.perf_counter()
     times = timings(system, args.seed, sre, sim, sre_l5, sim_l5, l5_offsets, card)
     times.update(benches)
@@ -2139,6 +2640,7 @@ def main(argv=None) -> int:
                        "kernels": kernels["kernels"], "times": times,
                        "families": family_times, "acquisition": acquisition,
                        "coldstart": coldstart, "streaming": streaming,
+                       "parallel": parallel, "figures": figures,
                        "sweep": sweep}, f, indent=1)
     print(json.dumps(kernels))
     print(card)

@@ -1,7 +1,8 @@
-"""Benchmark harness: timing protocol, dict-driven benchmarks, sweeps.
+"""Benchmark harness: timing protocol, dict-driven benchmarks, sweeps, plots.
 
 The exports of `gpuacceleratedtracking_tpu.bench`, less the TPU launch-shape
-autotuner.
+autotuner. The figures are in `bench.plots`, imported on their own as in the
+JAX package (they need matplotlib).
 """
 
 from .timing import TrialStats, benchmark

@@ -44,6 +44,7 @@
 
 #pragma once
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -363,6 +364,13 @@ __device__ __forceinline__ void finish(const float (&acc)[NV], const Args& p) {
   if (tid == 0) *p.counter = 0u;        // all clusters have counted: ready for the next launch
 }
 
+// `err`, with the thread's last CUDA error reset: a refused call leaves its
+// error there too, where the next launch's check would find it.
+inline cudaError_t cleared(cudaError_t err) {
+  (void)cudaGetLastError();
+  return err;
+}
+
 // Launch `Kernel` over `grid` CTAs, one tile each, in clusters of `cluster`
 // (which divides the grid) on `stream`, with `smem` bytes of dynamic shared
 // memory per CTA; returns the first CUDA error.
@@ -371,16 +379,24 @@ cudaError_t launch(const Args& args, int grid, int cluster, size_t smem, cudaStr
   if (grid <= 0 || cluster <= 0 || cluster > kMaxCluster || grid % cluster != 0) {
     return cudaErrorInvalidValue;
   }
-  // Clusters of 16, the H100's non-portable size, need the kernel's opt-in,
-  // set once per kernel (a thread-safe static).
-  static const cudaError_t allowed =
-      cudaFuncSetAttribute(Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (allowed != cudaSuccess) return allowed;
-  cudaError_t err = cudaSuccess;
+  // Clusters of 16, the H100's non-portable size, need the kernel's opt-in.
+  // A function attribute holds on the device current when it is set, so it
+  // is set once per kernel and device (bit d of `allowed`; past 64 devices,
+  // at every launch).
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::atomic<unsigned long long> allowed{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (!(allowed.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return cleared(err);
+    allowed.fetch_or(bit, std::memory_order_release);
+  }
   if (smem > 48 * 1024) {  // above 48 KB only with the kernel's opt-in
     err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) return cleared(err);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid, 1, 1);
@@ -395,7 +411,7 @@ cudaError_t launch(const Args& args, int grid, int cluster, size_t smem, cudaStr
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, Kernel, args);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return cleared(err);
   return cudaGetLastError();
 }
 

@@ -759,3 +759,112 @@ def test_stream_dispatch_does_not_wait_on_the_card(cuda):
                                  torch.as_tensor(c[1], device=cuda))
         torch.testing.assert_close(out.prompt_re, ref.prompt_re, rtol=0, atol=0)
         torch.testing.assert_close(out.carrier_doppler, ref.carrier_doppler, rtol=0, atol=0)
+
+
+# The distributed layer: sharded banks on a mesh of repeated cuda:0 (every
+# visible card where there are two or more), against the unsharded bank.
+
+def _sharded_case(cuda, n=8192, blocks=5, k=64, num_ants=None):
+    dops = np.linspace(-4000.0, 4000.0, k)
+    dops[:3] = [-900.0, 100.0, 1500.0]
+    sig, fs = gen_signal_mixed(SYSTEM, [0, 1, 2], dops[:3], n * blocks, num_ants=num_ants,
+                               duration=blocks * 1e-3, device=cuda)
+    if num_ants:
+        sre, sim = (x.reshape(num_ants, blocks, n).transpose(0, 1).contiguous()
+                    for x in soa(sig))
+    else:
+        sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    states = init_state(np.arange(k) % 32, carrier_doppler=dops, device=cuda)
+    return fs, codes, states, sre, sim
+
+
+def _mesh_devices(cuda):
+    count = torch.cuda.device_count()
+    return ([torch.device("cuda", i % count) for i in range(4)] if count >= 2
+            else [cuda] * 4)
+
+
+@pytest.mark.parametrize("num_ants,fn", [(None, epl_kernels.correlate_pallas_bank_rows),
+                                         (4, bank_comp.correlate_pallas_bank_comp)])
+def test_sharded_bank_matches_track_bank_and_launches_chan_x_time_per_block(cuda, num_ants, fn):
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+
+    blocks = 5
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=blocks, num_ants=num_ants)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    _, want = track_bank(config, codes, states, sre, sim)
+    for chan, time_ in ((2, 2), (4, 1), (1, 4)):
+        mesh = channel_time_mesh(chan, time_, devices=_mesh_devices(cuda))
+        before = fn.launches
+        final, got = track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+        torch.cuda.synchronize()
+        assert fn.launches - before == chan * time_ * blocks
+        assert got.prompt_re.device == mesh.devices.flat[0] and got.prompt_re.shape == (blocks, 64)
+        # Block 0 for every channel; the locked channels over every block. A
+        # channel-only mesh is not bit-exact on the card: the bank kernels
+        # group their tiles per CTA by the grid, so by K.
+        torch.testing.assert_close(got.prompt_re[0], want.prompt_re[0], rtol=5e-3, atol=10.0)
+        torch.testing.assert_close(got.prompt_re[:, :3], want.prompt_re[:, :3],
+                                   rtol=5e-3, atol=10.0)
+
+
+def test_sharded_block_loop_does_not_wait_on_the_card(cuda):
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=3)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    mesh = channel_time_mesh(2, 2, devices=_mesh_devices(cuda))
+    track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)   # builds the caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kernel", ["taps", "fused"])
+def test_correlate_sharded_on_the_per_channel_kernels(cuda, kernel):
+    from gpuacceleratedtracking_tpu_torch.parallel import correlate_sharded, make_mesh
+
+    n = 1 << 17
+    sig, fs = gen_signal(SYSTEM, 3, 1200.0, n, start_code_phase=100.5, num_ants=4, device=cuda)
+    sre, sim = soa(sig)
+    shifts = tuple(int(s) for s in correlator_sample_shifts(SYSTEM, EPLCorrelator(7), fs))
+    fn = getattr(channel_kernels, f"correlate_pallas_{kernel}")
+    args = (torch.as_tensor(SYSTEM.codes, device=cuda), 3, 1200.0, fs, 0.0,
+            SYSTEM.code_frequency, 100.5, shifts, SYSTEM.code_length)
+    want = fn(sre, sim, *args)
+    before = fn.launches
+    mesh = make_mesh({"ant": 2, "time": 2}, devices=_mesh_devices(cuda))
+    got = correlate_sharded(sre, sim, *args, mesh=mesh, algorithm=f"pallas_{kernel}",
+                            nominal_code_frequency=SYSTEM.code_frequency, ant_axis="ant")
+    torch.cuda.synchronize()
+    assert fn.launches - before == 4
+    for g, w in zip(got, want):
+        assert g.shape == (4, 7)
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=5.0)
+
+
+@pytest.mark.parametrize("kernel", ["taps", "fused"])
+@pytest.mark.parametrize("n", [16384, 1 << 17])
+def test_channel_kernels_launch_on_every_card(cuda, kernel, n):
+    # A shard on cuda:i launches under torch.cuda.device(i). N=16384 is one
+    # cluster of 16 CTAs, a size each card's kernel must be allowed; 2^17
+    # takes clusters of 8 and the cached scratch of that card.
+    fn = getattr(channel_kernels, f"correlate_pallas_{kernel}")
+    plain = getattr(channel_kernels, f"correlate_{kernel}_reference")
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        sig, fs = gen_signal(SYSTEM, 3, 1200.0, n, start_code_phase=100.5, device=dev)
+        args = (*soa(sig), torch.as_tensor(SYSTEM.codes, device=dev), 3, 1200.0, fs, 0.0,
+                SYSTEM.code_frequency, 100.5, (-16, 0, 16), SYSTEM.code_length)
+        with torch.cuda.device(dev):
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.device == dev
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * n + 1e-3)
