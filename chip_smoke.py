@@ -118,6 +118,26 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      ``figures/track_records/``), each PNG over 10 KB, into ``figures/``
      beside ``kernel_sweep/``. Where matplotlib is not installed the frames
      are checked and the script says that no figure was drawn.
+   - L, the block loop as one captured program: the tracking entry points
+     replay a CUDA graph of their block body on the card (every phase above
+     runs so); here each path runs once under ``tracking.eager()`` and once
+     through its graph, and every output and the final state must be equal
+     bit for bit, with equal launch counts: rows K=1024 (``pallas_bank_auto``
+     and ``xla_bank``), A=4 L=7 f32 and bf16 with steering weights, the L5
+     dual K=64, Galileo E1-C at K=256, ``pallas_fused`` and ``pallas_taps``
+     at K=8, ``track`` on one channel, the one-hot route, and
+     ``track_bank_sharded`` 2 x 2 and ``track_bank_dual_sharded`` chan 2 on
+     the phase J devices. A second call of each, a replay of the cached
+     graph, runs under ``torch.cuda.set_sync_debug_mode("error")`` and must
+     give the same outputs and launch counts; each call's counts are read
+     after it. Each path's first graph call starts from an empty cache, and
+     its entries' buffers and the device memory it reserved are logged.
+     Then eager and graph block times and real-time channels of the timed
+     paths (and streaming's ``steady_block_s`` both ways, from H, whose
+     outputs must match too), the one-card sharded L5 dual bank at chan 2
+     and 4 as a graph per shard (the library's path) against one graph for
+     every shard (``dual_one_graph``), and the device's busy share
+     (torch.profiler device time over wall time) for rows K=1024 and A=4 L=7.
 5. Times (CUDA events, after warm-up; medians and minima): each kernel vs its
    plain version at main-path shapes (every kernel, and the per-channel
    kernels' plain versions, also as device time from a CUDA graph replay:
@@ -1630,7 +1650,7 @@ def streaming_path(seed, card):
 
     from gpuacceleratedtracking_tpu_torch.models import GPSL1, gen_signal_mixed
     from gpuacceleratedtracking_tpu_torch.runtime import IQFile, StreamTracker, blocks
-    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, init_state, track_bank
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, eager, init_state, track_bank
 
     system = GPSL1()
     nsat = len(SAT_DOPPLERS)
@@ -1657,6 +1677,12 @@ def streaming_path(seed, card):
             result = tracker.run(blocks(f, N_1MS))
         torch.cuda.synchronize()
         counts = read_counts()
+        # The same stream through the eager block loop (phase L): the same
+        # outputs, bit for bit, and its steady block time beside the graph's.
+        with eager(), IQFile(path, "int8", 1.0 / scale) as f:
+            result_eager = StreamTracker(config, system.codes, states, blocks_per_dispatch=20,
+                                         measure_dispatch=True).run(blocks(f, N_1MS))
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         with IQFile(path, "int8", 1.0 / scale) as f:
             num_read = sum(1 for _ in blocks(f, N_1MS))
@@ -1666,19 +1692,23 @@ def streaming_path(seed, card):
     check(counts == only(bank_rows=STREAM_BLOCKS),
           f"stream: one bank_rows launch per block and no other kernel, got {counts}")
     out = result.stacked()
+    same = all(np.array_equal(x, y) for x, y in zip(out, result_eager.stacked()))
+    check(same, "stream: the graph replays give the eager loop's outputs bit for bit")
     dop_err = np.abs(out.carrier_doppler[-50:, :nsat].astype(np.float64).mean(0) - SAT_DOPPLERS)
     codes = torch.as_tensor(system.codes, device=DEVICE)
     med, mn = time_cuda(lambda: track_bank(config, codes, states, sre, sim), warmup=2)
     bare = med / 20
-    steady = result.steady_block_s
+    steady, steady_eager = result.steady_block_s, result_eager.steady_block_s
     log(f"[stream] StreamTracker K={FAMILY_K} N={N_1MS} {STREAM_BLOCKS} blocks of an int8 "
         f"capture, 20 per dispatch: launches={counts}; Doppler errors (8 satellites, last 50) "
         f"{dop_err.tolist()} Hz; steady_block_s {steady!r} (real-time factor "
-        f"{1e-3 / steady!r}); bare track_bank block {bare!r} ms (min {mn / 20!r}); file read "
-        f"and decode alone {decode_ms!r} ms per block [{card}]")
+        f"{1e-3 / steady!r}; eager loop {steady_eager!r}, outputs equal bit for bit); bare "
+        f"track_bank block {bare!r} ms (min {mn / 20!r}); file read and decode alone "
+        f"{decode_ms!r} ms per block [{card}]")
     check(bool(np.all(dop_err < 5.0)), f"stream Doppler within 5 Hz: {dop_err.tolist()}")
     check(bool(np.isfinite(out.prompt_re).all()), "stream outputs finite")
     return counts, {"steady_block_s": steady, "realtime_factor": 1e-3 / steady,
+                    "eager_steady_block_s": steady_eager,
                     "bare_block_ms": bare, "bare_block_min_ms": mn / 20,
                     "decode_ms": decode_ms}
 
@@ -2188,6 +2218,239 @@ def figures_path(fig_dir, sweep_dir, track_records, card):
     return dict(result, drawn=True, sizes=sizes)
 
 
+# --- The captured block loop (phase L): graph against eager.
+
+def flat(tree) -> list:
+    """The tensors of a tracking result (tuples and NamedTuples of tensors)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for child in tree for x in flat(child)]
+
+
+def bitwise(name, got, want) -> None:
+    """Check two tracking results equal bit for bit, leaf by leaf."""
+    got, want = flat(got), flat(want)
+    check(len(got) == len(want), f"{name}: {len(got)} leaves against {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape and g.dtype == w.dtype and bool(torch.equal(g, w)),
+              f"{name}: leaf {i} differs between the graph and the eager loop")
+
+
+def busy_share(run, calls=3):
+    """The device's busy share over calls of ``run``: torch.profiler's summed
+    device time per call over the CUDA-event wall time per call."""
+    ops, device_ms = device_profile(run, calls=calls)
+    wall_ms = time_cuda(run, reps=5, warmup=1)[0]
+    return {"device_ops_per_call": ops, "device_ms": device_ms, "wall_ms": wall_ms,
+            "busy_share": device_ms / wall_ms}
+
+
+def counted(run):
+    """``run()``'s result, and how far it moved each kernel's launch count
+    (read after the card has finished)."""
+    before = read_counts()
+    result = run()
+    torch.cuda.synchronize()
+    after = read_counts()
+    return result, {k: after[k] - before[k] for k in after}
+
+
+def strict(run):
+    """``run`` under ``set_sync_debug_mode("error")``: any wait on the card raises."""
+    def call():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    return call
+
+
+def dual_one_graph(config, codes_i, codes_q, states, sre, sim, chan):
+    """The sharded L5 dual bank on one card as one CUDA graph for every
+    channel shard, the alternative to `track_bank_dual_sharded`'s graph per
+    shard: ``chan`` shards' `dual_parts` bodies in one `graphs.scan`, the
+    results joined along the channel axis."""
+    from gpuacceleratedtracking_tpu_torch.parallel.bank import _channel_shards, _map_state
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackOutput, graphs
+    from gpuacceleratedtracking_tpu_torch.tracking.dual import DualTrackOutput, dual_parts
+
+    dev = sre.device
+    shards = _channel_shards(states, chan, [dev] * chan)
+    parts = [dual_parts(config, codes_i, codes_q, st.prn, dev) for st in shards]
+
+    def step(carry, consts, block):
+        res = [part[0](carry[c], consts[c], block) for c, part in enumerate(parts)]
+        return tuple(r[0] for r in res), tuple(r[1] for r in res)
+
+    finals, outs = graphs.scan(step, tuple(shards), (sre, sim), tuple(p[1] for p in parts),
+                               key=("dual_one_graph", config, chan))
+    return (_map_state(lambda *xs: torch.cat(xs), *finals),
+            DualTrackOutput(TrackOutput(*(torch.cat(xs, 1) for xs in zip(*(o.pilot for o in outs)))),
+                            torch.cat([o.data_prompt_re for o in outs], 1),
+                            torch.cat([o.data_prompt_im for o in outs], 1)))
+
+
+def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int = 10):
+    """Phase L, the block loop as one captured program: each path once under
+    `tracking.eager()` and once through its CUDA graph (the first call
+    captures), every output and the final state equal bit for bit, the
+    launch counts moved alike; a second call, a replay of the cached graph,
+    under ``set_sync_debug_mode("error")``, equal again and with the same
+    counts; the device memory each capture took; then eager and graph block
+    times and real-time channels, the one-card sharded L5 dual bank as one
+    graph against a graph per shard, and the device's busy share. Returns
+    the launches of the comparison runs, read after each run, and the
+    results."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL5, get_system
+    from gpuacceleratedtracking_tpu_torch.parallel import (
+        channel_time_mesh, track_bank_dual_sharded, track_bank_sharded)
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, dual_config, eager, graphs, init_state, track, track_bank,
+        track_bank_dual)
+
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    sre, sim = sre[:blocks], sim[:blocks]
+    are, aim, _ = mixed_blocks(system, blocks, num_ants=NUM_ANTS)
+    phase = ANT_PHASE * torch.arange(NUM_ANTS, dtype=torch.float32, device=DEVICE)
+    weights = (torch.cos(phase), torch.sin(phase))    # on the card: a call copies no host value
+    nsat = len(SAT_DOPPLERS)
+
+    def bank(algo, **extra):
+        return TrackConfig.for_system(system, L1_FS, N_1MS, algorithm=algo, **extra)
+
+    states = bank_states(system, init_errors=False)
+    states7 = bank_states(system, init_errors=False, num_taps=7)
+    sats = init_state(np.arange(nsat), carrier_doppler=SAT_DOPPLERS + 20.0,
+                      code_phase=SAT_CODE_PHASES - 0.2, device=DEVICE)
+    one = init_state(5, carrier_doppler=float(SAT_DOPPLERS[5]) + 20.0,
+                     code_phase=float(SAT_CODE_PHASES[5]) - 0.2, device=DEVICE)
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    codes_i = torch.as_tensor(sys_i.codes, device=DEVICE)
+    codes_q = torch.as_tensor(sys_q.codes, device=DEVICE)
+    cfg5 = dual_config(TrackConfig.for_system(sys_i, L1_FS, N_1MS, algorithm="pallas_bank_auto",
+                                              use_secondary=False))
+    states5 = dual_states(l5_offsets, L5_DOPPLERS)
+    s5re, s5im = sre_l5[:blocks], sim_l5[:blocks]
+    e1 = get_system("GALILEOE1C")
+    e1_codes = torch.as_tensor(e1.codes, device=DEVICE)
+    e1re, e1im, e1_states = family_blocks(e1, blocks)
+    mesh22 = channel_time_mesh(2, 2, devices=mesh_devices(4))
+    mesh2 = channel_time_mesh(2, 1, devices=mesh_devices(2))
+    auto = bank("pallas_bank_auto")
+    # name -> (run, real-time channels of a timed path, or None)
+    paths = {
+        "rows_K1024_pallas_bank_auto": (
+            lambda: track_bank(auto, codes, states, sre, sim), NUM_K),
+        "rows_K1024_xla_bank": (
+            lambda: track_bank(bank("xla_bank"), codes, states, sre, sim), NUM_K),
+        "array_K1024_A4_L7_f32": (
+            lambda: track_bank(bank("pallas_bank_auto", num_correlators=7), codes, states7,
+                               are, aim, ant_weights=weights), NUM_K),
+        "array_K1024_A4_L7_bf16": (
+            lambda: track_bank(bank("pallas_bank_auto", num_correlators=7, z_dtype="bf16"),
+                               codes, states7, are, aim, ant_weights=weights), NUM_K),
+        f"l5_dual_K{DUAL_K}": (
+            lambda: track_bank_dual(cfg5, codes_i, codes_q, states5, s5re, s5im), DUAL_K),
+        f"family_GALILEOE1C_K{FAMILY_K}": (
+            lambda: track_bank(family_config(e1, N_1MS), e1_codes, e1_states, e1re, e1im),
+            None),
+        "fused_K8": (lambda: track_bank(bank("pallas_fused"), codes, sats, sre, sim), None),
+        "taps_K8": (lambda: track_bank(bank("pallas_taps"), codes, sats, sre, sim), None),
+        "track_fused": (lambda: track(bank("pallas_fused"), codes, one, sre, sim), None),
+        "onehot_K1024": (
+            lambda: track_bank(bank("pallas_bank_onehot"), codes, states, sre, sim), None),
+        "mesh_2x2_rows_K1024": (
+            lambda: track_bank_sharded(auto, codes, states, sre, sim, mesh=mesh22), NUM_K),
+        f"mesh_chan2_l5_dual_K{DUAL_K}": (
+            lambda: track_bank_dual_sharded(cfg5, codes_i, codes_q, states5, s5re, s5im,
+                                            mesh=mesh2), DUAL_K),
+    }
+    torch.cuda.synchronize()
+    results, launches = {}, dict.fromkeys(counters(), 0)
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    for name, (run, _) in paths.items():
+        with eager():
+            want, eager_counts = counted(run)
+        # From an empty cache, so that the first call captures and no entry
+        # is evicted (and its memory returned) while it runs.
+        graphs.clear()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        got, graph_counts = counted(run)              # the capture, then the replays
+        reserved = torch.cuda.memory_reserved() - reserved
+        new = list(graphs._ENTRIES.get(dev, {}).values())
+        buffers = sum(x.numel() * x.element_size() for e in new
+                      for x in graphs._leaves((e.carry, e.consts, tuple(e.xs), tuple(e.outs))))
+        check(graph_counts == eager_counts,
+              f"[L] {name}: graph launches {graph_counts} against eager {eager_counts}")
+        bitwise(f"[L] {name}", got, want)
+        again, again_counts = counted(strict(run))    # a replay of the cached graph
+        check(again_counts == eager_counts,
+              f"[L] {name}: second call's launches {again_counts} against eager {eager_counts}")
+        bitwise(f"[L] {name} second call", again, want)
+        for k in launches:
+            launches[k] += eager_counts[k] + graph_counts[k] + again_counts[k]
+        results[name] = {"launches_per_call": {k: v for k, v in graph_counts.items() if v},
+                         "entries": len(new), "chunk": [e.chunk for e in new],
+                         "entry_buffer_bytes": buffers, "capture_reserved_bytes": reserved}
+        log(f"[L] {name}: {blocks} blocks, graph equals eager bit for bit "
+            f"({len(flat(got))} tensors), launches per call {results[name]['launches_per_call']} "
+            f"in all three calls; the second call (a replay of the cached graph) ran under "
+            f"set_sync_debug_mode('error'); {len(new)} entries, chunk "
+            f"{results[name]['chunk']}, their buffers {buffers} B, device memory reserved by "
+            f"the first call (buffers, graph pools, results) {reserved} B")
+        del want, got, again
+
+    for name, (run, channels) in paths.items():
+        if channels is None:
+            continue
+        with eager():
+            e_med, e_min = time_cuda(run, warmup=1)
+        g_med, g_min = time_cuda(run, warmup=1)
+        entry = results[name]
+        entry.update(eager_block_ms=e_med / blocks, eager_block_min_ms=e_min / blocks,
+                     graph_block_ms=g_med / blocks, graph_block_min_ms=g_min / blocks,
+                     eager_realtime_channels=channels * blocks / e_med,
+                     graph_realtime_channels=channels * blocks / g_med)
+        log(f"[L time] {name}: block eager {entry['eager_block_ms']!r} ms (min "
+            f"{entry['eager_block_min_ms']!r}), graph {entry['graph_block_ms']!r} ms (min "
+            f"{entry['graph_block_min_ms']!r}); real-time channels eager "
+            f"{entry['eager_realtime_channels']!r}, graph {entry['graph_realtime_channels']!r} "
+            f"[{card}]")
+    # The one-card sharded dual bank: a graph per shard (the library's path)
+    # against one graph for every shard, in turns.
+    for chan in (2, 4):
+        mesh = channel_time_mesh(chan, 1, devices=mesh_devices(chan))
+        per_shard = lambda: track_bank_dual_sharded(cfg5, codes_i, codes_q, states5, s5re,
+                                                    s5im, mesh=mesh)
+        fork = lambda: dual_one_graph(cfg5, codes_i, codes_q, states5, s5re, s5im, chan)
+        bitwise(f"[L] dual chan {chan}: one graph against a graph per shard", fork(),
+                per_shard())
+        f1, p1, p2, f2 = (time_cuda(fn, warmup=1) for fn in (fork, per_shard, per_shard, fork))
+        one = statistics.median([f1[0], f2[0]]) / blocks
+        each = statistics.median([p1[0], p2[0]]) / blocks
+        results.setdefault(f"mesh_chan{chan}_l5_dual_K{DUAL_K}", {}).update(
+            one_graph_block_ms=one, one_graph_block_min_ms=min(f1[1], f2[1]) / blocks,
+            graph_per_shard_block_ms=each, graph_per_shard_block_min_ms=min(p1[1], p2[1]) / blocks)
+        log(f"[L time] L5 dual K={DUAL_K} chan {chan} on one card: one graph {one!r} ms per block "
+            f"(min {min(f1[1], f2[1]) / blocks!r}), a graph per shard {each!r} ms (min "
+            f"{min(p1[1], p2[1]) / blocks!r}), in turns one, per shard, per shard, one [{card}]")
+    for name in ("rows_K1024_pallas_bank_auto", "array_K1024_A4_L7_f32"):
+        run = paths[name][0]
+        graph = busy_share(run)
+        with eager():
+            eager_share = busy_share(run)
+        results[name].update(busy_graph=graph, busy_eager=eager_share)
+        log(f"[L busy] {name}, {blocks} blocks per call: graph {graph['busy_share']!r} "
+            f"({graph['device_ms']!r} ms of device time in {graph['wall_ms']!r} ms, "
+            f"{graph['device_ops_per_call']!r} device ops per call); eager "
+            f"{eager_share['busy_share']!r} ({eager_share['device_ms']!r} ms in "
+            f"{eager_share['wall_ms']!r} ms, {eager_share['device_ops_per_call']!r} ops) [{card}]")
+    return launches, results
+
+
 def ptxas_summary(log_path):
     """One line per compiled kernel from nvcc's ``-Xptxas -v`` report:
     its name and template arguments, registers, and spills."""
@@ -2572,6 +2835,13 @@ def main(argv=None) -> int:
                       for k in (64, FAMILY_K)]
     figures = figures_path(sweep_dir.parent / "figures", sweep_dir, track_records, card)
     log(f"[phase] K, the figures, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    graph_counts, captured = graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card)
+    for kernel, count in graph_counts.items():
+        by_path[kernel]["L"] = count
+    captured["streaming_K256"] = {"graph_steady_block_s": streaming["steady_block_s"],
+                               "eager_steady_block_s": streaming["eager_steady_block_s"]}
+    log(f"[phase] L, the captured block loop, in {time.perf_counter() - t0!r} s")
 
     t0 = time.perf_counter()
     times = timings(system, args.seed, sre, sim, sre_l5, sim_l5, l5_offsets, card)
@@ -2640,7 +2910,7 @@ def main(argv=None) -> int:
                        "kernels": kernels["kernels"], "times": times,
                        "families": family_times, "acquisition": acquisition,
                        "coldstart": coldstart, "streaming": streaming,
-                       "parallel": parallel, "figures": figures,
+                       "parallel": parallel, "figures": figures, "graphs": captured,
                        "sweep": sweep}, f, indent=1)
     print(json.dumps(kernels))
     print(card)

@@ -184,7 +184,10 @@ def run_track_benchmark(config: dict) -> dict:
     ``GNSS``, ``num_samples`` (per block), ``num_channels``, ``num_ants``,
     ``num_correlators``, ``algorithm`` (bank algorithms run one kernel launch
     per block), ``processor``, optional ``blocks``/``trials``. Timing is
-    differential over B vs 2B blocks; times are per block.
+    differential over B vs 2B blocks; times are per block. On the GPU each
+    block is one replay of the captured block body (`tracking.graphs`), as
+    the JAX harness times its `lax.scan`: B and 2B blocks share one graph,
+    captured in `benchmark_differential`'s warm-up call, never in a timed one.
     """
     from ..tracking import TrackConfig, init_state, track_bank
 
@@ -226,7 +229,8 @@ def run_dual_track_benchmark(config: dict) -> dict:
 
     K dual channels run as one 2K-channel bank call per block
     (`tracking.track_bank_dual`), with the overlay wipe-off and the
-    pilot-driven atan2 loop closure in the timed path. Keys as
+    pilot-driven atan2 loop closure in the timed path, replayed per block as
+    a captured graph on the GPU (as `run_track_benchmark`). Keys as
     `run_track_benchmark`; ``num_channels`` counts dual channels
     (``bank_channels = 2 K``), and ``realtime_channels`` is dual channels.
     """

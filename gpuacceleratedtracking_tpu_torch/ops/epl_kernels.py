@@ -187,12 +187,14 @@ def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torc
     return pack_code_columns(code_columns(codes, prn))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _tile_base(num_tiles: int, tile: int, fcar_nom_cyc: float, rho_nom: float,
                code_length: int, device: torch.device) -> torch.Tensor:
     """``[tiles, 2]`` f32 nominal carrier cycles and code chips at each tile start,
     computed exactly in float64. Cached per device, so a tracking loop does not
-    copy it to the card every block."""
+    copy it to the card every block. Never evicted: a captured CUDA graph
+    (`tracking.graphs`) reads it at a baked address; its keys are static
+    configuration values, so the cache stays small."""
     t_idx = np.arange(num_tiles, dtype=np.float64) * tile
     base = np.stack(
         [np.mod(fcar_nom_cyc * t_idx, 1.0),
@@ -202,7 +204,7 @@ def _tile_base(num_tiles: int, tile: int, fcar_nom_cyc: float, rho_nom: float,
     return torch.as_tensor(base, device=device)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)       # never evicted, as `_tile_base`
 def _deltas(deltas: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(deltas, dtype=torch.int32, device=device)
 

@@ -13,13 +13,15 @@ One process drives every shard, block by block: for each block it issues
 every shard's correlation on the shard's device (one kernel launch per shard
 for a bank algorithm, so chan x time launches per block), sums each channel
 shard's partials on its lead device (the shard at time index 0) in shard
-order, and closes the loop there once. The JAX package runs the loop closure
+order, and closes the loop there once. That block body runs through
+`tracking.graphs.scan`: on one card (every mesh device the same) it is one
+CUDA graph replayed per block. The JAX package runs the loop closure
 redundantly on every time shard, which only its SPMD model needs; here the
 new phases and Dopplers are copied to the other time shards' devices at the
-next block, a no-op where the device repeats. The signal is cut into
-contiguous per-shard pieces and the code tables are built once per call,
-before the block loop, so the loop copies nothing from the host and never
-waits on a card.
+next block, a no-op where the device repeats. The code tables are built
+once per call, and the signal is cut into contiguous per-shard pieces (once
+per call for the eager loop, per block inside a captured body), so the loop
+copies nothing from the host and never waits on a card.
 """
 
 from __future__ import annotations
@@ -28,16 +30,9 @@ import functools
 
 import torch
 
-from ..ops import registry
+from ..tracking import graphs
 from ..tracking.state import _NESTED, TrackConfig, TrackOutput, TrackState
-from ..tracking.track import (
-    _CHANNEL_KERNELS,
-    _bank_code_tile_kwargs,
-    _bank_kernel_kwargs,
-    _per_channel,
-    _Stacked,
-    loop_update,
-)
+from ..tracking.track import _bank_code_tile_kwargs, bank_correlator, loop_update
 from .correlate import (advance_phases, nominal_advance_tables, on_device, sum_in_order,
                         time_piece)
 from .mesh import CHAN_AXIS, TIME_AXIS, Mesh
@@ -73,6 +68,51 @@ def _per_device(x: torch.Tensor, cache: dict, device: torch.device) -> torch.Ten
     return cache[device]
 
 
+def _mesh_step(config, corr, kwargs, advance, grid, pieces: list, shards: list):
+    """The block body of the channel shards ``shards``: ``step(states,
+    consts, block)``, ``states`` and ``consts`` their states and constants
+    (per time shard, the code table and code tiles on its device), ``block``
+    the signal pieces of one block, ``(re, im)`` per ``(device, time shard)``
+    of ``pieces``. Each channel shard's time shards are correlated on their
+    devices, their partials summed in order on its lead device, and its loop
+    closed there once."""
+    num_time = grid.shape[1]
+    where = {key: i for i, key in enumerate(pieces)}
+
+    def step(states, consts, block):
+        new, outs = [], []
+        for c, st, shard_consts in zip(shards, states, consts):
+            lead = grid[c, 0]
+            parts_re, parts_im = [], []
+            for t in range(num_time):
+                dev = grid[c, t]
+                codes, code_tiles = shard_consts[t]
+                sre, sim = block[where[dev, t]]
+                with on_device(dev):
+                    f_car = (config.intermediate_frequency
+                             + st.carrier_doppler.to(dev, non_blocking=True))
+                    f_code = config.code_frequency + st.code_doppler.to(dev, non_blocking=True)
+                    phi_car, phi_code = advance(
+                        st.carrier_phase.to(dev, non_blocking=True),
+                        st.code_phase.to(dev, non_blocking=True), f_car, f_code, t)
+                    tiles = {} if code_tiles is None else {"code_tiles": code_tiles}
+                    are, aim = corr(
+                        sre, sim, codes, st.prn.to(dev, non_blocking=True), f_car,
+                        config.sampling_frequency, phi_car, f_code, phi_code,
+                        config.sample_shifts, config.code_length, **kwargs, **tiles,
+                    )
+                parts_re.append(are)
+                parts_im.append(aim)
+            with on_device(lead):
+                st, out = loop_update(config, st, sum_in_order(parts_re, lead),
+                                      sum_in_order(parts_im, lead))
+            new.append(st)
+            outs.append(out)
+        return tuple(new), tuple(outs)
+
+    return step
+
+
 def track_bank_sharded(
     config: TrackConfig,
     codes: torch.Tensor,
@@ -93,6 +133,13 @@ def track_bank_sharded(
     steering weights). Runs every algorithm that `track_bank` runs, as it
     runs it. Returns the final states and the per-block outputs
     ``[B, K, ...]``, on the mesh's first device.
+
+    The block body runs through `graphs.scan`: where every device of the
+    mesh is one card, the whole mesh's block is one CUDA graph; on distinct
+    cards with a time axis of 1, each channel shard replays a graph of its
+    own on its own card, issued without waiting, so the cards overlap. A time
+    axis over distinct cards exchanges partials between cards every block,
+    and runs the eager loop.
     """
     num_chan = mesh.shape[chan_axis]
     num_time = mesh.shape[time_axis]
@@ -116,69 +163,65 @@ def track_bank_sharded(
         sampling_frequency=config.sampling_frequency,
         samples_per_shard=local_n, code_length=config.code_length,
     )
-    corr = registry.get(config.algorithm)
-    if config.algorithm in _CHANNEL_KERNELS:
-        corr = functools.partial(_per_channel, corr)
-    kwargs = _bank_kernel_kwargs(config)
+    corr, kwargs = bank_correlator(config)
     grid = mesh.grid(chan_axis, time_axis)                # [chan shards, time shards]
     first = mesh.devices.flat[0]
 
-    # Everything the block loop reads, made once: each shard's contiguous
-    # signal piece, the code table per device, and each channel shard's code
-    # tiles (built on its lead device, copied to its other time shards').
-    sig_re, sig_im, code_copies = {}, {}, {}
-    for t in range(num_time):
-        for dev in grid[:, t]:
-            if (dev, t) not in sig_re:
-                sig_re[dev, t] = time_piece(signal_re, t, num_time, dev)
-                sig_im[dev, t] = time_piece(signal_im, t, num_time, dev)
+    # The per-call constants: the code table per device, and each channel
+    # shard's code tiles (built on its lead device, copied to its other time
+    # shards').
     local = _channel_shards(states, num_chan, grid[:, 0])
-    shard_kwargs = []
+    code_copies, consts = {}, []
     for c in range(num_chan):
         lead = grid[c, 0]
         with on_device(lead):
             tiles = _bank_code_tile_kwargs(
-                config, _per_device(codes, code_copies, lead), local[c].prn)
-        per_t = []
-        for t in range(num_time):
-            kw = dict(kwargs)
-            kw.update({k: v.to(grid[c, t]) for k, v in tiles.items()})
-            per_t.append(kw)
-        shard_kwargs.append(per_t)
+                config, _per_device(codes, code_copies, lead), local[c].prn).get("code_tiles")
+        consts.append(tuple((_per_device(codes, code_copies, grid[c, t]),
+                             None if tiles is None else tiles.to(grid[c, t]))
+                            for t in range(num_time)))
+    pieces = list(dict.fromkeys((dev, t) for t in range(num_time) for dev in grid[:, t]))
+    key = ("track_bank_sharded", config, num_chan, num_time)
 
-    num_blocks = signal_re.shape[0]
-    outs = [_Stacked(num_blocks) for _ in range(num_chan)]
-    for b in range(num_blocks):
+    def cut(shards, piece_keys):
+        """The body over ``shards`` from one whole block on their one device:
+        each time shard's piece is cut inside the body."""
+        step = _mesh_step(config, corr, kwargs, advance, grid, piece_keys, shards)
+
+        def body(carry, shard_consts, block):
+            return step(carry, shard_consts, tuple(
+                tuple(time_piece(x, t, num_time, dev) for x in block) for dev, t in piece_keys))
+
+        return body
+
+    if len({str(d) for d in mesh.devices.flat}) == 1:
+        with on_device(first):
+            final, outs = graphs.scan(
+                cut(list(range(num_chan)), pieces), tuple(local),
+                (signal_re.to(first), signal_im.to(first)), tuple(consts), key=key)
+        finals, outs = list(final), list(outs)
+    elif num_time == 1:
+        finals, outs = [], []
         for c in range(num_chan):
-            st, lead = local[c], grid[c, 0]
-            parts_re, parts_im = [], []
-            for t in range(num_time):
-                dev = grid[c, t]
-                with on_device(dev):
-                    f_car = (config.intermediate_frequency
-                             + st.carrier_doppler.to(dev, non_blocking=True))
-                    f_code = config.code_frequency + st.code_doppler.to(dev, non_blocking=True)
-                    phi_car, phi_code = advance(
-                        st.carrier_phase.to(dev, non_blocking=True),
-                        st.code_phase.to(dev, non_blocking=True), f_car, f_code, t)
-                    are, aim = corr(
-                        sig_re[dev, t][b], sig_im[dev, t][b],
-                        _per_device(codes, code_copies, dev),
-                        st.prn.to(dev, non_blocking=True), f_car,
-                        config.sampling_frequency, phi_car, f_code, phi_code,
-                        config.sample_shifts, config.code_length, **shard_kwargs[c][t],
-                    )
-                parts_re.append(are)
-                parts_im.append(aim)
-            with on_device(lead):
-                local[c], out = loop_update(config, st, sum_in_order(parts_re, lead),
-                                            sum_in_order(parts_im, lead))
-            outs[c].put(b, out)
+            dev = grid[c, 0]
+            with on_device(dev):
+                final, out = graphs.scan(
+                    cut([c], [(dev, 0)]), (local[c],),
+                    (signal_re.to(dev), signal_im.to(dev)), (consts[c],), key=key)
+            finals.append(final[0])
+            outs.append(out[0])
+    else:
+        # Each shard's contiguous signal piece, cut once per call.
+        xs = [time_piece(x, t, num_time, dev) for dev, t in pieces for x in (signal_re, signal_im)]
+        step = _mesh_step(config, corr, kwargs, advance, grid, pieces, list(range(num_chan)))
+        final, outs = graphs.loop(
+            lambda carry, c_, block: step(carry, c_, tuple(zip(block[::2], block[1::2]))),
+            tuple(local), tuple(xs), tuple(consts))
+        finals, outs = list(final), list(outs)
 
     with on_device(first):
-        final = _map_state(lambda *xs: _gather(xs, first, 0), *local)
-        fields = zip(*(o.result() for o in outs))
-        return final, TrackOutput(*(_gather(xs, first, 1) for xs in fields))
+        final = _map_state(lambda *xs: _gather(xs, first, 0), *finals)
+        return final, TrackOutput(*(_gather(xs, first, 1) for xs in zip(*outs)))
 
 
 def track_bank_dual_sharded(
@@ -197,10 +240,12 @@ def track_bank_dual_sharded(
     K dual channels (each a data + pilot pair, so 2K_local bank channels per
     shard's launch) are cut over ``chan_axis`` with no communication: dual
     channels are independent given the shared front end, which every shard
-    reads whole. `tracking.dual.track_bank_dual` runs whole on each shard's
-    device. The sample axis is not sharded, as in the JAX function. Returns
-    the final states and the `DualTrackOutput` ``[B, K, ...]`` on the mesh's
-    first device.
+    reads whole. Each shard runs `tracking.dual.track_bank_dual` on its
+    device, so on CUDA tensors each replays a CUDA graph of its own per
+    block; on one card that is faster than one graph for every shard
+    (`chip_smoke.py` phase L times both). The sample axis is not sharded,
+    as in the JAX function. Returns the final states and the
+    `DualTrackOutput` ``[B, K, ...]`` on the mesh's first device.
     """
     from ..tracking.dual import DualTrackOutput, track_bank_dual
 

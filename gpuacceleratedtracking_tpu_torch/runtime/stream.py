@@ -9,8 +9,12 @@ between chunks.
 On the card, each chunk is staged in a reused pinned host buffer and copied
 to the device with ``non_blocking=True`` on a side stream, which the compute
 stream waits on: the host goes on decoding the next chunk while the card
-tracks this one (the counterpart of the JAX package's async dispatch). The
-outputs stay on the device until `StreamResult.stacked`.
+tracks this one (the counterpart of the JAX package's async dispatch).
+`track_bank` replays its captured block body (`tracking.graphs`): the chunk's
+copy into the graph's static buffers runs on the compute stream after that
+wait, a short tail chunk replays the same graph (the block count is not in
+its signature), and each chunk's outputs are fresh tensors, which stay on
+the device until `StreamResult.stacked`.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
-"""Closed-loop tracking: discriminators, loop filters, C/N0, block loops,
-dual-component (GPS L5) banks, overlay sync and lock detection."""
+"""Closed-loop tracking: discriminators, loop filters, C/N0, block loops
+(captured as CUDA graphs on the card, `graphs`; `eager()` runs them block by
+block), dual-component (GPS L5) banks, overlay sync and lock detection."""
 
-from . import cn0, discriminators, loop_filter
+from . import cn0, discriminators, graphs, loop_filter
 from .dual import DualTrackOutput, dual_config, track_bank_dual
+from .graphs import eager
 from .lock import detect_bit_boundary, phase_lock_metric
 from .secondary import detect_secondary_offset, detect_secondary_offset_windowed
 from .state import (
@@ -20,6 +22,8 @@ __all__ = [
     "cn0",
     "discriminators",
     "loop_filter",
+    "graphs",
+    "eager",
     "DualTrackOutput",
     "dual_config",
     "track_bank_dual",

@@ -12,23 +12,22 @@ The K dual channels run as one 2K-channel bank: data codes in columns
 block is one bank call (one kernel launch on CUDA tensors; the per-channel
 kernels ``pallas_taps`` and ``pallas_fused`` run one channel at a time, 2K
 launches, as in `track_bank`), and the loop closure is one batched
-`loop_update` over ``[K]``.
+`loop_update` over ``[K]``. As in `track_bank`, the block body runs through
+`graphs.scan`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..models import gpsl5
-from ..ops import registry
+from . import graphs
 from .state import TrackConfig, TrackOutput, TrackState
-from .track import (_CHANNEL_KERNELS, _bank_code_tile_kwargs, _bank_kernel_kwargs,
-                    _per_channel, _Stacked, loop_update)
+from .track import _bank_code_tile_kwargs, _overlay_table, bank_correlator, loop_update
 
 
 class DualTrackOutput(NamedTuple):
@@ -45,8 +44,62 @@ def dual_config(config: TrackConfig) -> TrackConfig:
 
 
 def _overlay(code, default, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(default if code is None else code, np.float32),
-                           device=device)
+    """The overlay signs as an f32 tensor on ``device``, copied there once per
+    code and device (`track._overlay_table`)."""
+    signs = np.asarray(default if code is None else code, np.float32)
+    return _overlay_table(tuple(float(s) for s in signs.reshape(-1)), device)
+
+
+def dual_parts(config: TrackConfig, codes_data, codes_pilot, prn: torch.Tensor,
+               device: torch.device, data_secondary=None, pilot_secondary=None):
+    """The block body of `track_bank_dual` and its per-call constants for the
+    K channels of ``prn``: ``step(states, consts, (signal_re, signal_im))``
+    correlates the 2K-channel bank once, wipes the overlays off, closes the
+    loops on the pilot and returns the data prompts beside the pilot's
+    observables."""
+    if config.secondary_code:
+        raise ValueError("use dual_config(): overlay wipe-off is per-component here")
+    num_k = prn.shape[0]
+    codes = torch.cat([torch.as_tensor(codes_data, device=device),
+                       torch.as_tensor(codes_pilot, device=device)], dim=1)
+    sd = _overlay(data_secondary, gpsl5.neuman_hofman(False), device)
+    sp = _overlay(pilot_secondary, gpsl5.neuman_hofman(True), device)
+    prn2 = torch.cat([prn, prn + codes_data.shape[1]])
+    corr, kwargs = bank_correlator(config)    # per-channel kernels: 2K launches per block
+    code_tiles = _bank_code_tile_kwargs(config, codes, prn2).get("code_tiles")
+    pidx = config.prompt_index
+
+    def dup(x):
+        return torch.cat([x, x])
+
+    def wipe(x, sc, ms_elapsed):
+        sign = sc[torch.remainder(ms_elapsed, sc.shape[0]).long()]
+        return x * sign.reshape(sign.shape + (1,) * (x.ndim - sign.ndim))
+
+    def step(states, consts, block):
+        codes, prn2, code_tiles, sd, sp = consts
+        tiles = {} if code_tiles is None else {"code_tiles": code_tiles}
+        are, aim = corr(
+            block[0], block[1], codes, prn2,
+            dup(config.intermediate_frequency + states.carrier_doppler),
+            config.sampling_frequency, dup(states.carrier_phase),
+            dup(config.code_frequency + states.code_doppler), dup(states.code_phase),
+            config.sample_shifts, config.code_length, **kwargs, **tiles,
+        )
+        d_re = wipe(are[:num_k], sd, states.ms_elapsed)
+        d_im = wipe(aim[:num_k], sd, states.ms_elapsed)
+        p_re = wipe(are[num_k:], sp, states.ms_elapsed)
+        p_im = wipe(aim[num_k:], sp, states.ms_elapsed)
+        # The pilot is transmitted in phase quadrature (+90 deg) to the data:
+        # rotate it by -90 deg so zero loop phase error puts the data
+        # component on I (nav symbols = sign of data_prompt_re).
+        states, out = loop_update(config, states, p_im, -p_re)
+        # An antenna axis, if any, is summed, as the JAX function does.
+        data_re = d_re[..., pidx] if d_re.ndim == 2 else d_re[..., pidx].sum(dim=1)
+        data_im = d_im[..., pidx] if d_im.ndim == 2 else d_im[..., pidx].sum(dim=1)
+        return states, DualTrackOutput(out, data_re, data_im)
+
+    return step, (codes, prn2, code_tiles, sd, sp)
 
 
 def track_bank_dual(
@@ -65,52 +118,11 @@ def track_bank_dual(
     ``states.prn`` indexes into both tables; overlay wipe-off uses the
     channel's ``ms_elapsed`` (align it by secondary sync). The loop closes on
     the pilot; data prompts come back overlay-wiped, so their signs are the
-    100 sps nav symbols (10 repeats each at 1 ms blocks).
+    100 sps nav symbols (10 repeats each at 1 ms blocks). On CUDA tensors the
+    block body (`dual_parts`) runs as a replayed CUDA graph (`graphs.scan`),
+    else block by block.
     """
-    if config.secondary_code:
-        raise ValueError("use dual_config(): overlay wipe-off is per-component here")
-    device = signal_re.device
-    num_k = states.prn.shape[0]
-    codes = torch.cat([torch.as_tensor(codes_data, device=device),
-                       torch.as_tensor(codes_pilot, device=device)], dim=1)
-    sd = _overlay(data_secondary, gpsl5.neuman_hofman(False), device)
-    sp = _overlay(pilot_secondary, gpsl5.neuman_hofman(True), device)
-    prn2 = torch.cat([states.prn, states.prn + codes_data.shape[1]])
-    corr = registry.get(config.algorithm)
-    if config.algorithm in _CHANNEL_KERNELS:
-        corr = functools.partial(_per_channel, corr)   # 2K launches per block
-    kwargs = _bank_kernel_kwargs(config)
-    kwargs.update(_bank_code_tile_kwargs(config, codes, prn2))
-    pidx = config.prompt_index
-
-    def dup(x):
-        return torch.cat([x, x])
-
-    def wipe(x, sc, ms_elapsed):
-        sign = sc[torch.remainder(ms_elapsed, sc.shape[0]).long()]
-        return x * sign.reshape(sign.shape + (1,) * (x.ndim - sign.ndim))
-
-    pilot_outs = _Stacked(signal_re.shape[0])
-    data_re, data_im = [], []
-    for b in range(signal_re.shape[0]):
-        are, aim = corr(
-            signal_re[b], signal_im[b], codes, prn2,
-            dup(config.intermediate_frequency + states.carrier_doppler),
-            config.sampling_frequency, dup(states.carrier_phase),
-            dup(config.code_frequency + states.code_doppler), dup(states.code_phase),
-            config.sample_shifts, config.code_length, **kwargs,
-        )
-        d_re = wipe(are[:num_k], sd, states.ms_elapsed)
-        d_im = wipe(aim[:num_k], sd, states.ms_elapsed)
-        p_re = wipe(are[num_k:], sp, states.ms_elapsed)
-        p_im = wipe(aim[num_k:], sp, states.ms_elapsed)
-        # The pilot is transmitted in phase quadrature (+90 deg) to the data:
-        # rotate it by -90 deg so zero loop phase error puts the data
-        # component on I (nav symbols = sign of data_prompt_re).
-        states, out = loop_update(config, states, p_im, -p_re)
-        pilot_outs.put(b, out)
-        # An antenna axis, if any, is summed, as the JAX function does.
-        data_re.append(d_re[..., pidx] if d_re.ndim == 2 else d_re[..., pidx].sum(dim=1))
-        data_im.append(d_im[..., pidx] if d_im.ndim == 2 else d_im[..., pidx].sum(dim=1))
-    return states, DualTrackOutput(pilot_outs.result(), torch.stack(data_re),
-                                   torch.stack(data_im))
+    step, consts = dual_parts(config, codes_data, codes_pilot, states.prn, signal_re.device,
+                              data_secondary, pilot_secondary)
+    return graphs.scan(step, states, (signal_re, signal_im), consts,
+                       key=("track_bank_dual", config))

@@ -1,0 +1,331 @@
+"""The block loop as one captured program: the port's `jax.jit` + `lax.scan`.
+
+The JAX package compiles each tracking run's block body once and loops over
+it on the device. Here `scan` does the same on CUDA tensors: the body is
+captured as a CUDA graph once per static signature and replayed once per
+block, so the host issues one operation per block (``graph.replay()``) where
+the eager loop issues every correlator and loop-closure op (~130 at K=1024).
+On CPU tensors, and inside `eager()` (the counterpart of
+``jax.disable_jit()``), `loop` runs the body block by block as before.
+
+A cache entry (one per signature, an LRU of `MAX_ENTRIES` per device) owns
+every buffer its graph reads and writes:
+
+- the carry (the tracking state) and the per-call constants (code table,
+  code tiles, steering weights), copied in from the caller's tensors at every
+  call, device to device;
+- a chunk of blocks of each scanned input (`CHUNK` blocks, fewer where
+  they would pass `CHUNK_BYTES`), copied in per chunk, from which the body
+  selects the block at a device-side index;
+- ``[chunk, ...]`` stacked outputs, which the body writes at that index
+  before it writes the new carry over the old one and adds one to the index.
+
+After each chunk the outputs are copied into fresh ``[B, ...]`` tensors, and
+after the last the carry is cloned: nothing a call returns aliases a graph
+buffer, and the caller's tensors are never written, so results are
+functional, as in JAX. The signature covers the body's code, the caller's
+``key`` (the entry point and its static arguments, ``config`` as JAX's
+``static_argnames``), the carry's and constants' shapes and dtypes, each
+input's per-block shape and dtype, and the device; the number of blocks is
+not in it, as a scan's body does not depend on the length. Tensors that a
+body reads from outside its arguments (tile bases, tap offsets, overlay
+tables) come from caches that never evict, so their addresses stay valid.
+
+The first call of a signature runs one eager block on the entry's buffers on
+a side stream (library loads, cluster opt-ins and the constant caches are
+built on first use, and a capture may not build them), then captures the
+body in the graph's own memory pool. The wrappers count their launches on
+the host, which a replay does not run: the entry records how far the capture
+moved each kernel's count and adds that much per replayed block; the
+warm-up's launches, whose results are thrown away, and the capture's are not
+counted. A capture or replay that fails raises; nothing falls back to the
+eager loop.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import warnings
+from typing import Callable
+
+import torch
+
+CHUNK = 64            # blocks per chunk of a cache entry
+CHUNK_BYTES = 64 << 20  # at most this much scanned input per chunk (one block at least)
+MAX_ENTRIES = 8       # captured signatures kept per device
+
+_EAGER = 0
+_ENTRIES: dict = {}   # device -> OrderedDict(signature -> _Entry)
+
+
+@contextlib.contextmanager
+def eager():
+    """Run the tracking entry points' eager block loop, also on CUDA tensors
+    (the counterpart of ``jax.disable_jit()``)."""
+    global _EAGER
+    _EAGER += 1
+    try:
+        yield
+    finally:
+        _EAGER -= 1
+
+
+def enabled(device: torch.device) -> bool:
+    """Whether `scan` captures its body on ``device``: on a CUDA device,
+    outside `eager()`."""
+    return device.type == "cuda" and not _EAGER
+
+
+def capture(body: Callable[[], None], device: torch.device) -> Callable[[], None]:
+    """Capture ``body`` as a CUDA graph on ``device``, in a memory pool of
+    its own; returns the graph's replay. The capture runs on a stream of
+    ``device``: `torch.cuda.graph`'s default capture stream belongs to the
+    device that was current when it was first made."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
+        body()
+    return graph.replay
+
+
+def clear() -> None:
+    """Drop every cache entry, and with them their graphs and buffers."""
+    _ENTRIES.clear()
+
+
+# --- Trees of tensors: tuples, NamedTuples and None, tensors at the leaves.
+
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [leaf for child in tree for leaf in _leaves(child)]
+    if tree is None:
+        return []
+    raise TypeError(f"a scan tree holds tensors, tuples and None, not {type(tree).__name__}")
+
+
+class _Leaf:
+    """A leaf's place in a tree kept without its tensor."""
+
+
+def _rebuild(like, leaves):
+    """``like``'s structure with its tensors (or `_Leaf` places) taken in turn
+    from ``leaves``."""
+    if isinstance(like, (torch.Tensor, _Leaf)):
+        return next(leaves)
+    if isinstance(like, tuple):
+        children = [_rebuild(child, leaves) for child in like]
+        return type(like)(*children) if hasattr(like, "_fields") else tuple(children)
+    return like
+
+
+def _signature(tree, drop: int = 0):
+    """``tree``'s structure, shapes (less ``drop`` leading axes) and dtypes."""
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape[drop:]), tree.dtype
+    if isinstance(tree, tuple):
+        return type(tree), tuple(_signature(child, drop) for child in tree)
+    return None
+
+
+def _like(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous buffer of ``x``'s shape and dtype on its device."""
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _copy(dsts: list, srcs: list) -> None:
+    """``dst.copy_(src)`` for each pair, as few device ops as the shapes and
+    dtypes allow: a call's host work is mostly these copies."""
+    if dsts:
+        torch._foreach_copy_(dsts, srcs)
+
+
+def _on(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+# --- Launch counters.
+
+def _counters() -> tuple:
+    from ..ops import bank_comp, channel_kernels, epl_kernels
+
+    return (epl_kernels.correlate_pallas_bank_rows, epl_kernels.correlate_pallas_bank,
+            epl_kernels.correlate_pallas_bank_onehot, bank_comp.correlate_pallas_bank_comp,
+            channel_kernels.correlate_pallas_taps, channel_kernels.correlate_pallas_fused)
+
+
+def _counts() -> list:
+    return [fn.launches for fn in _counters()]
+
+
+def _set_counts(counts) -> None:
+    for fn, count in zip(_counters(), counts):
+        fn.launches = count
+
+
+# --- The eager loop.
+
+def loop(step, carry, xs: tuple, consts=None):
+    """``step`` over the blocks of ``xs``, one Python iteration per block.
+
+    ``step(carry, consts, block) -> (carry, out)``, ``block`` being
+    ``tuple(x[b] for x in xs)``. Returns the final carry and ``out``'s leaves
+    stacked ``[B, ...]`` in ``out``'s structure.
+    """
+    num_blocks = xs[0].shape[0]
+    stacked = out = None
+    for b in range(num_blocks):
+        carry, out = step(carry, consts, tuple(x[b] for x in xs))
+        leaves = _leaves(out)
+        if stacked is None:
+            stacked = [torch.empty((num_blocks,) + x.shape, dtype=x.dtype, device=x.device)
+                       for x in leaves]
+        for dst, x in zip(stacked, leaves):
+            dst[b] = x
+    return carry, _rebuild(out, iter(stacked))
+
+
+# --- The captured loop.
+
+class _Entry:
+    """One captured signature: its graph and every buffer the graph touches."""
+
+    def __init__(self, step, carry, xs, consts, device):
+        self.device = device
+        self.carry = _rebuild(carry, (_like(x) for x in _leaves(carry)))
+        self.consts = _rebuild(consts, (_like(x) for x in _leaves(consts)))
+        block_bytes = sum(x[0].numel() * x.element_size() for x in xs)
+        self.chunk = max(1, min(CHUNK, CHUNK_BYTES // max(block_bytes, 1)))
+        self.xs = [torch.empty((self.chunk,) + x.shape[1:], dtype=x.dtype, device=device)
+                   for x in xs]
+        self.index = torch.zeros((), dtype=torch.int64, device=device)
+        self._load(carry, consts)
+        self._load_chunk(xs, 0, 1)
+        before = _counts()
+        try:
+            with warnings.catch_warnings():
+                # A wrapper's warning is said once, at capture (JAX: at trace time).
+                warnings.simplefilter("ignore")
+                self._warm_up(step)
+            warmed = _counts()
+            self.replay = capture(self._body(step), device)
+            self.launches = [c - w for c, w in zip(_counts(), warmed)]
+        finally:
+            _set_counts(before)
+
+    def _load(self, carry, consts) -> None:
+        _copy(_leaves(self.carry) + _leaves(self.consts), _leaves(carry) + _leaves(consts))
+
+    def _load_chunk(self, xs, b0: int, num: int) -> None:
+        _copy([dst[:num] for dst in self.xs], [x[b0:b0 + num] for x in xs])
+
+    def _block(self) -> tuple:
+        index = self.index.view(1)
+        return tuple(torch.index_select(x, 0, index)[0] for x in self.xs)
+
+    def _warm_up(self, step) -> None:
+        """One eager block on a side stream, to build what is built on first
+        use; its results only size the stacked outputs."""
+        compute = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        side = torch.cuda.Stream(self.device) if compute is not None else None
+        if side is not None:
+            side.wait_stream(compute)
+        with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+            _, out = step(self.carry, self.consts, self._block())
+            shapes = [(x.shape, x.dtype) for x in _leaves(out)]
+        if side is not None:
+            compute.wait_stream(side)
+        self.out_tree = _rebuild(out, iter([_Leaf() for _ in shapes]))
+        self.outs = [torch.empty((self.chunk,) + shape, dtype=dtype, device=self.device)
+                     for shape, dtype in shapes]
+
+    def _body(self, step):
+        carry_leaves = _leaves(self.carry)
+        storages = {x.untyped_storage().data_ptr() for x in carry_leaves}
+
+        def body():
+            new_carry, out = step(self.carry, self.consts, self._block())
+            index = self.index.view(1)
+            for buf, x in zip(self.outs, _leaves(out)):
+                buf.index_copy_(0, index, x.unsqueeze(0))
+            new_leaves = _leaves(new_carry)
+            if len(new_leaves) != len(carry_leaves):
+                raise ValueError("the scan body changed the carry's structure")
+            # A new leaf that views an old one is copied first: the old one
+            # may be overwritten before it is read.
+            new_leaves = [x.clone() if x is not dst
+                          and x.untyped_storage().data_ptr() in storages else x
+                          for x, dst in zip(new_leaves, carry_leaves)]
+            for dst, x in zip(carry_leaves, new_leaves):
+                if x.shape != dst.shape or x.dtype != dst.dtype:
+                    raise ValueError(
+                        f"the scan body changed a carry leaf from {tuple(dst.shape)} "
+                        f"{dst.dtype} to {tuple(x.shape)} {x.dtype}")
+                if x is not dst:
+                    dst.copy_(x)
+            self.index.add_(1)
+
+        return body
+
+    def run(self, carry, xs, consts):
+        """The scan over ``xs`` from ``carry``: per block one replay."""
+        num_blocks = xs[0].shape[0]
+        self._load(carry, consts)
+        stacked = [torch.empty((num_blocks,) + buf.shape[1:], dtype=buf.dtype,
+                               device=self.device) for buf in self.outs]
+        counters = _counters()
+        for b0 in range(0, num_blocks, self.chunk):
+            num = min(self.chunk, num_blocks - b0)
+            self.index.zero_()
+            self._load_chunk(xs, b0, num)
+            for _ in range(num):
+                self.replay()
+            _copy([dst[b0:b0 + num] for dst in stacked], [buf[:num] for buf in self.outs])
+            for fn, count in zip(counters, self.launches):
+                fn.launches += count * num
+        leaves = _leaves(self.carry)
+        fresh = [_like(x) for x in leaves]
+        _copy(fresh, leaves)
+        final = _rebuild(self.carry, iter(fresh))
+        return final, _rebuild(self.out_tree, iter(stacked))
+
+
+def _code(step):
+    """The code object of ``step`` (of the function a `functools.partial`
+    wraps), which tells two bodies apart whatever their shapes."""
+    while not hasattr(step, "__code__") and hasattr(step, "func"):
+        step = step.func
+    return getattr(step, "__code__", type(step))
+
+
+def scan(step, carry, xs: tuple, consts=None, *, key):
+    """``lax.scan`` of ``step`` over the blocks of ``xs``: on a CUDA device a
+    replayed CUDA graph of ``step`` (see the module), else `loop`.
+
+    ``step(carry, consts, block) -> (carry, out)``: ``carry`` and ``consts``
+    are trees of tensors (tuples, NamedTuples, None), ``xs`` a tuple of
+    ``[B, ...]`` tensors on one device, ``block`` ``tuple(x[b] for x in
+    xs)``; ``out`` is a tree of tensors. ``key`` must hold every value that
+    ``step``'s closure captures (the entry point and its static arguments:
+    config, correlator, kernel options, tables): the cache tells bodies
+    apart by their code and ``key`` alone, so two closures of one function
+    that differ in a value missing from ``key`` would share one graph.
+    Returns the final carry and the outputs stacked ``[B, ...]``.
+    """
+    device = xs[0].device
+    if not enabled(device):
+        return loop(step, carry, xs, consts)
+    if xs[0].shape[0] == 0:
+        raise ValueError("scan over zero blocks")
+    signature = (_code(step), key, _signature(carry), _signature(consts), _signature(xs, drop=1))
+    entries = _ENTRIES.setdefault(device, collections.OrderedDict())
+    with _on(device):
+        entry = entries.get(signature)
+        if entry is None:
+            entry = _Entry(step, carry, xs, consts, device)
+            entries[signature] = entry
+            while len(entries) > MAX_ENTRIES:
+                entries.popitem(last=False)
+        entries.move_to_end(signature)
+        return entry.run(carry, xs, consts)

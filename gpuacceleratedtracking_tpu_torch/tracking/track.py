@@ -2,9 +2,10 @@
 
 Port of `gpuacceleratedtracking_tpu.tracking.track`. `loop_update` works on
 any leading channel axes, so a bank's loop closure is one batched call over
-``[K]``; `track` and `track_bank` run a Python loop over blocks in place of
-`lax.scan`, with no host sync inside the loop, writing into preallocated
-stacked ``[B, ...]`` outputs.
+``[K]``. `track` and `track_bank` run their block body through
+`graphs.scan`, the port's `lax.scan`: a CUDA graph of the body replayed once
+per block on CUDA tensors, a Python loop over blocks on the CPU (or inside
+`graphs.eager()`), with no host sync inside the loop either way.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..ops import registry
 from . import cn0 as cn0_mod
-from . import discriminators, loop_filter
+from . import discriminators, graphs, loop_filter
 from .loop_filter import LoopFilterState
 from .state import TrackConfig, TrackOutput, TrackState
 
@@ -109,11 +110,12 @@ def _as_f32(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _overlay_table(secondary_code: tuple, device: torch.device) -> torch.Tensor:
     """The overlay signs as an f32 tensor on ``device``, copied once per code
     and device: `loop_update` runs every block, and a copy from host memory
-    would make each block wait on the card."""
+    would make each block wait on the card. Never evicted: a captured CUDA
+    graph reads it at a baked address (one entry per code and device)."""
     return torch.tensor(secondary_code, dtype=torch.float32, device=device)
 
 
@@ -256,25 +258,6 @@ def loop_update(
     return new_state, output
 
 
-class _Stacked:
-    """Per-block outputs written into ``[B, ...]`` tensors allocated on the
-    first block (shapes are known only then)."""
-
-    def __init__(self, num_blocks: int):
-        self.num_blocks = num_blocks
-        self.fields = None
-
-    def put(self, b: int, out: TrackOutput) -> None:
-        if self.fields is None:
-            self.fields = [torch.empty((self.num_blocks,) + x.shape, dtype=x.dtype,
-                                       device=x.device) for x in out]
-        for dst, x in zip(self.fields, out):
-            dst[b] = x
-
-    def result(self) -> TrackOutput:
-        return TrackOutput(*self.fields)
-
-
 def track(
     config: TrackConfig,
     codes: torch.Tensor,
@@ -285,16 +268,20 @@ def track(
 ) -> tuple[TrackState, TrackOutput]:
     """Track one channel over ``[num_blocks, ..., N]`` blocks.
 
-    Returns the final state and per-block stacked outputs.
+    Returns the final state and per-block stacked outputs. On CUDA tensors
+    the block body (`track_step`) runs as a replayed CUDA graph
+    (`graphs.scan`), else block by block.
     """
+    device = signal_re.device
     if ant_weights is not None:
-        ant_weights = tuple(_as_f32(w, signal_re.device) for w in ant_weights)
-    outs = _Stacked(signal_re.shape[0])
-    for b in range(signal_re.shape[0]):
-        state, out = track_step(config, codes, state, signal_re[b], signal_im[b],
-                                ant_weights)
-        outs.put(b, out)
-    return state, outs.result()
+        ant_weights = tuple(_as_f32(w, device) for w in ant_weights)
+
+    def step(st, consts, block):
+        return track_step(config, consts[0], st, *block, consts[1])
+
+    return graphs.scan(step, state, (signal_re, signal_im),
+                       (torch.as_tensor(codes, device=device), ant_weights),
+                       key=("track", config))
 
 
 def _per_channel(corr, signal_re, signal_im, codes, prn, carrier_frequency,
@@ -307,6 +294,35 @@ def _per_channel(corr, signal_re, signal_im, codes, prn, carrier_frequency,
                  code_phase[k], sample_shifts, code_length)
             for k in range(prn.shape[0])]
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def bank_correlator(config: TrackConfig):
+    """The bank-signature correlator of ``config.algorithm`` (a per-channel
+    kernel runs one call per channel) and its static keyword arguments."""
+    corr = registry.get(config.algorithm)
+    if config.algorithm in _CHANNEL_KERNELS:
+        corr = functools.partial(_per_channel, corr)
+    return corr, _bank_kernel_kwargs(config)
+
+
+def bank_step(config: TrackConfig, corr, kwargs: dict):
+    """The block body of `track_bank`: ``step(states, (codes, code_tiles,
+    ant_weights), (signal_re, signal_im))`` correlates the bank once and
+    closes every channel's loop (``code_tiles`` None for an algorithm that
+    takes none)."""
+    def step(states, consts, block):
+        codes, code_tiles, ant_weights = consts
+        tiles = {} if code_tiles is None else {"code_tiles": code_tiles}
+        accum_re, accum_im = corr(
+            block[0], block[1], codes, states.prn,
+            config.intermediate_frequency + states.carrier_doppler,
+            config.sampling_frequency, states.carrier_phase,
+            config.code_frequency + states.code_doppler, states.code_phase,
+            config.sample_shifts, config.code_length, **kwargs, **tiles,
+        )
+        return loop_update(config, states, accum_re, accum_im, ant_weights)
+
+    return step
 
 
 def track_bank(
@@ -327,7 +343,8 @@ def track_bank(
     one channel at a time: K launches per block, where the JAX package maps
     them with `vmap` — for banks use a bank algorithm. ``ant_weights``:
     optional ``(w_re, w_im)`` of shape ``[A]`` (shared) or ``[K, A]`` (per
-    channel).
+    channel). On CUDA tensors the block body (`bank_step`) runs as a replayed
+    CUDA graph (`graphs.scan`), else block by block.
     """
     num_k = states.prn.shape[0]
     device = signal_re.device
@@ -335,22 +352,8 @@ def track_bank(
         num_ants = signal_re.shape[-2] if signal_re.ndim == 3 else 1
         ant_weights = tuple(_as_f32(w, device).expand(num_k, num_ants)
                             for w in ant_weights)
-
-    corr = registry.get(config.algorithm)
-    if config.algorithm in _CHANNEL_KERNELS:
-        corr = functools.partial(_per_channel, corr)
-    kwargs = _bank_kernel_kwargs(config)
-    kwargs.update(_bank_code_tile_kwargs(config, codes, states.prn))
-
-    outs = _Stacked(signal_re.shape[0])
-    for b in range(signal_re.shape[0]):
-        accum_re, accum_im = corr(
-            signal_re[b], signal_im[b], codes, states.prn,
-            config.intermediate_frequency + states.carrier_doppler,
-            config.sampling_frequency, states.carrier_phase,
-            config.code_frequency + states.code_doppler, states.code_phase,
-            config.sample_shifts, config.code_length, **kwargs,
-        )
-        states, out = loop_update(config, states, accum_re, accum_im, ant_weights)
-        outs.put(b, out)
-    return states, outs.result()
+    codes = torch.as_tensor(codes, device=device)
+    corr, kwargs = bank_correlator(config)
+    code_tiles = _bank_code_tile_kwargs(config, codes, states.prn).get("code_tiles")
+    return graphs.scan(bank_step(config, corr, kwargs), states, (signal_re, signal_im),
+                       (codes, code_tiles, ant_weights), key=("track_bank", config))

@@ -868,3 +868,242 @@ def test_channel_kernels_launch_on_every_card(cuda, kernel, n):
         for g, w in zip(got, want):
             assert g.device == dev
             torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * n + 1e-3)
+
+
+# The captured block loop (`tracking.graphs`): every entry point replays a
+# CUDA graph of its block body on the card; `graphs.eager()` runs the loop.
+
+def _launch_counts():
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    return [fn.launches for fn in graphs._counters()]
+
+
+def _assert_bitwise(got, want):
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    got, want = graphs._leaves(got), graphs._leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and g.device == w.device
+        assert torch.equal(g, w)
+
+
+def _graph_against_eager(run):
+    """``run()`` under `eager()`, then twice through the graph (the first call
+    captures, the second replays): bit for bit the same, and each call moves
+    every launch count by as much as the eager loop does."""
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    c0 = _launch_counts()
+    with graphs.eager():
+        want = run()
+    torch.cuda.synchronize()
+    c1 = _launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    c2 = _launch_counts()
+    again = run()
+    torch.cuda.synchronize()
+    c3 = _launch_counts()
+    eager = [b - a for a, b in zip(c0, c1)]
+    assert [b - a for a, b in zip(c1, c2)] == eager
+    assert [b - a for a, b in zip(c2, c3)] == eager
+    _assert_bitwise(got, want)
+    _assert_bitwise(again, want)
+    return eager
+
+
+# name -> (algorithm, K, A, TrackConfig extras, steering weights)
+GRAPH_CASES = {
+    "rows": ("pallas_bank_auto", 64, None, {}, False),
+    "comp_f32": ("pallas_bank_auto", 64, 4, {"num_correlators": 7}, True),
+    "comp_bf16": ("pallas_bank_auto", 64, 4, {"num_correlators": 7, "z_dtype": "bf16"}, True),
+    "transition": ("pallas_bank", 64, None, {}, False),
+    "onehot": ("pallas_bank_onehot", 64, None, {}, False),
+    "taps": ("pallas_taps", 8, None, {}, False),
+    "fused": ("pallas_fused", 8, None, {}, False),
+    "xla_bank": ("xla_bank", 64, None, {}, False),
+    "fused_xla": ("fused_xla", 8, None, {}, False),
+    "unfused_xla": ("unfused_xla", 8, None, {}, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_CASES))
+def test_track_bank_graph_equals_eager(cuda, name):
+    algorithm, k, num_ants, extra, steered = GRAPH_CASES[name]
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=5, k=k, num_ants=num_ants)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm=algorithm, **extra)
+    states = init_state(states.prn.cpu().numpy(), carrier_doppler=states.carrier_doppler.cpu(),
+                        num_taps=len(config.sample_shifts), device=cuda)
+    weights = None
+    if steered:
+        phase = torch.arange(num_ants, dtype=torch.float32, device=cuda) * 0.7
+        weights = (torch.cos(phase), torch.sin(phase))
+    launched = _graph_against_eager(
+        lambda: track_bank(config, codes, states, sre, sim, ant_weights=weights))
+    per_block = {"pallas_taps": k, "pallas_fused": k}.get(algorithm, 1)
+    assert sum(launched) == (0 if algorithm.endswith("_xla") or algorithm == "xla_bank"
+                             else per_block * 5)
+
+
+def test_track_graph_equals_eager_over_chunks(cuda):
+    # 70 blocks: more than one chunk of stacked outputs.
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    n, blocks = 8192, graphs.CHUNK + 6
+    sig, fs = gen_signal(SYSTEM, 0, 700.0, n * blocks, duration=blocks * 1e-3, device=cuda)
+    sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    state = init_state(0, carrier_doppler=690.0, device=cuda)
+    config = TrackConfig.for_system(SYSTEM, fs, n, algorithm="pallas_fused")
+    assert _graph_against_eager(lambda: track(config, codes, state, sre, sim)) == \
+        [0, 0, 0, 0, 0, blocks]
+
+
+@pytest.mark.parametrize("algorithm", ["pallas_bank_auto", "pallas_fused"])
+def test_track_bank_dual_graph_equals_eager(cuda, algorithm):
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    n, blocks, k = 16384, 5, 4
+    sig, _ = gen_signal(sys_i, 2, 700.0, n * blocks, duration=blocks * 1e-3,
+                        secondary_code=sys_i.secondary_code, device=cuda)
+    sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    config = dual_config(TrackConfig.for_system(sys_i, n / 1e-3, n, algorithm=algorithm,
+                                                use_secondary=False))
+    states = init_state(np.arange(2, 2 + k), carrier_doppler=np.linspace(-600, 700, k),
+                        ms_elapsed=np.arange(k) * 3, device=cuda)
+    codes_i = torch.as_tensor(sys_i.codes, device=cuda)
+    codes_q = torch.as_tensor(sys_q.codes, device=cuda)
+    _graph_against_eager(lambda: track_bank_dual(config, codes_i, codes_q, states, sre, sim))
+
+
+def test_sharded_banks_graph_equal_eager(cuda):
+    from gpuacceleratedtracking_tpu_torch.parallel import (
+        channel_time_mesh, track_bank_dual_sharded, track_bank_sharded)
+
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=5)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    for chan, time_ in ((2, 2), (4, 1)):
+        mesh = channel_time_mesh(chan, time_, devices=_mesh_devices(cuda))
+        _graph_against_eager(
+            lambda: track_bank_sharded(config, codes, states, sre, sim, mesh=mesh))
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    n = 16384
+    sig, _ = gen_signal(sys_i, 2, 700.0, n * 5, duration=5e-3,
+                        secondary_code=sys_i.secondary_code, device=cuda)
+    s5re, s5im = (x.reshape(5, n) for x in soa(sig))
+    cfg5 = dual_config(TrackConfig.for_system(sys_i, n / 1e-3, n, algorithm="pallas_bank_auto",
+                                              use_secondary=False))
+    states5 = init_state(np.arange(4), carrier_doppler=np.linspace(-900, 900, 4), device=cuda)
+    mesh = channel_time_mesh(2, 1, devices=_mesh_devices(cuda)[:2])
+    _graph_against_eager(lambda: track_bank_dual_sharded(
+        cfg5, torch.as_tensor(sys_i.codes, device=cuda), torch.as_tensor(sys_q.codes, device=cuda),
+        states5, s5re, s5im, mesh=mesh))
+
+
+@pytest.mark.parametrize("name", ["rows", "comp_f32", "dual", "track"])
+def test_second_graph_call_does_not_wait_on_the_card(cuda, name):
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=4,
+                                                num_ants=4 if name == "comp_f32" else None)
+    if name == "dual":
+        sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+        config = dual_config(TrackConfig.for_system(sys_i, 32.768e6, 32768,
+                                                    algorithm="pallas_bank_auto",
+                                                    use_secondary=False))
+        sig, _ = gen_signal(sys_i, 2, 700.0, 32768 * 4, duration=4e-3, device=cuda)
+        sre, sim = (x.reshape(4, 32768) for x in soa(sig))
+        ci = torch.as_tensor(sys_i.codes, device=cuda)
+        cq = torch.as_tensor(sys_q.codes, device=cuda)
+        run = lambda: track_bank_dual(config, ci, cq, states, sre, sim)  # noqa: E731
+    elif name == "track":
+        config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_fused")
+        state = init_state(0, carrier_doppler=-900.0, device=cuda)
+        run = lambda: track(config, codes, state, sre, sim)  # noqa: E731
+    else:
+        config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+        weights = None
+        if name == "comp_f32":
+            weights = (torch.ones(4, device=cuda), torch.zeros(4, device=cuda))
+        run = lambda: track_bank(config, codes, states, sre, sim, ant_weights=weights)  # noqa
+    first = run()                                       # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _assert_bitwise(second, first)
+
+
+def test_outputs_kept_across_calls_are_not_overwritten(cuda):
+    # As StreamTracker keeps every chunk's outputs: one call's results never
+    # alias a graph buffer, and the caller's inputs are never written.
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=6)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    inputs = [x.clone() for x in (sre, sim, states.carrier_phase, states.code_phase)]
+    outs, st = [], states
+    for c in range(3):
+        st, out = track_bank(config, codes, st, sre[2 * c:2 * c + 2], sim[2 * c:2 * c + 2])
+        outs.append(out)
+    torch.cuda.synchronize()
+    _, whole = track_bank(config, codes, states, sre, sim)
+    torch.cuda.synchronize()
+    for field in ("prompt_re", "carrier_doppler", "code_phase"):
+        kept = torch.cat([getattr(o, field) for o in outs])
+        assert torch.equal(kept, getattr(whole, field)), field
+    for x, y in zip(inputs, (sre, sim, states.carrier_phase, states.code_phase)):
+        assert torch.equal(x, y)
+
+
+def test_flooded_constant_caches_leave_the_replay_unchanged(cuda):
+    # A graph bakes the addresses of the cached tile base, tap offsets and
+    # overlay table; those caches never evict, so flooding them (and reusing
+    # the memory freed around them) does not reach the replay.
+    import importlib
+
+    track_mod = importlib.import_module("gpuacceleratedtracking_tpu_torch.tracking.track")
+
+    system = BeiDouB1I()
+    n, blocks = 8192, 4
+    config = TrackConfig.for_system(system, n / 1e-3, n, algorithm="pallas_bank_auto")
+    assert len(config.secondary_code) == 20
+    sig, fs = gen_signal_mixed(system, [0, 1], [800.0, -1400.0], n * blocks,
+                               duration=blocks * 1e-3, device=cuda)
+    sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    codes = torch.as_tensor(system.codes, device=cuda)
+    states = init_state(np.arange(16), carrier_doppler=np.linspace(-3000, 3000, 16),
+                        ms_elapsed=5, device=cuda)
+    _, first = track_bank(config, codes, states, sre, sim)
+    torch.cuda.synchronize()
+    for i in range(100):
+        epl_kernels._tile_base(3, epl_kernels.TILE, 0.0, 1e-3 * i, 1023, cuda)
+        epl_kernels._deltas((0, i, 2 * i), cuda)
+        track_mod._overlay_table((1.0, -1.0) * (i + 1), cuda)
+    junk = [torch.full((1 << 16,), float("nan"), device=cuda) for _ in range(64)]
+    torch.cuda.synchronize()
+    _, again = track_bank(config, codes, states, sre, sim)
+    torch.cuda.synchronize()
+    del junk
+    _assert_bitwise(again, first)
+
+
+def test_a_capture_that_fails_raises(cuda):
+    # A host read of a device value cannot be captured: the call raises,
+    # caches nothing and leaves the launch counts as they were; it never
+    # falls back to the eager loop.
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    def step(carry, consts, block):
+        float(block[0].sum())
+        return carry + block[0], carry
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    counts = _launch_counts()
+    entries = dict(graphs._ENTRIES.get(device, {}))
+    with pytest.raises(RuntimeError):
+        graphs.scan(step, torch.zeros(4, device=device), (torch.ones(3, 4, device=device),),
+                    key=("refused",))
+    torch.cuda.synchronize()
+    assert dict(graphs._ENTRIES.get(device, {})) == entries
+    assert _launch_counts() == counts

@@ -1,0 +1,348 @@
+"""PyTorch port, the captured block loop (`tracking.graphs`) on the CPU.
+
+On the card `graphs.scan` captures a tracking entry point's block body as a
+CUDA graph and replays it per block. Here its capture is swapped for a plain
+call of the body, so the static-buffer path (copy-in, device-side block
+index, chunked stacked outputs, copy-out, launch-count replay) runs on CPU
+tensors and is held, bit for bit, against the eager loop, and once against
+the JAX `track_bank`.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpuacceleratedtracking_tpu import models as jmodels
+from gpuacceleratedtracking_tpu import tracking as jtracking
+from gpuacceleratedtracking_tpu_torch import models as tmodels
+from gpuacceleratedtracking_tpu_torch import tracking as ttracking
+from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+from gpuacceleratedtracking_tpu_torch.parallel import (
+    channel_time_mesh, track_bank_dual_sharded, track_bank_sharded)
+from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+torch.set_num_threads(1)
+
+BLOCKS = 7            # over two chunks of CHUNK_BLOCKS and a short tail
+CHUNK_BLOCKS = 3
+
+
+def _plain_capture(body, device):
+    """The capture swapped for a plain call: the body runs once, as a trace
+    would, and each "replay" runs it with the launch counts held, as a graph
+    replay runs no wrapper."""
+    body()
+
+    def replay():
+        counts = graphs._counts()
+        body()
+        graphs._set_counts(counts)
+
+    return replay
+
+
+@pytest.fixture
+def captured(monkeypatch):
+    """`graphs.scan` takes its captured path on CPU tensors."""
+    monkeypatch.setattr(graphs, "enabled", lambda device: not graphs._EAGER)
+    monkeypatch.setattr(graphs, "capture", _plain_capture)
+    monkeypatch.setattr(graphs, "CHUNK", CHUNK_BLOCKS)
+    graphs.clear()
+    yield graphs._ENTRIES
+    graphs.clear()
+
+
+def _leaves(tree):
+    return graphs._leaves(tree)
+
+
+def _assert_same(got, want):
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+def _storages(tree) -> set:
+    return {x.untyped_storage().data_ptr() for x in _leaves(tree)}
+
+
+def _l1_case(n=4096, fs=8.192e6, k=4, num_ants=None, seed=0):
+    """``BLOCKS`` blocks of GPS L1 with 3 satellites, and a K-channel bank."""
+    system = tmodels.GPSL1()
+    rng = np.random.default_rng(seed)
+    dops = rng.uniform(-3000.0, 3000.0, k)
+    sig, _ = tmodels.gen_signal_mixed(system, np.arange(3), dops[:3], n * BLOCKS,
+                                      num_ants=num_ants,
+                                      duration=n * BLOCKS / fs, device="cpu")
+    sre, sim = tmodels.soa(sig)
+    if num_ants:
+        sre, sim = (x.reshape(num_ants, BLOCKS, n).transpose(0, 1).contiguous()
+                    for x in (sre, sim))
+    else:
+        sre, sim = sre.reshape(BLOCKS, n), sim.reshape(BLOCKS, n)
+    states = ttracking.init_state(np.arange(k) % 32, carrier_doppler=dops + 15.0,
+                                  code_phase=rng.uniform(0, 1023, k), device="cpu",
+                                  num_taps=3)
+    return system, torch.as_tensor(system.codes), states, sre, sim
+
+
+# name -> (algorithm, N, fs, K, A, TrackConfig extras)
+BANK_CASES = {
+    "xla_bank": ("xla_bank", 4096, 8.192e6, 4, None, {}),
+    "fused_xla": ("fused_xla", 2048, 4.096e6, 3, None, {}),
+    "unfused_xla": ("unfused_xla", 2048, 4.096e6, 3, None, {}),
+    "rows": ("pallas_bank_rows", 4096, 8.192e6, 8, None, {}),
+    "comp_a2": ("pallas_bank_comp", 4096, 8.192e6, 4, 2, {}),
+    "comp_bf16": ("pallas_bank_auto", 4096, 8.192e6, 4, 2, {"z_dtype": "bf16"}),
+    "transition": ("pallas_bank", 4096, 4.096e6, 4, None, {}),
+    "onehot": ("pallas_bank_onehot", 4096, 8.192e6, 4, None, {}),
+    "taps": ("pallas_taps", 2048, 4.096e6, 3, None, {}),
+    "fused": ("pallas_fused", 2048, 4.096e6, 3, None, {}),
+    "coherent_3": ("xla_bank", 2048, 4.096e6, 3, None, {"coherent_blocks": 3}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BANK_CASES))
+def test_track_bank_replays_the_eager_trajectory(captured, name):
+    algorithm, n, fs, k, num_ants, extra = BANK_CASES[name]
+    system, codes, states, sre, sim = _l1_case(n, fs, k, num_ants)
+    config = ttracking.TrackConfig.for_system(system, fs, n, algorithm=algorithm, **extra)
+    weights = None
+    if num_ants:
+        weights = (torch.tensor([1.0, 0.5]), torch.tensor([0.0, -0.25]))
+    with graphs.eager():
+        want = ttracking.track_bank(config, codes, states, sre, sim, ant_weights=weights)
+    assert not captured
+    got = ttracking.track_bank(config, codes, states, sre, sim, ant_weights=weights)
+    assert len(captured[torch.device("cpu")]) == 1
+    _assert_same(got, want)
+    # A second call replays the same entry and gives the same run.
+    _assert_same(ttracking.track_bank(config, codes, states, sre, sim, ant_weights=weights),
+                 want)
+    assert len(captured[torch.device("cpu")]) == 1
+
+
+@pytest.mark.parametrize("algorithm", ["fused_xla", "pallas_fused"])
+@pytest.mark.parametrize("num_ants", [None, 2])
+def test_track_replays_the_eager_trajectory(captured, algorithm, num_ants):
+    system, codes, _, sre, sim = _l1_case(2048, 4.096e6, 1, num_ants)
+    config = ttracking.TrackConfig.for_system(system, 4.096e6, 2048, algorithm=algorithm)
+    state = ttracking.init_state(1, carrier_doppler=-480.0, code_phase=3.25, device="cpu")
+    weights = (np.array([1.0, 0.5]), np.array([0.0, -0.25])) if num_ants else None
+    with graphs.eager():
+        want = ttracking.track(config, codes, state, sre, sim, ant_weights=weights)
+    _assert_same(ttracking.track(config, codes, state, sre, sim, ant_weights=weights), want)
+
+
+def _l5_case(k=3, n=16384):
+    sys_i, sys_q = tmodels.GPSL5(), tmodels.GPSL5(quadrature=True)
+    fs = n / 1e-3
+    sig, _ = tmodels.gen_signal(sys_i, 2, 700.0, n * BLOCKS, duration=BLOCKS * 1e-3,
+                                secondary_code=sys_i.secondary_code, device="cpu")
+    sre, sim = (x.reshape(BLOCKS, n) for x in tmodels.soa(sig))
+    states = ttracking.init_state(np.arange(2, 2 + k), carrier_doppler=np.linspace(-600, 700, k),
+                                  ms_elapsed=np.arange(k) * 3, device="cpu")
+    return sys_i, sys_q, fs, states, sre, sim
+
+
+@pytest.mark.parametrize("algorithm", ["xla_bank", "pallas_bank_auto", "pallas_fused"])
+def test_track_bank_dual_replays_the_eager_trajectory(captured, algorithm):
+    sys_i, sys_q, fs, states, sre, sim = _l5_case()
+    config = ttracking.dual_config(ttracking.TrackConfig.for_system(
+        sys_i, fs, 16384, algorithm=algorithm, use_secondary=False))
+    codes_i, codes_q = torch.as_tensor(sys_i.codes), torch.as_tensor(sys_q.codes)
+    with graphs.eager():
+        want = ttracking.track_bank_dual(config, codes_i, codes_q, states, sre, sim)
+    _assert_same(ttracking.track_bank_dual(config, codes_i, codes_q, states, sre, sim), want)
+
+
+@pytest.mark.parametrize("chan,time_", [(2, 2), (4, 1), (1, 2)])
+def test_sharded_bank_on_a_cpu_mesh_replays_the_eager_trajectory(captured, chan, time_):
+    system, codes, states, sre, sim = _l1_case(8192, 8.192e6, 4)
+    config = ttracking.TrackConfig.for_system(system, 8.192e6, 8192,
+                                              algorithm="pallas_bank_auto")
+    mesh = channel_time_mesh(chan, time_, devices=["cpu"] * (chan * time_))
+    with graphs.eager():
+        want = track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    _assert_same(track_bank_sharded(config, codes, states, sre, sim, mesh=mesh), want)
+    assert len(captured[torch.device("cpu")]) == 1
+
+
+def test_sharded_dual_bank_on_a_cpu_mesh_replays_the_eager_trajectory(captured):
+    sys_i, sys_q, fs, states, sre, sim = _l5_case(k=4)
+    config = ttracking.dual_config(ttracking.TrackConfig.for_system(
+        sys_i, fs, 16384, algorithm="pallas_bank_auto", use_secondary=False))
+    codes_i, codes_q = torch.as_tensor(sys_i.codes), torch.as_tensor(sys_q.codes)
+    mesh = channel_time_mesh(2, 1, devices=["cpu"] * 2)
+    with graphs.eager():
+        want = track_bank_dual_sharded(config, codes_i, codes_q, states, sre, sim, mesh=mesh)
+    got = track_bank_dual_sharded(config, codes_i, codes_q, states, sre, sim, mesh=mesh)
+    _assert_same(got, want)
+    # The unsharded dual bank, bit for bit on the CPU.
+    _assert_same(got, ttracking.track_bank_dual(config, codes_i, codes_q, states, sre, sim))
+
+
+def test_captured_track_bank_matches_jax(captured):
+    # The slice end to end: the captured path against the JAX `track_bank`
+    # (plain XLA correlator on both sides), at tests/test_tracking.py's
+    # bank tolerances.
+    n, fs, dops = 4096, 4.096e6, np.array([-900.0, 100.0, 1500.0])
+    jsys = jmodels.GPSL1()
+    mixed = sum(jmodels.gen_signal(jsys, prn, d, n * BLOCKS, duration=BLOCKS * 1e-3)[0]
+                for prn, d in enumerate(dops))
+    sre = np.array(mixed.real).reshape(BLOCKS, n)
+    sim = np.array(mixed.imag).reshape(BLOCKS, n)
+    jconfig = jtracking.TrackConfig.for_system(jsys, fs, n, algorithm="xla_bank")
+    _, want = jtracking.track_bank(jconfig, jnp.asarray(jsys.codes),
+                                   jtracking.init_state(np.arange(3), carrier_doppler=dops),
+                                   jnp.asarray(sre), jnp.asarray(sim))
+    system = tmodels.GPSL1()
+    config = ttracking.TrackConfig.for_system(system, fs, n, algorithm="xla_bank")
+    states = ttracking.init_state(np.arange(3), carrier_doppler=dops, device="cpu")
+    _, got = ttracking.track_bank(config, torch.as_tensor(system.codes), states,
+                                  torch.as_tensor(sre), torch.as_tensor(sim))
+    assert captured
+    np.testing.assert_allclose(got.prompt_re.numpy(), np.asarray(want.prompt_re),
+                               rtol=5e-3, atol=10.0)
+    np.testing.assert_allclose(got.carrier_doppler.numpy(), np.asarray(want.carrier_doppler),
+                               rtol=1e-3, atol=1.0)
+
+
+def test_results_are_fresh_and_inputs_untouched(captured):
+    system, codes, states, sre, sim = _l1_case()
+    config = ttracking.TrackConfig.for_system(system, 8.192e6, 4096, algorithm="xla_bank")
+    inputs = [x.clone() for x in _leaves((states, sre, sim, codes))]
+    first = ttracking.track_bank(config, codes, states, sre, sim)
+    kept = [x.clone() for x in _leaves(first)]
+    second = ttracking.track_bank(config, codes, first[0], sre[:4], sim[:4])
+    (entry,) = captured[torch.device("cpu")].values()
+    owned = _storages((entry.carry, entry.consts, tuple(entry.xs), tuple(entry.outs),
+                       entry.index))
+    assert not _storages(first) & _storages(second)
+    assert not (_storages(first) | _storages(second)) & owned
+    ttracking.track_bank(config, codes, states, sre, sim)
+    for x, y in zip(_leaves(first), kept):
+        assert torch.equal(x, y)
+    for x, y in zip(_leaves((states, sre, sim, codes)), inputs):
+        assert torch.equal(x, y)
+
+
+def _tiny_step(carry, consts, block):
+    """A counter over the blocks: carry + sum(block) * scale."""
+    new = carry + block[0].sum() * consts[0]
+    return new, (new, block[0][:2] * 2.0)
+
+
+def test_blocks_share_an_entry_and_the_signature_makes_new_ones(captured, monkeypatch):
+    def run(k=4, n=16, dtype=torch.float32, key=("tiny",), blocks=5, device="cpu"):
+        xs = (torch.arange(blocks * k * n, dtype=dtype, device=device).reshape(blocks, k, n),)
+        carry = torch.zeros(k, n, dtype=dtype, device=device)
+        return graphs.scan(_tiny_step, carry, xs, (torch.ones((), dtype=dtype, device=device),),
+                           key=key)
+
+    entries = captured.setdefault(torch.device("cpu"), graphs.collections.OrderedDict())
+    final, (acc, head) = run(blocks=5)
+    with graphs.eager():
+        want = run(blocks=5)
+    _assert_same((final, (acc, head)), want)
+    run(blocks=10)                                   # B and 2B: one entry
+    assert len(entries) == 1
+    for change in ({"key": ("tiny", "other config")}, {"k": 2}, {"n": 8},
+                   {"dtype": torch.float64}):
+        run(**change)
+    assert len(entries) == 5
+    run(device="meta")                               # another device: an entry of its own
+    assert len(captured[torch.device("meta")]) == 1 and len(entries) == 5
+    monkeypatch.setattr(graphs, "MAX_ENTRIES", 2)
+    run(k=3)
+    assert len(entries) == 2                         # the LRU bound evicts the oldest
+    assert list(entries)[-1][1] == ("tiny",)
+
+
+def _other_step(carry, consts, block):
+    """`_tiny_step`'s shapes, another body."""
+    new = carry - block[0].sum() * consts[0]
+    return new, (new, block[0][:2] * 3.0)
+
+
+def test_bodies_of_equal_shapes_get_entries_of_their_own(captured):
+    # The signature holds the body's code: one key, two bodies, two graphs,
+    # each replaying its own body.
+    xs = (torch.arange(40.0).reshape(5, 2, 4),)
+    carry, consts = torch.zeros(2, 4), (torch.full((), 0.5),)
+    for step in (_tiny_step, _other_step, functools.partial(_other_step)):
+        with graphs.eager():
+            want = graphs.scan(step, carry, xs, consts, key=("same",))
+        _assert_same(graphs.scan(step, carry, xs, consts, key=("same",)), want)
+    assert len(captured[torch.device("cpu")]) == 2
+
+
+def test_the_chunk_holds_at_most_chunk_bytes_of_input(captured, monkeypatch):
+    # Three blocks' worth of bytes: chunks of 3 where CHUNK would give more,
+    # and the run over them the eager one.
+    monkeypatch.setattr(graphs, "CHUNK", 64)
+    xs = (torch.arange(10 * 2 * 4, dtype=torch.float32).reshape(10, 2, 4),)
+    monkeypatch.setattr(graphs, "CHUNK_BYTES", 3 * 2 * 4 * 4 + 5)
+    carry, consts = torch.zeros(2, 4), (torch.ones(()),)
+    with graphs.eager():
+        want = graphs.scan(_tiny_step, carry, xs, consts, key=("bytes",))
+    _assert_same(graphs.scan(_tiny_step, carry, xs, consts, key=("bytes",)), want)
+    (entry,) = captured[torch.device("cpu")].values()
+    assert entry.chunk == 3 and entry.xs[0].shape[0] == 3 and entry.outs[0].shape[0] == 3
+
+
+def test_launch_counts_recorded_at_capture_are_added_per_replay(captured, monkeypatch):
+    counter = epl_kernels.correlate_pallas_bank_rows
+    monkeypatch.setattr(counter, "launches", 0)      # restored after the test
+
+    def step(carry, consts, block):
+        counter.launches += 2                        # as a wrapper counts two launches
+        return carry + block[0], carry
+
+    before = counter.launches
+    graphs.scan(step, torch.zeros(3), (torch.ones(BLOCKS, 3),), key=("counted",))
+    # The warm-up and the capture are not counted; each replayed block is.
+    assert counter.launches - before == 2 * BLOCKS
+    graphs.scan(step, torch.zeros(3), (torch.ones(2, 3),), key=("counted",))
+    assert counter.launches - before == 2 * BLOCKS + 4
+
+
+def test_eager_restores_the_loop(captured):
+    system, codes, states, sre, sim = _l1_case()
+    config = ttracking.TrackConfig.for_system(system, 8.192e6, 4096, algorithm="xla_bank")
+    with graphs.eager():
+        with graphs.eager():
+            assert not graphs.enabled(torch.device("cpu"))
+        ttracking.track_bank(config, codes, states, sre, sim)
+    assert not captured
+    assert graphs.enabled(torch.device("cpu"))
+    ttracking.track_bank(config, codes, states, sre, sim)
+    assert len(captured[torch.device("cpu")]) == 1
+
+
+def test_on_the_cpu_the_entry_points_run_the_eager_loop():
+    # Without the swap, CPU tensors never reach the captured path.
+    graphs.clear()
+    system, codes, states, sre, sim = _l1_case()
+    config = ttracking.TrackConfig.for_system(system, 8.192e6, 4096, algorithm="xla_bank")
+    assert not graphs.enabled(torch.device("cpu"))
+    ttracking.track_bank(config, codes, states, sre, sim)
+    assert not graphs._ENTRIES
+
+
+def test_a_capture_that_fails_raises_and_caches_nothing(captured, monkeypatch):
+    def refuse(body, device):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(graphs, "capture", refuse)
+    counts = graphs._counts()
+    with pytest.raises(RuntimeError, match="capture refused"):
+        graphs.scan(_tiny_step, torch.zeros(2, 4), (torch.ones(3, 2, 4),), (torch.ones(()),),
+                    key=("refused",))
+    assert not captured.get(torch.device("cpu"))
+    assert graphs._counts() == counts
