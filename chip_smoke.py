@@ -28,6 +28,18 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      blocks at A=4 (N=20000, and N=2^11+1, which takes the scalar loads),
      ~2 chips per sample and a negative chip rate (the general chip wrap),
      and a span past the fused kernel's replica row (its per-tap lookup).
+   3b. The loop-closure kernel (``csrc/loop_update.cu``, one launch per
+   ``tracking.loop_update`` call on CUDA tensors) against its plain version
+   ``loop_update_plain`` over ``LOOP_CASES`` (filter orders 1/2/3, FLL
+   assist on and off, Costas and atan2, coherent windows with and without an
+   overlay, A = 2, 3, 4 unweighted, shared and per-channel weights, L = 7)
+   at K=1024, K=8 and a scalar state, three blocks each side fed its own
+   state back: every leaf bit for bit but ``cn0_dbhz``, which must lie
+   within ``LOOP_TOLERANCE`` (its bits hang on torch's reduction order);
+   then ``track_bank`` K=1024 GPS L1 over 200 blocks at 50 dB-Hz with the
+   kernel (the replayed graph) against the same correlator closed by the
+   plain version: the 8 locked channels bit for bit (``cn0_dbhz`` within
+   the tolerance), and the count of channels equal on every output.
 4. Main paths, each through the entry points a user calls, with every launch
    count set to 0 just before it and read just after:
    - rows: ``track_bank`` on a K=1024 GPS L1 bank at 32.768 MHz through
@@ -129,8 +141,10 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      ``track_bank_sharded`` 2 x 2 and ``track_bank_dual_sharded`` chan 2 on
      the phase J devices. A second call of each, a replay of the cached
      graph, runs under ``torch.cuda.set_sync_debug_mode("error")`` and must
-     give the same outputs and launch counts; each call's counts are read
-     after it. Each path's first graph call starts from an empty cache, and
+     give the same outputs and launch counts (the loop kernel's included);
+     each call's counts are read after it. Device ops per block of every
+     path, eager and graph (torch.profiler), beside the counts with the
+     loop closure as torch ops where PERF.md kept them. Each path's first graph call starts from an empty cache, and
      its entries' buffers and the device memory it reserved are logged.
      Then eager and graph block times and real-time channels of the timed
      paths (and streaming's ``steady_block_s`` both ways, from H, whose
@@ -144,10 +158,15 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    ``ms`` in the ``kernels`` line, ``eager_ms`` beside it; for ``taps`` and
    ``fused`` at both sweep corners, N=32768 A=1 L=3 and N=2^18 A=4 L=7, with
    the wrapper call's time and its device ops per call from torch.profiler,
-   under ``corners``), the closed-loop
-   block of each path, and for ``bank_comp`` the library yardstick: one
-   ``torch.matmul`` of a materialized ``[2K, U]`` Z against ``[U, 2AL]`` S
-   (f32 with TF32 off, and bf16), which the port never calls.
+   under ``corners``), the loop kernel against its plain version at K=1024
+   (both also as CUDA-graph device time), the closed-loop block of each
+   path, and the library yardsticks, which the port never calls: for
+   ``bank_comp`` one ``torch.matmul`` of a materialized ``[2K, U]`` Z
+   against ``[U, 2AL]`` S (f32 with TF32 off, and bf16); for the other bank
+   routes one complex64 ``torch.matmul`` of a built ``[K, N]``
+   conj(carrier) x code plane against the ``[N, L]`` shifted signal planes,
+   and for the per-channel kernels of a built ``[L, N]`` wiped replica
+   against the ``[N, A]`` signal (device time, CUDA graph).
 
 Its last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Each kernel's entry
@@ -156,10 +175,11 @@ holds its launches on the paths run (``launches``, and per path in
 per block (or per call) on its first path, its largest
 error against its plain version, its device time (``ms``; ``eager_ms`` with
 the host's launch work) and its plain version's (``plain_ms``; ``clock``
-says how each was read), ``library_ms`` (null where no single PyTorch call computes
-the function), and ``bound_ms``: the least time the card could take for the
-same work, the larger of this run's input and output bytes over 3.35 TB/s
-and the correlator's floating-point operations over the peak of their type
+says how each was read), ``library_ms`` (null where no single PyTorch call
+computes the function: the loop kernel), and ``bound_ms``: the least time the
+card could take for the same work, the larger of this run's input and output
+bytes over 3.35 TB/s and the kernel's floating-point operations over the peak
+of their type
 (``bound_by`` "bytes" or "operations"; ``bound_unit`` "memory", "f32"
 (67 TFLOP/s), "tf32x3" (three TF32 tensor-core passes, 495 TFLOP/s each) or
 "bf16" (989 TFLOP/s): the H100 SXM's published dense peaks).
@@ -240,13 +260,43 @@ def counters():
             "fused": channel_kernels.correlate_pallas_fused}
 
 
+def loop_counter():
+    """The loop-closure kernel's wrapper, whose ``launches`` count its launches."""
+    from gpuacceleratedtracking_tpu_torch.ops import loop_kernel
+
+    return loop_kernel.loop_update_kernel
+
+
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
+    loop_counter().launches = 0
 
 
 def read_counts() -> dict:
+    """The correlator kernels' launch counts (`loop_count` has the loop
+    kernel's: every closed-loop path launches it once per block)."""
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def loop_count() -> int:
+    return loop_counter().launches
+
+
+# The loop kernel's launches on each path, read where the path reads its
+# correlator counts (each counted from 0 just before the path's run).
+LOOP_BY_PATH: dict = {}
+
+
+def note_loop(path: str, expected: int | None = None) -> int:
+    """Record the loop kernel's launches since the last `reset_counts` as
+    ``path``'s, and check that it ran (``expected`` times, if given)."""
+    count = loop_count()
+    check(count > 0 and (expected is None or count == expected),
+          f"{path}: loop_update launched {count} times, expected "
+          f"{expected if expected is not None else 'at least once'}")
+    LOOP_BY_PATH[path] = LOOP_BY_PATH.get(path, 0) + count
+    return count
 
 
 def only(**launches) -> dict:
@@ -555,6 +605,193 @@ def onehot_cells(system, seed):
     return worst
 
 
+# Phase 3b, the loop-closure kernel (csrc/loop_update.cu) against its plain
+# version, over the grid of tests/test_torch_loop_kernel.py: name ->
+# (TrackConfig overrides, antennas (None: no antenna axis), steering weights
+# (None, "channel" [K, A] or "shared" [A]), taps, ms_elapsed (None: random)).
+LOOP_CASES = {
+    "default": ({}, None, None, 3, None),
+    "atan2_order2": ({"pll_discriminator": "atan2", "pll_order": 2}, None, None, 3, None),
+    "coherent_secondary": (
+        {"coherent_blocks": 10,
+         "secondary_code": (1.0, -1.0, 1.0, 1.0, -1.0, -1.0, 1.0, -1.0, 1.0, 1.0)},
+        None, None, 3, 9),
+    "coherent4_random_ms": ({"coherent_blocks": 4}, None, None, 3, None),
+    "two_antennas_weighted": ({}, 2, "channel", 3, None),
+    "dll_order1": ({"dll_order": 1}, None, None, 3, None),
+    "dll_order3": ({"dll_order": 3}, None, None, 3, None),
+    "pll_order1": ({"pll_order": 1}, None, None, 3, None),
+    "order2_fll": ({"pll_order": 2}, None, None, 3, None),
+    "fll_off": ({"fll_bandwidth": 0.0}, None, None, 3, None),
+    "four_antennas": ({}, 4, None, 3, None),
+    "shared_weights": ({}, 3, "shared", 3, None),
+    "seven_taps": ({}, None, None, 7, None),
+}
+# The one output whose bits hang on torch's reduction order (its window
+# means; it feeds no state): the kernel keeps the order torch's CUDA kernel
+# takes today, and a torch that reduced in another order would move noise-like
+# windows, where 2 M2^2 - M4 nearly cancels, by up to ~0.01 dB.
+LOOP_TOLERANCE = {"cn0_dbhz": (0.05, 0.0)}      # field -> (atol dB, rtol)
+
+
+def loop_inputs(name, k, seed):
+    """A case of `LOOP_CASES` on the card: its config (GPS L1 at 32.768 MHz),
+    a random state with ``k`` channels (None: a scalar single-channel
+    state), three blocks of accumulators and the weights."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, init_state
+
+    extra, ants, weights, taps, ms_elapsed = LOOP_CASES[name]
+    config = TrackConfig.for_system(GPSL1(), L1_FS, N_1MS, num_correlators=taps, **extra)
+    rng = np.random.default_rng(seed)
+    batch = () if k is None else (k,)
+    n = 1 if k is None else k
+
+    def f(*shape, scale=1.0):
+        x = np.asarray(rng.normal(size=batch + shape) * scale, dtype=np.float32)
+        return torch.from_numpy(x).to(DEVICE)
+
+    def ints(low, high):
+        x = rng.integers(low, high, n).astype(np.int32).reshape(batch)
+        return torch.from_numpy(x).to(DEVICE)
+
+    prn = np.arange(n) % 32
+    dop = rng.uniform(-4000, 4000, n)
+    state = init_state(prn if k else int(prn[0]), carrier_doppler=dop if k else float(dop[0]),
+                       num_taps=taps, device=DEVICE)
+    state = state._replace(
+        carrier_phase=torch.from_numpy(
+            rng.uniform(0, 2 * np.pi, n).astype(np.float32).reshape(batch)).to(DEVICE),
+        code_doppler=f(scale=2.0),
+        code_phase=torch.from_numpy(
+            rng.uniform(0, 1023, n).astype(np.float32).reshape(batch)).to(DEVICE),
+        pll_filter=state.pll_filter._replace(x2=f(scale=5.0)),
+        dll_filter=state.dll_filter._replace(x1=f(scale=0.5)),
+        cn0=state.cn0._replace(prompts_re=f(20, scale=1000.0), prompts_im=f(20, scale=100.0),
+                               index=ints(0, 40)),
+        ms_elapsed=(ints(0, 40) if ms_elapsed is None
+                    else torch.full(batch, ms_elapsed, dtype=torch.int32, device=DEVICE)),
+        prev_prompt_re=f(scale=1000.0), prev_prompt_im=f(scale=300.0),
+        coh_re=f(taps, scale=1000.0), coh_im=f(taps, scale=300.0))
+    acc = (taps,) if ants is None else (ants, taps)
+    are, aim = f(*acc, scale=2000.0), f(*acc, scale=600.0)
+    blocks = [(are * (1 + 0.1 * b), aim * (1 - 0.1 * b)) for b in range(3)]
+    w = None
+    if weights == "channel":
+        w = (f(ants), f(ants))
+    elif weights == "shared":
+        w = tuple(torch.from_numpy(rng.normal(size=ants).astype(np.float32)).to(DEVICE)
+                  for _ in range(2))
+    return config, state, blocks, w
+
+
+def loop_fields(state, out) -> dict:
+    """Every leaf of a `loop_update` result by name (the state's prefixed)."""
+    fields = {}
+    for name, x in state._asdict().items():
+        if isinstance(x, tuple):
+            fields.update({f"{name}.{sub}": y for sub, y in x._asdict().items()})
+        else:
+            fields[name] = x
+    fields.update(out._asdict())
+    return fields
+
+
+def loop_cells(seed):
+    """Phase 3b: `loop_update` on CUDA tensors (one kernel launch per call)
+    against `loop_update_plain` on the same inputs, every case of
+    `LOOP_CASES` at K=1024, K=8 and a scalar state, three consecutive blocks,
+    each side fed its own state back. Every leaf must be equal bit for bit
+    but those of `LOOP_TOLERANCE`, which must lie within it. Returns the
+    largest absolute difference over every leaf."""
+    from gpuacceleratedtracking_tpu_torch.tracking import loop_update
+    from gpuacceleratedtracking_tpu_torch.tracking.track import loop_update_plain
+
+    worst, failures = 0.0, []
+    for i, name in enumerate(LOOP_CASES):
+        for k in (NUM_K, 8, None):
+            config, state, blocks, w = loop_inputs(name, k, seed + 70 + i)
+            ks = ps = state
+            differ = {}
+            for b, (are, aim) in enumerate(blocks):
+                before = loop_count()
+                ks, kout = loop_update(config, ks, are, aim, w)
+                check(loop_count() == before + 1, f"[loop] {name}: one launch per call")
+                ps, pout = loop_update_plain(config, ps, are, aim, w)
+                got, want = loop_fields(ks, kout), loop_fields(ps, pout)
+                for field, x in got.items():
+                    y = want[field]
+                    check(x.shape == y.shape and x.dtype == y.dtype,
+                          f"[loop] {name} {field}: {tuple(x.shape)} {x.dtype} against "
+                          f"{tuple(y.shape)} {y.dtype}")
+                    if torch.equal(x, y):
+                        continue
+                    err = float((x.double() - y.double()).abs().max())
+                    worst = max(worst, err)
+                    differ[field] = max(differ.get(field, 0.0), err)
+                    atol, rtol = LOOP_TOLERANCE.get(field, (None, None))
+                    if atol is None or not torch.allclose(x, y, rtol=rtol, atol=atol):
+                        failures.append(f"{name} k={k} block {b} {field}: max|d| {err!r}")
+            log(f"[loop] {name} K={k if k else 'scalar'}: 3 blocks, kernel against plain "
+                f"{'bit for bit on every leaf' if not differ else f'differing leaves {differ}'}")
+    check(not failures, f"[loop] kernel against plain: {failures}")
+    return worst
+
+
+def loop_trajectory(system, seed, num_blocks: int = 200):
+    """Phase 3b: `track_bank` K=1024 GPS L1 over ``num_blocks`` blocks at
+    50 dB-Hz with the loop kernel (the replayed graph) against the same
+    correlator with the plain closure (`loop_update_plain`, block by block):
+    on the 8 locked channels every output but ``cn0_dbhz`` equal bit for bit,
+    ``cn0_dbhz`` within `LOOP_TOLERANCE`. Returns the channels that agree
+    bit for bit over every block."""
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, TrackOutput, track_bank
+    from gpuacceleratedtracking_tpu_torch.tracking.track import (
+        _bank_code_tile_kwargs, bank_correlator, loop_update_plain)
+
+    config = TrackConfig.for_system(system, L1_FS, N_1MS, algorithm="pallas_bank_auto")
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 50)
+    sre, sim, _ = mixed_blocks(system, num_blocks, NOISE_STD, gen)
+    states = bank_states(system, init_errors=True)
+    _, out = track_bank(config, codes, states, sre, sim)
+    corr, kwargs = bank_correlator(config)
+    tiles = _bank_code_tile_kwargs(config, codes, states.prn)
+    st, outs = states, []
+    for b in range(num_blocks):
+        are, aim = corr(sre[b], sim[b], codes, st.prn,
+                        config.intermediate_frequency + st.carrier_doppler,
+                        config.sampling_frequency, st.carrier_phase,
+                        config.code_frequency + st.code_doppler, st.code_phase,
+                        config.sample_shifts, config.code_length, **kwargs, **tiles)
+        st, o = loop_update_plain(config, st, are, aim)
+        outs.append(o)
+    ref = TrackOutput(*(torch.stack(x) for x in zip(*outs)))
+    torch.cuda.synchronize()
+    nsat = len(SAT_DOPPLERS)
+    same = torch.ones(NUM_K, dtype=torch.bool, device=DEVICE)
+    for field, x in out._asdict().items():
+        y = getattr(ref, field)
+        atol, rtol = LOOP_TOLERANCE.get(field, (None, None))
+        if atol is None:
+            check(torch.equal(x[:, :nsat], y[:, :nsat]),
+                  f"[loop trajectory] {field} on the locked channels bit for bit "
+                  f"(max|d| {float((x - y)[:, :nsat].abs().max())!r})")
+        else:
+            check(torch.allclose(x[:, :nsat], y[:, :nsat], rtol=rtol, atol=atol),
+                  f"[loop trajectory] {field} on the locked channels within atol {atol} "
+                  f"rtol {rtol}")
+        eq = (x == y).reshape(num_blocks, NUM_K, -1).all(-1).all(0)
+        same &= eq
+    exact = int(same.sum())
+    dop = out.carrier_doppler[-50:, :nsat].double().mean(0).cpu().numpy()
+    log(f"[loop trajectory] track_bank K={NUM_K} {num_blocks} blocks at 50 dB-Hz, loop kernel "
+        f"(graph) against the plain closure: locked channels equal (Doppler errors "
+        f"{np.abs(dop - SAT_DOPPLERS).tolist()} Hz); {exact} of {NUM_K} channels equal bit "
+        f"for bit on every output over every block")
+    return exact
+
+
 def bank_states(system, init_errors: bool, num_taps: int = 3):
     from gpuacceleratedtracking_tpu_torch.tracking import init_state
 
@@ -621,6 +858,7 @@ def main_path(system, seed, num_blocks_lock: int = 600):
     launches = counts["bank_rows"]
     check(counts == only(bank_rows=20),
           f"20 bank_rows launches in 20 blocks and no other kernel, got {counts}")
+    note_loop("rows", 20)
     for field, x in out._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"main path {field} finite")
     check(out.prompt_re.shape == (20, NUM_K), "prompt_re shape")
@@ -690,6 +928,7 @@ def array_path(system, seed, num_blocks_lock: int = 300):
     launches = counts["bank_comp"]
     check(counts == only(bank_comp=20),
           f"20 bank_comp launches in 20 blocks and no other kernel, got {counts}")
+    note_loop("A", 20)
     for field, x in out._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"path A {field} finite")
     check(out.accum_re.shape == (20, NUM_K, NUM_ANTS, 7), "path A accum shape")
@@ -864,6 +1103,7 @@ def dual_path(seed, num_blocks: int = 200):
     launches = counts["bank_transition"]
     check(counts == only(bank_transition=sync_blocks + num_blocks),
           f"one 128-channel pallas_bank launch per block and no other kernel, got {counts}")
+    note_loop("B", sync_blocks + num_blocks)
     for field, x in out.pilot._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"path B {field} finite")
     check(out.data_prompt_re.shape == (num_blocks, DUAL_K), "data prompt shape")
@@ -974,6 +1214,7 @@ def channel_loops(system, seed, sre, sim, num_blocks_lock: int = 600):
     counts = read_counts()
     check(counts == only(fused=num_blocks_lock),
           f"track: one fused launch per block and no other kernel, got {counts}")
+    note_loop("D", num_blocks_lock)
     del one_re, one_im
     mean_dop = float(out.carrier_doppler[-50:].double().mean())
     mag = float(torch.hypot(out.prompt_re[-50:], out.prompt_im[-50:]).double().mean())
@@ -1015,6 +1256,7 @@ def channel_loops(system, seed, sre, sim, num_blocks_lock: int = 600):
     launches = counts["bank_onehot"]
     check(counts == only(bank_onehot=sre.shape[0]),
           f"one onehot launch per block and no other kernel, got {counts}")
+    note_loop("D", sre.shape[0])
     _, ref = track_bank(TrackConfig.for_system(system, fs, N_1MS, algorithm="xla_bank"),
                         codes, states, sre, sim)
     torch.cuda.synchronize()
@@ -1209,6 +1451,7 @@ def family_loops(seed, card, num_blocks_lock: int = 300):
         _, out = track_bank(config, codes, states, nre, nim)
         torch.cuda.synchronize()
         launches += read_counts()["bank_rows"]
+        note_loop("families", num_blocks_lock)
         del nre, nim
         dop = out.carrier_doppler[-50:, :nsat].double().mean(0).cpu().numpy()
         mag = torch.hypot(out.prompt_re[-50:, :nsat], out.prompt_im[-50:, :nsat])
@@ -1468,6 +1711,7 @@ def coldstart_l1(path, work_dir, card):
     wall = time.perf_counter() - t0
     counts = read_counts()
     n_blocks = first.blocks_processed + second.blocks_processed
+    note_loop("coldstart_l1")
     check(n_blocks == c["ms"] and done == first.blocks_processed,
           f"L1 streamed {n_blocks} blocks, resumed at {done}")
     check(counts == only(bank_rows=n_blocks),
@@ -1592,6 +1836,7 @@ def coldstart_b1i(path, bits, card):
     counts = read_counts()
     check(counts == only(bank_transition=sync_blocks + rest),
           f"B1I: one transition launch per block and no other kernel, got {counts}")
+    note_loop("coldstart_b1i", sync_blocks + rest)
     dop = out2.carrier_doppler.cpu().numpy()
     dop_err = dop[-20:].mean(axis=0) - np.asarray([c["dops"][i] for i in order])
     z = torch.complex(out2.prompt_re, out2.prompt_im).cpu().numpy()
@@ -1677,6 +1922,7 @@ def streaming_path(seed, card):
             result = tracker.run(blocks(f, N_1MS))
         torch.cuda.synchronize()
         counts = read_counts()
+        note_loop("streaming", STREAM_BLOCKS)
         # The same stream through the eager block loop (phase L): the same
         # outputs, bit for bit, and its steady block time beside the graph's.
         with eager(), IQFile(path, "int8", 1.0 / scale) as f:
@@ -1980,6 +2226,7 @@ def sharded_bank_path(system, seed, sre, sim, card, num_blocks_lock: int = 100):
     torch.cuda.synchronize()
     counts = read_counts()
     check(counts == only(bank_rows=4 * num_blocks_lock), f"J2 lock run launches {counts}")
+    note_loop("parallel", 2 * num_blocks_lock)      # one closure per channel shard and block
     launches += counts["bank_rows"]
     del noisy_re, noisy_im
     dop = out.carrier_doppler[-50:, :nsat].double().mean(0).cpu().numpy()
@@ -2220,6 +2467,12 @@ def figures_path(fig_dir, sweep_dir, track_records, card):
 
 # --- The captured block loop (phase L): graph against eager.
 
+# Device ops per block of phase L's paths with the loop closure as ~120 torch
+# ops (10-block calls, torch.profiler; PERF.md section 5).
+OPS_BEFORE_LOOP_KERNEL = {"rows_K1024_pallas_bank_auto": {"eager": 129.0, "graph": 150.9},
+                          "array_K1024_A4_L7_f32": {"graph": 159.1}}
+
+
 def flat(tree) -> list:
     """The tensors of a tracking result (tuples and NamedTuples of tensors)."""
     if isinstance(tree, torch.Tensor):
@@ -2238,20 +2491,26 @@ def bitwise(name, got, want) -> None:
 
 def busy_share(run, calls=3):
     """The device's busy share over calls of ``run``: torch.profiler's summed
-    device time per call over the CUDA-event wall time per call."""
-    ops, device_ms = device_profile(run, calls=calls)
+    device time per call over the CUDA-event wall time per call; and the
+    device ops per call by name."""
+    ops, device_ms, names = device_profile(run, calls=calls, by_name=True)
     wall_ms = time_cuda(run, reps=5, warmup=1)[0]
     return {"device_ops_per_call": ops, "device_ms": device_ms, "wall_ms": wall_ms,
-            "busy_share": device_ms / wall_ms}
+            "busy_share": device_ms / wall_ms, "ops_by_name": names}
+
+
+def all_counts() -> dict:
+    """Every kernel's launch count, the loop kernel's included."""
+    return dict(read_counts(), loop_update=loop_count())
 
 
 def counted(run):
     """``run()``'s result, and how far it moved each kernel's launch count
-    (read after the card has finished)."""
-    before = read_counts()
+    (read after the card has finished), the loop kernel's included."""
+    before = all_counts()
     result = run()
     torch.cuda.synchronize()
-    after = read_counts()
+    after = all_counts()
     return result, {k: after[k] - before[k] for k in after}
 
 
@@ -2368,7 +2627,7 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
                                             mesh=mesh2), DUAL_K),
     }
     torch.cuda.synchronize()
-    results, launches = {}, dict.fromkeys(counters(), 0)
+    results, launches = {}, dict.fromkeys(all_counts(), 0)
     dev = torch.device(DEVICE, torch.cuda.current_device())
     for name, (run, _) in paths.items():
         with eager():
@@ -2419,6 +2678,23 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
             f"{entry['graph_block_min_ms']!r}); real-time channels eager "
             f"{entry['eager_realtime_channels']!r}, graph {entry['graph_realtime_channels']!r} "
             f"[{card}]")
+    # Device ops per block of every path, eager and graph: torch.profiler over
+    # two calls after a warm-up call, per call over the blocks of a call (the
+    # graph's per-call copies in and out included).
+    for name, (run, _) in paths.items():
+        g_ops, g_ms = device_profile(run, calls=2)
+        with eager():
+            e_ops, e_ms = device_profile(run, calls=2)
+        entry = results[name]
+        entry.update(eager_device_ops_per_block=e_ops / blocks,
+                     graph_device_ops_per_block=g_ops / blocks,
+                     eager_device_ms_per_block=e_ms / blocks,
+                     graph_device_ms_per_block=g_ms / blocks)
+        before = OPS_BEFORE_LOOP_KERNEL.get(name, {})
+        log(f"[L ops] {name}: device ops per block eager {e_ops / blocks!r}, graph "
+            f"{g_ops / blocks!r} (with the loop closure as torch ops: eager "
+            f"{before.get('eager', 'not recorded')}, graph {before.get('graph', 'not recorded')}); "
+            f"device ms per block eager {e_ms / blocks!r}, graph {g_ms / blocks!r} [{card}]")
     # The one-card sharded dual bank: a graph per shard (the library's path)
     # against one graph for every shard, in turns.
     for chan in (2, 4):
@@ -2448,6 +2724,10 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
             f"{graph['device_ops_per_call']!r} device ops per call); eager "
             f"{eager_share['busy_share']!r} ({eager_share['device_ms']!r} ms in "
             f"{eager_share['wall_ms']!r} ms, {eager_share['device_ops_per_call']!r} ops) [{card}]")
+        for mode, share in (("graph", graph), ("eager", eager_share)):
+            log(f"[L busy] {name} {mode}, device ops per call by name (count, ms): "
+                + "; ".join(f"{op} {count!r} {ms!r}"
+                            for op, (count, ms) in share["ops_by_name"].items()))
     return launches, results
 
 
@@ -2459,7 +2739,7 @@ def ptxas_summary(log_path):
     lines, kernel = [], None
     for line in log_path.read_text().splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d+"
-                          r"((?:bank_[a-z_]+?|taps_|fused_)(?:kernel|finish))"
+                          r"((?:bank_[a-z_]+?|taps_|fused_|loop_update_)(?:kernel|finish))"
                           r"(I(?:L[ib]\d+E)+E)?", line)
         if entry:
             args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
@@ -2472,10 +2752,11 @@ def ptxas_summary(log_path):
     return lines
 
 
-def device_profile(fn, calls=10):
+def device_profile(fn, calls=10, by_name=False):
     """Device ops (kernels, copies, memsets) per call of ``fn`` and their
     summed device milliseconds per call, from torch.profiler over ``calls``
-    calls after a warm-up call."""
+    calls after a warm-up call; with ``by_name``, also per op name its count
+    and device milliseconds per call, the costliest first."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2485,7 +2766,16 @@ def device_profile(fn, calls=10):
             fn()
         torch.cuda.synchronize()
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(ops) / calls, sum(e.time_range.elapsed_us() for e in ops) / 1e3 / calls
+    result = (len(ops) / calls, sum(e.time_range.elapsed_us() for e in ops) / 1e3 / calls)
+    if not by_name:
+        return result
+    names: dict = {}
+    for e in ops:
+        count, us = names.get(e.name, (0, 0.0))
+        names[e.name] = (count + 1, us + e.time_range.elapsed_us())
+    ranked = sorted(names.items(), key=lambda item: -item[1][1])
+    return result + ({name[:80]: (count / calls, us / 1e3 / calls)
+                      for name, (count, us) in ranked},)
 
 
 def time_cuda(fn, reps=TIMING_REPS, warmup=3):
@@ -2544,6 +2834,40 @@ def bank_bound(bank, unit="f32", comp=False):
                  out_elems=2 * k * a * taps)
 
 
+def loop_bound(state, accum):
+    """`bound` of a loop kernel call without overlay: every state leaf and
+    the accumulators read once, every new leaf and output written once
+    (15 f32 per channel, the [K, L] window sums, the [K, W] ring buffers,
+    2 int32); its f32 operations, an upper count per channel (wipe and
+    antenna sums, discriminators, filters, NCO, C/N0), are ~50x below."""
+    k, taps = state.prn.numel(), accum.shape[-1]
+    window = state.cn0.prompts_re.shape[-1]
+    a = accum.numel() // (k * taps)
+    leaves = [x for x in flat(state) if x is not state.prn]
+    flops = k * (8 * window + 10 * a * taps + 80)
+    return bound(flops, "f32", accum, accum, *leaves,
+                 out_elems=k * (15 + 2 * taps + 2 * window + 2))
+
+
+def library_matmul(name, rows, samples, cols, card, seed):
+    """The library yardstick of a correlator that contracts ``samples``
+    samples of ``rows`` replica rows against ``cols`` signal columns: one
+    ``torch.matmul`` of a built ``[rows, samples]`` complex64 plane (the
+    conj(carrier) x code rows of a bank, or the wiped ``[L, N]`` replica of
+    one channel) against ``[samples, cols]`` complex64 signal planes (a
+    bank's L shifted copies of each antenna, or one channel's A antennas),
+    TF32 off. The planes are built outside the timed region; device time
+    from a CUDA graph replay."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    z = torch.randn((rows, samples), dtype=torch.complex64, generator=gen, device=DEVICE)
+    x = torch.randn((samples, cols), dtype=torch.complex64, generator=gen, device=DEVICE)
+    med, mn = graph_ms(lambda: torch.matmul(z, x))
+    log(f"[time] {name} library yardstick: torch.matmul [{rows}, {samples}] x [{samples}, "
+        f"{cols}] complex64 (TF32 off), device time (CUDA graph) median {med!r} ms (min "
+        f"{mn!r}) [{card}]")
+    return {"library_ms": med, "library_min_ms": mn}
+
+
 def device_time(name, launch, card):
     """A bank kernel's device time per launch, from a CUDA graph replay: an
     eager launch also carries the wrapper's host work (~0.03 ms), which hides
@@ -2589,6 +2913,7 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
     from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels
     from gpuacceleratedtracking_tpu_torch.tracking import (
         TrackConfig, dual_config, loop_update, track_bank, track_bank_dual)
+    from gpuacceleratedtracking_tpu_torch.tracking.track import loop_update_plain
 
     results = {}
     for n in (N_1MS, N_WIDE):
@@ -2604,6 +2929,9 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
             f"bank_rows K={NUM_K} N={n}", lambda: epl_kernels.launch_bank_rows(prepared), card))
         w = time_cuda(lambda: epl_kernels.correlate_pallas_bank_rows(**case))
         res.update(wrapper_ms=w[0], wrapper_min_ms=w[1])
+        if n == N_1MS:
+            res.update(library_matmul(f"bank_rows K={NUM_K} N={n}", NUM_K, n,
+                                      len(case["sample_shifts"]), card, seed))
         log(f"[time] bank_rows K={NUM_K} N={n}: wrapper call incl. per-call set-up "
             f"median {w[0]!r} ms (min {w[1]!r}) [{card}]")
         results[f"bank_rows_n{n}"] = res
@@ -2645,6 +2973,9 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
         card, samples=2 * DUAL_K * N_1MS)
     results["bank_transition"].update(bank_bound(prepared), **device_time(
         "bank_transition", lambda: epl_kernels.launch_bank_rows(prepared), card))
+    results["bank_transition"].update(library_matmul(
+        f"bank_transition K={2 * DUAL_K} N={N_1MS}", 2 * DUAL_K, N_1MS,
+        len(case["sample_shifts"]), card, seed))
     del case, prepared
 
     # The per-channel kernels alone at the sweep's corners, and the one-hot
@@ -2653,6 +2984,8 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
     for n in (N_1MS, N_WIDE):
         for a, taps in ((1, 3), (NUM_ANTS, 7)):
             args = channel_args("GPSL1", n, a, taps, 0, 1500.0, 0.3, 17.5)
+            library = library_matmul(f"per-channel N={n} A={a} L={taps}", taps, n, a, card,
+                                     seed)
             for kind in ("taps", "fused"):
                 call = channel_kernels.ChannelCall(*args, kind)
                 launch = getattr(channel_kernels, f"launch_{kind}")
@@ -2667,7 +3000,8 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
                                  call.params, out_elems=2 * a * taps))
                 w = time_cuda(lambda: wrapper(*args))
                 ops = device_profile(lambda: wrapper(*args))[0]
-                res.update(wrapper_ms=w[0], wrapper_min_ms=w[1], device_ops_per_call=ops)
+                res.update(wrapper_ms=w[0], wrapper_min_ms=w[1], device_ops_per_call=ops,
+                           **library)
                 log(f"[time] {kind} N={n} A={a} L={taps}: wrapper call incl. per-call "
                     f"set-up median {w[0]!r} ms (min {w[1]!r}); {ops!r} device ops per "
                     f"wrapper call (torch.profiler) [{card}]")
@@ -2685,17 +3019,25 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
         card, samples=NUM_K * N_1MS)
     results["bank_onehot"].update(bank_bound(prepared), **device_time(
         "bank_onehot", lambda: epl_kernels.launch_bank_rows(prepared), card))
+    results["bank_onehot"].update(library_matmul(
+        f"bank_onehot K={NUM_K} N={N_1MS}", NUM_K, N_1MS, len(case["sample_shifts"]), card,
+        seed))
     del case, prepared
 
     codes = torch.as_tensor(system.codes, device=DEVICE)
     fs = N_1MS / 1e-3
+    # The loop-closure kernel at the rows path's shape (K=1024, A=1, L=3, a
+    # 20-slot C/N0 window), eager and as device time from a CUDA graph, both
+    # for it and for its plain version (~120 torch ops, capturable too).
     config = TrackConfig.for_system(system, fs, N_1MS, algorithm="pallas_bank_auto")
     states = bank_states(system, init_errors=False)
     acc = torch.randn((NUM_K, 3), generator=torch.Generator(device=DEVICE).manual_seed(seed),
                       device=DEVICE) * 1000.0
-    med, mn = time_cuda(lambda: loop_update(config, states, acc, acc))
-    results["loop_update"] = dict(ms=med, min_ms=mn)
-    log(f"[time] loop_update alone K={NUM_K}: median {med!r} ms (min {mn!r}) [{card}]")
+    res = kernel_vs_plain(f"loop_update K={NUM_K} A=1 L=3",
+                          lambda: loop_update(config, states, acc, acc),
+                          lambda: loop_update_plain(config, states, acc, acc), card, graphs=True)
+    res.update(loop_bound(states, acc))
+    results["loop_update"] = res
 
     blocks = 10
 
@@ -2776,6 +3118,11 @@ def main(argv=None) -> int:
             **channel_cells()}
     log(f"[phase] kernel cells in {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
+    errs["loop_update"] = loop_cells(args.seed)
+    loop_exact = loop_trajectory(system, args.seed)
+    log(f"[phase] 3b, the loop kernel against its plain version, in "
+        f"{time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
     rows_launches, sre, sim = main_path(system, args.seed)
     launches = {"bank_rows": rows_launches}
     launches["bank_comp"] = array_path(system, args.seed)
@@ -2837,6 +3184,7 @@ def main(argv=None) -> int:
     log(f"[phase] K, the figures, in {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     graph_counts, captured = graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card)
+    by_path["loop_update"] = dict(LOOP_BY_PATH)
     for kernel, count in graph_counts.items():
         by_path[kernel]["L"] = count
     captured["streaming_K256"] = {"graph_steady_block_s": streaming["steady_block_s"],
@@ -2871,13 +3219,18 @@ def main(argv=None) -> int:
          "gpuacceleratedtracking_tpu/ops/pallas_epl.py:90", times[f"taps_{top}"], graph),
         ("fused", "gpuacceleratedtracking_tpu_torch/csrc/fused.cu",
          "gpuacceleratedtracking_tpu/ops/pallas_epl.py:238", times[f"fused_{top}"], graph),
+        # No Pallas kernel: the XLA fusion of the JAX loop_update.
+        ("loop_update", "gpuacceleratedtracking_tpu_torch/csrc/loop_update.cu",
+         "gpuacceleratedtracking_tpu/tracking/track.py:77", times["loop_update"], graph),
     ]
     # Closed-loop blocks of each bank kernel's main path (rows: 20, A: 20,
     # B: 60 sync + 200 tracking, D's one-hot bank: 20); the per-channel
     # kernels' main path is the sweep, one launch per correlator call.
     per_block = {"bank_rows": (20, "block"), "bank_comp": (20, "block"),
                  "bank_transition": (260, "block"), "bank_onehot": (sre.shape[0], "block"),
-                 "taps": (None, "call"), "fused": (None, "call")}
+                 "taps": (None, "call"), "fused": (None, "call"),
+                 "loop_update": (20, "block")}
+    launches["loop_update"] = by_path["loop_update"]["rows"]
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
@@ -2891,14 +3244,15 @@ def main(argv=None) -> int:
     # taps and fused at both sweep corners: the launch-weighted one and the top.
     corner_keys = {"ms": "kernel_graph_ms", "eager_ms": "kernel_ms", "plain_ms": "plain_graph_ms",
                    "bound_ms": "bound_ms", "bound_by": "bound_by", "wrapper_ms": "wrapper_ms",
-                   "device_ops_per_call": "device_ops_per_call"}
-    for entry in kernels["kernels"][4:]:
+                   "device_ops_per_call": "device_ops_per_call", "library_ms": "library_ms"}
+    for entry in kernels["kernels"][4:6]:
         name = entry["name"]
         entry["launches_n_le_32768"] = sweep_small[name]
         entry["corners"] = {
             corner: {key: times[f"{name}_{corner}"][src] for key, src in corner_keys.items()}
             for corner in (f"n{N_1MS}_a1_l3", top)}
     comp_bf16 = times["bank_comp_bf16"]
+    kernels["kernels"][6]["exact_trajectory_channels"] = loop_exact
     kernels["kernels"][1].update(ms_bf16=comp_bf16["kernel_graph_ms"],
                                  eager_ms_bf16=comp_bf16["kernel_ms"],
                                  plain_ms_bf16=comp_bf16["plain_ms"],

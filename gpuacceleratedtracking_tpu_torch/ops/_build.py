@@ -76,6 +76,14 @@ SIGNATURES = {
         ),
         "channel_capture_id": ([_P], ctypes.c_ulonglong),
     },
+    "loop_update": {
+        "loop_update_launch": (
+            [_P, _I, _P, _I,                       # inputs outputs (host pointer arrays, counts)
+             _P, _I, _P, _I,                       # constants ints (host arrays, counts)
+             _P],                                  # stream
+            _I,
+        ),
+    },
 }
 
 

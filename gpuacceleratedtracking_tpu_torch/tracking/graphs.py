@@ -4,7 +4,8 @@ The JAX package compiles each tracking run's block body once and loops over
 it on the device. Here `scan` does the same on CUDA tensors: the body is
 captured as a CUDA graph once per static signature and replayed once per
 block, so the host issues one operation per block (``graph.replay()``) where
-the eager loop issues every correlator and loop-closure op (~130 at K=1024).
+the eager loop issues every op of the block (the correlator, the loop-closure
+kernel, the output writes).
 On CPU tensors, and inside `eager()` (the counterpart of
 ``jax.disable_jit()``), `loop` runs the body block by block as before.
 
@@ -136,9 +137,15 @@ def _like(x: torch.Tensor) -> torch.Tensor:
 
 def _copy(dsts: list, srcs: list) -> None:
     """``dst.copy_(src)`` for each pair, as few device ops as the shapes and
-    dtypes allow: a call's host work is mostly these copies."""
-    if dsts:
-        torch._foreach_copy_(dsts, srcs)
+    dtypes allow: one multi-tensor copy per pair of dtypes (a list that mixes
+    dtypes takes ``_foreach_copy_``'s one-copy-per-tensor route)."""
+    groups: dict = {}
+    for dst, src in zip(dsts, srcs):
+        pair = groups.setdefault((dst.dtype, src.dtype), ([], []))
+        pair[0].append(dst)
+        pair[1].append(src)
+    for group_dsts, group_srcs in groups.values():
+        torch._foreach_copy_(group_dsts, group_srcs)
 
 
 def _on(device: torch.device):
@@ -148,11 +155,12 @@ def _on(device: torch.device):
 # --- Launch counters.
 
 def _counters() -> tuple:
-    from ..ops import bank_comp, channel_kernels, epl_kernels
+    from ..ops import bank_comp, channel_kernels, epl_kernels, loop_kernel
 
     return (epl_kernels.correlate_pallas_bank_rows, epl_kernels.correlate_pallas_bank,
             epl_kernels.correlate_pallas_bank_onehot, bank_comp.correlate_pallas_bank_comp,
-            channel_kernels.correlate_pallas_taps, channel_kernels.correlate_pallas_fused)
+            channel_kernels.correlate_pallas_taps, channel_kernels.correlate_pallas_fused,
+            loop_kernel.loop_update_kernel)
 
 
 def _counts() -> list:
@@ -262,8 +270,8 @@ class _Entry:
                     raise ValueError(
                         f"the scan body changed a carry leaf from {tuple(dst.shape)} "
                         f"{dst.dtype} to {tuple(x.shape)} {x.dtype}")
-                if x is not dst:
-                    dst.copy_(x)
+            moved = [(dst, x) for dst, x in zip(carry_leaves, new_leaves) if x is not dst]
+            _copy([dst for dst, _ in moved], [x for _, x in moved])
             self.index.add_(1)
 
         return body

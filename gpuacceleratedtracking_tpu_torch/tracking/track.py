@@ -2,10 +2,12 @@
 
 Port of `gpuacceleratedtracking_tpu.tracking.track`. `loop_update` works on
 any leading channel axes, so a bank's loop closure is one batched call over
-``[K]``. `track` and `track_bank` run their block body through
-`graphs.scan`, the port's `lax.scan`: a CUDA graph of the body replayed once
-per block on CUDA tensors, a Python loop over blocks on the CPU (or inside
-`graphs.eager()`), with no host sync inside the loop either way.
+``[K]``: one launch of the loop-closure kernel on CUDA tensors, the plain
+torch ops (`loop_update_plain`) on the CPU. `track` and `track_bank` run
+their block body through `graphs.scan`, the port's `lax.scan`: a CUDA graph
+of the body replayed once per block on CUDA tensors, a Python loop over
+blocks on the CPU (or inside `graphs.eager()`), with no host sync inside the
+loop either way.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import registry
+from ..ops import loop_kernel, registry
 from . import cn0 as cn0_mod
 from . import discriminators, graphs, loop_filter
 from .loop_filter import LoopFilterState
@@ -134,8 +136,33 @@ def loop_update(
 ) -> tuple[TrackState, TrackOutput]:
     """Close the loop on one block's accumulators: discriminate -> filter -> NCO.
 
-    ``accum_*``: ``[..., L]`` or ``[..., A, L]`` over the state's channel axes.
+    ``accum_*``: ``[..., L]`` or ``[..., A, L]`` over the state's channel axes;
+    ``ant_weights``: optional ``(w_re, w_im)``, broadcast to ``[..., A]``.
+    CUDA tensors launch the loop-closure kernel once
+    (`ops.loop_kernel.loop_update_kernel`, ``csrc/loop_update.cu``; the
+    weights must then be f32 tensors on the card) or raise; CPU tensors run
+    the plain version, `loop_update_plain`.
     """
+    device = accum_re.device
+    if device.type == "cuda":
+        overlay = (_overlay_table(config.secondary_code, device)
+                   if config.secondary_code else None)
+        return loop_kernel.loop_update_kernel(config, state, accum_re, accum_im, ant_weights,
+                                              overlay)
+    if device.type != "cpu":
+        raise ValueError(f"loop_update runs on CPU or CUDA tensors, not {device}")
+    return loop_update_plain(config, state, accum_re, accum_im, ant_weights)
+
+
+def loop_update_plain(
+    config: TrackConfig,
+    state: TrackState,
+    accum_re: torch.Tensor,
+    accum_im: torch.Tensor,
+    ant_weights: Optional[tuple] = None,
+) -> tuple[TrackState, TrackOutput]:
+    """The plain PyTorch version of `loop_update`, on any device: ~120 torch
+    ops, the kernel's reference on the card."""
     device = accum_re.device
     t = config.integration_time
     # Constants rounded to f32 but kept as Python floats: an op with a Python

@@ -163,51 +163,67 @@ def test_config_from_jax_fields():
         jcfg.spacing_chips, jcfg.prompt_index, jcfg.integration_time)
 
 
+# name -> (TrackConfig overrides, antennas (None: no antenna axis), steering
+# weights (None, "channel" [K, A] or "shared" [A]), taps, ms_elapsed (None:
+# random), channels (None: a scalar single-channel state)). Every branch of
+# the loop-closure kernel (csrc/loop_update.cu), whose plain version this is.
 LOOP_CASES = {
-    "default": ({}, None, None),
-    "atan2_order2": ({"pll_discriminator": "atan2", "pll_order": 2}, None, None),
+    "default": ({}, None, None, 3, None, 8),
+    "atan2_order2": ({"pll_discriminator": "atan2", "pll_order": 2}, None, None, 3, None, 8),
     "coherent_secondary": (
         {"coherent_blocks": 10,
          "secondary_code": (1.0, -1.0, 1.0, 1.0, -1.0, -1.0, 1.0, -1.0, 1.0, 1.0)},
-        None, 9),
-    "two_antennas_weighted": ({}, 2, None),
+        None, None, 3, 9, 8),
+    "coherent4_random_ms": ({"coherent_blocks": 4}, None, None, 3, None, 8),
+    "two_antennas_weighted": ({}, 2, "channel", 3, None, 8),
+    "dll_order1": ({"dll_order": 1}, None, None, 3, None, 8),
+    "dll_order3": ({"dll_order": 3}, None, None, 3, None, 8),
+    "pll_order1": ({"pll_order": 1}, None, None, 3, None, 8),
+    "order2_fll": ({"pll_order": 2}, None, None, 3, None, 8),
+    "fll_off": ({"fll_bandwidth": 0.0}, None, None, 3, None, 8),
+    "four_antennas": ({}, 4, None, 3, None, 8),
+    "shared_weights": ({}, 3, "shared", 3, None, 8),
+    "seven_taps": ({}, None, None, 7, None, 8),
+    "single_channel": ({}, None, None, 3, None, None),
 }
 
 
 @pytest.mark.parametrize("name", sorted(LOOP_CASES))
 def test_loop_update_matches_jax_vmap(name):
-    extra, num_ants, ms_elapsed = LOOP_CASES[name]
-    k = 8
-    jcfg = jtracking.TrackConfig.for_system(jmodels.GPSL1(), 8.192e6, 8192, **extra)
+    extra, num_ants, weight_kind, taps, ms_elapsed, k = LOOP_CASES[name]
+    jcfg = jtracking.TrackConfig.for_system(jmodels.GPSL1(), 8.192e6, 8192,
+                                            num_correlators=taps, **extra)
     tcfg = ttracking.config_from_jax_fields(dataclasses.asdict(jcfg))
-    tree = _random_state_tree(7, k, ms_elapsed=ms_elapsed)
+    tree = _random_state_tree(7, k or 1, num_taps=taps, ms_elapsed=ms_elapsed)
+    batch = (k,) if k else ()
+    if not k:                         # a scalar state: the one channel's leaves
+        tree = jax.tree.map(lambda x: x[0], tree)
     rng = np.random.default_rng(11)
-    shape = (k, 3) if num_ants is None else (k, num_ants, 3)
+    shape = batch + ((taps,) if num_ants is None else (num_ants, taps))
     are = (rng.normal(size=shape) * 2000).astype(np.float32)
     aim = (rng.normal(size=shape) * 600).astype(np.float32)
     weights = None
-    if num_ants is not None:
-        weights = tuple(rng.normal(size=(k, num_ants)).astype(np.float32)
-                        for _ in range(2))
+    if weight_kind is not None:
+        wshape = batch + (num_ants,) if weight_kind == "channel" else (num_ants,)
+        weights = tuple(rng.normal(size=wshape).astype(np.float32) for _ in range(2))
+
+    def jax_step(state, a_re, a_im):
+        ws = None if weights is None else tuple(map(jnp.asarray, weights))
+        if not k:
+            return jtracking.loop_update(jcfg, state, a_re, a_im, ws)
+        w_axes = None if weight_kind != "channel" else (0, 0)
+        return jax.vmap(lambda s, x, y, w: jtracking.loop_update(jcfg, s, x, y, w),
+                        in_axes=(0, 0, 0, w_axes))(state, a_re, a_im, ws)
 
     jstate = jax.tree.map(jnp.asarray, tree)
     tstate = ttracking.state_from_numpy(tree, device="cpu")
     # Three consecutive blocks, feeding each side its own state back.
     for step in range(3):
         a_re, a_im = are * (1 + 0.1 * step), aim * (1 - 0.1 * step)
-        if weights is None:
-            jstate, jout = jax.vmap(lambda s, x, y: jtracking.loop_update(
-                jcfg, s, x, y))(jstate, jnp.asarray(a_re), jnp.asarray(a_im))
-            tstate, tout = ttracking.loop_update(
-                tcfg, tstate, torch.as_tensor(a_re), torch.as_tensor(a_im))
-        else:
-            jstate, jout = jax.vmap(lambda s, x, y, wr, wi: jtracking.loop_update(
-                jcfg, s, x, y, (wr, wi)))(jstate, jnp.asarray(a_re),
-                                          jnp.asarray(a_im),
-                                          *map(jnp.asarray, weights))
-            tstate, tout = ttracking.loop_update(
-                tcfg, tstate, torch.as_tensor(a_re), torch.as_tensor(a_im),
-                tuple(map(torch.as_tensor, weights)))
+        jstate, jout = jax_step(jstate, jnp.asarray(a_re), jnp.asarray(a_im))
+        tstate, tout = ttracking.loop_update(
+            tcfg, tstate, torch.as_tensor(a_re), torch.as_tensor(a_im),
+            None if weights is None else tuple(map(torch.as_tensor, weights)))
         for field, got, want in zip(tout._fields, tout, jout):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                        atol=1e-3, err_msg=f"{name} {field} {step}")
