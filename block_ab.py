@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Old-vs-new timing of the port's closed-loop blocks on one card.
+
+Usage::
+
+    mkdir -p build/old
+    git archive <commit> | tar -x -C build/old
+    python3 block_ab.py --old build/old [--out results/block_ab.json]
+
+``--old`` holds a whole earlier checkout of the repository. Both trees are
+measured by the same code below, in turns (old, new, new, old), one process
+per turn whose imports resolve to that tree's package and its
+``chip_smoke.py`` helpers (inputs are made there from the same seeds), so
+each tree builds and runs its own kernels. A turn measures, through the
+entry points a user calls:
+
+- the device time of one ``tracking.loop_update`` call on CUDA tensors at
+  K=1024, A=1, L=3 (fresh outputs, as both trees have it): 20 calls
+  captured in a CUDA graph, replayed;
+- the 10-block call of ``track_bank`` (rows K=1024 GPS L1 at N=32768),
+  ``track_bank_dual`` (GPS L5 K=64) and ``track`` (one channel through
+  ``pallas_fused``), each replaying its captured block: milliseconds per
+  block (CUDA events, median of 20 calls) and device ops per block
+  (torch.profiler over two calls, the per-call copies included);
+- the replayed K=1024 block of ``bench.run_track_benchmark`` (its B vs 2B
+  differential, so the per-call copies cancel).
+
+The script prints one JSON line per turn and, last, the medians of each
+metric per tree; ``--out`` also writes them as JSON. The old tree is not
+part of the repository; put it in a directory that ``.gitignore`` lists,
+such as ``build/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pathlib
+import statistics
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent
+BLOCKS = 10
+
+
+def measure(root: pathlib.Path) -> dict:
+    """One turn, inside the process that imports ``root``'s package."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from gpuacceleratedtracking_tpu_torch.bench import run_track_benchmark
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, GPSL5
+    from gpuacceleratedtracking_tpu_torch.ops import _build
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, dual_config, init_state, loop_update, track, track_bank, track_bank_dual)
+
+    _build.build()
+    system = GPSL1()
+    codes = torch.as_tensor(system.codes, device="cuda")
+    sre, sim, _ = cs.mixed_blocks(system, BLOCKS)
+    states = cs.bank_states(system, init_errors=False)
+    rows = TrackConfig.for_system(system, cs.L1_FS, cs.N_1MS, algorithm="pallas_bank_auto")
+    fused = TrackConfig.for_system(system, cs.L1_FS, cs.N_1MS, algorithm="pallas_fused")
+    one = init_state(5, carrier_doppler=float(cs.SAT_DOPPLERS[5]) + 20.0,
+                     code_phase=float(cs.SAT_CODE_PHASES[5]) - 0.2, device="cuda")
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    rng = np.random.default_rng(2)
+    offsets = rng.integers(0, 20, len(cs.L5_PRNS))
+    navs = rng.choice([-1.0, 1.0], (len(cs.L5_PRNS), (20 + BLOCKS) // 10 + 1))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    s5re, s5im = cs.l5_dual_blocks(BLOCKS, offsets, navs, gen)
+    cfg5 = dual_config(TrackConfig.for_system(sys_i, cs.L1_FS, cs.N_1MS,
+                                              algorithm="pallas_bank_auto", use_secondary=False))
+    states5 = cs.dual_states(offsets, cs.L5_DOPPLERS)
+    codes_i = torch.as_tensor(sys_i.codes, device="cuda")
+    codes_q = torch.as_tensor(sys_q.codes, device="cuda")
+    paths = {
+        "rows_K1024": lambda: track_bank(rows, codes, states, sre, sim),
+        "l5_dual_K64": lambda: track_bank_dual(cfg5, codes_i, codes_q, states5, s5re, s5im),
+        "track_fused": lambda: track(fused, codes, one, sre, sim),
+    }
+    result = {"tree": str(root), "card": cs.nvidia_smi()}
+    acc = torch.randn((cs.NUM_K, 3), generator=gen, device="cuda") * 1000.0
+    result["loop_update_ms"] = cs.graph_ms(lambda: loop_update(rows, states, acc, acc))[0]
+    for name, run in paths.items():
+        result[f"{name}_block_ms"] = cs.time_cuda(run, warmup=2)[0] / BLOCKS
+        result[f"{name}_device_ops_per_block"] = cs.device_profile(run, calls=2)[0] / BLOCKS
+    r = run_track_benchmark({"GNSS": "GPSL1", "num_samples": cs.N_1MS,
+                             "num_channels": cs.NUM_K, "algorithm": "pallas_bank_auto",
+                             "processor": "GPU", "blocks": 8, "trials": 7})
+    result["replayed_rows_block_ms"] = r["Median"] * 1e3
+    return result
+
+
+def turn(root: pathlib.Path) -> dict:
+    """A turn in a process of its own, with ``root`` first on its path."""
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, str(ROOT / "block_ab.py"), "--measure", str(root)],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"turn in {root} failed:\n{proc.stdout}\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--old", help="an earlier checkout of the repository")
+    parser.add_argument("--out", help="also write the results as JSON here")
+    parser.add_argument("--measure", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.measure:
+        root = pathlib.Path(args.measure).resolve()
+        sys.path[:] = [str(root)] + [p for p in sys.path
+                                     if p not in ("", str(ROOT), str(root))]
+        print(json.dumps(measure(root)))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("block_ab needs a CUDA device")
+    old = pathlib.Path(args.old).resolve()
+    turns = []
+    for label, root in (("old", old), ("new", ROOT), ("new", ROOT), ("old", old)):
+        result = dict(turn(root), version=label)
+        print(json.dumps(result), flush=True)
+        turns.append(result)
+    keys = [k for k in turns[0] if k.endswith(("_ms", "_per_block"))]
+    summary = {label: {k: statistics.median(t[k] for t in turns if t["version"] == label)
+                       for k in keys} for label in ("old", "new")}
+    summary["card"] = turns[0]["card"]
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"turns": turns, "median": summary}, f, indent=1)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

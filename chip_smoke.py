@@ -34,12 +34,17 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    assist on and off, Costas and atan2, coherent windows with and without an
    overlay, A = 2, 3, 4 unweighted, shared and per-channel weights, L = 7)
    at K=1024, K=8 and a scalar state, three blocks each side fed its own
-   state back: every leaf bit for bit but ``cn0_dbhz``, which must lie
-   within ``LOOP_TOLERANCE`` (its bits hang on torch's reduction order);
-   then ``track_bank`` K=1024 GPS L1 over 200 blocks at 50 dB-Hz with the
-   kernel (the replayed graph) against the same correlator closed by the
-   plain version: the 8 locked channels bit for bit (``cn0_dbhz`` within
-   the tolerance), and the count of channels equal on every output.
+   state back, fresh and under a sink (the outputs into rows of stacked
+   buffers at a device-side index, the state written in place, the plain
+   version doing the same by ``index_copy_``); the dual mode
+   (``tracking.dual.dual_update``) against ``dual_update_plain`` over
+   ``DUAL_CASES`` (K 8 and 64, no antenna axis and A = 1..4, both overlay
+   tables, ``ms_elapsed`` across their periods), fresh and under a sink;
+   every leaf bit for bit, ``cn0_dbhz`` included. Then ``track_bank``
+   K=1024 GPS L1 over 200 blocks at 50 dB-Hz with the kernel (the replayed
+   graph, writing its outputs and carry through the sink) against the same
+   correlator closed by the plain version block by block: every output of
+   every channel and the final state bit for bit.
 4. Main paths, each through the entry points a user calls, with every launch
    count set to 0 just before it and read just after:
    - rows: ``track_bank`` on a K=1024 GPS L1 bank at 32.768 MHz through
@@ -141,10 +146,16 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      ``track_bank_sharded`` 2 x 2 and ``track_bank_dual_sharded`` chan 2 on
      the phase J devices. A second call of each, a replay of the cached
      graph, runs under ``torch.cuda.set_sync_debug_mode("error")`` and must
-     give the same outputs and launch counts (the loop kernel's included);
+     give the same outputs and launch counts (the loop kernels' included:
+     one per block, ``dual_update`` on the dual paths);
      each call's counts are read after it. Device ops per block of every
-     path, eager and graph (torch.profiler), beside the counts with the
-     loop closure as torch ops where PERF.md kept them. Each path's first graph call starts from an empty cache, and
+     path, eager and graph (torch.profiler), beside the counts with the loop
+     kernel writing fresh tensors and those
+     with the loop closure as torch ops where PERF.md kept them; the device
+     ops by name of rows K=1024, ``track`` and the L5 dual as graphs, which
+     must hold no ``index_copy_`` (the loop kernel writes the outputs
+     through the sink), against the sharded 2 x 2 bank's graph (no sink),
+     which must. Each path's first graph call starts from an empty cache, and
      its entries' buffers and the device memory it reserved are logged.
      Then eager and graph block times and real-time channels of the timed
      paths (and streaming's ``steady_block_s`` both ways, from H, whose
@@ -159,13 +170,14 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    ``fused`` at both sweep corners, N=32768 A=1 L=3 and N=2^18 A=4 L=7, with
    the wrapper call's time and its device ops per call from torch.profiler,
    under ``corners``), the loop kernel against its plain version at K=1024
-   (both also as CUDA-graph device time), the closed-loop block of each
+   fresh and under a sink, and in dual mode at the L5 dual bank's K=64
+   (all also as CUDA-graph device time), the closed-loop block of each
    path, and the library yardsticks, which the port never calls: for
    ``bank_comp`` one ``torch.matmul`` of a materialized ``[2K, U]`` Z
    against ``[U, 2AL]`` S (f32 with TF32 off, and bf16); for the other bank
    routes one complex64 ``torch.matmul`` of a built ``[K, N]``
-   conj(carrier) x code plane against the ``[N, L]`` shifted signal planes,
-   and for the per-channel kernels of a built ``[L, N]`` wiped replica
+   conj(carrier) x code plane against the ``[N, L]`` shifted signal planes
+   (``bank_rows`` at N=32768 and N=2^18), and for the per-channel kernels of a built ``[L, N]`` wiped replica
    against the ``[N, A]`` signal (device time, CUDA graph).
 
 Its last lines are one JSON object describing the kernels, the card's name
@@ -176,7 +188,7 @@ per block (or per call) on its first path, its largest
 error against its plain version, its device time (``ms``; ``eager_ms`` with
 the host's launch work) and its plain version's (``plain_ms``; ``clock``
 says how each was read), ``library_ms`` (null where no single PyTorch call
-computes the function: the loop kernel), and ``bound_ms``: the least time the
+computes the function: the loop kernel in both modes), and ``bound_ms``: the least time the
 card could take for the same work, the larger of this run's input and output
 bytes over 3.35 TB/s and the kernel's floating-point operations over the peak
 of their type
@@ -267,10 +279,18 @@ def loop_counter():
     return loop_kernel.loop_update_kernel
 
 
+def dual_counter():
+    """The wrapper of the loop kernel's dual mode (the GPS L5 dual block)."""
+    from gpuacceleratedtracking_tpu_torch.ops import loop_kernel
+
+    return loop_kernel.dual_update_kernel
+
+
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
     loop_counter().launches = 0
+    dual_counter().launches = 0
 
 
 def read_counts() -> dict:
@@ -283,19 +303,24 @@ def loop_count() -> int:
     return loop_counter().launches
 
 
-# The loop kernel's launches on each path, read where the path reads its
-# correlator counts (each counted from 0 just before the path's run).
+# The loop kernel's launches on each path, single and dual mode, read where
+# the path reads its correlator counts (each counted from 0 just before the
+# path's run).
 LOOP_BY_PATH: dict = {}
+DUAL_BY_PATH: dict = {}
 
 
-def note_loop(path: str, expected: int | None = None) -> int:
+def note_loop(path: str, expected: int | None = None, dual: bool = False) -> int:
     """Record the loop kernel's launches since the last `reset_counts` as
-    ``path``'s, and check that it ran (``expected`` times, if given)."""
-    count = loop_count()
+    ``path``'s (``dual``: its dual mode's), and check that it ran
+    (``expected`` times, if given)."""
+    count = (dual_counter() if dual else loop_counter()).launches
+    name = "dual_update" if dual else "loop_update"
     check(count > 0 and (expected is None or count == expected),
-          f"{path}: loop_update launched {count} times, expected "
+          f"{path}: {name} launched {count} times, expected "
           f"{expected if expected is not None else 'at least once'}")
-    LOOP_BY_PATH[path] = LOOP_BY_PATH.get(path, 0) + count
+    by_path = DUAL_BY_PATH if dual else LOOP_BY_PATH
+    by_path[path] = by_path.get(path, 0) + count
     return count
 
 
@@ -627,11 +652,10 @@ LOOP_CASES = {
     "shared_weights": ({}, 3, "shared", 3, None),
     "seven_taps": ({}, None, None, 7, None),
 }
-# The one output whose bits hang on torch's reduction order (its window
-# means; it feeds no state): the kernel keeps the order torch's CUDA kernel
-# takes today, and a torch that reduced in another order would move noise-like
-# windows, where 2 M2^2 - M4 nearly cancels, by up to ~0.01 dB.
-LOOP_TOLERANCE = {"cn0_dbhz": (0.05, 0.0)}      # field -> (atol dB, rtol)
+# The dual mode's grid (tests/test_torch_loop_kernel.py's, with A=1): name
+# -> (K dual channels, antennas (None: no antenna axis)).
+DUAL_CASES = {f"k{k}_{'a' + str(a) if a else 'single'}": (k, a)
+              for k in (8, DUAL_K) for a in (None, 1, 2, 3, 4)}
 
 
 def loop_inputs(name, k, seed):
@@ -686,65 +710,161 @@ def loop_inputs(name, k, seed):
 
 
 def loop_fields(state, out) -> dict:
-    """Every leaf of a `loop_update` result by name (the state's prefixed)."""
+    """Every leaf of a `loop_update` result by name (the state's prefixed;
+    ``out`` None: the state's only)."""
     fields = {}
     for name, x in state._asdict().items():
         if isinstance(x, tuple):
             fields.update({f"{name}.{sub}": y for sub, y in x._asdict().items()})
         else:
             fields[name] = x
-    fields.update(out._asdict())
+    if out is not None:
+        fields.update(out._asdict())
     return fields
+
+
+def clone_tree(tree):
+    """A copy of a state, leaf by leaf, in its NamedTuple structure."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(clone_tree(x) for x in tree))
+
+
+def make_sink(out, chunk=4):
+    """A `graphs.Sink` for ``out``'s leaves: ``[chunk, ...]`` buffers of a
+    sentinel value and a row index on the card."""
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    outs = tuple(torch.full((chunk,) + tuple(x.shape), -12345.0, dtype=x.dtype, device=DEVICE)
+                 for x in flat(out))
+    return graphs.Sink(outs, torch.zeros((), dtype=torch.int64, device=DEVICE))
+
+
+def differ(got: dict, want: dict) -> dict:
+    """The leaves of ``got`` that are not bit for bit ``want``'s, with their
+    largest absolute difference."""
+    diffs = {}
+    for field, x in got.items():
+        y = want[field]
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"{field}: {tuple(x.shape)} {x.dtype} against {tuple(y.shape)} {y.dtype}")
+        if not torch.equal(x, y):
+            diffs[field] = float((x.double() - y.double()).abs().max())
+    return diffs
+
+
+def sink_runs(update, plain, state, blocks, out):
+    """``update`` and ``plain`` over ``blocks`` (block b into row b + 1),
+    each under a sink of its own and writing a copy of ``state`` in place;
+    the state each returns must be the one it took. Returns their leaves
+    that differ: the final states' and every row of the sinks'."""
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    finals, sinks = [], []
+    for fn in (update, plain):
+        carry, sink = clone_tree(state), make_sink(out)
+        for b, (are, aim) in enumerate(blocks):
+            sink.index.fill_(b + 1)
+            new, written = fn(carry, are, aim, sink)
+            check(new is carry and all(x is graphs.WRITTEN for x in graphs._leaves(written)),
+                  "a call under a sink returns the carry and WRITTEN outputs")
+        finals.append(loop_fields(carry, None))
+        sinks.append({f"row leaf {i}": buf for i, buf in enumerate(sink.outs)})
+    return {**differ(finals[0], finals[1]), **differ(sinks[0], sinks[1])}
 
 
 def loop_cells(seed):
     """Phase 3b: `loop_update` on CUDA tensors (one kernel launch per call)
     against `loop_update_plain` on the same inputs, every case of
     `LOOP_CASES` at K=1024, K=8 and a scalar state, three consecutive blocks,
-    each side fed its own state back. Every leaf must be equal bit for bit
-    but those of `LOOP_TOLERANCE`, which must lie within it. Returns the
-    largest absolute difference over every leaf."""
-    from gpuacceleratedtracking_tpu_torch.tracking import loop_update
+    each side fed its own state back, fresh and under a sink (the plain
+    version writing its sink by ``index_copy_``); then the dual mode
+    (`tracking.dual.dual_update`, one launch per call) against
+    `dual_update_plain` over `DUAL_CASES`, fresh and under a sink. Every
+    leaf must be equal bit for bit. Returns the largest absolute difference
+    over every leaf (0.0)."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL5, gpsl5
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, dual_config, init_state, loop_update)
+    from gpuacceleratedtracking_tpu_torch.tracking.dual import dual_update, dual_update_plain
     from gpuacceleratedtracking_tpu_torch.tracking.track import loop_update_plain
 
-    worst, failures = 0.0, []
+    failures = []
     for i, name in enumerate(LOOP_CASES):
         for k in (NUM_K, 8, None):
             config, state, blocks, w = loop_inputs(name, k, seed + 70 + i)
             ks = ps = state
-            differ = {}
+            diffs = {}
             for b, (are, aim) in enumerate(blocks):
                 before = loop_count()
                 ks, kout = loop_update(config, ks, are, aim, w)
                 check(loop_count() == before + 1, f"[loop] {name}: one launch per call")
                 ps, pout = loop_update_plain(config, ps, are, aim, w)
-                got, want = loop_fields(ks, kout), loop_fields(ps, pout)
-                for field, x in got.items():
-                    y = want[field]
-                    check(x.shape == y.shape and x.dtype == y.dtype,
-                          f"[loop] {name} {field}: {tuple(x.shape)} {x.dtype} against "
-                          f"{tuple(y.shape)} {y.dtype}")
-                    if torch.equal(x, y):
-                        continue
-                    err = float((x.double() - y.double()).abs().max())
-                    worst = max(worst, err)
-                    differ[field] = max(differ.get(field, 0.0), err)
-                    atol, rtol = LOOP_TOLERANCE.get(field, (None, None))
-                    if atol is None or not torch.allclose(x, y, rtol=rtol, atol=atol):
-                        failures.append(f"{name} k={k} block {b} {field}: max|d| {err!r}")
-            log(f"[loop] {name} K={k if k else 'scalar'}: 3 blocks, kernel against plain "
-                f"{'bit for bit on every leaf' if not differ else f'differing leaves {differ}'}")
+                diffs.update({f"block {b} {f}": e for f, e in
+                              differ(loop_fields(ks, kout), loop_fields(ps, pout)).items()})
+            before = loop_count()
+            diffs.update({f"sink {f}": e for f, e in sink_runs(
+                lambda st, are, aim, sk: loop_update(config, st, are, aim, w, sk),
+                lambda st, are, aim, sk: loop_update_plain(config, st, are, aim, w, sk),
+                state, blocks, kout).items()})
+            check(loop_count() == before + len(blocks), f"[loop] {name}: one launch per sink call")
+            if diffs:
+                failures.append(f"{name} k={k}: {diffs}")
+            log(f"[loop] {name} K={k if k else 'scalar'}: 3 blocks fresh and 3 under a sink "
+                f"(state in place), kernel against plain "
+                f"{'bit for bit on every leaf' if not diffs else f'differing leaves {diffs}'}")
+
+    config = dual_config(TrackConfig.for_system(GPSL5(), L1_FS, N_1MS, use_secondary=False))
+    tables = tuple(torch.tensor(gpsl5.neuman_hofman(pilot), dtype=torch.float32, device=DEVICE)
+                   for pilot in (False, True))
+    for i, (name, (k, ants)) in enumerate(DUAL_CASES.items()):
+        rng = np.random.default_rng(seed + 170 + i)
+
+        def f(*shape, scale=1.0):
+            return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(DEVICE)
+
+        state = init_state(np.arange(k) % 32, carrier_doppler=rng.uniform(-4000, 4000, k),
+                           ms_elapsed=rng.integers(0, 40, k), device=DEVICE)
+        state = state._replace(
+            code_doppler=f(k, scale=2.0), prev_prompt_re=f(k, scale=1000.0),
+            prev_prompt_im=f(k, scale=300.0),
+            cn0=state.cn0._replace(prompts_re=f(k, 20, scale=1000.0),
+                                   prompts_im=f(k, 20, scale=100.0)))
+        shape = (2 * k, 3) if ants is None else (2 * k, ants, 3)
+        blocks = [(f(*shape, scale=2000.0), f(*shape, scale=600.0)) for _ in range(3)]
+        ks = ps = state
+        diffs = {}
+        for b, (are, aim) in enumerate(blocks):
+            before = dual_counter().launches
+            ks, kout = dual_update(config, ks, are, aim, *tables)
+            check(dual_counter().launches == before + 1, f"[dual] {name}: one launch per call")
+            ps, pout = dual_update_plain(config, ps, are, aim, *tables)
+            diffs.update({f"block {b} {fld}": e for fld, e in differ(
+                dict(loop_fields(ks, kout.pilot), data_re=kout.data_prompt_re,
+                     data_im=kout.data_prompt_im),
+                dict(loop_fields(ps, pout.pilot), data_re=pout.data_prompt_re,
+                     data_im=pout.data_prompt_im)).items()})
+        diffs.update({f"sink {fld}": e for fld, e in sink_runs(
+            lambda st, are, aim, sk: dual_update(config, st, are, aim, *tables, sk),
+            lambda st, are, aim, sk: dual_update_plain(config, st, are, aim, *tables, sk),
+            state, blocks, kout).items()})
+        if diffs:
+            failures.append(f"dual {name}: {diffs}")
+        log(f"[loop dual] {name}: GPS L5 K={k} antennas {ants}, ms_elapsed "
+            f"{int(state.ms_elapsed.min())}..{int(state.ms_elapsed.max())}: 3 blocks fresh and "
+            f"3 under a sink, kernel against plain "
+            f"{'bit for bit on every leaf' if not diffs else f'differing leaves {diffs}'}")
     check(not failures, f"[loop] kernel against plain: {failures}")
-    return worst
+    return 0.0
 
 
 def loop_trajectory(system, seed, num_blocks: int = 200):
     """Phase 3b: `track_bank` K=1024 GPS L1 over ``num_blocks`` blocks at
-    50 dB-Hz with the loop kernel (the replayed graph) against the same
-    correlator with the plain closure (`loop_update_plain`, block by block):
-    on the 8 locked channels every output but ``cn0_dbhz`` equal bit for bit,
-    ``cn0_dbhz`` within `LOOP_TOLERANCE`. Returns the channels that agree
-    bit for bit over every block."""
+    50 dB-Hz with the loop kernel (the replayed graph, its outputs and carry
+    written through the sink) against the same correlator with the plain
+    closure (`loop_update_plain`, block by block): every output of every
+    channel over every block, and the final state, bit for bit. Returns the
+    channels that agree bit for bit over every block."""
     from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, TrackOutput, track_bank
     from gpuacceleratedtracking_tpu_torch.tracking.track import (
         _bank_code_tile_kwargs, bank_correlator, loop_update_plain)
@@ -754,7 +874,7 @@ def loop_trajectory(system, seed, num_blocks: int = 200):
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 50)
     sre, sim, _ = mixed_blocks(system, num_blocks, NOISE_STD, gen)
     states = bank_states(system, init_errors=True)
-    _, out = track_bank(config, codes, states, sre, sim)
+    final, out = track_bank(config, codes, states, sre, sim)
     corr, kwargs = bank_correlator(config)
     tiles = _bank_code_tile_kwargs(config, codes, states.prn)
     st, outs = states, []
@@ -771,24 +891,18 @@ def loop_trajectory(system, seed, num_blocks: int = 200):
     nsat = len(SAT_DOPPLERS)
     same = torch.ones(NUM_K, dtype=torch.bool, device=DEVICE)
     for field, x in out._asdict().items():
-        y = getattr(ref, field)
-        atol, rtol = LOOP_TOLERANCE.get(field, (None, None))
-        if atol is None:
-            check(torch.equal(x[:, :nsat], y[:, :nsat]),
-                  f"[loop trajectory] {field} on the locked channels bit for bit "
-                  f"(max|d| {float((x - y)[:, :nsat].abs().max())!r})")
-        else:
-            check(torch.allclose(x[:, :nsat], y[:, :nsat], rtol=rtol, atol=atol),
-                  f"[loop trajectory] {field} on the locked channels within atol {atol} "
-                  f"rtol {rtol}")
-        eq = (x == y).reshape(num_blocks, NUM_K, -1).all(-1).all(0)
+        eq = (x == getattr(ref, field)).reshape(num_blocks, NUM_K, -1).all(-1).all(0)
         same &= eq
     exact = int(same.sum())
+    state_diffs = differ(loop_fields(final, None), loop_fields(st, None))
     dop = out.carrier_doppler[-50:, :nsat].double().mean(0).cpu().numpy()
     log(f"[loop trajectory] track_bank K={NUM_K} {num_blocks} blocks at 50 dB-Hz, loop kernel "
-        f"(graph) against the plain closure: locked channels equal (Doppler errors "
-        f"{np.abs(dop - SAT_DOPPLERS).tolist()} Hz); {exact} of {NUM_K} channels equal bit "
-        f"for bit on every output over every block")
+        f"(graph, sink) against the plain closure: locked channels' Doppler errors "
+        f"{np.abs(dop - SAT_DOPPLERS).tolist()} Hz; {exact} of {NUM_K} channels equal bit "
+        f"for bit on every output over every block; final state "
+        f"{'bit for bit' if not state_diffs else f'differs: {state_diffs}'}")
+    check(exact == NUM_K, f"[loop trajectory] every channel bit for bit ({exact} of {NUM_K})")
+    check(not state_diffs, f"[loop trajectory] final state bit for bit: {state_diffs}")
     return exact
 
 
@@ -1103,7 +1217,7 @@ def dual_path(seed, num_blocks: int = 200):
     launches = counts["bank_transition"]
     check(counts == only(bank_transition=sync_blocks + num_blocks),
           f"one 128-channel pallas_bank launch per block and no other kernel, got {counts}")
-    note_loop("B", sync_blocks + num_blocks)
+    note_loop("B", sync_blocks + num_blocks, dual=True)
     for field, x in out.pilot._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"path B {field} finite")
     check(out.data_prompt_re.shape == (num_blocks, DUAL_K), "data prompt shape")
@@ -1774,6 +1888,7 @@ def coldstart_l5(path, nav, card):
     counts = read_counts()
     check(counts == only(bank_transition=sync_blocks + rest),
           f"L5: one transition launch per block and no other kernel, got {counts}")
+    note_loop("coldstart_l5", rest, dual=True)
     dop = out2.pilot.carrier_doppler.cpu().numpy()
     dop_err = dop[-20:].mean(axis=0) - np.asarray([d for _, d in sorted(zip(c["prns"],
                                                                            c["dops"]))])
@@ -1991,6 +2106,7 @@ def dual_per_channel_path(seed, num_k: int = 4, num_blocks: int = 20):
         kernel = algo[len("pallas_"):] if algo != "xla_bank" else None
         want = only(**{kernel: 2 * num_k * num_blocks}) if kernel else only()
         check(counts == want, f"dual {algo}: 2K launches per block, got {counts}")
+        note_loop("I", num_blocks, dual=True)
         if kernel:
             launches[kernel] = counts[kernel]
     for algo in ("pallas_fused", "pallas_taps"):
@@ -2314,6 +2430,7 @@ def sharded_dual_path(sre_l5, sim_l5, l5_offsets, card, blocks: int = 20):
     counts = read_counts()
     check(counts == only(bank_transition=2 * blocks),
           f"J4: one transition launch per channel shard and block, got {counts}")
+    note_loop("parallel", 2 * blocks, dual=True)     # one dual closure per channel shard and block
     d_p = within("J4 pilot prompt_re", out.pilot.prompt_re, ref.pilot.prompt_re, 1e-2, 1e-5)
     d_d = within("J4 data prompt_re", out.data_prompt_re, ref.data_prompt_re, 1e-2, 1e-5)
     d_c = within("J4 code phase", final_s.code_phase, final_u.code_phase, 1e-4, 0.0)
@@ -2471,6 +2588,23 @@ def figures_path(fig_dir, sweep_dir, track_records, card):
 # ops (10-block calls, torch.profiler; PERF.md section 5).
 OPS_BEFORE_LOOP_KERNEL = {"rows_K1024_pallas_bank_auto": {"eager": 129.0, "graph": 150.9},
                           "array_K1024_A4_L7_f32": {"graph": 159.1}}
+# The same with the loop kernel writing fresh tensors, the graph copying them
+# into its stacked outputs and carry (PERF.md section 5).
+OPS_FRESH_LOOP_KERNEL = {"rows_K1024_pallas_bank_auto": {"eager": 28.0, "graph": 33.7},
+                         "rows_K1024_xla_bank": {"eager": 114.0, "graph": 119.7},
+                         "array_K1024_A4_L7_f32": {"eager": 28.0, "graph": 35.3},
+                         "array_K1024_A4_L7_bf16": {"eager": 28.0, "graph": 35.3},
+                         f"l5_dual_K{DUAL_K}": {"eager": 51.3, "graph": 57.0},
+                         "family_GALILEOE1C_K256": {"eager": 28.0, "graph": 33.7},
+                         "track_fused": {"eager": 15.0, "graph": 21.7},
+                         "mesh_2x2_rows_K1024": {"eager": 150.8, "graph": 156.5},
+                         f"mesh_chan2_l5_dual_K{DUAL_K}": {"eager": 105.6, "graph": 117.0}}
+# Phase L's paths whose graph writes its outputs and carry through the loop
+# kernel's sink (no index_copy_), by the loop kernel's mode; the sharded 2 x 2
+# bank gathers its shards inside the block and takes no sink.
+SINK_PATHS = {"rows_K1024_pallas_bank_auto": "loop_update", "track_fused": "loop_update",
+              f"l5_dual_K{DUAL_K}": "loop_update_dual"}
+NO_SINK_PATH = "mesh_2x2_rows_K1024"
 
 
 def flat(tree) -> list:
@@ -2500,8 +2634,9 @@ def busy_share(run, calls=3):
 
 
 def all_counts() -> dict:
-    """Every kernel's launch count, the loop kernel's included."""
-    return dict(read_counts(), loop_update=loop_count())
+    """Every kernel's launch count, the loop kernel's (both modes) included."""
+    return dict(read_counts(), loop_update=loop_count(),
+                loop_update_dual=dual_counter().launches)
 
 
 def counted(run):
@@ -2649,6 +2784,9 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
         check(again_counts == eager_counts,
               f"[L] {name}: second call's launches {again_counts} against eager {eager_counts}")
         bitwise(f"[L] {name} second call", again, want)
+        if name in SINK_PATHS:
+            check(graph_counts[SINK_PATHS[name]] == blocks,
+                  f"[L] {name}: the loop kernel once per block ({graph_counts})")
         for k in launches:
             launches[k] += eager_counts[k] + graph_counts[k] + again_counts[k]
         results[name] = {"launches_per_call": {k: v for k, v in graph_counts.items() if v},
@@ -2691,10 +2829,27 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
                      eager_device_ms_per_block=e_ms / blocks,
                      graph_device_ms_per_block=g_ms / blocks)
         before = OPS_BEFORE_LOOP_KERNEL.get(name, {})
+        fresh = OPS_FRESH_LOOP_KERNEL.get(name, {})
         log(f"[L ops] {name}: device ops per block eager {e_ops / blocks!r}, graph "
-            f"{g_ops / blocks!r} (with the loop closure as torch ops: eager "
+            f"{g_ops / blocks!r} (with the loop kernel writing fresh tensors: eager "
+            f"{fresh.get('eager', 'not recorded')}, graph {fresh.get('graph', 'not recorded')}; "
+            f"with the loop closure as torch ops: eager "
             f"{before.get('eager', 'not recorded')}, graph {before.get('graph', 'not recorded')}); "
             f"device ms per block eager {e_ms / blocks!r}, graph {g_ms / blocks!r} [{card}]")
+    # The replayed block's device ops by name where the loop kernel writes
+    # through the sink, against the sharded bank's graph, which copies its
+    # outputs with index_copy_.
+    for name in (*SINK_PATHS, NO_SINK_PATH):
+        _, g_ms, names = device_profile(paths[name][0], calls=2, by_name=True)
+        copies = sum("index_copy" in op for op in device_op_names(paths[name][0]))
+        results[name].update(graph_ops_by_name=names, graph_index_copies_per_block=copies / blocks)
+        log(f"[L sink] {name} graph, device ops per call by name (count, ms): "
+            + "; ".join(f"{op} {count!r} {ms!r}" for op, (count, ms) in names.items())
+            + f"; index_copy ops per block {copies / blocks!r} [{card}]")
+        if name == NO_SINK_PATH:
+            check(copies > 0, f"[L sink] {name}: the no-sink graph's index_copy_ shows by name")
+        else:
+            check(copies == 0, f"[L sink] {name}: no index_copy_ in the replayed block")
     # The one-card sharded dual bank: a graph per shard (the library's path)
     # against one graph for every shard, in turns.
     for chan in (2, 4):
@@ -2773,9 +2928,25 @@ def device_profile(fn, calls=10, by_name=False):
     for e in ops:
         count, us = names.get(e.name, (0, 0.0))
         names[e.name] = (count + 1, us + e.time_range.elapsed_us())
-    ranked = sorted(names.items(), key=lambda item: -item[1][1])
-    return result + ({name[:80]: (count / calls, us / 1e3 / calls)
-                      for name, (count, us) in ranked},)
+    short: dict = {}
+    for name, (count, us) in names.items():       # names cut to 80 characters, merged
+        c0, u0 = short.get(name[:80], (0, 0.0))
+        short[name[:80]] = (c0 + count, u0 + us)
+    ranked = sorted(short.items(), key=lambda item: -item[1][1])
+    return result + ({name: (count / calls, us / 1e3 / calls) for name, (count, us) in ranked},)
+
+
+def device_op_names(fn) -> list:
+    """The full names of the device ops of one call of ``fn`` (after a
+    warm-up call), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def time_cuda(fn, reps=TIMING_REPS, warmup=3):
@@ -2834,19 +3005,29 @@ def bank_bound(bank, unit="f32", comp=False):
                  out_elems=2 * k * a * taps)
 
 
-def loop_bound(state, accum):
-    """`bound` of a loop kernel call without overlay: every state leaf and
-    the accumulators read once, every new leaf and output written once
-    (15 f32 per channel, the [K, L] window sums, the [K, W] ring buffers,
-    2 int32); its f32 operations, an upper count per channel (wipe and
-    antenna sums, discriminators, filters, NCO, C/N0), are ~50x below."""
+def loop_bound(state, accum, sink: bool, dual: bool = False):
+    """`bound` of a loop kernel call without overlay (``dual``: of its dual
+    mode, ``accum`` the 2K-channel bank's): every state leaf and the
+    accumulators read once; written once: fresh, every new state leaf (12
+    per channel, the [K, L] window sums, the [K, W] ring buffers) and the
+    outputs of their own (prompt, errors, C/N0: 5 per channel; dual: also
+    the pilot's [K, L] accumulators and 2 data prompts); under a sink, the
+    state's 12 leaves per channel, the window sums and the one ring slot it
+    changes, and every output leaf (9 per channel and the [K, L]
+    accumulators; dual: 11). Its f32 operations, an upper count per channel
+    (wipe and antenna sums, discriminators, filters, NCO, C/N0), are ~50x
+    below."""
     k, taps = state.prn.numel(), accum.shape[-1]
     window = state.cn0.prompts_re.shape[-1]
-    a = accum.numel() // (k * taps)
+    a = accum.numel() // ((2 if dual else 1) * k * taps)
     leaves = [x for x in flat(state) if x is not state.prn]
     flops = k * (8 * window + 10 * a * taps + 80)
-    return bound(flops, "f32", accum, accum, *leaves,
-                 out_elems=k * (15 + 2 * taps + 2 * window + 2))
+    data = 2 if dual else 0
+    if sink:
+        out = 12 + 2 * taps + 2 + 9 + data + 2 * a * taps
+    else:
+        out = 12 + 2 * taps + 2 * window + 5 + data + (2 * a * taps if dual else 0)
+    return bound(flops, "f32", accum, accum, *leaves, out_elems=k * out)
 
 
 def library_matmul(name, rows, samples, cols, card, seed):
@@ -2909,10 +3090,11 @@ def kernel_vs_plain(name, launch, plain, card, per_rep=10, samples=None, graphs=
 
 def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
     """Phase 5: kernels vs their plain versions, and the closed-loop blocks."""
-    from gpuacceleratedtracking_tpu_torch.models import GPSL5
+    from gpuacceleratedtracking_tpu_torch.models import GPSL5, gpsl5
     from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels
     from gpuacceleratedtracking_tpu_torch.tracking import (
         TrackConfig, dual_config, loop_update, track_bank, track_bank_dual)
+    from gpuacceleratedtracking_tpu_torch.tracking.dual import dual_update, dual_update_plain
     from gpuacceleratedtracking_tpu_torch.tracking.track import loop_update_plain
 
     results = {}
@@ -2929,9 +3111,8 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
             f"bank_rows K={NUM_K} N={n}", lambda: epl_kernels.launch_bank_rows(prepared), card))
         w = time_cuda(lambda: epl_kernels.correlate_pallas_bank_rows(**case))
         res.update(wrapper_ms=w[0], wrapper_min_ms=w[1])
-        if n == N_1MS:
-            res.update(library_matmul(f"bank_rows K={NUM_K} N={n}", NUM_K, n,
-                                      len(case["sample_shifts"]), card, seed))
+        res.update(library_matmul(f"bank_rows K={NUM_K} N={n}", NUM_K, n,
+                                  len(case["sample_shifts"]), card, seed))
         log(f"[time] bank_rows K={NUM_K} N={n}: wrapper call incl. per-call set-up "
             f"median {w[0]!r} ms (min {w[1]!r}) [{card}]")
         results[f"bank_rows_n{n}"] = res
@@ -3028,16 +3209,49 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
     fs = N_1MS / 1e-3
     # The loop-closure kernel at the rows path's shape (K=1024, A=1, L=3, a
     # 20-slot C/N0 window), eager and as device time from a CUDA graph, both
-    # for it and for its plain version (~120 torch ops, capturable too).
+    # for it and for its plain version (~120 torch ops, capturable too):
+    # under a sink, as the replayed graph runs it (the outputs into a
+    # 64-row stack, the state in place), and fresh, as the eager loop does.
+    # Then the dual mode at the L5 dual bank's K=64 the same two ways.
     config = TrackConfig.for_system(system, fs, N_1MS, algorithm="pallas_bank_auto")
     states = bank_states(system, init_errors=False)
-    acc = torch.randn((NUM_K, 3), generator=torch.Generator(device=DEVICE).manual_seed(seed),
-                      device=DEVICE) * 1000.0
-    res = kernel_vs_plain(f"loop_update K={NUM_K} A=1 L=3",
-                          lambda: loop_update(config, states, acc, acc),
-                          lambda: loop_update_plain(config, states, acc, acc), card, graphs=True)
-    res.update(loop_bound(states, acc))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    acc = torch.randn((NUM_K, 3), generator=gen, device=DEVICE) * 1000.0
+    carry, sink = clone_tree(states), make_sink(loop_update(config, states, acc, acc)[1], 64)
+    res = kernel_vs_plain(f"loop_update K={NUM_K} A=1 L=3, sink",
+                          lambda: loop_update(config, carry, acc, acc, None, sink),
+                          lambda: loop_update_plain(config, carry, acc, acc, None, sink), card,
+                          graphs=True)
+    res.update(loop_bound(states, acc, sink=True))
+    fresh = kernel_vs_plain(f"loop_update K={NUM_K} A=1 L=3, fresh",
+                            lambda: loop_update(config, states, acc, acc),
+                            lambda: loop_update_plain(config, states, acc, acc), card,
+                            graphs=True)
+    fresh.update(loop_bound(states, acc, sink=False))
+    res["fresh"] = fresh
     results["loop_update"] = res
+
+    sys_i = GPSL5()
+    dconfig = dual_config(TrackConfig.for_system(sys_i, fs, N_1MS, algorithm="pallas_bank_auto",
+                                                 use_secondary=False))
+    dstates = dual_states(l5_offsets, L5_DOPPLERS)
+    dacc = torch.randn((2 * DUAL_K, 3), generator=gen, device=DEVICE) * 1000.0
+    tables = tuple(torch.tensor(gpsl5.neuman_hofman(pilot), dtype=torch.float32, device=DEVICE)
+                   for pilot in (False, True))
+    dcarry = clone_tree(dstates)
+    dsink = make_sink(dual_update(dconfig, dstates, dacc, dacc, *tables)[1], 64)
+    res = kernel_vs_plain(f"loop_update dual mode K={DUAL_K} A=1 L=3, sink",
+                          lambda: dual_update(dconfig, dcarry, dacc, dacc, *tables, dsink),
+                          lambda: dual_update_plain(dconfig, dcarry, dacc, dacc, *tables, dsink),
+                          card, graphs=True)
+    res.update(loop_bound(dstates, dacc, sink=True, dual=True))
+    fresh = kernel_vs_plain(f"loop_update dual mode K={DUAL_K} A=1 L=3, fresh",
+                            lambda: dual_update(dconfig, dstates, dacc, dacc, *tables),
+                            lambda: dual_update_plain(dconfig, dstates, dacc, dacc, *tables),
+                            card, graphs=True)
+    fresh.update(loop_bound(dstates, dacc, sink=False, dual=True))
+    res["fresh"] = fresh
+    results["loop_update_dual"] = res
 
     blocks = 10
 
@@ -3118,7 +3332,7 @@ def main(argv=None) -> int:
             **channel_cells()}
     log(f"[phase] kernel cells in {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
-    errs["loop_update"] = loop_cells(args.seed)
+    errs["loop_update"] = errs["loop_update_dual"] = loop_cells(args.seed)
     loop_exact = loop_trajectory(system, args.seed)
     log(f"[phase] 3b, the loop kernel against its plain version, in "
         f"{time.perf_counter() - t0!r} s")
@@ -3185,6 +3399,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     graph_counts, captured = graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card)
     by_path["loop_update"] = dict(LOOP_BY_PATH)
+    by_path["loop_update_dual"] = dict(DUAL_BY_PATH)
     for kernel, count in graph_counts.items():
         by_path[kernel]["L"] = count
     captured["streaming_K256"] = {"graph_steady_block_s": streaming["steady_block_s"],
@@ -3219,9 +3434,12 @@ def main(argv=None) -> int:
          "gpuacceleratedtracking_tpu/ops/pallas_epl.py:90", times[f"taps_{top}"], graph),
         ("fused", "gpuacceleratedtracking_tpu_torch/csrc/fused.cu",
          "gpuacceleratedtracking_tpu/ops/pallas_epl.py:238", times[f"fused_{top}"], graph),
-        # No Pallas kernel: the XLA fusion of the JAX loop_update.
+        # No Pallas kernel: the XLA fusion of the JAX loop_update, and of the
+        # JAX dual body around it (the kernel's dual mode).
         ("loop_update", "gpuacceleratedtracking_tpu_torch/csrc/loop_update.cu",
          "gpuacceleratedtracking_tpu/tracking/track.py:77", times["loop_update"], graph),
+        ("loop_update_dual", "gpuacceleratedtracking_tpu_torch/csrc/loop_update.cu",
+         "gpuacceleratedtracking_tpu/tracking/dual.py:123", times["loop_update_dual"], graph),
     ]
     # Closed-loop blocks of each bank kernel's main path (rows: 20, A: 20,
     # B: 60 sync + 200 tracking, D's one-hot bank: 20); the per-channel
@@ -3229,8 +3447,9 @@ def main(argv=None) -> int:
     per_block = {"bank_rows": (20, "block"), "bank_comp": (20, "block"),
                  "bank_transition": (260, "block"), "bank_onehot": (sre.shape[0], "block"),
                  "taps": (None, "call"), "fused": (None, "call"),
-                 "loop_update": (20, "block")}
+                 "loop_update": (20, "block"), "loop_update_dual": (260, "block")}
     launches["loop_update"] = by_path["loop_update"]["rows"]
+    launches["loop_update_dual"] = by_path["loop_update_dual"]["B"]
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
@@ -3253,6 +3472,13 @@ def main(argv=None) -> int:
             for corner in (f"n{N_1MS}_a1_l3", top)}
     comp_bf16 = times["bank_comp_bf16"]
     kernels["kernels"][6]["exact_trajectory_channels"] = loop_exact
+    # The loop kernel's `ms` is its mode under the replayed graph's sink; the
+    # fresh mode (the eager loop's) beside it.
+    for entry in kernels["kernels"][6:8]:
+        fresh = times[entry["name"]]["fresh"]
+        entry.update(mode="sink", ms_fresh=fresh["kernel_graph_ms"],
+                     eager_ms_fresh=fresh["kernel_ms"], plain_ms_fresh=fresh["plain_graph_ms"],
+                     bound_ms_fresh=fresh["bound_ms"], bound_by_fresh=fresh["bound_by"])
     kernels["kernels"][1].update(ms_bf16=comp_bf16["kernel_graph_ms"],
                                  eager_ms_bf16=comp_bf16["kernel_ms"],
                                  plain_ms_bf16=comp_bf16["plain_ms"],

@@ -4,42 +4,64 @@
 // Replaces no Pallas kernel: it is the counterpart of the XLA fusion of
 // gpuacceleratedtracking_tpu/tracking/track.py::loop_update (:77-240) inside
 // the JAX package's jit + lax.scan, where XLA fuses the closure's elementwise
-// maths over [K] into a few loops per block. The port's plain version,
-// tracking/track.py::loop_update_plain, is ~120 separate torch ops; this
-// kernel computes what they compute, per channel k of the flattened leading
-// axes:
+// maths over [K], the scan's stacked outputs and its carry into a few loops
+// per block; in dual mode also of the GPS L5 dual body around it
+// (gpuacceleratedtracking_tpu/tracking/dual.py:123-148). The port's plain
+// versions, tracking/track.py::loop_update_plain (~120 torch ops) and
+// tracking/dual.py::dual_update_plain, are what this kernel computes, per
+// channel k of the flattened leading axes:
 //
 //   overlay sign from ms_elapsed (Python remainder on int32) -> wiped
-//   accumulators -> steered or plain antenna sum -> coherent-window sums and
-//   the boundary select (coherent_blocks > 1) -> Costas or atan2 PLL, EMLE
-//   DLL, atan or atan2 FLL gated by ms_elapsed >= k_coh -> 1st/2nd/3rd-order
-//   filters, FLL assist on or off -> carrier aiding -> both NCO phase wraps
-//   -> the C/N0 ring-buffer write and the M2M4 estimate.
+//   accumulators (dual: the pilot's, rotated by -90 deg, (p_im, -p_re), and
+//   the data prompt, summed over antennas) -> steered or plain antenna sum ->
+//   coherent-window sums and the boundary select (coherent_blocks > 1) ->
+//   Costas or atan2 PLL, EMLE DLL, atan or atan2 FLL gated by ms_elapsed >=
+//   k_coh -> 1st/2nd/3rd-order filters, FLL assist on or off -> carrier
+//   aiding -> both NCO phase wraps -> the C/N0 ring-buffer write and the M2M4
+//   estimate.
+//
+// Where the results go. Fresh: every leaf into buffers of its own. Under a
+// sink (a scan's [chunk, ...] stacked outputs and the int64 row index, read
+// here on the card): every output leaf into row `row` of its stack, and the
+// new state over the old state's own buffers (the carry, in place). A
+// channel's state is read and written by its own CTA only, and every value
+// is read before it is overwritten (the ring slot and the window sums by the
+// lane that writes them, the scalars by the lane that writes them, the
+// scalars phase 1 reads before the barrier).
 //
 // Rounding: written against the plain version op by op on the card. Every
 // torch op is one explicitly rounded operation (__fmul_rn, __fadd_rn,
 // __fsub_rn, __fdiv_rn, __fsqrt_rn), so nothing is contracted into an FMA.
 // Python-float constants arrive folded on the host as torch rounds them
 // (double -> f32), and a torch division by a Python scalar is a multiply by
-// the f32 reciprocal (torch's CUDA div_true does so), which arrives as such.
+// its reciprocal, taken in double and rounded to f32 (torch's CUDA div_true
+// does so), which arrives as such.
 // Transcendentals are the CUDA functions torch's CUDA kernels call (atanf,
 // atan2f, log10f). remainder is torch's: fmodf, then + b where the signs
-// differ. The two reductions keep the order of torch's CUDA reduction
-// kernel at these shapes: the antenna sum (A values per output, strided:
-// four accumulators a mod 4, combined in order, so left to right for A <= 4)
-// and the C/N0 window means (W contiguous values per output: a warp's lane
-// sums, then its shuffle tree; warp_tree). Where a torch version orders them
-// otherwise, cn0_dbhz (which feeds no state) and, for A > 1, the fields
-// downstream of the antenna sum differ in their last bits.
+// differ. The reductions keep the order of torch's CUDA reduction kernel at
+// these shapes: the beamforming antenna sum (A values per output, strided,
+// not the fastest axis: four accumulators a mod 4, combined in order, so
+// left to right for A <= 4); the dual data prompt's antenna sum (a strided
+// [K, A] view whose reduced axis is its fastest: width = last_pow2(A) lanes,
+// lane j over a = j, j + width, ... into four accumulators taken in turn,
+// then shuffles down by width/2 .. 1); and the C/N0 window means (W
+// contiguous values per output: a warp's lane sums, then its shuffle tree;
+// warp_tree). Where a torch version orders them otherwise, cn0_dbhz (which
+// feeds no state) and the fields downstream of an antenna sum differ in
+// their last bits.
 //
-// What bounds it on the H100: the launch and the closure's chain of
-// dependent scalar ops (three transcendentals, four divisions, ~100 roundings
-// per channel). At K=1024, A=1, L=3 and a 20-slot C/N0 window it moves
-// 0.52 MB (state and outputs, the ring buffers most of it), 0.16 us at
-// 3.35 TB/s, and does ~3 * 10^5 flops. A warp per channel, four per CTA:
-// the lanes take the ring buffer's slots (coalesced, and the window means in
-// torch's own order), every lane runs the scalar chain (no divergence) and
-// lane 0 writes the per-channel leaves.
+// What bounds it on the H100: the launch and the chain of dependent scalar
+// ops per channel (three transcendentals, four divisions, ~100 roundings).
+// At K=1024, A=1, L=3 and a 20-slot C/N0 window it moves ~0.5 MB (the ring
+// buffers most of it), ~0.15 us at 3.35 TB/s. The design cuts the work
+// around the chain and runs it once per channel: a CTA takes kTile
+// channels, a warp each. Phase 1 (every warp): the wipe, the antenna sum and
+// the window sums of its channel, a lane per tap; the ring-slot write and
+// the C/N0 window moments, a lane per slot, in warp_tree's order; into
+// shared memory. Phase 2: warp 0 runs the loop chain, a lane per channel
+// (its scalars loaded before phase 1, so their latency overlaps it), while
+// warp 1 runs the C/N0 tail (square root, division, log10) beside it; each
+// writes the CTA's kTile channels of a [K] leaf in one store instruction.
 
 #include <cuda_runtime.h>
 
@@ -47,42 +69,63 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kLanes = 32;                       // a warp per channel
-constexpr int kChannels = kThreads / kLanes;     // channels per CTA
+constexpr int kLanes = 32;
+constexpr unsigned kFull = 0xffffffffu;
+// Channels per CTA, a warp each in phase 1. Measured on the H100 at K=1024
+// A=1 L=3 (device time per launch in a CUDA graph, fresh / sink): 8 channels
+// 3.8 / 4.2 us, 16 channels 4.1 / 4.3 us, 32 channels 4.5 / 4.9 us.
+constexpr int kTile = 8;
+constexpr int kThreads = kTile * kLanes;
 
-// Pointers, in the order of ops/loop_kernel.py::_INPUTS.
+// Pointers the kernel reads only, in the order of ops/loop_kernel.py::_INPUTS.
 struct Inputs {
-  const float* acc_re;          // [K, A, L]
+  const float* acc_re;          // [K, A, L]; dual: [2K, A, L], the data channels first
   const float* acc_im;
   const float* w_re;            // [K or 1, A] steering weights, or null
   const float* w_im;
-  const float* overlay;         // [S] overlay signs, or null
-  const float* carrier_doppler; // [K]
-  const float* carrier_phase;
-  const float* code_doppler;
-  const float* code_phase;
-  const float* pll_x1;
-  const float* pll_x2;
-  const float* dll_x1;
-  const float* dll_x2;
-  const float* cn0_re;          // [K, W]
-  const float* cn0_im;
-  const int* cn0_index;         // [K]
-  const int* ms_elapsed;        // [K]
-  const float* prev_re;         // [K]
-  const float* prev_im;
-  const float* coh_re;          // [K, L]
-  const float* coh_im;
+  const float* overlay;         // [S] overlay signs (dual: the pilot's), or null
+  const float* data_overlay;    // [Sd] dual: the data component's overlay signs, else null
+  const long long* row;         // the sink's row, an int64 on the card, or null (row 0)
 };
 
-// The output buffers, in the order of ops/loop_kernel.py::_OUTPUTS.
+// The TrackState leaves but prn, in the order of ops/loop_kernel.py::_STATE:
+// the old state (read) and the new one (written; the same buffers in place).
+struct State {
+  float* carrier_doppler;       // [K]
+  float* carrier_phase;
+  float* code_doppler;
+  float* code_phase;
+  float* pll_x1;
+  float* pll_x2;
+  float* dll_x1;
+  float* dll_x2;
+  float* cn0_re;                // [K, W] the C/N0 ring buffers
+  float* cn0_im;
+  int* cn0_index;               // [K]
+  int* ms_elapsed;
+  float* prev_re;
+  float* prev_im;
+  float* coh_re;                // [K, L] the coherent-window sums
+  float* coh_im;
+};
+
+// The output leaves, TrackOutput's then DualTrackOutput's data prompts, in
+// the order of ops/loop_kernel.py::_OUTPUTS; under a sink each points at its
+// [chunk, ...] stack and the kernel writes row `row`. Null: not written.
 struct Outputs {
-  float* channel;               // [15, K]: the per-channel leaves (ops/loop_kernel.py::_PER_CHANNEL)
-  float* coh;                   // [2, K, L]: the window sums, re and im
-  float* cn0;                   // [2, K, W]: the C/N0 ring buffers, re and im
-  float* acc;                   // [2, K, A, L]: the wiped accumulators, or null (no overlay)
-  int* ints;                    // [2, K]: the C/N0 prompt count and ms_elapsed
+  float* accum_re;              // [K, A, L]
+  float* accum_im;
+  float* prompt_re;             // [K]
+  float* prompt_im;
+  float* carrier_doppler;
+  float* code_doppler;
+  float* carrier_phase;
+  float* code_phase;
+  float* pll_error;
+  float* dll_error;
+  float* cn0_dbhz;
+  float* data_re;
+  float* data_im;
 };
 
 // The f32 constants, in the order of ops/loop_kernel.py::_CONSTANTS.
@@ -130,6 +173,10 @@ struct Ints {
   int pll_fll;          // 1: FLL-assisted PLL
   int atan2_disc;       // 1: atan2 PLL and FLL, 0: Costas PLL and atan FLL
   int steered;          // 1: weights given (with an antenna axis)
+  int antenna_axis;     // 1: the accumulators have an antenna axis
+  int dual;             // 1: GPS L5 dual mode
+  int data_overlay_len;
+  int chunk;            // rows of the sink's stacks (0: no sink)
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -169,9 +216,20 @@ __device__ __forceinline__ int plus_one(int a) {
 // 16, 8, 4, 2, 1. Every lane gets lane 0's total.
 __device__ __forceinline__ float warp_tree(float sum) {
   for (int offset = kLanes / 2; offset > 0; offset >>= 1) {
-    sum = add(sum, __shfl_down_sync(0xffffffffu, sum, offset));
+    sum = add(sum, __shfl_down_sync(kFull, sum, offset));
   }
-  return __shfl_sync(0xffffffffu, sum, 0);
+  return __shfl_sync(kFull, sum, 0);
+}
+
+// An overlay sign, the table's entry at ms mod S, for a warp. A table of up
+// to 32 signs is read a lane per sign, a load that does not wait for ms, and
+// a shuffle picks the sign; a longer one is read at its index.
+__device__ __forceinline__ float overlay_sign(const float* table, int len, int ms, int lane) {
+  if (len <= kLanes) {
+    const float mine = lane < len ? table[lane] : 0.0f;
+    return __shfl_sync(kFull, mine, remainder(ms, len));
+  }
+  return table[remainder(ms, len)];
 }
 
 __device__ __forceinline__ float combine4(const float* acc) {
@@ -202,245 +260,358 @@ __device__ __forceinline__ float filter_step(const Filter& f, int order, bool fl
   return add(mul(add(x1o, n1), 0.5f), mul(err, f.g_out));
 }
 
-__global__ void __launch_bounds__(kThreads)
-loop_update_kernel(const Inputs in, const Outputs out, const Constants c, const Ints n) {
-  const int lane = threadIdx.x % kLanes;
-  const int k = blockIdx.x * kChannels + threadIdx.x / kLanes;
-  const int K = n.num_k;
-  if (k >= K) return;   // the whole warp: k is the warp's
-  const int A = n.num_ants, L = n.num_taps, W = n.window, AL = A * L;
-
-  float* o_carrier_doppler = out.channel;
-  float* o_carrier_phase = out.channel + K;
-  float* o_code_doppler = out.channel + 2 * K;
-  float* o_code_phase = out.channel + 3 * K;
-  float* o_pll_x1 = out.channel + 4 * K;
-  float* o_pll_x2 = out.channel + 5 * K;
-  float* o_dll_x1 = out.channel + 6 * K;
-  float* o_dll_x2 = out.channel + 7 * K;
-  float* o_prev_re = out.channel + 8 * K;
-  float* o_prev_im = out.channel + 9 * K;
-  float* o_prompt_re = out.channel + 10 * K;
-  float* o_prompt_im = out.channel + 11 * K;
-  float* o_pll_error = out.channel + 12 * K;
-  float* o_dll_error = out.channel + 13 * K;
-  float* o_cn0_dbhz = out.channel + 14 * K;
-  float* o_coh_re = out.coh;
-  float* o_coh_im = out.coh + K * L;
-  float* o_cn0_re = out.cn0;
-  float* o_cn0_im = out.cn0 + K * W;
-  float* o_acc_re = out.acc;
-  float* o_acc_im = out.acc + K * AL;
-  int* o_cn0_index = out.ints;
-  int* o_ms_elapsed = out.ints + K;
-
-  const int ms = in.ms_elapsed[k];
-  const float* are = in.acc_re + static_cast<size_t>(k) * AL;
-  const float* aim = in.acc_im + static_cast<size_t>(k) * AL;
-  const float* wre = n.steered ? in.w_re + static_cast<size_t>(k) * n.w_stride : nullptr;
-  const float* wim = n.steered ? in.w_im + static_cast<size_t>(k) * n.w_stride : nullptr;
+// Phase 1 for channel k, by its warp: the wipe, the antenna sum and the
+// window sums (lane l: tap l), the data prompt (dual), the ring-slot write
+// and the window moments (lane w: slots w, w + 32, ...). Writes the window
+// sums, the ring slot and the accumulators it outputs; hands the windowed
+// prompt, early and late, the moments and the data prompt to phase 2 through
+// shared memory (column col).
+__device__ __forceinline__ void channel_sums(const Inputs& in, const State& old, const State& neu,
+                                             const Outputs& out, const Constants& c,
+                                             const Ints& n, int k, int col, int lane,
+                                             long long acc_row, float (*win)[kTile],
+                                             float (*mom)[kTile], float (*data)[kTile]) {
+  const int K = n.num_k, A = n.num_ants, L = n.num_taps, W = n.window, AL = A * L;
+  const int ms = old.ms_elapsed[k];
+  const int index = old.cn0_index[k];
   const bool wipe = n.overlay_len > 0;
-  const float sign = wipe ? in.overlay[remainder(ms, n.overlay_len)] : 1.0f;
+  const float sign = wipe ? overlay_sign(in.overlay, n.overlay_len, ms, lane) : 1.0f;
+  const bool windowed = n.k_coh > 1;
+  const bool boundary = windowed && remainder(plus_one(ms), n.k_coh) == 0;
+  // The loop's accumulators: the channel's, or (dual) its pilot's.
+  const long long base = static_cast<long long>(n.dual ? K + k : k) * AL;
+  const long long own = static_cast<long long>(k) * AL;
 
-  const int k_coh = n.k_coh;
-  const bool windowed = k_coh > 1;
-  const bool boundary = windowed && remainder(plus_one(ms), k_coh) == 0;
-
-  // Per tap: wipe, antenna sum, coherent window. Keep the prompt (per block
-  // and windowed) and the windowed early (last tap) and late (first tap).
-  float bp_re = 0.0f, bp_im = 0.0f;      // per-block beamformed prompt (C/N0)
-  float p_re = 0.0f, p_im = 0.0f;        // windowed prompt
-  float e_re = 0.0f, e_im = 0.0f, l_re = 0.0f, l_im = 0.0f;
-  for (int l = 0; l < L; ++l) {
+  float b_re = 0.0f, b_im = 0.0f, v_re = 0.0f, v_im = 0.0f;
+  if (lane < L) {
+    const int l = lane;
+    const float* wre = n.steered ? in.w_re + static_cast<long long>(k) * n.w_stride : nullptr;
+    const float* wim = n.steered ? in.w_im + static_cast<long long>(k) * n.w_stride : nullptr;
     // torch's sum over the antenna axis: four accumulators (a mod 4) from 0,
-    // combined in order.
+    // combined in order (the loop unrolled by four keeps them in registers).
     float sr[4] = {0.0f, 0.0f, 0.0f, 0.0f}, si[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float b_re = 0.0f, b_im = 0.0f;
-    for (int a = 0; a < A; ++a) {
-      float xr = are[a * L + l], xi = aim[a * L + l];
-      if (wipe) {
-        xr = mul(xr, sign);
-        xi = mul(xi, sign);
-        if ((a * L + l) % kLanes == lane) {
-          o_acc_re[static_cast<size_t>(k) * AL + a * L + l] = xr;
-          o_acc_im[static_cast<size_t>(k) * AL + a * L + l] = xi;
+    for (int a0 = 0; a0 < A; a0 += 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int a = a0 + j;
+        if (a >= A) break;
+        float xr = in.acc_re[base + a * L + l], xi = in.acc_im[base + a * L + l];
+        if (wipe) {
+          xr = mul(xr, sign);
+          xi = mul(xi, sign);
         }
+        if (n.dual) {        // the pilot in quadrature: rotate by -90 deg
+          const float r = xr;
+          xr = xi;
+          xi = -r;
+        }
+        if (out.accum_re != nullptr) {
+          out.accum_re[acc_row + own + a * L + l] = xr;
+          out.accum_im[acc_row + own + a * L + l] = xi;
+        }
+        if (A == 1 && !n.steered) {
+          b_re = xr;
+          b_im = xi;
+          continue;
+        }
+        float yr = xr, yi = xi;
+        if (n.steered) {
+          yr = add(mul(wre[a], xr), mul(wim[a], xi));
+          yi = sub(mul(wre[a], xi), mul(wim[a], xr));
+        }
+        sr[j] = add(sr[j], yr);
+        si[j] = add(si[j], yi);
       }
-      if (A == 1 && !n.steered) {
-        b_re = xr;
-        b_im = xi;
-        continue;
-      }
-      float yr = xr, yi = xi;
-      if (n.steered) {
-        yr = add(mul(wre[a], xr), mul(wim[a], xi));
-        yi = sub(mul(wre[a], xi), mul(wim[a], xr));
-      }
-      sr[a & 3] = add(sr[a & 3], yr);
-      si[a & 3] = add(si[a & 3], yi);
     }
     if (A > 1 || n.steered) {
-      b_re = add(add(add(sr[0], sr[1]), sr[2]), sr[3]);
-      b_im = add(add(add(si[0], si[1]), si[2]), si[3]);
+      b_re = combine4(sr);
+      b_im = combine4(si);
     }
-    float v_re = b_re, v_im = b_im;
+    v_re = b_re;
+    v_im = b_im;
+    const long long at = static_cast<long long>(k) * L + l;
     if (windowed) {
-      v_re = add(in.coh_re[static_cast<size_t>(k) * L + l], b_re);
-      v_im = add(in.coh_im[static_cast<size_t>(k) * L + l], b_im);
+      v_re = add(old.coh_re[at], b_re);
+      v_im = add(old.coh_im[at], b_im);
     }
-    if (l % kLanes == lane) {
-      o_coh_re[static_cast<size_t>(k) * L + l] = (windowed && !boundary) ? v_re : 0.0f;
-      o_coh_im[static_cast<size_t>(k) * L + l] = (windowed && !boundary) ? v_im : 0.0f;
-    }
-    if (l == n.prompt) {
-      bp_re = b_re;
-      bp_im = b_im;
-      p_re = v_re;
-      p_im = v_im;
-    }
-    if (l == 0) {
-      l_re = v_re;
-      l_im = v_im;
-    }
-    if (l == L - 1) {
-      e_re = v_re;
-      e_im = v_im;
-    }
+    neu.coh_re[at] = (windowed && !boundary) ? v_re : 0.0f;
+    neu.coh_im[at] = (windowed && !boundary) ? v_im : 0.0f;
   }
+  // The per-block beamformed prompt (C/N0), the windowed prompt, early (the
+  // last tap) and late (the first).
+  const float bp_re = __shfl_sync(kFull, b_re, n.prompt);
+  const float bp_im = __shfl_sync(kFull, b_im, n.prompt);
+  const float p_re = __shfl_sync(kFull, v_re, n.prompt);
+  const float p_im = __shfl_sync(kFull, v_im, n.prompt);
+  const float e_re = __shfl_sync(kFull, v_re, L - 1);
+  const float e_im = __shfl_sync(kFull, v_im, L - 1);
+  const float l_re = __shfl_sync(kFull, v_re, 0);
+  const float l_im = __shfl_sync(kFull, v_im, 0);
 
-  // Discriminators.
-  float pll_err;
-  if (n.atan2_disc) {
-    pll_err = mul(atan2f(p_im, p_re), c.inv_two_pi);
-  } else {
-    const float safe = p_re == 0.0f ? c.eps : p_re;
-    pll_err = mul(atanf(divide(p_im, safe)), c.inv_two_pi);
-  }
-  const float e_env = __fsqrt_rn(add(mul(e_re, e_re), mul(e_im, e_im)));
-  const float l_env = __fsqrt_rn(add(mul(l_re, l_re), mul(l_im, l_im)));
-  float dll_err = mul(mul(divide(sub(e_env, l_env), clamp_min(add(e_env, l_env), c.eps)),
-                          c.two_minus_d), c.inv_two);
-  float fll_err = 0.0f;
-  if (n.pll_fll) {
-    const float q_re = in.prev_re[k], q_im = in.prev_im[k];
-    const float cross = sub(mul(q_re, p_im), mul(q_im, p_re));
-    const float dot = add(mul(q_re, p_re), mul(q_im, p_im));
-    if (n.atan2_disc) {
-      fll_err = mul(atan2f(cross, dot), c.inv_fll);
+  if (n.dual) {
+    // The data prompt, overlay-wiped; over an antenna axis, torch's sum of
+    // the strided [K, A] prompt view (its reduced axis the fastest).
+    const float sd = overlay_sign(in.data_overlay, n.data_overlay_len, ms, lane);
+    const long long at = own + n.prompt;
+    float d_re, d_im;
+    if (!n.antenna_axis) {
+      d_re = mul(in.acc_re[at], sd);
+      d_im = mul(in.acc_im[at], sd);
     } else {
-      const float safe = fabsf(dot) < c.eps ? c.eps : dot;
-      fll_err = mul(atanf(divide(cross, safe)), c.inv_fll);
+      int width = 1;
+      while (width * 2 <= A && width < kLanes) width *= 2;
+      float dr[4] = {0.0f, 0.0f, 0.0f, 0.0f}, di[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (lane < width) {
+        for (int a0 = lane; a0 < A; a0 += 4 * width) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int a = a0 + j * width;
+            if (a >= A) break;
+            dr[j] = add(dr[j], mul(in.acc_re[at + a * L], sd));
+            di[j] = add(di[j], mul(in.acc_im[at + a * L], sd));
+          }
+        }
+      }
+      d_re = combine4(dr);
+      d_im = combine4(di);
+      for (int offset = width / 2; offset > 0; offset >>= 1) {
+        d_re = add(d_re, __shfl_down_sync(kFull, d_re, offset));
+        d_im = add(d_im, __shfl_down_sync(kFull, d_im, offset));
+      }
     }
-    if (!(ms >= k_coh)) fll_err = 0.0f;
+    if (lane == 0) {
+      data[0][col] = d_re;
+      data[1][col] = d_im;
+    }
   }
 
-  // Filters and carrier aiding.
-  float px1 = in.pll_x1[k], px2 = in.pll_x2[k];
-  float dx1 = in.dll_x1[k], dx2 = in.dll_x2[k];
-  const float doppler_cmd = filter_step(c.pll, n.pll_order, n.pll_fll != 0, pll_err, fll_err,
-                                        c.t_coh, &px1, &px2);
-  const float code_cmd = filter_step(c.dll, n.dll_order, false, dll_err, 0.0f, c.t_coh,
-                                     &dx1, &dx2);
-  float carrier_doppler = doppler_cmd;
-  float code_doppler = add(code_cmd, mul(mul(doppler_cmd, c.aid_scale), c.inv_center));
-  float prev_re = p_re, prev_im = p_im;
-  if (windowed && !boundary) {
-    px1 = in.pll_x1[k];
-    px2 = in.pll_x2[k];
-    dx1 = in.dll_x1[k];
-    dx2 = in.dll_x2[k];
-    carrier_doppler = in.carrier_doppler[k];
-    code_doppler = in.code_doppler[k];
-    prev_re = in.prev_re[k];
-    prev_im = in.prev_im[k];
-    pll_err = 0.0f;
-    dll_err = 0.0f;
-  }
-
-  // NCO phases over the block just consumed, from the old Dopplers.
-  const float carrier_freq = add(in.carrier_doppler[k], c.intermediate_frequency);
-  const float code_freq = add(in.code_doppler[k], c.code_frequency);
-  const float carrier_phase = remainder(
-      add(in.carrier_phase[k], mul(mul(carrier_freq, c.two_pi), c.t)), c.two_pi);
-  const float code_phase = remainder(
-      add(in.code_phase[k], mul(code_freq, c.t)), c.code_length);
-
-  // C/N0: the per-block prompt into its ring-buffer slot, then M2M4 over the
-  // window, the warp's lanes over its slots as torch's row reduction takes
-  // them (warp_tree): the j-th slot of a lane into accumulator j mod 4.
-  const int index = in.cn0_index[k];
+  // C/N0: the per-block prompt into its ring-buffer slot (in place: only the
+  // slot changes), then M2M4 over the window, the lanes over its slots as
+  // torch's row reduction takes them (warp_tree): the j-th slot of a lane
+  // into accumulator j mod 4.
   const int slot = remainder(index, W);
-  const float* cre = in.cn0_re + static_cast<size_t>(k) * W;
-  const float* cim = in.cn0_im + static_cast<size_t>(k) * W;
-  float* ore = o_cn0_re + static_cast<size_t>(k) * W;
-  float* oim = o_cn0_im + static_cast<size_t>(k) * W;
+  const bool ring_in_place = neu.cn0_re == old.cn0_re;
+  const long long row0 = static_cast<long long>(k) * W;
   float acc2[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int w = lane, j = 0; w < W; w += kLanes, j = (j + 1) & 3) {
-    const float vr = w == slot ? bp_re : cre[w];
-    const float vi = w == slot ? bp_im : cim[w];
-    ore[w] = vr;
-    oim[w] = vi;
-    const float p2 = add(mul(vr, vr), mul(vi, vi));
-    acc2[j] = add(acc2[j], p2);
-    acc4[j] = add(acc4[j], mul(p2, p2));
+  for (int w0 = lane; w0 < W; w0 += 4 * kLanes) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int w = w0 + j * kLanes;
+      if (w >= W) break;
+      // Every slot is read (the load need not wait for the index), the
+      // prompt's slot replaced.
+      const float cr = old.cn0_re[row0 + w], ci = old.cn0_im[row0 + w];
+      const bool here = w == slot;
+      const float vr = here ? bp_re : cr;
+      const float vi = here ? bp_im : ci;
+      if (here || !ring_in_place) {
+        neu.cn0_re[row0 + w] = vr;
+        neu.cn0_im[row0 + w] = vi;
+      }
+      const float p2 = add(mul(vr, vr), mul(vi, vi));
+      acc2[j] = add(acc2[j], p2);
+      acc4[j] = add(acc4[j], mul(p2, p2));
+    }
   }
   const float m2 = mul(warp_tree(combine4(acc2)), c.mean);
   const float m4 = mul(warp_tree(combine4(acc4)), c.mean);
-  const float pd = __fsqrt_rn(clamp_min(sub(mul(mul(m2, m2), 2.0f), m4), c.cn0_floor));
-  const float pn = clamp_min(sub(m2, pd), c.cn0_floor);
-  const float cn0 = divide(pd, mul(pn, c.t));
-  const float cn0_dbhz = mul(log10f(clamp_min(cn0, c.cn0_floor)), c.ten);
+  if (lane == 0) {
+    win[0][col] = p_re;
+    win[1][col] = p_im;
+    win[2][col] = e_re;
+    win[3][col] = e_im;
+    win[4][col] = l_re;
+    win[5][col] = l_im;
+    mom[0][col] = m2;
+    mom[1][col] = m4;
+  }
+}
 
-  if (lane != 0) return;
-  o_carrier_doppler[k] = carrier_doppler;
-  o_carrier_phase[k] = carrier_phase;
-  o_code_doppler[k] = code_doppler;
-  o_code_phase[k] = code_phase;
-  o_pll_x1[k] = px1;
-  o_pll_x2[k] = px2;
-  o_dll_x1[k] = dx1;
-  o_dll_x2[k] = dx2;
-  o_prev_re[k] = prev_re;
-  o_prev_im[k] = prev_im;
-  o_prompt_re[k] = p_re;
-  o_prompt_im[k] = p_im;
-  o_pll_error[k] = pll_err;
-  o_dll_error[k] = dll_err;
-  o_cn0_dbhz[k] = cn0_dbhz;
-  o_cn0_index[k] = plus_one(index);
-  o_ms_elapsed[k] = plus_one(ms);
+__global__ void __launch_bounds__(kThreads)
+loop_update_kernel(const Inputs in, const State old, const State neu, const Outputs out,
+                   const Constants c, const Ints n) {
+  __shared__ float win[6][kTile];   // windowed prompt, early, late (re, im)
+  __shared__ float mom[2][kTile];   // the C/N0 window moments M2, M4
+  __shared__ float data[2][kTile];  // dual: the data prompt
+
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int K = n.num_k;
+  const int k0 = blockIdx.x * kTile;
+  long long row = 0;
+  if (in.row != nullptr) {
+    row = *in.row;
+    if (row < 0 || row >= n.chunk) __trap();
+  }
+  const long long leaf_row = row * K;                                  // a [chunk, K] stack
+  const long long acc_row = row * K * n.num_ants * n.num_taps;         // [chunk, K, A, L]
+
+  // Warp 0 runs channel k0 + lane's chain in phase 2: its scalars are read
+  // now, so the loads overlap phase 1.
+  const int kc = k0 + lane;
+  const bool chain = warp == 0 && lane < kTile && kc < K;
+  float cd = 0.0f, cp = 0.0f, kd = 0.0f, kp = 0.0f, px1 = 0.0f, px2 = 0.0f, dx1 = 0.0f,
+        dx2 = 0.0f, q_re = 0.0f, q_im = 0.0f;
+  int ms = 0, index = 0;
+  if (chain) {
+    cd = old.carrier_doppler[kc];
+    cp = old.carrier_phase[kc];
+    kd = old.code_doppler[kc];
+    kp = old.code_phase[kc];
+    px1 = old.pll_x1[kc];
+    px2 = old.pll_x2[kc];
+    dx1 = old.dll_x1[kc];
+    dx2 = old.dll_x2[kc];
+    q_re = old.prev_re[kc];
+    q_im = old.prev_im[kc];
+    ms = old.ms_elapsed[kc];
+    index = old.cn0_index[kc];
+  }
+
+  // Phase 1: a warp per channel.
+  if (k0 + warp < K) {
+    channel_sums(in, old, neu, out, c, n, k0 + warp, warp, lane, acc_row, win, mom,
+                        data);
+  }
+  __syncthreads();
+
+  if (chain) {
+    // Phase 2, warp 0: the loop chain, a lane per channel.
+    const int col = lane;
+    const float p_re = win[0][col], p_im = win[1][col];
+    const float e_re = win[2][col], e_im = win[3][col];
+    const float l_re = win[4][col], l_im = win[5][col];
+    const int k_coh = n.k_coh;
+    const bool windowed = k_coh > 1;
+    const bool boundary = windowed && remainder(plus_one(ms), k_coh) == 0;
+
+    float pll_err;
+    if (n.atan2_disc) {
+      pll_err = mul(atan2f(p_im, p_re), c.inv_two_pi);
+    } else {
+      const float safe = p_re == 0.0f ? c.eps : p_re;
+      pll_err = mul(atanf(divide(p_im, safe)), c.inv_two_pi);
+    }
+    const float e_env = __fsqrt_rn(add(mul(e_re, e_re), mul(e_im, e_im)));
+    const float l_env = __fsqrt_rn(add(mul(l_re, l_re), mul(l_im, l_im)));
+    float dll_err = mul(mul(divide(sub(e_env, l_env), clamp_min(add(e_env, l_env), c.eps)),
+                            c.two_minus_d), c.inv_two);
+    float fll_err = 0.0f;
+    if (n.pll_fll) {
+      const float cross = sub(mul(q_re, p_im), mul(q_im, p_re));
+      const float dot = add(mul(q_re, p_re), mul(q_im, p_im));
+      if (n.atan2_disc) {
+        fll_err = mul(atan2f(cross, dot), c.inv_fll);
+      } else {
+        const float safe = fabsf(dot) < c.eps ? c.eps : dot;
+        fll_err = mul(atanf(divide(cross, safe)), c.inv_fll);
+      }
+      if (!(ms >= k_coh)) fll_err = 0.0f;
+    }
+
+    // Filters and carrier aiding; inside a coherent window the old state holds.
+    float n_px1 = px1, n_px2 = px2, n_dx1 = dx1, n_dx2 = dx2;
+    const float doppler_cmd = filter_step(c.pll, n.pll_order, n.pll_fll != 0, pll_err, fll_err,
+                                          c.t_coh, &n_px1, &n_px2);
+    const float code_cmd = filter_step(c.dll, n.dll_order, false, dll_err, 0.0f, c.t_coh,
+                                       &n_dx1, &n_dx2);
+    float carrier_doppler = doppler_cmd;
+    float code_doppler = add(code_cmd, mul(mul(doppler_cmd, c.aid_scale), c.inv_center));
+    float prev_re = p_re, prev_im = p_im;
+    if (windowed && !boundary) {
+      n_px1 = px1;
+      n_px2 = px2;
+      n_dx1 = dx1;
+      n_dx2 = dx2;
+      carrier_doppler = cd;
+      code_doppler = kd;
+      prev_re = q_re;
+      prev_im = q_im;
+      pll_err = 0.0f;
+      dll_err = 0.0f;
+    }
+
+    // NCO phases over the block just consumed, from the old Dopplers.
+    const float carrier_freq = add(cd, c.intermediate_frequency);
+    const float code_freq = add(kd, c.code_frequency);
+    const float carrier_phase = remainder(add(cp, mul(mul(carrier_freq, c.two_pi), c.t)),
+                                          c.two_pi);
+    const float code_phase = remainder(add(kp, mul(code_freq, c.t)), c.code_length);
+
+    neu.carrier_doppler[kc] = carrier_doppler;
+    neu.carrier_phase[kc] = carrier_phase;
+    neu.code_doppler[kc] = code_doppler;
+    neu.code_phase[kc] = code_phase;
+    neu.pll_x1[kc] = n_px1;
+    neu.pll_x2[kc] = n_px2;
+    neu.dll_x1[kc] = n_dx1;
+    neu.dll_x2[kc] = n_dx2;
+    neu.prev_re[kc] = prev_re;
+    neu.prev_im[kc] = prev_im;
+    neu.cn0_index[kc] = plus_one(index);
+    neu.ms_elapsed[kc] = plus_one(ms);
+    const long long at = leaf_row + kc;
+    out.prompt_re[at] = p_re;
+    out.prompt_im[at] = p_im;
+    out.pll_error[at] = pll_err;
+    out.dll_error[at] = dll_err;
+    if (out.carrier_doppler != nullptr) {
+      out.carrier_doppler[at] = carrier_doppler;
+      out.code_doppler[at] = code_doppler;
+      out.carrier_phase[at] = carrier_phase;
+      out.code_phase[at] = code_phase;
+    }
+  } else if (warp == 1 && lane < kTile && kc < K) {
+    // Phase 2, warp 1, beside the chain: the C/N0 tail and the data prompt.
+    const int col = lane;
+    const float m2 = mom[0][col], m4 = mom[1][col];
+    const float pd = __fsqrt_rn(clamp_min(sub(mul(mul(m2, m2), 2.0f), m4), c.cn0_floor));
+    const float pn = clamp_min(sub(m2, pd), c.cn0_floor);
+    const float cn0 = divide(pd, mul(pn, c.t));
+    const long long at = leaf_row + kc;
+    out.cn0_dbhz[at] = mul(log10f(clamp_min(cn0, c.cn0_floor)), c.ten);
+    if (n.dual) {
+      out.data_re[at] = data[0][col];
+      out.data_im[at] = data[1][col];
+    }
+  }
 }
 
 }  // namespace
 
-// Launch the loop closure on `stream`. `inputs` and `outputs`: host arrays
-// of the Inputs and Outputs pointers in order; `constants` and `ints`: host
-// arrays of the Constants and Ints fields in order. All four are copied into
-// the launch's parameters. Returns the CUDA error of the launch, or
-// cudaErrorInvalidValue where an array's count does not match its struct.
-extern "C" int loop_update_launch(const void* const* inputs, int num_inputs,
-                                  const void* const* outputs, int num_outputs,
+// Launch the loop closure on `stream`. `pointers`: a host array of the
+// Inputs, the old State, the new State and the Outputs pointers, in order;
+// `constants` and `ints`: host arrays of the Constants and Ints fields in
+// order. All are copied into the launch's parameters. Returns the CUDA error
+// of the launch, or cudaErrorInvalidValue where a count does not match its
+// structs or a parameter is outside what the kernel takes.
+extern "C" int loop_update_launch(const void* const* pointers, int num_pointers,
                                   const float* constants, int num_constants, const int* ints,
                                   int num_ints, void* stream) {
-  if (num_inputs * sizeof(void*) != sizeof(Inputs) ||
-      num_outputs * sizeof(void*) != sizeof(Outputs) ||
+  constexpr size_t kPointerBytes = sizeof(Inputs) + 2 * sizeof(State) + sizeof(Outputs);
+  if (num_pointers * sizeof(void*) != kPointerBytes ||
       num_constants * sizeof(float) != sizeof(Constants) ||
       num_ints * sizeof(int) != sizeof(Ints)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Inputs in;
+  State old, neu;
   Outputs out;
   Constants c;
   Ints n;
-  std::memcpy(&in, inputs, sizeof(Inputs));
-  std::memcpy(&out, outputs, sizeof(Outputs));
+  const char* at = reinterpret_cast<const char*>(pointers);
+  std::memcpy(&in, at, sizeof(Inputs));
+  std::memcpy(&old, at + sizeof(Inputs), sizeof(State));
+  std::memcpy(&neu, at + sizeof(Inputs) + sizeof(State), sizeof(State));
+  std::memcpy(&out, at + sizeof(Inputs) + 2 * sizeof(State), sizeof(Outputs));
   std::memcpy(&c, constants, sizeof(Constants));
   std::memcpy(&n, ints, sizeof(Ints));
-  if (n.num_k <= 0 || n.num_ants <= 0 || n.num_taps <= 0 || n.window <= 0 || n.k_coh <= 0 ||
-      n.prompt < 0 || n.prompt >= n.num_taps) {
+  if (n.num_k <= 0 || n.num_ants <= 0 || n.num_taps <= 0 || n.num_taps > kLanes ||
+      n.window <= 0 || n.k_coh <= 0 || n.prompt < 0 || n.prompt >= n.num_taps ||
+      (n.dual && n.data_overlay_len <= 0) || (in.row != nullptr && n.chunk <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (n.num_k + kChannels - 1) / kChannels;
-  loop_update_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(in, out, c, n);
+  const int blocks = (n.num_k + kTile - 1) / kTile;
+  loop_update_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(in, old, neu,
+                                                                                  out, c, n);
   return static_cast<int>(cudaGetLastError());
 }

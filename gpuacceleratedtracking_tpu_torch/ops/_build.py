@@ -78,7 +78,7 @@ SIGNATURES = {
     },
     "loop_update": {
         "loop_update_launch": (
-            [_P, _I, _P, _I,                       # inputs outputs (host pointer arrays, counts)
+            [_P, _I,                               # pointers (host array, count)
              _P, _I, _P, _I,                       # constants ints (host arrays, counts)
              _P],                                  # stream
             _I,

@@ -11,23 +11,26 @@ The K dual channels run as one 2K-channel bank: data codes in columns
 ``[0, P)`` and pilot codes in ``[P, 2P)`` of one combined code table, so a
 block is one bank call (one kernel launch on CUDA tensors; the per-channel
 kernels ``pallas_taps`` and ``pallas_fused`` run one channel at a time, 2K
-launches, as in `track_bank`), and the loop closure is one batched
-`loop_update` over ``[K]``. As in `track_bank`, the block body runs through
-`graphs.scan`.
+launches, as in `track_bank`). The rest of the block, the overlay wipes,
+the pilot's rotation, the loop closure over ``[K]`` and the data prompts, is
+`dual_update`: one launch of the loop-closure kernel in dual mode on CUDA
+tensors, its plain torch version `dual_update_plain` on the CPU. As in
+`track_bank`, the block body runs through `graphs.scan`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..models import gpsl5
+from ..ops import loop_kernel
 from . import graphs
 from .state import TrackConfig, TrackOutput, TrackState
-from .track import _bank_code_tile_kwargs, _overlay_table, bank_correlator, loop_update
+from .track import _bank_code_tile_kwargs, _overlay_table, bank_correlator, loop_update_plain
 
 
 class DualTrackOutput(NamedTuple):
@@ -50,16 +53,65 @@ def _overlay(code, default, device) -> torch.Tensor:
     return _overlay_table(tuple(float(s) for s in signs.reshape(-1)), device)
 
 
+def _wipe(x, sc, ms_elapsed):
+    sign = sc[torch.remainder(ms_elapsed, sc.shape[0]).long()]
+    return x * sign.reshape(sign.shape + (1,) * (x.ndim - sign.ndim))
+
+
+def dual_update_plain(config: TrackConfig, states: TrackState, accum_re, accum_im,
+                      data_overlay, pilot_overlay, sink: Optional[graphs.Sink] = None):
+    """The plain PyTorch version of `dual_update`, on any device: the kernel's
+    reference on the card. A ``sink`` takes the results as in `dual_update`,
+    by ``index_copy_`` and ``copy_`` (`graphs.write_sink`)."""
+    num_k = states.prn.shape[0]
+    d_re = _wipe(accum_re[:num_k], data_overlay, states.ms_elapsed)
+    d_im = _wipe(accum_im[:num_k], data_overlay, states.ms_elapsed)
+    p_re = _wipe(accum_re[num_k:], pilot_overlay, states.ms_elapsed)
+    p_im = _wipe(accum_im[num_k:], pilot_overlay, states.ms_elapsed)
+    # The pilot is transmitted in phase quadrature (+90 deg) to the data:
+    # rotate it by -90 deg so zero loop phase error puts the data component
+    # on I (nav symbols = sign of data_prompt_re).
+    new_states, out = loop_update_plain(config, states, p_im, -p_re)
+    # An antenna axis, if any, is summed, as the JAX function does.
+    pidx = config.prompt_index
+    data_re = d_re[..., pidx] if d_re.ndim == 2 else d_re[..., pidx].sum(dim=1)
+    data_im = d_im[..., pidx] if d_im.ndim == 2 else d_im[..., pidx].sum(dim=1)
+    result = DualTrackOutput(out, data_re, data_im)
+    if sink is not None:
+        return graphs.write_sink(sink, states, new_states, result)
+    return new_states, result
+
+
+def dual_update(config: TrackConfig, states: TrackState, accum_re, accum_im, data_overlay,
+                pilot_overlay, sink: Optional[graphs.Sink] = None):
+    """The dual block after the correlator: wipe the data and pilot overlays
+    off the 2K-channel bank's ``[2K, (A,) L]`` accumulators (data channels
+    first), close the loops on the pilot rotated by -90 deg, and sum the data
+    prompts over any antenna axis. Returns the new states and a
+    `DualTrackOutput`. CUDA tensors launch the loop-closure kernel once in
+    dual mode (`ops.loop_kernel.dual_update_kernel`) or raise; CPU tensors
+    run `dual_update_plain`. With a ``sink`` (a `graphs.Sink` of the
+    `DualTrackOutput` leaves) the outputs go into their rows of the sink and
+    the new states over ``states``' own tensors, as in `track.loop_update`.
+    """
+    device = accum_re.device
+    if device.type == "cuda":
+        return loop_kernel.dual_update_kernel(config, states, accum_re, accum_im, data_overlay,
+                                              pilot_overlay, sink)
+    if device.type != "cpu":
+        raise ValueError(f"dual_update runs on CPU or CUDA tensors, not {device}")
+    return dual_update_plain(config, states, accum_re, accum_im, data_overlay, pilot_overlay,
+                             sink)
+
+
 def dual_parts(config: TrackConfig, codes_data, codes_pilot, prn: torch.Tensor,
                device: torch.device, data_secondary=None, pilot_secondary=None):
     """The block body of `track_bank_dual` and its per-call constants for the
     K channels of ``prn``: ``step(states, consts, (signal_re, signal_im))``
-    correlates the 2K-channel bank once, wipes the overlays off, closes the
-    loops on the pilot and returns the data prompts beside the pilot's
-    observables."""
+    correlates the 2K-channel bank once and hands its accumulators to
+    `dual_update` (in a capture, with the entry's `graphs.Sink`)."""
     if config.secondary_code:
         raise ValueError("use dual_config(): overlay wipe-off is per-component here")
-    num_k = prn.shape[0]
     codes = torch.cat([torch.as_tensor(codes_data, device=device),
                        torch.as_tensor(codes_pilot, device=device)], dim=1)
     sd = _overlay(data_secondary, gpsl5.neuman_hofman(False), device)
@@ -67,16 +119,12 @@ def dual_parts(config: TrackConfig, codes_data, codes_pilot, prn: torch.Tensor,
     prn2 = torch.cat([prn, prn + codes_data.shape[1]])
     corr, kwargs = bank_correlator(config)    # per-channel kernels: 2K launches per block
     code_tiles = _bank_code_tile_kwargs(config, codes, prn2).get("code_tiles")
-    pidx = config.prompt_index
 
     def dup(x):
         return torch.cat([x, x])
 
-    def wipe(x, sc, ms_elapsed):
-        sign = sc[torch.remainder(ms_elapsed, sc.shape[0]).long()]
-        return x * sign.reshape(sign.shape + (1,) * (x.ndim - sign.ndim))
-
-    def step(states, consts, block):
+    @graphs.writes_outputs
+    def step(states, consts, block, sink=None):
         codes, prn2, code_tiles, sd, sp = consts
         tiles = {} if code_tiles is None else {"code_tiles": code_tiles}
         are, aim = corr(
@@ -86,18 +134,7 @@ def dual_parts(config: TrackConfig, codes_data, codes_pilot, prn: torch.Tensor,
             dup(config.code_frequency + states.code_doppler), dup(states.code_phase),
             config.sample_shifts, config.code_length, **kwargs, **tiles,
         )
-        d_re = wipe(are[:num_k], sd, states.ms_elapsed)
-        d_im = wipe(aim[:num_k], sd, states.ms_elapsed)
-        p_re = wipe(are[num_k:], sp, states.ms_elapsed)
-        p_im = wipe(aim[num_k:], sp, states.ms_elapsed)
-        # The pilot is transmitted in phase quadrature (+90 deg) to the data:
-        # rotate it by -90 deg so zero loop phase error puts the data
-        # component on I (nav symbols = sign of data_prompt_re).
-        states, out = loop_update(config, states, p_im, -p_re)
-        # An antenna axis, if any, is summed, as the JAX function does.
-        data_re = d_re[..., pidx] if d_re.ndim == 2 else d_re[..., pidx].sum(dim=1)
-        data_im = d_im[..., pidx] if d_im.ndim == 2 else d_im[..., pidx].sum(dim=1)
-        return states, DualTrackOutput(out, data_re, data_im)
+        return dual_update(config, states, are, aim, sd, sp, sink)
 
     return step, (codes, prn2, code_tiles, sd, sp)
 

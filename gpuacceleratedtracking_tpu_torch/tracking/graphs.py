@@ -21,6 +21,15 @@ every buffer its graph reads and writes:
 - ``[chunk, ...]`` stacked outputs, which the body writes at that index
   before it writes the new carry over the old one and adds one to the index.
 
+A body marked with `writes_outputs` takes a fourth argument, a `Sink`: the
+entry's stacked outputs and the index. It may write its outputs' rows and
+the new carry itself (the loop-closure kernel does, where `lax.scan`'s
+stacked outputs and carry are written inside the fused loop body), and it
+returns `WRITTEN` in place of each output leaf it has written and the old
+carry's own tensor for each carry leaf it wrote in place: the entry copies
+the rest. A body without the mark, or any body outside a capture, gets no
+sink and returns tensors.
+
 After each chunk the outputs are copied into fresh ``[B, ...]`` tensors, and
 after the last the carry is cloned: nothing a call returns aliases a graph
 buffer, and the caller's tensors are never written, so results are
@@ -48,7 +57,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import warnings
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -96,14 +105,32 @@ def clear() -> None:
 
 # --- Trees of tensors: tuples, NamedTuples and None, tensors at the leaves.
 
+class _Written:
+    """The place of an output leaf that a body wrote into its `Sink` itself."""
+
+    def __repr__(self) -> str:
+        return "graphs.WRITTEN"
+
+
+WRITTEN = _Written()
+
+
 def _leaves(tree) -> list:
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, torch.Tensor) or tree is WRITTEN:
         return [tree]
     if isinstance(tree, tuple):
         return [leaf for child in tree for leaf in _leaves(child)]
     if tree is None:
         return []
     raise TypeError(f"a scan tree holds tensors, tuples and None, not {type(tree).__name__}")
+
+
+def _tensors(out) -> list:
+    """The leaves of an output a body returned without a sink: tensors only."""
+    leaves = _leaves(out)
+    if any(x is WRITTEN for x in leaves):
+        raise ValueError("a scan body without a sink returned WRITTEN")
+    return leaves
 
 
 class _Leaf:
@@ -152,6 +179,83 @@ def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+# --- The sink: a captured body's own writes of its outputs and carry.
+
+class Sink(NamedTuple):
+    """Where a body writes one block's outputs itself: ``outs``, a
+    ``[chunk, ...]`` buffer per output leaf in the output tree's order, and
+    ``index``, the block's row, an int64 0-d tensor on their device (read
+    on the device, never on the host)."""
+
+    outs: tuple
+    index: torch.Tensor
+
+
+def writes_outputs(step):
+    """Mark ``step`` as a body that takes a `Sink` as a fourth argument
+    (None outside a capture) and may write its outputs and carry itself."""
+    step.takes_sink = True
+    return step
+
+
+def check_sink(sink: Sink, leaves: list, device: torch.device) -> int:
+    """Raise unless ``sink`` takes one block of outputs of the ``(shape,
+    dtype)`` pairs ``leaves`` on ``device``: a contiguous ``[chunk, *shape]``
+    buffer of that dtype on ``device`` per leaf, and an int64 0-d index
+    tensor there. Returns the chunk."""
+    outs, index = sink
+    if not isinstance(index, torch.Tensor):
+        raise TypeError(f"a sink's index is an int64 0-d tensor on {device}, not "
+                        f"{type(index).__name__}")
+    if index.device != device or index.dtype != torch.int64 or index.ndim != 0:
+        raise ValueError(f"a sink's index is an int64 0-d tensor on {device}, not "
+                         f"{index.dtype} {tuple(index.shape)} on {index.device}")
+    if len(outs) != len(leaves):
+        raise ValueError(f"the sink holds {len(outs)} buffers for {len(leaves)} output leaves")
+    chunk = outs[0].shape[0] if isinstance(outs[0], torch.Tensor) and outs[0].ndim else 0
+    for i, (buf, (shape, dtype)) in enumerate(zip(outs, leaves)):
+        want = (chunk,) + tuple(shape)
+        if not isinstance(buf, torch.Tensor) or buf.device != device or buf.dtype != dtype \
+                or tuple(buf.shape) != want or not buf.is_contiguous() or chunk == 0:
+            got = (f"{tuple(buf.shape)} {buf.dtype} on {buf.device}"
+                   if isinstance(buf, torch.Tensor) else type(buf).__name__)
+            raise ValueError(f"sink buffer {i} is {got}, expected a contiguous {want} "
+                             f"{dtype} on {device}")
+    return chunk
+
+
+def write_sink(sink: Sink, carry, new_carry, out):
+    """A body's writes into ``sink``, in plain torch ops: ``out``'s leaves
+    into their rows at ``sink.index``, ``new_carry``'s leaves over
+    ``carry``'s own tensors. Returns ``carry`` (now holding the new values)
+    and ``out`` with every leaf `WRITTEN`."""
+    leaves = _leaves(out)
+    check_sink(sink, [(x.shape, x.dtype) for x in leaves], leaves[0].device)
+    index = sink.index.view(1)
+    for buf, x in zip(sink.outs, leaves):
+        buf.index_copy_(0, index, x.unsqueeze(0))
+    _write_carry(_leaves(carry), _leaves(new_carry))
+    return carry, _rebuild(out, iter([WRITTEN] * len(leaves)))
+
+
+def _write_carry(carry_leaves: list, new_leaves: list) -> None:
+    """Each new carry leaf over its old one, where it is not the old one."""
+    if len(new_leaves) != len(carry_leaves):
+        raise ValueError("the scan body changed the carry's structure")
+    storages = {x.untyped_storage().data_ptr() for x in carry_leaves}
+    # A new leaf that views an old one is copied first: the old one may be
+    # overwritten before it is read.
+    new_leaves = [x.clone() if x is not dst and x.untyped_storage().data_ptr() in storages
+                  else x for x, dst in zip(new_leaves, carry_leaves)]
+    for dst, x in zip(carry_leaves, new_leaves):
+        if x.shape != dst.shape or x.dtype != dst.dtype:
+            raise ValueError(
+                f"the scan body changed a carry leaf from {tuple(dst.shape)} "
+                f"{dst.dtype} to {tuple(x.shape)} {x.dtype}")
+    moved = [(dst, x) for dst, x in zip(carry_leaves, new_leaves) if x is not dst]
+    _copy([dst for dst, _ in moved], [x for _, x in moved])
+
+
 # --- Launch counters.
 
 def _counters() -> tuple:
@@ -160,7 +264,7 @@ def _counters() -> tuple:
     return (epl_kernels.correlate_pallas_bank_rows, epl_kernels.correlate_pallas_bank,
             epl_kernels.correlate_pallas_bank_onehot, bank_comp.correlate_pallas_bank_comp,
             channel_kernels.correlate_pallas_taps, channel_kernels.correlate_pallas_fused,
-            loop_kernel.loop_update_kernel)
+            loop_kernel.dual_update_kernel, loop_kernel.loop_update_kernel)
 
 
 def _counts() -> list:
@@ -185,7 +289,7 @@ def loop(step, carry, xs: tuple, consts=None):
     stacked = out = None
     for b in range(num_blocks):
         carry, out = step(carry, consts, tuple(x[b] for x in xs))
-        leaves = _leaves(out)
+        leaves = _tensors(out)
         if stacked is None:
             stacked = [torch.empty((num_blocks,) + x.shape, dtype=x.dtype, device=x.device)
                        for x in leaves]
@@ -241,7 +345,7 @@ class _Entry:
             side.wait_stream(compute)
         with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
             _, out = step(self.carry, self.consts, self._block())
-            shapes = [(x.shape, x.dtype) for x in _leaves(out)]
+            shapes = [(x.shape, x.dtype) for x in _tensors(out)]
         if side is not None:
             compute.wait_stream(side)
         self.out_tree = _rebuild(out, iter([_Leaf() for _ in shapes]))
@@ -250,28 +354,23 @@ class _Entry:
 
     def _body(self, step):
         carry_leaves = _leaves(self.carry)
-        storages = {x.untyped_storage().data_ptr() for x in carry_leaves}
+        sink = Sink(tuple(self.outs), self.index) if getattr(step, "takes_sink", False) else None
 
         def body():
-            new_carry, out = step(self.carry, self.consts, self._block())
+            new_carry, out = (step(self.carry, self.consts, self._block()) if sink is None
+                              else step(self.carry, self.consts, self._block(), sink))
+            leaves = _leaves(out)
+            if len(leaves) != len(self.outs):
+                raise ValueError(f"the scan body returned {len(leaves)} output leaves, "
+                                 f"its warm-up {len(self.outs)}")
             index = self.index.view(1)
-            for buf, x in zip(self.outs, _leaves(out)):
+            for buf, x in zip(self.outs, leaves):
+                if x is WRITTEN:
+                    if sink is None:
+                        raise ValueError("a scan body without a sink returned WRITTEN")
+                    continue
                 buf.index_copy_(0, index, x.unsqueeze(0))
-            new_leaves = _leaves(new_carry)
-            if len(new_leaves) != len(carry_leaves):
-                raise ValueError("the scan body changed the carry's structure")
-            # A new leaf that views an old one is copied first: the old one
-            # may be overwritten before it is read.
-            new_leaves = [x.clone() if x is not dst
-                          and x.untyped_storage().data_ptr() in storages else x
-                          for x, dst in zip(new_leaves, carry_leaves)]
-            for dst, x in zip(carry_leaves, new_leaves):
-                if x.shape != dst.shape or x.dtype != dst.dtype:
-                    raise ValueError(
-                        f"the scan body changed a carry leaf from {tuple(dst.shape)} "
-                        f"{dst.dtype} to {tuple(x.shape)} {x.dtype}")
-            moved = [(dst, x) for dst, x in zip(carry_leaves, new_leaves) if x is not dst]
-            _copy([dst for dst, _ in moved], [x for _, x in moved])
+            _write_carry(carry_leaves, _leaves(new_carry))
             self.index.add_(1)
 
         return body
@@ -318,8 +417,10 @@ def scan(step, carry, xs: tuple, consts=None, *, key):
     ``step``'s closure captures (the entry point and its static arguments:
     config, correlator, kernel options, tables): the cache tells bodies
     apart by their code and ``key`` alone, so two closures of one function
-    that differ in a value missing from ``key`` would share one graph.
-    Returns the final carry and the outputs stacked ``[B, ...]``.
+    that differ in a value missing from ``key`` would share one graph. A
+    body marked `writes_outputs` gets the entry's `Sink` as a fourth
+    argument in its capture. Returns the final carry and the outputs stacked
+    ``[B, ...]``.
     """
     device = xs[0].device
     if not enabled(device):

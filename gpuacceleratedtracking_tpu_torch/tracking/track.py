@@ -78,11 +78,13 @@ def track_step(
     signal_re: torch.Tensor,
     signal_im: torch.Tensor,
     ant_weights: Optional[tuple] = None,
+    sink: Optional[graphs.Sink] = None,
 ) -> tuple[TrackState, TrackOutput]:
     """Process one integration block for one channel.
 
     ``signal_*``: ``[N]`` or ``[A, N]``; discriminators run on the beamformed
-    accumulators (``ant_weights``: optional ``(w_re, w_im)`` ``[A]``).
+    accumulators (``ant_weights``: optional ``(w_re, w_im)`` ``[A]``);
+    ``sink``: see `loop_update`.
     """
     corr = registry.get(config.algorithm)
     accum_re, accum_im = corr(
@@ -92,7 +94,7 @@ def track_step(
         config.code_frequency + state.code_doppler, state.code_phase,
         config.sample_shifts, config.code_length,
     )
-    return loop_update(config, state, accum_re, accum_im, ant_weights)
+    return loop_update(config, state, accum_re, accum_im, ant_weights, sink)
 
 
 def _beamform(accum_re, accum_im, ant_weights, single_antenna: bool):
@@ -133,6 +135,7 @@ def loop_update(
     accum_re: torch.Tensor,
     accum_im: torch.Tensor,
     ant_weights: Optional[tuple] = None,
+    sink: Optional[graphs.Sink] = None,
 ) -> tuple[TrackState, TrackOutput]:
     """Close the loop on one block's accumulators: discriminate -> filter -> NCO.
 
@@ -141,17 +144,20 @@ def loop_update(
     CUDA tensors launch the loop-closure kernel once
     (`ops.loop_kernel.loop_update_kernel`, ``csrc/loop_update.cu``; the
     weights must then be f32 tensors on the card) or raise; CPU tensors run
-    the plain version, `loop_update_plain`.
+    the plain version, `loop_update_plain`. With a ``sink`` (a
+    `graphs.Sink` of the `TrackOutput` leaves) the outputs go into their
+    rows of the sink and the new state over ``state``'s own tensors, which
+    come back as the new state, with `graphs.WRITTEN` for every output leaf.
     """
     device = accum_re.device
     if device.type == "cuda":
         overlay = (_overlay_table(config.secondary_code, device)
                    if config.secondary_code else None)
         return loop_kernel.loop_update_kernel(config, state, accum_re, accum_im, ant_weights,
-                                              overlay)
+                                              overlay, sink)
     if device.type != "cpu":
         raise ValueError(f"loop_update runs on CPU or CUDA tensors, not {device}")
-    return loop_update_plain(config, state, accum_re, accum_im, ant_weights)
+    return loop_update_plain(config, state, accum_re, accum_im, ant_weights, sink)
 
 
 def loop_update_plain(
@@ -160,9 +166,11 @@ def loop_update_plain(
     accum_re: torch.Tensor,
     accum_im: torch.Tensor,
     ant_weights: Optional[tuple] = None,
+    sink: Optional[graphs.Sink] = None,
 ) -> tuple[TrackState, TrackOutput]:
     """The plain PyTorch version of `loop_update`, on any device: ~120 torch
-    ops, the kernel's reference on the card."""
+    ops, the kernel's reference on the card. A ``sink`` takes the results as
+    in `loop_update`, by ``index_copy_`` and ``copy_`` (`graphs.write_sink`)."""
     device = accum_re.device
     t = config.integration_time
     # Constants rounded to f32 but kept as Python floats: an op with a Python
@@ -282,6 +290,8 @@ def loop_update_plain(
         dll_error=dll_err,
         cn0_dbhz=cn0_dbhz,
     )
+    if sink is not None:
+        return graphs.write_sink(sink, state, new_state, output)
     return new_state, output
 
 
@@ -303,8 +313,9 @@ def track(
     if ant_weights is not None:
         ant_weights = tuple(_as_f32(w, device) for w in ant_weights)
 
-    def step(st, consts, block):
-        return track_step(config, consts[0], st, *block, consts[1])
+    @graphs.writes_outputs
+    def step(st, consts, block, sink=None):
+        return track_step(config, consts[0], st, *block, consts[1], sink)
 
     return graphs.scan(step, state, (signal_re, signal_im),
                        (torch.as_tensor(codes, device=device), ant_weights),
@@ -336,8 +347,9 @@ def bank_step(config: TrackConfig, corr, kwargs: dict):
     """The block body of `track_bank`: ``step(states, (codes, code_tiles,
     ant_weights), (signal_re, signal_im))`` correlates the bank once and
     closes every channel's loop (``code_tiles`` None for an algorithm that
-    takes none)."""
-    def step(states, consts, block):
+    takes none); in a capture, into the entry's `graphs.Sink`."""
+    @graphs.writes_outputs
+    def step(states, consts, block, sink=None):
         codes, code_tiles, ant_weights = consts
         tiles = {} if code_tiles is None else {"code_tiles": code_tiles}
         accum_re, accum_im = corr(
@@ -347,7 +359,7 @@ def bank_step(config: TrackConfig, corr, kwargs: dict):
             config.code_frequency + states.code_doppler, states.code_phase,
             config.sample_shifts, config.code_length, **kwargs, **tiles,
         )
-        return loop_update(config, states, accum_re, accum_im, ant_weights)
+        return loop_update(config, states, accum_re, accum_im, ant_weights, sink)
 
     return step
 

@@ -959,8 +959,9 @@ def test_track_graph_equals_eager_over_chunks(cuda):
     codes = torch.as_tensor(SYSTEM.codes, device=cuda)
     state = init_state(0, carrier_doppler=690.0, device=cuda)
     config = TrackConfig.for_system(SYSTEM, fs, n, algorithm="pallas_fused")
+    # `graphs._counters()`: the five correlators, fused, the dual loop, the loop.
     assert _graph_against_eager(lambda: track(config, codes, state, sre, sim)) == \
-        [0, 0, 0, 0, 0, blocks, blocks]
+        [0, 0, 0, 0, 0, blocks, 0, blocks]
 
 
 @pytest.mark.parametrize("algorithm", ["pallas_bank_auto", "pallas_fused"])
@@ -976,7 +977,80 @@ def test_track_bank_dual_graph_equals_eager(cuda, algorithm):
                         ms_elapsed=np.arange(k) * 3, device=cuda)
     codes_i = torch.as_tensor(sys_i.codes, device=cuda)
     codes_q = torch.as_tensor(sys_q.codes, device=cuda)
-    _graph_against_eager(lambda: track_bank_dual(config, codes_i, codes_q, states, sre, sim))
+    launched = _graph_against_eager(
+        lambda: track_bank_dual(config, codes_i, codes_q, states, sre, sim))
+    assert launched[-2:] == [blocks, 0]        # the dual loop kernel once per block
+
+
+def _device_op_names(run) -> list:
+    """The device ops of one call of ``run`` (after a warm-up call), by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("path", ["track_bank", "track", "track_bank_dual"])
+def test_replayed_blocks_write_their_outputs_without_index_copy(cuda, path, monkeypatch):
+    # The loop kernel writes the block's outputs and carry through the
+    # entry's sink: the captured body issues no index_copy_ (counted on the
+    # host while it is captured), and a replayed call's device ops hold none,
+    # where the same body without the sink holds one per output leaf.
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+    from gpuacceleratedtracking_tpu_torch.tracking.dual import dual_parts
+    from gpuacceleratedtracking_tpu_torch.tracking.track import bank_correlator, bank_step
+
+    blocks = 5
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=blocks)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    if path == "track_bank":
+        step, carry, consts = bank_step(config, *bank_correlator(config)), states, (
+            codes, epl_kernels.prepare_bank_code_tiles_rows(codes, states.prn), None)
+    elif path == "track":
+        config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_fused")
+        carry, consts = init_state(0, carrier_doppler=-900.0, device=cuda), (codes, None)
+
+        def step(st, c, block, sink=None):
+            from gpuacceleratedtracking_tpu_torch.tracking.track import track_step
+            return track_step(config, c[0], st, *block, c[1], sink)
+    else:
+        sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+        sig, fs = gen_signal(sys_i, 2, 700.0, 16384 * blocks, duration=blocks * 1e-3,
+                             secondary_code=sys_i.secondary_code, device=cuda)
+        sre, sim = (x.reshape(blocks, 16384) for x in soa(sig))
+        config = dual_config(TrackConfig.for_system(sys_i, fs, 16384, algorithm="pallas_bank_auto",
+                                                    use_secondary=False))
+        carry = init_state(np.arange(4), carrier_doppler=np.linspace(-600, 700, 4), device=cuda)
+        step, consts = dual_parts(config, torch.as_tensor(sys_i.codes, device=cuda),
+                                  torch.as_tensor(sys_q.codes, device=cuda), carry.prn, cuda)
+    sunk = graphs.writes_outputs(step)
+    plain = lambda st, c, block: step(st, c, block)          # the same body, no sink
+    calls = []
+    index_copy = torch.Tensor.index_copy_
+
+    def counted(self, *args, **kwargs):
+        calls.append(self.shape)
+        return index_copy(self, *args, **kwargs)
+
+    graphs.clear()
+    monkeypatch.setattr(torch.Tensor, "index_copy_", counted)
+    want = graphs.scan(plain, carry, (sre, sim), consts, key=(path, "plain"))
+    leaves = len(calls)
+    got = graphs.scan(sunk, carry, (sre, sim), consts, key=(path, "sink"))
+    assert leaves in (11, 13) and len(calls) == leaves
+    monkeypatch.undo()
+    _assert_bitwise(got, want)
+    sink_ops = _device_op_names(lambda: graphs.scan(sunk, carry, (sre, sim), consts,
+                                                    key=(path, "sink")))
+    plain_ops = _device_op_names(lambda: graphs.scan(plain, carry, (sre, sim), consts,
+                                                     key=(path, "plain")))
+    assert sum("index_copy" in name for name in plain_ops) == leaves * blocks
+    assert not any("index_copy" in name for name in sink_ops)
+    assert len(plain_ops) - len(sink_ops) >= leaves * blocks
 
 
 def test_sharded_banks_graph_equal_eager(cuda):

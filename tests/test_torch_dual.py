@@ -254,3 +254,59 @@ def test_track_bank_dual_on_the_per_channel_kernels_matches_jax(jax_dual_per_cha
     for field in ("data_prompt_re", "data_prompt_im"):
         np.testing.assert_allclose(getattr(got, field).numpy(), np.asarray(getattr(want, field)),
                                    rtol=1e-6, atol=0.05, err_msg=field)
+
+
+def _dual_block_before(config, states, are, aim, sd, sp):
+    """The dual block after the correlator as the port ran it in torch ops
+    before the loop kernel took it over: the overlay wipes, the closure on
+    the pilot rotated by -90 deg, the data prompts."""
+    num_k, pidx = states.prn.shape[0], config.prompt_index
+
+    def wipe(x, sc):
+        sign = sc[torch.remainder(states.ms_elapsed, sc.shape[0]).long()]
+        return x * sign.reshape(sign.shape + (1,) * (x.ndim - sign.ndim))
+
+    d_re, d_im = wipe(are[:num_k], sd), wipe(aim[:num_k], sd)
+    p_re, p_im = wipe(are[num_k:], sp), wipe(aim[num_k:], sp)
+    new, out = ttracking.loop_update(config, states, p_im, -p_re)
+    data_re = d_re[..., pidx] if d_re.ndim == 2 else d_re[..., pidx].sum(dim=1)
+    data_im = d_im[..., pidx] if d_im.ndim == 2 else d_im[..., pidx].sum(dim=1)
+    return new, ttracking.DualTrackOutput(out, data_re, data_im)
+
+
+@pytest.mark.parametrize("num_ants", [None, 2, 3])
+def test_dual_update_plain_is_the_torch_sequence_it_replaces(num_ants):
+    # Bit for bit over four blocks, each side fed its own state back, with
+    # ms_elapsed across both overlay periods; and through a sink.
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+    from gpuacceleratedtracking_tpu_torch.tracking.dual import dual_update_plain
+
+    k = 5
+    rng = np.random.default_rng(7)
+    cfg = ttracking.dual_config(ttracking.TrackConfig.for_system(
+        tmodels.GPSL5(), 16.384e6, 16384, use_secondary=False))
+    states = ttracking.init_state(np.arange(k), carrier_doppler=rng.uniform(-3000, 3000, k),
+                                  ms_elapsed=rng.integers(0, 40, k), device="cpu")
+    sd, sp = (torch.tensor(code, dtype=torch.float32) for code in (NH10, NH20))
+    shape = (2 * k, 3) if num_ants is None else (2 * k, num_ants, 3)
+    blocks = [tuple(torch.from_numpy((rng.normal(size=shape) * 1500).astype(np.float32))
+                    for _ in range(2)) for _ in range(4)]
+    got_st = want_st = states
+    outs = []
+    for are, aim in blocks:
+        got_st, got = dual_update_plain(cfg, got_st, are, aim, sd, sp)
+        want_st, want = _dual_block_before(cfg, want_st, are, aim, sd, sp)
+        for g, w in zip(graphs._leaves((got_st, got)), graphs._leaves((want_st, want))):
+            assert torch.equal(g, w)
+        outs.append(got)
+    sink = graphs.Sink(tuple(torch.zeros((4,) + x.shape) for x in graphs._leaves(outs[0])),
+                       torch.zeros((), dtype=torch.int64))
+    carry = ttracking.state_from_numpy(ttracking.state_to_numpy(states), device="cpu")
+    for b, (are, aim) in enumerate(blocks):
+        sink.index.fill_(b)
+        new, written = dual_update_plain(cfg, carry, are, aim, sd, sp, sink)
+        assert new is carry
+    for g, w in zip(graphs._leaves(carry), graphs._leaves(got_st)):
+        assert torch.equal(g, w)
+    for buf, *per_block in zip(sink.outs, *(graphs._leaves(o) for o in outs)):
+        assert all(torch.equal(buf[b], x) for b, x in enumerate(per_block))

@@ -4,8 +4,11 @@ On the card `graphs.scan` captures a tracking entry point's block body as a
 CUDA graph and replays it per block. Here its capture is swapped for a plain
 call of the body, so the static-buffer path (copy-in, device-side block
 index, chunked stacked outputs, copy-out, launch-count replay) runs on CPU
-tensors and is held, bit for bit, against the eager loop, and once against
-the JAX `track_bank`.
+tensors and is held, bit for bit, against the eager loop, and against the
+JAX `track_bank` and `track_bank_dual`. The bodies of `track`, `track_bank`
+and `track_bank_dual` write their outputs and carry through the entry's
+sink (the plain versions' `graphs.write_sink` here, the loop kernel on the
+card); the sharded bank's bodies take none.
 """
 
 import functools
@@ -211,6 +214,145 @@ def test_captured_track_bank_matches_jax(captured):
                                rtol=5e-3, atol=10.0)
     np.testing.assert_allclose(got.carrier_doppler.numpy(), np.asarray(want.carrier_doppler),
                                rtol=1e-3, atol=1.0)
+
+
+@pytest.fixture
+def sink_writes(monkeypatch):
+    """Counts the captured bodies' writes through their sink."""
+    calls = []
+    write = graphs.write_sink
+
+    def counted(sink, carry, new_carry, out):
+        calls.append(len(sink.outs))
+        return write(sink, carry, new_carry, out)
+
+    monkeypatch.setattr(graphs, "write_sink", counted)
+    return calls
+
+
+def _entry_point(name):
+    """A sink path of the slice: its run, and its output leaves per block."""
+    if name == "track_bank_dual":
+        sys_i, sys_q, fs, states, sre, sim = _l5_case()
+        config = ttracking.dual_config(ttracking.TrackConfig.for_system(
+            sys_i, fs, 16384, algorithm="pallas_bank_auto", use_secondary=False))
+        codes_i, codes_q = torch.as_tensor(sys_i.codes), torch.as_tensor(sys_q.codes)
+        return lambda: ttracking.track_bank_dual(config, codes_i, codes_q, states, sre, sim), 13
+    if name == "track":
+        system, codes, _, sre, sim = _l1_case(2048, 4.096e6, 1)
+        config = ttracking.TrackConfig.for_system(system, 4.096e6, 2048, algorithm="pallas_fused")
+        state = ttracking.init_state(1, carrier_doppler=-480.0, code_phase=3.25, device="cpu")
+        return lambda: ttracking.track(config, codes, state, sre, sim), 11
+    algorithm = {"track_bank_rows": "pallas_bank_rows", "track_bank_comp": "pallas_bank_comp",
+                 "track_bank_coherent": "xla_bank"}[name]
+    num_ants = 2 if name == "track_bank_comp" else None
+    system, codes, states, sre, sim = _l1_case(4096, 8.192e6, 4, num_ants)
+    extra = {"coherent_blocks": 3} if name == "track_bank_coherent" else {}
+    config = ttracking.TrackConfig.for_system(system, 8.192e6, 4096, algorithm=algorithm, **extra)
+    weights = (torch.tensor([1.0, 0.5]), torch.tensor([0.0, -0.25])) if num_ants else None
+    return lambda: ttracking.track_bank(config, codes, states, sre, sim, ant_weights=weights), 11
+
+
+@pytest.mark.parametrize("name", ["track_bank_rows", "track_bank_comp", "track_bank_coherent",
+                                  "track", "track_bank_dual"])
+def test_captured_bodies_write_their_outputs_and_carry_through_the_sink(captured, sink_writes,
+                                                                        name):
+    # The capture and every replayed block write all the block's outputs and
+    # the carry through the entry's sink (the plain versions' `write_sink`
+    # here, the loop kernel on the card), and the run is the eager one.
+    run, leaves = _entry_point(name)
+    with graphs.eager():
+        want = run()
+    assert not sink_writes
+    _assert_same(run(), want)
+    assert sink_writes == [leaves] * (BLOCKS + 1)
+
+
+def test_sharded_bank_bodies_take_no_sink(captured, sink_writes):
+    # Their bodies gather the shards' outputs inside the block.
+    system, codes, states, sre, sim = _l1_case(8192, 8.192e6, 4)
+    config = ttracking.TrackConfig.for_system(system, 8.192e6, 8192,
+                                              algorithm="pallas_bank_auto")
+    mesh = channel_time_mesh(2, 2, devices=["cpu"] * 4)
+    track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    assert captured and not sink_writes
+
+
+def _sink_step(carry, consts, block, sink=None):
+    """`_tiny_step` writing its first output and its carry itself under a sink."""
+    new, out = _tiny_step(carry, consts, block)
+    if sink is None:
+        return new, out
+    sink.outs[0].index_copy_(0, sink.index.view(1), new.unsqueeze(0))
+    carry.copy_(new)
+    return carry, (graphs.WRITTEN, out[1])
+
+
+def test_a_body_that_writes_some_outputs_gets_the_rest_copied(captured):
+    step = graphs.writes_outputs(_sink_step)
+    xs = (torch.arange(7 * 2 * 4, dtype=torch.float32).reshape(7, 2, 4),)
+    carry, consts = torch.zeros(2, 4), (torch.full((), 0.5),)
+    with graphs.eager():
+        want = graphs.scan(step, carry, xs, consts, key=("sink",))
+    _assert_same(graphs.scan(step, carry, xs, consts, key=("sink",)), want)
+    _assert_same(want, graphs.scan(_tiny_step, carry, xs, consts, key=("tiny",)))
+    assert torch.equal(carry, torch.zeros(2, 4))          # the caller's carry is untouched
+
+
+@pytest.mark.parametrize("fault", ["extra_leaf", "written_without_sink"])
+def test_a_body_whose_outputs_do_not_fit_its_entry_raises(captured, fault):
+    def extra(carry, consts, block, sink=None):
+        new, out = _sink_step(carry, consts, block, sink)
+        return new, out + ((block[0] * 0.0,) if sink is not None else ())
+
+    def unmarked(carry, consts, block):
+        new, out = _tiny_step(carry, consts, block)
+        return new, (graphs.WRITTEN, out[1])
+
+    step = graphs.writes_outputs(extra) if fault == "extra_leaf" else unmarked
+    xs = (torch.arange(3 * 2 * 4, dtype=torch.float32).reshape(3, 2, 4),)
+    with pytest.raises(ValueError, match="output leaves|without a sink"):
+        graphs.scan(step, torch.zeros(2, 4), xs, (torch.ones(()),), key=(fault,))
+
+
+def test_captured_track_bank_dual_matches_jax(captured, sink_writes):
+    # The dual slice end to end through the sink: the captured
+    # `track_bank_dual` against the JAX one (plain XLA bank correlator on
+    # both sides), at tests/test_torch_dual.py's closed-loop tolerances.
+    n, fs, prns, dops = 16384, 16.384e6, np.array([3, 8]), np.array([900.0, -1500.0])
+    jsys_i, jsys_q = jmodels.GPSL5(), jmodels.GPSL5(quadrature=True)
+    total = 0
+    for prn, dop in zip(prns, dops):
+        common = dict(duration=BLOCKS * 1e-3,
+                      code_frequency=jsys_i.code_frequency * (1 + dop / jsys_i.center_frequency))
+        sig_i, _ = jmodels.gen_signal(jsys_i, prn, dop, n * BLOCKS,
+                                      secondary_code=jsys_i.secondary_code, **common)
+        sig_q, _ = jmodels.gen_signal(jsys_q, prn, dop, n * BLOCKS,
+                                      secondary_code=jsys_q.secondary_code,
+                                      start_carrier_phase=np.pi / 2, **common)
+        total = total + np.asarray(sig_i) + np.asarray(sig_q)
+    sre = np.ascontiguousarray(total.real, np.float32).reshape(BLOCKS, n)
+    sim = np.ascontiguousarray(total.imag, np.float32).reshape(BLOCKS, n)
+    jcfg = jtracking.dual_config(jtracking.TrackConfig.for_system(
+        jsys_i, fs, n, algorithm="xla_bank", use_secondary=False))
+    _, want = jtracking.track_bank_dual(
+        jcfg, jnp.asarray(jsys_i.codes), jnp.asarray(jsys_q.codes),
+        jtracking.init_state(prns, carrier_doppler=dops + 5.0), jnp.asarray(sre), jnp.asarray(sim))
+    sys_i, sys_q = tmodels.GPSL5(), tmodels.GPSL5(quadrature=True)
+    cfg = ttracking.dual_config(ttracking.TrackConfig.for_system(
+        sys_i, fs, n, algorithm="xla_bank", use_secondary=False))
+    states = ttracking.init_state(prns, carrier_doppler=dops + 5.0, device="cpu")
+    _, got = ttracking.track_bank_dual(cfg, torch.as_tensor(sys_i.codes),
+                                       torch.as_tensor(sys_q.codes), states,
+                                       torch.as_tensor(sre), torch.as_tensor(sim))
+    assert sink_writes == [13] * (BLOCKS + 1)
+    for field in ("prompt_re", "prompt_im"):
+        np.testing.assert_allclose(getattr(got.pilot, field).numpy(),
+                                   np.asarray(getattr(want.pilot, field)), rtol=5e-3, atol=10.0)
+    np.testing.assert_allclose(got.pilot.carrier_doppler.numpy(),
+                               np.asarray(want.pilot.carrier_doppler), rtol=1e-3, atol=1.0)
+    np.testing.assert_allclose(got.data_prompt_re.numpy(), np.asarray(want.data_prompt_re),
+                               rtol=5e-3, atol=10.0)
 
 
 def test_results_are_fresh_and_inputs_untouched(captured):

@@ -1,15 +1,19 @@
 """The loop-closure kernel (csrc/loop_update.cu) and its dispatch.
 
 `tracking.loop_update` launches the kernel once per call on CUDA tensors and
-runs its plain version, `loop_update_plain`, on CPU tensors. Here on the CPU:
-the dispatch (the plain version runs, the kernel's counter stands still),
-the import without a CUDA compiler, the f32 constants the wrapper passes
-(each equal to the one the plain expression hands torch), and the refusals.
-The tests marked ``cuda`` hold the kernel against the plain version on the
-card, bit for bit, over the grid of tests/test_torch_tracking.py's
-``LOOP_CASES`` (the plain version against JAX): ``python -m pytest
---noconftest -m cuda tests/test_torch_loop_kernel.py``. The file imports
-neither jax nor the JAX package.
+runs its plain version, `loop_update_plain`, on CPU tensors;
+`tracking.dual.dual_update` does the same with the kernel's dual mode and
+`dual_update_plain`. Here on the CPU: the dispatch (the plain versions run,
+the kernel's counters stand still), the import without a CUDA compiler, the
+f32 constants the wrapper passes (each equal to the one the plain
+expression hands torch), the sink (a scan's stacked outputs and index: the
+results written there and over the carry equal those returned without
+one, bit for bit) and the refusals. The tests marked ``cuda`` hold the
+kernel against the plain version on the card, bit for bit, fresh, under a
+sink and in dual mode, over the grid of tests/test_torch_tracking.py's
+``LOOP_CASES`` (the plain version against JAX) and ``DUAL_CASES``:
+``python -m pytest --noconftest -m cuda tests/test_torch_loop_kernel.py``.
+The file imports neither jax nor the JAX package.
 """
 
 import math
@@ -23,9 +27,11 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
-from gpuacceleratedtracking_tpu_torch.models import GPSL1, GPSL5
+from gpuacceleratedtracking_tpu_torch.models import GPSL1, GPSL5, gpsl5
 from gpuacceleratedtracking_tpu_torch.ops import loop_kernel
-from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, init_state, loop_update
+from gpuacceleratedtracking_tpu_torch.tracking import (
+    TrackConfig, TrackOutput, dual_config, graphs, init_state, loop_update)
+from gpuacceleratedtracking_tpu_torch.tracking.dual import dual_update, dual_update_plain
 from gpuacceleratedtracking_tpu_torch.tracking.track import loop_update_plain
 
 torch.set_num_threads(1)
@@ -195,8 +201,9 @@ _ADDED = ("intermediate_frequency", "code_frequency")
 def test_kernel_constants_equal_the_plain_expressions(name):
     # Every f32 constant the wrapper passes is a scalar the plain version
     # hands torch, rounded to f32 as torch rounds it (a division by a Python
-    # scalar on the card multiplies by the f32 reciprocal); every scalar the
-    # plain version multiplies, divides or adds by is one of them.
+    # scalar on the card multiplies by its reciprocal, taken in double and
+    # rounded to f32); every scalar the plain version multiplies, divides or
+    # adds by is one of them.
     extra = dict(CONSTANT_CONFIGS[name])
     system = GPSL5() if extra.pop("system", None) == "GPSL5" else GPSL1()
     config = TrackConfig.for_system(system, 32.768e6, 32768, **extra)
@@ -208,8 +215,7 @@ def test_kernel_constants_equal_the_plain_expressions(name):
     consts = loop_kernel.loop_constants(config, 20)
     assert set(consts) == set(loop_kernel._CONSTANTS)
     mults = {_f32(a) for f, a in mode.seen if f in ("mul", "__mul__", "__rmul__")}
-    divs = {float(np.float32(1.0) / np.float32(a)) for f, a in mode.seen
-            if f in ("div", "__truediv__")}
+    divs = {float(np.float32(1.0 / a)) for f, a in mode.seen if f in ("div", "__truediv__")}
     adds = {_f32(a) for f, a in mode.seen if f in ("add", "__add__", "__radd__")}
     clamps = {_f32(a) for f, a in mode.seen if f in ("clamp", "where", "lt", "__lt__")}
     order = {"pll": config.pll_order, "dll": config.dll_order}
@@ -278,6 +284,220 @@ def test_weight_rows_keep_shared_and_per_channel_layouts():
     assert stride == 0 and same.data_ptr() == expanded.data_ptr()
 
 
+# --- The sink: outputs into rows of a scan's stacks, the state in place.
+
+def _clone(tree):
+    """A copy of a state, leaf by leaf, in its NamedTuple structure."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_clone(x) for x in tree))
+
+
+def _sink(out, device, chunk=4):
+    """A sink for ``out``'s leaves: ``[chunk, ...]`` buffers of a sentinel
+    value and a row index on ``device``."""
+    outs = tuple(torch.full((chunk,) + tuple(x.shape), -12345.0, dtype=x.dtype, device=device)
+                 for x in graphs._leaves(out))
+    return graphs.Sink(outs, torch.zeros((), dtype=torch.int64, device=device))
+
+
+def _run_with_sink(update, state, blocks, sink, *args):
+    """``update`` over ``blocks`` block b into row b + 1 of ``sink``, its
+    state written in place; the state it returns must be the one it took,
+    and every output leaf `graphs.WRITTEN`."""
+    carry = _clone(state)
+    for b, (are, aim) in enumerate(blocks):
+        sink.index.fill_(b + 1)
+        new, out = update(carry, are, aim, *args, sink)
+        assert new is carry
+        assert all(x is graphs.WRITTEN for x in graphs._leaves(out))
+    return carry
+
+
+# The dual grid: K dual channels, antennas (None: no antenna axis), seed.
+DUAL_CASES = {f"k{k}_{'a' + str(a) if a else 'single'}": (k, a)
+              for k in (8, 64) for a in (None, 2, 3, 4)}
+
+
+def _dual_inputs(k, ants, device, seed=11):
+    """The GPS L5 dual closure's config, a random [K] state (``ms_elapsed``
+    across both overlay periods), three blocks of 2K-channel accumulators
+    and the two overlay tables."""
+    config = dual_config(TrackConfig.for_system(GPSL5(), 16.384e6, 16384, use_secondary=False))
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+
+    state = init_state(np.arange(k) % 32, carrier_doppler=rng.uniform(-4000, 4000, k),
+                       ms_elapsed=rng.integers(0, 40, k), device=device)
+    state = state._replace(
+        code_doppler=f(k, scale=2.0), prev_prompt_re=f(k, scale=1000.0),
+        prev_prompt_im=f(k, scale=300.0),
+        cn0=state.cn0._replace(prompts_re=f(k, 20, scale=1000.0),
+                               prompts_im=f(k, 20, scale=100.0)))
+    shape = (2 * k, 3) if ants is None else (2 * k, ants, 3)
+    blocks = [(f(*shape, scale=2000.0), f(*shape, scale=600.0)) for _ in range(3)]
+    tables = tuple(torch.tensor(gpsl5.neuman_hofman(pilot), dtype=torch.float32, device=device)
+                   for pilot in (False, True))
+    return config, state, blocks, tables
+
+
+def _dual_fields(state, out) -> dict:
+    return dict(_fields(state, out.pilot), data_prompt_re=out.data_prompt_re,
+                data_prompt_im=out.data_prompt_im)
+
+
+@pytest.mark.parametrize("name", sorted(DUAL_CASES))
+def test_dual_update_on_cpu_tensors_is_the_plain_version(name):
+    config, state, blocks, tables = _dual_inputs(*DUAL_CASES[name], "cpu")
+    got_state = want_state = state
+    for are, aim in blocks:
+        got_state, got = dual_update(config, got_state, are, aim, *tables)
+        want_state, want = dual_update_plain(config, want_state, are, aim, *tables)
+        for field, x in _dual_fields(got_state, got).items():
+            assert torch.equal(x, _dual_fields(want_state, want)[field]), field
+        assert got.data_prompt_re.shape == (DUAL_CASES[name][0],)
+    assert loop_kernel.dual_update_kernel.launches == 0
+
+
+@pytest.mark.parametrize("k", [8, None], ids=["k8", "scalar"])
+@pytest.mark.parametrize("name", sorted(LOOP_CASES))
+def test_a_sink_takes_what_the_plain_version_returns(name, k):
+    # On CPU tensors `loop_update` with a sink runs the plain version and
+    # writes its results: block b's outputs in row b + 1, the last state
+    # over the carry, bit for bit what the calls without a sink return; the
+    # other rows untouched, and the kernel's counter still.
+    config, state, blocks, w = _inputs(name, k, "cpu")
+    want_state, outs = state, []
+    for are, aim in blocks:
+        want_state, out = loop_update_plain(config, want_state, are, aim, w)
+        outs.append(out)
+    sink = _sink(outs[0], "cpu")
+    before = loop_kernel.loop_update_kernel.launches
+    carry = _run_with_sink(lambda st, are, aim, w, sk: loop_update(config, st, are, aim, w, sk),
+                           state, blocks, sink, w)
+    assert loop_kernel.loop_update_kernel.launches == before
+    for field, x in _fields(carry, outs[-1]).items():
+        assert torch.equal(x, _fields(want_state, outs[-1])[field]), field
+    for buf, *leaves in zip(sink.outs, *(graphs._leaves(o) for o in outs)):
+        assert (buf[0] == -12345.0).all()
+        for b, x in enumerate(leaves):
+            assert torch.equal(buf[b + 1], x)
+
+
+def _sink_case():
+    config = TrackConfig.for_system(GPSL1(), 8.192e6, 8192)
+    state = init_state(np.arange(4), carrier_doppler=[100.0, -200.0, 300.0, 0.0], device="cpu")
+    acc = torch.arange(1.0, 13.0).reshape(4, 3) * 100.0
+    _, out = loop_update_plain(config, state, acc, -acc)
+    return config, state, acc, out
+
+
+def _swap(sink, i, buf):
+    outs = list(sink.outs)
+    outs[i] = buf
+    return graphs.Sink(tuple(outs), sink.index)
+
+
+@pytest.mark.parametrize("fault, match", [
+    ("shape", "sink buffer 2 is"),
+    ("dtype", "sink buffer 2 is"),
+    ("device", "sink buffer 2 is"),
+    ("strided", "sink buffer 2 is"),
+    ("count", "holds 10 buffers for 11"),
+    ("host_index", "int64 0-d tensor"),
+    ("int32_index", "int64 0-d tensor"),
+    ("index_shape", "int64 0-d tensor"),
+    ("index_device", "int64 0-d tensor"),
+])
+def test_a_sink_the_body_cannot_take_raises(fault, match):
+    config, state, acc, out = _sink_case()
+    sink = _sink(out, "cpu")
+    bad = {
+        "shape": lambda: _swap(sink, 2, torch.zeros(4, 5)),
+        "dtype": lambda: _swap(sink, 2, torch.zeros(4, 4, dtype=torch.float64)),
+        "device": lambda: _swap(sink, 2, torch.zeros(4, 4, device="meta")),
+        "strided": lambda: _swap(sink, 2, torch.zeros(4, 8)[:, ::2]),
+        "count": lambda: graphs.Sink(sink.outs[:10], sink.index),
+        "host_index": lambda: graphs.Sink(sink.outs, 0),
+        "int32_index": lambda: graphs.Sink(sink.outs, torch.zeros((), dtype=torch.int32)),
+        "index_shape": lambda: graphs.Sink(sink.outs, torch.zeros(1, dtype=torch.int64)),
+        "index_device": lambda: graphs.Sink(sink.outs, torch.zeros((), dtype=torch.int64,
+                                                                    device="meta")),
+    }[fault]()
+    carry = _clone(state)
+    with pytest.raises((ValueError, TypeError), match=match):
+        loop_update(config, carry, acc, -acc, None, bad)
+    # The wrapper's own check of the same sink.
+    leaves = [(x.shape, x.dtype) for x in graphs._leaves(out)]
+    with pytest.raises((ValueError, TypeError), match=match):
+        graphs.check_sink(bad, leaves, torch.device("cpu"))
+    # Nothing was written.
+    for x, y in zip(graphs._leaves(carry), graphs._leaves(state)):
+        assert torch.equal(x, y)
+
+
+def test_the_kernel_wrappers_refuse_what_they_cannot_write_in_place():
+    # On the CPU the wrappers stop at the device; their in-place check of a
+    # state leaf refuses a strided one.
+    config, state, acc, out = _sink_case()
+    for call in (lambda: loop_kernel.loop_update_kernel(config, state, acc, acc,
+                                                        sink=_sink(out, "cpu")),
+                 lambda: loop_kernel.dual_update_kernel(config, state, torch.cat([acc, acc]),
+                                                        torch.cat([acc, acc]), torch.ones(10),
+                                                        torch.ones(20))):
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            call()
+    strided = torch.zeros(4, 2)[:, 0]
+    with pytest.raises(ValueError, match="contiguous to take the new state in place"):
+        loop_kernel._check("state.carrier_doppler", strided, (4,), torch.float32,
+                           torch.device("cpu"), in_place=True)
+    assert loop_kernel._check("x", strided, (4,), torch.float32, torch.device("cpu")).is_contiguous()
+
+
+def test_state_leaves_round_trip_in_the_kernels_order():
+    _, state, _, _ = _sink_case()
+    leaves = loop_kernel.state_leaves(state)
+    assert len(leaves) == len(loop_kernel._STATE)
+    again = loop_kernel._state_from(state.prn, leaves)
+    assert all(x is y for x, y in zip(graphs._leaves(again), graphs._leaves(state)))
+    assert loop_kernel._OUTPUTS[:11] == TrackOutput._fields
+
+
+def test_sink_and_dual_paths_run_on_the_cpu_without_a_cuda_compiler(tmp_path):
+    # The sink and the dual entry on CPU tensors: the plain versions, nothing
+    # built or loaded.
+    code = textwrap.dedent("""
+        import numpy as np, torch
+        from gpuacceleratedtracking_tpu_torch.ops import _build, loop_kernel
+        from gpuacceleratedtracking_tpu_torch.models import GPSL5
+        from gpuacceleratedtracking_tpu_torch.tracking import (
+            TrackConfig, dual_config, graphs, init_state, loop_update)
+        from gpuacceleratedtracking_tpu_torch.tracking.dual import dual_update
+        config = dual_config(TrackConfig.for_system(GPSL5(), 16.384e6, 16384,
+                                                    use_secondary=False))
+        state = init_state([0, 1], device="cpu")
+        acc = torch.ones(4, 3)
+        state, out = dual_update(config, state, acc, acc, torch.ones(10), torch.ones(20))
+        sink = graphs.Sink(tuple(torch.zeros((2,) + x.shape) for x in graphs._leaves(out)),
+                           torch.zeros((), dtype=torch.int64))
+        new, written = dual_update(config, state, acc, acc, torch.ones(10), torch.ones(20), sink)
+        assert new is state and all(x is graphs.WRITTEN for x in graphs._leaves(written))
+        assert loop_kernel.dual_update_kernel.launches == 0
+        assert loop_kernel.loop_update_kernel.launches == 0
+        assert _build.load_library.cache_info().currsize == 0
+        print("ok")
+    """)
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + ":/usr/bin:/bin",
+               CUDA_HOME=str(tmp_path / "no_cuda"), CUDA_PATH=str(tmp_path / "no_cuda"))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 # --- On the card.
 
 @pytest.fixture
@@ -339,3 +559,81 @@ def test_kernel_in_a_cuda_graph_matches_the_eager_call(cuda):
     for field, x in got.items():
         assert torch.equal(x, want[field]), field
     assert not math.isnan(float(got["cn0_dbhz"].sum()))
+
+
+def _assert_bitwise(got: dict, want: dict, what: str):
+    for field, x in got.items():
+        y = want[field]
+        assert x.shape == y.shape and x.dtype == y.dtype and x.device == y.device, field
+        assert torch.equal(x, y), f"{what} {field}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1024, 8, None], ids=["k1024", "k8", "scalar"])
+@pytest.mark.parametrize("name", sorted(LOOP_CASES))
+def test_kernel_matches_plain_version_under_a_sink(cuda, name, k):
+    # The kernel writing its outputs into rows of a sink and the new state
+    # in place, against the plain version doing the same: every row and every
+    # state leaf bit for bit, one launch per call.
+    config, state, blocks, w = _inputs(name, k, cuda)
+    _, out = loop_update_plain(config, state, *blocks[0], w)
+    sinks = [_sink(out, cuda) for _ in range(2)]
+    before = loop_kernel.loop_update_kernel.launches
+    got = _run_with_sink(lambda st, are, aim, w, sk: loop_update(config, st, are, aim, w, sk),
+                         state, blocks, sinks[0], w)
+    assert loop_kernel.loop_update_kernel.launches == before + len(blocks)
+    want = _run_with_sink(
+        lambda st, are, aim, w, sk: loop_update_plain(config, st, are, aim, w, sk),
+        state, blocks, sinks[1], w)
+    _assert_bitwise(_fields(got, out), _fields(want, out), f"{name} state")
+    for i, (x, y) in enumerate(zip(*(s.outs for s in sinks))):
+        assert torch.equal(x, y), f"{name} output leaf {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DUAL_CASES))
+def test_dual_kernel_matches_plain_version(cuda, name):
+    # Fresh and under a sink, three blocks each side fed its own state back:
+    # the wipes, the rotation, the closure and the data prompt's antenna sum
+    # (torch's order for a strided [K, A] view) bit for bit.
+    config, state, blocks, tables = _dual_inputs(*DUAL_CASES[name], cuda)
+    ks = ps = state
+    for b, (are, aim) in enumerate(blocks):
+        before = loop_kernel.dual_update_kernel.launches
+        ks, kout = dual_update(config, ks, are, aim, *tables)
+        assert loop_kernel.dual_update_kernel.launches == before + 1
+        ps, pout = dual_update_plain(config, ps, are, aim, *tables)
+        _assert_bitwise(_dual_fields(ks, kout), _dual_fields(ps, pout), f"{name} block {b}")
+    sinks = [_sink(pout, cuda) for _ in range(2)]
+    got = _run_with_sink(lambda st, are, aim, sk: dual_update(config, st, are, aim, *tables, sk),
+                         state, blocks, sinks[0])
+    want = _run_with_sink(
+        lambda st, are, aim, sk: dual_update_plain(config, st, are, aim, *tables, sk),
+        state, blocks, sinks[1])
+    _assert_bitwise(_fields(got, pout.pilot), _fields(want, pout.pilot), f"{name} sink state")
+    for i, (x, y) in enumerate(zip(*(s.outs for s in sinks))):
+        assert torch.equal(x, y), f"{name} sink output leaf {i}"
+
+
+@pytest.mark.cuda
+def test_sink_and_dual_calls_do_not_wait_on_the_card(cuda):
+    config, state, blocks, w = _inputs("coherent_secondary", 256, cuda)
+    dconfig, dstate, dblocks, tables = _dual_inputs(64, 2, cuda)
+    _, out = loop_update(config, _clone(state), *blocks[0])         # builds the library
+    _, dout = dual_update(dconfig, _clone(dstate), *dblocks[0], *tables)
+    sink, dsink = _sink(out, cuda), _sink(dout, cuda)
+    torch.cuda.synchronize()
+    counts = loop_kernel.loop_update_kernel.launches, loop_kernel.dual_update_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _run_with_sink(lambda st, are, aim, sk: loop_update(config, st, are, aim, None, sk),
+                       state, blocks, sink)
+        for are, aim in dblocks:
+            dstate, _ = dual_update(dconfig, dstate, are, aim, *tables)
+        _run_with_sink(lambda st, are, aim, sk: dual_update(dconfig, st, are, aim, *tables, sk),
+                       dstate, dblocks, dsink)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert loop_kernel.loop_update_kernel.launches == counts[0] + len(blocks)
+    assert loop_kernel.dual_update_kernel.launches == counts[1] + 2 * len(dblocks)
