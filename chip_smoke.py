@@ -28,6 +28,21 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      blocks at A=4 (N=20000, and N=2^11+1, which takes the scalar loads),
      ~2 chips per sample and a negative chip rate (the general chip wrap),
      and a span past the fused kernel's replica row (its per-tap lookup).
+   3c. Every antenna and tap count (``[AL]`` lines): the kernels are
+   instantiated for A <= 4 and L in {3, 5, 7}, and the wrappers cover any
+   other shape by launch groups (``epl_kernels.launch_groups``). Each route
+   (rows, comp f32 and bf16, transition, one-hot, taps, fused) at A in
+   {5, 6, 8} with L=3, A=1 with L in {4, 9, 11}, and A=8 with L=9, against
+   its plain version at its in-envelope tolerance, one launch per group,
+   with each cell's device time; GPS L1 at 32.768 MHz (K=64 for the banks),
+   the transition route at GPS L5. Then one closed-loop ``track_bank``
+   block at A=8 (K=1024) through ``pallas_bank_auto`` (the composite route,
+   two launches) against ``xla_bank``.
+   3d. The replica kernel (``csrc/replica.cu``, ``[replica]`` lines) against
+   the plain replica ops, bit for bit: GPS L1 N=2^11..2^18 and GPS L5
+   N=2^15..2^18, L in {3, 7} (a negative min_shift), exact and quantized,
+   the haloed row and the ``[L, N]`` tap matrix, random PRN, code rate and
+   code phase per cell.
    3b. The loop-closure kernel (``csrc/loop_update.cu``, one launch per
    ``tracking.loop_update`` call on CUDA tensors) against its plain version
    ``loop_update_plain`` over ``LOOP_CASES`` (filter orders 1/2/3, FLL
@@ -70,12 +85,21 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      scripts/run_benchmarks_gpsl1.py (N = 2^11..2^18, M in {1, 4},
      L in {3, 7}, fused_xla / unfused_xla / pallas_fused / pallas_taps: 128
      configurations) and scripts/run_benchmarks_gpsl5.py (N = 2^15..2^18: 64),
-     on the GPU with ``reps="auto"``; every kernel call must have launched
-     ``taps.cu`` or ``fused.cu``. The blocks of N <= 32768 run first, then
+     on the GPU with ``reps="auto"`` and the default ``reps_mode``
+     ``"unroll"`` (a timed call replays one CUDA graph of its r calls, so
+     the figure is device time); every kernel call must have launched
+     ``taps.cu`` (after ``replica.cu``, which builds its tap matrix) or
+     ``fused.cu``. The blocks of N <= 32768 run first, then
      the larger ones, each part with the counts set to 0 before it and read
      after it (``launches_n_le_32768`` in the ``kernels`` line is the first
      part's count). One JSON file per configuration goes to
-     ``kernel_sweep/`` beside ``--out`` (else under ``build/``);
+     ``kernel_sweep/`` beside ``--out`` (else under ``build/``). C2 (``[sweep
+     modes]``): the two corners (N=32768 A=1 L=3, N=2^18 A=4 L=7) for the
+     four algorithms in ``"unroll"``, ``"scan"`` and ``"calls"``, back to
+     back, with the device memory each run reserved; at N=32768 the kernels'
+     ``"unroll"`` medians must be below their ``"calls"`` medians. R: the
+     port's ``run_replica_benchmark`` (N=32768, exact and quantized), one
+     replica launch per rep, 32 reps per replayed graph;
    - D, closed loops on the new kernels: ``track`` on one GPS L1 satellite
      through ``pallas_fused`` (600 blocks at 50 dB-Hz from a 20 Hz / 0.2 chip
      start hold lock), ``track_bank`` with ``pallas_fused`` at K=8 against
@@ -178,7 +202,9 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    routes one complex64 ``torch.matmul`` of a built ``[K, N]``
    conj(carrier) x code plane against the ``[N, L]`` shifted signal planes
    (``bank_rows`` at N=32768 and N=2^18), and for the per-channel kernels of a built ``[L, N]`` wiped replica
-   against the ``[N, A]`` signal (device time, CUDA graph).
+   against the ``[N, A]`` signal (device time, CUDA graph); the replica
+   kernel's tap matrix at both corners against the plain replica ops (no
+   single PyTorch call computes it: ``library_ms`` null).
 
 Its last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Each kernel's entry
@@ -261,15 +287,18 @@ def nvidia_smi() -> str:
 
 
 def counters():
-    """Every kernel's launch count, by kernel name."""
-    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels
+    """Every correlator kernel's launch count, and the replica kernel's (one
+    launch per ``pallas_taps`` call: its tap matrix), by kernel name."""
+    from gpuacceleratedtracking_tpu_torch.ops import (
+        bank_comp, channel_kernels, epl_kernels, replica_kernel)
 
     return {"bank_rows": epl_kernels.correlate_pallas_bank_rows,
             "bank_comp": bank_comp.correlate_pallas_bank_comp,
             "bank_transition": epl_kernels.correlate_pallas_bank,
             "bank_onehot": epl_kernels.correlate_pallas_bank_onehot,
             "taps": channel_kernels.correlate_pallas_taps,
-            "fused": channel_kernels.correlate_pallas_fused}
+            "fused": channel_kernels.correlate_pallas_fused,
+            "replica": replica_kernel.code_replica}
 
 
 def loop_counter():
@@ -556,6 +585,18 @@ def channel_args(gnss, n, a, taps, prn, fcar, phicar, phicode, fcode=None):
             t(phicode), tuple(int(d) for d in taps), system.code_length)
 
 
+def check_tap_rows(call, tag):
+    """Each tap group's tap matrix that the replica kernel wrote for a
+    launched taps call, against the plain replica ops' rows, bit for bit."""
+    from gpuacceleratedtracking_tpu_torch.ops import channel_kernels
+
+    torch.cuda.synchronize()
+    check(bool(call.tap_tables), f"{tag}: the replica kernel wrote the tap matrix")
+    for taps, rows in call.tap_tables.items():
+        check(torch.equal(rows, channel_kernels._tap_rows_plain(call, taps)),
+              f"{tag}: the replica kernel's rows of taps {taps} bit for bit")
+
+
 def channel_cells():
     """Phase 3, ``taps`` and ``fused``: each cell through the wrapper and the
     plain version. Both compute the same phases and chips with the same
@@ -585,6 +626,10 @@ def channel_cells():
                 check(bool(torch.isfinite(g).all()), f"{kind} {name} finite")
                 err = max(err, float((g - w).abs().max()))
             check(err <= tol, f"{kind} {name}: kernel vs plain {err!r} <= {tol!r}")
+            if kind == "taps":
+                call = channel_kernels.ChannelCall(*args, "taps")
+                channel_kernels.launch_taps(call)
+                check_tap_rows(call, f"taps {name}")
             note = ""
             if name in ("golden_n2500", "a4_n2500"):
                 prompt = got[0].reshape(-1, 3)
@@ -628,6 +673,218 @@ def onehot_cells(system, seed):
         log(f"[kernel] bank_onehot {name}: N={n} K={k} shifts={case['sample_shifts']}: "
             f"max|kernel-plain|={err!r} (atol 4.5, rtol 2e-3) ok")
     return worst
+
+
+# Phase 3c, outside the correlator kernels' instantiations (A <= 4, L in
+# {3, 5, 7}): each route at A in {5, 6, 8} with L=3, A=1 with L in {4, 9, 11},
+# and A=8 with L=9, through the launch groups of `epl_kernels.launch_groups`.
+# name -> (A, taps or explicit shifts)
+AL_SHAPES = {"a5_l3": (5, 3), "a6_l3": (6, 3), "a8_l3": (8, 3), "a1_l4": (1, (-16, 0, 16, 32)),
+             "a1_l9": (1, 9), "a1_l11": (1, 11), "a8_l9": (8, 9)}
+AL_ROUTES = ("bank_rows", "bank_comp", "bank_comp_bf16", "bank_transition", "bank_onehot",
+             "taps", "fused")
+AL_K = 64
+
+
+def al_cells(seed, card):
+    """Phase 3c: every correlator route at the `AL_SHAPES` against its plain
+    version, at the tolerance of its in-envelope cells (phase 3): GPS L1 at
+    32.768 MHz N=32768 (K=64 for the banks; one channel for taps and fused),
+    the transition route at GPS L5 32.768 MHz (span 20 samples at L=11, under
+    its 128). Each call must launch one kernel per launch group (a taps call
+    also one replica launch per tap group); each cell's device time (CUDA graph replay of
+    the prepared call's launches and the gather) is kept. Then one closed-loop
+    `track_bank` block at A=8 (K=1024, the 8-satellite signal) through
+    ``pallas_bank_auto``, which resolves it to the composite route (two
+    launches), against the plain ``xla_bank``."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, GPSL5
+    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, track_bank
+
+    l1, l5 = GPSL1(), GPSL5()
+    kinds = {"bank_rows": "pallas_bank_rows", "bank_transition": "pallas_bank",
+             "bank_onehot": "pallas_bank_onehot"}
+    worst, times = {}, {}
+    for r_i, route in enumerate(AL_ROUTES):
+        kernel = "bank_comp" if route.startswith("bank_comp") else route
+        for s_i, (shape, (a, taps)) in enumerate(AL_SHAPES.items()):
+            shifts = taps if isinstance(taps, tuple) else None
+            num_taps = len(shifts) if shifts else taps
+            groups = len(epl_kernels.launch_groups(a, num_taps))
+            # taps: one replica launch per tap group, shared by its antenna groups.
+            tap_groups = len(epl_kernels.launch_groups(1, num_taps))
+            want_counts = {kernel: groups, "replica": tap_groups if route == "taps" else 0}
+            tag = f"{route} {shape}"
+            if route in ("taps", "fused"):
+                args = channel_args("GPSL1", N_1MS, a, shifts or taps, 7, -1200.0, 1.1, 311.7)
+                fn = getattr(channel_kernels, f"correlate_pallas_{route}")
+                plain = getattr(channel_kernels, f"correlate_{route}_reference")
+                reset_counts()
+                got = fn(*args)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                want = plain(*args)
+                tol, rtol = 1e-6 * N_1MS + 1e-3, 0.0
+                call = channel_kernels.ChannelCall(*args, route)
+                launch = getattr(channel_kernels, f"launch_{route}")
+                timed = lambda: launch(call)  # noqa: E731
+                lead = ()
+            else:
+                system = l5 if route == "bank_transition" else l1
+                case = random_case(system, N_1MS, AL_K, seed + 1300 + 10 * r_i + s_i,
+                                   num_ants=a, taps=3 if shifts else taps)
+                if shifts:
+                    case["sample_shifts"] = shifts
+                reset_counts()
+                if kernel == "bank_comp":
+                    z = "bf16" if route.endswith("bf16") else "f32"
+                    got = bank_comp.correlate_pallas_bank_comp(**case, z_dtype=z)
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                    want = bank_comp.correlate_bank_comp_reference(**case, z_dtype=z)
+                    tol, rtol = 3e-5 * float(want[0].abs().max()) + 1e-3, 0.0
+                    prepared = bank_comp.BankCompCall(**case, z_dtype=z)
+                    timed = lambda: bank_comp.launch_bank_comp(prepared)  # noqa: E731
+                else:
+                    if route == "bank_onehot":
+                        del case["nominal_code_frequency"]
+                    got = getattr(epl_kernels, "correlate_" + kinds[route])(**case)
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                    want = epl_kernels.correlate_bank_rows_reference(**case, route=kinds[route])
+                    tol, rtol = 4.5, 2e-3
+                    prepared = epl_kernels.BankRowsCall(**case, route=kinds[route])
+                    timed = lambda: epl_kernels.launch_bank_rows(prepared)  # noqa: E731
+                lead = (AL_K,)
+            check(counts == only(**want_counts),
+                  f"[AL] {tag}: one launch per group ({groups}), got {counts}")
+            shape_want = lead + ((a,) if a > 1 else ()) + (num_taps,)
+            err = 0.0
+            for g, w in zip(got, want):
+                check(tuple(g.shape) == tuple(w.shape) == shape_want, f"[AL] {tag} shape")
+                check(bool(torch.isfinite(g).all()), f"[AL] {tag} finite")
+                err = max(err, within(f"[AL] {tag}", g, w, tol, rtol))
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
+            med, mn = graph_ms(timed)
+            if route == "taps":
+                check_tap_rows(call, f"[AL] {tag}")
+            times.setdefault(route, {})[shape] = {"ms": med, "min_ms": mn, "launches": groups,
+                                                  "max_abs_err": err}
+            log(f"[AL] {tag}: N={N_1MS} A={a} L={num_taps} in {groups} launch(es): "
+                f"max|kernel-plain|={err!r} (atol {tol!r}, rtol {rtol}); device time (CUDA "
+                f"graph) median {med!r} ms (min {mn!r}) [{card}] ok")
+
+    # One closed-loop block at A=8 through the auto route.
+    num_ants = 8
+    sre, sim, fs = mixed_blocks(l1, 1, num_ants=num_ants)
+    codes = torch.as_tensor(l1.codes, device=DEVICE)
+    config = TrackConfig.for_system(l1, fs, N_1MS, algorithm="pallas_bank_auto")
+    check(epl_kernels.bank_algorithm_for(N_1MS, fs, l1.code_length, l1.code_frequency,
+                                         num_ants=num_ants) == "pallas_bank_comp",
+          "A=8 routes to pallas_bank_comp")
+    states = bank_states(l1, init_errors=True)
+    reset_counts()
+    _, out = track_bank(config, codes, states, sre, sim)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(bank_comp=2), f"[AL] track_bank A=8: two comp launches, got {counts}")
+    note_loop("AL", 1)
+    _, ref = track_bank(dataclasses.replace(config, algorithm="xla_bank"), codes, states,
+                        sre, sim)
+    torch.cuda.synchronize()
+    check(out.accum_re.shape == (1, NUM_K, num_ants, 3), "[AL] track_bank A=8 accum shape")
+    for field, x in out._asdict().items():
+        check(bool(torch.isfinite(x.float()).all()), f"[AL] track_bank A=8 {field} finite")
+    diff = (out.prompt_re - ref.prompt_re).abs()
+    check(bool((diff <= 40.0 + 5e-3 * ref.prompt_re.abs()).all()),
+          f"[AL] track_bank A=8 prompt_re vs xla_bank within rtol=5e-3 atol=40 "
+          f"({float(diff.max())!r})")
+    log(f"[AL] track_bank K={NUM_K} A={num_ants} L=3 N={N_1MS}, one block via "
+        f"pallas_bank_auto (bank_comp, 2 launches): vs xla_bank max|d prompt_re| "
+        f"{float(diff.max())!r} ok")
+    return worst, times, counts["bank_comp"]
+
+
+def replica_cells(seed):
+    """Phase 3d: ``csrc/replica.cu`` against the plain replica ops, bit for
+    bit: GPS L1 at N = 2^11..2^18 and GPS L5 at 2^15..2^18 (fs = N / 1 ms),
+    L in {3, 7} (EPL shifts, a negative min_shift), exact and quantized, the
+    haloed row (`code_replica`) and the tap matrix (`code_tap_matrix`), a
+    random PRN, code rate (+/-3 Hz) and code phase per cell, as device
+    tensors. Returns the largest |kernel - plain| (0.0 when every chip
+    matches) and the cells' count."""
+    from gpuacceleratedtracking_tpu_torch.models import (
+        EPLCorrelator, correlator_sample_shifts, get_system)
+    from gpuacceleratedtracking_tpu_torch.ops import replica_kernel
+
+    rng = np.random.default_rng(seed + 1500)
+    worst, cells = 0.0, 0
+    for gnss, exps in (("GPSL1", range(11, 19)), ("GPSL5", range(15, 19))):
+        system = get_system(gnss)
+        codes = torch.as_tensor(system.codes, device=DEVICE)
+        for n in (1 << e for e in exps):
+            fs = n / 1e-3
+            for taps in (3, 7):
+                shifts = tuple(int(s) for s in correlator_sample_shifts(
+                    system, EPLCorrelator(taps), fs))
+                prn = torch.tensor(int(rng.integers(0, 32)), dtype=torch.int64, device=DEVICE)
+                fcode = torch.tensor(system.code_frequency + rng.uniform(-3.0, 3.0),
+                                     dtype=torch.float32, device=DEVICE)
+                phase = torch.tensor(rng.uniform(0.0, system.code_length),
+                                     dtype=torch.float32, device=DEVICE)
+                common = (codes, prn, fcode, fs, phase, n)
+                for mode in replica_kernel.MODES:
+                    before = replica_kernel.code_replica.launches
+                    row = replica_kernel.code_replica(*common, min(shifts), max(shifts),
+                                                      system.code_length, mode)
+                    mat = replica_kernel.code_tap_matrix(*common, shifts, system.code_length,
+                                                         mode)
+                    torch.cuda.synchronize()
+                    check(replica_kernel.code_replica.launches == before + 2,
+                          f"[replica] {gnss} N={n} L={taps} {mode}: one launch per layout")
+                    want_row = replica_kernel.replica_plain(*common, min(shifts), max(shifts),
+                                                            system.code_length, mode)
+                    want_mat = replica_kernel.tap_matrix_plain(*common, shifts,
+                                                               system.code_length, mode)
+                    for layout, g, w in (("row", row, want_row), ("taps", mat, want_mat)):
+                        check(g.shape == w.shape and g.dtype == w.dtype,
+                              f"[replica] {gnss} N={n} L={taps} {mode} {layout} shape")
+                        bad = int((g != w).sum())
+                        worst = max(worst, float((g - w).abs().max()))
+                        check(bad == 0, f"[replica] {gnss} N={n} L={taps} {mode} {layout}: "
+                                        f"{bad} chips differ from the plain version")
+                    cells += 2
+            log(f"[replica] {gnss} N={n}, L in (3, 7), exact and quantized, row and tap "
+                f"matrix: bit for bit ok")
+    log(f"[replica] {cells} cells bit for bit against the plain replica ops")
+    return worst, cells
+
+
+def replica_path(card):
+    """Path R: the port's ``run_replica_benchmark`` (GPS L1, N=32768,
+    ``reps="auto"``), exact and quantized, on the card: every rep one launch
+    of ``csrc/replica.cu``, 32 reps per replayed graph."""
+    from gpuacceleratedtracking_tpu_torch.bench import run_replica_benchmark
+
+    results, launches = {}, 0
+    for algo in ("exact", "quantized"):
+        reset_counts()
+        r = run_replica_benchmark({"GNSS": "GPSL1", "num_samples": N_1MS, "algorithm": algo,
+                                   "processor": "GPU", "reps": "auto",
+                                   "trials": SWEEP_TRIALS})
+        counts = read_counts()
+        reps = 256                                 # JAX's "auto" at N=32768
+        check(counts == only(replica=3 * reps * (SWEEP_TRIALS + 1)),
+              f"[R] run_replica_benchmark {algo}: one replica launch per rep, got {counts}")
+        check(r["reps_mode"] == "scan" and math.isfinite(r["Median"]),
+              f"[R] run_replica_benchmark {algo} record")
+        launches += counts["replica"]
+        results[algo] = {"Median": r["Median"], "Minimum": r["Minimum"],
+                         "record": json_record(r)}
+        log(f"[R] run_replica_benchmark GPS L1 N={N_1MS} {algo}: median "
+            f"{r['Median'] * 1e3!r} ms per replica (min {r['Minimum'] * 1e3!r}), "
+            f"{reps} reps in graphs of 32 [{card}]")
+    return launches, results
 
 
 # Phase 3b, the loop-closure kernel (csrc/loop_update.cu) against its plain
@@ -1255,7 +1512,7 @@ def sweep_path(out_dir):
     results = []
     parts = {}
     for part, keep in (("small", lambda n: n <= N_1MS), ("large", lambda n: n > N_1MS)):
-        expected = {"taps": 0, "fused": 0}
+        expected = {"taps": 0, "fused": 0, "replica": 0}
         reset_counts()
         for gnss, sizes in grids.items():
             params = {"GNSS": gnss, "num_samples": [n for n in sizes if keep(n)],
@@ -1271,25 +1528,117 @@ def sweep_path(out_dir):
                 check(all(math.isfinite(r[k]) and r[k] >= 0 for k in ("Minimum", "Median")),
                       f"sweep {tag}: finite times")
                 check(r["backend"] == "cuda" and r["gpu_name"], f"sweep {tag} ran on the card")
+                check(r["reps_mode"] == "unroll", f"sweep {tag}: the default reps mode")
                 if r["algorithm"].startswith("pallas_"):
-                    # Warm-up and every trial run reps + 2 reps calls.
+                    # Warm-up and every trial replay reps + 2 reps calls; a
+                    # taps call is one replica and one taps launch.
                     calls = 3 * r["reps_resolved"] * (SWEEP_TRIALS + 1)
                     expected[r["algorithm"][len("pallas_"):]] += calls
+                    if r["algorithm"] == "pallas_taps":
+                        expected["replica"] += calls
                 results.append(r)
                 log(f"[sweep] {tag}: median {r['Median'] * 1e3!r} ms, min "
                     f"{r['Minimum'] * 1e3!r} ms, realtime_ratio {r['realtime_ratio']!r} "
                     f"(reps {r['reps_resolved']})")
         counts = read_counts()
         check(counts == only(**expected) and min(expected.values()) > 0,
-              f"the sweep's kernel calls ({part} blocks) all launched taps.cu / fused.cu and "
-              f"no other kernel: got {counts}, want {only(**expected)}")
+              f"the sweep's kernel calls ({part} blocks) all launched taps.cu (after "
+              f"replica.cu) / fused.cu and no other kernel: got {counts}, want "
+              f"{only(**expected)}")
         parts[part] = counts
     check(len(results) == 192, f"192 sweep configs, got {len(results)}")
     total = {name: parts["small"][name] + parts["large"][name] for name in counters()}
-    small = {name: parts["small"][name] for name in ("taps", "fused")}
+    small = {name: parts["small"][name] for name in ("taps", "fused", "replica")}
     log(f"[sweep] 192 configs, launches={total}, of which at N <= {N_1MS}: {small} "
         f"(counted in a run of their own); results in {out_dir}")
     return total, small, results
+
+
+# The sweep's two corners in every reps mode (phase C2).
+SWEEP_CORNERS = ((N_1MS, 1, 3), (N_WIDE, NUM_ANTS, 7))
+SWEEP_ALGORITHMS = ("fused_xla", "unfused_xla", "pallas_fused", "pallas_taps")
+
+
+def sweep_modes(card):
+    """Phase C2: the paper's figure at the sweep's two corners (GPS L1,
+    N=32768 A=1 L=3 and N=2^18 A=4 L=7) for its four algorithms, in each reps
+    mode of `run_kernel_benchmark`, back to back: ``"unroll"`` (one CUDA
+    graph of the r calls, the default), ``"scan"`` (graphs of 4 calls) and
+    ``"calls"`` (r eager Python calls, the dispatch view). Every kernel call
+    must have launched its kernels (3 r (trials + 1) calls per record). For
+    each run, the peak device memory it reserved beyond what was reserved
+    before it, the allocator's cache emptied first: its graphs' pools (the
+    r- and 2r-call graphs), or the eager calls' blocks."""
+    from gpuacceleratedtracking_tpu_torch.bench import run_kernel_benchmark
+
+    results, launches = {}, dict.fromkeys(counters(), 0)
+    for n, a, taps in SWEEP_CORNERS:
+        corner = f"n{n}_a{a}_l{taps}"
+        for algo in SWEEP_ALGORITHMS:
+            for mode in ("unroll", "scan", "calls"):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()       # so that the run's pools reserve anew
+                reserved = torch.cuda.memory_reserved()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                r = run_kernel_benchmark({
+                    "GNSS": "GPSL1", "num_samples": n, "num_ants": a, "num_correlators": taps,
+                    "algorithm": algo, "processor": "GPU", "reps": "auto",
+                    "trials": SWEEP_TRIALS, "reps_mode": mode})
+                torch.cuda.synchronize()
+                pool = torch.cuda.max_memory_reserved() - reserved
+                counts = read_counts()
+                calls = 3 * r["reps_resolved"] * (SWEEP_TRIALS + 1)
+                want = {}
+                if algo.startswith("pallas_"):
+                    want[algo[len("pallas_"):]] = calls
+                    if algo == "pallas_taps":
+                        want["replica"] = calls
+                check(counts == only(**want),
+                      f"[sweep modes] {corner} {algo} {mode}: launches {counts}, want {want}")
+                check(r["reps_mode"] == mode and math.isfinite(r["Median"]),
+                      f"[sweep modes] {corner} {algo} {mode} record")
+                for name, count in counts.items():
+                    launches[name] += count
+                results.setdefault(corner, {}).setdefault(algo, {})[mode] = {
+                    "Median": r["Median"], "Minimum": r["Minimum"],
+                    "reps": r["reps_resolved"], "reserved_bytes": pool}
+                log(f"[sweep modes] GPSL1 {corner} {algo} {mode}: median "
+                    f"{r['Median'] * 1e3!r} ms per call (min {r['Minimum'] * 1e3!r}), "
+                    f"reps {r['reps_resolved']}; device memory reserved beyond the start "
+                    f"{pool} bytes [{card}]")
+    # The device ops of one captured call at the launch-weighted corner:
+    # torch.profiler over replays of an 8-call "unroll" program.
+    from gpuacceleratedtracking_tpu_torch.bench import harness
+
+    reps = 8
+    n, a, taps = SWEEP_CORNERS[0]
+    corner = f"n{n}_a{a}_l{taps}"
+    for algo in SWEEP_ALGORITHMS:
+        run = harness.kernel_program({
+            "GNSS": "GPSL1", "num_samples": n, "num_ants": a, "num_correlators": taps,
+            "algorithm": algo, "processor": "GPU", "reps_mode": "unroll"}, reps)
+        ops, device_ms, names = device_profile(run, calls=5, by_name=True)
+        per_call = {name: count / reps for name, (count, _) in names.items()}
+        results[corner][algo]["unroll"].update(
+            device_ops_per_call=ops / reps, device_ms_per_call=device_ms / reps,
+            ops_per_call_by_name=per_call)
+        log(f"[sweep modes] {corner} {algo}: one captured call is {ops / reps!r} device "
+            f"ops, {device_ms / reps!r} ms of device time: "
+            + "; ".join(f"{count!r} x {name}" for name, count in per_call.items())
+            + f" [{card}]")
+        del run
+    for corner, algos in results.items():
+        for algo in ("pallas_fused", "pallas_taps"):
+            m = algos[algo]
+            log(f"[sweep modes] {corner} {algo}: unroll {m['unroll']['Median'] * 1e3!r} ms, "
+                f"scan {m['scan']['Median'] * 1e3!r} ms, calls {m['calls']['Median'] * 1e3!r} "
+                f"ms per call [{card}]")
+            if corner == "n{}_a{}_l{}".format(*SWEEP_CORNERS[0]):
+                # The replayed reps leave the host's dispatch out of the figure.
+                check(m["unroll"]["Median"] < m["calls"]["Median"],
+                      f"[sweep modes] {corner} {algo}: unroll below calls")
+    return launches, results
 
 
 def channel_loops(system, seed, sre, sim, num_blocks_lock: int = 600):
@@ -2104,11 +2453,13 @@ def dual_per_channel_path(seed, num_k: int = 4, num_blocks: int = 20):
         torch.cuda.synchronize()
         counts = read_counts()
         kernel = algo[len("pallas_"):] if algo != "xla_bank" else None
-        want = only(**{kernel: 2 * num_k * num_blocks}) if kernel else only()
-        check(counts == want, f"dual {algo}: 2K launches per block, got {counts}")
+        want = {kernel: 2 * num_k * num_blocks} if kernel else {}
+        if kernel == "taps":
+            want["replica"] = 2 * num_k * num_blocks
+        check(counts == only(**want), f"dual {algo}: 2K launches per block, got {counts}")
         note_loop("I", num_blocks, dual=True)
-        if kernel:
-            launches[kernel] = counts[kernel]
+        for name in want:
+            launches[name] = counts[name]
     for algo in ("pallas_fused", "pallas_taps"):
         d_p = (outs[algo].pilot.prompt_re - outs["xla_bank"].pilot.prompt_re).abs()
         d_d = (outs[algo].data_prompt_re - outs["xla_bank"].data_prompt_re).abs()
@@ -2460,7 +2811,7 @@ def sharded_correlate_path():
     from gpuacceleratedtracking_tpu_torch.parallel import correlate_sharded, make_mesh
 
     system = GPSL1()
-    launches = {"taps": 0, "fused": 0}
+    launches = {"taps": 0, "fused": 0, "replica": 0}
     for n, a, taps, axes in ((N_WIDE, NUM_ANTS, 7, {"ant": 4, "time": 2}),
                              (1 << 17, 1, 3, {"time": 8})):
         args = channel_args("GPSL1", n, a, taps, 4, -2200.0, 0.7, 311.25)
@@ -2474,8 +2825,10 @@ def sharded_correlate_path():
                                     ant_axis="ant" if "ant" in axes else None)
             torch.cuda.synchronize()
             counts = read_counts()
-            check(counts == only(**{kind: 8}), f"J5 {kind} {axes}: 8 launches, got {counts}")
-            launches[kind] += counts[kind]
+            expected = {kind: 8, "replica": 8} if kind == "taps" else {kind: 8}
+            check(counts == only(**expected), f"J5 {kind} {axes}: 8 launches, got {counts}")
+            for name in expected:
+                launches[name] += counts[name]
             err = 0.0
             for g, w in zip(got, want):
                 check(g.shape == w.shape and bool(torch.isfinite(g).all()), f"J5 {kind} shape")
@@ -2894,7 +3247,7 @@ def ptxas_summary(log_path):
     lines, kernel = [], None
     for line in log_path.read_text().splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d+"
-                          r"((?:bank_[a-z_]+?|taps_|fused_|loop_update_)(?:kernel|finish))"
+                          r"((?:bank_[a-z_]+?|taps_|fused_|replica_|loop_update_)(?:kernel|finish))"
                           r"(I(?:L[ib]\d+E)+E)?", line)
         if entry:
             args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
@@ -3090,8 +3443,10 @@ def kernel_vs_plain(name, launch, plain, card, per_rep=10, samples=None, graphs=
 
 def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
     """Phase 5: kernels vs their plain versions, and the closed-loop blocks."""
-    from gpuacceleratedtracking_tpu_torch.models import GPSL5, gpsl5
-    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels
+    from gpuacceleratedtracking_tpu_torch.models import (
+        GPSL5, EPLCorrelator, correlator_sample_shifts, gpsl5)
+    from gpuacceleratedtracking_tpu_torch.ops import (
+        bank_comp, channel_kernels, epl_kernels, replica_kernel)
     from gpuacceleratedtracking_tpu_torch.tracking import (
         TrackConfig, dual_config, loop_update, track_bank, track_bank_dual)
     from gpuacceleratedtracking_tpu_torch.tracking.dual import dual_update, dual_update_plain
@@ -3188,6 +3543,26 @@ def timings(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
                     f"wrapper call (torch.profiler) [{card}]")
                 results[f"{kind}_n{n}_a{a}_l{taps}"] = res
     del args, call
+
+    # The replica kernel at the taps kernel's two corners: its [L, N] tap
+    # matrix for one channel, against the plain replica ops (device time
+    # from a CUDA graph, both). No single PyTorch call computes it.
+    for n, taps in ((N_1MS, 3), (N_WIDE, 7)):
+        fs = n / 1e-3
+        shifts = tuple(int(s) for s in correlator_sample_shifts(system, EPLCorrelator(taps), fs))
+        codes = torch.as_tensor(system.codes, device=DEVICE)
+        rargs = (codes, torch.tensor(3, dtype=torch.int32, device=DEVICE),
+                 torch.tensor(system.code_frequency, dtype=torch.float32, device=DEVICE), fs,
+                 torch.tensor(17.5, dtype=torch.float32, device=DEVICE), n, shifts,
+                 system.code_length)
+        res = kernel_vs_plain(f"replica N={n} L={taps}",
+                              lambda: replica_kernel.code_tap_matrix(*rargs),
+                              lambda: replica_kernel.tap_matrix_plain(*rargs), card,
+                              samples=n, graphs=True)
+        # Bytes: the [L, N] f32 write and the PRN's code column read once.
+        res.update(bound(0, "f32", codes[:, 0], out_elems=taps * n), library_ms=None)
+        results[f"replica_n{n}_l{taps}"] = res
+    del codes, rargs
 
     case = random_case(system, N_1MS, NUM_K, seed + 400)
     del case["nominal_code_frequency"]
@@ -3332,6 +3707,14 @@ def main(argv=None) -> int:
             **channel_cells()}
     log(f"[phase] kernel cells in {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
+    al_errs, al_times, al_comp = al_cells(args.seed, card)
+    for kernel, err in al_errs.items():
+        errs[kernel] = max(errs[kernel], err)
+    log(f"[phase] 3c, every A and L, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    errs["replica"], replica_grid = replica_cells(args.seed)
+    log(f"[phase] 3d, the replica kernel bit for bit, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
     errs["loop_update"] = errs["loop_update_dual"] = loop_cells(args.seed)
     loop_exact = loop_trajectory(system, args.seed)
     log(f"[phase] 3b, the loop kernel against its plain version, in "
@@ -3346,8 +3729,16 @@ def main(argv=None) -> int:
     sweep_dir = (pathlib.Path(args.out).parent if args.out else pathlib.Path("build")) / \
         "kernel_sweep"
     sweep_counts, sweep_small, sweep = sweep_path(sweep_dir)
-    launches.update(taps=sweep_counts["taps"], fused=sweep_counts["fused"])
+    launches.update(taps=sweep_counts["taps"], fused=sweep_counts["fused"],
+                    replica=sweep_counts["replica"])
     log(f"[phase] main path C, the kernel sweep, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    mode_counts, sweep_by_mode = sweep_modes(card)
+    log(f"[phase] C2, the sweep's corners in every reps mode, in "
+        f"{time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    replica_launches, replica_bench = replica_path(card)
+    log(f"[phase] R, the replica benchmark, in {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     launches["bank_onehot"], benches = channel_loops(system, args.seed, sre, sim)
     log(f"[phase] main path D, per-channel and one-hot loops, in "
@@ -3359,7 +3750,11 @@ def main(argv=None) -> int:
                "bank_comp": {"A": launches["bank_comp"]},
                "bank_transition": {"B": launches["bank_transition"]},
                "bank_onehot": {"D": launches["bank_onehot"]},
-               "taps": {"C": launches["taps"]}, "fused": {"C": launches["fused"]}}
+               "taps": {"C": launches["taps"], "C2": mode_counts["taps"]},
+               "fused": {"C": launches["fused"], "C2": mode_counts["fused"]},
+               "replica": {"C": launches["replica"], "C2": mode_counts["replica"],
+                           "R": replica_launches}}
+    by_path["bank_comp"]["AL"] = al_comp
     t0 = time.perf_counter()
     for kernel, err in family_cells(args.seed).items():
         errs[kernel] = max(errs[kernel], err)
@@ -3378,7 +3773,8 @@ def main(argv=None) -> int:
     stream_counts, streaming = streaming_path(args.seed, card)
     by_path["bank_rows"]["streaming"] = stream_counts["bank_rows"]
     dual_counts = dual_per_channel_path(args.seed)
-    by_path["taps"]["dual"], by_path["fused"]["dual"] = dual_counts["taps"], dual_counts["fused"]
+    for kernel in ("taps", "fused", "replica"):
+        by_path[kernel]["dual"] = dual_counts[kernel]
     log(f"[phase] H and I, streaming and the per-channel dual bank, in "
         f"{time.perf_counter() - t0!r} s")
 
@@ -3388,7 +3784,8 @@ def main(argv=None) -> int:
                                                    l5_offsets, card)
     for kernel, count in par_counts.items():
         by_path[kernel]["parallel"] = count
-        errs[kernel] = max(errs[kernel], par_errs[kernel])
+        if kernel in par_errs:                 # J0 holds the correlators to their plain versions
+            errs[kernel] = max(errs[kernel], par_errs[kernel])
     log(f"[phase] J, the distributed layer, in {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     track_records = [benches[name]["record"] for name in ("track", "dual_track")]
@@ -3440,6 +3837,10 @@ def main(argv=None) -> int:
          "gpuacceleratedtracking_tpu/tracking/track.py:77", times["loop_update"], graph),
         ("loop_update_dual", "gpuacceleratedtracking_tpu_torch/csrc/loop_update.cu",
          "gpuacceleratedtracking_tpu/tracking/dual.py:123", times["loop_update_dual"], graph),
+        # No Pallas kernel: the XLA fusion of the JAX gen_code_replica and the
+        # tap matrix that the JAX correlate_pallas_taps builds from it.
+        ("replica", "gpuacceleratedtracking_tpu_torch/csrc/replica.cu",
+         "gpuacceleratedtracking_tpu/ops/replica.py:63", times[f"replica_n{N_WIDE}_l7"], graph),
     ]
     # Closed-loop blocks of each bank kernel's main path (rows: 20, A: 20,
     # B: 60 sync + 200 tracking, D's one-hot bank: 20); the per-channel
@@ -3447,7 +3848,8 @@ def main(argv=None) -> int:
     per_block = {"bank_rows": (20, "block"), "bank_comp": (20, "block"),
                  "bank_transition": (260, "block"), "bank_onehot": (sre.shape[0], "block"),
                  "taps": (None, "call"), "fused": (None, "call"),
-                 "loop_update": (20, "block"), "loop_update_dual": (260, "block")}
+                 "loop_update": (20, "block"), "loop_update_dual": (260, "block"),
+                 "replica": (None, "call")}
     launches["loop_update"] = by_path["loop_update"]["rows"]
     launches["loop_update_dual"] = by_path["loop_update_dual"]["B"]
     kernels = {"kernels": [{
@@ -3491,7 +3893,10 @@ def main(argv=None) -> int:
                        "families": family_times, "acquisition": acquisition,
                        "coldstart": coldstart, "streaming": streaming,
                        "parallel": parallel, "figures": figures, "graphs": captured,
-                       "sweep": sweep}, f, indent=1)
+                       "sweep": sweep, "sweep_modes": sweep_by_mode, "al": al_times,
+                       "replica": {"grid_cells": replica_grid, "benchmark": replica_bench,
+                                   "corner_n32768_l3": times[f"replica_n{N_1MS}_l3"]}},
+                      f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,13 @@ Port of `gpuacceleratedtracking_tpu.bench.harness` with the same config keys
 device; a host without one raises) or ``"CPU"``. Any other value raises.
 
 Timing is differential (`timing.benchmark_differential`): one timed call
-holds ``reps`` back-to-back calls of the workload, as a user's loop would
-make them, with per-call inputs that differ (the phase offsets are device
-tensors, ``offs[i]``, so no host-to-device copy enters the span).
+holds ``reps`` back-to-back calls of the workload, with per-call inputs that
+differ (the phase offsets are device tensors, ``offs[i]``, so no
+host-to-device copy enters the span), and their running total. As the JAX
+harness compiles its reps into one program, on the card a timed call is a
+replayed CUDA graph of the reps (`reps_program`, ``reps_mode`` "unroll" or
+"scan"), so its per-call time is device time; ``reps_mode="calls"`` issues
+each call from Python, the dispatch view.
 Acquisition (`run_acquire_benchmark`) times one full PCPS call. The TPU
 launch-shape autotuner is not ported (the port's kernels have no launch
 knobs).
@@ -31,11 +35,14 @@ import torch
 
 from ..models import EPLCorrelator, correlator_sample_shifts, gen_signal, get_system, soa
 from ..ops import registry
-from ..ops import replica as replica_ops
 from ..ops.reduce import get_reduction
+from ..ops.replica_kernel import code_replica
 from .timing import benchmark, benchmark_differential
 
 REALTIME_BOUND_S = 1e-3  # process 1 ms of signal in under 1 ms
+REPS_MODES = ("unroll", "scan", "calls")
+SCAN_UNROLL = 4          # reps per graph in run_kernel_benchmark's "scan" (JAX: unroll=4)
+REDUCTION_UNROLL = 32    # reps per graph of the reduction and replica benchmarks (unroll=32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,14 +113,107 @@ def _finish(config: dict, stats, processor: str, algorithm: str, **derived) -> d
     return add_metadata(results, processor, algorithm)
 
 
-def run_kernel_benchmark(config: dict) -> dict:
-    """Benchmark one correlator algorithm for one scenario dict.
+def _resolve_mode(config: dict, default: str) -> str:
+    mode = config.get("reps_mode", default)
+    if mode not in REPS_MODES:
+        raise ValueError(f"reps_mode is one of {REPS_MODES}, not {mode!r}")
+    return mode
 
-    Keys: ``GNSS`` ("GPSL1"/"GPSL5"), ``num_samples``, ``num_ants``,
-    ``num_correlators``, ``algorithm`` (registry name), ``processor``
-    ("GPU"/"CPU"), optional ``reps`` (or ``"auto"``) and ``trials``. Bank
-    algorithms run at K=1. Times are per call.
+
+def _accumulate(total: torch.Tensor, outs) -> None:
+    """``total = total + out.sum()`` for each output in turn, in place: the
+    JAX bodies' ``total + are.sum() + aim.sum()``, rounded alike."""
+    for out in outs:
+        total.add_(out.sum())
+
+
+def reps_program(step, xs: torch.Tensor, mode: str, unroll: int):
+    """A callable that runs ``r = len(xs)`` reps, ``step(xs[i])`` each, and
+    returns their running f32 total, a 0-d tensor on ``xs``'s device: the
+    port's counterpart of the JAX harness's jitted reps.
+
+    ``step(x)`` returns the rep's outputs, each summed into the total.
+    ``mode``: ``"calls"`` issues every rep from Python (the dispatch view);
+    on a CUDA device outside `tracking.eager()`, ``"unroll"`` replays one
+    CUDA graph of all r reps (JAX: the reps unrolled in one jitted program),
+    and ``"scan"`` a graph of ``unroll`` reps ``r // unroll`` times, then one
+    of ``r % unroll`` (JAX: ``lax.scan(..., unroll=unroll)``), whose reps read
+    their input at a device-side index. Elsewhere every mode runs its reps
+    eagerly, as `tracking.graphs.loop` does. The graphs are captured here,
+    after one rep run eagerly (the libraries and constant caches are built
+    on first use, and a capture may not build them); its launches and the
+    captures' are not counted, and each replay adds the launches that its
+    capture recorded. A capture that fails raises. A graph reads its inputs
+    at the addresses it was captured with, so the callable holds ``step``
+    (and, through its closure, the tensors it reads) and ``xs``; the graphs
+    and their memory pools live as long as the callable.
     """
+    from ..tracking import graphs
+
+    device = xs.device
+    num_reps = xs.shape[0]
+
+    def eager():
+        total = torch.zeros((), dtype=torch.float32, device=device)
+        for i in range(num_reps):
+            _accumulate(total, step(xs[i]))
+        return total
+
+    if mode == "calls" or not graphs.enabled(device):
+        return eager
+    with graphs.uncounted():
+        step(xs[0])
+    torch.cuda.synchronize(device)
+    if mode == "unroll":
+        static = {}
+
+        def body():
+            static["total"] = eager()
+
+        replay, launched = graphs.capture_counted(body, device)
+        total = static["total"]
+
+        def run():
+            replay()
+            graphs.count_replays(launched)
+            return total
+
+        run.inputs = (step, xs)
+        return run
+
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    index = torch.zeros((), dtype=torch.int64, device=device)
+
+    def scan_body(reps):
+        def body():
+            for _ in range(reps):
+                _accumulate(total, step(torch.index_select(xs, 0, index.view(1))[0]))
+                index.add_(1)
+
+        return graphs.capture_counted(body, device)
+
+    full, rest = divmod(num_reps, unroll)
+    programs = [(scan_body(unroll), full)] if full else []
+    if rest:
+        programs.append((scan_body(rest), 1))
+
+    def run():
+        total.zero_()
+        index.zero_()
+        for (replay, launched), times in programs:
+            for _ in range(times):
+                replay()
+            graphs.count_replays(launched, times)
+        return total
+
+    run.inputs = (step, xs)
+    return run
+
+
+def _kernel_case(config: dict) -> dict:
+    """`run_kernel_benchmark`'s scenario: its keys resolved, the signal, and
+    ``step(off)``, one correlator call with the phase offset ``off`` (a
+    device tensor: ``[1]`` for the bank signature, 0-d else)."""
     system = get_system(config["GNSS"])
     num_samples = int(config["num_samples"])
     num_ants = int(config.get("num_ants", 1))
@@ -124,8 +224,6 @@ def run_kernel_benchmark(config: dict) -> dict:
     if reps == "auto":
         # More calls at small N, where one call is tens of microseconds.
         reps = int(min(128, max(8, (1 << 22) // num_samples)))
-    reps = int(reps)
-    trials = int(config.get("trials", 7))
     device = resolve_device(processor)
 
     fs = num_samples / 1e-3
@@ -146,24 +244,47 @@ def run_kernel_benchmark(config: dict) -> dict:
     fcar = torch.full(shape, 1500.0, dtype=torch.float32, device=device)
     fcode = torch.full(shape, system.code_frequency, dtype=torch.float32, device=device)
 
-    def make_fn(r):
-        offs = torch.linspace(0.0, 0.1, r, dtype=torch.float32, device=device)
-        offs = offs.reshape((r,) + shape)
+    def step(off):
+        return corr(sre, sim, codes, prn, fcar, fs, off, fcode, off)
 
-        def run():
-            out = None
-            for i in range(r):
-                out = corr(sre, sim, codes, prn, fcar, fs, offs[i], fcode, offs[i])
-            return out
+    return dict(num_samples=num_samples, num_ants=num_ants, algorithm=algorithm,
+                processor=processor, reps=int(reps), trials=int(config.get("trials", 7)),
+                reps_mode=_resolve_mode(config, "unroll"), device=device, shape=shape,
+                step=step)
 
-        return run, ()
 
-    stats = benchmark_differential(make_fn, reps, trials=trials)
+def _kernel_program(case: dict, reps: int):
+    offs = torch.linspace(0.0, 0.1, reps, dtype=torch.float32, device=case["device"])
+    return reps_program(case["step"], offs.reshape((reps,) + case["shape"]),
+                        case["reps_mode"], SCAN_UNROLL)
+
+
+def kernel_program(config: dict, reps: int):
+    """The callable that one timed call of `run_kernel_benchmark` makes for
+    ``config`` with ``reps`` reps (per-rep phase offsets
+    ``linspace(0, 0.1, reps)``, as the JAX harness's): it returns the reps'
+    running total of ``are.sum() + aim.sum()``."""
+    return _kernel_program(_kernel_case(config), int(reps))
+
+
+def run_kernel_benchmark(config: dict) -> dict:
+    """Benchmark one correlator algorithm for one scenario dict.
+
+    Keys: ``GNSS`` ("GPSL1"/"GPSL5"), ``num_samples``, ``num_ants``,
+    ``num_correlators``, ``algorithm`` (registry name), ``processor``
+    ("GPU"/"CPU"), optional ``reps`` (or ``"auto"``), ``trials`` and
+    ``reps_mode`` (`reps_program`: ``"unroll"``, the default, ``"scan"`` or
+    ``"calls"``). Bank algorithms run at K=1. Times are per call.
+    """
+    case = _kernel_case(config)
+    reps = case["reps"]
+    stats = benchmark_differential(lambda r: (_kernel_program(case, r), ()), reps,
+                                   trials=case["trials"])
     # Derived rates use the median: a differential minimum can clamp to 0.
     floor = max(stats.median, 1e-9)
-    return _finish(config, stats, processor, algorithm, reps_resolved=reps,
-                   reps_mode="calls", realtime_ratio=floor / REALTIME_BOUND_S,
-                   samples_per_s=num_samples * num_ants / floor)
+    return _finish(config, stats, case["processor"], case["algorithm"], reps_resolved=reps,
+                   reps_mode=case["reps_mode"], realtime_ratio=floor / REALTIME_BOUND_S,
+                   samples_per_s=case["num_samples"] * case["num_ants"] / floor)
 
 
 def _blocks(signal: torch.Tensor, num_blocks: int, num_samples: int):
@@ -318,7 +439,9 @@ def run_reduction_benchmark(config: dict) -> dict:
     """Benchmark a reduction fusion degree over ``[N, A, L]`` product planes.
 
     Keys: ``num_samples``, ``num_ants``, ``num_correlators``, ``algorithm``
-    ("pure"/"cplx"/"cplx_multi"), ``processor``, optional ``reps``/``trials``.
+    ("pure"/"cplx"/"cplx_multi"), ``processor``, optional ``reps``/``trials``
+    and ``reps_mode``: ``"scan"`` by default, a graph of `REDUCTION_UNROLL`
+    reps replayed (the JAX ``lax.scan(..., unroll=32)``; `reps_program`).
     """
     num_samples = int(config["num_samples"])
     num_ants = int(config.get("num_ants", 4))
@@ -330,6 +453,7 @@ def run_reduction_benchmark(config: dict) -> dict:
         reps = int(min(8192, max(256, (1 << 24) // num_samples)))
     reps = int(reps)
     trials = int(config.get("trials", 7))
+    mode = _resolve_mode(config, "scan")
     device = resolve_device(processor)
 
     red = get_reduction(algorithm)
@@ -340,25 +464,23 @@ def run_reduction_benchmark(config: dict) -> dict:
 
     def make_fn(r):
         scales = torch.linspace(1.0, 1.01, r, dtype=torch.float32, device=device)
-
-        def run():
-            out = None
-            for i in range(r):
-                out = red(prod_re * scales[i], prod_im * scales[i])
-            return out
-
-        return run, ()
+        return reps_program(lambda s: red(prod_re * s, prod_im * s), scales, mode,
+                            REDUCTION_UNROLL), ()
 
     stats = benchmark_differential(make_fn, reps, trials=trials)
-    return _finish(config, stats, processor, algorithm)
+    return _finish(config, stats, processor, algorithm, reps_mode=mode)
 
 
 def run_replica_benchmark(config: dict) -> dict:
     """Benchmark code-replica generation: exact vs quantized-NCO lookup.
 
     ``algorithm`` is ``"exact"`` (`gen_code_replica`) or ``"quantized"``
-    (`gen_code_replica_quantized`, the texture-lookup analog). Keys:
-    ``GNSS``, ``num_samples``, ``processor``, optional ``reps``/``trials``.
+    (`gen_code_replica_quantized`, the texture-lookup analog); on the card
+    one launch of ``csrc/replica.cu`` per rep (`replica_kernel.code_replica`,
+    the counterpart of XLA's fusion of the function), on the CPU the plain
+    version. Keys: ``GNSS``, ``num_samples``, ``processor``, optional
+    ``reps``/``trials`` and ``reps_mode`` (``"scan"`` by default, as
+    `run_reduction_benchmark`).
     """
     system = get_system(config["GNSS"])
     num_samples = int(config["num_samples"])
@@ -369,26 +491,21 @@ def run_replica_benchmark(config: dict) -> dict:
         reps = int(min(4096, max(32, (1 << 23) // num_samples)))
     reps = int(reps)
     trials = int(config.get("trials", 7))
+    mode = _resolve_mode(config, "scan")
     fs = num_samples / 1e-3
     device = resolve_device(processor)
 
-    gen = (replica_ops.gen_code_replica if algorithm == "exact"
-           else replica_ops.gen_code_replica_quantized)
     codes = torch.as_tensor(system.codes, device=device)
     prn = torch.zeros((), dtype=torch.int32, device=device)
     fcode = torch.tensor(system.code_frequency, dtype=torch.float32, device=device)
 
+    def step(phase):
+        return (code_replica(codes, prn, fcode, fs, phase, num_samples, -1, 1,
+                             system.code_length, mode=algorithm),)
+
     def make_fn(r):
         phases = torch.linspace(0.0, 0.5, r, dtype=torch.float32, device=device)
-
-        def run():
-            out = None
-            for i in range(r):
-                out = gen(codes, prn, fcode, fs, phases[i], num_samples, -1, 1,
-                          system.code_length)
-            return out
-
-        return run, ()
+        return reps_program(step, phases, mode, REDUCTION_UNROLL), ()
 
     stats = benchmark_differential(make_fn, reps, trials=trials)
-    return _finish(config, stats, processor, algorithm)
+    return _finish(config, stats, processor, algorithm, reps_mode=mode)

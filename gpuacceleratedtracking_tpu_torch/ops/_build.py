@@ -76,6 +76,17 @@ SIGNATURES = {
         ),
         "channel_capture_id": ([_P], ctypes.c_ulonglong),
     },
+    "replica": {
+        "replica_launch": (
+            [_P, _P,                               # codes out
+             _P, _P, _P,                           # prn fcode phase pointers
+             _I, _I, _F, _F, _D,                   # prn prn_is64 fcode phase inv_fs
+             _P, _I, _I, _I,                       # offsets (host int[rows]) rows width min_shift
+             _I, _I, _I, _F, _F,                   # code_length prns quantized scale inv_scale
+             _P],                                  # stream
+            _I,
+        ),
+    },
     "loop_update": {
         "loop_update_launch": (
             [_P, _I,                               # pointers (host array, count)

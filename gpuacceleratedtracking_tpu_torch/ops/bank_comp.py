@@ -36,7 +36,7 @@ import torch
 from . import _build, registry
 from .epl_kernels import (
     TILE, BankRowsCall, _check_kernel_inputs, _deltas, _is_bf16, _replica_chips,
-    _row_lane_carrier, _tile_phases, unpack_code_columns)
+    _row_lane_carrier, _tile_phases, split_launches, unpack_code_columns)
 from .replica import _TWO_PI_F32
 
 COMP_TILE = 1024             # composite samples per CTA of the CUDA kernel; divides TILE
@@ -161,33 +161,43 @@ def launch_bank_comp(bank: BankCompCall) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/bank_comp.cu`` for a prepared call on CUDA tensors.
 
     Returns ``[K, A, L]`` accumulators and adds one to
-    ``correlate_pallas_bank_comp.launches``. Raises on anything the kernel
-    does not take, and if the launch fails.
+    ``correlate_pallas_bank_comp.launches`` per launch: one inside the
+    kernel's instantiations, else one per group of
+    `epl_kernels.launch_groups`. Raises on anything the kernel does not take,
+    and if a launch fails.
     """
     if bank.device.type != "cuda":
         raise ValueError(f"the bank_comp kernel takes CUDA tensors, not {bank.device}")
     _check_kernel_inputs(bank, kernel="bank_comp")
     lib = _build.load_library("bank_comp")
-    shape = (bank.num_k, bank.num_ants, len(bank.deltas))
     num_ctiles = -(-(bank.num_samples + bank.span) // COMP_TILE)
-    out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
-    out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
-    partial = torch.empty(shape[:1] + (num_ctiles,) + shape[1:] + (4,),
-                          dtype=torch.float32, device=bank.device)
-    deltas = _deltas(bank.deltas, bank.device)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
-    err = lib.bank_comp_launch(
-        bank.sre.data_ptr(), bank.sim.data_ptr(), bank.code_tiles.data_ptr(),
-        bank.params.data_ptr(), bank.base.data_ptr(), deltas.data_ptr(),
-        partial.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        bank.num_ants, len(bank.deltas), bank.num_samples, bank.num_k,
-        bank.code_length, TILE, bank.span, int(bank.bf16),
-        ctypes.c_float(bank.rho_nom), ctypes.c_float(bank.fcar_nom_cyc), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"bank_comp_launch failed with CUDA error {err}")
-    correlate_pallas_bank_comp.launches += 1
-    return out_re, out_im
+
+    def launch(a0, a1, taps):
+        # Antennas a0:a1 against the taps indexed by `taps`, over the call's
+        # composite range N + span and with its phase origin: the unsplit
+        # call's Z.
+        deltas = tuple(bank.deltas[i] for i in taps)
+        shape = (bank.num_k, a1 - a0, len(deltas))
+        out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
+        out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
+        partial = torch.empty(shape[:1] + (num_ctiles,) + shape[1:] + (4,),
+                              dtype=torch.float32, device=bank.device)
+        row = 4 * a0 * bank.num_samples                  # bytes to antenna a0's plane
+        err = lib.bank_comp_launch(
+            bank.sre.data_ptr() + row, bank.sim.data_ptr() + row, bank.code_tiles.data_ptr(),
+            bank.params.data_ptr(), bank.base.data_ptr(),
+            _deltas(deltas, bank.device).data_ptr(), partial.data_ptr(), out_re.data_ptr(),
+            out_im.data_ptr(), a1 - a0, len(deltas), bank.num_samples, bank.num_k,
+            bank.code_length, TILE, bank.span, int(bank.bf16),
+            ctypes.c_float(bank.rho_nom), ctypes.c_float(bank.fcar_nom_cyc), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"bank_comp_launch failed with CUDA error {err}")
+        correlate_pallas_bank_comp.launches += 1
+        return out_re, out_im
+
+    return split_launches(launch, bank.num_ants, len(bank.deltas), (bank.num_k,), bank.device)
 
 
 correlate_pallas_bank_comp.launches = 0

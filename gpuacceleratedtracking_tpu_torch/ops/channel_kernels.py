@@ -8,6 +8,9 @@ in the kernel, from the PRN's code column). Both take the 11-argument
 registry signature for one channel and return ``[L]`` / ``[A, L]`` f32
 accumulators.
 
+The kernels are instantiated for A <= 4 antennas and L in {3, 5, 7} taps; a
+call outside them is split into launches that are (`epl_kernels.launch_groups`).
+
 Each wrapper dispatches on where its tensors lie. CUDA tensors launch the
 hand-written kernel (``csrc/taps.cu``, ``csrc/fused.cu``, built at first use
 by `_build`) or raise; CPU tensors run the plain version
@@ -20,9 +23,15 @@ kernel takes the raw channel parameters (Python scalars by value, one-element
 device tensors by pointer), derives ``(f_cyc, phi_cyc, rho, phi_code)`` with
 the roundings of `_channel_params`, reads the PRN's column from the code
 table itself, and takes the tap offsets by value; its scratch comes from a
-cache (`_scratch`). A `pallas_taps` call adds the plain replica ops that
-build its tap matrix. Nothing here reads a device value on the host or
-copies a host value to the card, so a tracking loop never waits on the card.
+cache (`_scratch`). A `pallas_taps` call is two device ops: the replica
+kernel (``csrc/replica.cu``, `replica_kernel.launch_replica`, the
+counterpart of XLA's fusion of the JAX wrapper's replica build), which
+writes the ``[L, N]`` tap matrix (per launch group, its own rows: `_tap_rows`),
+and the taps kernel. The plain taps version builds its tap matrix with the
+plain replica ops on every device (`ChannelCall.replica`), so the card's
+kernels are held against a version that runs neither. Nothing here reads a
+device value on the host or copies a host value to the card, so a tracking
+loop never waits on the card.
 
 Phase arithmetic shared by the kernels and the plain versions: the block is
 cut into tiles of `TILE` samples; per tile the carrier cycles ``f_cyc * n0``
@@ -50,10 +59,10 @@ from typing import Sequence
 
 import torch
 
-from . import _build, registry
-from .correlate import _tap_matrix
-from .epl_kernels import KERNEL_ANTENNAS, KERNEL_TAPS, _channel_params
-from .replica import _TWO_PI_F32, code_columns, gen_code_replica
+from . import _build, registry, replica_kernel
+from .epl_kernels import _channel_params, split_launches
+from .replica import _TWO_PI_F32, code_columns
+from .replica_kernel import _param_arg, _prn_arg, tap_matrix_plain
 
 TILE = 1024                  # samples per phase tile and CTA: N = 2^18 spans 256 CTAs
 MAX_CLUSTER = 16             # a channel of up to 16 tiles is one thread block cluster
@@ -100,12 +109,13 @@ class ChannelCall:
     """Everything a per-channel kernel and its plain version take, from the
     registry signature's arguments.
 
-    ``kernel`` is ``"taps"`` (the ``[L, N]`` tap matrix is built here, by the
-    plain replica path, as the JAX wrapper builds it) or ``"fused"`` (the
-    kernel makes the replica from the code table). The channel parameters are
-    scalars or one-element tensors and stay as given: the kernels derive
-    their f32 parameters themselves, and the plain versions' `params` and
-    `column` are computed on first use.
+    ``kernel`` is ``"taps"`` (the ``[L, N]`` tap matrix is built from the
+    code table, as the JAX wrapper builds it: by ``csrc/replica.cu`` in the
+    launch, by the plain replica ops in the plain version, `replica`) or
+    ``"fused"`` (the kernel makes the replica from the code table). The
+    channel parameters are scalars or one-element tensors and stay as given:
+    the kernels derive their f32 parameters themselves, and the plain
+    versions' `params`, `column` and `replica` are computed on first use.
     """
 
     def __init__(self, signal_re, signal_im, codes, prn, carrier_frequency,
@@ -125,17 +135,17 @@ class ChannelCall:
         self.code_frequency, self.code_phase = code_frequency, code_phase
         _one_channel(kernel, prn, carrier_frequency, carrier_phase, code_frequency,
                      code_phase)
-        self.d_min = int(min(sample_shifts))
-        self.deltas = tuple(int(d) - self.d_min for d in sample_shifts)
+        self.shifts = tuple(int(d) for d in sample_shifts)
+        self.d_min = min(self.shifts)
+        self.deltas = tuple(d - self.d_min for d in self.shifts)
         self.span = max(self.deltas)
         self.code_length = int(code_length)
         self.fs = float(sampling_frequency)
         self.num_tiles = -(-self.num_samples // TILE)
-        if kernel == "taps":
-            rep = gen_code_replica(codes, prn, code_frequency, self.fs, code_phase,
-                                   self.num_samples, self.d_min, int(max(sample_shifts)),
-                                   self.code_length)
-            self.replica = _tap_matrix(rep, sample_shifts, self.num_samples)
+        # taps: each launch group's tap matrix from csrc/replica.cu, made at the
+        # call's first launch (`_tap_rows`); a prepared call launched again
+        # runs the taps kernel alone.
+        self.tap_tables = {}
 
     @functools.cached_property
     def params(self) -> torch.Tensor:
@@ -144,6 +154,14 @@ class ChannelCall:
         return _channel_params(self.carrier_frequency, self.fs, self.carrier_phase,
                                self.code_frequency, self.code_phase, self.d_min,
                                self.device).reshape(-1)
+
+    @functools.cached_property
+    def replica(self) -> torch.Tensor:
+        """The ``[L, N]`` tap matrix from the plain replica ops, on any device,
+        for the plain taps version."""
+        return tap_matrix_plain(self.codes, self.prn, self.code_frequency, self.fs,
+                                self.code_phase, self.num_samples, self.shifts,
+                                self.code_length)
 
     @functools.cached_property
     def column(self) -> torch.Tensor:
@@ -227,9 +245,7 @@ _PLAIN = {"taps": _taps_plain, "fused": _fused_plain}
 
 
 def _check_kernel_inputs(call: ChannelCall) -> None:
-    table = call.replica if call.kernel == "taps" else call.codes
-    tensors = {"signal_re": call.sre, "signal_im": call.sim,
-               "replica" if call.kernel == "taps" else "codes": table}
+    tensors = {"signal_re": call.sre, "signal_im": call.sim, "codes": call.codes}
     for name, t in tensors.items():
         if t.device != call.device:
             raise ValueError(f"{name} is on {t.device}, the signal on {call.device}")
@@ -240,16 +256,7 @@ def _check_kernel_inputs(call: ChannelCall) -> None:
     if call.sim.shape != call.sre.shape:
         raise ValueError(f"signal planes differ: {tuple(call.sre.shape)} vs "
                          f"{tuple(call.sim.shape)}")
-    if call.num_ants not in KERNEL_ANTENNAS or len(call.deltas) not in KERNEL_TAPS:
-        raise ValueError(
-            f"{call.kernel} kernel takes A in {KERNEL_ANTENNAS} and L in "
-            f"{KERNEL_TAPS}, got A={call.num_ants}, L={len(call.deltas)}"
-        )
-    if call.kernel == "taps":
-        want = (len(call.deltas), call.num_samples)
-        if call.replica.shape != want:
-            raise ValueError(f"replica shape {tuple(call.replica.shape)} != {want}")
-    elif call.codes.ndim != 2 or call.codes.shape[0] != call.code_length:
+    if call.codes.ndim != 2 or call.codes.shape[0] != call.code_length:
         raise ValueError(f"codes must be [Lc={call.code_length}, P], got "
                          f"{tuple(call.codes.shape)}")
     if not 0 < call.num_samples < 1 << 24:
@@ -275,8 +282,8 @@ def _scratch(device: torch.device, stream: int, capture: int, num_floats: int) -
     other graphs captured on the same stream, so each capture takes buffers
     of its own, made and zeroed inside the capture (one zero fill in the
     graph per stream and size). They lie in the graph's private memory pool,
-    which holds them for as long as the graph lives, so only the capture
-    under way keeps them here.
+    which holds them for as long as the graph lives, so only the latest
+    capture keeps them here: the next capture drops them.
     """
     if capture:
         if any(key[3] != capture for key in _CAPTURE_SCRATCH):
@@ -295,36 +302,6 @@ def _deltas_arg(deltas: tuple) -> ctypes.Array:
     return (ctypes.c_int * len(deltas))(*deltas)
 
 
-def _param_arg(x, device: torch.device, keep: list):
-    """``(pointer, value)`` of one channel parameter: a CUDA tensor by
-    pointer (as f32), anything else by value."""
-    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
-        if x.device != device:
-            raise ValueError(f"a channel parameter is on {x.device}, the signal on {device}")
-        if x.dtype != torch.float32:
-            x = x.float()
-            keep.append(x)
-        return x.data_ptr(), 0.0
-    return None, float(x)
-
-
-def _prn_arg(prn, device: torch.device, num_prns: int, keep: list):
-    """``(pointer, value, is_int64)`` of the PRN: a CUDA tensor by pointer
-    (the kernel traps on one outside ``[0, P)``), anything else by value,
-    with Python's negative indexing."""
-    if isinstance(prn, torch.Tensor) and prn.device.type == "cuda":
-        if prn.device != device:
-            raise ValueError(f"prn is on {prn.device}, the signal on {device}")
-        if prn.dtype not in (torch.int32, torch.int64):
-            prn = prn.long()
-            keep.append(prn)
-        return prn.data_ptr(), 0, int(prn.dtype == torch.int64)
-    value = int(prn)
-    if not -num_prns <= value < num_prns:
-        raise IndexError(f"PRN {value} is outside a table of {num_prns} codes")
-    return None, value % num_prns, 0
-
-
 def _launch(call: ChannelCall, kernel: str):
     if call.device.type != "cuda":
         raise ValueError(f"the {kernel} kernel takes CUDA tensors, not {call.device}")
@@ -333,60 +310,94 @@ def _launch(call: ChannelCall, kernel: str):
     _check_kernel_inputs(call)
     split = work_split(call.num_samples)
     lib = _build.load_library(kernel)
-    num_taps = len(call.deltas)
-    out = torch.empty((2, call.num_ants, num_taps), dtype=torch.float32, device=call.device)
     # The current stream's handle (what torch.cuda.current_stream(device)
     # .cuda_stream gives, without building a Stream object per call).
     stream = torch._C._cuda_getCurrentRawStream(call.device.index)
-    scratch = 0                            # a one-cluster grid takes none
-    if split.clusters > 1:
-        scratch = _scratch(call.device, stream, lib.channel_capture_id(stream),
-                           _SCRATCH_HEAD + split.clusters * 2 * call.num_ants * num_taps
-                           ).data_ptr()
     keep = []
     fcar = _param_arg(call.carrier_frequency, call.device, keep)
     phicar = _param_arg(call.carrier_phase, call.device, keep)
-    table = call.replica if kernel == "taps" else call.codes
-    rows = (call.sre, call.sim, table) if kernel == "taps" else (call.sre, call.sim)
-    vec = int(call.num_samples % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows))
-    if kernel == "taps":
-        err = lib.taps_launch(
-            call.sre.data_ptr(), call.sim.data_ptr(), table.data_ptr(), out.data_ptr(),
-            scratch, fcar[0], phicar[0], fcar[1], phicar[1], call.fs, call.num_ants,
-            num_taps, call.num_samples, vec, split.grid, split.cluster, stream)
-    else:
-        prn = _prn_arg(call.prn, call.device, table.shape[1], keep)
+    if kernel == "fused":
+        prn = _prn_arg(call.prn, call.device, call.codes.shape[1], keep)
         fcode = _param_arg(call.code_frequency, call.device, keep)
         phicode = _param_arg(call.code_phase, call.device, keep)
-        err = lib.fused_launch(
-            call.sre.data_ptr(), call.sim.data_ptr(), table.data_ptr(), out.data_ptr(),
-            scratch, prn[0], fcar[0], phicar[0], fcode[0], phicode[0], prn[1], prn[2],
-            fcar[1], phicar[1], fcode[1], phicode[1], call.fs, _deltas_arg(call.deltas),
-            call.d_min, call.num_ants, num_taps, call.num_samples, call.code_length,
-            table.shape[1], vec, split.grid, split.cluster, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel}_launch failed with CUDA error {err}")
-    return out.unbind(0)
+    counter = _WRAPPERS[kernel]
+
+    def launch(a0, a1, taps):
+        # Antennas a0:a1 against the taps indexed by `taps` (taps: the tap
+        # matrix's rows of those taps), with the call's phase origin d_min:
+        # the unsplit call's chips.
+        num_ants, num_taps = a1 - a0, len(taps)
+        out = torch.empty((2, num_ants, num_taps), dtype=torch.float32, device=call.device)
+        scratch = 0                        # a one-cluster grid takes none
+        if split.clusters > 1:
+            scratch = _scratch(call.device, stream, lib.channel_capture_id(stream),
+                               _SCRATCH_HEAD + split.clusters * 2 * num_ants * num_taps
+                               ).data_ptr()
+        row = 4 * a0 * call.num_samples                  # bytes to antenna a0's plane
+        sre, sim = call.sre.data_ptr() + row, call.sim.data_ptr() + row
+        if kernel == "taps":
+            table = call.tap_tables.get(taps)
+            if table is None:
+                table = call.tap_tables[taps] = _tap_rows(call, taps)
+            rows = (sre, sim, table.data_ptr())
+        else:
+            table, rows = call.codes, (sre, sim)
+        vec = int(call.num_samples % 4 == 0 and all(ptr % 16 == 0 for ptr in rows))
+        if kernel == "taps":
+            err = lib.taps_launch(
+                sre, sim, table.data_ptr(), out.data_ptr(), scratch,
+                fcar[0], phicar[0], fcar[1], phicar[1], call.fs, num_ants, num_taps,
+                call.num_samples, vec, split.grid, split.cluster, stream)
+        else:
+            err = lib.fused_launch(
+                sre, sim, table.data_ptr(), out.data_ptr(), scratch,
+                prn[0], fcar[0], phicar[0], fcode[0], phicode[0], prn[1], prn[2], fcar[1],
+                phicar[1], fcode[1], phicode[1], call.fs,
+                _deltas_arg(tuple(call.deltas[i] for i in taps)), call.d_min,
+                num_ants, num_taps, call.num_samples, call.code_length, table.shape[1], vec,
+                split.grid, split.cluster, stream)
+        if err != 0:
+            raise RuntimeError(f"{kernel}_launch failed with CUDA error {err}")
+        counter.launches += 1
+        return out.unbind(0)
+
+    return split_launches(launch, call.num_ants, len(call.deltas), (), call.device)
+
+
+def _tap_rows(call: ChannelCall, taps: tuple) -> torch.Tensor:
+    """The ``[len(taps), N]`` tap matrix of a launch group's tap indices
+    (a padded group repeats its last tap), from one launch of
+    ``csrc/replica.cu``: row r holds the chips of samples ``n + shift`` of
+    tap ``taps[r]``, the same chips as that row of the whole call's matrix."""
+    return replica_kernel.launch_replica(
+        call.codes, call.prn, call.code_frequency, call.fs, call.code_phase,
+        [call.shifts[i] for i in taps], call.num_samples, call.d_min, call.code_length)
+
+
+def _tap_rows_plain(call: ChannelCall, taps: tuple) -> torch.Tensor:
+    """The plain version of `_tap_rows`, from the plain replica ops."""
+    return tap_matrix_plain(call.codes, call.prn, call.code_frequency, call.fs,
+                            call.code_phase, call.num_samples, [call.shifts[i] for i in taps],
+                            call.code_length)
 
 
 def launch_taps(call: ChannelCall) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/taps.cu`` for a prepared ``kernel="taps"`` call on CUDA
     tensors. Returns ``[A, L]`` accumulators and adds one to
-    ``correlate_pallas_taps.launches``; raises on anything the kernel does not
-    take, and if the launch fails."""
-    out = _launch(call, "taps")
-    correlate_pallas_taps.launches += 1
-    return out
+    ``correlate_pallas_taps.launches`` per launch (one inside the kernel's
+    instantiations, else one per group of `epl_kernels.launch_groups`). The
+    call's first launch writes each tap group's tap matrix with one launch
+    of ``csrc/replica.cu`` (`_tap_rows`). Raises on anything the kernels do
+    not take, and if a launch fails."""
+    return _launch(call, "taps")
 
 
 def launch_fused(call: ChannelCall) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/fused.cu`` for a prepared ``kernel="fused"`` call on CUDA
     tensors. Returns ``[A, L]`` accumulators and adds one to
-    ``correlate_pallas_fused.launches``; raises on anything the kernel does
-    not take, and if the launch fails."""
-    out = _launch(call, "fused")
-    correlate_pallas_fused.launches += 1
-    return out
+    ``correlate_pallas_fused.launches`` per launch, as `launch_taps`; raises
+    on anything the kernel does not take, and if a launch fails."""
+    return _launch(call, "fused")
 
 
 _LAUNCH = {"taps": launch_taps, "fused": launch_fused}
@@ -435,8 +446,8 @@ def correlate_pallas_taps(
     sample_shifts: Sequence[int],
     code_length: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One channel: the replica from the plain path as an ``[L, N]`` tap
-    matrix; carrier NCO, wipe-off and tap MAC in ``csrc/taps.cu``.
+    """One channel: the code replica as an ``[L, N]`` tap matrix from
+    ``csrc/replica.cu``; carrier NCO, wipe-off and tap MAC in ``csrc/taps.cu``.
 
     ``signal_*``: ``[N]`` or ``[A, N]``. Returns ``[L]`` / ``[A, L]`` f32
     accumulators. CPU tensors run the plain version; CUDA tensors launch the
@@ -481,6 +492,7 @@ def correlate_pallas_fused(
 
 correlate_pallas_taps.launches = 0
 correlate_pallas_fused.launches = 0
+_WRAPPERS = {"taps": correlate_pallas_taps, "fused": correlate_pallas_fused}
 
 registry.register("pallas_taps", correlate_pallas_taps)
 registry.register("pallas_fused", correlate_pallas_fused)

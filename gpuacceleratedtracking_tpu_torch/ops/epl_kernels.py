@@ -19,7 +19,10 @@ Each wrapper dispatches on where its tensors lie. CUDA tensors launch the
 hand-written kernel (built at first use by `_build`) or raise; CPU tensors run
 `correlate_bank_rows_reference`, the plain PyTorch version of the same formula
 with the same f32 phase arithmetic. Every launch adds one to the route's
-wrapper's ``launches``.
+wrapper's ``launches``. The bank kernels are instantiated for A <= 4
+antennas and L in {3, 5, 7} taps; a call outside them is split into
+launches that are (`launch_groups`, `split_launches`), each with the call's
+phase origin, so every A and L that the JAX kernels take runs on the card.
 
 Phase arithmetic shared by the kernels and the plain versions: the block is cut
 into tiles of `TILE` samples; per tile a nominal base (carrier cycles and code
@@ -64,8 +67,8 @@ TILE = 4096                  # samples per phase base
 ROWS_TILE = 1024             # samples per tile of the bank_rows kernel; divides TILE
 MAX_CODE_LENGTH = 12288      # longest code the kernels take (GPS L5: 10230)
 MAX_SPAN = 4096              # widest tap span: the kernels' replica rows fit shared memory
-KERNEL_ANTENNAS = (1, 2, 3, 4)
-KERNEL_TAPS = (3, 5, 7)
+KERNEL_ANTENNAS = 4          # antennas per launch at most: the kernels' instantiations
+KERNEL_TAPS = (3, 5, 7)      # taps per launch: the kernels' instantiations
 _LANES = 128                 # samples per carrier row
 # Elements of one [channels, N] intermediate per chunk of the plain version.
 _CHUNK_ELEMENTS = 1 << 24
@@ -207,6 +210,52 @@ def _tile_base(num_tiles: int, tile: int, fcar_nom_cyc: float, rho_nom: float,
 @functools.lru_cache(maxsize=None)       # never evicted, as `_tile_base`
 def _deltas(deltas: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(deltas, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_groups(num_ants: int, num_taps: int) -> tuple:
+    """The kernel launches that cover ``num_ants`` antennas and ``num_taps``
+    taps with the kernels' instantiations: ``(a0, a1, taps)`` per launch,
+    antennas ``a0:a1`` (at most `KERNEL_ANTENNAS`) against the taps whose
+    indices ``taps`` lists, a count in `KERNEL_TAPS`. Taps go in groups of 7
+    and a last group of the next count up, padded by repeating its last tap,
+    whose extra columns are dropped. ``out[k, a, l]`` depends on antenna a's
+    plane and tap l's shift alone, so every group launched with the call's
+    phase origin ``d_min`` and its taps' ``delta_l`` gives the unsplit
+    call's values. Inside the instantiations: one launch, every tap in order.
+    Cached: it takes a call's static shape.
+    """
+    if num_ants < 1 or num_taps < 1:
+        raise ValueError(f"a correlator takes A >= 1 and L >= 1, got A={num_ants}, L={num_taps}")
+    tap_groups, l0 = [], 0
+    while l0 < num_taps:
+        take = min(max(KERNEL_TAPS), num_taps - l0)
+        size = min(s for s in KERNEL_TAPS if s >= take)
+        tap_groups.append(tuple(range(l0, l0 + take)) + (l0 + take - 1,) * (size - take))
+        l0 += take
+    return tuple((a0, min(a0 + KERNEL_ANTENNAS, num_ants), taps)
+                 for a0 in range(0, num_ants, KERNEL_ANTENNAS) for taps in tap_groups)
+
+
+def split_launches(launch, num_ants: int, num_taps: int, lead: tuple, device: torch.device):
+    """``(out_re, out_im)`` ``[*lead, A, L]`` of a correlator call through the
+    launches of `launch_groups`: ``launch(a0, a1, taps)`` launches one group,
+    antennas ``a0:a1`` against the taps whose indices ``taps`` lists, and
+    returns its ``[*lead, a1 - a0, len(taps)]`` planes. A call inside the
+    instantiations is that one launch, unchanged; else each group's columns
+    are written into the call's result."""
+    groups = launch_groups(num_ants, num_taps)
+    if len(groups) == 1 and groups[0][2] == tuple(range(num_taps)):
+        return launch(0, num_ants, groups[0][2])
+    shape = tuple(lead) + (num_ants, num_taps)
+    out_re = torch.empty(shape, dtype=torch.float32, device=device)
+    out_im = torch.empty(shape, dtype=torch.float32, device=device)
+    for a0, a1, taps in groups:
+        g_re, g_im = launch(a0, a1, taps)
+        l0, take = taps[0], taps[-1] - taps[0] + 1
+        out_re[..., a0:a1, l0:l0 + take] = g_re[..., :take]
+        out_im[..., a0:a1, l0:l0 + take] = g_im[..., :take]
+    return out_re, out_im
 
 
 def _channel_params(carrier_frequency, sampling_frequency, carrier_phase,
@@ -381,11 +430,6 @@ def _check_kernel_inputs(bank: BankRowsCall, kernel: str = "bank_rows") -> None:
     if bank.sim.shape != bank.sre.shape:
         raise ValueError(f"signal planes differ: {tuple(bank.sre.shape)} vs "
                          f"{tuple(bank.sim.shape)}")
-    if bank.num_ants not in KERNEL_ANTENNAS or len(bank.deltas) not in KERNEL_TAPS:
-        raise ValueError(
-            f"{kernel} kernel takes A in {KERNEL_ANTENNAS} and L in "
-            f"{KERNEL_TAPS}, got A={bank.num_ants}, L={len(bank.deltas)}"
-        )
     if bank.code_length > MAX_CODE_LENGTH:
         raise ValueError(f"code_length {bank.code_length} > {MAX_CODE_LENGTH}")
     if bank.span > MAX_SPAN:
@@ -459,8 +503,9 @@ def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
     Returns ``[K, A, L]`` accumulators and adds one to the launch count of the
     call's route (``correlate_pallas_bank_rows.launches``,
     ``correlate_pallas_bank.launches`` or
-    ``correlate_pallas_bank_onehot.launches``). Raises on anything the kernel does
-    not take, and if the launch fails.
+    ``correlate_pallas_bank_onehot.launches``) per launch: one inside the
+    kernel's instantiations, else one per group of `launch_groups`. Raises on
+    anything the kernel does not take, and if a launch fails.
     """
     if bank.device.type != "cuda":
         raise ValueError(f"the bank_rows kernel takes CUDA tensors, not {bank.device}")
@@ -469,26 +514,33 @@ def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"the bank_rows kernel does not serve route {bank.route!r}")
     _check_kernel_inputs(bank)
     lib = _build.load_library("bank_rows")
-    shape = (bank.num_k, bank.num_ants, len(bank.deltas))
     num_ctiles = -(-bank.num_samples // ROWS_TILE)     # partials: at most one per tile
-    out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
-    out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
-    partial = torch.empty(shape[:1] + (num_ctiles,) + shape[1:] + (2,),
-                          dtype=torch.float32, device=bank.device)
-    deltas = _deltas(bank.deltas, bank.device)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
-    err = lib.bank_rows_launch(
-        bank.sre.data_ptr(), bank.sim.data_ptr(), bank.code_tiles.data_ptr(),
-        bank.params.data_ptr(), bank.base.data_ptr(), deltas.data_ptr(),
-        partial.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        bank.num_ants, len(bank.deltas), bank.num_samples, bank.num_k,
-        bank.code_length, TILE, bank.span, ctypes.c_float(bank.rho_nom),
-        ctypes.c_float(bank.fcar_nom_cyc), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"bank_rows_launch failed with CUDA error {err}")
-    wrapper.launches += 1
-    return out_re, out_im
+
+    def launch(a0, a1, taps):
+        # Antennas a0:a1 against the taps indexed by `taps`, with the call's
+        # span and phase origin (params, base): the unsplit call's chips.
+        deltas = tuple(bank.deltas[i] for i in taps)
+        shape = (bank.num_k, a1 - a0, len(deltas))
+        out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
+        out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
+        partial = torch.empty(shape[:1] + (num_ctiles,) + shape[1:] + (2,),
+                              dtype=torch.float32, device=bank.device)
+        row = 4 * a0 * bank.num_samples                  # bytes to antenna a0's plane
+        err = lib.bank_rows_launch(
+            bank.sre.data_ptr() + row, bank.sim.data_ptr() + row, bank.code_tiles.data_ptr(),
+            bank.params.data_ptr(), bank.base.data_ptr(),
+            _deltas(deltas, bank.device).data_ptr(), partial.data_ptr(), out_re.data_ptr(),
+            out_im.data_ptr(), a1 - a0, len(deltas), bank.num_samples, bank.num_k,
+            bank.code_length, TILE, bank.span, ctypes.c_float(bank.rho_nom),
+            ctypes.c_float(bank.fcar_nom_cyc), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"bank_rows_launch failed with CUDA error {err}")
+        wrapper.launches += 1
+        return out_re, out_im
+
+    return split_launches(launch, bank.num_ants, len(bank.deltas), (bank.num_k,), bank.device)
 
 
 correlate_pallas_bank_rows.launches = 0

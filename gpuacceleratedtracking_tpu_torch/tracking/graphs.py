@@ -98,6 +98,37 @@ def capture(body: Callable[[], None], device: torch.device) -> Callable[[], None
     return graph.replay
 
 
+def capture_counted(body: Callable[[], None], device: torch.device):
+    """`capture` ``body``, the launches counted in it taken back: returns the
+    replay and how far the capture moved each wrapper's launch count (in
+    `_counters` order), which the caller adds per replay (`count_replays`):
+    a replay runs no wrapper code."""
+    before = _counts()
+    try:
+        replay = capture(body, device)
+        launched = [c - b for c, b in zip(_counts(), before)]
+    finally:
+        _set_counts(before)
+    return replay, launched
+
+
+def count_replays(launched: list, replays: int = 1) -> None:
+    """Add a captured body's launches (`capture_counted`) ``replays`` times."""
+    for fn, count in zip(_counters(), launched):
+        fn.launches += count * replays
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside leave every wrapper's launch count as it was (a
+    warm-up whose results are thrown away)."""
+    before = _counts()
+    try:
+        yield
+    finally:
+        _set_counts(before)
+
+
 def clear() -> None:
     """Drop every cache entry, and with them their graphs and buffers."""
     _ENTRIES.clear()
@@ -259,12 +290,13 @@ def _write_carry(carry_leaves: list, new_leaves: list) -> None:
 # --- Launch counters.
 
 def _counters() -> tuple:
-    from ..ops import bank_comp, channel_kernels, epl_kernels, loop_kernel
+    from ..ops import bank_comp, channel_kernels, epl_kernels, loop_kernel, replica_kernel
 
     return (epl_kernels.correlate_pallas_bank_rows, epl_kernels.correlate_pallas_bank,
             epl_kernels.correlate_pallas_bank_onehot, bank_comp.correlate_pallas_bank_comp,
             channel_kernels.correlate_pallas_taps, channel_kernels.correlate_pallas_fused,
-            loop_kernel.dual_update_kernel, loop_kernel.loop_update_kernel)
+            replica_kernel.code_replica, loop_kernel.dual_update_kernel,
+            loop_kernel.loop_update_kernel)
 
 
 def _counts() -> list:
@@ -314,17 +346,11 @@ class _Entry:
         self.index = torch.zeros((), dtype=torch.int64, device=device)
         self._load(carry, consts)
         self._load_chunk(xs, 0, 1)
-        before = _counts()
-        try:
-            with warnings.catch_warnings():
-                # A wrapper's warning is said once, at capture (JAX: at trace time).
-                warnings.simplefilter("ignore")
-                self._warm_up(step)
-            warmed = _counts()
-            self.replay = capture(self._body(step), device)
-            self.launches = [c - w for c, w in zip(_counts(), warmed)]
-        finally:
-            _set_counts(before)
+        with uncounted(), warnings.catch_warnings():
+            # A wrapper's warning is said once, at capture (JAX: at trace time).
+            warnings.simplefilter("ignore")
+            self._warm_up(step)
+        self.replay, self.launches = capture_counted(self._body(step), device)
 
     def _load(self, carry, consts) -> None:
         _copy(_leaves(self.carry) + _leaves(self.consts), _leaves(carry) + _leaves(consts))
@@ -381,7 +407,6 @@ class _Entry:
         self._load(carry, consts)
         stacked = [torch.empty((num_blocks,) + buf.shape[1:], dtype=buf.dtype,
                                device=self.device) for buf in self.outs]
-        counters = _counters()
         for b0 in range(0, num_blocks, self.chunk):
             num = min(self.chunk, num_blocks - b0)
             self.index.zero_()
@@ -389,8 +414,7 @@ class _Entry:
             for _ in range(num):
                 self.replay()
             _copy([dst[b0:b0 + num] for dst in stacked], [buf[:num] for buf in self.outs])
-            for fn, count in zip(counters, self.launches):
-                fn.launches += count * num
+            count_replays(self.launches, num)
         leaves = _leaves(self.carry)
         fresh = [_like(x) for x in leaves]
         _copy(fresh, leaves)

@@ -197,10 +197,18 @@ def test_kernel_launch_refuses_cpu_tensors_and_bad_shapes():
     bank = bank_comp.BankCompCall(*_args(c), SYSTEM.code_frequency)
     with pytest.raises(ValueError, match="CUDA tensors"):
         bank_comp.launch_bank_comp(bank)
-    c = _case(8192, 2, 1, (-16, -8, 0, 8), 0, False)   # four taps: no instantiation
+    # Four taps, outside the instantiations: taken (one launch of five taps,
+    # the last repeated, on the card), and the plain composite result is the
+    # rows route's within the composite bound, 3e-5 of the largest value.
+    c = _case(8192, 2, 1, (-16, -8, 0, 8), 0, False)
     bank = bank_comp.BankCompCall(*_args(c), SYSTEM.code_frequency)
-    with pytest.raises(ValueError, match="bank_comp kernel takes A in"):
-        epl_kernels._check_kernel_inputs(bank, kernel="bank_comp")
+    epl_kernels._check_kernel_inputs(bank, kernel="bank_comp")
+    assert epl_kernels.launch_groups(1, 4) == ((0, 1, (0, 1, 2, 3, 3)),)
+    got = _run_port(bank_comp.correlate_pallas_bank_comp, c)
+    rows = _run_port(epl_kernels.correlate_pallas_bank_rows, c)
+    for g, r in zip(got, rows):
+        assert g.shape == r.shape == (2, 4)
+        np.testing.assert_allclose(g, r, rtol=0, atol=3e-5 * np.abs(rows[0]).max())
     assert bank_comp.correlate_pallas_bank_comp.launches == 0
 
 

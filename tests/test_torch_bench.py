@@ -46,7 +46,7 @@ def test_kernel_benchmark(algorithm, ants, taps):
                                                      num_correlators=taps))
     _check_stats(res)
     assert res["algorithm"] == algorithm and res["reps_resolved"] == 2
-    assert res["reps_mode"] == "calls"
+    assert res["reps_mode"] == "unroll"          # the JAX harness's default
     assert res["samples_per_s"] > 0 and res["realtime_ratio"] > 0
     # On the CPU the kernel algorithms run their plain versions.
     assert channel_kernels.correlate_pallas_fused.launches == 0
@@ -166,3 +166,119 @@ def test_collect_and_eval(tmp_path):
     assert len(df) == 2
     summary = tbench.eval_results(df)
     assert "realtime_x" in summary.columns
+
+
+# --- The reps modes: how a timed call issues its reps (`harness.reps_program`).
+
+@pytest.mark.parametrize("mode", ["unroll", "scan", "calls"])
+@pytest.mark.parametrize("bench", ["kernel", "reduction", "replica"])
+def test_reps_modes_are_accepted_and_recorded(bench, mode):
+    if bench == "kernel":
+        res = tbench.run_kernel_benchmark(_kernel_config("pallas_fused", reps=5, reps_mode=mode))
+    elif bench == "reduction":
+        res = tbench.run_reduction_benchmark({
+            "num_samples": 1024, "num_ants": 2, "num_correlators": 3, "algorithm": "cplx",
+            "processor": "CPU", "reps": 5, "trials": 2, "reps_mode": mode})
+    else:
+        res = tbench.run_replica_benchmark({
+            "GNSS": "GPSL1", "num_samples": 2048, "algorithm": "quantized",
+            "processor": "CPU", "reps": 5, "trials": 2, "reps_mode": mode})
+    _check_stats(res)
+    assert res["reps_mode"] == mode
+
+
+def test_reps_mode_defaults_and_unknown_mode():
+    assert tbench.run_reduction_benchmark({
+        "num_samples": 1024, "algorithm": "pure", "processor": "CPU", "reps": 2,
+        "trials": 1})["reps_mode"] == "scan"            # JAX: lax.scan(..., unroll=32)
+    assert tharness.SCAN_UNROLL == 4 and tharness.REDUCTION_UNROLL == 32
+    with pytest.raises(ValueError, match="reps_mode"):
+        tbench.run_kernel_benchmark(_kernel_config("fused_xla", reps_mode="jit"))
+
+
+@pytest.mark.parametrize("bench", ["reduction", "replica"])
+def test_reduction_and_replica_result_keys_match_jax(bench):
+    if bench == "reduction":
+        config = {"num_samples": 1024, "num_ants": 2, "num_correlators": 3,
+                  "algorithm": "cplx_multi", "processor": "CPU", "reps": 2, "trials": 2}
+        want, got = jbench.run_reduction_benchmark(config), tbench.run_reduction_benchmark(config)
+    else:
+        config = {"GNSS": "GPSL1", "num_samples": 2048, "algorithm": "exact",
+                  "processor": "CPU", "reps": 2, "trials": 2}
+        want, got = jbench.run_replica_benchmark(config), tbench.run_replica_benchmark(config)
+    assert set(want) - {"jax_version"} <= set(got)
+    # The port's own: its metadata and the reps mode it ran.
+    assert set(got) - set(want) == (METADATA | {"reps_mode"}) - set(want)
+
+
+@pytest.mark.parametrize("mode", ["unroll", "scan", "calls"])
+@pytest.mark.parametrize("algorithm", ["fused_xla", "pallas_fused", "pallas_taps"])
+def test_kernel_run_total_equals_the_jax_total(algorithm, mode):
+    # One timed call's running total of are.sum() + aim.sum() over r = 5 reps
+    # (phase offsets linspace(0, 0.1, r)), against the same sum of the JAX
+    # algorithm's calls as the JAX harness's body makes them; the two
+    # packages' signals and chip arithmetic agree to ~1e-5 of the total.
+    import jax.numpy as jnp
+
+    from gpuacceleratedtracking_tpu import models as jmodels
+    from gpuacceleratedtracking_tpu.ops import registry as jregistry
+
+    n, reps = 2048, 5
+    config = _kernel_config(algorithm, num_correlators=7, reps_mode=mode)
+    got = float(tharness.kernel_program(config, reps)())
+    system = jmodels.GPSL1()
+    fs = n / 1e-3
+    shifts = tuple(int(s) for s in jmodels.correlator_sample_shifts(
+        system, jmodels.EPLCorrelator(7), fs))
+    signal, _ = jmodels.gen_signal(system, 0, 1500.0, n)
+    corr = jregistry.get(algorithm)
+    want = np.float32(0.0)
+    for off in np.linspace(0.0, 0.1, reps).astype(np.float32):
+        are, aim = corr(jnp.asarray(signal.real), jnp.asarray(signal.imag),
+                        jnp.asarray(system.codes), 0, 1500.0, fs, off,
+                        system.code_frequency, off, shifts, system.code_length)
+        want = want + np.float32(are.sum()) + np.float32(aim.sum())
+    assert abs(want) > 1e4
+    assert abs(got - float(want)) <= 1e-5 * abs(float(want)), (got, float(want))
+
+
+@pytest.mark.parametrize("reps", [5, 8])
+@pytest.mark.parametrize("mode", ["unroll", "scan"])
+def test_graph_modes_replay_and_count_like_the_calls(monkeypatch, mode, reps):
+    # The captured path on the CPU: `graphs.capture` swapped for one that runs
+    # the body where a capture would record it and again, uncounted, per
+    # replay. A step stands in for a wrapper (one launch counted per call).
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    replays = []
+
+    def capture(body, device):
+        body()
+
+        def replay():
+            replays.append(1)
+            with graphs.uncounted():
+                body()
+
+        return replay
+
+    monkeypatch.setattr(graphs, "enabled", lambda device: True)
+    monkeypatch.setattr(graphs, "capture", capture)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args, **kwargs: None)
+    fused = channel_kernels.correlate_pallas_fused
+    monkeypatch.setattr(fused, "launches", 0)
+
+    def step(x):
+        fused.launches += 1
+        return x * 2.0, x + 1.0
+
+    xs = torch.linspace(0.0, 0.1, reps)
+    want = tharness.reps_program(step, xs, "calls", tharness.SCAN_UNROLL)()
+    fused.launches = 0
+    run = tharness.reps_program(step, xs, mode, tharness.SCAN_UNROLL)
+    assert fused.launches == 0                  # the warm-up and the captures are not counted
+    assert run.inputs == (step, xs)             # a graph reads them at their addresses
+    for _ in range(2):
+        torch.testing.assert_close(run(), want, rtol=1e-6, atol=0)
+    assert fused.launches == 2 * reps
+    assert len(replays) == 2 * (1 if mode == "unroll" else -(-reps // tharness.SCAN_UNROLL))

@@ -17,7 +17,8 @@ import torch
 from gpuacceleratedtracking_tpu_torch.models import (
     GPSL1, GPSL5, BeiDouB1I, GalileoE1, GLONASSL1, EPLCorrelator, correlator_sample_shifts, gen_carrier, gen_signal,
     gen_signal_mixed, soa)
-from gpuacceleratedtracking_tpu_torch.ops import bank_comp, channel_kernels, epl_kernels, registry
+from gpuacceleratedtracking_tpu_torch.ops import (
+    bank_comp, channel_kernels, epl_kernels, registry, replica_kernel)
 from gpuacceleratedtracking_tpu_torch.tracking import (
     TrackConfig, dual_config, init_state, state_from_numpy, track, track_bank,
     track_bank_dual)
@@ -102,15 +103,23 @@ def test_kernel_is_deterministic(cuda):
 
 
 def test_unsupported_shape_raises_before_launch(cuda):
+    # A=5 is outside the kernel's instantiations (A <= 4): two launches (4 + 1
+    # antennas) that match the plain version. A float64 plane still raises
+    # before any launch.
     case = _case(cuda, 8192, 2, num_ants=5)
     before = epl_kernels.correlate_pallas_bank_rows.launches
-    with pytest.raises(ValueError, match="A in"):
-        epl_kernels.correlate_pallas_bank_rows(**case)
+    got = epl_kernels.correlate_pallas_bank_rows(**case)
+    torch.cuda.synchronize()
+    assert epl_kernels.correlate_pallas_bank_rows.launches == before + 2
+    want = epl_kernels.correlate_bank_rows_reference(**case)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (2, 5, 3)
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=4.5)
     case = _case(cuda, 8192, 2)
     case["signal_re"] = case["signal_re"].double()
     with pytest.raises(TypeError, match="float32"):
         epl_kernels.correlate_pallas_bank_rows(**case)
-    assert epl_kernels.correlate_pallas_bank_rows.launches == before
+    assert epl_kernels.correlate_pallas_bank_rows.launches == before + 2
 
 
 def test_track_bank_launches_once_per_block(cuda):
@@ -943,10 +952,12 @@ def test_track_bank_graph_equals_eager(cuda, name):
     launched = _graph_against_eager(
         lambda: track_bank(config, codes, states, sre, sim, ant_weights=weights))
     per_block = {"pallas_taps": k, "pallas_fused": k}.get(algorithm, 1)
-    *correlators, loops = launched      # `graphs._counters()`: the loop kernel's comes last
+    # `graphs._counters()`: the six correlators, the replica, the dual loop, the loop.
+    *correlators, replicas, duals, loops = launched
     assert sum(correlators) == (0 if algorithm.endswith("_xla") or algorithm == "xla_bank"
                                 else per_block * 5)
-    assert loops == 5
+    assert replicas == (k * 5 if algorithm == "pallas_taps" else 0)
+    assert duals == 0 and loops == 5
 
 
 def test_track_graph_equals_eager_over_chunks(cuda):
@@ -959,9 +970,10 @@ def test_track_graph_equals_eager_over_chunks(cuda):
     codes = torch.as_tensor(SYSTEM.codes, device=cuda)
     state = init_state(0, carrier_doppler=690.0, device=cuda)
     config = TrackConfig.for_system(SYSTEM, fs, n, algorithm="pallas_fused")
-    # `graphs._counters()`: the five correlators, fused, the dual loop, the loop.
+    # `graphs._counters()`: the five correlators, fused, the replica, the
+    # dual loop, the loop.
     assert _graph_against_eager(lambda: track(config, codes, state, sre, sim)) == \
-        [0, 0, 0, 0, 0, blocks, 0, blocks]
+        [0, 0, 0, 0, 0, blocks, 0, 0, blocks]
 
 
 @pytest.mark.parametrize("algorithm", ["pallas_bank_auto", "pallas_fused"])
@@ -1183,3 +1195,236 @@ def test_a_capture_that_fails_raises(cuda):
     torch.cuda.synchronize()
     assert dict(graphs._ENTRIES.get(device, {})) == entries
     assert _launch_counts() == counts
+
+
+# Outside the correlator kernels' instantiations (A <= 4, L in {3, 5, 7}):
+# the wrappers launch the groups of `epl_kernels.launch_groups`, each with the
+# call's phase origin, and gather their columns. Shapes: name -> (A, taps or
+# explicit shifts).
+AL_SHAPES = {"a5_l3": (5, 3), "a6_l3": (6, 3), "a8_l3": (8, 3),
+             "a1_l4": (1, (-24, -8, 0, 16)), "a1_l9": (1, 9), "a1_l11": (1, 11),
+             "a8_l9": (8, 9)}
+AL_ROUTES = ("pallas_bank_rows", "comp_f32", "comp_bf16", "pallas_bank", "pallas_bank_onehot",
+             "pallas_taps", "pallas_fused")
+
+
+def _al_case(device, route, shape):
+    """A cell each route's envelope admits: GPS L1 at 8.192 MHz (K=5 for the
+    banks), GPS L5 at 32.768 MHz for the transition route (span 20 samples at
+    L=11, under its 128)."""
+    num_ants, taps = AL_SHAPES[shape]
+    shifts = taps if isinstance(taps, tuple) else None
+    taps = taps if shifts is None else 3
+    if route == "pallas_bank":
+        return _case(device, 32768, 5, num_ants=num_ants, taps=taps, shifts=shifts,
+                     system=GPSL5(), seed=12)
+    case = _case(device, 8192, 5, num_ants=num_ants, taps=taps, shifts=shifts, seed=11)
+    if route == "pallas_bank_onehot":
+        del case["nominal_code_frequency"]
+    return case
+
+
+@pytest.mark.parametrize("shape", sorted(AL_SHAPES))
+@pytest.mark.parametrize("route", AL_ROUTES)
+def test_kernels_take_every_antenna_and_tap_count(cuda, route, shape):
+    case = _al_case(cuda, route, shape)
+    num_ants, num_taps = case["signal_re"].shape[0] if case["signal_re"].ndim == 2 else 1, \
+        len(case["sample_shifts"])
+    groups = len(epl_kernels.launch_groups(num_ants, num_taps))
+    if route in ("pallas_taps", "pallas_fused"):
+        kind = route[len("pallas_"):]
+        args = tuple(case[k] if k != "prn" else case["prn"][0] for k in (
+            "signal_re", "signal_im", "codes", "prn")) + (
+            case["carrier_frequency"][0], case["sampling_frequency"], case["carrier_phase"][0],
+            case["code_frequency"][0], case["code_phase"][0], case["sample_shifts"],
+            case["code_length"])
+        fn = getattr(channel_kernels, f"correlate_pallas_{kind}")
+        before = fn.launches, replica_kernel.code_replica.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        # taps: one replica launch per tap group, shared by its antenna groups.
+        tap_groups = len(epl_kernels.launch_groups(1, num_taps)) if kind == "taps" else 0
+        assert (fn.launches, replica_kernel.code_replica.launches) == \
+            (before[0] + groups, before[1] + tap_groups)
+        want = getattr(channel_kernels, f"correlate_{kind}_reference")(*args)
+        _assert_channel_close(got, want, 8192)
+        if kind == "taps":
+            call = channel_kernels.ChannelCall(*args, "taps")
+            channel_kernels.launch_taps(call)
+            assert len(call.tap_tables) == tap_groups
+            for taps, rows in call.tap_tables.items():
+                assert torch.equal(rows, channel_kernels._tap_rows_plain(call, taps))
+        return
+    if route.startswith("comp"):
+        z_dtype = route[len("comp_"):]
+        counter = bank_comp.correlate_pallas_bank_comp
+        before = counter.launches
+        got = bank_comp.correlate_pallas_bank_comp(**case, z_dtype=z_dtype)
+        torch.cuda.synchronize()
+        want = bank_comp.correlate_bank_comp_reference(**case, z_dtype=z_dtype)
+        scale = float(want[0].abs().max())
+        tol = dict(rtol=0, atol=3e-5 * scale + 1e-3)
+    else:
+        counter = registry.get(route)
+        before = counter.launches
+        got = counter(**case)
+        torch.cuda.synchronize()
+        want = epl_kernels.correlate_bank_rows_reference(**case, route=route)
+        tol = dict(rtol=2e-3, atol=4.5)
+    assert counter.launches == before + groups
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == ((5, num_taps) if num_ants == 1 else (5, num_ants, num_taps))
+        torch.testing.assert_close(g, w, **tol)
+
+
+def test_track_bank_with_eight_antennas_on_the_auto_route(cuda):
+    # A=8 resolves to the composite route, two launches (4 + 4 antennas) per
+    # block, through the captured block loop; against the plain xla_bank.
+    n, blocks, k, num_ants = 8192, 4, 8, 8
+    sig, fs = gen_signal_mixed(SYSTEM, [0, 1, 2], [-900.0, 100.0, 1500.0], n * blocks,
+                               duration=blocks * 1e-3, num_ants=num_ants, device=cuda)
+    sre, sim = (x.reshape(num_ants, blocks, n).transpose(0, 1).contiguous() for x in soa(sig))
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    dops = np.linspace(-4000.0, 4000.0, k)
+    dops[:3] = [-900.0, 100.0, 1500.0]
+    states = init_state(np.arange(k) % 32, carrier_doppler=dops, device=cuda)
+    outs = {}
+    for algo in ("pallas_bank_auto", "xla_bank"):
+        config = TrackConfig.for_system(SYSTEM, fs, n, algorithm=algo)
+        before = bank_comp.correlate_pallas_bank_comp.launches
+        _, outs[algo] = track_bank(config, codes, states, sre, sim)
+        torch.cuda.synchronize()
+        launched = bank_comp.correlate_pallas_bank_comp.launches - before
+        assert launched == (2 * blocks if algo == "pallas_bank_auto" else 0)
+    got, want = outs["pallas_bank_auto"], outs["xla_bank"]
+    # test_track_bank_launches_once_per_block's bound, per antenna of the
+    # antenna sum: block 0 for every channel, the satellites' channels always.
+    torch.testing.assert_close(got.prompt_re[0], want.prompt_re[0], rtol=5e-3,
+                               atol=10.0 * num_ants)
+    torch.testing.assert_close(got.prompt_re[:, :3], want.prompt_re[:, :3], rtol=5e-3,
+                               atol=10.0 * num_ants)
+
+
+# The replica kernel (csrc/replica.cu): the taps wrapper's tap matrix and the
+# replica benchmark's row, bit for bit against the plain replica ops.
+REPLICA_CASES = {
+    "l1_n2048_l3": (SYSTEM, 2048, 3, 0, 0.0),
+    "l1_n32768_l7": (SYSTEM, 32768, 7, 5, 517.3),
+    "l1_n262144_l7": (SYSTEM, 262144, 7, 31, 1022.9),
+    "l5_n32768_l3": (GPSL5(), 32768, 3, 3, 10229.25),
+    "l5_n262144_l7": (GPSL5(), 262144, 7, 17, 4711.5),
+}
+
+
+@pytest.mark.parametrize("mode", ["exact", "quantized"])
+@pytest.mark.parametrize("name", sorted(REPLICA_CASES))
+def test_replica_kernel_equals_plain_bit_for_bit(cuda, name, mode):
+    system, n, taps, prn, phase = REPLICA_CASES[name]
+    fs = n / 1e-3
+    shifts = tuple(int(s) for s in correlator_sample_shifts(system, EPLCorrelator(taps), fs))
+    codes = torch.as_tensor(system.codes, device=cuda)
+    t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=cuda)  # noqa: E731
+    for args in ((prn, system.code_frequency, phase),
+                 (t(prn, torch.int64), t(system.code_frequency + 2.5), t(phase))):
+        before = replica_kernel.code_replica.launches
+        row = replica_kernel.code_replica(codes, args[0], args[1], fs, args[2], n, min(shifts),
+                                          max(shifts), system.code_length, mode)
+        taps_m = replica_kernel.code_tap_matrix(codes, args[0], args[1], fs, args[2], n,
+                                                shifts, system.code_length, mode)
+        torch.cuda.synchronize()
+        assert replica_kernel.code_replica.launches == before + 2
+        want_row = replica_kernel.replica_plain(codes, *args[:1], args[1], fs, args[2], n,
+                                                min(shifts), max(shifts), system.code_length,
+                                                mode)
+        want_taps = replica_kernel.tap_matrix_plain(codes, args[0], args[1], fs, args[2], n,
+                                                    shifts, system.code_length, mode)
+        assert torch.equal(row, want_row) and torch.equal(taps_m, want_taps)
+
+
+@pytest.mark.parametrize("name", sorted(CHANNEL_CASES))
+def test_pallas_taps_unchanged_by_the_replica_kernel(cuda, monkeypatch, name):
+    # The replica kernel writes each launch group's tap matrix as the plain
+    # replica ops do, and the taps kernel's result from it equals, bit for
+    # bit, its result from the plain ops' rows.
+    args = _channel_args(cuda, name)
+    call = channel_kernels.ChannelCall(*args, "taps")
+    got = channel_kernels.launch_taps(call)
+    assert call.tap_tables
+    for taps, rows in call.tap_tables.items():
+        assert torch.equal(rows, channel_kernels._tap_rows_plain(call, taps))
+    monkeypatch.setattr(channel_kernels, "_tap_rows", channel_kernels._tap_rows_plain)
+    want = channel_kernels.launch_taps(channel_kernels.ChannelCall(*args, "taps"))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_pallas_taps_call_is_the_replica_and_taps_kernels(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _channel_args(cuda, "n32768_l3")
+    channel_kernels.correlate_pallas_taps(*args)
+    torch.cuda.synchronize()
+    calls = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            channel_kernels.correlate_pallas_taps(*args)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("replica_kernel" in name for name in device_ops) == calls
+    assert sum("taps_kernel" in name for name in device_ops) == calls
+    assert len(device_ops) <= 3 * calls, device_ops
+
+
+# The harness's reps (`bench.harness.reps_program`): a timed call on the card
+# replays captured graphs and calls no wrapper.
+
+@pytest.mark.parametrize("mode,replays", [("unroll", 1), ("scan", 2)])
+@pytest.mark.parametrize("algorithm", ["pallas_fused", "pallas_taps"])
+def test_timed_call_replays_graphs_and_calls_no_wrapper(cuda, monkeypatch, algorithm, mode,
+                                                        replays):
+    from gpuacceleratedtracking_tpu_torch.bench import harness
+
+    count = {"replays": 0}
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(self):
+        count["replays"] += 1
+        return replay(self)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
+    reps = 6                              # scan: one graph of 4 reps, one of 2
+    config = {"GNSS": "GPSL1", "num_samples": 8192, "num_ants": 1, "num_correlators": 3,
+              "algorithm": algorithm, "processor": "GPU", "reps_mode": mode}
+    run = harness.kernel_program(config, reps)
+    eager = dict(config, reps_mode="calls")
+    want = harness.kernel_program(eager, reps)()
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a replayed rep called a wrapper")
+
+    monkeypatch.setattr(channel_kernels, "_launch", refuse)
+    monkeypatch.setattr(replica_kernel, "launch_replica", refuse)
+    fused, taps = channel_kernels.correlate_pallas_fused, channel_kernels.correlate_pallas_taps
+    before = (fused.launches, taps.launches, replica_kernel.code_replica.launches)
+    count["replays"] = 0
+    total = run()
+    torch.cuda.synchronize()
+    assert count["replays"] == replays
+    after = (fused.launches, taps.launches, replica_kernel.code_replica.launches)
+    kind = algorithm[len("pallas_"):]
+    assert [a - b for a, b in zip(after, before)] == \
+        [reps if kind == "fused" else 0, reps if kind == "taps" else 0,
+         reps if kind == "taps" else 0]
+    torch.testing.assert_close(total, want, rtol=1e-6, atol=0)
+
+
+def test_replica_benchmark_launches_the_replica_kernel_per_rep(cuda):
+    from gpuacceleratedtracking_tpu_torch.bench import run_replica_benchmark
+
+    before = replica_kernel.code_replica.launches
+    res = run_replica_benchmark({"GNSS": "GPSL1", "num_samples": 4096, "algorithm": "exact",
+                                 "processor": "GPU", "reps": 40, "trials": 2})
+    # Warm-up and every trial run reps + 2 reps calls (32 per graph, then 8).
+    assert replica_kernel.code_replica.launches - before == 3 * 40 * (2 + 1)
+    assert res["reps_mode"] == "scan" and res["Median"] >= 0

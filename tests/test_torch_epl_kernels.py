@@ -215,10 +215,13 @@ def test_tile_base_is_exact_nominal_phase():
 
 
 def test_kernel_input_checks():
-    c = _case(8192, 2, 1, (-16, -8, 0, 8), 0)   # four taps: no instantiation
+    # Four taps, outside the instantiations: taken, as one launch of five
+    # taps whose last repeats the fourth (`launch_groups`).
+    c = _case(8192, 2, 1, (-16, -8, 0, 8), 0)
     bank = epl_kernels.BankRowsCall(*_args(c), SYSTEM.code_frequency, 0.0, None, None)
-    with pytest.raises(ValueError, match="L in"):
-        epl_kernels._check_kernel_inputs(bank)
+    epl_kernels._check_kernel_inputs(bank)
+    assert epl_kernels.launch_groups(bank.num_ants, len(bank.deltas)) == \
+        ((0, 1, (0, 1, 2, 3, 3)),)
     c = _case(8192, 2, 1, None, 0)
     bank = epl_kernels.BankRowsCall(*_args(c), SYSTEM.code_frequency, 0.0, None,
                              CODES_T.T[:2, :1000].contiguous())
