@@ -81,11 +81,11 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      pilot-driven run aligned with them must show lock
      (``phase_lock_metric``) and the planted symbols in the data prompts;
    - C, the paper's per-channel kernel sweep: ``bench.run_sweep`` over
-     ``bench.run_kernel_benchmark`` on the grids of
-     scripts/run_benchmarks_gpsl1.py (N = 2^11..2^18, M in {1, 4},
+     ``bench.run_kernel_benchmark`` on the ``params`` of the port's
+     ``scripts.run_benchmarks_gpsl1`` (N = 2^11..2^18, M in {1, 4},
      L in {3, 7}, fused_xla / unfused_xla / pallas_fused / pallas_taps: 128
-     configurations) and scripts/run_benchmarks_gpsl5.py (N = 2^15..2^18: 64),
-     on the GPU with ``reps="auto"`` and the default ``reps_mode``
+     configurations) and ``scripts.run_benchmarks_gpsl5`` (N = 2^15..2^18:
+     64), at ``SWEEP_TRIALS`` trials, with ``reps="auto"`` and the default ``reps_mode``
      ``"unroll"`` (a timed call replays one CUDA graph of its r calls, so
      the figure is device time); every kernel call must have launched
      ``taps.cu`` (after ``replica.cu``, which builds its tap matrix) or
@@ -118,8 +118,8 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    - F, acquisition: ``run_acquire_benchmark`` (GPS L1, 32 PRNs) at N =
      32768, 2^17 and 2^18, ms per call, and ``acquire`` on 4 planted
      satellites at each N (PRNs, Doppler bins and code phases found);
-   - G, the cold start of scripts/run_coldstart.py: its L1, L5 and B1I int8
-     captures (seeds and truth) written to a temporary directory, decoded by
+   - G, the cold start: the port's ``scripts.run_coldstart``, its L1, L5
+     and B1I int8 captures (seeds and truth) written to a temporary directory, decoded by
      the native ``runtime.IQFile`` (the run fails without it), acquired over
      every PRN; L1 through ``StreamTracker`` with a checkpoint and a cold
      resume; L5 pilot pull-in, ``detect_secondary_offset``, then
@@ -159,6 +159,12 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      ``figures/track_records/``), each PNG over 10 KB, into ``figures/``
      beside ``kernel_sweep/``. Where matplotlib is not installed the frames
      are checked and the script says that no figure was drawn.
+   - S, the sweep analogs (``[S]`` lines): each ``run_sweep`` call of the
+     port's ``scripts.run_benchmarks_{gpsl1,gpsl5,track,acquire}`` and
+     ``scripts.benchmark_{reduction,replica}`` on one cell of each of its
+     dicts (the first value of each list), into a temporary directory: each
+     record exists under its savename, has no error, ran on the card
+     (``cpu_params`` on the CPU) and has the JAX record's keys.
    - L, the block loop as one captured program: the tracking entry points
      replay a CUDA graph of their block body on the card (every phase above
      runs so); here each path runs once under ``tracking.eager()`` and once
@@ -205,6 +211,14 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    against the ``[N, A]`` signal (device time, CUDA graph); the replica
    kernel's tap matrix at both corners against the plain replica ops (no
    single PyTorch call computes it: ``library_ms`` null).
+6. P, the profile (``[P]`` lines): the port's ``scripts.profile_trace`` at
+   its defaults (``pallas_bank_auto``, K=1024, N=32768, 10 calls under
+   torch.profiler), whose trace must give the ``bank_rows`` kernels within
+   20 % of their CUDA-graph replay time from 5; then
+   ``bench.profile.profile_calls`` on 10-block ``track_bank`` calls at the
+   same shape through the graph path (``[P split]``): per-call wall time,
+   device busy time and share, device ops by name and the longest idle gaps
+   with the host events that fill them.
 
 Its last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Each kernel's entry
@@ -1498,26 +1512,24 @@ def dual_path(seed, num_blocks: int = 200):
 
 def sweep_path(out_dir):
     """Phase 4, C: the paper's per-channel kernel sweep through the port's
-    `run_sweep` + `run_kernel_benchmark`, the grids of
-    scripts/run_benchmarks_gpsl1.py and run_benchmarks_gpsl5.py on the card,
-    in two parts: the blocks of N <= N_1MS, where most of the sweep's
-    launches are, then the larger ones, each read from the launch counters
-    of its own run. Returns the two kernels' launch counts in all and in the
-    first part, and the results."""
+    `run_sweep` + `run_kernel_benchmark`, on the grids of the port's
+    `scripts.run_benchmarks_gpsl1` and `run_benchmarks_gpsl5` (their
+    ``params``, at `SWEEP_TRIALS` trials), in two parts: the blocks of
+    N <= N_1MS, where most of the sweep's launches are, then the larger ones,
+    each read from the launch counters of its own run. Returns the two
+    kernels' launch counts in all and in the first part, and the results."""
     from gpuacceleratedtracking_tpu_torch.bench import run_kernel_benchmark, run_sweep
+    from gpuacceleratedtracking_tpu_torch.scripts import run_benchmarks_gpsl1, run_benchmarks_gpsl5
 
-    algorithms = ["fused_xla", "unfused_xla", "pallas_fused", "pallas_taps"]
-    grids = {"GPSL1": [2 ** e for e in range(11, 19)],
-             "GPSL5": [2 ** e for e in range(15, 19)]}
+    grids = [run_benchmarks_gpsl1.params, run_benchmarks_gpsl5.params]
     results = []
     parts = {}
     for part, keep in (("small", lambda n: n <= N_1MS), ("large", lambda n: n > N_1MS)):
         expected = {"taps": 0, "fused": 0, "replica": 0}
         reset_counts()
-        for gnss, sizes in grids.items():
-            params = {"GNSS": gnss, "num_samples": [n for n in sizes if keep(n)],
-                      "num_ants": [1, 4], "num_correlators": [3, 7], "algorithm": algorithms,
-                      "processor": "GPU", "reps": "auto", "trials": SWEEP_TRIALS}
+        for grid in grids:
+            params = dict(grid, num_samples=[n for n in grid["num_samples"] if keep(n)],
+                          trials=SWEEP_TRIALS)
             paths = run_sweep(params, run_kernel_benchmark, out_dir, resume=False,
                               progress=False, skip_errors=False)
             for path in paths:
@@ -1998,356 +2010,85 @@ def acquisition_path(seed, card):
     return results
 
 
-# The captures of scripts/run_coldstart.py:79-104, with their seeds and truth.
-COLD_L1 = dict(fs=8.192e6, n=8192, ms=600, prns=[2, 7, 13, 21],
-               dops=[-2400.0, -700.0, 850.0, 3100.0], phases=[120.0, 512.3, 41.7, 987.2],
-               sigma=11.4, scale=3.7, seed=11)
-COLD_L5 = dict(fs=32.768e6, n=32768, ms=280, prns=[4, 11], dops=[-1600.0, 2200.0],
-               phases=[2048.0, 7777.5], nh_phase=[3, 7], sigma=22.8, scale=1.8, seed=56)
-COLD_B1I = dict(fs=8.192e6, n=8192, ms=400, prns=[8, 25], dops=[-1800.0, 950.0],
-                phases=[333.4, 1402.1], nh_phase=[5, 12], sigma=11.4, scale=3.7, seed=78)
-
-
-def write_int8(path, signal, sigma, scale, seed):
-    """Quantize complex + AWGN to interleaved int8, as the script's front-end
-    model does (numpy noise from ``seed``)."""
-    signal = signal.cpu().numpy()
-    rng = np.random.default_rng(seed)
-    inter = np.empty(2 * signal.size, np.float32)
-    inter[0::2] = (np.real(signal) + sigma * rng.standard_normal(signal.shape)) * scale
-    inter[1::2] = (np.imag(signal) + sigma * rng.standard_normal(signal.shape)) * scale
-    np.clip(np.rint(inter), -127, 127).astype(np.int8).tofile(path)
-
-
-def synthesize_l1(path):
-    from gpuacceleratedtracking_tpu_torch.models import GPSL1, gen_signal
-
-    system, c = GPSL1(), COLD_L1
-    total = None
-    for prn, dop, phi in zip(c["prns"], c["dops"], c["phases"]):
-        s, _ = gen_signal(system, prn, dop, c["n"] * c["ms"], duration=c["ms"] * 1e-3,
-                          start_code_phase=phi, code_frequency=system.code_frequency
-                          * (1.0 + dop / system.center_frequency), device=DEVICE)
-        total = s if total is None else total + s
-    write_int8(path, total, c["sigma"], c["scale"], c["seed"])
-
-
-def synthesize_l5(path):
-    """I5 (data x NH10 x 100 sps nav) + Q5 (pilot x NH20, in quadrature);
-    returns the nav symbols per millisecond."""
-    from gpuacceleratedtracking_tpu_torch.models import GPSL5, gen_signal
-
-    sys_i, sys_q, c = GPSL5(), GPSL5(quadrature=True), COLD_L5
-    nav = np.repeat(np.random.default_rng(55).choice([-1.0, 1.0], c["ms"] // 10), 10)
-    total = None
-    for prn, dop, phi, nh0 in zip(c["prns"], c["dops"], c["phases"], c["nh_phase"]):
-        common = dict(duration=c["ms"] * 1e-3, start_code_phase=phi, device=DEVICE,
-                      code_frequency=sys_i.code_frequency
-                      * (1.0 + dop / sys_i.center_frequency))
-        overlay = sys_i.secondary_code[(np.arange(c["ms"]) + nh0) % 10] * nav
-        s_i, _ = gen_signal(sys_i, prn, dop, c["n"] * c["ms"], secondary_code=overlay,
-                            **common)
-        s_q, _ = gen_signal(sys_q, prn, dop, c["n"] * c["ms"],
-                            secondary_code=sys_q.secondary_code, secondary_phase=nh0,
-                            start_carrier_phase=np.pi / 2, **common)
-        total = s_i + s_q if total is None else total + s_i + s_q
-    write_int8(path, total, c["sigma"], c["scale"], c["seed"])
-    return nav
-
-
-def synthesize_b1i(path):
-    """B1I D1: primary x NH20 x 50 bps nav, bit edges on the NH cycle;
-    returns each satellite's bits."""
-    from gpuacceleratedtracking_tpu_torch.models import BeiDouB1I, gen_signal
-
-    system, c = BeiDouB1I(with_secondary=False), COLD_B1I
-    nh20 = BeiDouB1I().secondary_code
-    rng = np.random.default_rng(77)
-    total, bits_all = None, []
-    for prn, dop, phi, nh0 in zip(c["prns"], c["dops"], c["phases"], c["nh_phase"]):
-        bits = rng.choice([-1.0, 1.0], c["ms"] // 20 + 2)
-        p = np.arange(c["ms"])
-        overlay = nh20[(p + nh0) % 20] * bits[(p + nh0) // 20]
-        s, _ = gen_signal(system, prn, dop, c["n"] * c["ms"], duration=c["ms"] * 1e-3,
-                          start_code_phase=phi, secondary_code=overlay, device=DEVICE,
-                          code_frequency=system.code_frequency
-                          * (1.0 + dop / system.center_frequency))
-        total = s if total is None else total + s
-        bits_all.append(bits)
-    write_int8(path, total, c["sigma"], c["scale"], c["seed"])
-    return bits_all
-
-
-def read_blocks(path, n, count, start_block=0, scale=1.0):
-    """``count`` blocks from ``start_block`` of an int8 capture, decoded by
-    the port's `runtime.IQFile`, on the card."""
-    from gpuacceleratedtracking_tpu_torch.runtime import IQFile
-
-    with IQFile(path, "int8", scale) as f:
-        f.read(start_block * n)
-        out = [f.read(n) for _ in range(count)]
-    return tuple(torch.as_tensor(np.stack([o[i] for o in out]), device=DEVICE)
-                 for i in (0, 1))
-
-
-def track_chunked(step, states, path, n, count, start_block, scale, chunk=40):
-    """The script's `_track_chunked`: ``chunk`` blocks per call, state carried
-    over, each call fenced and timed; returns the final state, the stacked
-    outputs and the median per-block time (the steady streaming rate)."""
-    outs, per_block = [], []
-    done = 0
-    while done < count:
-        b = min(chunk, count - done)
-        sre, sim = read_blocks(path, n, b, start_block + done, scale)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        states, out = step(states, sre, sim)
-        torch.cuda.synchronize()
-        per_block.append((time.perf_counter() - t0) / b)
-        outs.append(out)
-        done += b
-    stacked = type(outs[0])(*(torch.cat(xs) if isinstance(xs[0], torch.Tensor)
-                              else type(xs[0])(*(torch.cat(ys) for ys in zip(*xs)))
-                              for xs in zip(*outs)))
-    return states, stacked, statistics.median(per_block)
-
-
-def acquire_band(system, path, n, fs, rounds=6, accept=20.0, doppler_step=150.0):
-    """The script's `acquire_band`: noncoherent PCPS over every PRN of the
-    system on the card, accepted by deflection metric."""
-    from gpuacceleratedtracking_tpu_torch.acquire import acquire
-
-    sre, sim = read_blocks(path, n, rounds)
-    res = acquire(system, sre, sim, np.arange(system.num_prns), fs, doppler_step=doppler_step)
-    hits = np.flatnonzero(res.peak_metric.cpu().numpy() > accept)
-    return res, hits
-
-
-def subset(res, hits):
-    idx = torch.as_tensor(hits, device=res.prn.device)
-    return type(res)(*(x[idx] for x in res))
-
-
-def symbols_match(decided, planted):
-    """Whether the decided symbol signs are a run of the planted symbols, up to
-    one global sign (the carrier loop's 180-degree ambiguity)."""
-    decided = np.asarray(decided)
-    m = len(decided)
-    return any(np.array_equal(decided, s * planted[o:o + m])
-               for o in range(len(planted) - m + 1) for s in (1.0, -1.0))
-
-
-def coldstart_l1(path, work_dir, card):
-    """L1: acquisition over 32 PRNs, then `StreamTracker` on the rows route
-    with a checkpoint mid-run and a cold resume from it."""
-    from gpuacceleratedtracking_tpu_torch.acquire import to_track_states
-    from gpuacceleratedtracking_tpu_torch.models import GPSL1
-    from gpuacceleratedtracking_tpu_torch.runtime import IQFile, StreamTracker, blocks
-    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, init_state
-
-    system, c = GPSL1(), COLD_L1
-    res, hits = acquire_band(system, path, c["n"], c["fs"])
-    dops = res.carrier_doppler.cpu().numpy()
-    log(f"[coldstart L1] acquisition over 32 PRNs: accepted {hits.tolist()} (planted "
-        f"{sorted(c['prns'])}), Doppler {dops[hits].tolist()} Hz, metrics "
-        f"{res.peak_metric.cpu().numpy()[hits].tolist()}")
-    check(hits.tolist() == sorted(c["prns"]), f"L1 accepted PRNs {hits.tolist()}")
-    states = to_track_states(subset(res, hits), device=DEVICE)
-    config = TrackConfig.for_system(system, c["fs"], c["n"], algorithm="pallas_bank_auto")
-    ckpt = work_dir / "l1_checkpoint.npz"
-    scale = 1.0 / c["scale"]
-    tracker = StreamTracker(config, system.codes, states, blocks_per_dispatch=60,
-                            checkpoint_path=ckpt, checkpoint_every=100, measure_dispatch=True)
-    reset_counts()
-    t0 = time.perf_counter()
-    with IQFile(path, "int8", scale) as f:
-        first = tracker.run(blocks(f, c["n"]), max_blocks=c["ms"] // 2)
-    tracker.save_checkpoint(first.blocks_processed)
-    resumed = StreamTracker(config, system.codes, init_state(hits, device=DEVICE),
-                            blocks_per_dispatch=60, checkpoint_path=ckpt,
-                            measure_dispatch=True)
-    done = resumed.load_checkpoint()
-    with IQFile(path, "int8", scale) as f:
-        f.read(done * c["n"])
-        second = resumed.run(blocks(f, c["n"]))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    n_blocks = first.blocks_processed + second.blocks_processed
-    note_loop("coldstart_l1")
-    check(n_blocks == c["ms"] and done == first.blocks_processed,
-          f"L1 streamed {n_blocks} blocks, resumed at {done}")
-    check(counts == only(bank_rows=n_blocks),
-          f"L1 stream: one bank_rows launch per block and no other kernel, got {counts}")
-    dop = np.concatenate([first.stacked().carrier_doppler, second.stacked().carrier_doppler])
-    dop_err = dop[-20:].mean(axis=0) - np.asarray([d for _, d in sorted(zip(c["prns"],
-                                                                           c["dops"]))])
-    steady = statistics.median(first.dispatch_block_s[1:] + second.dispatch_block_s[1:])
-    log(f"[coldstart L1] StreamTracker K={len(hits)} N={c['n']}: {n_blocks} blocks, "
-        f"checkpoint at {done} and cold resume; launches={counts}; Doppler errors "
-        f"{dop_err.tolist()} Hz; steady_block_s {steady!r} (real-time factor "
-        f"{1e-3 / steady!r}); wall {wall!r} s [{card}]")
-    check(bool(np.all(np.abs(dop_err) < 10.0)), f"L1 Doppler errors {dop_err.tolist()}")
-    return counts, {"steady_block_s": steady, "realtime_factor": 1e-3 / steady,
-                    "doppler_error_hz": dop_err.tolist()}
-
-
-def coldstart_l5(path, nav, card):
-    """L5: pilot acquisition, pilot pull-in, NH20 sync, dual-component track."""
-    from gpuacceleratedtracking_tpu_torch.acquire import to_track_states
-    from gpuacceleratedtracking_tpu_torch.models import GPSL5
-    from gpuacceleratedtracking_tpu_torch.tracking import (
-        TrackConfig, detect_secondary_offset, dual_config, track_bank, track_bank_dual)
-
-    sys_i, sys_q, c = GPSL5(), GPSL5(quadrature=True), COLD_L5
-    scale = 1.0 / c["scale"]
-    res, hits = acquire_band(sys_q, path, c["n"], c["fs"], rounds=16, doppler_step=50.0)
-    log(f"[coldstart L5] pilot acquisition over 37 PRNs: accepted {hits.tolist()} (planted "
-        f"{sorted(c['prns'])}), Doppler {res.carrier_doppler.cpu().numpy()[hits].tolist()} Hz")
-    check(hits.tolist() == sorted(c["prns"]), f"L5 accepted PRNs {hits.tolist()}")
-    states = to_track_states(subset(res, hits), device=DEVICE)
-    sync_blocks, settle = 160, 100
-    cfg_sync = TrackConfig.for_system(sys_q, c["fs"], c["n"], algorithm="pallas_bank",
-                                      use_secondary=False)
-    codes_i = torch.as_tensor(sys_i.codes, device=DEVICE)
-    codes_q = torch.as_tensor(sys_q.codes, device=DEVICE)
-    reset_counts()
-    st1, out1, _ = track_chunked(lambda st, a, b: track_bank(cfg_sync, codes_q, st, a, b),
-                                 states, path, c["n"], sync_blocks, 0, scale)
-    offset, conf = detect_secondary_offset(out1.prompt_re[settle:], sys_q.secondary_code)
-    offset = ((offset.long() - settle) % 20).cpu().numpy()
-    conf = conf.cpu().numpy()
-    # As for B1I below: past half a code period, the block-dominant overlay
-    # sign is the next period's.
-    order = np.argsort(c["prns"])
-    planted = [c["nh_phase"][i] for i in order]
-    expected = [(c["nh_phase"][i] + (c["phases"][i] > sys_q.code_length / 2)) % 20
-                for i in order]
-    log(f"[coldstart L5] NH20 offsets {offset.tolist()} (planted {planted}, block-dominant "
-        f"{expected}), confidence {conf.tolist()}")
-    check(offset.tolist() == expected, "L5 NH20 phases recovered")
-    check(bool(np.all(conf > 0.75)), f"L5 NH20 sync confidence {conf.tolist()}")
-    st_dual = st1._replace(ms_elapsed=torch.as_tensor(sync_blocks + offset, dtype=torch.int32,
-                                                      device=DEVICE))
-    cfg_dual = dual_config(cfg_sync)
-    rest = c["ms"] - sync_blocks
-    _, out2, steady = track_chunked(
-        lambda st, a, b: track_bank_dual(cfg_dual, codes_i, codes_q, st, a, b),
-        st_dual, path, c["n"], rest, sync_blocks, scale)
-    counts = read_counts()
-    check(counts == only(bank_transition=sync_blocks + rest),
-          f"L5: one transition launch per block and no other kernel, got {counts}")
-    note_loop("coldstart_l5", rest, dual=True)
-    dop = out2.pilot.carrier_doppler.cpu().numpy()
-    dop_err = dop[-20:].mean(axis=0) - np.asarray([d for _, d in sorted(zip(c["prns"],
-                                                                           c["dops"]))])
-    d = out2.data_prompt_re.cpu().numpy()
-    s0 = (10 - sync_blocks % 10) % 10
-    ok_symbols = []
-    for ch in range(d.shape[1]):
-        dd = d[s0:, ch]
-        decided = np.sign(dd[: len(dd) // 10 * 10].reshape(-1, 10).sum(axis=1))
-        ok_symbols.append(symbols_match(decided, nav[::10]))
-    log(f"[coldstart L5] dual track {rest} blocks: launches={counts}; Doppler errors "
-        f"{dop_err.tolist()} Hz; nav symbols recovered {ok_symbols}; steady_block_s "
-        f"{steady!r} (real-time factor {1e-3 / steady!r}) [{card}]")
-    check(bool(np.all(np.abs(dop_err) < 10.0)), f"L5 Doppler errors {dop_err.tolist()}")
-    check(all(ok_symbols), "L5 nav symbols recovered")
-    return counts, {"steady_block_s": steady, "realtime_factor": 1e-3 / steady,
-                    "doppler_error_hz": dop_err.tolist(), "nh20_offsets": offset.tolist()}
-
-
-def coldstart_b1i(path, bits, card):
-    """B1I D1: Costas pull-in, data-robust NH20 sync, NH-wiped track, bits."""
-    from gpuacceleratedtracking_tpu_torch.acquire import to_track_states
-    from gpuacceleratedtracking_tpu_torch.models import BeiDouB1I
-    from gpuacceleratedtracking_tpu_torch.tracking import (
-        TrackConfig, detect_secondary_offset_windowed, track_bank)
-
-    system, sys_nh, c = BeiDouB1I(with_secondary=False), BeiDouB1I(), COLD_B1I
-    scale = 1.0 / c["scale"]
-    res, hits = acquire_band(system, path, c["n"], c["fs"], rounds=16, doppler_step=50.0)
-    log(f"[coldstart B1I] acquisition over 37 PRNs: accepted {hits.tolist()} (planted "
-        f"{sorted(c['prns'])}), Doppler {res.carrier_doppler.cpu().numpy()[hits].tolist()} Hz")
-    check(hits.tolist() == sorted(c["prns"]), f"B1I accepted PRNs {hits.tolist()}")
-    states = to_track_states(subset(res, hits), device=DEVICE)
-    sync_blocks, settle = 180, 120
-    cfg_sync = TrackConfig.for_system(system, c["fs"], c["n"], algorithm="pallas_bank",
-                                      use_secondary=False)
-    codes = torch.as_tensor(system.codes, device=DEVICE)
-    reset_counts()
-    st1, out1, _ = track_chunked(lambda st, a, b: track_bank(cfg_sync, codes, st, a, b),
-                                 states, path, c["n"], sync_blocks, 0, scale)
-    off, conf = detect_secondary_offset_windowed(out1.prompt_re[settle:],
-                                                 sys_nh.secondary_code)
-    best_off = ((off.long() - settle) % 20).cpu().numpy()
-    conf = conf.cpu().numpy()
-    # A channel whose code phase is past half a period has its NH boundary
-    # mid-block: the block-dominant overlay sign is the next period's.
-    order = np.argsort(c["prns"])
-    expected = [(c["nh_phase"][i] + (1 if c["phases"][i] > system.code_length / 2 else 0)) % 20
-                for i in order]
-    log(f"[coldstart B1I] NH20 offsets {best_off.tolist()} (expected {expected}), "
-        f"confidence {conf.tolist()}")
-    check(best_off.tolist() == expected, "B1I NH20 phases recovered")
-    check(bool(np.all(conf > 0.75)), f"B1I NH20 sync confidence {conf.tolist()}")
-    st2 = st1._replace(ms_elapsed=torch.as_tensor(sync_blocks + best_off, dtype=torch.int32,
-                                                  device=DEVICE))
-    cfg_track = TrackConfig.for_system(sys_nh, c["fs"], c["n"], algorithm="pallas_bank")
-    rest = c["ms"] - sync_blocks
-    _, out2, steady = track_chunked(lambda st, a, b: track_bank(cfg_track, codes, st, a, b),
-                                    st2, path, c["n"], rest, sync_blocks, scale)
-    counts = read_counts()
-    check(counts == only(bank_transition=sync_blocks + rest),
-          f"B1I: one transition launch per block and no other kernel, got {counts}")
-    note_loop("coldstart_b1i", sync_blocks + rest)
-    dop = out2.carrier_doppler.cpu().numpy()
-    dop_err = dop[-20:].mean(axis=0) - np.asarray([c["dops"][i] for i in order])
-    z = torch.complex(out2.prompt_re, out2.prompt_im).cpu().numpy()
-    ok_coherent, ok_bits = [], []
-    for ch, i in enumerate(order):
-        s0 = int((20 - (sync_blocks + best_off[ch]) % 20) % 20)
-        zz = z[s0:, ch]
-        zz = zz[: len(zz) // 20 * 20].reshape(-1, 20).sum(axis=1)    # one sum per bit
-        ok_coherent.append(symbols_match(np.sign(zz.real), bits[i]))
-        # Differential decisions: bit j times bit j-1 is the sign of
-        # Re(z_j conj z_{j-1}), which holds on a channel that is frequency
-        # locked but still rotating (the reference leaves PRN 8 ~1.7 Hz off).
-        flips = np.sign((zz[1:] * np.conj(zz[:-1])).real)
-        planted = bits[i][1:] * bits[i][:-1]
-        m = len(flips)
-        ok_bits.append(any(np.array_equal(flips, planted[o:o + m])
-                           for o in range(len(planted) - m + 1)))
-    log(f"[coldstart B1I] NH-wiped track {rest} blocks: launches={counts}; Doppler errors "
-        f"{dop_err.tolist()} Hz; nav bits recovered (differential) {ok_bits}, by the "
-        f"prompt's sign {ok_coherent}; steady_block_s {steady!r} "
-        f"(real-time factor {1e-3 / steady!r}) [{card}]")
-    check(bool(np.all(np.abs(dop_err) < 10.0)), f"B1I Doppler errors {dop_err.tolist()}")
-    check(all(ok_bits), "B1I nav bits recovered")
-    return counts, {"steady_block_s": steady, "realtime_factor": 1e-3 / steady,
-                    "doppler_error_hz": dop_err.tolist(), "nh20_offsets": best_off.tolist()}
-
-
 def coldstart_path(card):
-    """The cold-start receiver after scripts/run_coldstart.py: int8 captures
-    written to a temporary directory, decoded by the port's native
-    `runtime.IQFile`, acquired and tracked on the card."""
+    """Phase G, the cold-start receiver: the port's `scripts.run_coldstart`,
+    its int8 captures and the L1 checkpoint in a temporary directory, each
+    leg's launches counted from 0 just before it. The module raises where the
+    JAX script asserts (planted PRNs accepted, NH20 confidence > 0.75, the B1I
+    offsets, Doppler within 10 Hz); the checks here hold the legs to the
+    launches of their routes, the L5 offsets, the L5 nav symbols and the B1I
+    nav bits by differential decisions (the reference leaves PRN 8 ~1.7 Hz
+    off, frequency locked but rotating)."""
     import tempfile
 
     from gpuacceleratedtracking_tpu_torch import runtime
+    from gpuacceleratedtracking_tpu_torch.scripts import run_coldstart as cs
 
     check(runtime.native_available(), "the native IQ decoder builds and loads")
-    launches, results = {}, {}
+    launches, results, report = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         work = pathlib.Path(tmp)
-        synthesize_l1(work / "gpsl1_8192kHz.int8")
-        nav = synthesize_l5(work / "gpsl5_32768kHz.int8")
-        bits = synthesize_b1i(work / "bdsb1i_8192kHz.int8")
-        for leg, run in (("l1", lambda: coldstart_l1(work / "gpsl1_8192kHz.int8", work, card)),
-                         ("l5", lambda: coldstart_l5(work / "gpsl5_32768kHz.int8", nav, card)),
-                         ("b1i", lambda: coldstart_b1i(work / "bdsb1i_8192kHz.int8", bits,
-                                                       card))):
-            launches[leg], results[leg] = run()
+        paths = {leg: work / name for leg, name in cs.CAPTURE_NAMES.items()}
+        for leg, path in paths.items():
+            cs.synthesize(leg, path, DEVICE)
+        # Each leg, then its loop-kernel launches (L5's dual track: one
+        # dual-mode launch per block; B1I's two stages: one per block).
+        legs = (("l1", lambda: cs.run_l1(paths["l1"], report, DEVICE, work),
+                 lambda: note_loop("coldstart_l1")),
+                ("l5", lambda: cs.run_l5(paths["l5"], report, DEVICE),
+                 lambda: note_loop("coldstart_l5", report["l5_dual_track"]["blocks"], dual=True)),
+                ("b1i", lambda: cs.run_b1i(paths["b1i"], report, DEVICE),
+                 lambda: note_loop("coldstart_b1i", cs.B1I["ms"])))
+        for leg, run, loops in legs:
+            reset_counts()
+            run()
+            torch.cuda.synchronize()
+            launches[leg] = read_counts()
+            loops()
+
+    l1 = report["l1_track"]
+    log(f"[coldstart L1] acquisition over 32 PRNs: {report['l1_acquisition']['accepted']} "
+        f"(planted {cs.L1['prns']}); StreamTracker {l1['blocks']} blocks, checkpoint and cold "
+        f"resume at {l1['resume_at_block']}; launches={launches['l1']}; Doppler errors "
+        f"{l1['doppler_error_hz']} Hz; steady_block_s {l1['steady_block_s']!r} (real-time "
+        f"factor {l1['steady_realtime_factor']!r}) [{card}]")
+    check(l1["blocks"] == cs.L1["ms"] and l1["resume_at_block"] == cs.L1["ms"] // 2,
+          f"L1 streamed {l1['blocks']} blocks, resumed at {l1['resume_at_block']}")
+    check(launches["l1"] == only(bank_rows=l1["blocks"]),
+          f"L1 stream: one bank_rows launch per block and no other kernel, got {launches['l1']}")
+
+    sync5, l5 = report["l5_secondary_sync"], report["l5_dual_track"]
+    log(f"[coldstart L5] pilot acquisition: {report['l5_acquisition']['accepted']}; NH20 "
+        f"offsets {sync5['nh20_offset_blocks']} (planted {sync5['planted_offset']}, "
+        f"block-dominant {sync5['expected_offset_block_dominant']}), confidence "
+        f"{sync5['confidence']}; dual track {l5['blocks']} blocks: launches={launches['l5']}; "
+        f"Doppler errors {l5['doppler_error_hz']} Hz; nav symbols recovered "
+        f"{l5['nav_symbols_recovered']}; steady_block_s {l5['steady_block_s']!r} [{card}]")
+    check(sync5["nh20_offset_blocks"] == sync5["expected_offset_block_dominant"],
+          "L5 NH20 phases recovered")
+    check(launches["l5"] == only(bank_transition=cs.L5["ms"]),
+          f"L5: one transition launch per block and no other kernel, got {launches['l5']}")
+    check(all(l5["nav_symbols_recovered"]), "L5 nav symbols recovered")
+
+    syncb, b1i = report["b1i_secondary_sync"], report["b1i_track"]
+    log(f"[coldstart B1I] acquisition: {report['b1i_acquisition']['accepted']}; NH20 offsets "
+        f"{syncb['nh20_offset_blocks']} (expected {syncb['expected_offset_block_dominant']}), "
+        f"confidence {syncb['confidence']}; NH-wiped track {b1i['blocks']} blocks: "
+        f"launches={launches['b1i']}; Doppler errors {b1i['doppler_error_hz']} Hz; nav bits "
+        f"recovered (differential) {b1i['nav_bits_recovered_differential']}, by the prompt's "
+        f"sign {b1i['nav_bits_recovered_coherent']}; steady_block_s "
+        f"{b1i['steady_block_s']!r} [{card}]")
+    check(launches["b1i"] == only(bank_transition=cs.B1I["ms"]),
+          f"B1I: one transition launch per block and no other kernel, got {launches['b1i']}")
+    check(all(b1i["nav_bits_recovered_differential"]), "B1I nav bits recovered")
+    for leg, track in (("l1", l1), ("l5", l5), ("b1i", b1i)):
+        check(bool(np.all(np.abs(track["doppler_error_hz"]) < 10.0)),
+              f"{leg} Doppler errors {track['doppler_error_hz']}")
+        results[leg] = {"steady_block_s": track["steady_block_s"],
+                        "realtime_factor": track["steady_realtime_factor"],
+                        "doppler_error_hz": track["doppler_error_hz"]}
+    results["l5"]["nh20_offsets"] = sync5["nh20_offset_blocks"]
+    results["b1i"]["nh20_offsets"] = syncb["nh20_offset_blocks"]
     return launches, results
 
 
@@ -2359,6 +2100,7 @@ def streaming_path(seed, card):
 
     from gpuacceleratedtracking_tpu_torch.models import GPSL1, gen_signal_mixed
     from gpuacceleratedtracking_tpu_torch.runtime import IQFile, StreamTracker, blocks
+    from gpuacceleratedtracking_tpu_torch.scripts import run_coldstart as cs
     from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, eager, init_state, track_bank
 
     system = GPSL1()
@@ -2397,7 +2139,7 @@ def streaming_path(seed, card):
         with IQFile(path, "int8", 1.0 / scale) as f:
             num_read = sum(1 for _ in blocks(f, N_1MS))
         decode_ms = (time.perf_counter() - t0) * 1e3 / num_read   # host read + decode
-        sre, sim = read_blocks(path, N_1MS, 20, 0, 1.0 / scale)
+        sre, sim = cs.read_blocks(path, N_1MS, 20, 0, 1.0 / scale, DEVICE)
     check(result.blocks_processed == STREAM_BLOCKS, "streamed every block")
     check(counts == only(bank_rows=STREAM_BLOCKS),
           f"stream: one bank_rows launch per block and no other kernel, got {counts}")
@@ -2933,6 +2675,161 @@ def figures_path(fig_dir, sweep_dir, track_records, card):
     check(all(size > 10_000 for size in sizes.values()), f"figures over 10 KB: {sizes}")
     log(f"[K] drew {sizes} into {fig_dir}")
     return dict(result, drawn=True, sizes=sizes)
+
+
+# --- The scripts layer (phases S and P): the port's entry points.
+
+# The keys the JAX harness adds to a record's configuration, by runner (less
+# jax_version; the JAX launch shapes of a TPU bank record have no
+# counterpart): tests/test_torch_scripts.py holds them to the JAX runners.
+_STATS_KEYS = ("Maximum", "Mean", "Median", "Minimum", "Std", "times", "backend",
+               "cpu_model", "device_kind", "git_sha", "os")
+JAX_RECORD_KEYS = {
+    "kernel": _STATS_KEYS + ("realtime_ratio", "reps_mode", "reps_resolved", "samples_per_s"),
+    "track": _STATS_KEYS + ("realtime_channels", "realtime_ratio", "samples_per_s"),
+    "dual": _STATS_KEYS + ("bank_channels", "realtime_channels", "realtime_ratio",
+                           "samples_per_s"),
+    "acquire": _STATS_KEYS + ("algorithm", "fft_mode", "num_bins"),
+    "reduction": _STATS_KEYS,
+    "replica": _STATS_KEYS,
+}
+
+
+def first_cell(grid: dict) -> dict:
+    """A sweep dict cut to one configuration: the first value of each list."""
+    return {k: (v[0] if isinstance(v, (list, tuple)) else v) for k, v in grid.items()}
+
+
+def analog_sweeps() -> list:
+    """Every `run_sweep` call of the port's sweep analogs, as the analogs make
+    it: (name, dict, runner, prefix, record kind), the card's acquisition
+    sweep included (``processor="GPU"``, the analog's default)."""
+    from gpuacceleratedtracking_tpu_torch.bench import (
+        run_acquire_benchmark, run_dual_track_benchmark, run_kernel_benchmark,
+        run_reduction_benchmark, run_replica_benchmark)
+    from gpuacceleratedtracking_tpu_torch.scripts import (
+        benchmark_reduction, benchmark_replica, run_benchmarks_acquire, run_benchmarks_gpsl1,
+        run_benchmarks_gpsl5, run_benchmarks_track)
+
+    sweeps = []
+    for module in (run_benchmarks_gpsl1, run_benchmarks_gpsl5):
+        for name in ("params", "cpu_params"):
+            sweeps.append((f"{module.__name__.rsplit('.', 1)[1]}.{name}", getattr(module, name),
+                           run_kernel_benchmark, "KernelBenchmark", "kernel"))
+    for i, (grid, runner, prefix) in enumerate(run_benchmarks_track.SWEEPS):
+        kind = "dual" if runner is run_dual_track_benchmark else "track"
+        sweeps.append((f"run_benchmarks_track.SWEEPS[{i}]", grid, runner, prefix, kind))
+    for i, grid in enumerate(run_benchmarks_acquire.SWEEPS):
+        sweeps.append((f"run_benchmarks_acquire.SWEEPS[{i}]", dict(grid, processor="GPU"),
+                       run_acquire_benchmark, "AcquireBenchmark", "acquire"))
+    sweeps.append(("benchmark_reduction.params", benchmark_reduction.params,
+                   run_reduction_benchmark, "ReductionBenchmark", "reduction"))
+    sweeps.append(("benchmark_replica.params", benchmark_replica.params,
+                   run_replica_benchmark, "ReplicaBenchmark", "replica"))
+    return sweeps
+
+
+def scripts_path(card):
+    """Phase S: each sweep analog's `run_sweep` call on one cell of each of its
+    dicts (the first value of each list), into a temporary directory: each
+    record exists under its savename, has no ``error``, ran where its dict
+    says (``backend`` "cuda", "cpu" for ``cpu_params``) and has the JAX
+    record's keys. Returns the kernels' launches over the phase."""
+    import tempfile
+
+    from gpuacceleratedtracking_tpu_torch.bench import run_sweep, savename
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, grid, runner, prefix, kind in analog_sweeps():
+            cell = first_cell(grid)
+            t0 = time.perf_counter()
+            paths = run_sweep(cell, runner, tmp, prefix=prefix, resume=False, progress=False,
+                              skip_errors=False)
+            seconds = time.perf_counter() - t0
+            check(len(paths) == 1 and paths[0].name == savename(prefix, cell)
+                  and paths[0].exists(), f"[S] {name}: one record under its savename")
+            r = json.loads(paths[0].read_text())
+            want = "cpu" if cell["processor"] == "CPU" else "cuda"
+            missing = (set(cell) | set(JAX_RECORD_KEYS[kind])) - set(r)
+            log(f"[S] {name}: {paths[0].name}: median {r.get('Median', float('nan')) * 1e3!r} ms, "
+                f"backend {r.get('backend')}, {r.get('gpu_name')}, {r.get('power_limit')}; "
+                f"{seconds!r} s [{card}]")
+            check("error" not in r, f"[S] {name}: {r.get('error')}")
+            check(r["backend"] == want, f"[S] {name}: backend {r['backend']}, want {want}")
+            check(not missing, f"[S] {name}: record lacks the JAX keys {sorted(missing)}")
+            check(want == "cpu" or bool(r["gpu_name"] and r["power_limit"]),
+                  f"[S] {name}: the record names the card and its power limit")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    note_loop("S")
+    note_loop("S", dual=True)
+    return counts
+
+
+def profile_path(system, sre, sim, rows_graph_ms, card, blocks: int = 10):
+    """Phase P: (a) the port's `scripts.profile_trace` at its defaults
+    (``pallas_bank_auto``, K=1024, N=32768): the trace's ``bank_rows``
+    kernels per call must lie within 20 % of their CUDA-graph replay time
+    from the timings phase (``rows_graph_ms``), two clocks on one kernel;
+    (b) `bench.profile.profile_calls` on 10-block `track_bank` calls through
+    the graph path at phase L's K=1024 shape: per-call wall time, device
+    busy time and share, the device ops by name and the longest idle gaps
+    with the host events in them."""
+    import tempfile
+
+    from gpuacceleratedtracking_tpu_torch.bench.profile import profile_calls
+    from gpuacceleratedtracking_tpu_torch.scripts import profile_trace
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, track_bank
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = profile_trace.run(out_dir=pathlib.Path(tmp))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(bank_rows=profile_trace.REPS + 1),
+          f"[P] profile_trace: one bank_rows launch per call, got {counts}")
+    timeline = summary["device_timeline"]
+    rows = {name: row for name, row in timeline["rows"].items() if "bank_rows" in name}
+    trace_ms = sum(row["total_ms"] for row in rows.values()) / profile_trace.REPS
+    log(f"[P] profile_trace pallas_bank_auto K={NUM_K} N={N_1MS}: wall {summary['per_call_ms']!r} "
+        f"ms per call, device {timeline['device_per_call_ms']!r} ms per call, busy share "
+        f"{timeline['busy_share']!r}; bank_rows kernels {trace_ms!r} ms per call in the trace "
+        f"against {rows_graph_ms!r} ms replayed; rows "
+        + "; ".join(f"{row['calls']} x {name[:60]} {row['per_call_ms']!r} ms"
+                    for name, row in timeline["rows"].items()) + f" [{card}]")
+    check(bool(rows) and abs(trace_ms / rows_graph_ms - 1.0) <= 0.2,
+          f"[P] bank_rows in the trace ({trace_ms!r} ms) within 20 % of its graph replay "
+          f"({rows_graph_ms!r} ms)")
+
+    config = TrackConfig.for_system(system, L1_FS, N_1MS, algorithm="pallas_bank_auto")
+    states = bank_states(system, True)
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    calls = 5
+    reset_counts()
+    split = profile_calls(lambda: track_bank(config, codes, states, sre[:blocks], sim[:blocks]),
+                          (), calls, f"track_bank_K{NUM_K}_{blocks}_blocks")
+    torch.cuda.synchronize()
+    counts_b = read_counts()
+    note_loop("P")
+    line = split["device_timeline"]
+    log(f"[P split] track_bank K={NUM_K} N={N_1MS}, {blocks}-block calls through the graph "
+        f"path: wall {split['per_call_ms']!r} ms per call ({split['per_call_ms'] / blocks!r} ms "
+        f"per block), device busy {line['device_per_call_ms']!r} ms per call, device window "
+        f"{line['window_per_call_ms']!r} ms per call, busy share {line['busy_share']!r}; "
+        f"launches={counts_b} [{card}]")
+    for name, row in line["rows"].items():
+        log(f"[P split] device op {name[:100]}: {row['calls']} events, "
+            f"{row['total_ms'] / calls!r} ms per call")
+    for gap in line["gaps"]:
+        hosts = ", ".join(f"{h['name'][:60]} ({h['overlap_ms']!r} ms)" for h in gap["hosts"])
+        log(f"[P split] idle gap at {gap['start_ms']!r} ms: {gap['ms']!r} ms; host: {hosts}")
+    check(line["busy_share"] is not None and 0.0 < line["busy_share"] <= 1.0,
+          f"[P split] busy share {line['busy_share']}")
+    check(counts_b["bank_rows"] > 0, "[P split] the bank kernel ran")
+    counts["bank_rows"] += counts_b["bank_rows"]
+    return counts, {"profile_trace": summary, "trace_bank_rows_ms": trace_ms,
+                    "graph_bank_rows_ms": rows_graph_ms, "track_bank_split": split}
 
 
 # --- The captured block loop (phase L): graph against eager.
@@ -3794,6 +3691,11 @@ def main(argv=None) -> int:
     figures = figures_path(sweep_dir.parent / "figures", sweep_dir, track_records, card)
     log(f"[phase] K, the figures, in {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
+    for kernel, count in scripts_path(card).items():
+        if count:
+            by_path[kernel]["S"] = count
+    log(f"[phase] S, the sweep analogs, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
     graph_counts, captured = graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card)
     by_path["loop_update"] = dict(LOOP_BY_PATH)
     by_path["loop_update_dual"] = dict(DUAL_BY_PATH)
@@ -3807,6 +3709,12 @@ def main(argv=None) -> int:
     times = timings(system, args.seed, sre, sim, sre_l5, sim_l5, l5_offsets, card)
     times.update(benches)
     log(f"[phase] timings in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    profile_counts, profiled = profile_path(system, sre, sim,
+                                            times[f"bank_rows_n{N_1MS}"]["kernel_graph_ms"], card)
+    by_path["bank_rows"]["P"] = profile_counts["bank_rows"]
+    by_path["loop_update"]["P"] = LOOP_BY_PATH["P"]
+    log(f"[phase] P, the profile, in {time.perf_counter() - t0!r} s")
 
     # `ms` is each kernel's device time from a replayed CUDA graph: an eager
     # launch also carries the wrapper's host work, which on a busy host can
@@ -3894,6 +3802,7 @@ def main(argv=None) -> int:
                        "coldstart": coldstart, "streaming": streaming,
                        "parallel": parallel, "figures": figures, "graphs": captured,
                        "sweep": sweep, "sweep_modes": sweep_by_mode, "al": al_times,
+                       "profile": profiled,
                        "replica": {"grid_cells": replica_grid, "benchmark": replica_bench,
                                    "corner_n32768_l3": times[f"replica_n{N_1MS}_l3"]}},
                       f, indent=1)

@@ -113,6 +113,17 @@ def _finish(config: dict, stats, processor: str, algorithm: str, **derived) -> d
     return add_metadata(results, processor, algorithm)
 
 
+def _reset_peak(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak(device: torch.device) -> Optional[int]:
+    """Peak device memory allocated since `_reset_peak` (graph pools
+    included), in bytes; None off the card."""
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
 def _resolve_mode(config: dict, default: str) -> str:
     mode = config.get("reps_mode", default)
     if mode not in REPS_MODES:
@@ -305,7 +316,9 @@ def run_track_benchmark(config: dict) -> dict:
     ``GNSS``, ``num_samples`` (per block), ``num_channels``, ``num_ants``,
     ``num_correlators``, ``algorithm`` (bank algorithms run one kernel launch
     per block), ``processor``, optional ``blocks``/``trials``. Timing is
-    differential over B vs 2B blocks; times are per block. On the GPU each
+    differential over B vs 2B blocks; times are per block;
+    ``peak_memory_bytes`` is the card's peak allocation over the run (None
+    on the CPU). On the GPU each
     block is one replay of the captured block body (`tracking.graphs`), as
     the JAX harness times its `lax.scan`: B and 2B blocks share one graph,
     captured in `benchmark_differential`'s warm-up call, never in a timed one.
@@ -330,6 +343,7 @@ def run_track_benchmark(config: dict) -> dict:
     dops = np.linspace(-4000.0, 4000.0, num_channels)
     states = init_state(prns, carrier_doppler=dops, num_taps=num_correlators, device=device)
     codes = torch.as_tensor(system.codes, device=device)
+    _reset_peak(device)     # after the first allocation: the allocator exists
 
     def make_fn(b):
         signal, _ = gen_signal(system, 0, 1500.0, num_samples * b, num_ants=num_ants,
@@ -342,7 +356,8 @@ def run_track_benchmark(config: dict) -> dict:
     return _finish(config, stats, processor, algorithm,
                    realtime_ratio=floor / REALTIME_BOUND_S,
                    samples_per_s=num_channels * num_samples * num_ants / floor,
-                   realtime_channels=num_channels * REALTIME_BOUND_S / floor)
+                   realtime_channels=num_channels * REALTIME_BOUND_S / floor,
+                   peak_memory_bytes=_peak(device))
 
 
 def run_dual_track_benchmark(config: dict) -> dict:
@@ -378,6 +393,7 @@ def run_dual_track_benchmark(config: dict) -> dict:
     states = init_state(prns, carrier_doppler=dops, num_taps=num_correlators, device=device)
     codes_i = torch.as_tensor(sys_i.codes, device=device)
     codes_q = torch.as_tensor(sys_q.codes, device=device)
+    _reset_peak(device)
 
     def make_fn(b):
         signal, _ = gen_signal(sys_i, 0, 1500.0, num_samples * b, duration=b * 1e-3,
@@ -391,7 +407,8 @@ def run_dual_track_benchmark(config: dict) -> dict:
                    bank_channels=2 * num_channels,
                    realtime_ratio=floor / REALTIME_BOUND_S,
                    samples_per_s=2 * num_channels * num_samples / floor,
-                   realtime_channels=num_channels * REALTIME_BOUND_S / floor)
+                   realtime_channels=num_channels * REALTIME_BOUND_S / floor,
+                   peak_memory_bytes=_peak(device))
 
 
 def run_acquire_benchmark(config: dict) -> dict:

@@ -1428,3 +1428,46 @@ def test_replica_benchmark_launches_the_replica_kernel_per_rep(cuda):
     # Warm-up and every trial run reps + 2 reps calls (32 per graph, then 8).
     assert replica_kernel.code_replica.launches - before == 3 * 40 * (2 + 1)
     assert res["reps_mode"] == "scan" and res["Median"] >= 0
+
+
+def test_profile_of_a_bank_call_lists_the_bank_kernel(cuda):
+    from gpuacceleratedtracking_tpu_torch.bench.profile import profile_calls
+
+    case = _case(cuda, 32768, 64)
+    got = profile_calls(lambda: epl_kernels.correlate_pallas_bank_rows(**case), reps=3,
+                        label="bank_rows")
+    line = got["device_timeline"]
+    assert any("bank_rows" in name for name in line["rows"]), list(line["rows"])
+    assert 0.0 < line["busy_share"] <= 1.0
+    assert line["device_per_call_ms"] > 0 and line["window_per_call_ms"] > 0
+
+
+def test_gpsl1_analog_cell_writes_a_gpu_record(cuda, tmp_path):
+    import json
+
+    from gpuacceleratedtracking_tpu_torch.bench import run_kernel_benchmark, run_sweep
+    from gpuacceleratedtracking_tpu_torch.scripts import run_benchmarks_gpsl1
+
+    cell = dict(run_benchmarks_gpsl1.params, num_samples=4096, num_ants=1, num_correlators=3,
+                algorithm="pallas_fused", trials=2)
+    (path,) = run_sweep(cell, run_kernel_benchmark, tmp_path, progress=False, skip_errors=False)
+    record = json.loads(path.read_text())
+    assert record["backend"] == "cuda" and record["processor"] == "GPU"
+    assert record["gpu_name"] and record["power_limit"]
+    assert "processor=GPU" in path.name and record["Median"] >= 0
+
+
+def test_track_benchmarks_record_peak_memory_in_a_fresh_process(cuda):
+    # The first CUDA call of the process: the peak is read after the
+    # allocator exists (resetting it before raises "Invalid device argument").
+    code = textwrap.dedent("""
+        from gpuacceleratedtracking_tpu_torch.bench import (
+            run_dual_track_benchmark, run_track_benchmark)
+        for run, gnss in ((run_track_benchmark, "GPSL1"), (run_dual_track_benchmark, "GPSL5")):
+            r = run({"GNSS": gnss, "num_samples": 32768, "num_channels": 8,
+                     "algorithm": "pallas_bank_auto", "processor": "GPU", "blocks": 2,
+                     "trials": 1})
+            assert r["peak_memory_bytes"] > 0, r
+    """)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
+                   cwd=pathlib.Path(__file__).resolve().parents[1])
