@@ -11,18 +11,18 @@ Usage::
 
 ``--old`` holds an earlier ``csrc/`` (its ``.cu`` sources and the headers
 they include). The script times each kernel whose old source it finds there
-(``bank_rows``, ``bank_comp``, ``taps``, ``fused``; ``--kernels`` picks
-some) against the current one. The old sources are built here with nvcc
-beside the current kernels and launched through the current launch
-functions with the old library in place of the new (`with_library`), so
-they must take the current C interface. The one exception is
-``--params-interface``: old ``taps.cu`` / ``fused.cu`` from before the
-kernels took the raw channel parameters, launched by `params_launcher` with
-a ``[4]`` f32 parameter tensor from `_channel_params`, the PRN's f32 code
-column, a device array of tap offsets, separate real and imaginary outputs
-and a scratch whose last word, the finish counter, must be zero at each
-launch (that launcher clears it with one 4-byte memset, which its timings
-include).
+(``bank_rows``, ``bank_comp``, ``taps``, ``fused``, ``replica``;
+``--kernels`` picks some) against the current one. The old sources are
+built here with nvcc beside the current kernels and launched through the
+current launch functions with the old library in place of the new
+(`with_library`), so they must take the current C interface. The one
+exception is ``--params-interface``: old ``taps.cu`` / ``fused.cu`` from
+before the kernels took the raw channel parameters, launched by
+`params_launcher` with a ``[4]`` f32 parameter tensor from
+`_channel_params`, the PRN's f32 code column, a device array of tap
+offsets, separate real and imaginary outputs and a scratch whose last word,
+the finish counter, must be zero at each launch (that launcher clears it
+with one 4-byte memset, which its timings include).
 
 Both versions run on the same inputs, in turns (old, new, new, old), each
 turn 20 CUDA-event-timed repetitions of 10 back-to-back launches: once as
@@ -43,6 +43,15 @@ the largest difference between the two versions' outputs.
   launch pays), and the current kernels under other work splits (one
   cluster per 4, 8 or 16 tiles) beside `work_split`'s, the evidence its
   shape rule rests on.
+- The replica kernel (``csrc/replica.cu``) at the same two corners, N=32768
+  L=3 and N=2^18 L=7, and at N=65536 L=7, N=2^17 L=3 and N=2^18 L=3 (around
+  the size from which it writes through shared tiles): the ``[L, N]`` tap
+  matrix of one channel, which must not differ by a bit, beside the device
+  time of a PyTorch fill of the same fresh ``[L, N]`` tensor (the bytes
+  alone). Where an old ``taps.cu`` is given too, a whole
+  ``pallas_taps`` call (the replica kernel, then the taps kernel, now a
+  programmatic dependent launch) with the old taps kernel against the
+  current one, both after the current replica kernel.
 
 The old sources are not part of the repository; put them in a directory
 that ``.gitignore`` lists, such as ``build/``.
@@ -65,7 +74,7 @@ import torch
 
 REPS = 20
 PER_REP = 10
-KERNELS = ("bank_rows", "bank_comp", "taps", "fused")
+KERNELS = ("bank_rows", "bank_comp", "taps", "fused", "replica")
 
 
 def build_old(old_dir: pathlib.Path, stems, params_interface: bool) -> dict:
@@ -389,6 +398,40 @@ def channel_ab(libs, params_interface: bool, card) -> dict:
     return results
 
 
+def replica_ab(libs, card) -> dict:
+    """The replica kernel old against new at the per-channel corners and
+    around its tile threshold, and, with an old ``taps.cu``, the
+    ``pallas_taps`` call's pair of kernels with the old taps kernel against
+    the current one (the current replica kernel in both)."""
+    from gpuacceleratedtracking_tpu_torch.ops import channel_kernels, replica_kernel
+
+    results = {"ab": {}, "pair": {}}
+    # The two corners, and around the size (3 x 2^17 elements) from which
+    # the kernel writes through shared tiles instead of one element per thread.
+    cells = (("n32768_a1_l3", 32768, 1, 3), ("n65536_a1_l7", 65536, 1, 7),
+             ("n131072_a1_l3", 1 << 17, 1, 3), ("n262144_a1_l3", 1 << 18, 1, 3),
+             ("n262144_a4_l7", 1 << 18, 4, 7))
+    for name, n, a, taps in cells:
+        cargs = channel_args(n, a, taps, seed=n)
+        call = channel_kernels.ChannelCall(*cargs, "taps")
+        rargs = (call.codes, call.prn, call.code_frequency, call.fs, call.code_phase, n,
+                 call.shifts, call.code_length)
+        new = lambda: (replica_kernel.code_tap_matrix(*rargs),)  # noqa: E731
+        if "replica" in libs:
+            # The floor under both: a PyTorch fill of a fresh [L, N] f32
+            # tensor writes the same bytes with no arithmetic.
+            fill = time_ms(lambda: torch.empty((taps, n), device="cuda").fill_(1.0), graph=True)
+            results["ab"][name] = compare(f"replica {name} L={taps}",
+                                          with_library({"replica": libs["replica"]}, new),
+                                          new, card, {"fill_device_ms": fill[0]})
+        if "taps" in libs:
+            pair = lambda: channel_kernels.correlate_pallas_taps(*cargs)  # noqa: E731
+            results["pair"][name] = compare(
+                f"pallas_taps call {name} (replica + taps), taps old vs new",
+                with_library({"taps": libs["taps"]}, pair), pair, card)
+    return results
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", required=True, help="directory of the old csrc/ sources")
@@ -418,6 +461,8 @@ def main(argv=None) -> int:
         results["bank"] = bank_ab(libs, card)
     if {"taps", "fused"} & set(libs):
         results["channel"] = channel_ab(libs, args.params_interface, card)
+    if {"replica", "taps"} & set(libs) and not args.params_interface:
+        results["replica"] = replica_ab(libs, card)
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(results, indent=1))
     return 0

@@ -42,7 +42,10 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    the plain replica ops, bit for bit: GPS L1 N=2^11..2^18 and GPS L5
    N=2^15..2^18, L in {3, 7} (a negative min_shift), exact and quantized,
    the haloed row and the ``[L, N]`` tap matrix, random PRN, code rate and
-   code phase per cell.
+   code phase per cell as device tensors; then N=10240 (GPS L1 and L5), odd
+   N=4093 and N=200003, and N=2^18 at L in {3, 9, 11} with the parameters both as
+   device tensors and as Python scalars, and each launch group's rows of
+   the L=9 and 11 calls (a padded group repeats its last tap).
    3b. The loop-closure kernel (``csrc/loop_update.cu``, one launch per
    ``tracking.loop_update`` call on CUDA tensors) against its plain version
    ``loop_update_plain`` over ``LOOP_CASES`` (filter orders 1/2/3, FLL
@@ -825,51 +828,75 @@ def replica_cells(seed):
     L in {3, 7} (EPL shifts, a negative min_shift), exact and quantized, the
     haloed row (`code_replica`) and the tap matrix (`code_tap_matrix`), a
     random PRN, code rate (+/-3 Hz) and code phase per cell, as device
-    tensors. Returns the largest |kernel - plain| (0.0 when every chip
-    matches) and the cells' count."""
+    tensors. Then the widened grid: N=10240 (GPS L1 and L5; the replica
+    experiment's N), N=4093 and N=200003 (odd; the second through the
+    shared tiles, rows off 16-byte boundaries) and N=2^18, at L in {3, 9, 11}, the
+    parameters as device tensors and as Python scalars, and for L > 7 each
+    launch group's rows (`launch_replica` with the group's offsets and the
+    call's d_min; a padded group repeats its last tap, so two rows share an
+    offset) against those rows of the plain tap matrix. Returns the largest
+    |kernel - plain| (0.0 when every chip matches) and the cells' count."""
     from gpuacceleratedtracking_tpu_torch.models import (
         EPLCorrelator, correlator_sample_shifts, get_system)
-    from gpuacceleratedtracking_tpu_torch.ops import replica_kernel
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels, replica_kernel
 
     rng = np.random.default_rng(seed + 1500)
+    grid = [(gnss, 1 << e, (3, 7), ("pointer",)) for gnss, exps in (
+        ("GPSL1", range(11, 19)), ("GPSL5", range(15, 19))) for e in exps]
+    grid += [(gnss, n, (3, 9, 11), ("pointer", "value")) for gnss, n in (
+        ("GPSL1", 10240), ("GPSL5", 10240), ("GPSL1", 4093), ("GPSL1", 1 << 18),
+        ("GPSL1", 200003))]
     worst, cells = 0.0, 0
-    for gnss, exps in (("GPSL1", range(11, 19)), ("GPSL5", range(15, 19))):
+    for gnss, n, tap_counts, passing in grid:
         system = get_system(gnss)
         codes = torch.as_tensor(system.codes, device=DEVICE)
-        for n in (1 << e for e in exps):
-            fs = n / 1e-3
-            for taps in (3, 7):
-                shifts = tuple(int(s) for s in correlator_sample_shifts(
-                    system, EPLCorrelator(taps), fs))
-                prn = torch.tensor(int(rng.integers(0, 32)), dtype=torch.int64, device=DEVICE)
-                fcode = torch.tensor(system.code_frequency + rng.uniform(-3.0, 3.0),
-                                     dtype=torch.float32, device=DEVICE)
-                phase = torch.tensor(rng.uniform(0.0, system.code_length),
-                                     dtype=torch.float32, device=DEVICE)
+        fs = n / 1e-3
+        for taps in tap_counts:
+            shifts = tuple(int(s) for s in correlator_sample_shifts(
+                system, EPLCorrelator(taps), fs))
+            groups = sorted({g for _, _, g in epl_kernels.launch_groups(1, taps)}) \
+                if taps > 7 else []
+            values = (int(rng.integers(0, 32)), system.code_frequency + rng.uniform(-3.0, 3.0),
+                      rng.uniform(0.0, system.code_length))
+            for by in passing:
+                if by == "pointer":
+                    prn = torch.tensor(values[0], dtype=torch.int64, device=DEVICE)
+                    fcode, phase = (torch.tensor(x, dtype=torch.float32, device=DEVICE)
+                                    for x in values[1:])
+                else:
+                    prn, fcode, phase = values
                 common = (codes, prn, fcode, fs, phase, n)
                 for mode in replica_kernel.MODES:
+                    tag = f"[replica] {gnss} N={n} L={taps} {mode} {by}"
                     before = replica_kernel.code_replica.launches
                     row = replica_kernel.code_replica(*common, min(shifts), max(shifts),
                                                       system.code_length, mode)
                     mat = replica_kernel.code_tap_matrix(*common, shifts, system.code_length,
                                                          mode)
+                    group_rows = [replica_kernel.launch_replica(
+                        *common[:5], [shifts[i] for i in g], n, min(shifts),
+                        system.code_length, mode) for g in groups]
                     torch.cuda.synchronize()
-                    check(replica_kernel.code_replica.launches == before + 2,
-                          f"[replica] {gnss} N={n} L={taps} {mode}: one launch per layout")
+                    want_launches = 1 + len(replica_kernel.launch_plan(shifts)) + len(groups)
+                    check(replica_kernel.code_replica.launches == before + want_launches,
+                          f"{tag}: {want_launches} launches (row, tap matrix, groups)")
                     want_row = replica_kernel.replica_plain(*common, min(shifts), max(shifts),
                                                             system.code_length, mode)
                     want_mat = replica_kernel.tap_matrix_plain(*common, shifts,
                                                                system.code_length, mode)
-                    for layout, g, w in (("row", row, want_row), ("taps", mat, want_mat)):
-                        check(g.shape == w.shape and g.dtype == w.dtype,
-                              f"[replica] {gnss} N={n} L={taps} {mode} {layout} shape")
-                        bad = int((g != w).sum())
-                        worst = max(worst, float((g - w).abs().max()))
-                        check(bad == 0, f"[replica] {gnss} N={n} L={taps} {mode} {layout}: "
-                                        f"{bad} chips differ from the plain version")
-                    cells += 2
-            log(f"[replica] {gnss} N={n}, L in (3, 7), exact and quantized, row and tap "
-                f"matrix: bit for bit ok")
+                    pairs = [("row", row, want_row), ("taps", mat, want_mat)]
+                    pairs += [(f"group {g}", rows, want_mat[list(g)])
+                              for g, rows in zip(groups, group_rows)]
+                    for layout, got, w in pairs:
+                        check(got.shape == w.shape and got.dtype == w.dtype,
+                              f"{tag} {layout} shape")
+                        bad = int((got != w).sum())
+                        worst = max(worst, float((got - w).abs().max()))
+                        check(bad == 0, f"{tag} {layout}: {bad} chips differ from the plain "
+                                        f"version")
+                    cells += len(pairs)
+        log(f"[replica] {gnss} N={n}, L in {tap_counts}, exact and quantized, parameters "
+            f"by {' and '.join(passing)}, row, tap matrix and launch groups: bit for bit ok")
     log(f"[replica] {cells} cells bit for bit against the plain replica ops")
     return worst, cells
 
@@ -3780,6 +3807,12 @@ def main(argv=None) -> int:
         entry["corners"] = {
             corner: {key: times[f"{name}_{corner}"][src] for key, src in corner_keys.items()}
             for corner in (f"n{N_1MS}_a1_l3", top)}
+    # The replica kernel at the taps kernel's two corners (its entry's
+    # numbers are N=2^18 L=7's).
+    kernels["kernels"][8]["corners"] = {
+        corner: {key: times[f"replica_{corner}"][src] for key, src in corner_keys.items()
+                 if src in times[f"replica_{corner}"]}
+        for corner in (f"n{N_1MS}_l3", f"n{N_WIDE}_l7")}
     comp_bf16 = times["bank_comp_bf16"]
     kernels["kernels"][6]["exact_trajectory_channels"] = loop_exact
     # The loop kernel's `ms` is its mode under the replayed graph's sink; the

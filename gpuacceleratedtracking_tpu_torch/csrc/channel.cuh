@@ -250,6 +250,12 @@ __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 }
 
+// A programmatic dependent launch's wait for the kernel before it on the
+// stream: its completion and its writes (no-op in any other launch).
+__device__ __forceinline__ void wait_primary() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 __host__ __device__ constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
 __host__ __device__ constexpr int pow2ceil(int x) { return x <= 1 ? 1 : 2 * pow2ceil((x + 1) / 2); }
 
@@ -373,9 +379,13 @@ inline cudaError_t cleared(cudaError_t err) {
 
 // Launch `Kernel` over `grid` CTAs, one tile each, in clusters of `cluster`
 // (which divides the grid) on `stream`, with `smem` bytes of dynamic shared
-// memory per CTA; returns the first CUDA error.
+// memory per CTA; returns the first CUDA error. `dependent`: a programmatic
+// dependent launch, which may start once the kernel before it on the stream
+// lets it (griddepcontrol.launch_dependents), and whose `wait_primary`
+// waits for that kernel's completion and writes.
 template <void (*Kernel)(Args)>
-cudaError_t launch(const Args& args, int grid, int cluster, size_t smem, cudaStream_t stream) {
+cudaError_t launch(const Args& args, int grid, int cluster, size_t smem, cudaStream_t stream,
+                   bool dependent = false) {
   if (grid <= 0 || cluster <= 0 || cluster > kMaxCluster || grid % cluster != 0) {
     return cudaErrorInvalidValue;
   }
@@ -403,13 +413,15 @@ cudaError_t launch(const Args& args, int grid, int cluster, size_t smem, cudaStr
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = dependent ? 2 : 1;
   err = cudaLaunchKernelEx(&cfg, Kernel, args);
   if (err != cudaSuccess) return cleared(err);
   return cudaGetLastError();

@@ -22,6 +22,11 @@
 // transpose warp sum, the cluster sum through distributed shared memory and
 // for more than one cluster a last-cluster finish in a fixed order. The
 // sincospif per sample stays (the tap rows, not the carrier, are the bytes).
+// The launch is a programmatic dependent of the replica kernel that writes
+// the tap matrix just before it (csrc/replica.cu, which lets it start once
+// its CTAs have their parameters): the CTAs read the carrier parameters and
+// the signal under the replica kernel and wait for its grid only before
+// the tap rows (wait_primary), which hides most of a launch at small N.
 
 #include "channel.cuh"
 
@@ -40,6 +45,7 @@ __global__ void __launch_bounds__(kThreads) taps_kernel(const channel::Args p) {
   float4 xr[A], xi[A], tap[L];
   channel::load_rows<A>(p.sre, p.num_samples, n, p.vec, xr);
   channel::load_rows<A>(p.sim, p.num_samples, n, p.vec, xi);
+  channel::wait_primary();                   // the replica kernel's tap matrix
   channel::load_rows<L>(p.table, p.num_samples, n, p.vec, tap);
   channel::cluster_arrive();
 
@@ -90,7 +96,7 @@ extern "C" int taps_launch(const float* sre, const float* sim, const float* taps
   cudaError_t err = cudaErrorInvalidValue;
 #define TAPS_CASE(A_, L_)                                                                 \
   if (num_ants == A_ && num_taps == L_) {                                                 \
-    err = channel::launch<taps_kernel<A_, L_>>(args, grid, cluster, 0, s);                \
+    err = channel::launch<taps_kernel<A_, L_>>(args, grid, cluster, 0, s, true);          \
   }
   TAPS_CASE(1, 3) TAPS_CASE(1, 5) TAPS_CASE(1, 7)
   TAPS_CASE(2, 3) TAPS_CASE(2, 5) TAPS_CASE(2, 7)

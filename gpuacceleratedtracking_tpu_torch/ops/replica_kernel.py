@@ -3,9 +3,12 @@
 The JAX package has no Pallas kernel for the replica: XLA fuses
 `gen_code_replica` (or `gen_code_replica_quantized`) and the tap matrix built
 from it into the program around `correlate_pallas_taps`. Here that fusion is
-``csrc/replica.cu``, one launch for one channel (a scalar PRN), written as
-the haloed row ``[N + span]`` (`code_replica`) or as the ``[L, N]`` tap
-matrix the taps kernel reads (`code_tap_matrix`), f32 like the plain path.
+``csrc/replica.cu``, for one channel (a scalar PRN), written as the haloed
+row ``[N + span]`` (`code_replica`) or as the ``[L, N]`` tap matrix the taps
+kernel reads (`code_tap_matrix`), f32 like the plain path: one launch for
+every row whose offsets lie within `MAX_SPAN` of each other
+(`launch_plan`), since a launch reads all of its rows from one haloed tile
+of chips.
 
 Each wrapper dispatches on where the code table lies: CUDA launches the
 kernel or raises, the CPU runs the plain version (`replica.gen_code_replica`
@@ -29,7 +32,8 @@ from .correlate import _tap_matrix
 from .replica import gen_code_replica, gen_code_replica_quantized
 
 MODES = ("exact", "quantized")
-MAX_ROWS = 32                # rows per launch: the kernel's offsets come by value
+MAX_ROWS = 64                # rows per launch: the kernel's offsets come by value
+MAX_SPAN = 1024              # largest offset less the smallest, per launch: the shared halo
 
 
 def _check_mode(mode: str) -> None:
@@ -58,6 +62,27 @@ def tap_matrix_plain(codes, prn, code_frequency, sampling_frequency, start_code_
                         num_samples, int(min(sample_shifts)), int(max(sample_shifts)),
                         code_length, mode, phase_bits)
     return _tap_matrix(rep, sample_shifts, num_samples)
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(offsets: tuple) -> tuple:
+    """The launches that write rows with these offsets: ``(r0, r1)`` per
+    launch, consecutive rows, as many as `MAX_ROWS` and `MAX_SPAN` let one
+    launch take (one CTA reads all of its rows from one haloed tile, so their
+    offsets must lie within `MAX_SPAN`). Every row of a tap matrix, one
+    launch."""
+    plan, r0 = [], 0
+    while r0 < len(offsets):
+        lo = hi = offsets[r0]
+        r1 = r0 + 1
+        while r1 < len(offsets) and r1 - r0 < MAX_ROWS:
+            lo, hi = min(lo, offsets[r1]), max(hi, offsets[r1])
+            if hi - lo > MAX_SPAN:
+                break
+            r1 += 1
+        plan.append((r0, r1))
+        r0 = r1
+    return tuple(plan)
 
 
 @functools.lru_cache(maxsize=64)
@@ -107,7 +132,7 @@ def launch_replica(codes, prn, code_frequency, sampling_frequency, start_code_ph
                    mode: str = "exact", phase_bits: int = 12) -> torch.Tensor:
     """Launch ``csrc/replica.cu``: ``[len(offsets), width]`` f32 rows, row r
     the chips of samples ``j + offsets[r]`` (quantized: on the grid that
-    starts at ``min_shift``), one launch per `MAX_ROWS` rows. Adds one to
+    starts at ``min_shift``), one launch per entry of `launch_plan`. Adds one to
     ``code_replica.launches`` per launch; raises on anything the kernel does
     not take, and if a launch fails."""
     _check_mode(mode)
@@ -133,8 +158,8 @@ def launch_replica(codes, prn, code_frequency, sampling_frequency, start_code_ph
     out = torch.empty((len(offsets), width), dtype=torch.float32, device=device)
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     lib = _build.load_library("replica")
-    for r0 in range(0, len(offsets), MAX_ROWS):
-        rows = offsets[r0:r0 + MAX_ROWS]
+    for r0, r1 in launch_plan(offsets):
+        rows = offsets[r0:r1]
         err = lib.replica_launch(
             codes.data_ptr(), out[r0].data_ptr(), prn_ptr, fcode[0], phase[0], prn_value,
             prn_is64, fcode[1], phase[1], 1.0 / float(sampling_frequency),

@@ -1305,14 +1305,25 @@ def test_track_bank_with_eight_antennas_on_the_auto_route(cuda):
                                atol=10.0 * num_ants)
 
 
-# The replica kernel (csrc/replica.cu): the taps wrapper's tap matrix and the
-# replica benchmark's row, bit for bit against the plain replica ops.
+# The replica kernel (csrc/replica.cu): the taps wrapper's tap matrix, each
+# launch group's rows (a padded group repeats its last tap: equal offsets)
+# and the replica benchmark's row, bit for bit against the plain replica ops.
+# N=10240 (the replica experiment's) and N=4093 are not multiples of 4 or of
+# a tile; at N=2^18 L=11 the taps span 1280 samples, two launches. From
+# 3 x 2^17 elements in two rows or more the kernel writes through shared
+# tiles (N=2^18, and N=200003 with its rows off 16-byte boundaries), below
+# that one element per thread.
 REPLICA_CASES = {
     "l1_n2048_l3": (SYSTEM, 2048, 3, 0, 0.0),
     "l1_n32768_l7": (SYSTEM, 32768, 7, 5, 517.3),
     "l1_n262144_l7": (SYSTEM, 262144, 7, 31, 1022.9),
     "l5_n32768_l3": (GPSL5(), 32768, 3, 3, 10229.25),
     "l5_n262144_l7": (GPSL5(), 262144, 7, 17, 4711.5),
+    "l1_n10240_l9": (SYSTEM, 10240, 9, 11, 1000.1),
+    "l1_n4093_l11": (SYSTEM, 4093, 11, 21, 3.7),
+    "l5_n10240_l11": (GPSL5(), 10240, 11, 7, 10229.9),
+    "l1_n262144_l11": (SYSTEM, 262144, 11, 2, 1022.5),
+    "l1_n200003_l9": (SYSTEM, 200003, 9, 9, 77.7),
 }
 
 
@@ -1331,14 +1342,21 @@ def test_replica_kernel_equals_plain_bit_for_bit(cuda, name, mode):
                                           max(shifts), system.code_length, mode)
         taps_m = replica_kernel.code_tap_matrix(codes, args[0], args[1], fs, args[2], n,
                                                 shifts, system.code_length, mode)
+        groups = {g for _, _, g in epl_kernels.launch_groups(1, taps)} if taps > 7 else set()
+        group_rows = {g: replica_kernel.launch_replica(
+            codes, args[0], args[1], fs, args[2], [shifts[i] for i in g], n, min(shifts),
+            system.code_length, mode) for g in groups}
         torch.cuda.synchronize()
-        assert replica_kernel.code_replica.launches == before + 2
+        assert replica_kernel.code_replica.launches == (
+            before + 1 + len(replica_kernel.launch_plan(shifts)) + len(groups))
         want_row = replica_kernel.replica_plain(codes, *args[:1], args[1], fs, args[2], n,
                                                 min(shifts), max(shifts), system.code_length,
                                                 mode)
         want_taps = replica_kernel.tap_matrix_plain(codes, args[0], args[1], fs, args[2], n,
                                                     shifts, system.code_length, mode)
         assert torch.equal(row, want_row) and torch.equal(taps_m, want_taps)
+        for g, rows in group_rows.items():
+            assert torch.equal(rows, want_taps[list(g)]), g
 
 
 @pytest.mark.parametrize("name", sorted(CHANNEL_CASES))
@@ -1365,14 +1383,24 @@ def test_pallas_taps_call_is_the_replica_and_taps_kernels(cuda):
     channel_kernels.correlate_pallas_taps(*args)
     torch.cuda.synchronize()
     calls = 10
+    before = (replica_kernel.code_replica.launches, channel_kernels.correlate_pallas_taps.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             channel_kernels.correlate_pallas_taps(*args)
         torch.cuda.synchronize()
+    # Launches first, from the wrappers' counts: a missing launch and an
+    # event the profiler dropped fail with different messages.
+    launched = (replica_kernel.code_replica.launches - before[0],
+                channel_kernels.correlate_pallas_taps.launches - before[1])
+    assert launched == (calls, calls), f"(replica, taps) launches {launched}, want {calls} each"
     device_ops = [e.name for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert sum("replica_kernel" in name for name in device_ops) == calls
-    assert sum("taps_kernel" in name for name in device_ops) == calls
+    traced = (sum("replica_kernel" in name for name in device_ops),
+              sum("taps_kernel" in name for name in device_ops))
+    assert traced[0] == calls, (f"the profiler recorded {traced[0]} replica_kernel events for "
+                                f"{launched[0]} counted launches: {device_ops}")
+    assert traced[1] == calls, (f"the profiler recorded {traced[1]} taps_kernel events for "
+                                f"{launched[1]} counted launches: {device_ops}")
     assert len(device_ops) <= 3 * calls, device_ops
 
 

@@ -23,11 +23,19 @@ from gpuacceleratedtracking_tpu_torch.ops import channel_kernels, epl_kernels, r
 torch.set_num_threads(1)
 
 # name -> (GNSS, N, PRN, code phase, taps); the sampling frequency is N / 1 ms.
+# Every EPL case has a negative d_min (and so a quantized grid origin below
+# 0); N=10230 and N=4093 are not multiples of 4; at N=2^17 the taps are 64
+# samples apart, so the tap rows cross code_phase_steps' 128-sample rows; at
+# N=2^18 L=11 the taps span 1280 samples, past one launch's halo.
 CASES = {
     "l1_n2048_l3": ("GPSL1", 2048, 0, 0.0, 3),
     "l1_n4096_l7_phase": ("GPSL1", 4096, 5, 517.3, 7),
     "l1_n8192_l3_wrap": ("GPSL1", 8192, 17, 1022.75, 3),
     "l5_n32768_l3": ("GPSL5", 32768, 3, 10229.5, 3),
+    "l1_n10230_l9": ("GPSL1", 10230, 9, 1000.1, 9),
+    "l1_n4093_l11_odd": ("GPSL1", 4093, 21, 3.7, 11),
+    "l1_n131072_l7_rows": ("GPSL1", 131072, 30, 700.25, 7),
+    "l1_n262144_l11_span": ("GPSL1", 262144, 2, 1022.5, 11),
 }
 
 
@@ -66,6 +74,64 @@ def test_plain_replica_equals_jax_exactly(name, mode):
     np.testing.assert_array_equal(row.numpy(), want_row)
     np.testing.assert_array_equal(taps.numpy(), want_taps)
     assert replica_kernel.code_replica.launches == 0    # the plain version on the CPU
+
+
+@pytest.mark.parametrize("mode", replica_kernel.MODES)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tap_rows_are_windows_of_one_haloed_row(name, mode):
+    # What the kernel's design rests on: row l of the tap matrix is the haloed
+    # row's window at d_l - d_min, so each launch of the wrapper's plan can
+    # write its rows from one haloed tile per CTA (grid origin: the call's
+    # d_min), and in the exact mode a chip is a function of its sample alone,
+    # so a CTA's haloed tile [j0 + d_min, j0 + T + d_max) is that window of
+    # the row. Bit for bit against the JAX replica and tap matrix.
+    system, n, prn, phase, fs, shifts = _case(name)
+    want_row, want_taps = _jax(name, mode)
+    d_min, d_max = min(shifts), max(shifts)
+    for l, d in enumerate(shifts):
+        np.testing.assert_array_equal(want_taps[l], want_row[d - d_min:d - d_min + n])
+    codes = torch.as_tensor(system.codes)
+    plan = replica_kernel.launch_plan(shifts)
+    for r0, r1 in plan:
+        row = replica_kernel.replica_plain(codes, prn, system.code_frequency, fs, phase, n,
+                                           d_min, max(shifts[r0:r1]), system.code_length,
+                                           mode).numpy()
+        for l in range(r0, r1):
+            np.testing.assert_array_equal(row[shifts[l] - d_min:shifts[l] - d_min + n],
+                                          want_taps[l])
+    assert len(plan) == (2 if d_max - d_min > replica_kernel.MAX_SPAN else 1)
+    if mode == "exact":
+        for j0 in sorted({0, 256, n // 2 // 256 * 256, (n - 1) // 256 * 256}):
+            cols = min(2048, n - j0)
+            tile = jax.jit(functools.partial(
+                jreplica.gen_code_replica, num_samples=j0 + cols, min_shift=j0 + d_min,
+                max_shift=d_max, code_length=system.code_length))(
+                jnp.asarray(system.codes), prn, system.code_frequency, fs, phase)
+            np.testing.assert_array_equal(np.asarray(tile),
+                                          want_row[j0:j0 + cols + d_max - d_min])
+
+
+@pytest.mark.parametrize("offsets,plan", [
+    ((-1, 0, 1), ((0, 3),)),
+    ((-384, -256, -128, 0, 128, 256, 384), ((0, 7),)),
+    ((-5, 0, 5, 5, 5), ((0, 5),)),                       # a padded launch group
+    (tuple(range(-640, 641, 128)), ((0, 9), (9, 11))),   # L=11 at N=2^18: 1280 apart
+    ((0, 1024, -1024, 0), ((0, 2), (2, 4))),
+    ((7,), ((0, 1),)),
+    (tuple(range(65)), ((0, 64), (64, 65))),
+])
+def test_launch_plan_takes_every_row_it_can_in_one_launch(offsets, plan):
+    got = replica_kernel.launch_plan(offsets)
+    assert got == plan
+    assert got[0][0] == 0 and got[-1][1] == len(offsets)
+    for (r0, r1), nxt in zip(got, got[1:] + ((None, None),)):
+        rows = offsets[r0:r1]
+        assert r1 - r0 <= replica_kernel.MAX_ROWS
+        assert max(rows) - min(rows) <= replica_kernel.MAX_SPAN
+        if nxt[0] is not None:                           # the next row would break a limit
+            wider = offsets[r0:r1 + 1]
+            assert (len(wider) > replica_kernel.MAX_ROWS
+                    or max(wider) - min(wider) > replica_kernel.MAX_SPAN)
 
 
 def test_cpu_dispatch_is_the_plain_version_and_launch_refuses_cpu():
