@@ -180,8 +180,19 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      the phase J devices. A second call of each, a replay of the cached
      graph, runs under ``torch.cuda.set_sync_debug_mode("error")`` and must
      give the same outputs and launch counts (the loop kernels' included:
-     one per block, ``dual_update`` on the dual paths);
-     each call's counts are read after it. Device ops per block of every
+     one per block, ``dual_update`` on the dual paths), and two chained
+     calls, the second from the first's final state (the graph call's state
+     load one copy per dtype) and under sync debug "error", must equal two
+     eager calls; neither steady call may take a new device memory segment
+     (the sharded paths' gathers aside, which are only logged);
+     each call's counts are read after it. The rows K=1024 calls chained
+     from the last call's state, the graft entry's 1-block K=1024 call
+     (``[L one-block]``: graph, chained and eager), and the host side of a
+     steady call of rows, A=4 L=7, the L5 dual and ``track`` (``[L
+     host]``: its dispatched ops, views aside, which may only be the
+     load's, the results' and their copies', as many on every path; its
+     top-level aten ops, CUDA runtime calls and device ops under
+     torch.profiler; no new segment). Device ops per block of every
      path, eager and graph (torch.profiler), beside the counts with the loop
      kernel writing fresh tensors and those
      with the loop closure as torch ops where PERF.md kept them; the device
@@ -243,6 +254,7 @@ of their type
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -2949,18 +2961,86 @@ def dual_one_graph(config, codes_i, codes_q, states, sre, sim, chan):
 
     dev = sre.device
     shards = _channel_shards(states, chan, [dev] * chan)
-    parts = [dual_parts(config, codes_i, codes_q, st.prn, dev) for st in shards]
+    parts = [dual_parts(config, codes_i, codes_q, dev) for _ in shards]
 
     def step(carry, consts, block):
         res = [part[0](carry[c], consts[c], block) for c, part in enumerate(parts)]
         return tuple(r[0] for r in res), tuple(r[1] for r in res)
 
+    def prepare(carry, consts):
+        return tuple(part[2](carry[c], consts[c]) for c, part in enumerate(parts))
+
     finals, outs = graphs.scan(step, tuple(shards), (sre, sim), tuple(p[1] for p in parts),
-                               key=("dual_one_graph", config, chan))
+                               key=("dual_one_graph", config, chan), prepare=prepare)
     return (_map_state(lambda *xs: torch.cat(xs), *finals),
             DualTrackOutput(TrackOutput(*(torch.cat(xs, 1) for xs in zip(*(o.pilot for o in outs)))),
                             torch.cat([o.data_prompt_re for o in outs], 1),
                             torch.cat([o.data_prompt_im for o in outs], 1)))
+
+
+def segments_allocated() -> int:
+    """How many device memory segments the caching allocator has asked the
+    device for so far (``cudaMalloc`` calls)."""
+    return torch.cuda.memory_stats()["segment.all.allocated"]
+
+
+# What a steady call of the graph path may dispatch on the host, views
+# aside: the load's multi-tensor copies, one fresh buffer per dtype and the
+# copies into them (tests/test_torch_graph.py's STEADY_HOST_OPS).
+STEADY_OPS = {"aten._foreach_copy_.default", "aten.empty.memory_format"}
+
+
+def host_ops(run, state) -> dict:
+    """The host side of one steady call ``run(state)``, each from the last
+    call's final state: the ops it dispatches, views aside, counted by a
+    TorchDispatchMode; then, under torch.profiler, its top-level aten ops,
+    its CUDA runtime calls by name and its device ops; and the device memory
+    segments those two calls asked for."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.views = [], 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.is_view:
+                self.views += 1
+            else:
+                self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    state = run(state)[0]                 # captures, if the entry was evicted
+    torch.cuda.synchronize()
+    segments = segments_allocated()
+    with Ops() as mode:
+        state = run(state)[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(state)
+    torch.cuda.synchronize()
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    return {"dispatched_ops": len(mode.ops),
+            "dispatched_by_name": dict(collections.Counter(mode.ops)), "views": mode.views,
+            "aten_top_level": sum(e.name.startswith("aten::") and e.cpu_parent is None
+                                  for e in cpu),
+            "runtime_calls": dict(collections.Counter(e.name for e in cpu
+                                                      if e.name.startswith("cuda"))),
+            "device_ops": sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events),
+            "new_segments": segments_allocated() - segments}
+
+
+def chained_ms(run, state, warmup=2):
+    """CUDA-event milliseconds per call of ``run`` where each call starts from
+    the last one's final state (a stream's dispatch pattern): (median, min)."""
+    holder = [state]
+
+    def call():
+        holder[0] = run(holder[0])[0]
+
+    return time_cuda(call, warmup=warmup)
 
 
 def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int = 10):
@@ -3010,33 +3090,35 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
     mesh22 = channel_time_mesh(2, 2, devices=mesh_devices(4))
     mesh2 = channel_time_mesh(2, 1, devices=mesh_devices(2))
     auto = bank("pallas_bank_auto")
-    # name -> (run, real-time channels of a timed path, or None)
+    # name -> (run, real-time channels of a timed path, or None); ``run(st)``
+    # starts from ``st`` (a chained call passes the last call's final state)
     paths = {
         "rows_K1024_pallas_bank_auto": (
-            lambda: track_bank(auto, codes, states, sre, sim), NUM_K),
+            lambda st=states: track_bank(auto, codes, st, sre, sim), NUM_K),
         "rows_K1024_xla_bank": (
-            lambda: track_bank(bank("xla_bank"), codes, states, sre, sim), NUM_K),
+            lambda st=states: track_bank(bank("xla_bank"), codes, st, sre, sim), NUM_K),
         "array_K1024_A4_L7_f32": (
-            lambda: track_bank(bank("pallas_bank_auto", num_correlators=7), codes, states7,
-                               are, aim, ant_weights=weights), NUM_K),
+            lambda st=states7: track_bank(bank("pallas_bank_auto", num_correlators=7), codes, st,
+                                          are, aim, ant_weights=weights), NUM_K),
         "array_K1024_A4_L7_bf16": (
-            lambda: track_bank(bank("pallas_bank_auto", num_correlators=7, z_dtype="bf16"),
-                               codes, states7, are, aim, ant_weights=weights), NUM_K),
+            lambda st=states7: track_bank(bank("pallas_bank_auto", num_correlators=7,
+                                               z_dtype="bf16"),
+                                          codes, st, are, aim, ant_weights=weights), NUM_K),
         f"l5_dual_K{DUAL_K}": (
-            lambda: track_bank_dual(cfg5, codes_i, codes_q, states5, s5re, s5im), DUAL_K),
+            lambda st=states5: track_bank_dual(cfg5, codes_i, codes_q, st, s5re, s5im), DUAL_K),
         f"family_GALILEOE1C_K{FAMILY_K}": (
-            lambda: track_bank(family_config(e1, N_1MS), e1_codes, e1_states, e1re, e1im),
+            lambda st=e1_states: track_bank(family_config(e1, N_1MS), e1_codes, st, e1re, e1im),
             None),
-        "fused_K8": (lambda: track_bank(bank("pallas_fused"), codes, sats, sre, sim), None),
-        "taps_K8": (lambda: track_bank(bank("pallas_taps"), codes, sats, sre, sim), None),
-        "track_fused": (lambda: track(bank("pallas_fused"), codes, one, sre, sim), None),
+        "fused_K8": (lambda st=sats: track_bank(bank("pallas_fused"), codes, st, sre, sim), None),
+        "taps_K8": (lambda st=sats: track_bank(bank("pallas_taps"), codes, st, sre, sim), None),
+        "track_fused": (lambda st=one: track(bank("pallas_fused"), codes, st, sre, sim), None),
         "onehot_K1024": (
-            lambda: track_bank(bank("pallas_bank_onehot"), codes, states, sre, sim), None),
+            lambda st=states: track_bank(bank("pallas_bank_onehot"), codes, st, sre, sim), None),
         "mesh_2x2_rows_K1024": (
-            lambda: track_bank_sharded(auto, codes, states, sre, sim, mesh=mesh22), NUM_K),
+            lambda st=states: track_bank_sharded(auto, codes, st, sre, sim, mesh=mesh22), NUM_K),
         f"mesh_chan2_l5_dual_K{DUAL_K}": (
-            lambda: track_bank_dual_sharded(cfg5, codes_i, codes_q, states5, s5re, s5im,
-                                            mesh=mesh2), DUAL_K),
+            lambda st=states5: track_bank_dual_sharded(cfg5, codes_i, codes_q, st, s5re, s5im,
+                                                       mesh=mesh2), DUAL_K),
     }
     torch.cuda.synchronize()
     results, launches = {}, dict.fromkeys(all_counts(), 0)
@@ -3052,30 +3134,55 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
         got, graph_counts = counted(run)              # the capture, then the replays
         reserved = torch.cuda.memory_reserved() - reserved
         new = list(graphs._ENTRIES.get(dev, {}).values())
-        buffers = sum(x.numel() * x.element_size() for e in new
-                      for x in graphs._leaves((e.carry, e.consts, tuple(e.xs), tuple(e.outs))))
+        buffers = sum(x.numel() * x.element_size() for e in new for x in e.buffers())
         check(graph_counts == eager_counts,
               f"[L] {name}: graph launches {graph_counts} against eager {eager_counts}")
         bitwise(f"[L] {name}", got, want)
+        segments = segments_allocated()
         again, again_counts = counted(strict(run))    # a replay of the cached graph
+        again_segments = segments_allocated() - segments
         check(again_counts == eager_counts,
               f"[L] {name}: second call's launches {again_counts} against eager {eager_counts}")
         bitwise(f"[L] {name} second call", again, want)
+        # Two chained calls, the second from the first's final state (one
+        # copy per dtype where the state is the call's own), under sync
+        # debug "error", against two eager calls.
+        del got, again
+        with eager():
+            chain_want, chain_eager_counts = counted(lambda: run(want[0]))
+        first, first_counts = counted(run)
+        segments = segments_allocated()
+        chained, chain_counts = counted(strict(lambda: run(first[0])))
+        chain_segments = segments_allocated() - segments
+        check(first_counts == eager_counts and chain_counts == eager_counts,
+              f"[L] {name}: chained calls' launches {first_counts}, {chain_counts} against "
+              f"eager {eager_counts}")
+        bitwise(f"[L] {name} chained", (first, chained), (want, chain_want))
+        if not name.startswith("mesh"):
+            check(again_segments == 0 and chain_segments == 0,
+                  f"[L] {name}: a steady call allocated {again_segments} (second call) and "
+                  f"{chain_segments} (chained) new segments")
         if name in SINK_PATHS:
             check(graph_counts[SINK_PATHS[name]] == blocks,
                   f"[L] {name}: the loop kernel once per block ({graph_counts})")
         for k in launches:
-            launches[k] += eager_counts[k] + graph_counts[k] + again_counts[k]
+            launches[k] += (eager_counts[k] + graph_counts[k] + again_counts[k]
+                            + chain_eager_counts[k] + first_counts[k] + chain_counts[k])
         results[name] = {"launches_per_call": {k: v for k, v in graph_counts.items() if v},
                          "entries": len(new), "chunk": [e.chunk for e in new],
-                         "entry_buffer_bytes": buffers, "capture_reserved_bytes": reserved}
+                         "entry_buffer_bytes": buffers, "capture_reserved_bytes": reserved,
+                         "second_call_new_segments": again_segments,
+                         "chained_call_new_segments": chain_segments}
         log(f"[L] {name}: {blocks} blocks, graph equals eager bit for bit "
-            f"({len(flat(got))} tensors), launches per call {results[name]['launches_per_call']} "
-            f"in all three calls; the second call (a replay of the cached graph) ran under "
-            f"set_sync_debug_mode('error'); {len(new)} entries, chunk "
-            f"{results[name]['chunk']}, their buffers {buffers} B, device memory reserved by "
-            f"the first call (buffers, graph pools, results) {reserved} B")
-        del want, got, again
+            f"({len(flat(want))} tensors), launches per call "
+            f"{results[name]['launches_per_call']} in all three calls; the second call (a "
+            f"replay of the cached graph) and a chained call (from the last call's state) ran "
+            f"under set_sync_debug_mode('error'), two chained calls equal two eager calls bit for "
+            f"bit, new device memory segments: second call {again_segments}, chained call "
+            f"{chain_segments}; {len(new)} entries, chunk {results[name]['chunk']}, their "
+            f"buffers {buffers} B, device memory reserved by the first call (buffers, graph "
+            f"pools, results) {reserved} B")
+        del want, first, chained, chain_want
 
     for name, (run, channels) in paths.items():
         if channels is None:
@@ -3093,6 +3200,75 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
             f"{entry['graph_block_min_ms']!r}); real-time channels eager "
             f"{entry['eager_realtime_channels']!r}, graph {entry['graph_realtime_channels']!r} "
             f"[{card}]")
+    # A call as one program: the rows path's calls chained from the last
+    # call's state (the state load one copy per dtype), the graft entry's
+    # 1-block K=1024 call, and the host side of a steady call per path.
+    rows = paths["rows_K1024_pallas_bank_auto"][0]
+    c_med, c_min = chained_ms(rows, states)
+    results["rows_K1024_pallas_bank_auto"].update(chained_block_ms=c_med / blocks,
+                                                  chained_block_min_ms=c_min / blocks)
+    log(f"[L time] rows_K1024_pallas_bank_auto, {blocks}-block calls chained from the last "
+        f"call's state: {c_med / blocks!r} ms per block (min {c_min / blocks!r}) [{card}]")
+    one_block = lambda st=states: track_bank(auto, codes, st, sre[:1], sim[:1])  # noqa: E731
+    with eager():
+        e_one = time_cuda(one_block, warmup=1)
+    g_one = time_cuda(one_block, warmup=2)
+    c_one = chained_ms(one_block, states)
+    ops_one, ms_one = device_profile(one_block, calls=5)
+    results["one_block_K1024"] = {"graph_ms": g_one[0], "graph_min_ms": g_one[1],
+                                  "chained_ms": c_one[0], "chained_min_ms": c_one[1],
+                                  "eager_ms": e_one[0], "eager_min_ms": e_one[1],
+                                  "device_ops": ops_one, "device_ms": ms_one}
+    log(f"[L one-block] track_bank K={NUM_K} N={N_1MS}, 1-block calls (the graft entry's "
+        f"shape): graph {g_one[0]!r} ms per call (min {g_one[1]!r}), chained from the last "
+        f"call's state {c_one[0]!r} (min {c_one[1]!r}), eager {e_one[0]!r} (min "
+        f"{e_one[1]!r}); {ops_one!r} device ops, {ms_one!r} ms of device time per graph call "
+        f"[{card}]")
+    steady = {}
+    for name, state in (("rows_K1024_pallas_bank_auto", states),
+                        ("array_K1024_A4_L7_f32", states7), (f"l5_dual_K{DUAL_K}", states5),
+                        ("track_fused", one)):
+        steady[name] = host_ops(paths[name][0], state)
+        results[name]["steady_call"] = steady[name]
+        log(f"[L host] {name}, a steady call from the last call's state: "
+            f"{steady[name]['dispatched_ops']} dispatched ops (views aside: "
+            f"{steady[name]['views']}) {steady[name]['dispatched_by_name']}; under "
+            f"torch.profiler {steady[name]['aten_top_level']} top-level aten ops, CUDA runtime "
+            f"calls {steady[name]['runtime_calls']}, {steady[name]['device_ops']} device ops; "
+            f"new segments over two steady calls {steady[name]['new_segments']} [{card}]")
+        check(set(steady[name]["dispatched_by_name"]) <= STEADY_OPS,
+              f"[L host] {name}: a steady call dispatches only the load's, the results' and "
+              f"the copies' ops: {steady[name]['dispatched_by_name']}")
+        check(steady[name]["new_segments"] == 0,
+              f"[L host] {name}: steady calls asked for {steady[name]['new_segments']} segments")
+    counts_ops = {name: entry["dispatched_ops"] for name, entry in steady.items()}
+    check(len(set(counts_ops.values())) == 1,
+          f"[L host] the dispatched ops of a steady call do not depend on its leaves: {counts_ops}")
+    # Where a 1-block call's time goes: the rows entry's prologue (the code
+    # tiles packed on the card) as device time, 20 replays back to back, and
+    # the time per chained call when nothing waits for the card: the host's
+    # time per call, where it exceeds the card's.
+    one_block(states)
+    torch.cuda.synchronize()
+    entry = list(graphs._ENTRIES[dev].values())[-1]
+    prologue_ms = time_cuda(lambda: [entry.prologue() for _ in range(20)], warmup=2)[0] / 20
+    holder = [states]
+
+    def chained_one():
+        holder[0] = one_block(holder[0])[0]
+
+    for _ in range(20):
+        chained_one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        chained_one()
+    host_ms = (time.perf_counter() - t0) / 200 * 1e3
+    torch.cuda.synchronize()
+    results["one_block_K1024"].update(prologue_device_ms=prologue_ms, host_ms_per_call=host_ms)
+    log(f"[L one-block] the rows entry's prologue (code tiles packed on the card): "
+        f"{prologue_ms!r} ms of device time per replay; chained 1-block calls issued without "
+        f"waiting for the card: {host_ms!r} ms per call [{card}]")
     # Device ops per block of every path, eager and graph: torch.profiler over
     # two calls after a warm-up call, per call over the blocks of a call (the
     # graph's per-call copies in and out included).

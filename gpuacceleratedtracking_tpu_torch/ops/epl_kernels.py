@@ -45,8 +45,8 @@ evaluated once per position: ``j + delta_l`` is an exact small integer, so
 both round alike, bit for bit.
 
 The code tables of all bank routes are packed, one bit per chip
-(`pack_code_columns`), and checked to hold only +/-1 chips when they are
-prepared.
+(`prepare_bank_code_tiles_rows`), and checked to hold only +/-1 chips when
+they are prepared.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from . import _build, registry
-from .replica import _TWO_PI_F32, code_columns, rate
+from .replica import _TWO_PI_F32, rate
 
 TILE = 4096                  # samples per phase base
 ROWS_TILE = 1024             # samples per tile of the bank_rows kernel; divides TILE
@@ -154,40 +154,57 @@ def bank_algorithm_for(
     return "pallas_bank_rows"
 
 
-def pack_code_columns(cols: torch.Tensor) -> torch.Tensor:
-    """``[K, Lc]`` +/-1 chips as ``[K, ceil(Lc / 32)]`` int32 words, bit ``b``
-    of word ``w`` set where chip ``32 w + b`` is -1. An entry other than +/-1
-    raises `ValueError` on the CPU; on the card it fails a device-side assert,
-    so a tracking run that packs its table per call never waits on the card."""
-    valid = ((cols == 1.0) | (cols == -1.0)).all()
-    if cols.is_cuda:
+def _check_chips(valid: torch.Tensor) -> None:
+    """Raise unless the bool 0-d ``valid`` holds: `ValueError` on the CPU, a
+    device-side assert on the card, so that a tracking run that packs its
+    table per call (inside a captured program too) never waits on the card."""
+    if valid.is_cuda:
         torch._assert_async(valid, "bank code tables hold +/-1 chips only")
     elif not bool(valid):
         raise ValueError("bank code tables hold +/-1 chips only")
+
+
+@functools.lru_cache(maxsize=None)       # never evicted, as `_tile_base`
+def _bit_weights(device: torch.device) -> torch.Tensor:
+    """int64 ``2^b`` for bits 0..30 and ``-2^31`` for bit 31: a word's bits
+    times these sum to the word's two's-complement int32 value."""
+    weights = [1 << b for b in range(31)] + [-(1 << 31)]
+    return torch.tensor(weights, dtype=torch.int64, device=device)
+
+
+def _pack_bits(cols: torch.Tensor) -> torch.Tensor:
+    """``[K, Lc]`` chips as ``[K, ceil(Lc / 32)]`` int32 words, bit ``b`` of
+    word ``w`` set where chip ``32 w + b`` is negative."""
     num_k, code_length = cols.shape
     words = -(-code_length // 32)
     bits = torch.nn.functional.pad((cols < 0).to(torch.int64), (0, 32 * words - code_length))
-    shifts = torch.arange(32, dtype=torch.int64, device=cols.device)
-    packed = (bits.view(num_k, words, 32) << shifts).sum(-1)
-    packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed)
-    return packed.to(torch.int32).contiguous()
+    packed = (bits.view(num_k, words, 32) * _bit_weights(cols.device)).sum(-1)
+    return packed.to(torch.int32)
 
 
 def unpack_code_columns(words: torch.Tensor, code_length: int) -> torch.Tensor:
-    """The ``[K, Lc]`` f32 +/-1 chips of `pack_code_columns` words."""
+    """The ``[K, Lc]`` f32 +/-1 chips of `prepare_bank_code_tiles_rows` words."""
     shifts = torch.arange(32, dtype=torch.int64, device=words.device)
     bits = (words.to(torch.int64)[..., None] >> shifts) & 1
     return (1 - 2 * bits.flatten(-2)[..., :code_length]).to(torch.float32)
 
 
 def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torch.Tensor:
-    """Per-channel code columns, packed one bit per chip (`pack_code_columns`):
-    ``[K, ceil(Lc / 32)]`` int32, the code table of all four bank routes.
+    """Per-channel code columns, packed one bit per chip: ``[K, ceil(Lc /
+    32)]`` int32, bit ``b`` of word ``w`` set where chip ``32 w + b`` is -1,
+    the code table of all four bank routes, for the ``[K]`` PRNs ``prn``.
 
-    Checks that every chip is +/-1 (`pack_code_columns`). Hoist out of
-    tracking loops: PRNs are loop constants.
+    The ``[Lc, P]`` table's P columns are packed, then each channel's words
+    gathered by its PRN: the words of the K gathered columns, for P columns'
+    work where a bank has K >= P channels. A chip of a gathered column other
+    than +/-1 raises `ValueError` on the CPU and fails a device-side assert
+    on the card, where nothing is read on the host: `tracking.track_bank`
+    runs this once per call, inside the captured program.
     """
-    return pack_code_columns(code_columns(codes, prn))
+    prn = torch.as_tensor(prn, device=codes.device).reshape(-1).long()
+    valid = (codes.abs() == 1.0).all(0)
+    _check_chips(torch.index_select(valid, 0, prn).all())
+    return torch.index_select(_pack_bits(codes.T), 0, prn)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,8 +13,10 @@ tracks this one (the counterpart of the JAX package's async dispatch).
 `track_bank` replays its captured block body (`tracking.graphs`): the chunk's
 copy into the graph's static buffers runs on the compute stream after that
 wait, a short tail chunk replays the same graph (the block count is not in
-its signature), and each chunk's outputs are fresh tensors, which stay on
-the device until `StreamResult.stacked`.
+its signature), and each chunk's outputs and state are views of one fresh
+buffer per dtype, which stay on the device until `StreamResult.stacked`.
+The state a chunk returns goes back into the next chunk's call in the
+graph's own layout, so that call loads it as one copy per dtype.
 """
 
 from __future__ import annotations

@@ -104,21 +104,30 @@ def dual_update(config: TrackConfig, states: TrackState, accum_re, accum_im, dat
                              sink)
 
 
-def dual_parts(config: TrackConfig, codes_data, codes_pilot, prn: torch.Tensor,
-               device: torch.device, data_secondary=None, pilot_secondary=None):
-    """The block body of `track_bank_dual` and its per-call constants for the
-    K channels of ``prn``: ``step(states, consts, (signal_re, signal_im))``
-    correlates the 2K-channel bank once and hands its accumulators to
-    `dual_update` (in a capture, with the entry's `graphs.Sink`)."""
+def dual_parts(config: TrackConfig, codes_data, codes_pilot, device: torch.device,
+               data_secondary=None, pilot_secondary=None):
+    """The block body of `track_bank_dual`, its per-call constants and their
+    prologue: ``step(states, consts, (signal_re, signal_im))`` correlates
+    the 2K-channel bank once and hands its accumulators to `dual_update` (in
+    a capture, with the entry's `graphs.Sink`); ``consts`` are ``(codes_data,
+    codes_pilot, data overlay, pilot overlay)``; ``prepare(states, consts)``
+    returns the constants ``step`` takes, ``(codes, prn2, code_tiles, data
+    overlay, pilot overlay)``: the joined ``[Lc, 2P]`` table, the 2K
+    channels' PRNs (data, then pilot) and the bank kernels' code tiles,
+    derived once per call (`graphs.scan`: on the card, inside the captured
+    program)."""
     if config.secondary_code:
         raise ValueError("use dual_config(): overlay wipe-off is per-component here")
-    codes = torch.cat([torch.as_tensor(codes_data, device=device),
-                       torch.as_tensor(codes_pilot, device=device)], dim=1)
     sd = _overlay(data_secondary, gpsl5.neuman_hofman(False), device)
     sp = _overlay(pilot_secondary, gpsl5.neuman_hofman(True), device)
-    prn2 = torch.cat([prn, prn + codes_data.shape[1]])
     corr, kwargs = bank_correlator(config)    # per-channel kernels: 2K launches per block
-    code_tiles = _bank_code_tile_kwargs(config, codes, prn2).get("code_tiles")
+
+    def prepare(states, consts):
+        codes_data, codes_pilot, sd, sp = consts
+        codes = torch.cat([codes_data, codes_pilot], dim=1)
+        prn2 = torch.cat([states.prn, states.prn + codes_data.shape[1]])
+        code_tiles = _bank_code_tile_kwargs(config, codes, prn2).get("code_tiles")
+        return codes, prn2, code_tiles, sd, sp
 
     def dup(x):
         return torch.cat([x, x])
@@ -136,7 +145,9 @@ def dual_parts(config: TrackConfig, codes_data, codes_pilot, prn: torch.Tensor,
         )
         return dual_update(config, states, are, aim, sd, sp, sink)
 
-    return step, (codes, prn2, code_tiles, sd, sp)
+    consts = (torch.as_tensor(codes_data, device=device),
+              torch.as_tensor(codes_pilot, device=device), sd, sp)
+    return step, consts, prepare
 
 
 def track_bank_dual(
@@ -157,9 +168,10 @@ def track_bank_dual(
     the pilot; data prompts come back overlay-wiped, so their signs are the
     100 sps nav symbols (10 repeats each at 1 ms blocks). On CUDA tensors the
     block body (`dual_parts`) runs as a replayed CUDA graph (`graphs.scan`),
-    else block by block.
+    after a captured prologue that joins the tables and packs the code
+    tiles, else block by block, as in `track.track_bank`.
     """
-    step, consts = dual_parts(config, codes_data, codes_pilot, states.prn, signal_re.device,
-                              data_secondary, pilot_secondary)
+    step, consts, prepare = dual_parts(config, codes_data, codes_pilot, signal_re.device,
+                                       data_secondary, pilot_secondary)
     return graphs.scan(step, states, (signal_re, signal_im), consts,
-                       key=("track_bank_dual", config))
+                       key=("track_bank_dual", config), prepare=prepare)

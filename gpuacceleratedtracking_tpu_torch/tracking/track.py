@@ -343,6 +343,20 @@ def bank_correlator(config: TrackConfig):
     return corr, _bank_kernel_kwargs(config)
 
 
+def bank_prepare(config: TrackConfig):
+    """The prologue of `track_bank`'s scan: ``prepare(states, (codes,
+    ant_weights))`` returns `bank_step`'s constants ``(codes, code_tiles,
+    ant_weights)``, the bank kernels' packed code columns derived from the
+    states' PRNs once per call (`graphs.scan`: on the card, inside the
+    captured program), as the jitted JAX `track_bank` derives them."""
+    def prepare(states, consts):
+        codes, ant_weights = consts
+        tiles = _bank_code_tile_kwargs(config, codes, states.prn).get("code_tiles")
+        return codes, tiles, ant_weights
+
+    return prepare
+
+
 def bank_step(config: TrackConfig, corr, kwargs: dict):
     """The block body of `track_bank`: ``step(states, (codes, code_tiles,
     ant_weights), (signal_re, signal_im))`` correlates the bank once and
@@ -383,7 +397,11 @@ def track_bank(
     them with `vmap` — for banks use a bank algorithm. ``ant_weights``:
     optional ``(w_re, w_im)`` of shape ``[A]`` (shared) or ``[K, A]`` (per
     channel). On CUDA tensors the block body (`bank_step`) runs as a replayed
-    CUDA graph (`graphs.scan`), else block by block.
+    CUDA graph (`graphs.scan`), after a captured prologue that packs the
+    code tiles of the states' PRNs (`bank_prepare`), else block by block;
+    the final state and the outputs then come back as views of one fresh
+    buffer per dtype, and passing that state back makes the next call's
+    state load one copy per dtype.
     """
     num_k = states.prn.shape[0]
     device = signal_re.device
@@ -393,6 +411,6 @@ def track_bank(
                             for w in ant_weights)
     codes = torch.as_tensor(codes, device=device)
     corr, kwargs = bank_correlator(config)
-    code_tiles = _bank_code_tile_kwargs(config, codes, states.prn).get("code_tiles")
     return graphs.scan(bank_step(config, corr, kwargs), states, (signal_re, signal_im),
-                       (codes, code_tiles, ant_weights), key=("track_bank", config))
+                       (codes, ant_weights), key=("track_bank", config),
+                       prepare=bank_prepare(config))

@@ -1019,6 +1019,7 @@ def test_replayed_blocks_write_their_outputs_without_index_copy(cuda, path, monk
     blocks = 5
     fs, codes, states, sre, sim = _sharded_case(cuda, blocks=blocks)
     config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    prepare = None
     if path == "track_bank":
         step, carry, consts = bank_step(config, *bank_correlator(config)), states, (
             codes, epl_kernels.prepare_bank_code_tiles_rows(codes, states.prn), None)
@@ -1037,8 +1038,8 @@ def test_replayed_blocks_write_their_outputs_without_index_copy(cuda, path, monk
         config = dual_config(TrackConfig.for_system(sys_i, fs, 16384, algorithm="pallas_bank_auto",
                                                     use_secondary=False))
         carry = init_state(np.arange(4), carrier_doppler=np.linspace(-600, 700, 4), device=cuda)
-        step, consts = dual_parts(config, torch.as_tensor(sys_i.codes, device=cuda),
-                                  torch.as_tensor(sys_q.codes, device=cuda), carry.prn, cuda)
+        step, consts, prepare = dual_parts(config, torch.as_tensor(sys_i.codes, device=cuda),
+                                           torch.as_tensor(sys_q.codes, device=cuda), cuda)
     sunk = graphs.writes_outputs(step)
     plain = lambda st, c, block: step(st, c, block)          # the same body, no sink
     calls = []
@@ -1050,16 +1051,16 @@ def test_replayed_blocks_write_their_outputs_without_index_copy(cuda, path, monk
 
     graphs.clear()
     monkeypatch.setattr(torch.Tensor, "index_copy_", counted)
-    want = graphs.scan(plain, carry, (sre, sim), consts, key=(path, "plain"))
+    want = graphs.scan(plain, carry, (sre, sim), consts, key=(path, "plain"), prepare=prepare)
     leaves = len(calls)
-    got = graphs.scan(sunk, carry, (sre, sim), consts, key=(path, "sink"))
+    got = graphs.scan(sunk, carry, (sre, sim), consts, key=(path, "sink"), prepare=prepare)
     assert leaves in (11, 13) and len(calls) == leaves
     monkeypatch.undo()
     _assert_bitwise(got, want)
-    sink_ops = _device_op_names(lambda: graphs.scan(sunk, carry, (sre, sim), consts,
-                                                    key=(path, "sink")))
-    plain_ops = _device_op_names(lambda: graphs.scan(plain, carry, (sre, sim), consts,
-                                                     key=(path, "plain")))
+    sink_ops = _device_op_names(lambda: graphs.scan(
+        sunk, carry, (sre, sim), consts, key=(path, "sink"), prepare=prepare))
+    plain_ops = _device_op_names(lambda: graphs.scan(
+        plain, carry, (sre, sim), consts, key=(path, "plain"), prepare=prepare))
     assert sum("index_copy" in name for name in plain_ops) == leaves * blocks
     assert not any("index_copy" in name for name in sink_ops)
     assert len(plain_ops) - len(sink_ops) >= leaves * blocks
@@ -1122,6 +1123,70 @@ def test_second_graph_call_does_not_wait_on_the_card(cuda, name):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     _assert_bitwise(second, first)
+
+
+def _chained_run(cuda, name):
+    """A path's call over blocks ``lo:hi`` from a state, and its first state."""
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=6,
+                                                num_ants=4 if name == "comp_f32" else None)
+    if name == "dual":
+        sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+        config = dual_config(TrackConfig.for_system(sys_i, 32.768e6, 32768,
+                                                    algorithm="pallas_bank_auto",
+                                                    use_secondary=False))
+        sig, _ = gen_signal(sys_i, 2, 700.0, 32768 * 6, duration=6e-3, device=cuda)
+        sre, sim = (x.reshape(6, 32768) for x in soa(sig))
+        ci = torch.as_tensor(sys_i.codes, device=cuda)
+        cq = torch.as_tensor(sys_q.codes, device=cuda)
+        return lambda st, lo, hi: track_bank_dual(config, ci, cq, st, sre[lo:hi], sim[lo:hi]), \
+            states
+    if name == "track":
+        config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_fused")
+        return lambda st, lo, hi: track(config, codes, st, sre[lo:hi], sim[lo:hi]), \
+            init_state(0, carrier_doppler=-900.0, device=cuda)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    weights = None
+    if name == "comp_f32":
+        weights = (torch.ones(4, device=cuda), torch.zeros(4, device=cuda))
+    return lambda st, lo, hi: track_bank(config, codes, st, sre[lo:hi], sim[lo:hi],
+                                         ant_weights=weights), states
+
+
+@pytest.mark.parametrize("name", ["rows", "comp_f32", "dual", "track"])
+def test_chained_graph_calls_equal_eager(cuda, name):
+    # Each call's final state passed to the next (a load of one copy per
+    # dtype), the code tiles derived in the captured prologue: bit for bit
+    # two eager calls, over two rounds of two chained calls.
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    call, state = _chained_run(cuda, name)
+    with graphs.eager():
+        first = call(state, 0, 3)
+        want = (first, call(first[0], 3, 6))
+    for _ in range(2):
+        first = call(state, 0, 3)
+        got = (first, call(first[0], 3, 6))
+        torch.cuda.synchronize()
+        _assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("name", ["rows", "dual"])
+def test_steady_call_allocates_no_segment_and_does_not_wait(cuda, name):
+    # A chained second call (its input the first call's results) and a third
+    # ask the device for no memory and never wait on the card.
+    call, state = _chained_run(cuda, name)
+    st = call(state, 0, 3)[0]                         # captures
+    torch.cuda.synchronize()
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for lo in (3, 0, 3):
+            st, out = call(st, lo, lo + 3)
+            del out
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["segment.all.allocated"] == segments
 
 
 def test_outputs_kept_across_calls_are_not_overwritten(cuda):
@@ -1499,3 +1564,35 @@ def test_track_benchmarks_record_peak_memory_in_a_fresh_process(cuda):
     """)
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=pathlib.Path(__file__).resolve().parents[1])
+
+
+def test_a_captured_call_checks_the_chips_of_its_table(cuda):
+    # The code tiles are packed inside the captured prologue, whose +/-1
+    # check is a device-side assert: a call after an in-place edit of a
+    # tracked PRN's chips traps (in a process of its own, as the trap ends
+    # the CUDA context), where the call before it ran. Last in the file: on
+    # the H100 the first torch.profiler trace taken after this trap, in the
+    # test process, held no device event.
+    code = textwrap.dedent("""
+        import numpy as np
+        import torch
+        from gpuacceleratedtracking_tpu_torch.models import GPSL1, gen_signal, soa
+        from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, init_state, track_bank
+        system = GPSL1()
+        sig, fs = gen_signal(system, 0, 700.0, 8192 * 2, duration=2e-3, device="cuda")
+        sre, sim = (x.reshape(2, 8192) for x in soa(sig))
+        codes = torch.as_tensor(system.codes, device="cuda")
+        config = TrackConfig.for_system(system, fs, 8192, algorithm="pallas_bank_auto")
+        states = init_state(np.arange(8), device="cuda")
+        track_bank(config, codes, states, sre, sim)
+        track_bank(config, codes, states, sre, sim)
+        torch.cuda.synchronize()
+        print("steady call ran", flush=True)
+        codes[5, 3] = 0.5
+        track_bank(config, codes, states, sre, sim)
+        torch.cuda.synchronize()
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert "steady call ran" in proc.stdout, proc.stderr[-2000:]
+    assert proc.returncode != 0 and "Error" in proc.stderr, proc.stderr[-2000:]

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gpuacceleratedtracking_tpu import models as jmodels
 from gpuacceleratedtracking_tpu import tracking as jtracking
@@ -488,3 +489,345 @@ def test_a_capture_that_fails_raises_and_caches_nothing(captured, monkeypatch):
                     key=("refused",))
     assert not captured.get(torch.device("cpu"))
     assert graphs._counts() == counts
+
+
+# --- A call as one program: code tiles derived per call in the prologue, the
+# state and the outputs as views of one buffer per dtype.
+
+def _chained_case(name):
+    """A captured-path case for chained calls: ``call(state, lo, hi)`` runs
+    blocks ``lo:hi`` from ``state``; the initial state; the code tables the
+    call reads, copies of the systems' own (for in-place edits)."""
+    if name == "dual":
+        sys_i, sys_q, fs, states, sre, sim = _l5_case()
+        config = ttracking.dual_config(ttracking.TrackConfig.for_system(
+            sys_i, fs, 16384, algorithm="pallas_bank_auto", use_secondary=False))
+        codes_i, codes_q = torch.tensor(sys_i.codes), torch.tensor(sys_q.codes)
+        return (lambda st, lo, hi: ttracking.track_bank_dual(
+            config, codes_i, codes_q, st, sre[lo:hi], sim[lo:hi]), states, (codes_i, codes_q))
+    if name == "track":
+        system, codes, _, sre, sim = _l1_case(2048, 4.096e6, 1)
+        codes = codes.clone()
+        config = ttracking.TrackConfig.for_system(system, 4.096e6, 2048, algorithm="pallas_fused")
+        state = ttracking.init_state(1, carrier_doppler=-480.0, code_phase=3.25, device="cpu")
+        return (lambda st, lo, hi: ttracking.track(config, codes, st, sre[lo:hi], sim[lo:hi]),
+                state, (codes,))
+    algorithm, n, fs, k, num_ants, extra = BANK_CASES[name]
+    system, codes, states, sre, sim = _l1_case(n, fs, k, num_ants)
+    codes = codes.clone()
+    config = ttracking.TrackConfig.for_system(system, fs, n, algorithm=algorithm, **extra)
+    weights = (torch.tensor([1.0, 0.5]), torch.tensor([0.0, -0.25])) if num_ants else None
+    return (lambda st, lo, hi: ttracking.track_bank(config, codes, st, sre[lo:hi], sim[lo:hi],
+                                                    ant_weights=weights), states, (codes,))
+
+
+def _chained(call, state, split=4):
+    """Two chained calls over the ``BLOCKS`` blocks, the second from the
+    first's final state: both calls' outputs and the final state."""
+    first_state, first = call(state, 0, split)
+    final, second = call(first_state, split, BLOCKS)
+    return first, second, final
+
+
+def _entry():
+    (entry,) = graphs._ENTRIES[torch.device("cpu")].values()
+    return entry
+
+
+def _in_entry_layout(state, entry) -> bool:
+    """Whether ``state``'s leaves lie as ``entry`` lays out its carry: per
+    dtype on one storage, each contiguous at the entry's offset."""
+    leaves = _leaves(state)
+    return all(graphs._flat_source([leaves[i] for i in places], offsets, region.numel())
+               is not None for places, offsets, region in entry._carry_groups.values())
+
+
+@pytest.mark.parametrize("name", sorted(BANK_CASES) + ["dual", "track"])
+def test_a_state_passed_back_chains_as_two_eager_calls(captured, name):
+    call, state, _ = _chained_case(name)
+    with graphs.eager():
+        want = _chained(call, state)
+    got = _chained(call, state)
+    _assert_same(got, want)
+    # The second call loaded the first's state as one region per dtype.
+    first_state, _ = call(state, 0, 4)
+    assert _in_entry_layout(first_state, _entry())
+    assert not _in_entry_layout(state, _entry())
+
+
+def _jax_l1_chained(split=4):
+    """Three GPS L1 satellites over ``BLOCKS`` blocks at 8.192 MHz, tracked by
+    the JAX `track_bank` on its rows kernel in two chained calls."""
+    n, fs, dops = 4096, 8.192e6, np.array([-900.0, 100.0, 1500.0])
+    jsys = jmodels.GPSL1()
+    mixed = sum(jmodels.gen_signal(jsys, prn, d, n * BLOCKS, duration=BLOCKS * n / fs)[0]
+                for prn, d in enumerate(dops))
+    sre = np.array(mixed.real).reshape(BLOCKS, n)
+    sim = np.array(mixed.imag).reshape(BLOCKS, n)
+    jconfig = jtracking.TrackConfig.for_system(jsys, fs, n, algorithm="pallas_bank_rows")
+    st = jtracking.init_state(np.arange(3), carrier_doppler=dops)
+    outs = []
+    for lo, hi in ((0, split), (split, BLOCKS)):
+        st, out = jtracking.track_bank(jconfig, jnp.asarray(jsys.codes), st,
+                                       jnp.asarray(sre[lo:hi]), jnp.asarray(sim[lo:hi]))
+        outs.append(out)
+    system = tmodels.GPSL1()
+    config = ttracking.TrackConfig.for_system(system, fs, n, algorithm="pallas_bank_rows")
+    states = ttracking.init_state(np.arange(3), carrier_doppler=dops, device="cpu")
+    call = (lambda s, lo, hi: ttracking.track_bank(
+        config, torch.as_tensor(system.codes), s, torch.as_tensor(sre[lo:hi]),
+        torch.as_tensor(sim[lo:hi])))
+    return call, states, outs
+
+
+def _jax_l5_chained(split=4):
+    """Two GPS L5 satellites (data + pilot) over ``BLOCKS`` blocks, tracked by
+    the JAX `track_bank_dual` (plain XLA bank correlator) in two chained
+    calls, as `test_captured_track_bank_dual_matches_jax`'s run."""
+    n, fs, prns, dops = 16384, 16.384e6, np.array([3, 8]), np.array([900.0, -1500.0])
+    jsys_i, jsys_q = jmodels.GPSL5(), jmodels.GPSL5(quadrature=True)
+    total = 0
+    for prn, dop in zip(prns, dops):
+        common = dict(duration=BLOCKS * 1e-3,
+                      code_frequency=jsys_i.code_frequency * (1 + dop / jsys_i.center_frequency))
+        sig_i, _ = jmodels.gen_signal(jsys_i, prn, dop, n * BLOCKS,
+                                      secondary_code=jsys_i.secondary_code, **common)
+        sig_q, _ = jmodels.gen_signal(jsys_q, prn, dop, n * BLOCKS,
+                                      secondary_code=jsys_q.secondary_code,
+                                      start_carrier_phase=np.pi / 2, **common)
+        total = total + np.asarray(sig_i) + np.asarray(sig_q)
+    sre = np.ascontiguousarray(total.real, np.float32).reshape(BLOCKS, n)
+    sim = np.ascontiguousarray(total.imag, np.float32).reshape(BLOCKS, n)
+    jcfg = jtracking.dual_config(jtracking.TrackConfig.for_system(
+        jsys_i, fs, n, algorithm="xla_bank", use_secondary=False))
+    st = jtracking.init_state(prns, carrier_doppler=dops + 5.0)
+    outs = []
+    for lo, hi in ((0, split), (split, BLOCKS)):
+        st, out = jtracking.track_bank_dual(jcfg, jnp.asarray(jsys_i.codes),
+                                            jnp.asarray(jsys_q.codes), st,
+                                            jnp.asarray(sre[lo:hi]), jnp.asarray(sim[lo:hi]))
+        outs.append(out.pilot._replace(prompt_re=out.data_prompt_re))
+    sys_i, sys_q = tmodels.GPSL5(), tmodels.GPSL5(quadrature=True)
+    cfg = ttracking.dual_config(ttracking.TrackConfig.for_system(
+        sys_i, fs, n, algorithm="pallas_bank_auto", use_secondary=False))
+    states = ttracking.init_state(prns, carrier_doppler=dops + 5.0, device="cpu")
+
+    def call(s, lo, hi):
+        final, out = ttracking.track_bank_dual(
+            cfg, torch.as_tensor(sys_i.codes), torch.as_tensor(sys_q.codes), s,
+            torch.as_tensor(sre[lo:hi]), torch.as_tensor(sim[lo:hi]))
+        return final, out.pilot._replace(prompt_re=out.data_prompt_re)
+
+    return call, states, outs
+
+
+@pytest.mark.parametrize("name", ["rows", "dual"])
+def test_chained_captured_calls_match_jax(captured, name):
+    # The port's bank kernel route (the plain version here) through the
+    # captured path, its state passed back, against the JAX package's two
+    # chained calls, at tests/test_tracking.py's closed-loop tolerances; the
+    # dual bank's data prompts are compared in the prompt_re field.
+    call, states, want = (_jax_l1_chained if name == "rows" else _jax_l5_chained)()
+    first, second, _ = _chained(call, states)
+    assert captured
+    for got, jax_out in zip((first, second), want):
+        np.testing.assert_allclose(got.prompt_re.numpy(), np.asarray(jax_out.prompt_re),
+                                   rtol=5e-3, atol=10.0)
+        np.testing.assert_allclose(got.carrier_doppler.numpy(),
+                                   np.asarray(jax_out.carrier_doppler), rtol=1e-3, atol=1.0)
+
+
+def _other_prns(state, step=5, count=32):
+    return state._replace(prn=((state.prn + step) % count).to(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["rows", "comp_a2", "transition", "onehot", "dual"])
+def test_tiles_follow_the_prns_and_the_code_table_of_each_call(captured, name):
+    # Calls of one signature whose states carry other PRNs, or whose code
+    # table was edited in place, get the tiles of those: bit for bit the
+    # eager call, and not the first call's run.
+    call, state, tables = _chained_case(name)
+    first = call(state, 0, BLOCKS)
+    others = _other_prns(state, 1 if name == "dual" else 5)
+    with graphs.eager():
+        want = call(others, 0, BLOCKS)
+    got = call(others, 0, BLOCKS)
+    _assert_same(got, want)
+    assert not torch.equal(got[1].pilot.prompt_re if name == "dual" else got[1].prompt_re,
+                           first[1].pilot.prompt_re if name == "dual" else first[1].prompt_re)
+    # A returned state (the entry's layout: one copy per dtype) whose PRNs
+    # were edited in place.
+    passed = call(state, 0, 2)[0]
+    passed.prn.copy_(others.prn)
+    assert _in_entry_layout(passed, _entry())
+    with graphs.eager():
+        want = call(passed, 2, BLOCKS)
+    _assert_same(call(passed, 2, BLOCKS), want)
+    # The code table edited in place: the tracked PRNs' chips negated.
+    for table in tables:
+        table[:, :8] = -table[:, :8]
+    with graphs.eager():
+        want = call(state, 0, BLOCKS)
+    got = call(state, 0, BLOCKS)
+    _assert_same(got, want)
+    assert not torch.equal(got[1].pilot.accum_re if name == "dual" else got[1].accum_re,
+                           first[1].pilot.accum_re if name == "dual" else first[1].accum_re)
+    assert len(captured[torch.device("cpu")]) == 1
+
+
+@pytest.mark.parametrize("name", ["rows", "dual"])
+def test_in_graph_tiles_equal_prepare_bank_code_tiles_rows(captured, name):
+    call, state, tables = _chained_case(name)
+    for st in (state, _other_prns(state, 1)):
+        call(st, 0, 2)
+        codes, prn = tables[0], st.prn
+        if name == "dual":
+            codes = torch.cat(tables, dim=1)
+            prn = torch.cat([prn, prn + tables[0].shape[1]])
+        tiles = _entry().prepared[2 if name == "dual" else 1]
+        assert tiles.dtype == torch.int32
+        assert torch.equal(tiles, epl_kernels.prepare_bank_code_tiles_rows(codes, prn))
+
+
+def test_results_stay_fresh_across_calls_and_edits(captured):
+    call, state, tables = _chained_case("rows")
+    inputs = [x.clone() for x in _leaves((state,) + tables)]
+    with graphs.eager():
+        want = call(state, 0, 4)
+        want_next = call(want[0], 4, BLOCKS)
+    first = call(state, 0, 4)
+    kept = [x.clone() for x in _leaves(first)]
+    second = call(first[0], 4, BLOCKS)
+    _assert_same(second, want_next)
+    for x, y in zip(_leaves(first), kept):                  # call 2 leaves call 1 as it was
+        assert torch.equal(x, y)
+    # An in-place edit of one returned leaf changes that leaf alone, and a
+    # state passed back with it edited is seen by the next call.
+    second_kept = [x.clone() for x in _leaves(second)]
+    second[1].prompt_re.add_(1.0)
+    second[0].carrier_doppler.add_(3.0)
+    edited = {id(second[1].prompt_re), id(second[0].carrier_doppler)}
+    for x, y in zip(_leaves(second), second_kept):
+        assert torch.equal(x, y) != (id(x) in edited)
+    for x, y in zip(_leaves(first), kept):
+        assert torch.equal(x, y)
+    with graphs.eager():
+        want = call(second[0], 0, 2)
+    _assert_same(call(second[0], 0, 2), want)
+    for x, y in zip(_leaves((state,) + tables), inputs):   # the caller's tensors untouched
+        assert torch.equal(x, y)
+    # Returned leaves: the eager loop's shapes and dtypes, contiguous.
+    for g, w in zip(_leaves(second), _leaves(want_next)):
+        assert g.shape == w.shape and g.dtype == w.dtype and g.is_contiguous()
+
+
+@pytest.mark.parametrize("name", ["rows", "comp_a2", "dual", "track"])
+def test_a_call_returns_views_of_one_buffer_per_dtype(captured, name):
+    call, state, _ = _chained_case(name)
+    final, out = call(state, 0, BLOCKS)
+    entry = _entry()
+    by_dtype: dict = {}
+    for x in _leaves((final, out)):
+        by_dtype.setdefault(x.dtype, set()).add(x.untyped_storage().data_ptr())
+        assert x.is_contiguous() and x.storage_offset() * x.element_size() % graphs.ALIGN == 0
+    assert by_dtype.keys() == {torch.float32, torch.int32}
+    assert all(len(ptrs) == 1 for ptrs in by_dtype.values())
+    # The state lies as the entry lays out its carry, at its offsets and
+    # strides; the entry's own carry and stacked outputs share its buffers.
+    leaves = _leaves(final)
+    for dtype, (places, offsets, _) in entry._carry_groups.items():
+        assert [leaves[i].storage_offset() for i in places] == list(offsets)
+        assert all(leaves[i].stride() == _leaves(entry.carry)[i].stride() for i in places)
+    assert {x.untyped_storage().data_ptr() for x in _leaves(entry.carry) + entry.outs} \
+        == {x.untyped_storage().data_ptr() for x in entry.flat.values()}
+    assert all(x.data_ptr() % graphs.ALIGN == 0 for x in _leaves(entry.carry) + entry.outs)
+
+
+def test_a_body_that_swaps_carry_leaves_on_one_storage(captured):
+    # `_write_carry` clones a new leaf that views the flat carry's storage
+    # and is not its own old leaf before any old leaf is written.
+    def swap(carry, consts, block):
+        a, b = carry
+        return (b + block[0], a), (a, b)
+
+    xs = (torch.arange(5 * 4, dtype=torch.float32).reshape(5, 4),)
+    carry = (torch.zeros(4), torch.ones(4))
+    with graphs.eager():
+        want = graphs.scan(swap, carry, xs, key=("swap",))
+    _assert_same(graphs.scan(swap, carry, xs, key=("swap",)), want)
+    entry = _entry()
+    assert entry.carry[0].untyped_storage().data_ptr() == \
+        entry.carry[1].untyped_storage().data_ptr()
+
+
+class _HostOps(TorchDispatchMode):
+    """The ops a call dispatches on the host, views aside (they launch no
+    device work), and outside the graphs' replays (`_counted_capture`)."""
+
+    paused = 0
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not _HostOps.paused and not func.is_view:
+            self.ops.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+def _counted_capture(body, device):
+    """`_plain_capture` whose replays the `_HostOps` count leaves out: on the
+    card they are graph replays, no dispatched op."""
+    body()
+
+    def replay():
+        counts = graphs._counts()
+        _HostOps.paused += 1
+        try:
+            body()
+        finally:
+            _HostOps.paused -= 1
+        graphs._set_counts(counts)
+
+    return replay
+
+
+# The host ops of a steady call with its own state passed back: the load (one
+# multi-tensor copy for the f32 state, constants and blocks, one for the int32
+# state), one fresh buffer per dtype, and the copies of the outputs and the
+# state into them.
+STEADY_HOST_OPS = 6
+
+
+def test_a_steady_call_issues_as_many_host_ops_whatever_its_leaves(captured, monkeypatch):
+    monkeypatch.setattr(graphs, "capture", _counted_capture)
+    system, codes, states, _, _ = _l1_case(k=4)
+    with _HostOps() as packing:
+        epl_kernels.prepare_bank_code_tiles_rows(codes, states.prn)
+    copy_op = torch.ops.aten._foreach_copy_.default
+    counts = {}
+    for name in ("rows", "comp_a2", "dual"):
+        call, state, _ = _chained_case(name)
+        st, _ = call(state, 0, 2)
+        st, _ = call(st, 2, 4)
+        with _HostOps() as mode:
+            call(st, 4, 6)
+        counts[name] = len(mode.ops)
+        assert not set(mode.ops) & set(packing.ops), name
+        assert set(mode.ops) == {copy_op, torch.ops.aten.empty.memory_format}
+    assert counts == dict.fromkeys(counts, STEADY_HOST_OPS)
+
+
+def test_a_state_on_one_storage_in_another_layout_is_loaded_leaf_by_leaf(captured):
+    # The returned state with two of its f32 leaves swapped lies on the
+    # entry's storage but not at the entry's offsets: it is not one region,
+    # and the call runs from the swapped state, as the eager loop does.
+    call, state, _ = _chained_case("rows")
+    passed = call(state, 0, 2)[0]
+    swapped = passed._replace(carrier_doppler=passed.code_doppler,
+                              code_doppler=passed.carrier_doppler)
+    assert not _in_entry_layout(swapped, _entry())
+    with graphs.eager():
+        want = call(swapped, 2, BLOCKS)
+    _assert_same(call(swapped, 2, BLOCKS), want)

@@ -365,3 +365,66 @@ def test_checkpoints_resume_across_packages(tmp_path):
     for got, want in zip(jax.tree.leaves(back.states), jax.tree.leaves(tree)):
         assert np.asarray(got).dtype == want.dtype
         np.testing.assert_array_equal(np.asarray(got), want)
+
+
+@pytest.fixture
+def captured_graphs(monkeypatch):
+    """`tracking.graphs.scan` takes its captured path on CPU tensors, its
+    capture a plain call of the body and each replay another, with the
+    launch counts held (tests/test_torch_graph.py's `captured`)."""
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    def plain_capture(body, device):
+        body()
+
+        def replay():
+            counts = graphs._counts()
+            body()
+            graphs._set_counts(counts)
+
+        return replay
+
+    monkeypatch.setattr(graphs, "enabled", lambda device: not graphs._EAGER)
+    monkeypatch.setattr(graphs, "capture", plain_capture)
+    graphs.clear()
+    yield graphs._ENTRIES
+    graphs.clear()
+
+
+def test_stream_on_the_captured_path_equals_the_eager_run(capture, tmp_path, captured_graphs):
+    # Three dispatches of 20 blocks through a bank kernel route (its code
+    # tiles derived in the captured prologue), each passing the last one's
+    # state back: outputs, final state and checkpoint bit for bit the eager
+    # run's; a resume from the captured run's checkpoint gives its tail.
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    config = _config(algorithm="pallas_bank_auto")
+
+    def run(ckpt, states=None, skip=0):
+        tracker = truntime.StreamTracker(config, tmodels.GPSL1().codes,
+                                         _states() if states is None else states,
+                                         blocks_per_dispatch=20, checkpoint_path=ckpt,
+                                         checkpoint_every=40)
+        if skip:
+            skip = tracker.load_checkpoint()
+        with truntime.IQFile(capture, "int8", 1.0 / 40) as f:
+            f.read(skip * N_STREAM)
+            return tracker.run(truntime.blocks(f, N_STREAM)), skip
+
+    with graphs.eager():
+        want, _ = run(tmp_path / "eager.npz")
+    assert not captured_graphs
+    got, _ = run(tmp_path / "graph.npz")
+    assert len(got.outputs) == 3 and len(captured_graphs[torch.device("cpu")]) == 1
+    _equal_outputs(got.stacked(), want.stacked())
+    _equal_states(got.final_state, want.final_state)
+    with np.load(tmp_path / "eager.npz") as e, np.load(tmp_path / "graph.npz") as g:
+        assert sorted(e.files) == sorted(g.files)
+        for name in e.files:
+            assert e[name].dtype == g[name].dtype
+            np.testing.assert_array_equal(e[name], g[name])
+    tail, done = run(tmp_path / "graph.npz", ttracking.init_state(np.array([0, 1]), device="cpu"),
+                     skip=1)
+    assert done == 40 and tail.blocks_processed == MS_STREAM - 40
+    _equal_outputs(tail.stacked(), jax.tree.map(lambda x: x[40:], want.stacked()))
+    _equal_states(tail.final_state, want.final_state)
