@@ -5,11 +5,11 @@ Usage::
 
     mkdir -p build/old
     git archive <commit> | tar -x -C build/old
-    python3 block_ab.py --old build/old [--out results/block_ab.json]
+    python3 block_ab.py --old build/old [--rounds R] [--out results/block_ab.json]
 
 ``--old`` holds a whole earlier checkout of the repository. Both trees are
-measured by the same code below, in turns (old, new, new, old), one process
-per turn whose imports resolve to that tree's package and its
+measured by the same code below, in turns (old, new, new, old; ``--rounds``
+times over), one process per turn whose imports resolve to that tree's package and its
 ``chip_smoke.py`` helpers (inputs are made there from the same seeds), so
 each tree builds and runs its own kernels. A turn measures, through the
 entry points a user calls:
@@ -23,7 +23,10 @@ entry points a user calls:
   block (CUDA events, median of 20 calls) and device ops per block
   (torch.profiler over two calls, the per-call copies included);
 - the replayed K=1024 block of ``bench.run_track_benchmark`` (its B vs 2B
-  differential, so the per-call copies cancel).
+  differential, so the per-call copies cancel);
+- the 1-block rows call (``__graft_entry__.py``'s shape): milliseconds per
+  call (CUDA events) and its device ops and device milliseconds
+  (torch.profiler over five calls), the prologue included.
 
 The script prints one JSON line per turn and, last, the medians of each
 metric per tree; ``--out`` also writes them as JSON. The old tree is not
@@ -88,6 +91,11 @@ def measure(root: pathlib.Path) -> dict:
     for name, run in paths.items():
         result[f"{name}_block_ms"] = cs.time_cuda(run, warmup=2)[0] / BLOCKS
         result[f"{name}_device_ops_per_block"] = cs.device_profile(run, calls=2)[0] / BLOCKS
+    one_block = lambda: track_bank(rows, codes, states, sre[:1], sim[:1])  # noqa: E731
+    result["one_block_K1024_ms"] = cs.time_cuda(one_block, warmup=2)[0]
+    ops, device_ms = cs.device_profile(one_block, calls=5)
+    result["one_block_K1024_device_ops_per_block"] = ops
+    result["one_block_K1024_device_ms"] = device_ms
     r = run_track_benchmark({"GNSS": "GPSL1", "num_samples": cs.N_1MS,
                              "num_channels": cs.NUM_K, "algorithm": "pallas_bank_auto",
                              "processor": "GPU", "blocks": 8, "trials": 7})
@@ -109,6 +117,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", help="an earlier checkout of the repository")
     parser.add_argument("--out", help="also write the results as JSON here")
+    parser.add_argument("--rounds", type=int, default=1,
+                        help="rounds of turns old, new, new, old (default 1)")
     parser.add_argument("--measure", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.measure:
@@ -123,7 +133,7 @@ def main(argv=None) -> int:
         raise RuntimeError("block_ab needs a CUDA device")
     old = pathlib.Path(args.old).resolve()
     turns = []
-    for label, root in (("old", old), ("new", ROOT), ("new", ROOT), ("old", old)):
+    for label, root in (("old", old), ("new", ROOT), ("new", ROOT), ("old", old)) * args.rounds:
         result = dict(turn(root), version=label)
         print(json.dumps(result), flush=True)
         turns.append(result)

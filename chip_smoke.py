@@ -63,6 +63,22 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    graph, writing its outputs and carry through the sink) against the same
    correlator closed by the plain version block by block: every output of
    every channel and the final state bit for bit.
+   3e. The block bodies' forms (``[glue ...]`` lines): the bank kernels in
+   the state form (``epl_kernels.BankChannels``: each channel's parameters
+   derived in the kernel from the tracking state's leaves) and at the device
+   index (the block read at an int64 index of a ``[chunk, (A,) N]`` buffer)
+   against the same kernels through the registry signature with the
+   expressions the block bodies passed before, every accumulator bit for
+   bit: rows K=1024, A=4 L=7 f32 and bf16 K=1024, the GPS L5 transition
+   bank K=64, one-hot K=1024, A=8 (launch groups), each with one and two
+   channels per state entry (the dual bank's); 10-block closed loops (rows,
+   A=4 L=7 steered, the L5 dual) through their graphs in chunks of 4
+   against the registry expressions closed by the same loop kernel, bit
+   for bit; the packing kernel (``csrc/code_tiles.cu``) against
+   ``prepare_bank_code_tiles_rows``, word for word (GPS L1 K=1024 with
+   int32 and int64 PRNs, the L5 dual's two tables), its time and bound,
+   and a captured rows wrapper call in the registry form against the state
+   form at the device index, in turns.
 4. Main paths, each through the entry points a user calls, with every launch
    count set to 0 just before it and read just after:
    - rows: ``track_bank`` on a K=1024 GPS L1 bank at 32.768 MHz through
@@ -199,7 +215,12 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      ops by name of rows K=1024, ``track`` and the L5 dual as graphs, which
      must hold no ``index_copy_`` (the loop kernel writes the outputs
      through the sink), against the sharded 2 x 2 bank's graph (no sink),
-     which must. Each path's first graph call starts from an empty cache, and
+     which must; one replayed block and one prologue of rows, A=4 L=7 f32
+     and bf16, the L5 dual, Galileo E1-C and one-hot by name (``[L block]``,
+     three replays each under torch.profiler): at most 4 device ops a block
+     (the bank kernel, its finish, the loop kernel, the index's add), none a
+     parameter op, a block select or a join, and at most 3 a prologue (the
+     index to 0, the packing kernel, one copy). Each path's first graph call starts from an empty cache, and
      its entries' buffers and the device memory it reserved are logged.
      Then eager and graph block times and real-time channels of the timed
      paths (and streaming's ``steady_block_s`` both ways, from H, whose
@@ -233,6 +254,8 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    same shape through the graph path (``[P split]``): per-call wall time,
    device busy time and share, device ops by name and the longest idle gaps
    with the host events that fill them.
+7. X, last (``[bad chip]``): the packing kernel on a table with a chip of
+   0.5, in a process of its own, must fail its device-side assert.
 
 Its last lines are one JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Each kernel's entry
@@ -344,11 +367,20 @@ def dual_counter():
     return loop_kernel.dual_update_kernel
 
 
+def pack_counter():
+    """The code tiles' packing kernel's wrapper (one launch per tracking
+    call of a bank kernel: the captured prologue's)."""
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+
+    return epl_kernels.pack_code_tiles
+
+
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
     loop_counter().launches = 0
     dual_counter().launches = 0
+    pack_counter().launches = 0
 
 
 def read_counts() -> dict:
@@ -379,6 +411,20 @@ def note_loop(path: str, expected: int | None = None, dual: bool = False) -> int
           f"{expected if expected is not None else 'at least once'}")
     by_path = DUAL_BY_PATH if dual else LOOP_BY_PATH
     by_path[path] = by_path.get(path, 0) + count
+    return count
+
+
+PACK_BY_PATH: dict = {}
+
+
+def note_pack(path: str, expected: int | None = None) -> int:
+    """Record the packing kernel's launches since the last `reset_counts`
+    as ``path``'s, and check that it ran (``expected`` times, if given)."""
+    count = pack_counter().launches
+    check(count > 0 and (expected is None or count == expected),
+          f"{path}: pack_code_tiles launched {count} times, expected "
+          f"{expected if expected is not None else 'at least once'}")
+    PACK_BY_PATH[path] = PACK_BY_PATH.get(path, 0) + count
     return count
 
 
@@ -1216,6 +1262,269 @@ def loop_trajectory(system, seed, num_blocks: int = 200):
     return exact
 
 
+# Phase 3e: the state form, the device index and the packing kernel.
+# name -> (wrapper, N, fs, K0, A, sample shifts or None for EPL 3, extras):
+# the main paths' shapes (rows, A=4 L=7 f32 and bf16, the L5 dual's
+# transition bank, the one-hot bank) and launch groups (A=8).
+GLUE_ROUTES = {
+    "rows_K1024": ("pallas_bank_rows", N_1MS, L1_FS, NUM_K, None, None, {}),
+    "comp_K1024_A4_L7": ("pallas_bank_comp", N_1MS, L1_FS, NUM_K, NUM_ANTS,
+                         (-21, -14, -7, 0, 7, 14, 21), {}),
+    "comp_bf16_K1024_A4_L7": ("pallas_bank_comp", N_1MS, L1_FS, NUM_K, NUM_ANTS,
+                              (-21, -14, -7, 0, 7, 14, 21), {"z_dtype": "bf16"}),
+    "transition_l5_K64": ("pallas_bank", N_1MS, L1_FS, DUAL_K, None, None, {}),
+    "onehot_K1024": ("pallas_bank_onehot", N_1MS, L1_FS, NUM_K, None, None, {}),
+    "auto_K64_A8_L3": ("pallas_bank_auto", N_1MS, L1_FS, 64, 8, None, {}),
+}
+
+
+def glue_case(name, modulus, seed, blocks=3):
+    """Phase 3e's inputs: a ``[blocks, (A,) N]`` chunk, the registry
+    signature's arguments (the channel expressions the block bodies passed,
+    the dual bank's joined table and duplicated channels for ``modulus`` 2)
+    and the state form's, with random states from ``seed``."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, GPSL5
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels, registry
+
+    wrapper, n, fs, k0, num_ants, shifts, extra = GLUE_ROUTES[name]
+    l5 = "l5" in name
+    system = GPSL5() if l5 else GPSL1()
+    pilot_system = GPSL5(quadrature=True) if l5 else None
+    if shifts is None:
+        shifts = tuple(int(x) for x in correlator_shifts(system, fs))
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shape = (blocks, n) if num_ants is None else (blocks, num_ants, n)
+    chunk_re = torch.randn(shape, generator=gen, device=DEVICE)
+    chunk_im = torch.randn(shape, generator=gen, device=DEVICE)
+    t = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=DEVICE)  # noqa: E731
+    codes = t(system.codes)
+    pilot = t(pilot_system.codes) if l5 else torch.roll(-codes, 11, 0).contiguous()
+    prn = t(rng.integers(0, codes.shape[1], k0), torch.int32)
+    cd, cp = t(rng.uniform(-4000.0, 4000.0, k0)), t(rng.uniform(0.0, 2 * np.pi, k0))
+    kd = t(rng.uniform(-3.0, 3.0, k0))
+    kp = t(rng.uniform(0.0, system.code_length, k0))
+    fcar = 1500.0
+    if modulus == 2:
+        tiles = epl_kernels.pack_code_tiles(codes, prn, pilot)
+        joined, prn_all = torch.cat([codes, pilot], 1), torch.cat([prn, prn + codes.shape[1]])
+    else:
+        tiles, joined, prn_all = epl_kernels.pack_code_tiles(codes, prn), codes, prn
+    kwargs = dict(extra, code_tiles=tiles)
+    if wrapper != "pallas_bank_onehot":
+        kwargs.update(nominal_code_frequency=system.code_frequency,
+                      nominal_carrier_frequency=fcar)
+    dup = lambda x: torch.cat([x] * modulus)  # noqa: E731
+    registry_args = (joined, prn_all, dup(fcar + cd), fs, dup(cp),
+                     dup(system.code_frequency + kd), dup(kp), shifts, system.code_length)
+    channels = epl_kernels.BankChannels(fcar, cd, cp, system.code_frequency, kd, kp)
+    state_args = (codes, prn, None, fs, None, None, None, shifts, system.code_length)
+    return (registry.get(wrapper), chunk_re, chunk_im, registry_args, state_args, channels,
+            kwargs)
+
+
+def correlator_shifts(system, fs):
+    from gpuacceleratedtracking_tpu_torch.models import EPLCorrelator, correlator_sample_shifts
+
+    return correlator_sample_shifts(system, EPLCorrelator(3), fs)
+
+
+def registry_body(config, corr, kwargs, dual_tables=None):
+    """A bank block body with the registry signature's expressions, as the
+    block bodies passed them before the state form: ``track_bank``'s, or
+    with ``dual_tables`` (data, pilot) ``track_bank_dual``'s (joined table,
+    duplicated channels, tiles of the joined PRNs)."""
+    from gpuacceleratedtracking_tpu_torch.models import gpsl5
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+    from gpuacceleratedtracking_tpu_torch.tracking import loop_update
+    from gpuacceleratedtracking_tpu_torch.tracking.dual import _overlay, dual_update
+
+    if dual_tables is not None:
+        codes = torch.cat(dual_tables, 1)
+        sd = _overlay(None, gpsl5.neuman_hofman(False), codes.device)
+        sp = _overlay(None, gpsl5.neuman_hofman(True), codes.device)
+
+    def step(st, consts, block):
+        dup = (lambda x: torch.cat([x, x])) if dual_tables is not None else (lambda x: x)
+        if dual_tables is not None:
+            prn = torch.cat([st.prn, st.prn + dual_tables[0].shape[1]])
+            table, weights = codes, None
+        else:
+            table, weights = consts[0], consts[1]
+            prn = st.prn
+        are, aim = corr(block[0], block[1], table, prn,
+                        dup(config.intermediate_frequency + st.carrier_doppler),
+                        config.sampling_frequency, dup(st.carrier_phase),
+                        dup(config.code_frequency + st.code_doppler), dup(st.code_phase),
+                        config.sample_shifts, config.code_length, **kwargs,
+                        code_tiles=epl_kernels.prepare_bank_code_tiles_rows(table, prn))
+        if dual_tables is not None:
+            return dual_update(config, st, are, aim, sd, sp)
+        return loop_update(config, st, are, aim, weights)
+
+    return step
+
+
+def glue_cells(system, seed, card):
+    """Phase 3e (``[glue]`` lines): the bank kernels in the state form (the
+    channels' parameters derived in the kernels from the state leaves) and
+    at the device index (the block read at a device-side index of a chunk),
+    against the same kernels through the registry signature with the
+    expressions the block bodies passed before, every accumulator bit for
+    bit, over every route at the main paths' shapes, one and two channels per
+    state entry (the dual bank's modulus); 10-block closed loops through
+    their graphs in chunks of 4 (the index zeroed per chunk) against the
+    registry expressions closed by the same loop kernel, bit for bit (rows
+    K=1024, A=4 L=7 steered, the L5 dual K=64); the packing kernel's words
+    against the plain version's, exactly (GPS L1 K=1024 int32 and int64
+    PRNs, the L5 dual's two tables); then its time and bound, and the rows
+    kernel's device time in the two forms. Returns the packing kernel's
+    error, its times and the phase's record."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL5
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+    from gpuacceleratedtracking_tpu_torch.tracking import (
+        TrackConfig, dual_config, graphs, track_bank, track_bank_dual)
+    from gpuacceleratedtracking_tpu_torch.tracking.track import bank_correlator
+
+    record = {"forms": {}, "loops": {}}
+    for name in GLUE_ROUTES:
+        for modulus in (1, 2):
+            corr, cre, cim, reg, state, channels, kwargs = glue_case(name, modulus, seed)
+            for b in range(cre.shape[0]):
+                want = corr(cre[b], cim[b], *reg, **kwargs)
+                got_state = corr(cre[b], cim[b], *state, **kwargs, channels=channels)
+                index = torch.tensor(b, dtype=torch.int64, device=DEVICE)
+                got_index = corr(cre, cim, *state, **kwargs, channels=channels,
+                                 block_index=index)
+                torch.cuda.synchronize()
+                bitwise(f"[glue] {name} x{modulus} block {b} state form", got_state, want)
+                bitwise(f"[glue] {name} x{modulus} block {b} at the device index", got_index,
+                        want)
+            record["forms"][f"{name}_x{modulus}"] = "bit for bit"
+        log(f"[glue] {name}: the state form and the block at the device index equal the "
+            f"registry call bit for bit, one and two channels per state entry, 3 blocks each")
+
+    # 10-block closed loops across chunk boundaries.
+    codes = torch.as_tensor(system.codes, device=DEVICE)
+    chunk = graphs.CHUNK
+    graphs.CHUNK = 4
+    try:
+        loops = {}
+        sre, sim, fs = mixed_blocks(system, 10)
+        auto = TrackConfig.for_system(system, fs, N_1MS, algorithm="pallas_bank_auto")
+        loops["rows_K1024"] = (auto, bank_states(system, init_errors=True), sre, sim, None)
+        are, aim, _ = mixed_blocks(system, 10, num_ants=NUM_ANTS)
+        cfg7 = TrackConfig.for_system(system, fs, N_1MS, num_correlators=7,
+                                      algorithm="pallas_bank_auto")
+        loops["array_K1024_A4_L7"] = (cfg7, bank_states(system, init_errors=True, num_taps=7),
+                                      are, aim, steering_weights())
+        for name, (config, states, xre, xim, weights) in loops.items():
+            graphs.clear()
+            corr, kwargs = bank_correlator(config)
+            w = None if weights is None else tuple(
+                torch.as_tensor(x, dtype=torch.float32, device=DEVICE).expand(NUM_K, NUM_ANTS)
+                for x in weights)
+            with graphs.eager():
+                want = graphs.loop(registry_body(config, corr, kwargs), states, (xre, xim),
+                                   (codes, w))
+                eager = track_bank(config, codes, states, xre, xim, ant_weights=weights)
+            got = track_bank(config, codes, states, xre, xim, ant_weights=weights)
+            torch.cuda.synchronize()
+            bitwise(f"[glue loop] {name} eager (state form)", eager, want)
+            bitwise(f"[glue loop] {name} graph (state form, device index)", got, want)
+            record["loops"][name] = "bit for bit"
+            log(f"[glue loop] {name}: 10 blocks in chunks of 4, graph and eager equal the "
+                f"registry expressions closed by the same loop kernel, bit for bit")
+        sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+        rng = np.random.default_rng(seed + 2)
+        offsets = rng.integers(0, 20, len(L5_PRNS))
+        navs = rng.choice([-1.0, 1.0], (len(L5_PRNS), 4))
+        s5re, s5im = l5_dual_blocks(10, offsets, navs,
+                                    torch.Generator(device=DEVICE).manual_seed(seed + 2))
+        cfg5 = dual_config(TrackConfig.for_system(sys_i, L1_FS, N_1MS,
+                                                  algorithm="pallas_bank_auto",
+                                                  use_secondary=False))
+        codes_i = torch.as_tensor(sys_i.codes, device=DEVICE)
+        codes_q = torch.as_tensor(sys_q.codes, device=DEVICE)
+        states5 = dual_states(offsets, L5_DOPPLERS)
+        graphs.clear()
+        corr, kwargs = bank_correlator(cfg5)
+        with graphs.eager():
+            want = graphs.loop(registry_body(cfg5, corr, kwargs, (codes_i, codes_q)), states5,
+                               (s5re, s5im))
+            eager = track_bank_dual(cfg5, codes_i, codes_q, states5, s5re, s5im)
+        got = track_bank_dual(cfg5, codes_i, codes_q, states5, s5re, s5im)
+        torch.cuda.synchronize()
+        bitwise("[glue loop] l5_dual eager (state form)", eager, want)
+        bitwise("[glue loop] l5_dual graph (state form, device index)", got, want)
+        record["loops"][f"l5_dual_K{DUAL_K}"] = "bit for bit"
+        log(f"[glue loop] l5_dual_K{DUAL_K}: 10 blocks in chunks of 4, graph and eager equal "
+            f"the joined expressions closed by the same dual kernel, bit for bit")
+    finally:
+        graphs.CHUNK = chunk
+        graphs.clear()
+
+    # The packing kernel: its words against the plain version's.
+    rng = np.random.default_rng(seed + 7)
+    pack = epl_kernels.pack_code_tiles
+    prn32 = torch.as_tensor(rng.integers(0, 32, NUM_K), dtype=torch.int32, device=DEVICE)
+    codes_i = torch.as_tensor(GPSL5().codes, device=DEVICE)
+    codes_q = torch.as_tensor(GPSL5(quadrature=True).codes, device=DEVICE)
+    cells = {"l1_K1024_int32": ((codes, prn32), epl_kernels.prepare_bank_code_tiles_rows(
+                 codes, prn32)),
+             "l1_K1024_int64": ((codes, prn32.long()), epl_kernels.prepare_bank_code_tiles_rows(
+                 codes, prn32)),
+             f"l5_dual_K{DUAL_K}": ((codes_i, prn32[:DUAL_K], codes_q),
+                                    epl_kernels.prepare_bank_code_tiles_rows(
+                                        torch.cat([codes_i, codes_q], 1),
+                                        torch.cat([prn32[:DUAL_K],
+                                                   prn32[:DUAL_K] + codes_i.shape[1]])))}
+    wrong = 0
+    for name, (args, want) in cells.items():
+        before = pack.launches
+        got = pack(*args)
+        torch.cuda.synchronize()
+        check(pack.launches == before + 1, f"[glue pack] {name}: one launch")
+        check(got.shape == want.shape and got.dtype == torch.int32,
+              f"[glue pack] {name}: shape {tuple(got.shape)} {got.dtype}")
+        wrong += int((got != want).sum())
+        log(f"[glue pack] {name}: {tuple(got.shape)} words, {int((got != want).sum())} differ "
+            f"from the plain version's")
+    check(wrong == 0, f"[glue pack] {wrong} words differ from the plain version's")
+
+    # Times: the packing kernel at the rows main path's shape, and the rows
+    # kernel in the registry form against the state form at the device index.
+    run = lambda: pack(codes, prn32)  # noqa: E731
+    plain = lambda: epl_kernels.prepare_bank_code_tiles_rows(codes, prn32)  # noqa: E731
+    ms, ms_min = graph_ms(run)
+    eager_ms = time_cuda(run)[0]
+    plain_ms = time_cuda(plain)[0]
+    plain_graph_ms = graph_ms(plain)[0]
+    used = int(torch.unique(prn32).numel())
+    words = NUM_K * -(-system.code_length // 32)
+    nbytes = used * system.code_length * 4 + NUM_K * 4 + words * 4
+    times = {"kernel_graph_ms": ms, "kernel_graph_min_ms": ms_min, "kernel_ms": eager_ms,
+             "plain_ms": plain_ms, "plain_graph_ms": plain_graph_ms,
+             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes", "bound_unit": "memory",
+             "bytes": nbytes, "library_ms": None}
+    log(f"[glue pack] K={NUM_K} GPS L1: {ms!r} ms (min {ms_min!r}) device time, eager "
+        f"{eager_ms!r}; plain {plain_ms!r} eager, {plain_graph_ms!r} as a graph; bound "
+        f"{times['bound_ms']!r} ms ({nbytes} B over 3.35 TB/s) [{card}]")
+    corr, cre, cim, reg, state, channels, kwargs = glue_case("rows_K1024", 1, seed)
+    index = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    forms = {"registry": lambda: corr(cre[0], cim[0], *reg, **kwargs),
+             "state_index": lambda: corr(cre, cim, *state, **kwargs, channels=channels,
+                                         block_index=index)}
+    turns = [(f, graph_ms(forms[f])[0]) for f in ("registry", "state_index", "state_index",
+                                                  "registry")]
+    record["rows_wrapper_graph_ms"] = {f: statistics.median(t for g, t in turns if g == f)
+                                       for f in forms}
+    log(f"[glue time] bank_rows K={NUM_K} N={N_1MS}, a captured wrapper call (kernel and "
+        f"finish; registry form: with its parameter ops), turns registry, state, state, "
+        f"registry: {turns!r} ms [{card}]")
+    return wrong, times, record
+
+
 def bank_states(system, init_errors: bool, num_taps: int = 3):
     from gpuacceleratedtracking_tpu_torch.tracking import init_state
 
@@ -1283,6 +1592,7 @@ def main_path(system, seed, num_blocks_lock: int = 600):
     check(counts == only(bank_rows=20),
           f"20 bank_rows launches in 20 blocks and no other kernel, got {counts}")
     note_loop("rows", 20)
+    note_pack("rows", 1)                              # one call: one prologue
     for field, x in out._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"main path {field} finite")
     check(out.prompt_re.shape == (20, NUM_K), "prompt_re shape")
@@ -1353,6 +1663,7 @@ def array_path(system, seed, num_blocks_lock: int = 300):
     check(counts == only(bank_comp=20),
           f"20 bank_comp launches in 20 blocks and no other kernel, got {counts}")
     note_loop("A", 20)
+    note_pack("A", 1)
     for field, x in out._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"path A {field} finite")
     check(out.accum_re.shape == (20, NUM_K, NUM_ANTS, 7), "path A accum shape")
@@ -1528,6 +1839,7 @@ def dual_path(seed, num_blocks: int = 200):
     check(counts == only(bank_transition=sync_blocks + num_blocks),
           f"one 128-channel pallas_bank launch per block and no other kernel, got {counts}")
     note_loop("B", sync_blocks + num_blocks, dual=True)
+    note_pack("B", 2)                                 # the sync call and the tracking call
     for field, x in out.pilot._asdict().items():
         check(bool(torch.isfinite(x.float()).all()), f"path B {field} finite")
     check(out.data_prompt_re.shape == (num_blocks, DUAL_K), "data prompt shape")
@@ -2894,6 +3206,49 @@ OPS_FRESH_LOOP_KERNEL = {"rows_K1024_pallas_bank_auto": {"eager": 28.0, "graph":
 SINK_PATHS = {"rows_K1024_pallas_bank_auto": "loop_update", "track_fused": "loop_update",
               f"l5_dual_K{DUAL_K}": "loop_update_dual"}
 NO_SINK_PATH = "mesh_2x2_rows_K1024"
+# Device ops per block of phase L's graphs before the bank kernels took the
+# state form and the block at the device index (PERF.md section 5): the bank
+# wrappers' parameter ops, the block select and the dual joins included.
+OPS_BEFORE_STATE_FORM = {"rows_K1024_pallas_bank_auto": 19.95, "array_K1024_A4_L7_f32": 21.75,
+            f"l5_dual_K{DUAL_K}": 24.45, "mesh_2x2_rows_K1024": 155.15, "taps_K8": 25.35}
+PROLOGUE_BEFORE_PACK_KERNEL_MS = 0.0428   # the rows prologue as 14 small ops (PERF.md section 5)
+# Phase L's paths whose replayed block must be its kernels alone (at most 4
+# device ops: the bank kernel, its finish, the loop kernel, the index's add)
+# and whose prologue at most 3 (the index to 0, the packing kernel, a copy).
+BLOCK_PATHS = ("rows_K1024_pallas_bank_auto", "array_K1024_A4_L7_f32",
+               "array_K1024_A4_L7_bf16", f"l5_dual_K{DUAL_K}", f"family_GALILEOE1C_K{FAMILY_K}",
+               "onehot_K1024")
+GLUE_OPS = ("indexselect", "index_select", "catarray", "div", "mul", "stack", "copy")
+REPLAYS = 3             # replays of a prologue and of a block per profiled session
+
+
+def replay_op_names(run, replays: int = REPLAYS) -> tuple:
+    """The device ops, by name and count, of the prologue of ``run``'s entry
+    replayed ``replays`` times and of as many blocks replayed after it
+    (torch.profiler, one session each, after spin kernels that are left
+    out: the first events of a session sometimes go missing), from an
+    empty cache (one call captures the entry)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    graphs.clear()
+    run()
+    torch.cuda.synchronize()
+    (entry,) = graphs._ENTRIES[torch.device(DEVICE, torch.cuda.current_device())].values()
+    names = []
+    for part in (entry.prologue, entry.replay):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(100_000)
+            for _ in range(replays):
+                part()
+            torch.cuda.synchronize()
+        names.append(collections.Counter(
+            e.name[:80] for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name))
+    graphs.clear()
+    return tuple(names)
 
 
 def flat(tree) -> list:
@@ -2923,9 +3278,10 @@ def busy_share(run, calls=3):
 
 
 def all_counts() -> dict:
-    """Every kernel's launch count, the loop kernel's (both modes) included."""
+    """Every kernel's launch count, the loop kernel's (both modes) and the
+    packing kernel's included."""
     return dict(read_counts(), loop_update=loop_count(),
-                loop_update_dual=dual_counter().launches)
+                loop_update_dual=dual_counter().launches, code_tiles=pack_counter().launches)
 
 
 def counted(run):
@@ -3267,8 +3623,25 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
     torch.cuda.synchronize()
     results["one_block_K1024"].update(prologue_device_ms=prologue_ms, host_ms_per_call=host_ms)
     log(f"[L one-block] the rows entry's prologue (code tiles packed on the card): "
-        f"{prologue_ms!r} ms of device time per replay; chained 1-block calls issued without "
-        f"waiting for the card: {host_ms!r} ms per call [{card}]")
+        f"{prologue_ms!r} ms of device time per replay (as 14 small ops before the packing "
+        f"kernel: {PROLOGUE_BEFORE_PACK_KERNEL_MS}); chained 1-block calls issued without waiting for the card: "
+        f"{host_ms!r} ms per call [{card}]")
+    # A replayed block as its kernels alone, and the prologue as the packing
+    # kernel: device ops by name of one replay of each.
+    for name in BLOCK_PATHS:
+        prologue, block = replay_op_names(paths[name][0])
+        glue = [op for op in block if any(g in op.lower() for g in GLUE_OPS)]
+        packs = sum(n for op, n in prologue.items() if "code_tiles_kernel" in op)
+        per_block, per_prologue = sum(block.values()) / REPLAYS, sum(prologue.values()) / REPLAYS
+        results[name].update(replayed_block_ops=per_block, replayed_block_ops_by_name=block,
+                             prologue_ops=per_prologue, prologue_ops_by_name=prologue)
+        log(f"[L block] {name}: {REPLAYS} replayed blocks, {per_block!r} device ops each "
+            f"{dict(block)}; {REPLAYS} prologues, {per_prologue!r} each {dict(prologue)} "
+            f"[{card}]")
+        check(per_block <= 4 and not glue,
+              f"[L block] {name}: a replayed block is its kernels alone: {block}")
+        check(per_prologue <= 3 and 1 <= packs <= REPLAYS,
+              f"[L block] {name}: the prologue is the packing kernel: {prologue}")
     # Device ops per block of every path, eager and graph: torch.profiler over
     # two calls after a warm-up call, per call over the blocks of a call (the
     # graph's per-call copies in and out included).
@@ -3284,7 +3657,9 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
         before = OPS_BEFORE_LOOP_KERNEL.get(name, {})
         fresh = OPS_FRESH_LOOP_KERNEL.get(name, {})
         log(f"[L ops] {name}: device ops per block eager {e_ops / blocks!r}, graph "
-            f"{g_ops / blocks!r} (with the loop kernel writing fresh tensors: eager "
+            f"{g_ops / blocks!r} (graph before the state form: "
+            f"{OPS_BEFORE_STATE_FORM.get(name, 'not recorded')}; "
+            f"with the loop kernel writing fresh tensors: eager "
             f"{fresh.get('eager', 'not recorded')}, graph {fresh.get('graph', 'not recorded')}; "
             f"with the loop closure as torch ops: eager "
             f"{before.get('eager', 'not recorded')}, graph {before.get('graph', 'not recorded')}); "
@@ -3337,6 +3712,33 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
                 + "; ".join(f"{op} {count!r} {ms!r}"
                             for op, (count, ms) in share["ops_by_name"].items()))
     return launches, results
+
+
+def bad_chip_path():
+    """Phase X, last (a device-side assert in another process once emptied
+    the next torch.profiler trace of this one): the packing kernel on a
+    table with a chip of 0.5 fails its device-side assert, in a process of
+    its own (the assert ends that process's CUDA context), after the same
+    call on the good table ran."""
+    code = ("import torch\n"
+            "from gpuacceleratedtracking_tpu_torch.models import GPSL1\n"
+            "from gpuacceleratedtracking_tpu_torch.ops import epl_kernels\n"
+            "codes = torch.as_tensor(GPSL1().codes, device='cuda')\n"
+            "prn = torch.arange(8, dtype=torch.int32, device='cuda')\n"
+            "epl_kernels.pack_code_tiles(codes, prn)\n"
+            "torch.cuda.synchronize()\n"
+            "print('good table packed', flush=True)\n"
+            "codes[100, 5] = 0.5\n"
+            "epl_kernels.pack_code_tiles(codes, prn)\n"
+            "torch.cuda.synchronize()\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=pathlib.Path(__file__).resolve().parent)
+    tail = proc.stderr.strip().splitlines()[-1:]
+    log(f"[bad chip] the packing kernel on a table with a chip of 0.5: exit code "
+        f"{proc.returncode}, {tail}")
+    check("good table packed" in proc.stdout and proc.returncode != 0,
+          f"[bad chip] a chip other than +/-1 fails the call: {proc.stdout[-500:]} "
+          f"{proc.stderr[-1500:]}")
 
 
 def ptxas_summary(log_path):
@@ -3820,6 +4222,10 @@ def main(argv=None) -> int:
     log(f"[phase] 3b, the loop kernel against its plain version, in "
         f"{time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
+    errs["code_tiles"], pack_times, glue = glue_cells(system, args.seed, card)
+    log(f"[phase] 3e, the state form, the device index and the packing kernel, in "
+        f"{time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
     rows_launches, sre, sim = main_path(system, args.seed)
     launches = {"bank_rows": rows_launches}
     launches["bank_comp"] = array_path(system, args.seed)
@@ -3902,6 +4308,7 @@ def main(argv=None) -> int:
     graph_counts, captured = graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card)
     by_path["loop_update"] = dict(LOOP_BY_PATH)
     by_path["loop_update_dual"] = dict(DUAL_BY_PATH)
+    by_path["code_tiles"] = dict(PACK_BY_PATH)
     for kernel, count in graph_counts.items():
         by_path[kernel]["L"] = count
     captured["streaming_K256"] = {"graph_steady_block_s": streaming["steady_block_s"],
@@ -3918,6 +4325,9 @@ def main(argv=None) -> int:
     by_path["bank_rows"]["P"] = profile_counts["bank_rows"]
     by_path["loop_update"]["P"] = LOOP_BY_PATH["P"]
     log(f"[phase] P, the profile, in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    bad_chip_path()
+    log(f"[phase] X, a table with a bad chip, in {time.perf_counter() - t0!r} s")
 
     # `ms` is each kernel's device time from a replayed CUDA graph: an eager
     # launch also carries the wrapper's host work, which on a busy host can
@@ -3952,6 +4362,10 @@ def main(argv=None) -> int:
         # tap matrix that the JAX correlate_pallas_taps builds from it.
         ("replica", "gpuacceleratedtracking_tpu_torch/csrc/replica.cu",
          "gpuacceleratedtracking_tpu/ops/replica.py:63", times[f"replica_n{N_WIDE}_l7"], graph),
+        # No Pallas kernel: the XLA fusion of the JAX prepare_bank_code_tiles_rows
+        # inside the jitted track_bank (tracking/track.py:339-344).
+        ("code_tiles", "gpuacceleratedtracking_tpu_torch/csrc/code_tiles.cu",
+         "gpuacceleratedtracking_tpu/ops/pallas_epl.py:1258", pack_times, graph),
     ]
     # Closed-loop blocks of each bank kernel's main path (rows: 20, A: 20,
     # B: 60 sync + 200 tracking, D's one-hot bank: 20); the per-channel
@@ -3960,7 +4374,7 @@ def main(argv=None) -> int:
                  "bank_transition": (260, "block"), "bank_onehot": (sre.shape[0], "block"),
                  "taps": (None, "call"), "fused": (None, "call"),
                  "loop_update": (20, "block"), "loop_update_dual": (260, "block"),
-                 "replica": (None, "call")}
+                 "replica": (None, "call"), "code_tiles": (None, "call")}
     launches["loop_update"] = by_path["loop_update"]["rows"]
     launches["loop_update_dual"] = by_path["loop_update_dual"]["B"]
     kernels = {"kernels": [{
@@ -4011,7 +4425,7 @@ def main(argv=None) -> int:
                        "coldstart": coldstart, "streaming": streaming,
                        "parallel": parallel, "figures": figures, "graphs": captured,
                        "sweep": sweep, "sweep_modes": sweep_by_mode, "al": al_times,
-                       "profile": profiled,
+                       "profile": profiled, "glue": glue,
                        "replica": {"grid_cells": replica_grid, "benchmark": replica_bench,
                                    "corner_n32768_l3": times[f"replica_n{N_1MS}_l3"]}},
                       f, indent=1)

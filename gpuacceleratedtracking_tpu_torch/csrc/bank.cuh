@@ -15,10 +15,26 @@
 // one per sample, and four multiplies and two adds per sample.
 //
 // Chips: the code columns are packed one bit per chip (bit set = -1,
-// epl_kernels.pack_code_columns) and staged in shared memory. A chip flips
-// the sign bit of the value it multiplies, which is exact. The chip index
-// wraps by one unsigned min where chips_near holds (the routes' chip-rate
-// envelopes), else by the general modulo; both give the same index.
+// epl_kernels.prepare_bank_code_tiles_rows, csrc/code_tiles.cu on the card)
+// and staged in shared memory. A chip flips the sign bit of the value it
+// multiplies, which is exact. The chip index wraps by one unsigned min where
+// chips_near holds (the routes' chip-rate envelopes), else by the general
+// modulo; both give the same index.
+//
+// Where a launch reads its block and its channels (`Source`): the block is
+// the signal planes the wrapper passed, or row *block_index of a
+// [chunk, A, N] buffer of them, the index read on the device (the captured
+// block loop's, tracking/graphs.py). The channels' (f_cyc, phi_cyc, rho,
+// phi_code) come from a [K] table, or each warp derives its channel's from
+// the tracking state's f32 leaves (channel k reads entry k mod `modulus`,
+// so the dual bank's data and pilot channels share one state) with the
+// roundings torch gives on the card to the plain expressions
+// (epl_kernels._channel_params of `intermediate_frequency + carrier_doppler`
+// and `code_frequency + code_doppler`): an f32 add of the f32 nominal rate;
+// `rate` as f32(f64(x) * (1 / fs)), torch's division of an f64 tensor by a
+// Python float on CUDA; the phase over f32(2 pi) as a product with the
+// double reciprocal rounded to f32 (the same rule as
+// ops/loop_kernel._recip); rho * d_min, then the add.
 
 #pragma once
 
@@ -28,6 +44,46 @@ namespace bank {
 
 constexpr float kTwoPi = 6.28318548202514648f;  // float32(2 pi)
 constexpr int kRow = 128;                        // samples per carrier row
+
+// Layout shared with ops/epl_kernels.py::_Source (ctypes); passed by value.
+struct Source {
+  const float4* params;            // [K] (f_cyc, phi_cyc, rho, phi_code), or null: derive
+  const float* carrier_doppler;    // [modulus] state leaves, where params is null
+  const float* carrier_phase;
+  const float* code_doppler;
+  const float* code_phase;
+  const long long* block_index;    // the block's row in the chunk, or null
+  long long block_stride;          // elements per row of the chunk
+  double inv_fs;                   // 1 / fs
+  float intermediate_frequency;    // f32 nominal rates added to the Dopplers
+  float code_frequency;
+  float inv_two_pi;                // f32(1 / f32(2 pi)), from the double reciprocal
+  float d_min;                     // the earliest tap's shift
+  int modulus;                     // state entries: channel k reads k mod modulus
+};
+
+// The offset of the launch's block from the signal pointers it was given.
+__device__ __forceinline__ size_t block_offset(const Source& src) {
+  return src.block_index == nullptr
+             ? 0
+             : static_cast<size_t>(*src.block_index) * static_cast<size_t>(src.block_stride);
+}
+
+// f32(f64(x) * inv_fs): torch's `(x.double() / fs).float()` on the card.
+__device__ __forceinline__ float rate(float x, double inv_fs) {
+  return __double2float_rn(__dmul_rn(static_cast<double>(x), inv_fs));
+}
+
+// Channel k's (f_cyc, phi_cyc, rho, phi_code).
+__device__ __forceinline__ float4 channel_params(const Source& src, int k) {
+  if (src.params != nullptr) return src.params[k];
+  const int s = k % src.modulus;
+  const float rho = rate(__fadd_rn(src.code_doppler[s], src.code_frequency), src.inv_fs);
+  return make_float4(
+      rate(__fadd_rn(src.carrier_doppler[s], src.intermediate_frequency), src.inv_fs),
+      __fmul_rn(src.carrier_phase[s], src.inv_two_pi), rho,
+      __fadd_rn(src.code_phase[s], __fmul_rn(rho, src.d_min)));
+}
 
 // One channel's phases at a phase-tile start.
 struct Phases {

@@ -65,6 +65,11 @@
 //   (~220 registers; bf16 gains nothing from it).
 // - Per-tile partials, summed over tiles in a fixed order by the second
 //   kernel: no atomics, deterministic.
+// - The block and the channels come as a bank::Source (bank.cuh): in the
+//   captured block loop the block is read at the loop's device-side index,
+//   and the CTA derives its channels' parameters from the tracking state
+//   where it read the [K] table (the finish kernel derives f_cyc for the
+//   rotation alike).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,10 +110,10 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b
 
 template <int A, int L, bool BF16>
 __global__ void __launch_bounds__(kThreads)
-bank_comp_kernel(const float* __restrict__ sre,          // [A, N]
-                 const float* __restrict__ sim,          // [A, N]
+bank_comp_kernel(const float* __restrict__ sre,          // [A, N], or the chunk (src)
+                 const float* __restrict__ sim,          // [A, N], or the chunk (src)
                  const unsigned* __restrict__ code,      // [K, words] packed columns
-                 const float4* __restrict__ params,      // [K]: f_cyc, phi_cyc, rho, phi_code
+                 const bank::Source src,                 // the block's row, the channels
                  const float2* __restrict__ base,        // [phase tiles]: carrier cyc, code chips
                  const int* __restrict__ deltas,         // [L]
                  float* __restrict__ partial,            // [K, tiles, A, L, 4]
@@ -139,6 +144,9 @@ bank_comp_kernel(const float* __restrict__ sre,          // [A, N]
   const float2 b = base[pt];
   const float n0 = static_cast<float>(pt * phase_tile);        // exact below 2^24
   const float lcf = static_cast<float>(code_length);
+  const size_t block = bank::block_offset(src);
+  sre += block;
+  sim += block;
 
   // The signal tile and its halo: tile[a][i] = s[a][u0 - span + i].
   for (int i = threadIdx.x; i < A * width; i += kThreads) {
@@ -167,8 +175,8 @@ bank_comp_kernel(const float* __restrict__ sre,          // [A, N]
   for (int i = threadIdx.x; i < kGroup * kRows; i += kThreads) {
     const int g = i / kRows;
     const int r = i - g * kRows;
-    const bank::Phases ch = bank::tile_phases(params[min(k0 + g, num_k - 1)], b, n0, lcf,
-                                              rho_nom, fcar_nom_cyc);
+    const float4 p = bank::channel_params(src, min(k0 + g, num_k - 1));
+    const bank::Phases ch = bank::tile_phases(p, b, n0, lcf, rho_nom, fcar_nom_cyc);
     row_ph[i] = bank::row_phasor(ch, static_cast<float>(j0 + bank::kRow * r));
   }
   __syncthreads();
@@ -186,7 +194,8 @@ bank_comp_kernel(const float* __restrict__ sre,          // [A, N]
   for (int mt = 0; mt < kMT; ++mt) {
     gl[mt] = (warp * kMT + mt) * 8 + gq;
     const int g = min(gl[mt], num_k - 1 - k0);
-    ch[mt] = bank::tile_phases(params[k0 + g], b, n0, lcf, rho_nom, fcar_nom_cyc);
+    ch[mt] = bank::tile_phases(bank::channel_params(src, k0 + g), b, n0, lcf, rho_nom,
+                               fcar_nom_cyc);
     col[mt] = code_s + g * words;
   }
   // This lane's B column in each n8 tile: plane p = 8 nt + gq (S_re planes,
@@ -364,7 +373,7 @@ bank_comp_kernel(const float* __restrict__ sre,          // [A, N]
 // m = (zc.S_re + zs.S_im) + i (zc.S_im - zs.S_re), and rotate by
 // e^{+2 pi i f_k delta_l}: out[k, a, l] (re and im planes).
 __global__ void bank_comp_finish(const float* __restrict__ partial,
-                                 const float4* __restrict__ params,
+                                 const bank::Source src,
                                  const int* __restrict__ deltas,
                                  float* __restrict__ out_re,
                                  float* __restrict__ out_im,
@@ -386,7 +395,7 @@ __global__ void bank_comp_finish(const float* __restrict__ partial,
   }
   const float m_re = __fadd_rn(s0, s1);
   const float m_im = __fsub_rn(s2, s3);
-  const float omega = __fmul_rn(__fmul_rn(bank::kTwoPi, params[k].x),
+  const float omega = __fmul_rn(__fmul_rn(bank::kTwoPi, bank::channel_params(src, k).x),
                                 static_cast<float>(deltas[l]));
   float sw, cw;
   sincosf(omega, &sw, &cw);
@@ -396,7 +405,7 @@ __global__ void bank_comp_finish(const float* __restrict__ partial,
 
 template <int A, int L, bool BF16>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre,
-                   const float* sim, const unsigned* code, const float* params,
+                   const float* sim, const unsigned* code, const bank::Source& src,
                    const float* base, const int* deltas, float* partial, int num_samples,
                    int num_k, int code_length, int words, int phase_tile, int span,
                    float rho_nom, float fcar_nom_cyc) {
@@ -406,24 +415,25 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   bank_comp_kernel<A, L, BF16><<<grid, kThreads, smem, stream>>>(
-      sre, sim, code, reinterpret_cast<const float4*>(params),
-      reinterpret_cast<const float2*>(base), deltas, partial, num_samples, num_k,
-      code_length, words, phase_tile, span, rho_nom, fcar_nom_cyc);
+      sre, sim, code, src, reinterpret_cast<const float2*>(base), deltas, partial,
+      num_samples, num_k, code_length, words, phase_tile, span, rho_nom, fcar_nom_cyc);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch the bank on `stream`. Returns the first CUDA error of the two launches
-// (cudaErrorInvalidValue for an antenna/tap count with no instantiation, or a
-// phase tile that kTile does not divide).
+// Launch the bank on `stream`; `source` (host memory) says where the block and
+// the channels' parameters are read. Returns the first CUDA error of the two
+// launches (cudaErrorInvalidValue for an antenna/tap count with no
+// instantiation, or a phase tile that kTile does not divide).
 extern "C" int bank_comp_launch(const float* sre, const float* sim, const int* code,
-                                const float* params, const float* base, const int* deltas,
+                                const bank::Source* source, const float* base, const int* deltas,
                                 float* partial, float* out_re, float* out_im,
                                 int num_ants, int num_taps, int num_samples, int num_k,
                                 int code_length, int phase_tile, int span, int bf16,
                                 float rho_nom, float fcar_nom_cyc, void* stream) {
   if (phase_tile % kTile != 0 || span < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bank::Source src = *source;
   const int num_tiles = (num_samples + span + kTile - 1) / kTile;
   const int words = (code_length + 31) / 32;
   const dim3 grid(num_tiles, (num_k + kGroup - 1) / kGroup);
@@ -435,10 +445,10 @@ extern "C" int bank_comp_launch(const float* sre, const float* sim, const int* c
   cudaError_t err = cudaErrorInvalidValue;
 #define BANK_COMP_CASE(A_, L_)                                                          \
   if (num_ants == A_ && num_taps == L_) {                                               \
-    err = bf16 ? launch<A_, L_, true>(grid, smem, s, sre, sim, words_ptr, params, base, \
+    err = bf16 ? launch<A_, L_, true>(grid, smem, s, sre, sim, words_ptr, src, base,    \
                                       deltas, partial, num_samples, num_k, code_length, \
                                       words, phase_tile, span, rho_nom, fcar_nom_cyc)   \
-               : launch<A_, L_, false>(grid, smem, s, sre, sim, words_ptr, params,      \
+               : launch<A_, L_, false>(grid, smem, s, sre, sim, words_ptr, src,         \
                                        base, deltas, partial, num_samples, num_k,       \
                                        code_length, words, phase_tile, span, rho_nom,   \
                                        fcar_nom_cyc);                                   \
@@ -450,8 +460,7 @@ extern "C" int bank_comp_launch(const float* sre, const float* sim, const int* c
 #undef BANK_COMP_CASE
   if (err != cudaSuccess) return static_cast<int>(err);
   const int total = num_k * num_ants * num_taps;
-  bank_comp_finish<<<(total + 255) / 256, 256, 0, s>>>(
-      partial, reinterpret_cast<const float4*>(params), deltas, out_re, out_im,
-      num_k, num_tiles, num_ants, num_taps);
+  bank_comp_finish<<<(total + 255) / 256, 256, 0, s>>>(partial, src, deltas, out_re, out_im,
+                                                       num_k, num_tiles, num_ants, num_taps);
   return static_cast<int>(cudaGetLastError());
 }

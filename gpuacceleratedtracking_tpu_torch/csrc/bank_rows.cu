@@ -36,6 +36,11 @@
 //   i = 32 q + lane sit at four fixed in-row positions, so its four lane
 //   phasors are computed once per channel and the row phasor (8 per tile)
 //   arrives by shuffle. No sincos per sample.
+// - The block and the channels come as a bank::Source: in the captured
+//   block loop the block is read at the loop's device-side index and each
+//   warp derives its channel's parameters from the tracking state (one
+//   float4's worth of loads per warp and CTA, as the table's read was), so
+//   no torch op runs between the carry and the launch.
 // The CTA's sums go to per-chunk partials, which a second kernel sums over
 // chunks in a fixed order: no atomics, deterministic.
 
@@ -74,10 +79,10 @@ __device__ __forceinline__ void replica_row(float* rep, const unsigned* col,
 // sums carry across the chunk's tiles; the signal tile is restaged per tile.
 template <int A, int L>
 __global__ void __launch_bounds__(kThreads)
-bank_rows_kernel(const float* __restrict__ sre,          // [A, N]
-                 const float* __restrict__ sim,          // [A, N]
+bank_rows_kernel(const float* __restrict__ sre,          // [A, N], or the chunk (src)
+                 const float* __restrict__ sim,          // [A, N], or the chunk (src)
                  const unsigned* __restrict__ code,      // [K, words] packed columns
-                 const float4* __restrict__ params,      // [K]: f_cyc, phi_cyc, rho, phi_code
+                 const bank::Source src,                 // the block's row, the channels
                  const float2* __restrict__ base,        // [phase tiles]: carrier cyc, code chips
                  const int* __restrict__ deltas,         // [L]
                  float* __restrict__ partial,            // [K, chunks, A, L, 2]
@@ -92,6 +97,9 @@ bank_rows_kernel(const float* __restrict__ sre,          // [A, N]
   float* rep = s_im + A * kTile + warp * width;
   unsigned* code_s =                         // [kWarps][words]
       reinterpret_cast<unsigned*>(s_im + A * kTile + kWarps * width);
+  const size_t block = bank::block_offset(src);
+  sre += block;
+  sim += block;
 
   const int num_tiles = (num_samples + kTile - 1) / kTile;
   const int t0 = blockIdx.x * chunk;
@@ -111,8 +119,8 @@ bank_rows_kernel(const float* __restrict__ sre,          // [A, N]
   const int k = k0 + warp;
   const bool active = k < num_k;                          // warp-uniform
   const unsigned* col = code_s + warp * words;
-  const bank::Phases ch = bank::tile_phases(params[min(k, num_k - 1)], b, n0,
-                                            static_cast<float>(code_length), rho_nom,
+  const bank::Phases ch = bank::tile_phases(bank::channel_params(src, min(k, num_k - 1)), b,
+                                            n0, static_cast<float>(code_length), rho_nom,
                                             fcar_nom_cyc);
   float2 lp[4];
 #pragma unroll
@@ -216,7 +224,7 @@ __global__ void bank_rows_finish(const float* __restrict__ partial,
 
 template <int A, int L>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre,
-                   const float* sim, const unsigned* code, const float* params,
+                   const float* sim, const unsigned* code, const bank::Source& src,
                    const float* base, const int* deltas, float* partial, int num_samples,
                    int num_k, int code_length, int words, int phase_tile, int span,
                    int chunk, float rho_nom, float fcar_nom_cyc) {
@@ -226,24 +234,25 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   bank_rows_kernel<A, L><<<grid, kThreads, smem, stream>>>(
-      sre, sim, code, reinterpret_cast<const float4*>(params),
-      reinterpret_cast<const float2*>(base), deltas, partial, num_samples, num_k,
-      code_length, words, phase_tile, span, chunk, rho_nom, fcar_nom_cyc);
+      sre, sim, code, src, reinterpret_cast<const float2*>(base), deltas, partial,
+      num_samples, num_k, code_length, words, phase_tile, span, chunk, rho_nom, fcar_nom_cyc);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch the bank on `stream`. Returns the first CUDA error of the two
-// launches (cudaErrorInvalidValue for an antenna/tap count with no
+// Launch the bank on `stream`; `source` (host memory) says where the block
+// and the channels' parameters are read. Returns the first CUDA error of the
+// two launches (cudaErrorInvalidValue for an antenna/tap count with no
 // instantiation, or a phase tile that kTile does not divide).
 extern "C" int bank_rows_launch(const float* sre, const float* sim, const int* code,
-                                const float* params, const float* base, const int* deltas,
+                                const bank::Source* source, const float* base, const int* deltas,
                                 float* partial, float* out_re, float* out_im,
                                 int num_ants, int num_taps, int num_samples, int num_k,
                                 int code_length, int phase_tile, int span,
                                 float rho_nom, float fcar_nom_cyc, void* stream) {
   if (phase_tile % kTile != 0 || span < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bank::Source src = *source;
   const int num_tiles = (num_samples + kTile - 1) / kTile;
   const int words = (code_length + 31) / 32;
   // Chunks of 4, 2 or 1 tiles: they must divide the phase tile, and a grid
@@ -265,7 +274,7 @@ extern "C" int bank_rows_launch(const float* sre, const float* sim, const int* c
   cudaError_t err = cudaErrorInvalidValue;
 #define BANK_ROWS_CASE(A_, L_)                                                        \
   if (num_ants == A_ && num_taps == L_) {                                             \
-    err = launch<A_, L_>(grid, smem, s, sre, sim, words_ptr, params, base, deltas,    \
+    err = launch<A_, L_>(grid, smem, s, sre, sim, words_ptr, src, base, deltas,       \
                          partial, num_samples, num_k, code_length, words, phase_tile, \
                          span, chunk, rho_nom, fcar_nom_cyc);                         \
   }

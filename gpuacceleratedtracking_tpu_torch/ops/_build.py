@@ -37,7 +37,7 @@ _D = ctypes.c_double
 SIGNATURES = {
     "bank_rows": {
         "bank_rows_launch": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code params base deltas partial out_re out_im
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code source base deltas partial out_re out_im
              _I, _I, _I, _I, _I, _I, _I,           # ants taps samples k code_length phase_tile span
              _F, _F,                               # rho_nom fcar_nom_cyc
              _P],                                  # stream
@@ -46,9 +46,17 @@ SIGNATURES = {
     },
     "bank_comp": {
         "bank_comp_launch": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code params base deltas partial out_re out_im
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code source base deltas partial out_re out_im
              _I, _I, _I, _I, _I, _I, _I, _I,       # ants taps samples k code_length phase_tile span bf16
              _F, _F,                               # rho_nom fcar_nom_cyc
+             _P],                                  # stream
+            _I,
+        ),
+    },
+    "code_tiles": {
+        "code_tiles_launch": (
+            [_P, _P, _P, _P,                       # table0 table1 prn out
+             _I, _I, _I, _I, _I, _I,               # prn_is64 k0 k code_length prns0 prns1
              _P],                                  # stream
             _I,
         ),

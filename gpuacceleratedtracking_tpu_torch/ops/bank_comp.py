@@ -35,7 +35,7 @@ import torch
 
 from . import _build, registry
 from .epl_kernels import (
-    TILE, BankRowsCall, _check_kernel_inputs, _deltas, _is_bf16, _replica_chips,
+    TILE, BankChannels, BankRowsCall, _check_kernel_inputs, _deltas, _is_bf16, _replica_chips,
     _row_lane_carrier, _tile_phases, split_launches, unpack_code_columns)
 from .replica import _TWO_PI_F32
 
@@ -70,7 +70,7 @@ def _shifted_planes(bank: BankCompCall) -> torch.Tensor:
     num_u = bank.num_tiles * TILE
     span = bank.span
     rows = []
-    for sig in (bank.sre, bank.sim):
+    for sig in bank.planes():
         padded = torch.nn.functional.pad(sig, (span, num_u - bank.num_samples))
         for a in range(bank.num_ants):
             for delta in bank.deltas:
@@ -109,13 +109,15 @@ def correlate_bank_comp_reference(
     carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
     nominal_code_frequency=None, nominal_carrier_frequency=0.0,
     max_chips_per_sample=None, code_tiles=None, z_dtype=torch.float32,
+    channels=None, block_index=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of `correlate_pallas_bank_comp`, on any device."""
     bank = BankCompCall(signal_re, signal_im, codes, prn, carrier_frequency,
                         sampling_frequency, carrier_phase, code_frequency,
                         code_phase, sample_shifts, code_length,
                         nominal_code_frequency, nominal_carrier_frequency,
-                        max_chips_per_sample, code_tiles, z_dtype=z_dtype)
+                        max_chips_per_sample, code_tiles, z_dtype=z_dtype,
+                        channels=channels, block_index=block_index)
     return bank.finish(*_bank_comp_plain(bank))
 
 
@@ -136,6 +138,8 @@ def correlate_pallas_bank_comp(
     max_chips_per_sample: float | None = None,
     code_tiles: torch.Tensor | None = None,
     z_dtype=torch.float32,
+    channels: BankChannels | None = None,
+    block_index: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Composite-plane K-channel EPL bank against one shared ``[N]`` / ``[A, N]`` block.
 
@@ -143,13 +147,17 @@ def correlate_pallas_bank_comp(
     tap span up to `epl_kernels.MAX_SPAN` samples, < ~0.17 chips/sample, else
     `ValueError`), rounded in the composite order. ``z_dtype``:
     ``torch.float32`` or ``"f32"``, ``torch.bfloat16`` or ``"bf16"``.
-    ``code_tiles``: `epl_kernels.prepare_bank_code_tiles_rows` output.
+    ``code_tiles``: `epl_kernels.prepare_bank_code_tiles_rows` output;
+    ``channels`` (the state form) and ``block_index`` (the block at a device
+    index of a ``[chunk, (A,) N]`` signal): as in
+    `epl_kernels.correlate_pallas_bank_rows`.
     """
     bank = BankCompCall(signal_re, signal_im, codes, prn, carrier_frequency,
                         sampling_frequency, carrier_phase, code_frequency,
                         code_phase, sample_shifts, code_length,
                         nominal_code_frequency, nominal_carrier_frequency,
-                        max_chips_per_sample, code_tiles, z_dtype=z_dtype)
+                        max_chips_per_sample, code_tiles, z_dtype=z_dtype,
+                        channels=channels, block_index=block_index)
     if bank.device.type == "cpu":
         return bank.finish(*_bank_comp_plain(bank))
     if bank.device.type != "cuda":
@@ -170,6 +178,7 @@ def launch_bank_comp(bank: BankCompCall) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"the bank_comp kernel takes CUDA tensors, not {bank.device}")
     _check_kernel_inputs(bank, kernel="bank_comp")
     lib = _build.load_library("bank_comp")
+    source = bank.source()
     num_ctiles = -(-(bank.num_samples + bank.span) // COMP_TILE)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
 
@@ -186,7 +195,7 @@ def launch_bank_comp(bank: BankCompCall) -> tuple[torch.Tensor, torch.Tensor]:
         row = 4 * a0 * bank.num_samples                  # bytes to antenna a0's plane
         err = lib.bank_comp_launch(
             bank.sre.data_ptr() + row, bank.sim.data_ptr() + row, bank.code_tiles.data_ptr(),
-            bank.params.data_ptr(), bank.base.data_ptr(),
+            ctypes.addressof(source), bank.base.data_ptr(),
             _deltas(deltas, bank.device).data_ptr(), partial.data_ptr(), out_re.data_ptr(),
             out_im.data_ptr(), a1 - a0, len(deltas), bank.num_samples, bank.num_k,
             bank.code_length, TILE, bank.span, int(bank.bf16),

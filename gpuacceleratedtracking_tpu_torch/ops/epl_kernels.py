@@ -46,7 +46,18 @@ both round alike, bit for bit.
 
 The code tables of all bank routes are packed, one bit per chip
 (`prepare_bank_code_tiles_rows`), and checked to hold only +/-1 chips when
-they are prepared.
+they are prepared; `pack_code_tiles` packs them in one launch of
+``csrc/code_tiles.cu`` on the card, the tracking loops' prologue.
+
+Besides the registry signature, every bank wrapper takes the two forms a
+tracking loop's block body uses, so that on the card no torch op runs
+between the loop's carry and the launch: ``channels=`` (a `BankChannels`,
+the tracking state's leaves and the config's nominal rates, from which the
+kernels derive each channel's parameters with `_channel_params`' roundings)
+in place of the four channel parameters, and ``block_index=`` (an int64 0-d
+tensor) with a ``[chunk, (A,) N]`` signal, whose row ``block_index`` the
+kernels read at the index on the device. The plain versions evaluate the
+same expressions in torch ops, and select the row by `index_select`.
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ import ctypes
 import functools
 import math
 import warnings
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -207,6 +218,60 @@ def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torc
     return torch.index_select(_pack_bits(codes.T), 0, prn)
 
 
+def pack_code_tiles_plain(codes: torch.Tensor, prn, pilot_codes=None) -> torch.Tensor:
+    """The plain PyTorch version of `pack_code_tiles`, on any device."""
+    tiles = prepare_bank_code_tiles_rows(codes, prn)
+    if pilot_codes is None:
+        return tiles
+    return torch.cat([tiles, prepare_bank_code_tiles_rows(pilot_codes, prn)])
+
+
+def pack_code_tiles(codes: torch.Tensor, prn, pilot_codes=None) -> torch.Tensor:
+    """`prepare_bank_code_tiles_rows`' words of the ``[K]`` PRNs ``prn`` in
+    the ``[Lc, P]`` table ``codes``; with ``pilot_codes`` (the GPS L5 dual
+    bank's ``[Lc, P']`` pilot table) ``[2K, words]``, the data channels'
+    words, then the pilot channels': those of the joined table and PRNs
+    (``torch.cat([codes, pilot_codes], 1)``, ``torch.cat([prn, prn + P])``),
+    without either join.
+
+    CPU tensors run `pack_code_tiles_plain`, which raises `ValueError` on a
+    chip other than +/-1. CUDA tensors launch ``csrc/code_tiles.cu`` once
+    and add one to ``pack_code_tiles.launches``, or raise; there such a chip
+    fails a device-side assert, and nothing is read on the host.
+    """
+    device = codes.device
+    if device.type == "cpu":
+        return pack_code_tiles_plain(codes, prn, pilot_codes)
+    if device.type != "cuda":
+        raise ValueError(f"pack_code_tiles runs on CPU or CUDA tensors, not {device}")
+    prn = torch.as_tensor(prn, device=device).reshape(-1)
+    if prn.dtype not in (torch.int32, torch.int64):
+        prn = prn.long()
+    tables = (codes,) if pilot_codes is None else (codes, pilot_codes)
+    for name, table in zip(("codes", "pilot_codes"), tables):
+        if table.device != device or table.dtype != torch.float32 or table.ndim != 2 \
+                or not table.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [Lc, P] f32 table on {device}")
+    code_length = codes.shape[0]
+    if pilot_codes is not None and pilot_codes.shape[0] != code_length:
+        raise ValueError(f"the pilot table's {pilot_codes.shape[0]} chips != {code_length}")
+    if prn.numel() == 0 or prn.numel() * len(tables) * -(-code_length // 32) >= 1 << 31:
+        raise ValueError(f"pack_code_tiles takes 1 to 2^31 words, got {prn.numel()} PRNs")
+    num_k = prn.numel() * len(tables)
+    out = torch.empty((num_k, -(-code_length // 32)), dtype=torch.int32, device=device)
+    err = _build.load_library("code_tiles").code_tiles_launch(
+        codes.data_ptr(), tables[-1].data_ptr(), prn.data_ptr(), out.data_ptr(),
+        int(prn.dtype == torch.int64), prn.numel(), num_k, code_length, codes.shape[1],
+        tables[-1].shape[1], torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"code_tiles_launch failed with CUDA error {err}")
+    pack_code_tiles.launches += 1
+    return out
+
+
+pack_code_tiles.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
 def _tile_base(num_tiles: int, tile: int, fcar_nom_cyc: float, rho_nom: float,
                code_length: int, device: torch.device) -> torch.Tensor:
@@ -292,23 +357,67 @@ def _channel_params(carrier_frequency, sampling_frequency, carrier_phase,
     ).contiguous()
 
 
+class BankChannels(NamedTuple):
+    """A bank call's channels as a tracking state holds them: the state form
+    of the registry signature's ``carrier_frequency``, ``carrier_phase``,
+    ``code_frequency`` and ``code_phase``. Channel ``k`` of a ``K``-channel
+    call takes ``intermediate_frequency + carrier_doppler[k mod K0]`` (the
+    f32 add of the f32 nominal rate), ``carrier_phase[k mod K0]``,
+    ``code_frequency + code_doppler[k mod K0]`` and ``code_phase[k mod
+    K0]``, ``K0`` being the leaves' length: the dual bank's data and pilot
+    channels read one state. Leaves: ``[K0]`` contiguous f32 tensors on the
+    signal's device, which the kernels read where they lie (in a capture,
+    the entry's carry)."""
+
+    intermediate_frequency: float
+    carrier_doppler: torch.Tensor
+    carrier_phase: torch.Tensor
+    code_frequency: float
+    code_doppler: torch.Tensor
+    code_phase: torch.Tensor
+
+
+class _Source(ctypes.Structure):
+    """csrc/bank.cuh's ``bank::Source``: where a launch reads its block and
+    its channels' parameters."""
+
+    _fields_ = [("params", ctypes.c_void_p), ("carrier_doppler", ctypes.c_void_p),
+                ("carrier_phase", ctypes.c_void_p), ("code_doppler", ctypes.c_void_p),
+                ("code_phase", ctypes.c_void_p), ("block_index", ctypes.c_void_p),
+                ("block_stride", ctypes.c_longlong), ("inv_fs", ctypes.c_double),
+                ("intermediate_frequency", ctypes.c_float), ("code_frequency", ctypes.c_float),
+                ("inv_two_pi", ctypes.c_float), ("d_min", ctypes.c_float),
+                ("modulus", ctypes.c_int)]
+
+
+# What `x / _TWO_PI_F32` multiplies an f32 tensor by on the card: the double
+# reciprocal rounded to f32 (ops/loop_kernel._recip).
+_INV_TWO_PI_F32 = float(np.float32(1.0 / _TWO_PI_F32))
+
+
 class BankRowsCall:
     """Everything a bank kernel and its plain version take, computed once per
-    call from the registry signature's arguments.
+    call from the registry signature's arguments, or from its state form
+    (``channels``, a `BankChannels`) and index form (``block_index``).
 
     ``route`` names the wrapper the call is for, ``pallas_bank_rows``,
     ``pallas_bank``, ``pallas_bank_onehot`` (no envelope) or
     ``pallas_bank_comp``: it picks the envelope that is enforced and the
     launch count that a launch adds to. The composite route
     evaluates its phases over ``N + span`` samples (`bank_comp`), so its tile
-    base covers those.
+    base covers those. In the state form the channel parameters' positional
+    arguments are ignored, the channel count is ``code_tiles``' (or the
+    PRNs'), and ``params`` is computed only where a plain version asks for
+    it. In the index form the signal is ``[chunk, (A,) N]`` and the block is
+    its row ``block_index`` (an int64 0-d tensor on its device).
     """
 
     def __init__(self, signal_re, signal_im, codes, prn, carrier_frequency,
                  sampling_frequency, carrier_phase, code_frequency, code_phase,
                  sample_shifts, code_length, nominal_code_frequency=None,
                  nominal_carrier_frequency=0.0, max_chips_per_sample=None,
-                 code_tiles=None, route="pallas_bank_rows"):
+                 code_tiles=None, route="pallas_bank_rows", channels=None,
+                 block_index=None):
         fs = float(sampling_frequency)
         span = int(max(sample_shifts)) - int(min(sample_shifts))
         if route == "pallas_bank":
@@ -320,22 +429,28 @@ class BankRowsCall:
             raise ValueError(f"unknown bank route {route!r}")
         self.route = route
         self.span = span
-        self.squeeze = signal_re.ndim == 1
+        self.fs = fs
+        self.block_index = block_index
+        self.squeeze = signal_re.ndim == (1 if block_index is None else 2)
         if self.squeeze:
-            signal_re, signal_im = signal_re[None], signal_im[None]
-        self.sre, self.sim = signal_re, signal_im
+            signal_re, signal_im = signal_re.unsqueeze(-2), signal_im.unsqueeze(-2)
+        self.sre, self.sim = signal_re, signal_im       # [A, N], or the chunk [chunk, A, N]
         self.device = signal_re.device
-        self.num_ants, self.num_samples = signal_re.shape
-        d_min = int(min(sample_shifts))
-        self.deltas = tuple(int(d) - d_min for d in sample_shifts)
+        self.num_ants, self.num_samples = signal_re.shape[-2:]
+        self.d_min = int(min(sample_shifts))
+        self.deltas = tuple(int(d) - self.d_min for d in sample_shifts)
         self.code_length = int(code_length)
         prn = torch.as_tensor(prn, device=self.device)
         self.code_tiles = (prepare_bank_code_tiles_rows(codes, prn)
                            if code_tiles is None else code_tiles)
-        self.params = _channel_params(carrier_frequency, fs, carrier_phase,
-                                     code_frequency, code_phase, d_min,
-                                     self.device)
-        self.num_k = self.params.shape[0]
+        self.channels = channels
+        if channels is None:
+            self.params = _channel_params(carrier_frequency, fs, carrier_phase,
+                                         code_frequency, code_phase, self.d_min,
+                                         self.device)
+            self.num_k = self.params.shape[0]
+        else:
+            self.num_k = self.code_tiles.shape[0]
         phase_samples = self.num_samples + (span if route == "pallas_bank_comp" else 0)
         self.num_tiles = -(-phase_samples // TILE)
         self.rho_nom = (float(nominal_code_frequency) / fs
@@ -343,6 +458,48 @@ class BankRowsCall:
         self.fcar_nom_cyc = float(nominal_carrier_frequency) / fs
         self.base = _tile_base(self.num_tiles, TILE, self.fcar_nom_cyc,
                                self.rho_nom, self.code_length, self.device)
+
+    @functools.cached_property
+    def params(self) -> torch.Tensor:
+        """``[K, 4]`` `_channel_params` of the state form's expressions (the
+        registry signature's call sets its own in ``__init__``)."""
+        ch = self.channels
+        params = _channel_params(ch.intermediate_frequency + ch.carrier_doppler, self.fs,
+                                 ch.carrier_phase, ch.code_frequency + ch.code_doppler,
+                                 ch.code_phase, self.d_min, self.device)
+        return params.repeat(self.num_k // params.shape[0], 1)
+
+    def planes(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The block's ``[A, N]`` planes; in the index form the chunk's row
+        at ``block_index``, by `index_select` (the plain versions' read)."""
+        if self.block_index is None:
+            return self.sre, self.sim
+        index = self.block_index.view(1)
+        return tuple(torch.index_select(x, 0, index)[0] for x in (self.sre, self.sim))
+
+    def source(self) -> _Source:
+        """The kernels' `_Source`: the block's row in the chunk, the
+        parameter table or the state leaves and the constants that the
+        kernels derive each channel's parameters with."""
+        src = _Source()
+        if self.block_index is not None:
+            src.block_index = self.block_index.data_ptr()
+            src.block_stride = self.num_ants * self.num_samples
+        ch = self.channels
+        if ch is None:
+            src.params = self.params.data_ptr()
+            return src
+        src.carrier_doppler = ch.carrier_doppler.data_ptr()
+        src.carrier_phase = ch.carrier_phase.data_ptr()
+        src.code_doppler = ch.code_doppler.data_ptr()
+        src.code_phase = ch.code_phase.data_ptr()
+        src.inv_fs = 1.0 / self.fs
+        src.intermediate_frequency = ch.intermediate_frequency
+        src.code_frequency = ch.code_frequency
+        src.inv_two_pi = _INV_TWO_PI_F32
+        src.d_min = float(self.d_min)
+        src.modulus = ch.carrier_doppler.shape[0]
+        return src
 
     def finish(self, acc_re, acc_im):
         if self.squeeze:
@@ -402,8 +559,9 @@ def _bank_rows_plain(bank: BankRowsCall) -> tuple[torch.Tensor, torch.Tensor]:
     chips per tile, which tap l reads at offset ``delta_l``."""
     dev, tile, nt, span = bank.device, TILE, bank.num_tiles, bank.span
     pad = nt * tile - bank.num_samples
-    s_re = torch.nn.functional.pad(bank.sre, (0, pad)).view(bank.num_ants, nt, tile)
-    s_im = torch.nn.functional.pad(bank.sim, (0, pad)).view(bank.num_ants, nt, tile)
+    sre, sim = bank.planes()
+    s_re = torch.nn.functional.pad(sre, (0, pad)).view(bank.num_ants, nt, tile)
+    s_im = torch.nn.functional.pad(sim, (0, pad)).view(bank.num_ants, nt, tile)
     num_taps = len(bank.deltas)
     out_re = torch.empty(bank.num_k, bank.num_ants, num_taps, dtype=torch.float32, device=dev)
     out_im = torch.empty_like(out_re)
@@ -435,8 +593,22 @@ def _check_kernel_inputs(bank: BankRowsCall, kernel: str = "bank_rows") -> None:
             "pass prepare_bank_code_tiles_rows output"
         )
     tensors = {"signal_re": (bank.sre, torch.float32), "signal_im": (bank.sim, torch.float32),
-               "code_tiles": (bank.code_tiles, torch.int32),
-               "params": (bank.params, torch.float32)}
+               "code_tiles": (bank.code_tiles, torch.int32)}
+    if bank.channels is None:
+        tensors["params"] = (bank.params, torch.float32)
+    else:
+        leaves = {name: getattr(bank.channels, name) for name in
+                  ("carrier_doppler", "carrier_phase", "code_doppler", "code_phase")}
+        tensors.update((name, (x, torch.float32)) for name, x in leaves.items())
+        shapes = {tuple(x.shape) for x in leaves.values()}
+        num_k0 = next(iter(shapes))
+        if len(shapes) != 1 or len(num_k0) != 1 or num_k0[0] == 0 or bank.num_k % num_k0[0]:
+            raise ValueError(f"the state form's leaves are [K0] with K0 dividing "
+                             f"K={bank.num_k}, got shapes {sorted(shapes)}")
+    if bank.block_index is not None:
+        tensors["block_index"] = (bank.block_index, torch.int64)
+        if bank.block_index.ndim != 0:
+            raise ValueError("block_index is an int64 0-d tensor")
     for name, (t, dtype) in tensors.items():
         if t.device != bank.device:
             raise ValueError(f"{name} is on {t.device}, the signal on {bank.device}")
@@ -460,6 +632,7 @@ def correlate_bank_rows_reference(
     carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
     nominal_code_frequency=None, nominal_carrier_frequency=0.0,
     max_chips_per_sample=None, code_tiles=None, route="pallas_bank_rows",
+    channels=None, block_index=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of `correlate_pallas_bank_rows`, on any device.
 
@@ -472,7 +645,7 @@ def correlate_bank_rows_reference(
                         sampling_frequency, carrier_phase, code_frequency,
                         code_phase, sample_shifts, code_length,
                         nominal_code_frequency, nominal_carrier_frequency,
-                        max_chips_per_sample, code_tiles, route)
+                        max_chips_per_sample, code_tiles, route, channels, block_index)
     return bank.finish(*_bank_rows_plain(bank))
 
 
@@ -492,18 +665,23 @@ def correlate_pallas_bank_rows(
     nominal_carrier_frequency: float = 0.0,
     max_chips_per_sample: float | None = None,
     code_tiles: torch.Tensor | None = None,
+    channels: BankChannels | None = None,
+    block_index: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K-channel EPL bank against one shared ``[N]`` / ``[A, N]`` block.
 
     Returns ``[K, L]`` / ``[K, A, L]`` f32 accumulators. CPU tensors run the
     plain version; CUDA tensors launch ``csrc/bank_rows.cu`` or raise.
     ``code_tiles``: `prepare_bank_code_tiles_rows` output, hoisted by loops.
+    ``channels`` (the state form, a `BankChannels`) replaces the four channel
+    parameters, which may then be None; with ``block_index`` the signal is
+    ``[chunk, (A,) N]`` and the block its row at that index (see the module).
     """
     return _run_bank_rows(BankRowsCall(
         signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
         carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
         nominal_code_frequency, nominal_carrier_frequency, max_chips_per_sample,
-        code_tiles, route="pallas_bank_rows"))
+        code_tiles, "pallas_bank_rows", channels, block_index))
 
 
 def _run_bank_rows(bank: BankRowsCall) -> tuple[torch.Tensor, torch.Tensor]:
@@ -531,6 +709,7 @@ def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"the bank_rows kernel does not serve route {bank.route!r}")
     _check_kernel_inputs(bank)
     lib = _build.load_library("bank_rows")
+    source = bank.source()
     num_ctiles = -(-bank.num_samples // ROWS_TILE)     # partials: at most one per tile
     stream = torch.cuda.current_stream(bank.device).cuda_stream
 
@@ -546,7 +725,7 @@ def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
         row = 4 * a0 * bank.num_samples                  # bytes to antenna a0's plane
         err = lib.bank_rows_launch(
             bank.sre.data_ptr() + row, bank.sim.data_ptr() + row, bank.code_tiles.data_ptr(),
-            bank.params.data_ptr(), bank.base.data_ptr(),
+            ctypes.addressof(source), bank.base.data_ptr(),
             _deltas(deltas, bank.device).data_ptr(), partial.data_ptr(), out_re.data_ptr(),
             out_im.data_ptr(), a1 - a0, len(deltas), bank.num_samples, bank.num_k,
             bank.code_length, TILE, bank.span, ctypes.c_float(bank.rho_nom),
@@ -579,6 +758,8 @@ def correlate_pallas_bank(
     nominal_carrier_frequency: float = 0.0,
     max_chips_per_sample: float | None = None,
     code_tiles: torch.Tensor | None = None,
+    channels: BankChannels | None = None,
+    block_index: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K-channel EPL bank in the transition kernel's regime (< 1 chip/sample).
 
@@ -586,13 +767,14 @@ def correlate_pallas_bank(
     < 128 samples and < 1 chip per sample, else `ValueError`. CPU tensors run
     the plain version; CUDA tensors launch ``csrc/bank_rows.cu`` (whose
     per-sample chip lookup covers any chip rate below one per sample) and add
-    one to ``correlate_pallas_bank.launches``, or raise.
+    one to ``correlate_pallas_bank.launches``, or raise. ``channels`` and
+    ``block_index``: as in `correlate_pallas_bank_rows`.
     """
     return _run_bank_rows(BankRowsCall(
         signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
         carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
         nominal_code_frequency, nominal_carrier_frequency, max_chips_per_sample,
-        code_tiles, route="pallas_bank"))
+        code_tiles, "pallas_bank", channels, block_index))
 
 
 correlate_pallas_bank.launches = 0
@@ -611,6 +793,8 @@ def correlate_pallas_bank_onehot(
     sample_shifts: Sequence[int],
     code_length: int,
     code_tiles: torch.Tensor | None = None,
+    channels: BankChannels | None = None,
+    block_index: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K-channel EPL bank with a per-sample chip lookup, at any tap span and
     chip rate.
@@ -620,12 +804,14 @@ def correlate_pallas_bank_onehot(
     block start. CPU tensors run the plain version; CUDA tensors launch
     ``csrc/bank_rows.cu`` (whose shared-memory lookup is the one-hot gather's
     counterpart) and add one to ``correlate_pallas_bank_onehot.launches``, or
-    raise. ``code_tiles``: `prepare_bank_code_tiles_rows` output.
+    raise. ``code_tiles``: `prepare_bank_code_tiles_rows` output;
+    ``channels`` and ``block_index``: as in `correlate_pallas_bank_rows`.
     """
     return _run_bank_rows(BankRowsCall(
         signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
         carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
-        code_tiles=code_tiles, route="pallas_bank_onehot"))
+        code_tiles=code_tiles, route="pallas_bank_onehot", channels=channels,
+        block_index=block_index))
 
 
 correlate_pallas_bank_onehot.launches = 0
@@ -655,17 +841,21 @@ def correlate_pallas_bank_auto(
     max_chips_per_sample: float | None = None,
     code_tiles: torch.Tensor | None = None,
     z_dtype=torch.float32,
+    channels: BankChannels | None = None,
+    block_index: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bank correlator with per-scenario kernel selection (`bank_algorithm_for`).
 
     ``z_dtype`` (``torch.bfloat16`` or ``"bf16"``) asks for the composite
     kernel's bf16 planes; where the scenario resolves to another kernel, that
-    is said with a `UserWarning` and the bank runs in f32.
+    is said with a `UserWarning` and the bank runs in f32. ``channels`` and
+    ``block_index``: as in `correlate_pallas_bank_rows`.
     """
+    block_ndim = signal_re.ndim - (block_index is not None)
     algo = bank_algorithm_for(
         signal_re.shape[-1], float(sampling_frequency), code_length,
         nominal_code_frequency, max_chips_per_sample,
-        num_ants=signal_re.shape[0] if signal_re.ndim == 2 else 1,
+        num_ants=signal_re.shape[-2] if block_ndim == 2 else 1,
         z_dtype=z_dtype,
     )
     extra = {}
@@ -688,7 +878,7 @@ def correlate_pallas_bank_auto(
         nominal_code_frequency=nominal_code_frequency,
         nominal_carrier_frequency=nominal_carrier_frequency,
         max_chips_per_sample=max_chips_per_sample, code_tiles=code_tiles,
-        **extra,
+        channels=channels, block_index=block_index, **extra,
     )
 
 

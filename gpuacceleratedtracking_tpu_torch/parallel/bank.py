@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from ..ops.epl_kernels import BankChannels
 from ..tracking import graphs
 from ..tracking.state import _NESTED, TrackConfig, TrackOutput, TrackState
 from ..tracking.track import _bank_code_tile_kwargs, bank_correlator, loop_update
@@ -89,18 +90,28 @@ def _mesh_step(config, corr, kwargs, advance, grid, pieces: list, shards: list):
                 codes, code_tiles = shard_consts[t]
                 sre, sim = block[where[dev, t]]
                 with on_device(dev):
-                    f_car = (config.intermediate_frequency
-                             + st.carrier_doppler.to(dev, non_blocking=True))
-                    f_code = config.code_frequency + st.code_doppler.to(dev, non_blocking=True)
+                    car_dop = st.carrier_doppler.to(dev, non_blocking=True)
+                    code_dop = st.code_doppler.to(dev, non_blocking=True)
+                    f_car = config.intermediate_frequency + car_dop
+                    f_code = config.code_frequency + code_dop
                     phi_car, phi_code = advance(
                         st.carrier_phase.to(dev, non_blocking=True),
                         st.code_phase.to(dev, non_blocking=True), f_car, f_code, t)
-                    tiles = {} if code_tiles is None else {"code_tiles": code_tiles}
-                    are, aim = corr(
-                        sre, sim, codes, st.prn.to(dev, non_blocking=True), f_car,
-                        config.sampling_frequency, phi_car, f_code, phi_code,
-                        config.sample_shifts, config.code_length, **kwargs, **tiles,
-                    )
+                    prn = st.prn.to(dev, non_blocking=True)
+                    if code_tiles is None:
+                        are, aim = corr(
+                            sre, sim, codes, prn, f_car, config.sampling_frequency, phi_car,
+                            f_code, phi_code, config.sample_shifts, config.code_length,
+                            **kwargs)
+                    else:
+                        # A bank kernel derives the parameters from the
+                        # Dopplers and this shard's phases (the state form).
+                        are, aim = corr(
+                            sre, sim, codes, prn, None, config.sampling_frequency, None, None,
+                            None, config.sample_shifts, config.code_length, **kwargs,
+                            code_tiles=code_tiles, channels=BankChannels(
+                                config.intermediate_frequency, car_dop, phi_car,
+                                config.code_frequency, code_dop, phi_code))
                 parts_re.append(are)
                 parts_im.append(aim)
             with on_device(lead):

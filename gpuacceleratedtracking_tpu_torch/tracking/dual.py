@@ -30,7 +30,8 @@ from ..models import gpsl5
 from ..ops import loop_kernel
 from . import graphs
 from .state import TrackConfig, TrackOutput, TrackState
-from .track import _bank_code_tile_kwargs, _overlay_table, bank_correlator, loop_update_plain
+from .track import (_bank_code_tile_kwargs, _overlay_table, _takes_tiles, bank_correlate,
+                    bank_correlator, loop_update_plain)
 
 
 class DualTrackOutput(NamedTuple):
@@ -111,43 +112,54 @@ def dual_parts(config: TrackConfig, codes_data, codes_pilot, device: torch.devic
     the 2K-channel bank once and hands its accumulators to `dual_update` (in
     a capture, with the entry's `graphs.Sink`); ``consts`` are ``(codes_data,
     codes_pilot, data overlay, pilot overlay)``; ``prepare(states, consts)``
-    returns the constants ``step`` takes, ``(codes, prn2, code_tiles, data
-    overlay, pilot overlay)``: the joined ``[Lc, 2P]`` table, the 2K
-    channels' PRNs (data, then pilot) and the bank kernels' code tiles,
-    derived once per call (`graphs.scan`: on the card, inside the captured
-    program)."""
+    returns the constants ``step`` takes, ``(codes, prn, code_tiles, data
+    overlay, pilot overlay)``, derived once per call (`graphs.scan`: on the
+    card, inside the captured program). For a bank kernel: the data table,
+    the K PRNs and the 2K channels' code tiles (data, then pilot) packed
+    from both tables in one launch, and the kernel derives channel k's
+    parameters from state k mod K and reads the block at the entry's index
+    (`graphs.Chunk`): nothing is joined. For any other correlator: the
+    joined ``[Lc, 2P]`` table, the 2K channels' PRNs and no tiles, and the
+    channel parameters joined per block."""
     if config.secondary_code:
         raise ValueError("use dual_config(): overlay wipe-off is per-component here")
     sd = _overlay(data_secondary, gpsl5.neuman_hofman(False), device)
     sp = _overlay(pilot_secondary, gpsl5.neuman_hofman(True), device)
     corr, kwargs = bank_correlator(config)    # per-channel kernels: 2K launches per block
+    tiles = _takes_tiles(config)
 
     def prepare(states, consts):
         codes_data, codes_pilot, sd, sp = consts
+        if tiles:
+            code_tiles = _bank_code_tile_kwargs(config, codes_data, states.prn,
+                                                codes_pilot)["code_tiles"]
+            return codes_data, states.prn, code_tiles, sd, sp
         codes = torch.cat([codes_data, codes_pilot], dim=1)
         prn2 = torch.cat([states.prn, states.prn + codes_data.shape[1]])
-        code_tiles = _bank_code_tile_kwargs(config, codes, prn2).get("code_tiles")
-        return codes, prn2, code_tiles, sd, sp
+        return codes, prn2, None, sd, sp
 
     def dup(x):
         return torch.cat([x, x])
 
     @graphs.writes_outputs
     def step(states, consts, block, sink=None):
-        codes, prn2, code_tiles, sd, sp = consts
-        tiles = {} if code_tiles is None else {"code_tiles": code_tiles}
-        are, aim = corr(
-            block[0], block[1], codes, prn2,
-            dup(config.intermediate_frequency + states.carrier_doppler),
-            config.sampling_frequency, dup(states.carrier_phase),
-            dup(config.code_frequency + states.code_doppler), dup(states.code_phase),
-            config.sample_shifts, config.code_length, **kwargs, **tiles,
-        )
+        codes, prn, code_tiles, sd, sp = consts
+        if tiles:
+            are, aim = bank_correlate(config, corr, kwargs, states, codes, prn, code_tiles,
+                                      block)
+        else:
+            are, aim = corr(
+                block[0], block[1], codes, prn,
+                dup(config.intermediate_frequency + states.carrier_doppler),
+                config.sampling_frequency, dup(states.carrier_phase),
+                dup(config.code_frequency + states.code_doppler), dup(states.code_phase),
+                config.sample_shifts, config.code_length, **kwargs,
+            )
         return dual_update(config, states, are, aim, sd, sp, sink)
 
     consts = (torch.as_tensor(codes_data, device=device),
               torch.as_tensor(codes_pilot, device=device), sd, sp)
-    return step, consts, prepare
+    return (graphs.reads_chunk(step) if tiles else step), consts, prepare
 
 
 def track_bank_dual(

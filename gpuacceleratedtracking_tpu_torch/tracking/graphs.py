@@ -35,6 +35,13 @@ entry's with B rows. Views aside, the ops a call dispatches do not grow
 with the number of leaves. The body writes the outputs' rows at the index
 before it writes the new carry over the old one and adds one to the index.
 
+A body marked with `reads_chunk` takes its block, in the captured path, as
+a `Chunk`: the entry's ``[chunk, ...]`` buffer of each scanned input and the
+index, so that its kernels read the block's row at the index on the device
+(the bank kernels do) where the body would otherwise select it by two
+``index_select`` ops per block; the eager loop passes it the block's tensors,
+as to any body.
+
 A body marked with `writes_outputs` takes a fourth argument, a `Sink`: the
 entry's stacked outputs and the index. It may write its outputs' rows and
 the new carry itself (the loop-closure kernel does, where `lax.scan`'s
@@ -258,6 +265,30 @@ def writes_outputs(step):
     return step
 
 
+# --- The chunk: a captured body's block, read at the index on the device.
+
+class Chunk(NamedTuple):
+    """A block as a captured body marked `reads_chunk` gets it: ``xs``, the
+    entry's ``[chunk, ...]`` buffer of each scanned input, and ``index``,
+    the block's row, an int64 0-d tensor on their device (the `Sink`'s)."""
+
+    xs: tuple
+    index: torch.Tensor
+
+    def block(self) -> tuple:
+        """The block's tensors, selected by `index_select` (what the entry
+        does for a body without the mark)."""
+        index = self.index.view(1)
+        return tuple(torch.index_select(x, 0, index)[0] for x in self.xs)
+
+
+def reads_chunk(step):
+    """Mark ``step`` as a body that takes its block as a `Chunk` in the
+    captured path (a tuple of the block's tensors in the eager loop)."""
+    step.takes_chunk = True
+    return step
+
+
 def check_sink(sink: Sink, leaves: list, device: torch.device) -> int:
     """Raise unless ``sink`` takes one block of outputs of the ``(shape,
     dtype)`` pairs ``leaves`` on ``device``: a contiguous ``[chunk, *shape]``
@@ -325,8 +356,8 @@ def _counters() -> tuple:
     return (epl_kernels.correlate_pallas_bank_rows, epl_kernels.correlate_pallas_bank,
             epl_kernels.correlate_pallas_bank_onehot, bank_comp.correlate_pallas_bank_comp,
             channel_kernels.correlate_pallas_taps, channel_kernels.correlate_pallas_fused,
-            replica_kernel.code_replica, loop_kernel.dual_update_kernel,
-            loop_kernel.loop_update_kernel)
+            epl_kernels.pack_code_tiles, replica_kernel.code_replica,
+            loop_kernel.dual_update_kernel, loop_kernel.loop_update_kernel)
 
 
 def _counts() -> list:
@@ -513,9 +544,11 @@ class _Entry:
     def _load_chunk(self, xs, b0: int, num: int) -> None:
         _copy(self._head(num)[1], [x[b0:b0 + num] for x in xs])
 
-    def _block(self) -> tuple:
-        index = self.index.view(1)
-        return tuple(torch.index_select(x, 0, index)[0] for x in self.xs)
+    def _block(self, step):
+        """What ``step`` takes as its block: the `Chunk` where it is marked
+        `reads_chunk`, else the block's tensors."""
+        chunk = Chunk(tuple(self.xs), self.index)
+        return chunk if getattr(step, "takes_chunk", False) else chunk.block()
 
     def _warm_up(self, step, prepare, carry):
         """One eager block on a side stream, to build what is built on first
@@ -527,7 +560,7 @@ class _Entry:
             side.wait_stream(compute)
         with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
             prepared = self.consts if prepare is None else prepare(carry, self.consts)
-            _, out = step(carry, prepared, self._block())
+            _, out = step(carry, prepared, self._block(step))
             _tensors(out)
         if side is not None:
             compute.wait_stream(side)
@@ -555,8 +588,9 @@ class _Entry:
         sink = Sink(tuple(self.outs), self.index) if getattr(step, "takes_sink", False) else None
 
         def body():
-            new_carry, out = (step(self.carry, self.prepared, self._block()) if sink is None
-                              else step(self.carry, self.prepared, self._block(), sink))
+            block = self._block(step)
+            new_carry, out = (step(self.carry, self.prepared, block) if sink is None
+                              else step(self.carry, self.prepared, block, sink))
             leaves = _leaves(out)
             if len(leaves) != len(self.outs):
                 raise ValueError(f"the scan body returned {len(leaves)} output leaves, "

@@ -60,15 +60,23 @@ def _bank_kernel_kwargs(config: TrackConfig) -> dict:
     return kwargs
 
 
-def _bank_code_tile_kwargs(config: TrackConfig, codes: torch.Tensor,
-                           prn: torch.Tensor) -> dict:
-    """The per-channel code columns of a bank kernel, gathered once per run:
-    PRNs are loop constants. All four bank routes take the same table."""
-    if config.algorithm not in _BANK_KERNELS + ("pallas_bank_onehot",):
-        return {}
-    from ..ops.epl_kernels import prepare_bank_code_tiles_rows
+def _takes_tiles(config: TrackConfig) -> bool:
+    """Whether ``config.algorithm`` is a bank kernel: it takes packed code
+    tiles, the state form and the block at a device index (`bank_step`)."""
+    return config.algorithm in _BANK_KERNELS + ("pallas_bank_onehot",)
 
-    return {"code_tiles": prepare_bank_code_tiles_rows(codes, prn)}
+
+def _bank_code_tile_kwargs(config: TrackConfig, codes: torch.Tensor,
+                           prn: torch.Tensor, pilot_codes=None) -> dict:
+    """The per-channel code columns of a bank kernel, gathered once per run:
+    PRNs are loop constants. All four bank routes take the same table; with
+    ``pilot_codes``, the dual bank's data channels' then pilot channels'
+    (`ops.epl_kernels.pack_code_tiles`: one launch on the card)."""
+    if not _takes_tiles(config):
+        return {}
+    from ..ops.epl_kernels import pack_code_tiles
+
+    return {"code_tiles": pack_code_tiles(codes, prn, pilot_codes)}
 
 
 def track_step(
@@ -357,25 +365,46 @@ def bank_prepare(config: TrackConfig):
     return prepare
 
 
+def bank_correlate(config: TrackConfig, corr, kwargs: dict, states: TrackState, codes, prn,
+                   code_tiles, block):
+    """One block of the bank correlator ``corr`` for the channels of
+    ``states`` (PRNs ``prn``): a bank kernel (``code_tiles`` given) takes
+    the state form and, where ``block`` is a `graphs.Chunk`, reads the
+    block at its index on the device, so no torch op runs before its
+    launch; any other correlator takes the channel parameters as
+    `track_step` passes them."""
+    if code_tiles is not None:
+        from ..ops.epl_kernels import BankChannels
+
+        signal, index = ((block.xs, block.index) if isinstance(block, graphs.Chunk)
+                         else (block, None))
+        channels = BankChannels(config.intermediate_frequency, states.carrier_doppler,
+                                states.carrier_phase, config.code_frequency,
+                                states.code_doppler, states.code_phase)
+        return corr(signal[0], signal[1], codes, prn, None, config.sampling_frequency, None,
+                    None, None, config.sample_shifts, config.code_length, **kwargs,
+                    code_tiles=code_tiles, channels=channels, block_index=index)
+    return corr(block[0], block[1], codes, prn,
+                config.intermediate_frequency + states.carrier_doppler,
+                config.sampling_frequency, states.carrier_phase,
+                config.code_frequency + states.code_doppler, states.code_phase,
+                config.sample_shifts, config.code_length, **kwargs)
+
+
 def bank_step(config: TrackConfig, corr, kwargs: dict):
     """The block body of `track_bank`: ``step(states, (codes, code_tiles,
     ant_weights), (signal_re, signal_im))`` correlates the bank once and
     closes every channel's loop (``code_tiles`` None for an algorithm that
-    takes none); in a capture, into the entry's `graphs.Sink`."""
+    takes none); in a capture, into the entry's `graphs.Sink`, and for a
+    bank kernel reading the block at the entry's index (`graphs.Chunk`)."""
     @graphs.writes_outputs
     def step(states, consts, block, sink=None):
         codes, code_tiles, ant_weights = consts
-        tiles = {} if code_tiles is None else {"code_tiles": code_tiles}
-        accum_re, accum_im = corr(
-            block[0], block[1], codes, states.prn,
-            config.intermediate_frequency + states.carrier_doppler,
-            config.sampling_frequency, states.carrier_phase,
-            config.code_frequency + states.code_doppler, states.code_phase,
-            config.sample_shifts, config.code_length, **kwargs, **tiles,
-        )
+        accum_re, accum_im = bank_correlate(config, corr, kwargs, states, codes, states.prn,
+                                            code_tiles, block)
         return loop_update(config, states, accum_re, accum_im, ant_weights, sink)
 
-    return step
+    return graphs.reads_chunk(step) if _takes_tiles(config) else step
 
 
 def track_bank(

@@ -952,10 +952,12 @@ def test_track_bank_graph_equals_eager(cuda, name):
     launched = _graph_against_eager(
         lambda: track_bank(config, codes, states, sre, sim, ant_weights=weights))
     per_block = {"pallas_taps": k, "pallas_fused": k}.get(algorithm, 1)
-    # `graphs._counters()`: the six correlators, the replica, the dual loop, the loop.
-    *correlators, replicas, duals, loops = launched
+    # `graphs._counters()`: the six correlators, the code tiles' packing, the
+    # replica, the dual loop, the loop.
+    *correlators, packs, replicas, duals, loops = launched
     assert sum(correlators) == (0 if algorithm.endswith("_xla") or algorithm == "xla_bank"
                                 else per_block * 5)
+    assert packs == (1 if algorithm.startswith("pallas_bank") else 0)    # once per call
     assert replicas == (k * 5 if algorithm == "pallas_taps" else 0)
     assert duals == 0 and loops == 5
 
@@ -970,10 +972,10 @@ def test_track_graph_equals_eager_over_chunks(cuda):
     codes = torch.as_tensor(SYSTEM.codes, device=cuda)
     state = init_state(0, carrier_doppler=690.0, device=cuda)
     config = TrackConfig.for_system(SYSTEM, fs, n, algorithm="pallas_fused")
-    # `graphs._counters()`: the five correlators, fused, the replica, the
-    # dual loop, the loop.
+    # `graphs._counters()`: the five correlators, fused, the code tiles'
+    # packing, the replica, the dual loop, the loop.
     assert _graph_against_eager(lambda: track(config, codes, state, sre, sim)) == \
-        [0, 0, 0, 0, 0, blocks, 0, 0, blocks]
+        [0, 0, 0, 0, 0, blocks, 0, 0, 0, blocks]
 
 
 @pytest.mark.parametrize("algorithm", ["pallas_bank_auto", "pallas_fused"])
@@ -1564,6 +1566,264 @@ def test_track_benchmarks_record_peak_memory_in_a_fresh_process(cuda):
     """)
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=pathlib.Path(__file__).resolve().parents[1])
+
+
+# The state form and the device index (the block bodies of the bank kernels):
+# name -> (wrapper, N, fs, K0, A, sample shifts or None for EPL 3, extras)
+STATE_ROUTES = {
+    "rows": ("pallas_bank_rows", 32768, 32.768e6, 1024, None, None, {}),
+    "rows_d_min": ("pallas_bank_rows", 8192, 8.192e6, 64, None, (-7, -2, 3), {}),
+    "transition_l1": ("pallas_bank", 8192, 4.096e6, 64, None, None, {}),
+    "onehot": ("pallas_bank_onehot", 8192, 8.192e6, 64, None, (-160, 0, 170), {}),
+    "comp_a4_l7": ("pallas_bank_comp", 32768, 32.768e6, 1024, 4,
+                   (-21, -14, -7, 0, 7, 14, 21), {}),
+    "comp_bf16": ("pallas_bank_comp", 8192, 8.192e6, 64, 2, None, {"z_dtype": "bf16"}),
+    "auto_a8_l3": ("pallas_bank_auto", 8192, 8.192e6, 64, 8, None, {}),
+}
+
+
+def _state_route_case(cuda, name, modulus, blocks=3, seed=0):
+    from gpuacceleratedtracking_tpu_torch.ops.epl_kernels import BankChannels
+
+    wrapper, n, fs, k0, num_ants, shifts, extra = STATE_ROUTES[name]
+    shifts = shifts or tuple(int(s) for s in correlator_sample_shifts(
+        SYSTEM, EPLCorrelator(3), fs))
+    rng = np.random.default_rng(seed)
+    shape = (blocks, n) if num_ants is None else (blocks, num_ants, n)
+    t = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=cuda)  # noqa: E731
+    chunk_re = t(rng.standard_normal(shape).astype(np.float32))
+    chunk_im = t(rng.standard_normal(shape).astype(np.float32))
+    codes = t(SYSTEM.codes)
+    pilot = torch.roll(-codes, 11, 0).contiguous()
+    prn = t(rng.integers(0, 32, k0), torch.int32)
+    cd, cp = t(rng.uniform(-4000.0, 4000.0, k0)), t(rng.uniform(0.0, 2 * np.pi, k0))
+    kd, kp = t(rng.uniform(-2.0, 2.0, k0)), t(rng.uniform(0.0, SYSTEM.code_length, k0))
+    if modulus == 2:
+        tiles = epl_kernels.pack_code_tiles(codes, prn, pilot)
+        joined, prn_all = torch.cat([codes, pilot], 1), torch.cat([prn, prn + 32])
+    else:
+        tiles, joined, prn_all = epl_kernels.pack_code_tiles(codes, prn), codes, prn
+    kwargs = dict(extra, code_tiles=tiles)
+    if wrapper != "pallas_bank_onehot":
+        kwargs.update(nominal_code_frequency=SYSTEM.code_frequency,
+                      nominal_carrier_frequency=1500.0)
+    dup = lambda x: torch.cat([x] * modulus)  # noqa: E731
+    registry_args = (joined, prn_all, dup(1500.0 + cd), fs, dup(cp),
+                     dup(SYSTEM.code_frequency + kd), dup(kp), shifts, SYSTEM.code_length)
+    channels = BankChannels(1500.0, cd, cp, SYSTEM.code_frequency, kd, kp)
+    state_args = (codes, prn, None, fs, None, None, None, shifts, SYSTEM.code_length)
+    return (registry.get(wrapper), chunk_re, chunk_im, registry_args, state_args, channels,
+            kwargs)
+
+
+@pytest.mark.parametrize("modulus", [1, 2])
+@pytest.mark.parametrize("name", sorted(STATE_ROUTES))
+def test_kernels_in_the_state_form_at_the_device_index_equal_the_registry_call(cuda, name,
+                                                                                 modulus):
+    # The kernels derive the channels' parameters from the state leaves with
+    # the roundings torch gives the plain expressions on the card, and read
+    # the block at the index on the device: every accumulator bit for bit.
+    corr, chunk_re, chunk_im, registry_args, state_args, channels, kwargs = \
+        _state_route_case(cuda, name, modulus)
+    for b in range(chunk_re.shape[0]):
+        want = corr(chunk_re[b], chunk_im[b], *registry_args, **kwargs)
+        state = corr(chunk_re[b], chunk_im[b], *state_args, **kwargs, channels=channels)
+        index = torch.tensor(b, dtype=torch.int64, device=cuda)
+        chunk = corr(chunk_re, chunk_im, *state_args, **kwargs, channels=channels,
+                     block_index=index)
+        torch.cuda.synchronize()
+        _assert_bitwise(state, want)
+        _assert_bitwise(chunk, want)
+
+
+def _registry_bank_step(config, corr, kwargs):
+    """`track_bank`'s block body with the registry signature's expressions."""
+    from gpuacceleratedtracking_tpu_torch.tracking import loop_update
+
+    def step(states, consts, block):
+        codes, code_tiles, ant_weights = consts
+        accum_re, accum_im = corr(
+            block[0], block[1], codes, states.prn,
+            config.intermediate_frequency + states.carrier_doppler,
+            config.sampling_frequency, states.carrier_phase,
+            config.code_frequency + states.code_doppler, states.code_phase,
+            config.sample_shifts, config.code_length, **kwargs, code_tiles=code_tiles)
+        return loop_update(config, states, accum_re, accum_im, ant_weights)
+
+    return step
+
+
+@pytest.mark.parametrize("name", ["rows", "comp_f32", "comp_bf16", "transition", "onehot"])
+def test_closed_loop_at_the_device_index_equals_the_registry_expressions(cuda, name,
+                                                                         monkeypatch):
+    # 10 blocks in chunks of 4: the index is zeroed per chunk. The graph
+    # (state form, block at the index), the eager loop (state form) and the
+    # registry signature's expressions closed by the same loop kernel give
+    # one trajectory, bit for bit.
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+    from gpuacceleratedtracking_tpu_torch.tracking.track import bank_correlator
+
+    algorithm, k, num_ants, extra, steered = GRAPH_CASES[name]
+    monkeypatch.setattr(graphs, "CHUNK", 4)
+    graphs.clear()
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=10, k=k, num_ants=num_ants)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm=algorithm, **extra)
+    states = init_state(states.prn.cpu().numpy(), carrier_doppler=states.carrier_doppler.cpu(),
+                        num_taps=len(config.sample_shifts), device=cuda)
+    weights = None
+    if steered:
+        phase = torch.arange(num_ants, dtype=torch.float32, device=cuda) * 0.7
+        weights = (torch.cos(phase), torch.sin(phase))
+    corr, kwargs = bank_correlator(config)
+    tiles = epl_kernels.pack_code_tiles(codes, states.prn)
+    w = None if weights is None else tuple(x.expand(k, num_ants) for x in weights)
+    with graphs.eager():
+        want = graphs.loop(_registry_bank_step(config, corr, kwargs), states, (sre, sim),
+                           (codes, tiles, w))
+        eager = track_bank(config, codes, states, sre, sim, ant_weights=weights)
+    got = track_bank(config, codes, states, sre, sim, ant_weights=weights)
+    torch.cuda.synchronize()
+    assert [e.chunk for e in graphs._ENTRIES[states.prn.device].values()] == [4]
+    _assert_bitwise(eager, want)
+    _assert_bitwise(got, want)
+    graphs.clear()
+
+
+def test_closed_dual_loop_at_the_device_index_equals_the_joined_expressions(cuda, monkeypatch):
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+    from gpuacceleratedtracking_tpu_torch.tracking.dual import _overlay, dual_update
+    from gpuacceleratedtracking_tpu_torch.tracking.track import bank_correlator
+    from gpuacceleratedtracking_tpu_torch.models import gpsl5
+
+    monkeypatch.setattr(graphs, "CHUNK", 4)
+    graphs.clear()
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    n, blocks, k = 16384, 10, 64
+    sig, _ = gen_signal(sys_i, 2, 700.0, n * blocks, duration=blocks * 1e-3,
+                        secondary_code=sys_i.secondary_code, device=cuda)
+    sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    config = dual_config(TrackConfig.for_system(sys_i, n / 1e-3, n, algorithm="pallas_bank_auto",
+                                                use_secondary=False))
+    states = init_state(np.arange(k) % 32, carrier_doppler=np.linspace(-600, 700, k),
+                        ms_elapsed=np.arange(k) * 3, device=cuda)
+    codes_i = torch.as_tensor(sys_i.codes, device=cuda)
+    codes_q = torch.as_tensor(sys_q.codes, device=cuda)
+    corr, kwargs = bank_correlator(config)
+    sd = _overlay(None, gpsl5.neuman_hofman(False), cuda)
+    sp = _overlay(None, gpsl5.neuman_hofman(True), cuda)
+    codes = torch.cat([codes_i, codes_q], 1)
+
+    def joined(st, consts, block):
+        prn2 = torch.cat([st.prn, st.prn + codes_i.shape[1]])
+        dup = lambda x: torch.cat([x, x])  # noqa: E731
+        are, aim = corr(block[0], block[1], codes, prn2,
+                        dup(config.intermediate_frequency + st.carrier_doppler),
+                        config.sampling_frequency, dup(st.carrier_phase),
+                        dup(config.code_frequency + st.code_doppler), dup(st.code_phase),
+                        config.sample_shifts, config.code_length, **kwargs,
+                        code_tiles=epl_kernels.prepare_bank_code_tiles_rows(codes, prn2))
+        return dual_update(config, st, are, aim, sd, sp)
+
+    with graphs.eager():
+        want = graphs.loop(joined, states, (sre, sim))
+        eager = track_bank_dual(config, codes_i, codes_q, states, sre, sim)
+    got = track_bank_dual(config, codes_i, codes_q, states, sre, sim)
+    torch.cuda.synchronize()
+    _assert_bitwise(eager, want)
+    _assert_bitwise(got, want)
+    graphs.clear()
+
+
+@pytest.mark.parametrize("prn_dtype", [torch.int32, torch.int64])
+def test_pack_code_tiles_kernel_equals_the_plain_words(cuda, prn_dtype):
+    rng = np.random.default_rng(4)
+    before = epl_kernels.pack_code_tiles.launches
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    prn = torch.as_tensor(rng.integers(0, 32, 1024), dtype=prn_dtype, device=cuda)
+    got = epl_kernels.pack_code_tiles(codes, prn)
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    codes_i = torch.as_tensor(sys_i.codes, device=cuda)
+    codes_q = torch.as_tensor(sys_q.codes, device=cuda)
+    dual = epl_kernels.pack_code_tiles(codes_i, prn[:64], codes_q)
+    torch.cuda.synchronize()
+    assert epl_kernels.pack_code_tiles.launches == before + 2
+    assert got.dtype == torch.int32 and got.shape == (1024, 32)
+    assert torch.equal(got, epl_kernels.prepare_bank_code_tiles_rows(codes, prn))
+    assert torch.equal(dual, epl_kernels.pack_code_tiles_plain(codes_i, prn[:64], codes_q))
+    assert torch.equal(dual, epl_kernels.prepare_bank_code_tiles_rows(
+        torch.cat([codes_i, codes_q], 1), torch.cat([prn[:64], prn[:64] + codes_i.shape[1]])))
+
+
+def _replay_op_names(run, replays=3):
+    """One call of ``run`` (capturing its entry), then the device ops, by
+    name and count, of the entry's prologue replayed ``replays`` times and
+    of as many blocks replayed after it (torch.profiler, one session each,
+    after spin kernels that are left out: the first events of a session
+    sometimes go missing)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    graphs.clear()
+    run()
+    torch.cuda.synchronize()
+    (entry,) = next(iter(graphs._ENTRIES.values())).values()
+    names = []
+    for part in (entry.prologue, entry.replay):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(100_000)
+            for _ in range(replays):
+                part()
+            torch.cuda.synchronize()
+        names.append(collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name))
+    graphs.clear()
+    return names
+
+
+@pytest.mark.parametrize("path", ["rows_k1024", "comp_a4_l7_k1024", "dual_k64"])
+def test_a_replayed_block_is_its_kernels_alone(cuda, path):
+    # The bank kernel (and its finish), the loop kernel and the index's add:
+    # no parameter op, no block select, no join. The prologue: the index to
+    # 0, the code tiles packed by one kernel, one copy into the entry.
+    if path == "dual_k64":
+        sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+        sig, fs = gen_signal(sys_i, 2, 700.0, 16384 * 2, duration=2e-3, device=cuda)
+        sre, sim = (x.reshape(2, 16384) for x in soa(sig))
+        config = dual_config(TrackConfig.for_system(sys_i, fs, 16384,
+                                                    algorithm="pallas_bank_auto",
+                                                    use_secondary=False))
+        states = init_state(np.arange(64) % 32, device=cuda)
+        codes_i = torch.as_tensor(sys_i.codes, device=cuda)
+        codes_q = torch.as_tensor(sys_q.codes, device=cuda)
+        run = lambda: track_bank_dual(config, codes_i, codes_q, states, sre, sim)  # noqa: E731
+        kernels = ("bank_rows_kernel", "bank_rows_finish", "loop_update")
+    else:
+        num_ants = 4 if path.startswith("comp") else None
+        fs, codes, states, sre, sim = _sharded_case(cuda, n=32768, blocks=2, k=1024,
+                                                    num_ants=num_ants)
+        extra = {"num_correlators": 7} if num_ants else {}
+        config = TrackConfig.for_system(SYSTEM, fs, 32768, algorithm="pallas_bank_auto", **extra)
+        states = init_state(states.prn.cpu().numpy(), num_taps=len(config.sample_shifts),
+                            device=cuda)
+        run = lambda: track_bank(config, codes, states, sre, sim)  # noqa: E731
+        kernels = (("bank_comp_kernel", "bank_comp_finish") if num_ants
+                   else ("bank_rows_kernel", "bank_rows_finish")) + ("loop_update",)
+    replays = 3
+    prologue, block = _replay_op_names(run, replays)
+    assert sum(block.values()) <= 4 * replays, block
+    for kernel in kernels:
+        assert 1 <= sum(n for name, n in block.items() if kernel in name) <= replays, \
+            (kernel, block)
+    glue = ("indexselect", "index_select", "catarray", "div", "mul", "stack", "copy")
+    assert not any(op in name.lower() for name in block for op in glue), block
+    assert sum(prologue.values()) <= 3 * replays, prologue
+    assert 1 <= sum(n for name, n in prologue.items() if "code_tiles_kernel" in name) \
+        <= replays, prologue
 
 
 def test_a_captured_call_checks_the_chips_of_its_table(cuda):

@@ -7,6 +7,7 @@ invariance, checkpoint/resume bit for bit, and checkpoints that either package
 resumes.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -39,18 +40,29 @@ def _write_iq(path, re, im, fmt):
     return inter
 
 
-@pytest.fixture(scope="module", autouse=True)
-def jax_loads_the_port_build():
+@contextlib.contextmanager
+def _jax_on_the_port_build():
     """Point the JAX `runtime.iq` at the port's build of the same source and
     flags, so this file never compiles the JAX package's ``native/build``
     library: tests/test_runtime.py does that, possibly at the same time in
-    another worker, and the JAX build is not atomic."""
+    another worker, and the JAX build is not atomic. Its loader's state is
+    reset too: a worker that evaluated `native_available()` while collecting
+    tests/test_runtime.py, as another worker was writing that library, keeps
+    ``_lib_failed`` set, and its `Resampler` would then refuse to run."""
     from gpuacceleratedtracking_tpu.runtime import iq as jiq
 
     assert tiq.CXX_FLAGS == ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
     assert tiq._SRC == jiq._SRC
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jiq, "_LIB", tiq._library() and tiq.library_path())
+        mp.setattr(jiq, "_lib", None)
+        mp.setattr(jiq, "_lib_failed", False)
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_loads_the_port_build():
+    with _jax_on_the_port_build():
         yield
 
 
@@ -181,6 +193,26 @@ def test_resampler_chunking_invariance_and_bit_equal_to_jax():
     b_im = np.concatenate([p[1] for p in parts])
     np.testing.assert_array_equal(a_re[: b_re.size], b_re)
     np.testing.assert_array_equal(a_im[: b_im.size], b_im)
+
+
+def test_jax_resampler_runs_after_its_own_build_failed_at_collection():
+    # What a worker is left with when the JAX build failed while tests were
+    # collected: the loader marked failed for good, no library loaded.
+    from gpuacceleratedtracking_tpu.runtime import iq as jiq
+
+    rng = np.random.default_rng(1)
+    x_re = rng.standard_normal(5000).astype(np.float32)
+    x_im = rng.standard_normal(5000).astype(np.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jiq, "_lib", None)
+        mp.setattr(jiq, "_lib_failed", True)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            jruntime.Resampler(512, 625)
+        with _jax_on_the_port_build():
+            j_re, j_im = jruntime.Resampler(512, 625).process(x_re, x_im)
+    a_re, a_im = truntime.Resampler(512, 625).process(x_re, x_im)
+    np.testing.assert_array_equal(a_re, j_re)
+    np.testing.assert_array_equal(a_im, j_im)
 
 
 def test_resampler_alias_rejection():
