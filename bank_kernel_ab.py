@@ -11,8 +11,8 @@ Usage::
 
 ``--old`` holds an earlier ``csrc/`` (its ``.cu`` sources and the headers
 they include). The script times each kernel whose old source it finds there
-(``bank_rows``, ``bank_comp``, ``taps``, ``fused``, ``replica``;
-``--kernels`` picks some) against the current one. The old sources are
+(``bank_rows``, ``bank_comp``, ``taps``, ``fused``, ``replica``,
+``code_tiles``; ``--kernels`` picks some) against the current one. The old sources are
 built here with nvcc beside the current kernels and launched through the
 current launch functions with the old library in place of the new
 (`with_library`), so they must take the current C interface. The one
@@ -52,6 +52,16 @@ the largest difference between the two versions' outputs.
   ``pallas_taps`` call (the replica kernel, then the taps kernel, now a
   programmatic dependent launch) with the old taps kernel against the
   current one, both after the current replica kernel.
+- The packing kernel (``csrc/code_tiles.cu``), each version into an output
+  of its own, over every family's table (GPS L1 at K = 1, 32 and 1024, on
+  one PRN, with int64 PRNs; GPS L5 alone at K=1024 and as the dual bank's
+  two tables at K=64; Galileo E1, BeiDou B1I and GLONASS at K=256), with
+  each one's own run under torch.profiler and the words that differ from
+  the plain version's; what a launch costs (a one-element add, a copy of
+  the K=1024 GPS L1 words); and the current kernel under other work splits
+  beside `tiles_split`'s (`TILES_SPLITS`). An old ``code_tiles.cu`` of the
+  first C interface (no index, no work split) is launched as it was
+  (`first_tiles_launcher`).
 
 The old sources are not part of the repository; put them in a directory
 that ``.gitignore`` lists, such as ``build/``.
@@ -74,7 +84,7 @@ import torch
 
 REPS = 20
 PER_REP = 10
-KERNELS = ("bank_rows", "bank_comp", "taps", "fused", "replica")
+KERNELS = ("bank_rows", "bank_comp", "taps", "fused", "replica", "code_tiles")
 
 
 def build_old(old_dir: pathlib.Path, stems, params_interface: bool) -> dict:
@@ -86,6 +96,8 @@ def build_old(old_dir: pathlib.Path, stems, params_interface: bool) -> dict:
     P, I = ctypes.c_void_p, ctypes.c_int
     params_sigs = {"taps": {"taps_launch": ([P] * 7 + [I] * 4 + [P], I)},
                    "fused": {"fused_launch": ([P] * 8 + [I] * 5 + [P], I)}}
+    # The first code_tiles.cu's: no output index, no work split.
+    first_tiles_sig = {"code_tiles_launch": ([P] * 4 + [I] * 6 + [P], I)}
     procs = {}
     for stem in stems:
         out = old_dir / f"libold_{stem}.so"
@@ -100,11 +112,19 @@ def build_old(old_dir: pathlib.Path, stems, params_interface: bool) -> dict:
         lib = ctypes.CDLL(str(out))
         sigs = params_sigs[stem] if params_interface and stem in params_sigs \
             else _build.SIGNATURES[stem]
+        if stem == "code_tiles" and first_tiles_interface(old_dir / "code_tiles.cu"):
+            sigs = first_tiles_sig
         for name, (argtypes, restype) in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
         libs[stem] = lib
     return libs
+
+
+def first_tiles_interface(source: pathlib.Path) -> bool:
+    """Whether ``source`` is a ``code_tiles.cu`` of the first C interface,
+    whose launch takes no index and no work split."""
+    return "long long* index" not in source.read_text()
 
 
 def with_library(libs: dict, launch):
@@ -432,6 +452,157 @@ def replica_ab(libs, card) -> dict:
     return results
 
 
+def first_tiles_launcher(lib, codes, prn, pilot, out):
+    """A callable launching a ``code_tiles.cu`` of the first C interface into
+    ``out``; it returns ``(out,)``."""
+    tables = (codes,) if pilot is None else (codes, pilot)
+    args = [codes.data_ptr(), tables[-1].data_ptr(), prn.data_ptr(), out.data_ptr(),
+            int(prn.dtype == torch.int64), prn.numel(), prn.numel() * len(tables),
+            codes.shape[0], codes.shape[1], tables[-1].shape[1]]
+
+    def launch():
+        if lib.code_tiles_launch(*args, torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("old code_tiles launch failed")
+        return (out,)
+
+    return launch
+
+
+def kernel_us(fn, name: str, launches: int = 20) -> float:
+    """The mean duration in us of the device events whose name holds
+    ``name``, over ``launches`` launches of ``fn`` under torch.profiler
+    (after spin kernels: a session's first events sometimes go missing): the
+    kernel's own run, without the gap between launches that a graph
+    replay's time per launch holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(100_000)
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name
+             and "spin_kernel" not in e.name]
+    return statistics.mean(spans) if spans else float("nan")
+
+
+# (vec, chunk, channels) splits of the packing kernel tried beside
+# `tiles_split`'s: more CTAs per channel chunk, wider word chunks, one word
+# per store.
+TILES_SPLITS = ((4, 4, 256), (4, 4, 128), (4, 4, 64), (4, 8, 128), (1, 1, 256), (1, 2, 128),
+                (1, 4, 64))
+
+
+def tiles_splits(cells: dict, card) -> dict:
+    """The current packing kernel's device time (graph) and own run under
+    the splits of `TILES_SPLITS`, beside `tiles_split`'s, for GPS L1 at
+    K=1024 and K=1 and GPS L5 at K=1024: the evidence its rule rests on."""
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+
+    current = epl_kernels.tiles_split
+    results = {}
+    for name in ("l1_k1024", "l1_k1", "l5_k1024"):
+        codes, prns, _ = cells[name]
+        words = -(-codes.shape[0] // 32)
+        out = torch.empty((prns.numel(), words), dtype=torch.int32, device="cuda")
+        want = epl_kernels.pack_code_tiles_plain(codes, prns)
+        row = {}
+        for vec, chunk, channels in ((None, None, None),) + TILES_SPLITS:
+            split = (current(codes.shape[1], words, prns.numel()) if vec is None else
+                     epl_kernels.TilesSplit(vec, chunk, channels,
+                                            (-(-words // chunk), -(-prns.numel() // channels),
+                                             1)))
+            if epl_kernels.tiles_shared(codes.shape[1], split.chunk) \
+                    > epl_kernels.TILES_MAX_SHARED:
+                continue
+            epl_kernels.tiles_split = lambda *args, split=split: split
+            try:
+                fn = lambda: epl_kernels.pack_code_tiles(codes, prns, out=out)  # noqa: E731
+                med, mn = time_ms(fn, graph=True)
+                differ = int((fn() != want).sum())
+                run_us = kernel_us(fn, "code_tiles")
+            finally:
+                epl_kernels.tiles_split = current
+            key = "tiles_split" if vec is None else f"v{vec}_c{chunk}_k{channels}"
+            row[key] = {"split": list(split[:3]) + [list(split.grid)], "device_ms": med,
+                        "device_min_ms": mn, "kernel_us": run_us, "differ": differ}
+        results[name] = row
+        print(f"[ab] code_tiles split {name}, device time ms / own run us (vec, chunk, "
+              f"channels, grid): " + "; ".join(
+                  f"{k} {tuple(v['split'][:3])} {tuple(v['split'][3])}: {v['device_ms']!r} / "
+                  f"{v['kernel_us']!r}" + (f" ({v['differ']} words differ)" if v["differ"]
+                                           else "") for k, v in row.items()) + f" [{card}]",
+              flush=True)
+    return results
+
+
+def code_tiles_ab(libs, old_dir: pathlib.Path, card) -> dict:
+    """The packing kernel (``csrc/code_tiles.cu``) old against new, each
+    into an output of its own, at the main paths' shapes and around them,
+    and what its time is made of: the device time of a one-element add (the
+    launch), of a copy of the K=1024 GPS L1 words (the stores' bytes alone),
+    of the kernel at K=32 (one PRN each: the latency of one pass, little
+    work) and at K=1024 on one PRN (the loads of every channel from the same
+    column, the stores as at K=1024)."""
+    from gpuacceleratedtracking_tpu_torch.models import (
+        GPSL1, GPSL5, BeiDouB1I, GalileoE1, GLONASSL1)
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+
+    rng = np.random.default_rng(7)
+    t = lambda x: torch.as_tensor(x, device="cuda")  # noqa: E731
+    l1, l5i, l5q = t(GPSL1().codes), t(GPSL5().codes), t(GPSL5(quadrature=True).codes)
+    prn = lambda k, p=32: t(rng.integers(0, p, k).astype(np.int32))  # noqa: E731
+    cells = {
+        "l1_k1024": (l1, prn(1024), None),
+        "l1_k1024_int64": (l1, prn(1024).long(), None),
+        "l1_k1024_one_prn": (l1, t(np.zeros(1024, np.int32)), None),
+        "l1_k32": (l1, t(np.arange(32, dtype=np.int32)), None),
+        "l1_k1": (l1, prn(1), None),
+        "l5_dual_k64": (l5i, prn(64), l5q),
+        "l5_k1024": (l5i, prn(1024), None),
+        "e1_k256": (t(GalileoE1().codes), prn(256, 50), None),
+        "b1i_k256": (t(BeiDouB1I().codes), prn(256, 37), None),
+        "glonass_k256": (t(GLONASSL1().codes), prn(256, 14), None),
+    }
+    old_is_first = first_tiles_interface(old_dir / "code_tiles.cu")
+    results = {"ab": {}}
+    for name, (codes, prns, pilot) in cells.items():
+        words = -(-codes.shape[0] // 32)
+        num_k = prns.numel() * (1 if pilot is None else 2)
+        outs = [torch.empty((num_k, words), dtype=torch.int32, device="cuda") for _ in range(2)]
+        new = lambda c=codes, p=prns, q=pilot, o=outs[1]: (  # noqa: E731
+            epl_kernels.pack_code_tiles(c, p, q, out=o),)
+        old = first_tiles_launcher(libs["code_tiles"], codes, prns, pilot, outs[0]) \
+            if old_is_first else with_library(libs, lambda c=codes, p=prns, q=pilot, o=outs[0]: (
+                epl_kernels.pack_code_tiles(c, p, q, out=o),))
+        want = epl_kernels.pack_code_tiles_plain(codes, prns, pilot)
+        res = compare(f"code_tiles {name}", old, new, card)
+        res.update(old_differs=int((old()[0] != want).sum()),
+                   new_differs=int((new()[0] != want).sum()),
+                   old_kernel_us=kernel_us(old, "code_tiles"),
+                   new_kernel_us=kernel_us(new, "code_tiles"))
+        print(f"[ab] code_tiles {name}: the kernel's own run (torch.profiler) old "
+              f"{res['old_kernel_us']!r} us, new {res['new_kernel_us']!r} us; words differing "
+              f"from the plain version's: old {res['old_differs']}, new {res['new_differs']} "
+              f"[{card}]", flush=True)
+        results["ab"][name] = res
+    results["splits"] = tiles_splits(cells, card)
+    one = torch.zeros(1, device="cuda")
+    words = torch.empty((1024, 32), dtype=torch.int32, device="cuda")
+    src = torch.zeros_like(words)
+    for key, fn in (("launch_floor", lambda: one.add_(1.0)),
+                    ("copy_l1_k1024_words", lambda: words.copy_(src))):
+        med, mn = time_ms(fn, graph=True)
+        results[key] = {"device_ms": med, "device_min_ms": mn, "kernel_us": kernel_us(fn, "")}
+        print(f"[ab] code_tiles {key}: device time {med!r} ms (min {mn!r}), its own run "
+              f"{results[key]['kernel_us']!r} us [{card}]", flush=True)
+    return results
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", required=True, help="directory of the old csrc/ sources")
@@ -463,6 +634,8 @@ def main(argv=None) -> int:
         results["channel"] = channel_ab(libs, args.params_interface, card)
     if {"replica", "taps"} & set(libs) and not args.params_interface:
         results["replica"] = replica_ab(libs, card)
+    if "code_tiles" in libs:
+        results["code_tiles"] = code_tiles_ab(libs, old_dir, card)
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(results, indent=1))
     return 0

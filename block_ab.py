@@ -26,7 +26,10 @@ entry points a user calls:
   differential, so the per-call copies cancel);
 - the 1-block rows call (``__graft_entry__.py``'s shape): milliseconds per
   call (CUDA events) and its device ops and device milliseconds
-  (torch.profiler over five calls), the prologue included.
+  (torch.profiler over five calls), the prologue included;
+- that entry's prologue alone: milliseconds per replay of 20 back to back
+  (CUDA events) and its device ops and their summed device milliseconds
+  per replay (torch.profiler over 20 replays).
 
 The script prints one JSON line per turn and, last, the medians of each
 metric per tree; ``--out`` also writes them as JSON. The old tree is not
@@ -96,6 +99,17 @@ def measure(root: pathlib.Path) -> dict:
     ops, device_ms = cs.device_profile(one_block, calls=5)
     result["one_block_K1024_device_ops_per_block"] = ops
     result["one_block_K1024_device_ms"] = device_ms
+    # The rows entry's prologue alone: 20 replays back to back (CUDA events:
+    # a replay's host issue included where it is the longer), and its device
+    # ops and their summed device time per replay (torch.profiler).
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    entry = list(graphs._ENTRIES[torch.device("cuda", torch.cuda.current_device())].values())[-1]
+    result["prologue_replay_ms"] = cs.time_cuda(
+        lambda: [entry.prologue() for _ in range(20)], warmup=2)[0] / 20
+    ops, device_ms = cs.device_profile(entry.prologue, calls=20)
+    result["prologue_device_ops_per_block"] = ops
+    result["prologue_device_ms"] = device_ms
     r = run_track_benchmark({"GNSS": "GPSL1", "num_samples": cs.N_1MS,
                              "num_channels": cs.NUM_K, "algorithm": "pallas_bank_auto",
                              "processor": "GPU", "blocks": 8, "trials": 7})

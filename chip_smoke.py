@@ -75,8 +75,10 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
    A=4 L=7 steered, the L5 dual) through their graphs in chunks of 4
    against the registry expressions closed by the same loop kernel, bit
    for bit; the packing kernel (``csrc/code_tiles.cu``) against
-   ``prepare_bank_code_tiles_rows``, word for word (GPS L1 K=1024 with
-   int32 and int64 PRNs, the L5 dual's two tables), its time and bound,
+   ``prepare_bank_code_tiles_rows``, word for word (every family's table,
+   GPS L5 alone and as the dual's two, K = 1, 5, one below P and 1024,
+   int32 and int64 PRNs, into a given buffer with the index, which must
+   read 0 after, and without), its time and bound,
    and a captured rows wrapper call in the registry form against the state
    form at the device index, in turns.
 4. Main paths, each through the entry points a user calls, with every launch
@@ -219,8 +221,9 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      and bf16, the L5 dual, Galileo E1-C and one-hot by name (``[L block]``,
      three replays each under torch.profiler): at most 4 device ops a block
      (the bank kernel, its finish, the loop kernel, the index's add), none a
-     parameter op, a block select or a join, and at most 3 a prologue (the
-     index to 0, the packing kernel, one copy). Each path's first graph call starts from an empty cache, and
+     parameter op, a block select or a join, and one a prologue, the packing
+     kernel (which writes the entry's tiles and zeroes its index); ``track``
+     on ``pallas_fused``, which has no prepare, one, the index's fill. Each path's first graph call starts from an empty cache, and
      its entries' buffers and the device memory it reserved are logged.
      Then eager and graph block times and real-time channels of the timed
      paths (and streaming's ``steady_block_s`` both ways, from H, whose
@@ -1377,10 +1380,13 @@ def glue_cells(system, seed, card):
     registry expressions closed by the same loop kernel, bit for bit (rows
     K=1024, A=4 L=7 steered, the L5 dual K=64); the packing kernel's words
     against the plain version's, exactly (GPS L1 K=1024 int32 and int64
-    PRNs, the L5 dual's two tables); then its time and bound, and the rows
-    kernel's device time in the two forms. Returns the packing kernel's
-    error, its times and the phase's record."""
-    from gpuacceleratedtracking_tpu_torch.models import GPSL5
+    PRNs, into a given buffer with the index, which must read 0 after, and
+    without, over every family's table, GPS L5 alone and as the dual bank's
+    two, at K = 1, 5, one below the table's P and 1024, PRNs with repeats);
+    then its time and bound, and the rows kernel's device time in the two
+    forms. Returns the packing kernel's error, its times and the phase's
+    record."""
+    from gpuacceleratedtracking_tpu_torch.models import BeiDouB1I, GalileoE1, GLONASSL1, GPSL5
     from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
     from gpuacceleratedtracking_tpu_torch.tracking import (
         TrackConfig, dual_config, graphs, track_bank, track_bank_dual)
@@ -1464,37 +1470,57 @@ def glue_cells(system, seed, card):
         graphs.CHUNK = chunk
         graphs.clear()
 
-    # The packing kernel: its words against the plain version's.
+    # The packing kernel: its words against the plain version's, over every
+    # family's table (GPS L5 alone and as the dual bank's two), K = 1, 5, one
+    # below the table's P and 1024 (PRNs with repeats), int32 and int64
+    # PRNs, into a given buffer with the index (which must read 0 after) and
+    # without.
     rng = np.random.default_rng(seed + 7)
     pack = epl_kernels.pack_code_tiles
-    prn32 = torch.as_tensor(rng.integers(0, 32, NUM_K), dtype=torch.int32, device=DEVICE)
-    codes_i = torch.as_tensor(GPSL5().codes, device=DEVICE)
-    codes_q = torch.as_tensor(GPSL5(quadrature=True).codes, device=DEVICE)
-    cells = {"l1_K1024_int32": ((codes, prn32), epl_kernels.prepare_bank_code_tiles_rows(
-                 codes, prn32)),
-             "l1_K1024_int64": ((codes, prn32.long()), epl_kernels.prepare_bank_code_tiles_rows(
-                 codes, prn32)),
-             f"l5_dual_K{DUAL_K}": ((codes_i, prn32[:DUAL_K], codes_q),
-                                    epl_kernels.prepare_bank_code_tiles_rows(
-                                        torch.cat([codes_i, codes_q], 1),
-                                        torch.cat([prn32[:DUAL_K],
-                                                   prn32[:DUAL_K] + codes_i.shape[1]])))}
-    wrong = 0
-    for name, (args, want) in cells.items():
-        before = pack.launches
-        got = pack(*args)
-        torch.cuda.synchronize()
-        check(pack.launches == before + 1, f"[glue pack] {name}: one launch")
-        check(got.shape == want.shape and got.dtype == torch.int32,
-              f"[glue pack] {name}: shape {tuple(got.shape)} {got.dtype}")
-        wrong += int((got != want).sum())
-        log(f"[glue pack] {name}: {tuple(got.shape)} words, {int((got != want).sum())} differ "
-            f"from the plain version's")
+    t = lambda x: torch.as_tensor(x, device=DEVICE)  # noqa: E731
+    families = {"gpsl1": (codes,), "gpsl5": (t(GPSL5().codes),),
+                "gpsl5_dual": (t(GPSL5().codes), t(GPSL5(quadrature=True).codes)),
+                "galileo_e1": (t(GalileoE1().codes),), "beidou_b1i": (t(BeiDouB1I().codes),),
+                "glonass_l1of": (t(GLONASSL1().codes),)}
+    wrong = cells = 0
+    for family, tables in families.items():
+        num_prns, words = tables[0].shape[1], -(-tables[0].shape[0] // 32)
+        for k in (1, 5, num_prns - 1, NUM_K):
+            prn = torch.as_tensor(rng.integers(0, num_prns, k), dtype=torch.int32, device=DEVICE)
+            joined = torch.cat([prn + sum(x.shape[1] for x in tables[:i])
+                                for i in range(len(tables))])
+            want = epl_kernels.prepare_bank_code_tiles_rows(torch.cat(tables, 1), joined)
+            counts = {}
+            for dtype in (torch.int32, torch.int64):
+                for into in (False, True):
+                    kwargs = {}
+                    if into:
+                        kwargs = dict(out=torch.full_like(want, -1),
+                                      index=torch.tensor(5, dtype=torch.int64, device=DEVICE))
+                    before = pack.launches
+                    got = pack(tables[0], prn.to(dtype), *tables[1:], **kwargs)
+                    torch.cuda.synchronize()
+                    name = f"{family} K={k} {str(dtype)[6:]}{' into' if into else ''}"
+                    check(pack.launches == before + 1, f"[glue pack] {name}: one launch")
+                    check(got.shape == want.shape and got.dtype == torch.int32,
+                          f"[glue pack] {name}: shape {tuple(got.shape)} {got.dtype}")
+                    if into:
+                        check(got is kwargs["out"] and int(kwargs["index"]) == 0,
+                              f"[glue pack] {name}: into the given buffer, the index 0")
+                    counts[name] = int((got != want).sum())
+            wrong += sum(counts.values())
+            cells += len(counts)
+            log(f"[glue pack] {family} K={k} ({len(tables)} table(s), {num_prns} PRNs, {words} "
+                f"words): words differing from prepare_bank_code_tiles_rows' per cell {counts}")
     check(wrong == 0, f"[glue pack] {wrong} words differ from the plain version's")
+    log(f"[glue pack] {cells} cells, {wrong} words differ from the plain version's")
 
     # Times: the packing kernel at the rows main path's shape, and the rows
     # kernel in the registry form against the state form at the device index.
-    run = lambda: pack(codes, prn32)  # noqa: E731
+    prn32 = torch.as_tensor(rng.integers(0, 32, NUM_K), dtype=torch.int32, device=DEVICE)
+    out = torch.empty((NUM_K, -(-system.code_length // 32)), dtype=torch.int32, device=DEVICE)
+    index = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    run = lambda: pack(codes, prn32, out=out, index=index)  # noqa: E731
     plain = lambda: epl_kernels.prepare_bank_code_tiles_rows(codes, prn32)  # noqa: E731
     ms, ms_min = graph_ms(run)
     eager_ms = time_cuda(run)[0]
@@ -1507,7 +1533,8 @@ def glue_cells(system, seed, card):
              "plain_ms": plain_ms, "plain_graph_ms": plain_graph_ms,
              "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes", "bound_unit": "memory",
              "bytes": nbytes, "library_ms": None}
-    log(f"[glue pack] K={NUM_K} GPS L1: {ms!r} ms (min {ms_min!r}) device time, eager "
+    log(f"[glue pack] K={NUM_K} GPS L1 into a buffer with the index: {ms!r} ms (min "
+        f"{ms_min!r}) device time, eager "
         f"{eager_ms!r}; plain {plain_ms!r} eager, {plain_graph_ms!r} as a graph; bound "
         f"{times['bound_ms']!r} ms ({nbytes} B over 3.35 TB/s) [{card}]")
     corr, cre, cim, reg, state, channels, kwargs = glue_case("rows_K1024", 1, seed)
@@ -3211,13 +3238,16 @@ NO_SINK_PATH = "mesh_2x2_rows_K1024"
 # wrappers' parameter ops, the block select and the dual joins included.
 OPS_BEFORE_STATE_FORM = {"rows_K1024_pallas_bank_auto": 19.95, "array_K1024_A4_L7_f32": 21.75,
             f"l5_dual_K{DUAL_K}": 24.45, "mesh_2x2_rows_K1024": 155.15, "taps_K8": 25.35}
-PROLOGUE_BEFORE_PACK_KERNEL_MS = 0.0428   # the rows prologue as 14 small ops (PERF.md section 5)
+# Device time of one replay of the rows prologue as 3 ops, the index's fill,
+# the packing kernel and a copy of the tiles into the entry (PERF.md section 5).
+PROLOGUE_AS_THREE_OPS_MS = 0.0122
 # Phase L's paths whose replayed block must be its kernels alone (at most 4
 # device ops: the bank kernel, its finish, the loop kernel, the index's add)
-# and whose prologue at most 3 (the index to 0, the packing kernel, a copy).
+# and whose prologue one op, the packing kernel.
 BLOCK_PATHS = ("rows_K1024_pallas_bank_auto", "array_K1024_A4_L7_f32",
                "array_K1024_A4_L7_bf16", f"l5_dual_K{DUAL_K}", f"family_GALILEOE1C_K{FAMILY_K}",
                "onehot_K1024")
+FILL_PROLOGUE_PATH = "track_fused"   # no prepare: its prologue is the index's fill
 GLUE_OPS = ("indexselect", "index_select", "catarray", "div", "mul", "stack", "copy")
 REPLAYS = 3             # replays of a prologue and of a block per profiled session
 
@@ -3245,7 +3275,7 @@ def replay_op_names(run, replays: int = REPLAYS) -> tuple:
                 part()
             torch.cuda.synchronize()
         names.append(collections.Counter(
-            e.name[:80] for e in prof.events()
+            e.name[:120] for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name))
     graphs.clear()
     return tuple(names)
@@ -3608,6 +3638,7 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
     torch.cuda.synchronize()
     entry = list(graphs._ENTRIES[dev].values())[-1]
     prologue_ms = time_cuda(lambda: [entry.prologue() for _ in range(20)], warmup=2)[0] / 20
+    prologue_ops, prologue_device_ms = device_profile(entry.prologue, calls=20)
     holder = [states]
 
     def chained_one():
@@ -3621,27 +3652,36 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
         chained_one()
     host_ms = (time.perf_counter() - t0) / 200 * 1e3
     torch.cuda.synchronize()
-    results["one_block_K1024"].update(prologue_device_ms=prologue_ms, host_ms_per_call=host_ms)
-    log(f"[L one-block] the rows entry's prologue (code tiles packed on the card): "
-        f"{prologue_ms!r} ms of device time per replay (as 14 small ops before the packing "
-        f"kernel: {PROLOGUE_BEFORE_PACK_KERNEL_MS}); chained 1-block calls issued without waiting for the card: "
-        f"{host_ms!r} ms per call [{card}]")
-    # A replayed block as its kernels alone, and the prologue as the packing
-    # kernel: device ops by name of one replay of each.
-    for name in BLOCK_PATHS:
+    results["one_block_K1024"].update(prologue_replay_ms=prologue_ms,
+                                      prologue_device_ops=prologue_ops,
+                                      prologue_device_ms=prologue_device_ms,
+                                      host_ms_per_call=host_ms)
+    log(f"[L one-block] the rows entry's prologue, one launch of the packing kernel (the "
+        f"code tiles into the entry, its index zeroed): {prologue_ms!r} ms per replay, 20 "
+        f"back to back (as 3 ops, the index's fill, the packing kernel and a copy: "
+        f"{PROLOGUE_AS_THREE_OPS_MS}); under torch.profiler {prologue_ops!r} device ops, "
+        f"{prologue_device_ms!r} ms of device time per replay; chained 1-block calls issued "
+        f"without waiting for the card: {host_ms!r} ms per call [{card}]")
+    # A replayed block as its kernels alone, and the prologue as one launch
+    # of the packing kernel (the fill, on a path without a prepare): device
+    # ops by name of one replay of each. torch.profiler may drop a session's
+    # first events, so a prologue counts at most one op a replay, at least
+    # one in all, each of them that kernel.
+    for name in BLOCK_PATHS + (FILL_PROLOGUE_PATH,):
         prologue, block = replay_op_names(paths[name][0])
         glue = [op for op in block if any(g in op.lower() for g in GLUE_OPS)]
-        packs = sum(n for op, n in prologue.items() if "code_tiles_kernel" in op)
         per_block, per_prologue = sum(block.values()) / REPLAYS, sum(prologue.values()) / REPLAYS
         results[name].update(replayed_block_ops=per_block, replayed_block_ops_by_name=block,
                              prologue_ops=per_prologue, prologue_ops_by_name=prologue)
         log(f"[L block] {name}: {REPLAYS} replayed blocks, {per_block!r} device ops each "
             f"{dict(block)}; {REPLAYS} prologues, {per_prologue!r} each {dict(prologue)} "
             f"[{card}]")
-        check(per_block <= 4 and not glue,
-              f"[L block] {name}: a replayed block is its kernels alone: {block}")
-        check(per_prologue <= 3 and 1 <= packs <= REPLAYS,
-              f"[L block] {name}: the prologue is the packing kernel: {prologue}")
+        ops = ("fill", "memset") if name == FILL_PROLOGUE_PATH else ("code_tiles_kernel",)
+        check(0 < per_prologue <= 1 and all(any(op in p.lower() for op in ops) for p in prologue),
+              f"[L block] {name}: the prologue is one op, {' or '.join(ops)}: {prologue}")
+        if name != FILL_PROLOGUE_PATH:
+            check(per_block <= 4 and not glue,
+                  f"[L block] {name}: a replayed block is its kernels alone: {block}")
     # Device ops per block of every path, eager and graph: torch.profiler over
     # two calls after a warm-up call, per call over the blocks of a call (the
     # graph's per-call copies in and out included).

@@ -55,8 +55,9 @@ SIGNATURES = {
     },
     "code_tiles": {
         "code_tiles_launch": (
-            [_P, _P, _P, _P,                       # table0 table1 prn out
-             _I, _I, _I, _I, _I, _I,               # prn_is64 k0 k code_length prns0 prns1
+            [_P, _P, _P, _P, _P,                   # table0 table1 prn out index
+             _I, _I, _I, _I, _I, _I,               # prn_is64 k0 tables code_length prns0 prns1
+             _I, _I, _I,                           # vec chunk channels
              _P],                                  # stream
             _I,
         ),

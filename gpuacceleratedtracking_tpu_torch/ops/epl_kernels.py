@@ -200,10 +200,12 @@ def unpack_code_columns(words: torch.Tensor, code_length: int) -> torch.Tensor:
     return (1 - 2 * bits.flatten(-2)[..., :code_length]).to(torch.float32)
 
 
-def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torch.Tensor:
+def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor,
+                                 out: torch.Tensor | None = None) -> torch.Tensor:
     """Per-channel code columns, packed one bit per chip: ``[K, ceil(Lc /
     32)]`` int32, bit ``b`` of word ``w`` set where chip ``32 w + b`` is -1,
-    the code table of all four bank routes, for the ``[K]`` PRNs ``prn``.
+    the code table of all four bank routes, for the ``[K]`` PRNs ``prn``
+    (into ``out``, if given).
 
     The ``[Lc, P]`` table's P columns are packed, then each channel's words
     gathered by its PRN: the words of the K gathered columns, for P columns'
@@ -215,18 +217,94 @@ def prepare_bank_code_tiles_rows(codes: torch.Tensor, prn: torch.Tensor) -> torc
     prn = torch.as_tensor(prn, device=codes.device).reshape(-1).long()
     valid = (codes.abs() == 1.0).all(0)
     _check_chips(torch.index_select(valid, 0, prn).all())
-    return torch.index_select(_pack_bits(codes.T), 0, prn)
+    return torch.index_select(_pack_bits(codes.T), 0, prn, out=out)
 
 
-def pack_code_tiles_plain(codes: torch.Tensor, prn, pilot_codes=None) -> torch.Tensor:
-    """The plain PyTorch version of `pack_code_tiles`, on any device."""
-    tiles = prepare_bank_code_tiles_rows(codes, prn)
+def pack_code_tiles_plain(codes: torch.Tensor, prn, pilot_codes=None,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of `pack_code_tiles`, on any device (into
+    ``out``, if given)."""
     if pilot_codes is None:
-        return tiles
-    return torch.cat([tiles, prepare_bank_code_tiles_rows(pilot_codes, prn)])
+        return prepare_bank_code_tiles_rows(codes, prn, out)
+    num_k0 = torch.as_tensor(prn).numel()
+    halves = (None, None) if out is None else (out[:num_k0], out[num_k0:])
+    tiles = [prepare_bank_code_tiles_rows(table, prn, half)
+             for table, half in zip((codes, pilot_codes), halves)]
+    return torch.cat(tiles) if out is None else out
 
 
-def pack_code_tiles(codes: torch.Tensor, prn, pilot_codes=None) -> torch.Tensor:
+TILES_THREADS = 256       # threads of a ``csrc/code_tiles.cu`` CTA
+TILES_MAX_SHARED = 48 << 10   # bytes of shared memory a CTA of it takes at most
+
+
+class TilesSplit(NamedTuple):
+    """``csrc/code_tiles.cu``'s work split: ``vec`` words per store (4, a
+    16-byte vector, or 1), ``chunk`` words of every column packed per CTA
+    (a multiple of ``vec``), ``channels`` channels copied per CTA, and the
+    grid: ``(word chunks, channel chunks, tables)``."""
+
+    vec: int
+    chunk: int
+    channels: int
+    grid: tuple
+
+
+def tiles_shared(num_prns: int, chunk: int) -> int:
+    """Bytes of shared memory a packing CTA takes: the chunk's ``32 chunk``
+    rows of f32 chips (a multiple of 16 bytes), its packed words and a byte
+    per word."""
+    return 4 * (-(-32 * chunk * num_prns // 4) * 4) + 5 * num_prns * chunk
+
+
+def tiles_split(num_prns: int, words: int, num_k0: int, tables: int = 1,
+                vec: int = 4) -> TilesSplit:
+    """The packing kernel's work split for ``tables`` tables of at most
+    ``num_prns`` columns of ``words`` words and ``num_k0`` channels per
+    table: each CTA stages and packs as many words of every column as its
+    threads take one (word, column) pair each and its shared memory holds
+    (at least one store's), and copies as many channels as its threads take
+    one store each (each channel chunk stages its rows anew: more chunks,
+    as many CTAs again, measured no faster at GPS L1 K=1024, and slower on
+    the larger GPS L5 table, `bank_kernel_ab.py`); 1-word stores where a
+    16-byte one's chunk would not fit. For GPS L1 at K=1024: 4 words and
+    256 channels per CTA, 8 x 4 CTAs."""
+    if min(num_prns, words, num_k0) < 1 or tables not in (1, 2) or vec not in (1, 4):
+        raise ValueError(f"no packing split for {num_prns} PRNs, {words} words, {num_k0} "
+                         f"channels, {tables} tables, {vec} words per store")
+    if vec == 4 and tiles_shared(num_prns, 4) > TILES_MAX_SHARED:
+        vec = 1
+    if tiles_shared(num_prns, vec) > TILES_MAX_SHARED:
+        raise ValueError(f"pack_code_tiles takes tables of at most "
+                         f"{TILES_MAX_SHARED // tiles_shared(1, 1)} PRNs, got {num_prns}")
+    top = -(-words // vec) * vec
+    chunk = vec
+    while chunk + vec <= top and num_prns * (chunk + vec) <= TILES_THREADS \
+            and tiles_shared(num_prns, chunk + vec) <= TILES_MAX_SHARED:
+        chunk += vec
+    channels = TILES_THREADS // (chunk // vec)
+    return TilesSplit(vec, chunk, channels, (-(-words // chunk), -(-num_k0 // channels), tables))
+
+
+def _check_tiles_out(out, num_k: int, words: int, device: torch.device) -> None:
+    if not isinstance(out, torch.Tensor) or out.device != device or out.dtype != torch.int32 \
+            or tuple(out.shape) != (num_k, words) or not out.is_contiguous():
+        got = (f"{out.dtype} {tuple(out.shape)} on {out.device}" if isinstance(out, torch.Tensor)
+               else type(out).__name__)
+        raise ValueError(f"out must be a contiguous int32 [{num_k}, {words}] tensor on "
+                         f"{device}, not {got}")
+
+
+def _check_tiles_index(index, device: torch.device) -> None:
+    if not isinstance(index, torch.Tensor) or index.device != device \
+            or index.dtype != torch.int64 or index.ndim != 0:
+        got = (f"{index.dtype} {tuple(index.shape)} on {index.device}"
+               if isinstance(index, torch.Tensor) else type(index).__name__)
+        raise ValueError(f"index must be an int64 0-d tensor on {device}, not {got}")
+
+
+def pack_code_tiles(codes: torch.Tensor, prn, pilot_codes=None, *,
+                    out: torch.Tensor | None = None,
+                    index: torch.Tensor | None = None) -> torch.Tensor:
     """`prepare_bank_code_tiles_rows`' words of the ``[K]`` PRNs ``prn`` in
     the ``[Lc, P]`` table ``codes``; with ``pilot_codes`` (the GPS L5 dual
     bank's ``[Lc, P']`` pilot table) ``[2K, words]``, the data channels'
@@ -234,20 +312,37 @@ def pack_code_tiles(codes: torch.Tensor, prn, pilot_codes=None) -> torch.Tensor:
     (``torch.cat([codes, pilot_codes], 1)``, ``torch.cat([prn, prn + P])``),
     without either join.
 
+    ``out`` (a contiguous int32 ``[K or 2K, words]`` tensor on the tables'
+    device) takes the words in place of a new tensor, and ``index`` (an
+    int64 0-d tensor there, a tracking call's block index) is set to 0 in
+    the same launch: a call's captured prologue is then this one launch
+    (`tracking.graphs.writes_prepared`). Returns the words (``out``, if
+    given).
+
     CPU tensors run `pack_code_tiles_plain`, which raises `ValueError` on a
-    chip other than +/-1. CUDA tensors launch ``csrc/code_tiles.cu`` once
-    and add one to ``pack_code_tiles.launches``, or raise; there such a chip
-    fails a device-side assert, and nothing is read on the host.
+    chip other than +/-1, and zero ``index`` with a torch op. CUDA tensors
+    launch ``csrc/code_tiles.cu`` once (`tiles_split`'s work split) and add
+    one to ``pack_code_tiles.launches``, or raise; there such a chip fails a
+    device-side assert, and nothing is read on the host.
     """
     device = codes.device
-    if device.type == "cpu":
-        return pack_code_tiles_plain(codes, prn, pilot_codes)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"pack_code_tiles runs on CPU or CUDA tensors, not {device}")
     prn = torch.as_tensor(prn, device=device).reshape(-1)
+    tables = (codes,) if pilot_codes is None else (codes, pilot_codes)
+    words = -(-codes.shape[0] // 32)
+    num_k = prn.numel() * len(tables)
+    if out is not None:
+        _check_tiles_out(out, num_k, words, device)
+    if index is not None:
+        _check_tiles_index(index, device)
+    if device.type == "cpu":
+        tiles = pack_code_tiles_plain(codes, prn, pilot_codes, out)
+        if index is not None:
+            index.zero_()
+        return tiles
     if prn.dtype not in (torch.int32, torch.int64):
         prn = prn.long()
-    tables = (codes,) if pilot_codes is None else (codes, pilot_codes)
     for name, table in zip(("codes", "pilot_codes"), tables):
         if table.device != device or table.dtype != torch.float32 or table.ndim != 2 \
                 or not table.is_contiguous():
@@ -255,14 +350,18 @@ def pack_code_tiles(codes: torch.Tensor, prn, pilot_codes=None) -> torch.Tensor:
     code_length = codes.shape[0]
     if pilot_codes is not None and pilot_codes.shape[0] != code_length:
         raise ValueError(f"the pilot table's {pilot_codes.shape[0]} chips != {code_length}")
-    if prn.numel() == 0 or prn.numel() * len(tables) * -(-code_length // 32) >= 1 << 31:
+    if prn.numel() == 0 or num_k * words >= 1 << 31:
         raise ValueError(f"pack_code_tiles takes 1 to 2^31 words, got {prn.numel()} PRNs")
-    num_k = prn.numel() * len(tables)
-    out = torch.empty((num_k, -(-code_length // 32)), dtype=torch.int32, device=device)
+    if out is None:
+        out = torch.empty((num_k, words), dtype=torch.int32, device=device)
+    vec = 4 if words % 4 == 0 and out.data_ptr() % 16 == 0 else 1
+    split = tiles_split(max(table.shape[1] for table in tables), words, prn.numel(),
+                        len(tables), vec)
     err = _build.load_library("code_tiles").code_tiles_launch(
         codes.data_ptr(), tables[-1].data_ptr(), prn.data_ptr(), out.data_ptr(),
-        int(prn.dtype == torch.int64), prn.numel(), num_k, code_length, codes.shape[1],
-        tables[-1].shape[1], torch.cuda.current_stream(device).cuda_stream)
+        0 if index is None else index.data_ptr(), int(prn.dtype == torch.int64), prn.numel(),
+        len(tables), code_length, codes.shape[1], tables[-1].shape[1], split.vec, split.chunk,
+        split.channels, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"code_tiles_launch failed with CUDA error {err}")
     pack_code_tiles.launches += 1

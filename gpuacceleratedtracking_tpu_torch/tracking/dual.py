@@ -116,11 +116,13 @@ def dual_parts(config: TrackConfig, codes_data, codes_pilot, device: torch.devic
     overlay, pilot overlay)``, derived once per call (`graphs.scan`: on the
     card, inside the captured program). For a bank kernel: the data table,
     the K PRNs and the 2K channels' code tiles (data, then pilot) packed
-    from both tables in one launch, and the kernel derives channel k's
-    parameters from state k mod K and reads the block at the entry's index
-    (`graphs.Chunk`): nothing is joined. For any other correlator: the
-    joined ``[Lc, 2P]`` table, the 2K channels' PRNs and no tiles, and the
-    channel parameters joined per block."""
+    from both tables in one launch (``prepare`` marked
+    `graphs.writes_prepared`: in a capture, into the entry's buffer, the
+    entry's index zeroed by the same launch), and the kernel derives
+    channel k's parameters from state k mod K and reads the block at the
+    entry's index (`graphs.Chunk`): nothing is joined. For any other
+    correlator: the joined ``[Lc, 2P]`` table, the 2K channels' PRNs and no
+    tiles, and the channel parameters joined per block."""
     if config.secondary_code:
         raise ValueError("use dual_config(): overlay wipe-off is per-component here")
     sd = _overlay(data_secondary, gpsl5.neuman_hofman(False), device)
@@ -128,11 +130,12 @@ def dual_parts(config: TrackConfig, codes_data, codes_pilot, device: torch.devic
     corr, kwargs = bank_correlator(config)    # per-channel kernels: 2K launches per block
     tiles = _takes_tiles(config)
 
-    def prepare(states, consts):
+    def prepare(states, consts, into=None):
         codes_data, codes_pilot, sd, sp = consts
         if tiles:
-            code_tiles = _bank_code_tile_kwargs(config, codes_data, states.prn,
-                                                codes_pilot)["code_tiles"]
+            code_tiles = _bank_code_tile_kwargs(
+                config, codes_data, states.prn, codes_pilot,
+                None if into is None else (into.prepared[2], into.index))["code_tiles"]
             return codes_data, states.prn, code_tiles, sd, sp
         codes = torch.cat([codes_data, codes_pilot], dim=1)
         prn2 = torch.cat([states.prn, states.prn + codes_data.shape[1]])
@@ -159,7 +162,9 @@ def dual_parts(config: TrackConfig, codes_data, codes_pilot, device: torch.devic
 
     consts = (torch.as_tensor(codes_data, device=device),
               torch.as_tensor(codes_pilot, device=device), sd, sp)
-    return (graphs.reads_chunk(step) if tiles else step), consts, prepare
+    if tiles:
+        return graphs.reads_chunk(step), consts, graphs.writes_prepared(prepare)
+    return step, consts, prepare
 
 
 def track_bank_dual(

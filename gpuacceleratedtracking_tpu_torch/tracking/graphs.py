@@ -28,7 +28,9 @@ caller's carry, constants and first chunk in (one multi-tensor copy per
 pair of dtypes; a carry whose leaves lie as the entry lays them out, a
 call's own result passed back, is one region of that copy), replays the
 entry's prologue once (the index to 0 and ``prepare``, captured like the
-body, so the code tiles are derived on the card inside the program), then
+body, so the code tiles are derived on the card inside the program; a
+``prepare`` marked `writes_prepared` writes into the entry's buffers and
+zeroes the index itself, so the bank entries' prologue is one launch), then
 the body once per block; after each chunk the outputs, and after the last
 the carry, are copied into one fresh buffer per dtype, laid out as the
 entry's with B rows. Views aside, the ops a call dispatches do not grow
@@ -287,6 +289,30 @@ def reads_chunk(step):
     captured path (a tuple of the block's tensors in the eager loop)."""
     step.takes_chunk = True
     return step
+
+
+# --- The prologue's own writes: a prepare that derives into the entry.
+
+class Into(NamedTuple):
+    """Where a ``prepare`` marked `writes_prepared` writes in a capture:
+    ``prepared``, the body's constants as the entry holds them (each leaf
+    ``prepare`` derives as the entry's own buffer, each other leaf as the
+    entry's constant or carry leaf), and ``index``, the entry's block index
+    (the `Sink`'s), which ``prepare`` sets to 0."""
+
+    prepared: object
+    index: torch.Tensor
+
+
+def writes_prepared(prepare):
+    """Mark ``prepare`` as one that takes an `Into` as a third argument (None
+    outside a capture), writes each leaf it derives into its buffer there,
+    sets the index to 0, and returns ``into.prepared``'s own leaves: the
+    entry's prologue is then ``prepare`` alone (the bank kernels' code
+    tiles: one launch of the packing kernel), where it would otherwise fill
+    the index and copy each derived leaf into the entry."""
+    prepare.takes_into = True
+    return prepare
 
 
 def check_sink(sink: Sink, leaves: list, device: torch.device) -> int:
@@ -569,9 +595,22 @@ class _Entry:
     def _prologue(self, prepare):
         """Once per call, before the first block: the index to 0 and, with a
         ``prepare``, the constants it derives from the loaded carry and
-        constants into the entry's buffers."""
+        constants into the entry's buffers (by ``prepare`` alone where it is
+        marked `writes_prepared`)."""
         prepared = _leaves(self.prepared)
         kept = [i for i in range(len(prepared)) if i not in self._derived]
+
+        if getattr(prepare, "takes_into", False):
+            into = Into(self.prepared, self.index)
+
+            def prologue():
+                leaves = _leaves(prepare(self.carry, self.consts, into))
+                if len(leaves) != len(prepared) or any(x is not y
+                                                       for x, y in zip(leaves, prepared)):
+                    raise ValueError("a prepare marked writes_prepared returned leaves other "
+                                     "than the entry's buffers")
+
+            return prologue
 
         def prologue():
             self.index.zero_()
@@ -675,7 +714,8 @@ def scan(step, carry, xs: tuple, consts=None, *, key, prepare=None):
     bodies apart by their code and ``key`` alone, so two closures of one
     function that differ in a value missing from ``key`` would share one
     graph. A body marked `writes_outputs` gets the entry's `Sink` as a
-    fourth argument in its capture. Returns the final carry and the outputs
+    fourth argument in its capture, a ``prepare`` marked `writes_prepared`
+    the entry's `Into` as a third. Returns the final carry and the outputs
     stacked ``[B, ...]``.
     """
     device = xs[0].device

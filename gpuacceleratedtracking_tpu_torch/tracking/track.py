@@ -67,16 +67,20 @@ def _takes_tiles(config: TrackConfig) -> bool:
 
 
 def _bank_code_tile_kwargs(config: TrackConfig, codes: torch.Tensor,
-                           prn: torch.Tensor, pilot_codes=None) -> dict:
+                           prn: torch.Tensor, pilot_codes=None, into=None) -> dict:
     """The per-channel code columns of a bank kernel, gathered once per run:
     PRNs are loop constants. All four bank routes take the same table; with
     ``pilot_codes``, the dual bank's data channels' then pilot channels'
-    (`ops.epl_kernels.pack_code_tiles`: one launch on the card)."""
+    (`ops.epl_kernels.pack_code_tiles`: one launch on the card). With
+    ``into`` (``(tiles, index)``: a captured prologue's buffer of the tiles
+    and its block index, `graphs.writes_prepared`), the tiles are packed
+    into that buffer and the index set to 0 in the same launch."""
     if not _takes_tiles(config):
         return {}
     from ..ops.epl_kernels import pack_code_tiles
 
-    return {"code_tiles": pack_code_tiles(codes, prn, pilot_codes)}
+    out, index = (None, None) if into is None else into
+    return {"code_tiles": pack_code_tiles(codes, prn, pilot_codes, out=out, index=index)}
 
 
 def track_step(
@@ -356,13 +360,18 @@ def bank_prepare(config: TrackConfig):
     ant_weights))`` returns `bank_step`'s constants ``(codes, code_tiles,
     ant_weights)``, the bank kernels' packed code columns derived from the
     states' PRNs once per call (`graphs.scan`: on the card, inside the
-    captured program), as the jitted JAX `track_bank` derives them."""
-    def prepare(states, consts):
+    captured program), as the jitted JAX `track_bank` derives them. For a
+    bank kernel it is marked `graphs.writes_prepared`: in a capture it
+    packs the tiles into the entry's buffer and zeroes the entry's index in
+    one launch, the whole prologue."""
+    def prepare(states, consts, into=None):
         codes, ant_weights = consts
-        tiles = _bank_code_tile_kwargs(config, codes, states.prn).get("code_tiles")
+        tiles = _bank_code_tile_kwargs(
+            config, codes, states.prn,
+            into=None if into is None else (into.prepared[1], into.index)).get("code_tiles")
         return codes, tiles, ant_weights
 
-    return prepare
+    return graphs.writes_prepared(prepare) if _takes_tiles(config) else prepare
 
 
 def bank_correlate(config: TrackConfig, corr, kwargs: dict, states: TrackState, codes, prn,

@@ -16,10 +16,13 @@ chunks of `graphs.CHUNK`).
 
 import ctypes
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gpuacceleratedtracking_tpu import models as jmodels
+from gpuacceleratedtracking_tpu.ops import pallas_epl
 from gpuacceleratedtracking_tpu_torch import models as tmodels
 from gpuacceleratedtracking_tpu_torch import tracking as ttracking
 from gpuacceleratedtracking_tpu_torch.ops import epl_kernels, loop_kernel, registry
@@ -180,6 +183,133 @@ def test_pack_code_tiles_refuses_a_chip_other_than_one(which):
     # A chip of a PRN that no channel tracks is not read.
     prn_other = torch.tensor([1, 9], dtype=torch.int32)
     epl_kernels.pack_code_tiles(codes, prn_other, pilot)
+
+
+# family -> its [Lc, P] code table or tables (the GPS L5 dual bank's data
+# and pilot), in the port and in the JAX package.
+FAMILIES = {
+    "gpsl1": (lambda m: (m.GPSL1(),)),
+    "gpsl5": (lambda m: (m.GPSL5(),)),
+    "gpsl5_dual": (lambda m: (m.GPSL5(), m.GPSL5(quadrature=True))),
+    "galileo_e1": (lambda m: (m.GalileoE1(),)),
+    "beidou_b1i": (lambda m: (m.BeiDouB1I(),)),
+    "glonass_l1of": (lambda m: (m.GLONASSL1(),)),
+}
+
+
+def _family_tables(family):
+    return [torch.as_tensor(system.codes) for system in FAMILIES[family](tmodels)]
+
+
+def _family_prns(tables, k, seed=0):
+    """``k`` PRNs of the family's table, with repeats, made with numpy; a K
+    below the table's P takes P - 1."""
+    num_prns = tables[0].shape[1]
+    k = num_prns - 1 if k == "below_p" else k
+    return torch.as_tensor(np.random.default_rng(seed).integers(0, num_prns, k))
+
+
+def _joined_words(tables, prn):
+    """`prepare_bank_code_tiles_rows` on the joined table and PRNs."""
+    prn = prn.long()
+    return epl_kernels.prepare_bank_code_tiles_rows(
+        torch.cat(tables, 1), torch.cat([prn + sum(t.shape[1] for t in tables[:i])
+                                         for i in range(len(tables))]))
+
+
+@pytest.mark.parametrize("prn_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("k", [1, 5, "below_p", 1024])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_pack_code_tiles_writes_into_out_and_zeroes_the_index(family, k, prn_dtype):
+    tables = _family_tables(family)
+    prn = _family_prns(tables, k).to(prn_dtype)
+    words = -(-tables[0].shape[0] // 32)
+    out = torch.full((prn.numel() * len(tables), words), -1, dtype=torch.int32)
+    ptr = out.data_ptr()
+    index = torch.tensor(7, dtype=torch.int64)
+    got = epl_kernels.pack_code_tiles(tables[0], prn, *tables[1:], out=out, index=index)
+    assert got is out and out.data_ptr() == ptr and int(index) == 0
+    assert torch.equal(out, _joined_words(tables, prn))
+    assert torch.equal(out, epl_kernels.pack_code_tiles(tables[0], prn, *tables[1:]))
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_packed_words_hold_the_jax_columns(family):
+    # The JAX package's rows-kernel tables at 8 samples per chip hold each
+    # channel's whole code column first: the port's words, unpacked, are
+    # those columns, chip for chip.
+    jsystems = FAMILIES[family](jmodels)
+    tables = _family_tables(family)
+    prn = _family_prns(tables, 5, seed=3)
+    lc = jsystems[0].code_length
+    out = torch.empty((5 * len(tables), -(-lc // 32)), dtype=torch.int32)
+    epl_kernels.pack_code_tiles(tables[0], prn, *tables[1:], out=out,
+                                index=torch.zeros((), dtype=torch.int64))
+    for i, jsystem in enumerate(jsystems):
+        want = pallas_epl.prepare_bank_code_tiles_rows(
+            jnp.asarray(jsystem.codes), jnp.asarray(prn.numpy()), code_length=lc,
+            num_samples=4096, sampling_frequency=8 * jsystem.code_frequency,
+            nominal_code_frequency=jsystem.code_frequency)
+        want = np.asarray(want).reshape(5, -1)[:, :lc]
+        np.testing.assert_array_equal(
+            epl_kernels.unpack_code_columns(out[5 * i:5 * (i + 1)], lc).numpy(), want)
+
+
+# fault -> (out, index) the wrapper refuses, for 3 GPS L1 channels
+_GOOD_OUT = lambda: torch.zeros((3, 32), dtype=torch.int32)  # noqa: E731
+_GOOD_INDEX = lambda: torch.zeros((), dtype=torch.int64)  # noqa: E731
+OUT_FAULTS = {
+    "out_shape": (lambda: torch.zeros((3, 31), dtype=torch.int32), _GOOD_INDEX, "out must"),
+    "out_rows": (lambda: torch.zeros((4, 32), dtype=torch.int32), _GOOD_INDEX, "out must"),
+    "out_dtype": (lambda: torch.zeros((3, 32), dtype=torch.int64), _GOOD_INDEX, "out must"),
+    "out_strided": (lambda: torch.zeros((32, 3), dtype=torch.int32).T, _GOOD_INDEX, "out must"),
+    "out_device": (lambda: torch.zeros((3, 32), dtype=torch.int32, device="meta"), _GOOD_INDEX,
+                   "out must"),
+    "index_dtype": (_GOOD_OUT, lambda: torch.zeros((), dtype=torch.int32), "index must"),
+    "index_shape": (_GOOD_OUT, lambda: torch.zeros((1,), dtype=torch.int64), "index must"),
+    "index_device": (_GOOD_OUT, lambda: torch.zeros((), dtype=torch.int64, device="meta"),
+                     "index must"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(OUT_FAULTS))
+def test_pack_code_tiles_refuses_an_out_or_index_it_cannot_take(fault):
+    make_out, make_index, match = OUT_FAULTS[fault]
+    codes = torch.as_tensor(tmodels.GPSL1().codes)
+    out, index = make_out(), make_index()
+    with pytest.raises(ValueError, match=match):
+        epl_kernels.pack_code_tiles(codes, torch.tensor([0, 4, 9]), out=out, index=index)
+
+
+@pytest.mark.parametrize("vec", [4, 1])
+@pytest.mark.parametrize("k", [1, 5, "below_p", 1024])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_tiles_split_copies_every_word_once(family, k, vec):
+    # The packing kernel's CTA (x, y, z), thread u copies words [x chunk + v
+    # vec, + vec) of channel y channels + u // (chunk / vec) of table z, v = u
+    # mod (chunk / vec), where that channel and word exist: every (channel,
+    # word) once; each CTA's (word, column) pairs fit its threads' loop and
+    # its rows its shared memory.
+    tables = _family_tables(family)
+    num_prns, num_k0 = max(t.shape[1] for t in tables), _family_prns(tables, k).numel()
+    words = -(-tables[0].shape[0] // 32)
+    split = epl_kernels.tiles_split(num_prns, words, num_k0, len(tables), vec)
+    assert split.vec == vec and split.chunk % vec == 0
+    assert split.channels * (split.chunk // vec) <= epl_kernels.TILES_THREADS
+    assert epl_kernels.tiles_shared(num_prns, split.chunk) <= epl_kernels.TILES_MAX_SHARED
+    grid_x, grid_y, grid_z = split.grid
+    assert grid_z == len(tables) and grid_x == -(-words // split.chunk)
+    assert grid_y == -(-num_k0 // split.channels)
+    vecs = split.chunk // vec
+    x, y, z, u, j = np.meshgrid(np.arange(grid_x), np.arange(grid_y), np.arange(grid_z),
+                                np.arange(epl_kernels.TILES_THREADS), np.arange(vec),
+                                indexing="ij")
+    s, v = y * split.channels + u // vecs, u % vecs
+    word = x * split.chunk + v * vec
+    copies = (u < split.channels * vecs) & (s < num_k0) & (word < words)
+    cells = ((z * num_k0 + s) * words + word + j)[copies]
+    assert np.array_equal(np.bincount(cells, minlength=len(tables) * num_k0 * words),
+                          np.ones(len(tables) * num_k0 * words, dtype=np.int64))
 
 
 def _plain_capture(body, device):

@@ -1734,24 +1734,43 @@ def test_closed_dual_loop_at_the_device_index_equals_the_joined_expressions(cuda
     graphs.clear()
 
 
+# family -> its code table or tables (the GPS L5 dual bank's data and pilot)
+PACK_FAMILIES = {
+    "gpsl1": lambda: (GPSL1(),), "gpsl5": lambda: (GPSL5(),),
+    "gpsl5_dual": lambda: (GPSL5(), GPSL5(quadrature=True)),
+    "galileo_e1": lambda: (GalileoE1(),), "beidou_b1i": lambda: (BeiDouB1I(),),
+    "glonass_l1of": lambda: (GLONASSL1(),),
+}
+
+
+@pytest.mark.parametrize("into", [False, True])
 @pytest.mark.parametrize("prn_dtype", [torch.int32, torch.int64])
-def test_pack_code_tiles_kernel_equals_the_plain_words(cuda, prn_dtype):
+@pytest.mark.parametrize("family", sorted(PACK_FAMILIES))
+def test_pack_code_tiles_kernel_equals_the_plain_words(cuda, family, prn_dtype, into):
+    # K = 1, 5, one below the table's P and 1024, PRNs with repeats; with
+    # `into`, the words go into a given buffer and the index reads 0 after.
     rng = np.random.default_rng(4)
-    before = epl_kernels.pack_code_tiles.launches
-    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
-    prn = torch.as_tensor(rng.integers(0, 32, 1024), dtype=prn_dtype, device=cuda)
-    got = epl_kernels.pack_code_tiles(codes, prn)
-    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
-    codes_i = torch.as_tensor(sys_i.codes, device=cuda)
-    codes_q = torch.as_tensor(sys_q.codes, device=cuda)
-    dual = epl_kernels.pack_code_tiles(codes_i, prn[:64], codes_q)
-    torch.cuda.synchronize()
-    assert epl_kernels.pack_code_tiles.launches == before + 2
-    assert got.dtype == torch.int32 and got.shape == (1024, 32)
-    assert torch.equal(got, epl_kernels.prepare_bank_code_tiles_rows(codes, prn))
-    assert torch.equal(dual, epl_kernels.pack_code_tiles_plain(codes_i, prn[:64], codes_q))
-    assert torch.equal(dual, epl_kernels.prepare_bank_code_tiles_rows(
-        torch.cat([codes_i, codes_q], 1), torch.cat([prn[:64], prn[:64] + codes_i.shape[1]])))
+    tables = [torch.as_tensor(system.codes, device=cuda) for system in PACK_FAMILIES[family]()]
+    num_prns, words = tables[0].shape[1], -(-tables[0].shape[0] // 32)
+    for k in (1, 5, num_prns - 1, 1024):
+        prn = torch.as_tensor(rng.integers(0, num_prns, k), dtype=prn_dtype, device=cuda)
+        kwargs = {}
+        if into:
+            kwargs = dict(out=torch.full((k * len(tables), words), -1, dtype=torch.int32,
+                                         device=cuda),
+                          index=torch.tensor(9, dtype=torch.int64, device=cuda))
+        before = epl_kernels.pack_code_tiles.launches
+        got = epl_kernels.pack_code_tiles(tables[0], prn, *tables[1:], **kwargs)
+        torch.cuda.synchronize()
+        assert epl_kernels.pack_code_tiles.launches == before + 1
+        assert got.dtype == torch.int32 and got.shape == (k * len(tables), words)
+        assert torch.equal(got, epl_kernels.pack_code_tiles_plain(tables[0], prn, *tables[1:]))
+        joined = torch.cat([prn.long() + sum(t.shape[1] for t in tables[:i])
+                            for i in range(len(tables))])
+        assert torch.equal(got, epl_kernels.prepare_bank_code_tiles_rows(torch.cat(tables, 1),
+                                                                         joined))
+        if into:
+            assert got is kwargs["out"] and int(kwargs["index"]) == 0
 
 
 def _replay_op_names(run, replays=3):
@@ -1788,8 +1807,8 @@ def _replay_op_names(run, replays=3):
 @pytest.mark.parametrize("path", ["rows_k1024", "comp_a4_l7_k1024", "dual_k64"])
 def test_a_replayed_block_is_its_kernels_alone(cuda, path):
     # The bank kernel (and its finish), the loop kernel and the index's add:
-    # no parameter op, no block select, no join. The prologue: the index to
-    # 0, the code tiles packed by one kernel, one copy into the entry.
+    # no parameter op, no block select, no join. The prologue: the code
+    # tiles packed into the entry by one kernel, which zeroes the index.
     if path == "dual_k64":
         sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
         sig, fs = gen_signal(sys_i, 2, 700.0, 16384 * 2, duration=2e-3, device=cuda)
@@ -1821,18 +1840,70 @@ def test_a_replayed_block_is_its_kernels_alone(cuda, path):
             (kernel, block)
     glue = ("indexselect", "index_select", "catarray", "div", "mul", "stack", "copy")
     assert not any(op in name.lower() for name in block for op in glue), block
-    assert sum(prologue.values()) <= 3 * replays, prologue
-    assert 1 <= sum(n for name, n in prologue.items() if "code_tiles_kernel" in name) \
-        <= replays, prologue
+    assert 1 <= sum(prologue.values()) <= replays, prologue
+    assert all("code_tiles_kernel" in name for name in prologue), prologue
 
 
-def test_a_captured_call_checks_the_chips_of_its_table(cuda):
-    # The code tiles are packed inside the captured prologue, whose +/-1
-    # check is a device-side assert: a call after an in-place edit of a
-    # tracked PRN's chips traps (in a process of its own, as the trap ends
-    # the CUDA context), where the call before it ran. Last in the file: on
-    # the H100 the first torch.profiler trace taken after this trap, in the
-    # test process, held no device event.
+# path -> (algorithm, K, A, TrackConfig extras), on 8192-sample GPS L1 blocks
+# but "dual" (GPS L5 data and pilot)
+PROLOGUE_PATHS = {
+    "rows": ("pallas_bank_auto", 64, None, {}),
+    "comp": ("pallas_bank_auto", 64, 4, {"num_correlators": 7}),
+    "transition": ("pallas_bank", 64, None, {}),
+    "onehot": ("pallas_bank_onehot", 64, None, {}),
+    "dual": ("pallas_bank_auto", 16, None, {}),
+    "fused": ("pallas_fused", 4, None, {}),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PROLOGUE_PATHS))
+def test_a_bank_prologue_is_one_launch_of_the_packing_kernel(cuda, path):
+    # Three prologues replayed after spin kernels: one device op each, the
+    # packing kernel, on every bank path; a path without a prepare
+    # (`pallas_fused`) keeps its one op, the index's fill.
+    algorithm, k, num_ants, extra = PROLOGUE_PATHS[path]
+    if path == "dual":
+        sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+        sig, fs = gen_signal(sys_i, 2, 700.0, 16384 * 2, duration=2e-3, device=cuda)
+        sre, sim = (x.reshape(2, 16384) for x in soa(sig))
+        config = dual_config(TrackConfig.for_system(sys_i, fs, 16384, algorithm=algorithm,
+                                                    use_secondary=False))
+        states = init_state(np.arange(k) % 32, device=cuda)
+        codes_i = torch.as_tensor(sys_i.codes, device=cuda)
+        codes_q = torch.as_tensor(sys_q.codes, device=cuda)
+        run = lambda: track_bank_dual(config, codes_i, codes_q, states, sre, sim)  # noqa: E731
+    else:
+        fs, codes, states, sre, sim = _sharded_case(cuda, blocks=2, k=k, num_ants=num_ants)
+        config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm=algorithm, **extra)
+        states = init_state(states.prn.cpu().numpy(), num_taps=len(config.sample_shifts),
+                            device=cuda)
+        run = lambda: track_bank(config, codes, states, sre, sim)  # noqa: E731
+    replays = 3
+    prologue, _ = _replay_op_names(run, replays)
+    assert 1 <= sum(prologue.values()) <= replays, prologue
+    ops = ("fill", "memset") if path == "fused" else ("code_tiles_kernel",)
+    assert all(any(op in name.lower() for op in ops) for name in prologue), prologue
+
+
+# fault -> (the edit before the third call, whether that call fails)
+CHIP_FAULTS = {
+    "bad_chip_in_a_tracked_column": ("codes[5, 3] = 0.5", True),
+    "prn_outside_the_table": ("states = states._replace(prn=states.prn.clone()); "
+                              "states.prn[3] = 40", True),
+    "bad_chip_in_an_untracked_column": ("codes[5, 20] = 0.5", False),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(CHIP_FAULTS))
+def test_a_captured_call_checks_the_chips_of_its_table(cuda, fault):
+    # The code tiles are packed inside the captured prologue, whose checks
+    # are device-side asserts: a call after an in-place edit of a tracked
+    # PRN's chips, or with a PRN outside the table, traps (in a process of
+    # its own, as the trap ends the CUDA context), where the call before it
+    # ran; a bad chip in a column no channel tracks is not checked. Last in
+    # the file: on the H100 the first torch.profiler trace taken after this
+    # trap, in the test process, held no device event.
+    edit, fails = CHIP_FAULTS[fault]
     code = textwrap.dedent("""
         import numpy as np
         import torch
@@ -1848,11 +1919,16 @@ def test_a_captured_call_checks_the_chips_of_its_table(cuda):
         track_bank(config, codes, states, sre, sim)
         torch.cuda.synchronize()
         print("steady call ran", flush=True)
-        codes[5, 3] = 0.5
+        EDIT
         track_bank(config, codes, states, sre, sim)
         torch.cuda.synchronize()
-    """)
+        print("third call ran", flush=True)
+    """).replace("EDIT", edit)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=300, cwd=pathlib.Path(__file__).resolve().parents[1])
     assert "steady call ran" in proc.stdout, proc.stderr[-2000:]
-    assert proc.returncode != 0 and "Error" in proc.stderr, proc.stderr[-2000:]
+    if fails:
+        assert proc.returncode != 0 and "Error" in proc.stderr, proc.stderr[-2000:]
+        assert "third call ran" not in proc.stdout
+    else:
+        assert proc.returncode == 0 and "third call ran" in proc.stdout, proc.stderr[-2000:]

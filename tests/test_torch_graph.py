@@ -27,6 +27,8 @@ from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
 from gpuacceleratedtracking_tpu_torch.parallel import (
     channel_time_mesh, track_bank_dual_sharded, track_bank_sharded)
 from gpuacceleratedtracking_tpu_torch.tracking import graphs
+from gpuacceleratedtracking_tpu_torch.tracking.dual import dual_parts
+from gpuacceleratedtracking_tpu_torch.tracking.track import _takes_tiles, bank_prepare
 
 torch.set_num_threads(1)
 
@@ -677,7 +679,10 @@ def test_tiles_follow_the_prns_and_the_code_table_of_each_call(captured, name):
 
 @pytest.mark.parametrize("name", ["rows", "dual"])
 def test_in_graph_tiles_equal_prepare_bank_code_tiles_rows(captured, name):
+    # Each call's tiles, packed into the entry's own buffer: one buffer for
+    # every call of the entry.
     call, state, tables = _chained_case(name)
+    ptrs = set()
     for st in (state, _other_prns(state, 1)):
         call(st, 0, 2)
         codes, prn = tables[0], st.prn
@@ -687,6 +692,107 @@ def test_in_graph_tiles_equal_prepare_bank_code_tiles_rows(captured, name):
         tiles = _entry().prepared[2 if name == "dual" else 1]
         assert tiles.dtype == torch.int32
         assert torch.equal(tiles, epl_kernels.prepare_bank_code_tiles_rows(codes, prn))
+        ptrs.add(tiles.data_ptr())
+    assert len(ptrs) == 1
+
+
+class _Writes(TorchDispatchMode):
+    """The ops dispatched outside `epl_kernels.pack_code_tiles` (`_spy_pack`
+    pauses it) that write a tensor, with the tensors each writes (its
+    schema's mutable arguments, each tensor of a list)."""
+
+    paused = 0
+
+    def __init__(self):
+        super().__init__()
+        self.writes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not _Writes.paused:
+            written = []
+            for i, arg in enumerate(func._schema.arguments):
+                if arg.alias_info is None or not arg.alias_info.is_write:
+                    continue
+                value = args[i] if i < len(args) else (kwargs or {}).get(arg.name)
+                values = value if isinstance(value, (list, tuple)) else [value]
+                written += [x for x in values if isinstance(x, torch.Tensor)]
+            if written:
+                self.writes.append((func, written))
+        return func(*args, **(kwargs or {}))
+
+
+def _spy_pack(monkeypatch) -> list:
+    """`epl_kernels.pack_code_tiles` recording its ``out`` and ``index`` per
+    call, unseen by `_Writes`."""
+    calls, pack = [], epl_kernels.pack_code_tiles
+
+    def spy(*args, **kwargs):
+        calls.append((kwargs.get("out"), kwargs.get("index")))
+        _Writes.paused += 1
+        try:
+            return pack(*args, **kwargs)
+        finally:
+            _Writes.paused -= 1
+
+    spy.launches = 0
+    monkeypatch.setattr(epl_kernels, "pack_code_tiles", spy)
+    return calls
+
+
+@pytest.mark.parametrize("name", ["rows", "comp_a2", "transition", "onehot", "dual"])
+def test_a_marked_prologue_packs_into_the_entry_and_zeroes_its_index(captured, monkeypatch,
+                                                                      name):
+    # A bank entry's prologue is `prepare` alone: the tiles packed into the
+    # entry's buffer and the index zeroed by the packing, no copy into the
+    # buffer and no fill of the index beside it; the run is the eager one's.
+    calls = _spy_pack(monkeypatch)
+    call, state, _ = _chained_case(name)
+    call(state, 0, 2)
+    entry = _entry()
+    tiles = _leaves(entry.prepared)[2 if name == "dual" else 1]
+    others = _other_prns(state, 1 if name == "dual" else 5)
+    calls.clear()
+    with _Writes() as mode:
+        got = call(others, 0, 2)
+    assert len(calls) == 1 and calls[0][0] is tiles and calls[0][1] is entry.index
+    for func, written in mode.writes:
+        ptrs = {x.data_ptr() for x in written}
+        assert tiles.data_ptr() not in ptrs, func
+        if entry.index.data_ptr() in ptrs:
+            assert func is torch.ops.aten.add_.Tensor, func      # the body's index add
+    assert _leaves(entry.prepared)[2 if name == "dual" else 1] is tiles
+    with graphs.eager():
+        want = call(others, 0, 2)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(BANK_CASES) + ["dual_xla", "dual"])
+def test_the_prepare_is_marked_where_the_route_takes_tiles(name):
+    if name.startswith("dual"):
+        sys_i, sys_q = tmodels.GPSL5(), tmodels.GPSL5(quadrature=True)
+        algorithm = "xla_bank" if name == "dual_xla" else "pallas_bank_auto"
+        config = ttracking.dual_config(ttracking.TrackConfig.for_system(
+            sys_i, 16.384e6, 16384, algorithm=algorithm, use_secondary=False))
+        _, _, prepare = dual_parts(config, sys_i.codes, sys_q.codes, torch.device("cpu"))
+    else:
+        algorithm, n, fs, _, _, extra = BANK_CASES[name]
+        config = ttracking.TrackConfig.for_system(tmodels.GPSL1(), fs, n, algorithm=algorithm,
+                                                  **extra)
+        prepare = bank_prepare(config)
+    assert getattr(prepare, "takes_into", False) == _takes_tiles(config)
+
+
+def test_a_marked_prepare_that_returns_another_leaf_raises(captured):
+    @graphs.writes_prepared
+    def prepare(carry, consts, into=None):
+        return carry * 2 if into is None else carry * 3
+
+    def step(carry, consts, block):
+        return carry + consts * block[0], block[0]
+
+    xs = (torch.arange(6.0).reshape(3, 2),)
+    with pytest.raises(ValueError, match="writes_prepared"):
+        graphs.scan(step, torch.ones(2), xs, key=("marked",), prepare=prepare)
 
 
 def test_results_stay_fresh_across_calls_and_edits(captured):
