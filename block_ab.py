@@ -25,11 +25,21 @@ entry points a user calls:
 - the replayed K=1024 block of ``bench.run_track_benchmark`` (its B vs 2B
   differential, so the per-call copies cancel);
 - the 1-block rows call (``__graft_entry__.py``'s shape): milliseconds per
-  call (CUDA events) and its device ops and device milliseconds
-  (torch.profiler over five calls), the prologue included;
+  call (CUDA events) and its device ops and device milliseconds, in all
+  and by op name (torch.profiler over five calls), the prologue included;
 - that entry's prologue alone: milliseconds per replay of 20 back to back
   (CUDA events) and its device ops and their summed device milliseconds
-  per replay (torch.profiler over 20 replays).
+  per replay (torch.profiler over 20 replays);
+- ``track_bank_sharded`` on one card: the rows bank on meshes 2 x 2, 2 x 1
+  and 1 x 2 and the A=4 L=7 bank (no steering weights) on 2 x 2 and
+  unsharded, ms and device ops per block of 10-block calls, and the device
+  ops of one replayed 2 x 2 rows block (torch.profiler over three replays).
+
+``--dual ROUNDS`` instead times, in this tree and one process, the one-card
+``track_bank_dual_sharded`` (one graph for every channel shard) against
+``chip_smoke.dual_graph_per_shard`` (a graph per shard) at chan 2 and 4,
+ROUNDS rounds of turns one, per shard, per shard, one, each turn the median
+of 20 10-block calls; it prints each turn and the medians.
 
 The script prints one JSON line per turn and, last, the medians of each
 metric per tree; ``--out`` also writes them as JSON. The old tree is not
@@ -96,9 +106,10 @@ def measure(root: pathlib.Path) -> dict:
         result[f"{name}_device_ops_per_block"] = cs.device_profile(run, calls=2)[0] / BLOCKS
     one_block = lambda: track_bank(rows, codes, states, sre[:1], sim[:1])  # noqa: E731
     result["one_block_K1024_ms"] = cs.time_cuda(one_block, warmup=2)[0]
-    ops, device_ms = cs.device_profile(one_block, calls=5)
+    ops, device_ms, names = cs.device_profile(one_block, calls=5, by_name=True)
     result["one_block_K1024_device_ops_per_block"] = ops
     result["one_block_K1024_device_ms"] = device_ms
+    result["one_block_K1024_device_ms_by_name"] = {name: ms for name, (_, ms) in names.items()}
     # The rows entry's prologue alone: 20 replays back to back (CUDA events:
     # a replay's host issue included where it is the longer), and its device
     # ops and their summed device time per replay (torch.profiler).
@@ -110,10 +121,80 @@ def measure(root: pathlib.Path) -> dict:
     ops, device_ms = cs.device_profile(entry.prologue, calls=20)
     result["prologue_device_ops_per_block"] = ops
     result["prologue_device_ms"] = device_ms
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+
+    are, aim, _ = cs.mixed_blocks(system, BLOCKS, num_ants=cs.NUM_ANTS)
+    states7 = cs.bank_states(system, init_errors=False, num_taps=7)
+    array = TrackConfig.for_system(system, cs.L1_FS, cs.N_1MS, num_correlators=7,
+                                   algorithm="pallas_bank_auto")
+    meshes = {f"{c}x{t}": channel_time_mesh(c, t, devices=cs.mesh_devices(c * t))
+              for c, t in ((2, 2), (2, 1), (1, 2))}
+    sharded = {f"mesh_{key}_rows_K1024": (lambda m=mesh: track_bank_sharded(
+        rows, codes, states, sre, sim, mesh=m)) for key, mesh in meshes.items()}
+    sharded["array_K1024_A4_L7"] = lambda: track_bank(array, codes, states7, are, aim)
+    sharded["mesh_2x2_array_K1024_A4_L7"] = lambda: track_bank_sharded(
+        array, codes, states7, are, aim, mesh=meshes["2x2"])
+    for name, run in sharded.items():
+        result[f"{name}_block_ms"] = cs.time_cuda(run, warmup=2)[0] / BLOCKS
+        result[f"{name}_device_ops_per_block"] = cs.device_profile(run, calls=2)[0] / BLOCKS
+    _, block = cs.replay_op_names(sharded["mesh_2x2_rows_K1024"])
+    result["mesh_2x2_rows_K1024_replayed_block_ops_per_block"] = sum(block.values()) / cs.REPLAYS
+    result["mesh_2x2_rows_K1024_replayed_block_by_name"] = dict(block)
     r = run_track_benchmark({"GNSS": "GPSL1", "num_samples": cs.N_1MS,
                              "num_channels": cs.NUM_K, "algorithm": "pallas_bank_auto",
                              "processor": "GPU", "blocks": 8, "trials": 7})
     result["replayed_rows_block_ms"] = r["Median"] * 1e3
+    return result
+
+
+def dual_pairs(rounds: int) -> dict:
+    """The one-card sharded GPS L5 dual bank, one graph for every channel
+    shard against a graph per shard, in turns (one, per shard, per shard,
+    one) ``rounds`` times at chan 2 and 4: ms per block of each turn (the
+    median of 20 10-block calls) and the medians."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from gpuacceleratedtracking_tpu_torch.models import GPSL5
+    from gpuacceleratedtracking_tpu_torch.ops import _build
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_dual_sharded
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, dual_config
+
+    _build.build()
+    sys_i, sys_q = GPSL5(), GPSL5(quadrature=True)
+    rng = np.random.default_rng(2)
+    offsets = rng.integers(0, 20, len(cs.L5_PRNS))
+    navs = rng.choice([-1.0, 1.0], (len(cs.L5_PRNS), (20 + BLOCKS) // 10 + 1))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    s5re, s5im = cs.l5_dual_blocks(BLOCKS, offsets, navs, gen)
+    cfg5 = dual_config(TrackConfig.for_system(sys_i, cs.L1_FS, cs.N_1MS,
+                                              algorithm="pallas_bank_auto", use_secondary=False))
+    states5 = cs.dual_states(offsets, cs.L5_DOPPLERS)
+    codes_i = torch.as_tensor(sys_i.codes, device="cuda")
+    codes_q = torch.as_tensor(sys_q.codes, device="cuda")
+    result = {"card": cs.nvidia_smi(), "rounds": rounds}
+    for chan in (2, 4):
+        mesh = channel_time_mesh(chan, 1, devices=cs.mesh_devices(chan))
+        runs = {
+            "one_graph": lambda: track_bank_dual_sharded(cfg5, codes_i, codes_q, states5, s5re,
+                                                         s5im, mesh=mesh),
+            "per_shard": lambda: cs.dual_graph_per_shard(cfg5, codes_i, codes_q, states5, s5re,
+                                                         s5im, chan),
+        }
+        cs.bitwise(f"dual chan {chan}: one graph against a graph per shard", runs["one_graph"](),
+                   runs["per_shard"]())
+        turns = {name: [] for name in runs}
+        for _ in range(rounds):
+            for name in ("one_graph", "per_shard", "per_shard", "one_graph"):
+                turns[name].append(cs.time_cuda(runs[name], warmup=1)[0] / BLOCKS)
+        for name, times in turns.items():
+            result[f"chan{chan}_{name}_block_ms"] = statistics.median(times)
+            result[f"chan{chan}_{name}_block_ms_min"] = min(times)
+            result[f"chan{chan}_{name}_block_ms_max"] = max(times)
+            result[f"chan{chan}_{name}_turns"] = times
+        print(json.dumps({k: v for k, v in result.items() if k.startswith(f"chan{chan}")}),
+              flush=True)
     return result
 
 
@@ -133,8 +214,17 @@ def main(argv=None) -> int:
     parser.add_argument("--out", help="also write the results as JSON here")
     parser.add_argument("--rounds", type=int, default=1,
                         help="rounds of turns old, new, new, old (default 1)")
+    parser.add_argument("--dual", type=int, metavar="ROUNDS",
+                        help="time the one-card dual bank's two graph layouts instead")
     parser.add_argument("--measure", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.dual:
+        result = dual_pairs(args.dual)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        print(json.dumps({k: v for k, v in result.items() if not k.endswith("_turns")}))
+        return 0
     if args.measure:
         root = pathlib.Path(args.measure).resolve()
         sys.path[:] = [str(root)] + [p for p in sys.path
@@ -151,7 +241,7 @@ def main(argv=None) -> int:
         result = dict(turn(root), version=label)
         print(json.dumps(result), flush=True)
         turns.append(result)
-    keys = [k for k in turns[0] if k.endswith(("_ms", "_per_block"))]
+    keys = [k for k in turns[0] if k.endswith(("_ms", "_per_block")) and k in turns[-1]]
     summary = {label: {k: statistics.median(t[k] for t in turns if t["version"] == label)
                        for k in keys} for label in ("old", "new")}
     summary["card"] = turns[0]["card"]

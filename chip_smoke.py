@@ -159,7 +159,12 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      against ``xla_bank``, on noiseless GPS L5 blocks;
    - J, the distributed layer (``parallel``) on a mesh of every visible card
      in turn, or of ``cuda:0`` repeated on a one-card machine: J0 each kernel
-     against its plain version at the shard-local shapes below; J1 the
+     against its plain version at the shard-local shapes below, and each
+     bank route as a time shard (``[J0 shard]``: its piece read in place at
+     the device index, its phases advanced in the kernel, the channel
+     parameters bit for bit against the torch expressions, torch.remainder
+     included, each shard against its plain version, the joint finish the
+     in-order sum bit for bit); J1 the
      counterpart of the JAX dry run (``__graft_entry__.py:91-185``: the L1
      rows bank at N=8192 on (chan 2, time 2), whose shards must route to the
      rows kernel, against ``track_bank``, and the GPS L5 dual bank at
@@ -167,8 +172,9 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      GPS L1 bank on ``main_path``'s 20 noiseless blocks on meshes 2 x 1, 1 x 2
      and 2 x 2 against ``track_bank`` (one rows launch per shard and block),
      100 blocks at 50 dB-Hz on 2 x 2 in which the 8 satellites hold lock, and
-     each mesh's block time beside the unsharded block; J3 the K=1024 A=4
-     L=7 bank through ``bank_comp`` on 2 x 2; J4 the K=64 L5 dual bank on
+     each mesh's block time and device ops per block beside the unsharded
+     block's; J3 the K=1024 A=4 L=7 bank through ``bank_comp`` on 2 x 2 (its
+     block time and ops beside the unsharded block's); J4 the K=64 L5 dual bank on
      chan 2; J5 ``correlate_sharded`` through ``pallas_taps`` and
      ``pallas_fused`` at N=2^18 A=4 L=7 over ant 4 x time 2 and N=2^17 over
      time 8, against the unsharded call; J6 the one-hot route at K=64 on
@@ -193,10 +199,10 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      bit for bit, with equal launch counts: rows K=1024 (``pallas_bank_auto``
      and ``xla_bank``), A=4 L=7 f32 and bf16 with steering weights, the L5
      dual K=64, Galileo E1-C at K=256, ``pallas_fused`` and ``pallas_taps``
-     at K=8, ``track`` on one channel, the one-hot route, and
-     ``track_bank_sharded`` 2 x 2 and ``track_bank_dual_sharded`` chan 2 on
-     the phase J devices. A second call of each, a replay of the cached
-     graph, runs under ``torch.cuda.set_sync_debug_mode("error")`` and must
+     at K=8, ``track`` on one channel, the one-hot route,
+     ``track_bank_sharded`` 2 x 2 (rows, A=4 L=7 and one-hot) and
+     ``track_bank_dual_sharded`` chan 2 on the phase J devices. A second
+     call of each, a replay of the cached graph, runs under ``torch.cuda.set_sync_debug_mode("error")`` and must
      give the same outputs and launch counts (the loop kernels' included:
      one per block, ``dual_update`` on the dual paths), and two chained
      calls, the second from the first's final state (the graph call's state
@@ -214,22 +220,27 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      path, eager and graph (torch.profiler), beside the counts with the loop
      kernel writing fresh tensors and those
      with the loop closure as torch ops where PERF.md kept them; the device
-     ops by name of rows K=1024, ``track`` and the L5 dual as graphs, which
-     must hold no ``index_copy_`` (the loop kernel writes the outputs
-     through the sink), against the sharded 2 x 2 bank's graph (no sink),
-     which must; one replayed block and one prologue of rows, A=4 L=7 f32
-     and bf16, the L5 dual, Galileo E1-C and one-hot by name (``[L block]``,
-     three replays each under torch.profiler): at most 4 device ops a block
-     (the bank kernel, its finish, the loop kernel, the index's add), none a
-     parameter op, a block select or a join, and one a prologue, the packing
-     kernel (which writes the entry's tiles and zeroes its index); ``track``
-     on ``pallas_fused``, which has no prepare, one, the index's fill. Each path's first graph call starts from an empty cache, and
+     ops by name of rows K=1024, ``track``, the L5 dual and the sharded 2 x 2
+     rows bank as graphs, which must hold no ``index_copy_`` (the loop
+     kernel writes the outputs through the sink, on the mesh one per
+     channel shard); one replayed block and one prologue of rows, A=4 L=7
+     f32 and bf16, the L5 dual, Galileo E1-C and one-hot by name (``[L
+     block]``, three replays each under torch.profiler): at most 4 device
+     ops a block (the bank kernel, its finish, the loop kernel, the index's
+     add), none a parameter op, a block select or a join, and one a
+     prologue, the packing kernel (which writes the entry's tiles and zeroes
+     its index); ``track`` on ``pallas_fused``, which has no prepare, one,
+     the index's fill; the one-card 2 x 2 meshes (rows, A=4 L=7, one-hot) at
+     most chan (time + 2) + 1 = 9 ops a block (4 bank launches, 2 finishes,
+     2 loop kernels, the index's add), none an ``index_copy_``, a phase
+     advance's op, a piece copy or an add of partials, and the index's fill
+     as prologue. Each path's first graph call starts from an empty cache, and
      its entries' buffers and the device memory it reserved are logged.
      Then eager and graph block times and real-time channels of the timed
      paths (and streaming's ``steady_block_s`` both ways, from H, whose
      outputs must match too), the one-card sharded L5 dual bank at chan 2
-     and 4 as a graph per shard (the library's path) against one graph for
-     every shard (``dual_one_graph``), and the device's busy share
+     and 4 as one graph for every shard (the library's path) against a
+     graph per shard (``dual_graph_per_shard``), and the device's busy share
      (torch.profiler device time over wall time) for rows K=1024 and A=4 L=7.
 5. Times (CUDA events, after warm-up; medians and minima): each kernel vs its
    plain version at main-path shapes (every kernel, and the per-channel
@@ -282,6 +293,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -2676,6 +2688,118 @@ def shard_cells(seed):
                       for g, w in zip(got, want))
             worst[kind] = max(worst.get(kind, 0.0), err)
             log(f"[J0] {kind} {cell}: N={n} A=1 L={taps}: max|kernel-plain|={err!r} ok")
+    for kernel, err in shard_form_cells(seed).items():
+        worst[f"{kernel}_shard_form"] = err
+    return worst
+
+
+def shard_form_cells(seed):
+    """J0, the time shards' form: each bank route's kernel as a time shard
+    of 2 (of 8 at N=2^18) reads its piece of a [3, (A,) N] buffer's row at
+    the device index and advances the state's phases to it. The channel
+    parameters it derives (`epl_kernels.launch_channel_params`: the advance's
+    f32 ops and torch.remainder's fmod and sign fix) against the torch
+    expressions on the card, bit for bit, over phases at 0, just below 2 pi
+    and Lc and just below 0; each shard's accumulators against the plain
+    version; and the shards' joint finish (`ShardSum`) against the in-order
+    sum of the shards' own calls, bit for bit, and of the plain results,
+    within twice phase 3's tolerance."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, GPSL5
+    from gpuacceleratedtracking_tpu_torch.ops import bank_comp, epl_kernels
+    from gpuacceleratedtracking_tpu_torch.parallel import nominal_advance_tables, time_shard
+    from gpuacceleratedtracking_tpu_torch.parallel.correlate import sum_in_order
+
+    l1, l5 = GPSL1(), GPSL5()
+    cells = [
+        # kernel, cell, system, N, fs, K, A, L, time shards, z dtype
+        ("bank_rows", "j2_k512_n32768_t2", l1, N_1MS, L1_FS, NUM_K // 2, 1, 3, 2, None),
+        ("bank_rows", "rows_k1024_n262144_t8", l1, N_WIDE, L1_FS, NUM_K, 1, 3, 8, None),
+        ("bank_comp", "j3_k512_a4_l7_n32768_t2", l1, N_1MS, L1_FS, NUM_K // 2, NUM_ANTS, 7, 2,
+         None),
+        ("bank_comp", "j3_bf16_k512_a4_l7_t2", l1, N_1MS, L1_FS, NUM_K // 2, NUM_ANTS, 7, 2,
+         torch.bfloat16),
+        ("bank_transition", "l5_k64_n32768_t2", l5, N_1MS, L1_FS, DUAL_K, 1, 3, 2, None),
+        ("bank_onehot", "j6_k32_n8192_t2", l1, 8192, 8.192e6, 32, 1, 3, 2, None),
+    ]
+    runs = {"bank_rows": ("correlate_pallas_bank_rows", "pallas_bank_rows"),
+            "bank_transition": ("correlate_pallas_bank", "pallas_bank"),
+            "bank_onehot": ("correlate_pallas_bank_onehot", "pallas_bank_onehot")}
+    worst, exact = {}, 0
+    for i, (kernel, cell, system, n, fs, k, a, taps, num_time, z) in enumerate(cells):
+        case = random_case(system, n, k, seed + 1200 + i, num_ants=a, taps=taps, fs=fs)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 1300 + i)
+        chunk = [torch.stack([torch.randn(x.shape, generator=gen, device=DEVICE), x,
+                              torch.randn(x.shape, generator=gen, device=DEVICE)])
+                 for x in (case["signal_re"], case["signal_im"])]
+        lc, two_pi = system.code_length, np.float32(2 * np.pi)
+        phi_car, phi_code = case["carrier_phase"], case["code_phase"]
+        phi_car[:4] = torch.tensor([0.0, 1e-7, float(np.nextafter(two_pi, 0)), -1e-6])
+        phi_code[4:8] = torch.tensor([0.0, 1e-6, float(np.nextafter(np.float32(lc), 0)), -1e-5])
+        channels = dict(intermediate_frequency=0.0,
+                        carrier_doppler=case["carrier_frequency"], carrier_phase=phi_car,
+                        code_frequency=system.code_frequency,
+                        code_doppler=case["code_frequency"] - system.code_frequency,
+                        code_phase=phi_code)
+        tables = nominal_advance_tables(0.0, system.code_frequency, fs, n // num_time, num_time,
+                                        lc)
+        index = torch.tensor(1, dtype=torch.int64, device=DEVICE)
+        args = (case["codes"], case["prn"], None, fs, None, None, None, case["sample_shifts"], lc)
+        kw = dict(nominal_code_frequency=system.code_frequency,
+                  code_tiles=epl_kernels.pack_code_tiles(case["codes"], case["prn"]))
+        if kernel == "bank_comp":
+            kw["z_dtype"] = z
+            fn = bank_comp.correlate_pallas_bank_comp
+            plain = bank_comp.correlate_bank_comp_reference
+            make = bank_comp.BankCompCall
+        else:
+            name, route = runs[kernel]
+            if kernel == "bank_onehot":
+                del kw["nominal_code_frequency"]
+            fn = getattr(epl_kernels, name)
+            plain = functools.partial(epl_kernels.correlate_bank_rows_reference, route=route)
+            make = functools.partial(epl_kernels.BankRowsCall, route=route)
+        total = epl_kernels.ShardSum(num_time, torch.device(DEVICE, torch.cuda.current_device()))
+        got, want = [], []
+        for t in range(num_time):
+            ch = epl_kernels.BankChannels(**channels, shard=time_shard(t, tables, fs,
+                                                                       n // num_time, lc))
+            bank = make(*chunk, *args, **kw, channels=ch, block_index=index)
+            params = epl_kernels.launch_channel_params(bank)
+            check(bool(torch.equal(params, bank.params)),
+                  f"[J0 shard] {cell} shard {t}: the kernels' parameters equal the torch "
+                  f"expressions bit for bit (max |d| "
+                  f"{float((params - bank.params).abs().max())!r})")
+            exact += params.numel()
+            if num_time > 2:
+                continue                  # the parameters alone at N=2^18
+            got.append(fn(*chunk, *args, **kw, channels=ch, block_index=index))
+            want.append(plain(*chunk, *args, **kw, channels=ch, block_index=index))
+            fn(*chunk, *args, **kw, channels=ch, block_index=index, shard_sum=total)
+        if num_time > 2:
+            log(f"[J0 shard] {cell}: {system.name} N={n} K={k} over {num_time} time shards: "
+                f"the parameters equal the torch expressions bit for bit ok")
+            continue
+        summed = total.finish()
+        torch.cuda.synchronize()
+        if kernel == "bank_comp":
+            atol, rtol = 3e-5 * float(max(w[0].abs().max() for w in want)) + 1e-3, 0.0
+        else:
+            atol, rtol = 4.5, 2e-3
+        err = max(within(f"[J0 shard] {kernel} {cell} shard", g, w, atol, rtol)
+                  for got_t, want_t in zip(got, want) for g, w in zip(got_t, want_t))
+        for j in range(2):
+            own = sum_in_order([g[j] for g in got], summed[j].device)
+            check(bool(torch.equal(summed[j], own)),
+                  f"[J0 shard] {cell}: the joint finish is the in-order sum bit for bit")
+            err = max(err, within(f"[J0 shard] {kernel} {cell} sum", summed[j],
+                                  sum_in_order([w[j] for w in want], summed[j].device),
+                                  2 * atol, rtol))
+        key = f"{kernel}_bf16" if z is not None else kernel
+        worst[key] = max(worst.get(key, 0.0), err)
+        log(f"[J0 shard] {kernel} {cell}: {system.name} N={n} K={k} A={a} L={taps} over "
+            f"{num_time} time shards at block index 1 of 3: parameters bit for bit, "
+            f"max|kernel-plain|={err!r}, the joint finish the in-order sum bit for bit ok")
+    log(f"[J0 shard] {exact} channel parameters equal bit for bit")
     return worst
 
 
@@ -2752,13 +2876,18 @@ def dryrun_leg():
 
 
 def block_time(name, run, channels, card, blocks=10):
-    """Closed-loop block time of ``run`` (``blocks`` blocks per call) and the
-    real-time channels at 1 ms blocks."""
+    """Closed-loop block time of ``run`` (``blocks`` blocks per call), the
+    real-time channels at 1 ms blocks, and the device ops and device time
+    per block (torch.profiler over two calls, the call's copies included)."""
     med, mn = time_cuda(run, warmup=2)
+    ops, device_ms = device_profile(run, calls=2)
     entry = {"block_ms": med / blocks, "block_min_ms": mn / blocks,
-             "realtime_channels": channels / (med / blocks)}
+             "realtime_channels": channels / (med / blocks),
+             "device_ops_per_block": ops / blocks, "device_ms_per_block": device_ms / blocks}
     log(f"[J time] {name}: block median {entry['block_ms']!r} ms (min "
-        f"{entry['block_min_ms']!r}); real-time channels {entry['realtime_channels']!r} [{card}]")
+        f"{entry['block_min_ms']!r}); real-time channels {entry['realtime_channels']!r}; "
+        f"{entry['device_ops_per_block']!r} device ops and {entry['device_ms_per_block']!r} ms "
+        f"of device time per block [{card}]")
     return entry
 
 
@@ -3228,11 +3357,17 @@ OPS_FRESH_LOOP_KERNEL = {"rows_K1024_pallas_bank_auto": {"eager": 28.0, "graph":
                          "mesh_2x2_rows_K1024": {"eager": 150.8, "graph": 156.5},
                          f"mesh_chan2_l5_dual_K{DUAL_K}": {"eager": 105.6, "graph": 117.0}}
 # Phase L's paths whose graph writes its outputs and carry through the loop
-# kernel's sink (no index_copy_), by the loop kernel's mode; the sharded 2 x 2
-# bank gathers its shards inside the block and takes no sink.
-SINK_PATHS = {"rows_K1024_pallas_bank_auto": "loop_update", "track_fused": "loop_update",
-              f"l5_dual_K{DUAL_K}": "loop_update_dual"}
-NO_SINK_PATH = "mesh_2x2_rows_K1024"
+# kernel's sink (no index_copy_): the loop kernel's mode and its launches per
+# block (the sharded 2 x 2 bank: one per channel shard, each through its own
+# part of the sink).
+SINK_PATHS = {"rows_K1024_pallas_bank_auto": ("loop_update", 1),
+              "track_fused": ("loop_update", 1),
+              f"l5_dual_K{DUAL_K}": ("loop_update_dual", 1),
+              "mesh_2x2_rows_K1024": ("loop_update", 2)}
+# Device ops per replayed block of the one-card 2 x 2 mesh before its block
+# became its kernels alone (PERF.md section 5): the shards' phase advances,
+# piece copies, sums of partials and the outputs' index_copy_.
+OPS_BEFORE_SHARD_FORM = {"mesh_2x2_rows_K1024": 112.4}
 # Device ops per block of phase L's graphs before the bank kernels took the
 # state form and the block at the device index (PERF.md section 5): the bank
 # wrappers' parameter ops, the block select and the dual joins included.
@@ -3247,8 +3382,18 @@ PROLOGUE_AS_THREE_OPS_MS = 0.0122
 BLOCK_PATHS = ("rows_K1024_pallas_bank_auto", "array_K1024_A4_L7_f32",
                "array_K1024_A4_L7_bf16", f"l5_dual_K{DUAL_K}", f"family_GALILEOE1C_K{FAMILY_K}",
                "onehot_K1024")
-FILL_PROLOGUE_PATH = "track_fused"   # no prepare: its prologue is the index's fill
+# Phase L's one-card 2 x 2 meshes, whose replayed block must be the JAX
+# shard_map body's kernels alone: chan x time bank launches, chan finishes,
+# chan loop kernels and the index's add, chan (time + 2) + 1 = 9 device ops;
+# their prologue is the index's fill (the code tiles are still built per
+# call outside the captured program).
+MESH_BLOCK_PATHS = {"mesh_2x2_rows_K1024": 9, "mesh_2x2_array_K1024_A4_L7": 9,
+                    "mesh_2x2_onehot_K1024": 9}
+FILL_PROLOGUE_PATHS = ("track_fused",) + tuple(MESH_BLOCK_PATHS)   # no prepare: the index's fill
 GLUE_OPS = ("indexselect", "index_select", "catarray", "div", "mul", "stack", "copy")
+# A sharded block's glue besides: a phase advance's ops and a torch sum of
+# partials (the index's own add is one add a block).
+SHARD_GLUE_OPS = GLUE_OPS + ("remainder", "floor", "sub")
 REPLAYS = 3             # replays of a prologue and of a block per profiled session
 
 
@@ -3336,28 +3481,19 @@ def strict(run):
     return call
 
 
-def dual_one_graph(config, codes_i, codes_q, states, sre, sim, chan):
-    """The sharded L5 dual bank on one card as one CUDA graph for every
-    channel shard, the alternative to `track_bank_dual_sharded`'s graph per
-    shard: ``chan`` shards' `dual_parts` bodies in one `graphs.scan`, the
-    results joined along the channel axis."""
+def dual_graph_per_shard(config, codes_i, codes_q, states, sre, sim, chan):
+    """The sharded L5 dual bank on one card as a CUDA graph per channel
+    shard, the alternative to `track_bank_dual_sharded`'s one graph for
+    every shard: each of ``chan`` shards'
+    `track_bank_dual` call replays its own graph, the results joined along
+    the channel axis."""
     from gpuacceleratedtracking_tpu_torch.parallel.bank import _channel_shards, _map_state
-    from gpuacceleratedtracking_tpu_torch.tracking import TrackOutput, graphs
-    from gpuacceleratedtracking_tpu_torch.tracking.dual import DualTrackOutput, dual_parts
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackOutput, track_bank_dual
+    from gpuacceleratedtracking_tpu_torch.tracking.dual import DualTrackOutput
 
     dev = sre.device
-    shards = _channel_shards(states, chan, [dev] * chan)
-    parts = [dual_parts(config, codes_i, codes_q, dev) for _ in shards]
-
-    def step(carry, consts, block):
-        res = [part[0](carry[c], consts[c], block) for c, part in enumerate(parts)]
-        return tuple(r[0] for r in res), tuple(r[1] for r in res)
-
-    def prepare(carry, consts):
-        return tuple(part[2](carry[c], consts[c]) for c, part in enumerate(parts))
-
-    finals, outs = graphs.scan(step, tuple(shards), (sre, sim), tuple(p[1] for p in parts),
-                               key=("dual_one_graph", config, chan), prepare=prepare)
+    finals, outs = zip(*(track_bank_dual(config, codes_i, codes_q, shard, sre, sim)
+                         for shard in _channel_shards(states, chan, [dev] * chan)))
     return (_map_state(lambda *xs: torch.cat(xs), *finals),
             DualTrackOutput(TrackOutput(*(torch.cat(xs, 1) for xs in zip(*(o.pilot for o in outs)))),
                             torch.cat([o.data_prompt_re for o in outs], 1),
@@ -3502,6 +3638,12 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
             lambda st=states: track_bank(bank("pallas_bank_onehot"), codes, st, sre, sim), None),
         "mesh_2x2_rows_K1024": (
             lambda st=states: track_bank_sharded(auto, codes, st, sre, sim, mesh=mesh22), NUM_K),
+        "mesh_2x2_array_K1024_A4_L7": (
+            lambda st=states7: track_bank_sharded(bank("pallas_bank_auto", num_correlators=7),
+                                                  codes, st, are, aim, mesh=mesh22), NUM_K),
+        "mesh_2x2_onehot_K1024": (
+            lambda st=states: track_bank_sharded(bank("pallas_bank_onehot"), codes, st, sre, sim,
+                                                 mesh=mesh22), None),
         f"mesh_chan2_l5_dual_K{DUAL_K}": (
             lambda st=states5: track_bank_dual_sharded(cfg5, codes_i, codes_q, st, s5re, s5im,
                                                        mesh=mesh2), DUAL_K),
@@ -3549,8 +3691,9 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
                   f"[L] {name}: a steady call allocated {again_segments} (second call) and "
                   f"{chain_segments} (chained) new segments")
         if name in SINK_PATHS:
-            check(graph_counts[SINK_PATHS[name]] == blocks,
-                  f"[L] {name}: the loop kernel once per block ({graph_counts})")
+            mode, per_block = SINK_PATHS[name]
+            check(graph_counts[mode] == per_block * blocks,
+                  f"[L] {name}: the loop kernel {per_block} a block ({graph_counts})")
         for k in launches:
             launches[k] += (eager_counts[k] + graph_counts[k] + again_counts[k]
                             + chain_eager_counts[k] + first_counts[k] + chain_counts[k])
@@ -3667,19 +3810,37 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
     # ops by name of one replay of each. torch.profiler may drop a session's
     # first events, so a prologue counts at most one op a replay, at least
     # one in all, each of them that kernel.
-    for name in BLOCK_PATHS + (FILL_PROLOGUE_PATH,):
+    for name in BLOCK_PATHS + FILL_PROLOGUE_PATHS:
         prologue, block = replay_op_names(paths[name][0])
-        glue = [op for op in block if any(g in op.lower() for g in GLUE_OPS)]
+        mesh_budget = MESH_BLOCK_PATHS.get(name)
+        glue = [op for op in block
+                if any(g in op.lower() for g in (SHARD_GLUE_OPS if mesh_budget else GLUE_OPS))]
         per_block, per_prologue = sum(block.values()) / REPLAYS, sum(prologue.values()) / REPLAYS
         results[name].update(replayed_block_ops=per_block, replayed_block_ops_by_name=block,
                              prologue_ops=per_prologue, prologue_ops_by_name=prologue)
         log(f"[L block] {name}: {REPLAYS} replayed blocks, {per_block!r} device ops each "
             f"{dict(block)}; {REPLAYS} prologues, {per_prologue!r} each {dict(prologue)} "
             f"[{card}]")
-        ops = ("fill", "memset") if name == FILL_PROLOGUE_PATH else ("code_tiles_kernel",)
+        ops = ("fill", "memset") if name in FILL_PROLOGUE_PATHS else ("code_tiles_kernel",)
         check(0 < per_prologue <= 1 and all(any(op in p.lower() for op in ops) for p in prologue),
               f"[L block] {name}: the prologue is one op, {' or '.join(ops)}: {prologue}")
-        if name != FILL_PROLOGUE_PATH:
+        if mesh_budget:
+            adds = sum(n for op, n in block.items() if "add" in op.lower()) / REPLAYS
+            kinds = {kind: sum(n for op, n in block.items() if any(k in op for k in names))
+                     / REPLAYS for kind, names in (
+                         ("bank", ("bank_rows_kernel", "bank_comp_kernel")),
+                         ("finish", ("bank_rows_finish", "bank_comp_finish")),
+                         ("loop", ("loop_update_kernel",)))}
+            results[name].update(replayed_block_ops_before=OPS_BEFORE_SHARD_FORM.get(name))
+            log(f"[L block] {name}: {per_block!r} device ops per replayed block (budget "
+                f"{mesh_budget}; before: {OPS_BEFORE_SHARD_FORM.get(name, 'not recorded')}), "
+                f"bank launches {kinds['bank']!r}, finishes {kinds['finish']!r}, loop "
+                f"kernels {kinds['loop']!r}, adds {adds!r} [{card}]")
+            check(per_block <= mesh_budget and not glue and adds <= 1
+                  and 0 < kinds["bank"] <= 4 and 0 < kinds["finish"] <= 2
+                  and 0 < kinds["loop"] <= 2,
+                  f"[L block] {name}: a replayed 2 x 2 block is its kernels alone: {block}")
+        elif name not in FILL_PROLOGUE_PATHS:
             check(per_block <= 4 and not glue,
                   f"[L block] {name}: a replayed block is its kernels alone: {block}")
     # Device ops per block of every path, eager and graph: torch.profiler over
@@ -3705,26 +3866,23 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
             f"{before.get('eager', 'not recorded')}, graph {before.get('graph', 'not recorded')}); "
             f"device ms per block eager {e_ms / blocks!r}, graph {g_ms / blocks!r} [{card}]")
     # The replayed block's device ops by name where the loop kernel writes
-    # through the sink, against the sharded bank's graph, which copies its
-    # outputs with index_copy_.
-    for name in (*SINK_PATHS, NO_SINK_PATH):
+    # through the sink: no index_copy_, the sharded 2 x 2 bank's included.
+    for name in SINK_PATHS:
         _, g_ms, names = device_profile(paths[name][0], calls=2, by_name=True)
         copies = sum("index_copy" in op for op in device_op_names(paths[name][0]))
         results[name].update(graph_ops_by_name=names, graph_index_copies_per_block=copies / blocks)
         log(f"[L sink] {name} graph, device ops per call by name (count, ms): "
             + "; ".join(f"{op} {count!r} {ms!r}" for op, (count, ms) in names.items())
             + f"; index_copy ops per block {copies / blocks!r} [{card}]")
-        if name == NO_SINK_PATH:
-            check(copies > 0, f"[L sink] {name}: the no-sink graph's index_copy_ shows by name")
-        else:
-            check(copies == 0, f"[L sink] {name}: no index_copy_ in the replayed block")
-    # The one-card sharded dual bank: a graph per shard (the library's path)
-    # against one graph for every shard, in turns.
+        check(copies == 0, f"[L sink] {name}: no index_copy_ in the replayed block")
+    # The one-card sharded dual bank: one graph for every shard (the
+    # library's path) against a graph per shard, in turns.
     for chan in (2, 4):
         mesh = channel_time_mesh(chan, 1, devices=mesh_devices(chan))
-        per_shard = lambda: track_bank_dual_sharded(cfg5, codes_i, codes_q, states5, s5re,
-                                                    s5im, mesh=mesh)
-        fork = lambda: dual_one_graph(cfg5, codes_i, codes_q, states5, s5re, s5im, chan)
+        fork = lambda: track_bank_dual_sharded(cfg5, codes_i, codes_q, states5, s5re, s5im,
+                                               mesh=mesh)
+        per_shard = lambda: dual_graph_per_shard(cfg5, codes_i, codes_q, states5, s5re, s5im,
+                                                 chan)
         bitwise(f"[L] dual chan {chan}: one graph against a graph per shard", fork(),
                 per_shard())
         f1, p1, p2, f2 = (time_cuda(fn, warmup=1) for fn in (fork, per_shard, per_shard, fork))

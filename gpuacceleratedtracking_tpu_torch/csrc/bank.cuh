@@ -35,6 +35,16 @@
 // Python float on CUDA; the phase over f32(2 pi) as a product with the
 // double reciprocal rounded to f32 (the same rule as
 // ops/loop_kernel._recip); rho * d_min, then the add.
+//
+// A time shard of a mesh (parallel/bank.py): the launch reads the piece
+// [offset, offset + num_samples) of each antenna's row of the block
+// (`sample_offset`, `plane_stride` the row's full length) and treats it as
+// its block, reading nothing outside it; and each channel's phases are
+// first advanced to the piece's first sample as
+// parallel/correlate.advance_phases computes them in torch ops (the nominal
+// advance from the f64 table entry, the f32 Doppler residual
+// (f - f_nom) * f32(1 / fs) * n0, the cycles' fraction, the wraps by
+// torch.remainder), each op rounded on its own.
 
 #pragma once
 
@@ -54,19 +64,54 @@ struct Source {
   const float* code_phase;
   const long long* block_index;    // the block's row in the chunk, or null
   long long block_stride;          // elements per row of the chunk
+  long long sample_offset;         // the piece's first sample in an antenna's row
+  long long plane_stride;          // elements from one antenna's row to the next
   double inv_fs;                   // 1 / fs
   float intermediate_frequency;    // f32 nominal rates added to the Dopplers
   float code_frequency;
   float inv_two_pi;                // f32(1 / f32(2 pi)), from the double reciprocal
   float d_min;                     // the earliest tap's shift
   int modulus;                     // state entries: channel k reads k mod modulus
+  int shard;                       // nonzero: advance the state's phases to the shard
+  float shard_n0;                  // f32(t * samples per shard)
+  float shard_carrier;             // the f32 nominal carrier advance, cycles mod 1
+  float shard_code;                // the f32 nominal code advance, chips mod Lc
+  float shard_inv_fs;              // f32(1 / fs)
+  float shard_code_length;         // f32(Lc)
 };
 
-// The offset of the launch's block from the signal pointers it was given.
+// The offset of the launch's piece of its block from the signal pointers it
+// was given.
 __device__ __forceinline__ size_t block_offset(const Source& src) {
+  const size_t piece = static_cast<size_t>(src.sample_offset);
   return src.block_index == nullptr
-             ? 0
-             : static_cast<size_t>(*src.block_index) * static_cast<size_t>(src.block_stride);
+             ? piece
+             : static_cast<size_t>(*src.block_index) * static_cast<size_t>(src.block_stride) +
+                   piece;
+}
+
+// torch.remainder on f32 (ATen's float remainder, CPU and CUDA): fmod,
+// exact, then + b where the result is nonzero and its sign differs from b's.
+__device__ __forceinline__ float remainder(float a, float b) {
+  float mod = fmodf(a, b);
+  if (mod != 0.0f && ((b < 0.0f) != (mod < 0.0f))) mod = __fadd_rn(mod, b);
+  return mod;
+}
+
+// parallel/correlate.advance_phases: the carrier phase (rad) and code phase
+// (chips) at the shard's first sample, from the block start's, at carrier
+// and code frequencies f_car and f_code (Hz, f32).
+__device__ __forceinline__ void advance_to_shard(const Source& src, float f_car, float f_code,
+                                                 float* carrier_phase, float* code_phase) {
+  const float dcar = __fmul_rn(
+      __fmul_rn(__fsub_rn(f_car, src.intermediate_frequency), src.shard_inv_fs), src.shard_n0);
+  float cyc = __fadd_rn(src.shard_carrier, dcar);
+  cyc = __fsub_rn(cyc, floorf(cyc));
+  *carrier_phase = remainder(__fadd_rn(*carrier_phase, __fmul_rn(kTwoPi, cyc)), kTwoPi);
+  const float dcode = __fmul_rn(
+      __fmul_rn(__fsub_rn(f_code, src.code_frequency), src.shard_inv_fs), src.shard_n0);
+  *code_phase = remainder(__fadd_rn(__fadd_rn(*code_phase, src.shard_code), dcode),
+                          src.shard_code_length);
 }
 
 // f32(f64(x) * inv_fs): torch's `(x.double() / fs).float()` on the card.
@@ -78,11 +123,14 @@ __device__ __forceinline__ float rate(float x, double inv_fs) {
 __device__ __forceinline__ float4 channel_params(const Source& src, int k) {
   if (src.params != nullptr) return src.params[k];
   const int s = k % src.modulus;
-  const float rho = rate(__fadd_rn(src.code_doppler[s], src.code_frequency), src.inv_fs);
-  return make_float4(
-      rate(__fadd_rn(src.carrier_doppler[s], src.intermediate_frequency), src.inv_fs),
-      __fmul_rn(src.carrier_phase[s], src.inv_two_pi), rho,
-      __fadd_rn(src.code_phase[s], __fmul_rn(rho, src.d_min)));
+  const float f_car = __fadd_rn(src.carrier_doppler[s], src.intermediate_frequency);
+  const float f_code = __fadd_rn(src.code_doppler[s], src.code_frequency);
+  float carrier_phase = src.carrier_phase[s];
+  float code_phase = src.code_phase[s];
+  if (src.shard) advance_to_shard(src, f_car, f_code, &carrier_phase, &code_phase);
+  const float rho = rate(f_code, src.inv_fs);
+  return make_float4(rate(f_car, src.inv_fs), __fmul_rn(carrier_phase, src.inv_two_pi), rho,
+                     __fadd_rn(code_phase, __fmul_rn(rho, src.d_min)));
 }
 
 // One channel's phases at a phase-tile start.

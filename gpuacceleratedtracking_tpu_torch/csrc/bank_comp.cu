@@ -70,6 +70,13 @@
 //   and the CTA derives its channels' parameters from the tracking state
 //   where it read the [K] table (the finish kernel derives f_cyc for the
 //   rotation alike).
+// - A time shard of a mesh reads its piece of the block in place
+//   (bank::Source's sample offset and antenna-row stride): its haloed tile
+//   is zero outside the piece, [0, num_samples) of the piece, as a JAX
+//   shard sees only its own samples; never the neighbour's. The shards'
+//   launches only write partials, and one finish per channel shard finishes
+//   each shard's (its tiles' sums, recombination and rotation) and adds the
+//   shards' results in shard order (ops/epl_kernels.sum_in_order's).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,7 +124,8 @@ bank_comp_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
                  const float2* __restrict__ base,        // [phase tiles]: carrier cyc, code chips
                  const int* __restrict__ deltas,         // [L]
                  float* __restrict__ partial,            // [K, tiles, A, L, 4]
-                 int num_samples, int num_k, int code_length, int words, int phase_tile,
+                 int num_samples, int plane,            // the piece's samples, the rows' stride
+                 int num_k, int code_length, int words, int phase_tile,
                  int span, float rho_nom, float fcar_nom_cyc) {
   constexpr int AL = A * L;
   constexpr int NT = (2 * AL + 7) / 8;           // n8 tiles over the 2AL planes
@@ -148,12 +156,13 @@ bank_comp_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
   sre += block;
   sim += block;
 
-  // The signal tile and its halo: tile[a][i] = s[a][u0 - span + i].
+  // The signal tile and its halo: tile[a][i] = s[a][u0 - span + i], zero
+  // outside the block (a time shard's piece).
   for (int i = threadIdx.x; i < A * width; i += kThreads) {
     const int a = i / width;
     const int p = i - a * width;
     const int n = u0 - span + p;
-    const size_t row = static_cast<size_t>(a) * num_samples;
+    const size_t row = static_cast<size_t>(a) * plane;
     const bool in0 = n >= 0 && n < num_samples;
     const float xr = in0 ? sre[row + n] : 0.0f;
     const float xi = in0 ? sim[row + n] : 0.0f;
@@ -371,36 +380,61 @@ bank_comp_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
 
 // Sum the per-tile partials in tile order, recombine
 // m = (zc.S_re + zs.S_im) + i (zc.S_im - zs.S_re), and rotate by
-// e^{+2 pi i f_k delta_l}: out[k, a, l] (re and im planes).
+// e^{+2 pi i f_k delta_l}: out[k, a, l] (re and im planes). With
+// num_shards > 1 time shards, shard s's partials start s * shard_stride
+// floats in; each shard is finished as one call is, then the shards'
+// results are added left to right, (r_0 + r_1) + r_2 ... (f_cyc, and so
+// the rotation, is the same for every shard).
 __global__ void bank_comp_finish(const float* __restrict__ partial,
                                  const bank::Source src,
                                  const int* __restrict__ deltas,
                                  float* __restrict__ out_re,
                                  float* __restrict__ out_im,
-                                 int num_k, int num_tiles, int num_ants, int num_taps) {
+                                 int num_k, int num_tiles, int num_ants, int num_taps,
+                                 long long shard_stride, int num_shards) {
   const int al = num_ants * num_taps;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= num_k * al) return;
   const int k = idx / al;
   const int r = idx - k * al;
   const int l = r % num_taps;
-  const float* p = partial + static_cast<size_t>(k) * num_tiles * al * 4 + r * 4;
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-  for (int t = 0; t < num_tiles; ++t) {
-    const float* q = p + static_cast<size_t>(t) * al * 4;
-    s0 += q[0];
-    s1 += q[1];
-    s2 += q[2];
-    s3 += q[3];
-  }
-  const float m_re = __fadd_rn(s0, s1);
-  const float m_im = __fsub_rn(s2, s3);
   const float omega = __fmul_rn(__fmul_rn(bank::kTwoPi, bank::channel_params(src, k).x),
                                 static_cast<float>(deltas[l]));
   float sw, cw;
   sincosf(omega, &sw, &cw);
-  out_re[idx] = __fsub_rn(__fmul_rn(cw, m_re), __fmul_rn(sw, m_im));
-  out_im[idx] = __fadd_rn(__fmul_rn(cw, m_im), __fmul_rn(sw, m_re));
+  float tr = 0.0f, ti = 0.0f;
+  for (int sh = 0; sh < num_shards; ++sh) {
+    const float* p = partial + static_cast<size_t>(sh) * static_cast<size_t>(shard_stride) +
+                     static_cast<size_t>(k) * num_tiles * al * 4 + r * 4;
+    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+    for (int t = 0; t < num_tiles; ++t) {
+      const float* q = p + static_cast<size_t>(t) * al * 4;
+      s0 += q[0];
+      s1 += q[1];
+      s2 += q[2];
+      s3 += q[3];
+    }
+    const float m_re = __fadd_rn(s0, s1);
+    const float m_im = __fsub_rn(s2, s3);
+    const float re = __fsub_rn(__fmul_rn(cw, m_re), __fmul_rn(sw, m_im));
+    const float im = __fadd_rn(__fmul_rn(cw, m_im), __fmul_rn(sw, m_re));
+    tr = sh == 0 ? re : __fadd_rn(tr, re);
+    ti = sh == 0 ? im : __fadd_rn(ti, im);
+  }
+  out_re[idx] = tr;
+  out_im[idx] = ti;
+}
+
+cudaError_t finish(const float* partial, const bank::Source& src, const int* deltas,
+                   float* out_re, float* out_im, int num_ants, int num_taps, int num_samples,
+                   int num_k, int span, long long shard_stride, int num_shards,
+                   cudaStream_t stream) {
+  const int num_tiles = (num_samples + span + kTile - 1) / kTile;
+  const int total = num_k * num_ants * num_taps;
+  bank_comp_finish<<<(total + 255) / 256, 256, 0, stream>>>(
+      partial, src, deltas, out_re, out_im, num_k, num_tiles, num_ants, num_taps, shard_stride,
+      num_shards);
+  return cudaGetLastError();
 }
 
 template <int A, int L, bool BF16>
@@ -416,7 +450,8 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre
   if (err != cudaSuccess) return err;
   bank_comp_kernel<A, L, BF16><<<grid, kThreads, smem, stream>>>(
       sre, sim, code, src, reinterpret_cast<const float2*>(base), deltas, partial,
-      num_samples, num_k, code_length, words, phase_tile, span, rho_nom, fcar_nom_cyc);
+      num_samples, static_cast<int>(src.plane_stride), num_k, code_length, words, phase_tile,
+      span, rho_nom, fcar_nom_cyc);
   return cudaGetLastError();
 }
 
@@ -425,7 +460,9 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre
 // Launch the bank on `stream`; `source` (host memory) says where the block and
 // the channels' parameters are read. Returns the first CUDA error of the two
 // launches (cudaErrorInvalidValue for an antenna/tap count with no
-// instantiation, or a phase tile that kTile does not divide).
+// instantiation, or a phase tile that kTile does not divide). With out_re
+// null, only the bank kernel runs: its partials wait for
+// bank_comp_finish_launch (a time shard's).
 extern "C" int bank_comp_launch(const float* sre, const float* sim, const int* code,
                                 const bank::Source* source, const float* base, const int* deltas,
                                 float* partial, float* out_re, float* out_im,
@@ -458,9 +495,23 @@ extern "C" int bank_comp_launch(const float* sre, const float* sim, const int* c
   BANK_COMP_CASE(3, 3) BANK_COMP_CASE(3, 5) BANK_COMP_CASE(3, 7)
   BANK_COMP_CASE(4, 3) BANK_COMP_CASE(4, 5) BANK_COMP_CASE(4, 7)
 #undef BANK_COMP_CASE
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = num_k * num_ants * num_taps;
-  bank_comp_finish<<<(total + 255) / 256, 256, 0, s>>>(partial, src, deltas, out_re, out_im,
-                                                       num_k, num_tiles, num_ants, num_taps);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess || out_re == nullptr) return static_cast<int>(err);
+  return static_cast<int>(finish(partial, src, deltas, out_re, out_im, num_ants, num_taps,
+                                 num_samples, num_k, span, 0, 1, s));
+}
+
+// One finish for the `num_shards` time shards of a channel shard: shard s's
+// partials (bank_comp_launch with out_re null, at the same ants, taps,
+// samples, K and span) start s * shard_stride floats after `partial`;
+// `source` is one shard's (the rotation reads its f_cyc). out[k, a, l] is
+// the shards' finished sums added in shard order.
+extern "C" int bank_comp_finish_launch(const float* partial, long long shard_stride,
+                                       int num_shards, const bank::Source* source,
+                                       const int* deltas, float* out_re, float* out_im,
+                                       int num_ants, int num_taps, int num_samples, int num_k,
+                                       int span, void* stream) {
+  if (num_shards < 1 || span < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(finish(partial, *source, deltas, out_re, out_im, num_ants, num_taps,
+                                 num_samples, num_k, span, shard_stride, num_shards,
+                                 static_cast<cudaStream_t>(stream)));
 }

@@ -41,8 +41,18 @@
 //   warp derives its channel's parameters from the tracking state (one
 //   float4's worth of loads per warp and CTA, as the table's read was), so
 //   no torch op runs between the carry and the launch.
+// - A time shard of a mesh reads its piece of the block in place
+//   (bank::Source's sample offset and antenna-row stride) and nothing
+//   outside it: the tap lookahead past the piece's end comes from the
+//   replica row, as in the JAX shard, never from the neighbour's samples.
+//   The row stride reaches the kernel as an int argument of its own: read
+//   from the Source struct in the staging loop it made the K=1024 A=1 launch
+//   5 % slower (bank_kernel_ab.py against that variant, on the H100).
 // The CTA's sums go to per-chunk partials, which a second kernel sums over
-// chunks in a fixed order: no atomics, deterministic.
+// chunks in a fixed order: no atomics, deterministic. With a mesh's time
+// shards, the shards' launches only write partials, and one finish per
+// channel shard sums each shard's chunks and then adds the shards' sums in
+// shard order (ops/epl_kernels.sum_in_order's order).
 
 #include <cuda_runtime.h>
 
@@ -86,7 +96,7 @@ bank_rows_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
                  const float2* __restrict__ base,        // [phase tiles]: carrier cyc, code chips
                  const int* __restrict__ deltas,         // [L]
                  float* __restrict__ partial,            // [K, chunks, A, L, 2]
-                 int num_samples, int num_k, int code_length, int words,
+                 int num_samples, int plane, int num_k, int code_length, int words,
                  int phase_tile, int span, int chunk, float rho_nom, float fcar_nom_cyc) {
   extern __shared__ float smem[];
   const int width = kTile + span;            // replica row: positions [0, kTile + span)
@@ -141,8 +151,8 @@ bank_rows_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
       const int a = i / kTile;
       const int n = n_begin + (i - a * kTile);
       const bool in = n < num_samples;
-      s_re[i] = in ? sre[static_cast<size_t>(a) * num_samples + n] : 0.0f;
-      s_im[i] = in ? sim[static_cast<size_t>(a) * num_samples + n] : 0.0f;
+      s_re[i] = in ? sre[static_cast<size_t>(a) * plane + n] : 0.0f;
+      s_im[i] = in ? sim[static_cast<size_t>(a) * plane + n] : 0.0f;
     }
     __syncthreads();
     if (!active) continue;
@@ -203,23 +213,69 @@ bank_rows_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
     }
 }
 
-// Sum the per-chunk partials in chunk order: out[k, a, l] (re and im planes).
+// Sum the per-chunk partials in chunk order: out[k, a, l] (re and im
+// planes). With num_shards > 1 time shards, shard s's partials start
+// s * shard_stride floats in; each shard's chunks are summed as one call's,
+// then the shards' sums are added left to right, (r_0 + r_1) + r_2 ...
 __global__ void bank_rows_finish(const float* __restrict__ partial,
                                  float* __restrict__ out_re,
                                  float* __restrict__ out_im,
-                                 int num_k, int num_chunks, int al) {
+                                 int num_k, int num_chunks, int al,
+                                 long long shard_stride, int num_shards) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= num_k * al) return;
   const int k = idx / al;
   const int r = idx - k * al;
-  const float* p = partial + static_cast<size_t>(k) * num_chunks * al * 2 + r * 2;
-  float sr = 0.0f, si = 0.0f;
-  for (int c = 0; c < num_chunks; ++c) {
-    sr += p[static_cast<size_t>(c) * al * 2];
-    si += p[static_cast<size_t>(c) * al * 2 + 1];
+  float tr = 0.0f, ti = 0.0f;
+  for (int sh = 0; sh < num_shards; ++sh) {
+    const float* p = partial + static_cast<size_t>(sh) * static_cast<size_t>(shard_stride) +
+                     static_cast<size_t>(k) * num_chunks * al * 2 + r * 2;
+    float sr = 0.0f, si = 0.0f;
+    for (int c = 0; c < num_chunks; ++c) {
+      sr += p[static_cast<size_t>(c) * al * 2];
+      si += p[static_cast<size_t>(c) * al * 2 + 1];
+    }
+    tr = sh == 0 ? sr : __fadd_rn(tr, sr);
+    ti = sh == 0 ? si : __fadd_rn(ti, si);
   }
-  out_re[idx] = sr;
-  out_im[idx] = si;
+  out_re[idx] = tr;
+  out_im[idx] = ti;
+}
+
+// Each channel's (f_cyc, phi_cyc, rho, phi_code) as the bank kernels derive
+// it from `src` (the time shard's advance included): a check of the
+// derivation against its torch expressions, on no path of its own.
+__global__ void bank_params_kernel(const bank::Source src, float4* __restrict__ out, int num_k) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < num_k) out[k] = bank::channel_params(src, k);
+}
+
+// Tiles per CTA: 4, 2 or 1. They must divide the phase tile, and a grid
+// under kMinCtas CTAs leaves SMs idle in its last wave.
+int chunk_tiles(int num_k, int num_samples, int phase_tile) {
+  const int num_tiles = (num_samples + kTile - 1) / kTile;
+  const int groups = (num_k + kWarps - 1) / kWarps;
+  const int tiles_per_phase = phase_tile / kTile;
+  int chunk = kMaxChunk;
+  while (chunk > 1 && (tiles_per_phase % chunk != 0 ||
+                       (num_tiles + chunk - 1) / chunk * groups < kMinCtas)) {
+    chunk /= 2;
+  }
+  return chunk;
+}
+
+cudaError_t finish(const float* partial, float* out_re, float* out_im, int num_ants,
+                   int num_taps, int num_samples, int num_k, int phase_tile,
+                   long long shard_stride, int num_shards, cudaStream_t stream) {
+  const int num_tiles = (num_samples + kTile - 1) / kTile;
+  const int chunk = chunk_tiles(num_k, num_samples, phase_tile);
+  const int num_chunks = (num_tiles + chunk - 1) / chunk;
+  const int al = num_ants * num_taps;
+  const int total = num_k * al;
+  bank_rows_finish<<<(total + 255) / 256, 256, 0, stream>>>(partial, out_re, out_im, num_k,
+                                                            num_chunks, al, shard_stride,
+                                                            num_shards);
+  return cudaGetLastError();
 }
 
 template <int A, int L>
@@ -235,7 +291,8 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre
   if (err != cudaSuccess) return err;
   bank_rows_kernel<A, L><<<grid, kThreads, smem, stream>>>(
       sre, sim, code, src, reinterpret_cast<const float2*>(base), deltas, partial,
-      num_samples, num_k, code_length, words, phase_tile, span, chunk, rho_nom, fcar_nom_cyc);
+      num_samples, static_cast<int>(src.plane_stride), num_k, code_length, words, phase_tile,
+      span, chunk, rho_nom, fcar_nom_cyc);
   return cudaGetLastError();
 }
 
@@ -244,7 +301,9 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre
 // Launch the bank on `stream`; `source` (host memory) says where the block
 // and the channels' parameters are read. Returns the first CUDA error of the
 // two launches (cudaErrorInvalidValue for an antenna/tap count with no
-// instantiation, or a phase tile that kTile does not divide).
+// instantiation, or a phase tile that kTile does not divide). With out_re
+// null, only the bank kernel runs: its partials wait for
+// bank_rows_finish_launch (a time shard's).
 extern "C" int bank_rows_launch(const float* sre, const float* sim, const int* code,
                                 const bank::Source* source, const float* base, const int* deltas,
                                 float* partial, float* out_re, float* out_im,
@@ -255,15 +314,8 @@ extern "C" int bank_rows_launch(const float* sre, const float* sim, const int* c
   const bank::Source src = *source;
   const int num_tiles = (num_samples + kTile - 1) / kTile;
   const int words = (code_length + 31) / 32;
-  // Chunks of 4, 2 or 1 tiles: they must divide the phase tile, and a grid
-  // under kMinCtas CTAs leaves SMs idle in its last wave.
   const int groups = (num_k + kWarps - 1) / kWarps;
-  const int tiles_per_phase = phase_tile / kTile;
-  int chunk = kMaxChunk;
-  while (chunk > 1 && (tiles_per_phase % chunk != 0 ||
-                       (num_tiles + chunk - 1) / chunk * groups < kMinCtas)) {
-    chunk /= 2;
-  }
+  const int chunk = chunk_tiles(num_k, num_samples, phase_tile);
   const int num_chunks = (num_tiles + chunk - 1) / chunk;
   const dim3 grid(num_chunks, groups);
   const size_t smem = (2 * static_cast<size_t>(num_ants) * kTile +
@@ -283,10 +335,29 @@ extern "C" int bank_rows_launch(const float* sre, const float* sim, const int* c
   BANK_ROWS_CASE(3, 3) BANK_ROWS_CASE(3, 5) BANK_ROWS_CASE(3, 7)
   BANK_ROWS_CASE(4, 3) BANK_ROWS_CASE(4, 5) BANK_ROWS_CASE(4, 7)
 #undef BANK_ROWS_CASE
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int al = num_ants * num_taps;
-  const int total = num_k * al;
-  bank_rows_finish<<<(total + 255) / 256, 256, 0, s>>>(partial, out_re, out_im, num_k,
-                                                       num_chunks, al);
+  if (err != cudaSuccess || out_re == nullptr) return static_cast<int>(err);
+  return static_cast<int>(finish(partial, out_re, out_im, num_ants, num_taps, num_samples,
+                                 num_k, phase_tile, 0, 1, s));
+}
+
+// One finish for the `num_shards` time shards of a channel shard: shard s's
+// partials (bank_rows_launch with out_re null, at the same ants, taps,
+// samples, K and phase tile) start s * shard_stride floats after
+// `partial`. out[k, a, l] is the shards' sums added in shard order.
+extern "C" int bank_rows_finish_launch(const float* partial, long long shard_stride,
+                                       int num_shards, float* out_re, float* out_im,
+                                       int num_ants, int num_taps, int num_samples, int num_k,
+                                       int phase_tile, void* stream) {
+  if (num_shards < 1 || phase_tile % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(finish(partial, out_re, out_im, num_ants, num_taps, num_samples,
+                                 num_k, phase_tile, shard_stride, num_shards,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// bank_params_kernel over `num_k` channels into out[num_k] float4.
+extern "C" int bank_params_launch(const bank::Source* source, float* out, int num_k,
+                                  void* stream) {
+  bank_params_kernel<<<(num_k + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      *source, reinterpret_cast<float4*>(out), num_k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,10 @@
 // sink (a scan's [chunk, ...] stacked outputs and the int64 row index, read
 // here on the card): every output leaf into row `row` of its stack, and the
 // new state over the old state's own buffers (the carry, in place). A
+// sink's rows may hold more channels than the call (`row_channels`): the
+// call's K channels are then columns [first, first + K) of each row (a
+// channel shard of a sharded bank writing its part of the whole bank's
+// outputs). A
 // channel's state is read and written by its own CTA only, and every value
 // is read before it is overwritten (the ring slot and the window sums by the
 // lane that writes them, the scalars by the lane that writes them, the
@@ -177,6 +181,8 @@ struct Ints {
   int dual;             // 1: GPS L5 dual mode
   int data_overlay_len;
   int chunk;            // rows of the sink's stacks (0: no sink)
+  int row_channels;     // channels per row of the sink's stacks (num_k without a sink)
+  int first;            // the call's first channel in a row (0 without a sink)
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -442,8 +448,10 @@ loop_update_kernel(const Inputs in, const State old, const State neu, const Outp
     row = *in.row;
     if (row < 0 || row >= n.chunk) __trap();
   }
-  const long long leaf_row = row * K;                                  // a [chunk, K] stack
-  const long long acc_row = row * K * n.num_ants * n.num_taps;         // [chunk, K, A, L]
+  // [chunk, row_channels] and [chunk, row_channels, A, L] stacks, the call's
+  // channel k at column first + k.
+  const long long leaf_row = row * n.row_channels + n.first;
+  const long long acc_row = leaf_row * n.num_ants * n.num_taps;
 
   // Warp 0 runs channel k0 + lane's chain in phase 2: its scalars are read
   // now, so the loads overlap phase 1.
@@ -607,7 +615,8 @@ extern "C" int loop_update_launch(const void* const* pointers, int num_pointers,
   std::memcpy(&n, ints, sizeof(Ints));
   if (n.num_k <= 0 || n.num_ants <= 0 || n.num_taps <= 0 || n.num_taps > kLanes ||
       n.window <= 0 || n.k_coh <= 0 || n.prompt < 0 || n.prompt >= n.num_taps ||
-      (n.dual && n.data_overlay_len <= 0) || (in.row != nullptr && n.chunk <= 0)) {
+      (n.dual && n.data_overlay_len <= 0) || (in.row != nullptr && n.chunk <= 0) ||
+      n.first < 0 || n.first + n.num_k > n.row_channels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = (n.num_k + kTile - 1) / kTile;

@@ -32,6 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
 # C entry points per source: source stem -> {name: (argtypes, restype)}.
 SIGNATURES = {
@@ -43,12 +44,26 @@ SIGNATURES = {
              _P],                                  # stream
             _I,
         ),
+        "bank_rows_finish_launch": (
+            [_P, _L, _I, _P, _P,                   # partial shard_stride shards out_re out_im
+             _I, _I, _I, _I, _I,                   # ants taps samples k phase_tile
+             _P],                                  # stream
+            _I,
+        ),
+        "bank_params_launch": ([_P, _P, _I, _P], _I),   # source out k stream
     },
     "bank_comp": {
         "bank_comp_launch": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code source base deltas partial out_re out_im
              _I, _I, _I, _I, _I, _I, _I, _I,       # ants taps samples k code_length phase_tile span bf16
              _F, _F,                               # rho_nom fcar_nom_cyc
+             _P],                                  # stream
+            _I,
+        ),
+        "bank_comp_finish_launch": (
+            [_P, _L, _I, _P, _P, _P, _P,           # partial shard_stride shards source deltas
+                                                   # out_re out_im
+             _I, _I, _I, _I, _I,                   # ants taps samples k span
              _P],                                  # stream
             _I,
         ),

@@ -35,8 +35,9 @@ import torch
 
 from . import _build, registry
 from .epl_kernels import (
-    TILE, BankChannels, BankRowsCall, _check_kernel_inputs, _deltas, _is_bf16, _replica_chips,
-    _row_lane_carrier, _tile_phases, split_launches, unpack_code_columns)
+    TILE, BankChannels, BankRowsCall, ShardSum, _check_kernel_inputs, _deltas, _is_bf16,
+    _replica_chips, _row_lane_carrier, _tile_phases, deliver, launch_groups, split_launches,
+    unpack_code_columns)
 from .replica import _TWO_PI_F32
 
 COMP_TILE = 1024             # composite samples per CTA of the CUDA kernel; divides TILE
@@ -140,7 +141,8 @@ def correlate_pallas_bank_comp(
     z_dtype=torch.float32,
     channels: BankChannels | None = None,
     block_index: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    shard_sum: ShardSum | None = None,
+) -> tuple[torch.Tensor, torch.Tensor] | None:
     """Composite-plane K-channel EPL bank against one shared ``[N]`` / ``[A, N]`` block.
 
     The contract and chip-rate envelope of `correlate_pallas_bank_rows` (any
@@ -149,8 +151,11 @@ def correlate_pallas_bank_comp(
     ``torch.float32`` or ``"f32"``, ``torch.bfloat16`` or ``"bf16"``.
     ``code_tiles``: `epl_kernels.prepare_bank_code_tiles_rows` output;
     ``channels`` (the state form) and ``block_index`` (the block at a device
-    index of a ``[chunk, (A,) N]`` signal): as in
-    `epl_kernels.correlate_pallas_bank_rows`.
+    index of a ``[chunk, (A,) N]`` signal) and ``shard_sum`` (where a time
+    shard's call leaves its result): as in
+    `epl_kernels.correlate_pallas_bank_rows`. A time shard's haloed signal
+    tile is zero outside its piece, as a JAX shard sees its own samples
+    alone.
     """
     bank = BankCompCall(signal_re, signal_im, codes, prn, carrier_frequency,
                         sampling_frequency, carrier_phase, code_frequency,
@@ -159,20 +164,25 @@ def correlate_pallas_bank_comp(
                         max_chips_per_sample, code_tiles, z_dtype=z_dtype,
                         channels=channels, block_index=block_index)
     if bank.device.type == "cpu":
-        return bank.finish(*_bank_comp_plain(bank))
+        return deliver(bank, bank.finish(*_bank_comp_plain(bank)), shard_sum)
     if bank.device.type != "cuda":
         raise ValueError(f"bank_comp runs on CPU or CUDA tensors, not {bank.device}")
+    if shard_sum is not None:
+        launch_bank_comp(bank, shard_sum)
+        return None
     return bank.finish(*launch_bank_comp(bank))
 
 
-def launch_bank_comp(bank: BankCompCall) -> tuple[torch.Tensor, torch.Tensor]:
+def launch_bank_comp(bank: BankCompCall, shard_sum: ShardSum | None = None):
     """Launch ``csrc/bank_comp.cu`` for a prepared call on CUDA tensors.
 
     Returns ``[K, A, L]`` accumulators and adds one to
     ``correlate_pallas_bank_comp.launches`` per launch: one inside the
     kernel's instantiations, else one per group of
-    `epl_kernels.launch_groups`. Raises on anything the kernel does not take,
-    and if a launch fails.
+    `epl_kernels.launch_groups`. With a ``shard_sum`` (a time shard's call)
+    each launch writes only its partials there and nothing is returned:
+    `epl_kernels.ShardSum.finish` finishes them. Raises on anything the
+    kernel does not take, and if a launch fails.
     """
     if bank.device.type != "cuda":
         raise ValueError(f"the bank_comp kernel takes CUDA tensors, not {bank.device}")
@@ -182,30 +192,62 @@ def launch_bank_comp(bank: BankCompCall) -> tuple[torch.Tensor, torch.Tensor]:
     num_ctiles = -(-(bank.num_samples + bank.span) // COMP_TILE)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
 
+    def finisher(a0, a1, taps):
+        # The finish of launch group (a0, a1, taps) over the partials
+        # `partial` ([T, ...], shard t's at t * partial.stride(0)); the
+        # rotation reads f_cyc through this call's (shard 0's) source.
+        deltas = _deltas(tuple(bank.deltas[i] for i in taps), bank.device)
+
+        def run(partial):
+            shape = (bank.num_k, a1 - a0, len(taps))
+            out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
+            out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
+            err = lib.bank_comp_finish_launch(
+                partial.data_ptr(), partial.stride(0), partial.shape[0],
+                ctypes.addressof(source), deltas.data_ptr(), out_re.data_ptr(),
+                out_im.data_ptr(), a1 - a0, len(taps), bank.num_samples, bank.num_k, bank.span,
+                torch.cuda.current_stream(bank.device).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"bank_comp_finish_launch failed with CUDA error {err}")
+            return out_re, out_im
+
+        return run
+
     def launch(a0, a1, taps):
         # Antennas a0:a1 against the taps indexed by `taps`, over the call's
         # composite range N + span and with its phase origin: the unsplit
         # call's Z.
         deltas = tuple(bank.deltas[i] for i in taps)
         shape = (bank.num_k, a1 - a0, len(deltas))
-        out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
-        out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
-        partial = torch.empty(shape[:1] + (num_ctiles,) + shape[1:] + (4,),
-                              dtype=torch.float32, device=bank.device)
-        row = 4 * a0 * bank.num_samples                  # bytes to antenna a0's plane
+        part_shape = shape[:1] + (num_ctiles,) + shape[1:] + (4,)
+        if shard_sum is None:
+            out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
+            out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
+            partial = torch.empty(part_shape, dtype=torch.float32, device=bank.device)
+        else:
+            out_re = out_im = None
+            partial = shard_sum.slot(bank, (a0, a1, taps), part_shape, finisher(a0, a1, taps))
+        row = 4 * a0 * bank.plane_stride                 # bytes to antenna a0's plane
         err = lib.bank_comp_launch(
             bank.sre.data_ptr() + row, bank.sim.data_ptr() + row, bank.code_tiles.data_ptr(),
             ctypes.addressof(source), bank.base.data_ptr(),
-            _deltas(deltas, bank.device).data_ptr(), partial.data_ptr(), out_re.data_ptr(),
-            out_im.data_ptr(), a1 - a0, len(deltas), bank.num_samples, bank.num_k,
-            bank.code_length, TILE, bank.span, int(bank.bf16),
+            _deltas(deltas, bank.device).data_ptr(), partial.data_ptr(),
+            None if out_re is None else out_re.data_ptr(),
+            None if out_im is None else out_im.data_ptr(), a1 - a0, len(deltas),
+            bank.num_samples, bank.num_k, bank.code_length, TILE, bank.span, int(bank.bf16),
             ctypes.c_float(bank.rho_nom), ctypes.c_float(bank.fcar_nom_cyc), stream,
         )
         if err != 0:
             raise RuntimeError(f"bank_comp_launch failed with CUDA error {err}")
         correlate_pallas_bank_comp.launches += 1
+        if shard_sum is not None:
+            shard_sum.copy_in(bank, (a0, a1, taps), partial)
         return out_re, out_im
 
+    if shard_sum is not None:
+        for a0, a1, taps in launch_groups(bank.num_ants, len(bank.deltas)):
+            launch(a0, a1, taps)
+        return None
     return split_launches(launch, bank.num_ants, len(bank.deltas), (bank.num_k,), bank.device)
 
 

@@ -58,6 +58,14 @@ in place of the four channel parameters, and ``block_index=`` (an int64 0-d
 tensor) with a ``[chunk, (A,) N]`` signal, whose row ``block_index`` the
 kernels read at the index on the device. The plain versions evaluate the
 same expressions in torch ops, and select the row by `index_select`.
+
+A time shard of a mesh (`parallel.track_bank_sharded`) is a `BankShard` in
+the state form: the call reads the shard's piece of each antenna's row of
+the block in place (nothing outside it) as its block, advances the state's
+phases to the piece's first sample (`shard_phases`, the JAX
+`advance_phases` arithmetic) before it derives the channel parameters, and,
+given a `ShardSum` (``shard_sum=``), leaves its result there: one finish
+per channel shard then adds the time shards' results in shard order.
 """
 
 from __future__ import annotations
@@ -456,6 +464,46 @@ def _channel_params(carrier_frequency, sampling_frequency, carrier_phase,
     ).contiguous()
 
 
+class BankShard(NamedTuple):
+    """Time shard ``index`` of a mesh's sample axis, as a bank call in the
+    state form takes it: the call's block is the piece ``[offset, offset +
+    num_samples)`` of each antenna's row of the signal it is given, and its
+    channels' phases are first advanced to the piece's first sample
+    (`shard_phases`). ``n0`` is ``f32(index * num_samples)``,
+    ``carrier_cycles`` and ``code_chips`` the f32 entries of
+    `parallel.nominal_advance_tables` for this shard, ``inv_fs`` is
+    ``f32(1 / fs)`` and ``code_length`` ``f32(Lc)``: Python floats, which a
+    captured graph bakes (`parallel.time_shard` makes one)."""
+
+    index: int
+    num_samples: int
+    offset: int
+    n0: float
+    carrier_cycles: float
+    code_chips: float
+    inv_fs: float
+    code_length: float
+
+
+def shard_phases(shard: BankShard, carrier_phase, code_phase, carrier_frequency,
+                 code_frequency, nominal_carrier_frequency: float,
+                 nominal_code_frequency: float):
+    """Carrier phase (rad) and code phase (chips) advanced to ``shard``'s
+    first sample: the nominal advance from its table entries, and only the
+    Doppler residual ``(f - f_nom) / fs * n0`` in f32, in the JAX
+    `advance_phases` operation order, then wrapped by `torch.remainder`.
+    The channel values are f32 tensors of any shape; the constants enter as
+    f32-valued Python floats, so nothing is copied to the device."""
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    dcar_cyc = (carrier_frequency - f32(nominal_carrier_frequency)) * shard.inv_fs * shard.n0
+    cyc = shard.carrier_cycles + dcar_cyc
+    cyc = cyc - torch.floor(cyc)
+    carrier = torch.remainder(carrier_phase + _TWO_PI_F32 * cyc, _TWO_PI_F32)
+    dcode = (code_frequency - f32(nominal_code_frequency)) * shard.inv_fs * shard.n0
+    code = torch.remainder(code_phase + shard.code_chips + dcode, shard.code_length)
+    return carrier, code
+
+
 class BankChannels(NamedTuple):
     """A bank call's channels as a tracking state holds them: the state form
     of the registry signature's ``carrier_frequency``, ``carrier_phase``,
@@ -466,7 +514,9 @@ class BankChannels(NamedTuple):
     K0]``, ``K0`` being the leaves' length: the dual bank's data and pilot
     channels read one state. Leaves: ``[K0]`` contiguous f32 tensors on the
     signal's device, which the kernels read where they lie (in a capture,
-    the entry's carry)."""
+    the entry's carry). With a ``shard`` (a `BankShard`) the call is that
+    time shard's: its piece of the block, its phases advanced to the
+    piece."""
 
     intermediate_frequency: float
     carrier_doppler: torch.Tensor
@@ -474,6 +524,7 @@ class BankChannels(NamedTuple):
     code_frequency: float
     code_doppler: torch.Tensor
     code_phase: torch.Tensor
+    shard: BankShard | None = None
 
 
 class _Source(ctypes.Structure):
@@ -483,10 +534,14 @@ class _Source(ctypes.Structure):
     _fields_ = [("params", ctypes.c_void_p), ("carrier_doppler", ctypes.c_void_p),
                 ("carrier_phase", ctypes.c_void_p), ("code_doppler", ctypes.c_void_p),
                 ("code_phase", ctypes.c_void_p), ("block_index", ctypes.c_void_p),
-                ("block_stride", ctypes.c_longlong), ("inv_fs", ctypes.c_double),
+                ("block_stride", ctypes.c_longlong), ("sample_offset", ctypes.c_longlong),
+                ("plane_stride", ctypes.c_longlong), ("inv_fs", ctypes.c_double),
                 ("intermediate_frequency", ctypes.c_float), ("code_frequency", ctypes.c_float),
                 ("inv_two_pi", ctypes.c_float), ("d_min", ctypes.c_float),
-                ("modulus", ctypes.c_int)]
+                ("modulus", ctypes.c_int), ("shard", ctypes.c_int),
+                ("shard_n0", ctypes.c_float), ("shard_carrier", ctypes.c_float),
+                ("shard_code", ctypes.c_float), ("shard_inv_fs", ctypes.c_float),
+                ("shard_code_length", ctypes.c_float)]
 
 
 # What `x / _TWO_PI_F32` multiplies an f32 tensor by on the card: the double
@@ -508,7 +563,10 @@ class BankRowsCall:
     arguments are ignored, the channel count is ``code_tiles``' (or the
     PRNs'), and ``params`` is computed only where a plain version asks for
     it. In the index form the signal is ``[chunk, (A,) N]`` and the block is
-    its row ``block_index`` (an int64 0-d tensor on its device).
+    its row ``block_index`` (an int64 0-d tensor on its device). With a
+    `BankShard` in ``channels``, the block is the shard's piece of each
+    antenna's row: ``num_samples`` is the piece's, ``plane_stride`` the
+    row's and ``offset`` where the piece starts in it.
     """
 
     def __init__(self, signal_re, signal_im, codes, prn, carrier_frequency,
@@ -535,7 +593,16 @@ class BankRowsCall:
             signal_re, signal_im = signal_re.unsqueeze(-2), signal_im.unsqueeze(-2)
         self.sre, self.sim = signal_re, signal_im       # [A, N], or the chunk [chunk, A, N]
         self.device = signal_re.device
-        self.num_ants, self.num_samples = signal_re.shape[-2:]
+        self.num_ants, self.plane_stride = signal_re.shape[-2:]
+        self.num_samples, self.offset = self.plane_stride, 0
+        shard = None if channels is None else channels.shard
+        if shard is not None:
+            self.num_samples, self.offset = int(shard.num_samples), int(shard.offset)
+            if self.num_samples < 1 or self.offset < 0 \
+                    or self.offset + self.num_samples > self.plane_stride:
+                raise ValueError(f"time shard {shard.index}'s piece [{self.offset}, "
+                                 f"{self.offset + self.num_samples}) is not inside the "
+                                 f"block's {self.plane_stride} samples")
         self.d_min = int(min(sample_shifts))
         self.deltas = tuple(int(d) - self.d_min for d in sample_shifts)
         self.code_length = int(code_length)
@@ -563,18 +630,27 @@ class BankRowsCall:
         """``[K, 4]`` `_channel_params` of the state form's expressions (the
         registry signature's call sets its own in ``__init__``)."""
         ch = self.channels
-        params = _channel_params(ch.intermediate_frequency + ch.carrier_doppler, self.fs,
-                                 ch.carrier_phase, ch.code_frequency + ch.code_doppler,
-                                 ch.code_phase, self.d_min, self.device)
+        f_car = ch.intermediate_frequency + ch.carrier_doppler
+        f_code = ch.code_frequency + ch.code_doppler
+        phi_car, phi_code = ch.carrier_phase, ch.code_phase
+        if ch.shard is not None:
+            phi_car, phi_code = shard_phases(ch.shard, phi_car, phi_code, f_car, f_code,
+                                             ch.intermediate_frequency, ch.code_frequency)
+        params = _channel_params(f_car, self.fs, phi_car, f_code, phi_code, self.d_min,
+                                 self.device)
         return params.repeat(self.num_k // params.shape[0], 1)
 
     def planes(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The block's ``[A, N]`` planes; in the index form the chunk's row
-        at ``block_index``, by `index_select` (the plain versions' read)."""
-        if self.block_index is None:
-            return self.sre, self.sim
-        index = self.block_index.view(1)
-        return tuple(torch.index_select(x, 0, index)[0] for x in (self.sre, self.sim))
+        at ``block_index``, by `index_select` (the plain versions' read); a
+        time shard's piece of it, by a slice."""
+        planes = (self.sre, self.sim)
+        if self.block_index is not None:
+            index = self.block_index.view(1)
+            planes = tuple(torch.index_select(x, 0, index)[0] for x in planes)
+        if self.num_samples != self.plane_stride:
+            planes = tuple(x[..., self.offset:self.offset + self.num_samples] for x in planes)
+        return planes
 
     def source(self) -> _Source:
         """The kernels' `_Source`: the block's row in the chunk, the
@@ -583,11 +659,20 @@ class BankRowsCall:
         src = _Source()
         if self.block_index is not None:
             src.block_index = self.block_index.data_ptr()
-            src.block_stride = self.num_ants * self.num_samples
+            src.block_stride = self.num_ants * self.plane_stride
+        src.sample_offset = self.offset
+        src.plane_stride = self.plane_stride
         ch = self.channels
         if ch is None:
             src.params = self.params.data_ptr()
             return src
+        if ch.shard is not None:
+            src.shard = 1
+            src.shard_n0 = ch.shard.n0
+            src.shard_carrier = ch.shard.carrier_cycles
+            src.shard_code = ch.shard.code_chips
+            src.shard_inv_fs = ch.shard.inv_fs
+            src.shard_code_length = ch.shard.code_length
         src.carrier_doppler = ch.carrier_doppler.data_ptr()
         src.carrier_phase = ch.carrier_phase.data_ptr()
         src.code_doppler = ch.code_doppler.data_ptr()
@@ -604,6 +689,100 @@ class BankRowsCall:
         if self.squeeze:
             return acc_re[:, 0], acc_im[:, 0]
         return acc_re, acc_im
+
+
+def sum_in_order(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...`` on ``device``, in that order (the port's
+    ``psum``): each part is copied there first, a no-op where it lies."""
+    total = parts[0].to(device, non_blocking=True)
+    for p in parts[1:]:
+        total = total + p.to(device, non_blocking=True)
+    return total
+
+
+class ShardSum:
+    """Where the time shards of one channel shard's bank call meet (the
+    port's ``psum`` over ``time``): the call of each shard ``t`` (a
+    `BankShard` in its ``channels``) given this as ``shard_sum=`` leaves its
+    result here, and `finish` returns ``(r_0 + r_1) + r_2 ...`` on ``device``,
+    the time shards' results added in shard order
+    (`sum_in_order`'s order).
+
+    CPU calls leave their plain versions' results, which `finish` adds with
+    torch ops. CUDA calls launch their bank kernel alone, which writes its
+    partials into shard t's slot of one ``[T, ...]`` buffer per launch group
+    on ``device`` (a shard on another card writes its own and copies it
+    there); `finish` is then one finish kernel per launch group, which sums
+    each shard's partials as a call's own finish does and adds the shards'
+    results in shard order, with no atomics. Every shard's call must come
+    before `finish`, shard 0's on ``device``."""
+
+    def __init__(self, num_shards: int, device: torch.device):
+        self.num_shards = int(num_shards)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = torch.device("cpu") if device.type == "cpu" else device
+        self.added: set = set()      # the shards whose calls came
+        self.results: dict = {}      # CPU: shard -> its (re, im)
+        self.partials: dict = {}     # CUDA: launch group -> [T, ...] partials on device
+        self.finishers: dict = {}    # CUDA: launch group -> finish of its buffer (shard 0's)
+        self.lead = None             # shard 0's call: the finish's shape and squeeze
+
+    def _shard(self, bank: "BankRowsCall") -> int:
+        shard = None if bank.channels is None else bank.channels.shard
+        if shard is None:
+            raise ValueError("a call with a shard_sum is a time shard's: channels=BankChannels("
+                             "..., shard=BankShard(...))")
+        t = int(shard.index)
+        if not 0 <= t < self.num_shards:
+            raise ValueError(f"time shard {t} of {self.num_shards}")
+        if t == 0:
+            if bank.device != self.device:
+                raise ValueError(f"time shard 0 runs on the sum's device {self.device}, "
+                                 f"not {bank.device}")
+            self.lead = bank
+        self.added.add(t)
+        return t
+
+    def add(self, bank: "BankRowsCall", result: tuple) -> None:
+        """A plain version's finished result of a time shard's call."""
+        self.results[self._shard(bank)] = result
+
+    def slot(self, bank: "BankRowsCall", group, shape: tuple, finisher=None) -> torch.Tensor:
+        """Where the bank kernel of the call ``bank`` writes the ``shape``
+        partials of launch group ``group``: its shard's slot of the group's
+        buffer (a tensor of its own on another card, which `copy_in` moves
+        there); shard 0's call gives the group's ``finisher(buffer) -> (re,
+        im)``."""
+        t = self._shard(bank)
+        buf = self.partials.get(group)
+        if buf is None:
+            buf = self.partials[group] = torch.empty((self.num_shards,) + tuple(shape),
+                                                     dtype=torch.float32, device=self.device)
+        if t == 0:
+            self.finishers[group] = finisher
+        return buf[t] if bank.device == self.device else torch.empty(
+            shape, dtype=torch.float32, device=bank.device)
+
+    def copy_in(self, bank: "BankRowsCall", group, partial: torch.Tensor) -> None:
+        """``partial`` into its shard's slot, where it is not that slot."""
+        dst = self.partials[group][self._shard(bank)]
+        if partial.data_ptr() != dst.data_ptr():
+            dst.copy_(partial, non_blocking=True)
+
+    def finish(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The time shards' results added in shard order, on ``device``."""
+        if len(self.added) != self.num_shards:
+            raise ValueError(f"{len(self.added)} of {self.num_shards} time shards have "
+                             "their results in the sum")
+        if not self.partials:
+            parts = [self.results[t] for t in range(self.num_shards)]
+            return tuple(sum_in_order([p[i] for p in parts], self.device) for i in range(2))
+        bank = self.lead
+        return bank.finish(*split_launches(
+            lambda a0, a1, taps: self.finishers[(a0, a1, taps)](self.partials[(a0, a1, taps)]),
+            bank.num_ants, len(bank.deltas), (bank.num_k,), self.device))
 
 
 def _tile_phases(bank: BankRowsCall, k0: int, k1: int):
@@ -722,7 +901,7 @@ def _check_kernel_inputs(bank: BankRowsCall, kernel: str = "bank_rows") -> None:
         raise ValueError(f"code_length {bank.code_length} > {MAX_CODE_LENGTH}")
     if bank.span > MAX_SPAN:
         raise ValueError(f"{kernel} kernel takes a tap span <= {MAX_SPAN}, got {bank.span}")
-    if bank.num_samples >= 1 << 24 or bank.num_k > 65535:
+    if bank.plane_stride >= 1 << 24 or bank.num_k > 65535:
         raise ValueError(f"{kernel} kernel takes N < 2^24 and K <= 65535")
 
 
@@ -766,7 +945,8 @@ def correlate_pallas_bank_rows(
     code_tiles: torch.Tensor | None = None,
     channels: BankChannels | None = None,
     block_index: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    shard_sum: ShardSum | None = None,
+) -> tuple[torch.Tensor, torch.Tensor] | None:
     """K-channel EPL bank against one shared ``[N]`` / ``[A, N]`` block.
 
     Returns ``[K, L]`` / ``[K, A, L]`` f32 accumulators. CPU tensors run the
@@ -775,30 +955,45 @@ def correlate_pallas_bank_rows(
     ``channels`` (the state form, a `BankChannels`) replaces the four channel
     parameters, which may then be None; with ``block_index`` the signal is
     ``[chunk, (A,) N]`` and the block its row at that index (see the module).
+    A time shard's call (a `BankShard` in ``channels``) given a ``shard_sum``
+    (a `ShardSum`) leaves its result there and returns None.
     """
     return _run_bank_rows(BankRowsCall(
         signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
         carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
         nominal_code_frequency, nominal_carrier_frequency, max_chips_per_sample,
-        code_tiles, "pallas_bank_rows", channels, block_index))
+        code_tiles, "pallas_bank_rows", channels, block_index), shard_sum)
 
 
-def _run_bank_rows(bank: BankRowsCall) -> tuple[torch.Tensor, torch.Tensor]:
+def _run_bank_rows(bank: BankRowsCall, shard_sum: ShardSum | None = None):
     if bank.device.type == "cpu":
-        return bank.finish(*_bank_rows_plain(bank))
+        return deliver(bank, bank.finish(*_bank_rows_plain(bank)), shard_sum)
     if bank.device.type != "cuda":
         raise ValueError(f"{bank.route} runs on CPU or CUDA tensors, not {bank.device}")
+    if shard_sum is not None:
+        launch_bank_rows(bank, shard_sum)
+        return None
     return bank.finish(*launch_bank_rows(bank))
 
 
-def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
+def deliver(bank: BankRowsCall, result: tuple, shard_sum: ShardSum | None):
+    """A plain version's ``result``: returned, or left in ``shard_sum``."""
+    if shard_sum is None:
+        return result
+    shard_sum.add(bank, result)
+    return None
+
+
+def launch_bank_rows(bank: "BankRowsCall", shard_sum: ShardSum | None = None):
     """Launch ``csrc/bank_rows.cu`` for a prepared call on CUDA tensors.
 
     Returns ``[K, A, L]`` accumulators and adds one to the launch count of the
     call's route (``correlate_pallas_bank_rows.launches``,
     ``correlate_pallas_bank.launches`` or
     ``correlate_pallas_bank_onehot.launches``) per launch: one inside the
-    kernel's instantiations, else one per group of `launch_groups`. Raises on
+    kernel's instantiations, else one per group of `launch_groups`. With a
+    ``shard_sum`` (a time shard's call) each launch writes only its partials
+    there and nothing is returned: `ShardSum.finish` sums them. Raises on
     anything the kernel does not take, and if a launch fails.
     """
     if bank.device.type != "cuda":
@@ -812,30 +1007,77 @@ def launch_bank_rows(bank: "BankRowsCall") -> tuple[torch.Tensor, torch.Tensor]:
     num_ctiles = -(-bank.num_samples // ROWS_TILE)     # partials: at most one per tile
     stream = torch.cuda.current_stream(bank.device).cuda_stream
 
+    def finisher(a0, a1, taps):
+        # The finish of launch group (a0, a1, taps) over the partials
+        # `partial` ([T, ...], shard t's at t * partial.stride(0)).
+        def run(partial):
+            shape = (bank.num_k, a1 - a0, len(taps))
+            out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
+            out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
+            err = lib.bank_rows_finish_launch(
+                partial.data_ptr(), partial.stride(0), partial.shape[0], out_re.data_ptr(),
+                out_im.data_ptr(), a1 - a0, len(taps), bank.num_samples, bank.num_k, TILE,
+                torch.cuda.current_stream(bank.device).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"bank_rows_finish_launch failed with CUDA error {err}")
+            return out_re, out_im
+
+        return run
+
     def launch(a0, a1, taps):
         # Antennas a0:a1 against the taps indexed by `taps`, with the call's
         # span and phase origin (params, base): the unsplit call's chips.
         deltas = tuple(bank.deltas[i] for i in taps)
         shape = (bank.num_k, a1 - a0, len(deltas))
-        out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
-        out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
-        partial = torch.empty(shape[:1] + (num_ctiles,) + shape[1:] + (2,),
-                              dtype=torch.float32, device=bank.device)
-        row = 4 * a0 * bank.num_samples                  # bytes to antenna a0's plane
+        part_shape = shape[:1] + (num_ctiles,) + shape[1:] + (2,)
+        if shard_sum is None:
+            out_re = torch.empty(shape, dtype=torch.float32, device=bank.device)
+            out_im = torch.empty(shape, dtype=torch.float32, device=bank.device)
+            partial = torch.empty(part_shape, dtype=torch.float32, device=bank.device)
+        else:
+            out_re = out_im = None
+            partial = shard_sum.slot(bank, (a0, a1, taps), part_shape, finisher(a0, a1, taps))
+        row = 4 * a0 * bank.plane_stride                 # bytes to antenna a0's plane
         err = lib.bank_rows_launch(
             bank.sre.data_ptr() + row, bank.sim.data_ptr() + row, bank.code_tiles.data_ptr(),
             ctypes.addressof(source), bank.base.data_ptr(),
-            _deltas(deltas, bank.device).data_ptr(), partial.data_ptr(), out_re.data_ptr(),
-            out_im.data_ptr(), a1 - a0, len(deltas), bank.num_samples, bank.num_k,
-            bank.code_length, TILE, bank.span, ctypes.c_float(bank.rho_nom),
-            ctypes.c_float(bank.fcar_nom_cyc), stream,
+            _deltas(deltas, bank.device).data_ptr(), partial.data_ptr(),
+            None if out_re is None else out_re.data_ptr(),
+            None if out_im is None else out_im.data_ptr(), a1 - a0, len(deltas),
+            bank.num_samples, bank.num_k, bank.code_length, TILE, bank.span,
+            ctypes.c_float(bank.rho_nom), ctypes.c_float(bank.fcar_nom_cyc), stream,
         )
         if err != 0:
             raise RuntimeError(f"bank_rows_launch failed with CUDA error {err}")
         wrapper.launches += 1
+        if shard_sum is not None:
+            shard_sum.copy_in(bank, (a0, a1, taps), partial)
         return out_re, out_im
 
+    if shard_sum is not None:
+        for a0, a1, taps in launch_groups(bank.num_ants, len(bank.deltas)):
+            launch(a0, a1, taps)
+        return None
     return split_launches(launch, bank.num_ants, len(bank.deltas), (bank.num_k,), bank.device)
+
+
+def launch_channel_params(bank: "BankRowsCall") -> torch.Tensor:
+    """``[K, 4]`` f32 channel parameters ``(f_cyc, phi_cyc, rho, phi_code)``
+    as the bank kernels derive them on the card from the call's `_Source`
+    (a time shard's advance included): one launch of ``csrc/bank_rows.cu``'s
+    parameter kernel, a check of the kernels' arithmetic against
+    ``bank.params``, on no path of its own and counted nowhere."""
+    if bank.device.type != "cuda":
+        raise ValueError(f"the parameter kernel takes CUDA tensors, not {bank.device}")
+    _check_kernel_inputs(bank)
+    out = torch.empty((bank.num_k, 4), dtype=torch.float32, device=bank.device)
+    source = bank.source()
+    err = _build.load_library("bank_rows").bank_params_launch(
+        ctypes.addressof(source), out.data_ptr(), bank.num_k,
+        torch.cuda.current_stream(bank.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bank_params_launch failed with CUDA error {err}")
+    return out
 
 
 correlate_pallas_bank_rows.launches = 0
@@ -859,21 +1101,22 @@ def correlate_pallas_bank(
     code_tiles: torch.Tensor | None = None,
     channels: BankChannels | None = None,
     block_index: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    shard_sum: ShardSum | None = None,
+) -> tuple[torch.Tensor, torch.Tensor] | None:
     """K-channel EPL bank in the transition kernel's regime (< 1 chip/sample).
 
     The contract and envelope of the JAX `correlate_pallas_bank`: tap span
     < 128 samples and < 1 chip per sample, else `ValueError`. CPU tensors run
     the plain version; CUDA tensors launch ``csrc/bank_rows.cu`` (whose
     per-sample chip lookup covers any chip rate below one per sample) and add
-    one to ``correlate_pallas_bank.launches``, or raise. ``channels`` and
-    ``block_index``: as in `correlate_pallas_bank_rows`.
+    one to ``correlate_pallas_bank.launches``, or raise. ``channels``,
+    ``block_index`` and ``shard_sum``: as in `correlate_pallas_bank_rows`.
     """
     return _run_bank_rows(BankRowsCall(
         signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
         carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
         nominal_code_frequency, nominal_carrier_frequency, max_chips_per_sample,
-        code_tiles, "pallas_bank", channels, block_index))
+        code_tiles, "pallas_bank", channels, block_index), shard_sum)
 
 
 correlate_pallas_bank.launches = 0
@@ -894,7 +1137,8 @@ def correlate_pallas_bank_onehot(
     code_tiles: torch.Tensor | None = None,
     channels: BankChannels | None = None,
     block_index: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    shard_sum: ShardSum | None = None,
+) -> tuple[torch.Tensor, torch.Tensor] | None:
     """K-channel EPL bank with a per-sample chip lookup, at any tap span and
     chip rate.
 
@@ -904,13 +1148,14 @@ def correlate_pallas_bank_onehot(
     ``csrc/bank_rows.cu`` (whose shared-memory lookup is the one-hot gather's
     counterpart) and add one to ``correlate_pallas_bank_onehot.launches``, or
     raise. ``code_tiles``: `prepare_bank_code_tiles_rows` output;
-    ``channels`` and ``block_index``: as in `correlate_pallas_bank_rows`.
+    ``channels``, ``block_index`` and ``shard_sum``: as in
+    `correlate_pallas_bank_rows`.
     """
     return _run_bank_rows(BankRowsCall(
         signal_re, signal_im, codes, prn, carrier_frequency, sampling_frequency,
         carrier_phase, code_frequency, code_phase, sample_shifts, code_length,
         code_tiles=code_tiles, route="pallas_bank_onehot", channels=channels,
-        block_index=block_index))
+        block_index=block_index), shard_sum)
 
 
 correlate_pallas_bank_onehot.launches = 0
@@ -942,13 +1187,14 @@ def correlate_pallas_bank_auto(
     z_dtype=torch.float32,
     channels: BankChannels | None = None,
     block_index: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    shard_sum: ShardSum | None = None,
+) -> tuple[torch.Tensor, torch.Tensor] | None:
     """Bank correlator with per-scenario kernel selection (`bank_algorithm_for`).
 
     ``z_dtype`` (``torch.bfloat16`` or ``"bf16"``) asks for the composite
     kernel's bf16 planes; where the scenario resolves to another kernel, that
-    is said with a `UserWarning` and the bank runs in f32. ``channels`` and
-    ``block_index``: as in `correlate_pallas_bank_rows`.
+    is said with a `UserWarning` and the bank runs in f32. ``channels``,
+    ``block_index`` and ``shard_sum``: as in `correlate_pallas_bank_rows`.
     """
     block_ndim = signal_re.ndim - (block_index is not None)
     algo = bank_algorithm_for(
@@ -977,7 +1223,7 @@ def correlate_pallas_bank_auto(
         nominal_code_frequency=nominal_code_frequency,
         nominal_carrier_frequency=nominal_carrier_frequency,
         max_chips_per_sample=max_chips_per_sample, code_tiles=code_tiles,
-        channels=channels, block_index=block_index, **extra,
+        channels=channels, block_index=block_index, shard_sum=shard_sum, **extra,
     )
 
 

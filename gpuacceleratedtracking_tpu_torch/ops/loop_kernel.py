@@ -19,7 +19,9 @@ new `TrackState` and of the output); with a `graphs.Sink` (a captured scan's
 stacked output buffers and its device-side block index), every output leaf
 into its row of the stack and the new state over the old state's own
 buffers, and the call returns the old state's tensors as the new state and
-`graphs.WRITTEN` for each output leaf.
+`graphs.WRITTEN` for each output leaf. A sink with a channel window
+(`graphs.Sink.window`, a channel shard of a sharded bank) holds the whole
+bank's rows, and the call writes its channels' columns of them.
 
 `tracking.track.loop_update` and `tracking.dual.dual_update` dispatch on
 where their tensors lie: CUDA tensors come here, CPU tensors run the plain
@@ -71,7 +73,7 @@ _CONSTANTS = ("intermediate_frequency", "code_frequency", "eps", "inv_two_pi",
               *(f"pll_{name}" for name in _FILTER), *(f"dll_{name}" for name in _FILTER))
 _INTS = ("num_k", "num_ants", "num_taps", "w_stride", "window", "overlay_len", "k_coh",
          "prompt", "pll_order", "dll_order", "pll_fll", "atan2_disc", "steered", "antenna_axis",
-         "dual", "data_overlay_len", "chunk")
+         "dual", "data_overlay_len", "chunk", "row_channels", "first")
 # The [K] f32 leaves of a fresh call's one per-channel buffer, in order: the
 # state's, then the outputs' of their own (the outputs' Dopplers and phases
 # are the state's).
@@ -271,9 +273,14 @@ def _launch(config: TrackConfig, state: TrackState, accum_re, accum_im, ant_weig
     leaf_shapes = dict.fromkeys(names, k_shape)
     leaf_shapes.update(accum_re=batch + tail, accum_im=batch + tail)
 
+    row_channels, first = math.prod(batch), 0
     if in_place:
         chunk = graphs.check_sink(sink, [(leaf_shapes[name], f32) for name in names], device)
         inputs[6] = sink.index
+        if sink.window is not None:
+            if len(batch) != 1:
+                raise ValueError(f"a sink's channel window takes a [K] channel axis, not {batch}")
+            first, row_channels = sink.window
         new = old
         outputs = list(sink.outs) + [None] * (len(_OUTPUTS) - len(names))
     else:
@@ -298,7 +305,8 @@ def _launch(config: TrackConfig, state: TrackState, accum_re, accum_im, ant_weig
     ints = dict(config_ints, num_k=math.prod(batch), num_ants=num_ants, num_taps=num_taps,
                 w_stride=w_stride, steered=int(steered), antenna_axis=int(not single),
                 overlay_len=inputs[4].shape[0] if wipe else 0, dual=int(dual),
-                data_overlay_len=inputs[5].shape[0] if dual else 0, chunk=chunk)
+                data_overlay_len=inputs[5].shape[0] if dual else 0, chunk=chunk,
+                row_channels=row_channels, first=first)
     tensors = inputs + old + new + outputs
     pointers = (ctypes.c_void_p * len(tensors))(
         *(0 if x is None else x.data_ptr() for x in tensors))

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import registry
-from ..ops.replica import _TWO_PI_F32
+from ..ops.epl_kernels import BankShard, shard_phases, sum_in_order
 from .mesh import TIME_AXIS, Mesh
 
 
@@ -75,6 +75,29 @@ def nominal_advance_tables(
             torch.from_numpy(code.astype(np.float32)))
 
 
+def time_shard(
+    shard_index: int,
+    tables: tuple[torch.Tensor, torch.Tensor],
+    sampling_frequency: float,
+    samples_per_shard: int,
+    code_length: int,
+    offset: Optional[int] = None,
+) -> BankShard:
+    """Time shard ``shard_index`` as a bank call's `ops.epl_kernels.BankShard`:
+    its piece of ``samples_per_shard`` samples starts at sample ``offset`` of
+    the signal the call reads (by default ``shard_index * samples_per_shard``,
+    the piece's place in the whole block; 0 for a piece cut out already),
+    and its table entries and constants are the f32-rounded Python floats
+    `advance_phases` computes with."""
+    car_tab, code_tab = tables
+    t = int(shard_index)
+    n = int(samples_per_shard)
+    return BankShard(index=t, num_samples=n, offset=t * n if offset is None else int(offset),
+                     n0=_f32(t * n), carrier_cycles=float(car_tab[t]),
+                     code_chips=float(code_tab[t]), inv_fs=_f32(1.0 / sampling_frequency),
+                     code_length=_f32(code_length))
+
+
 def advance_phases(
     carrier_phase: torch.Tensor,
     code_phase: torch.Tensor,
@@ -95,23 +118,13 @@ def advance_phases(
     ``(f - f_nom) / fs * n0`` is evaluated in f32, in the JAX function's
     operation order. The channel parameters are f32 tensors of any shape;
     ``shard_index`` is a Python int, so the table entries and ``n0`` enter as
-    f32-rounded Python floats and nothing is copied to the device.
+    f32-rounded Python floats and nothing is copied to the device. The bank
+    kernels compute the same in the state form (`time_shard`,
+    `ops.epl_kernels.shard_phases`).
     """
-    car_tab, code_tab = tables
-    shard_index = int(shard_index)
-    n0 = _f32(shard_index * int(samples_per_shard))
-    inv_fs = _f32(1.0 / sampling_frequency)
-
-    dcar_cyc = (carrier_frequency - _f32(nominal_carrier_frequency)) * inv_fs * n0
-    cyc = float(car_tab[shard_index]) + dcar_cyc
-    cyc = cyc - torch.floor(cyc)
-    carrier_local = torch.remainder(carrier_phase + _TWO_PI_F32 * cyc, _TWO_PI_F32)
-
-    dcode = (code_frequency - _f32(nominal_code_frequency)) * inv_fs * n0
-    code_local = torch.remainder(
-        code_phase + float(code_tab[shard_index]) + dcode, _f32(code_length)
-    )
-    return carrier_local, code_local
+    shard = time_shard(shard_index, tables, sampling_frequency, samples_per_shard, code_length)
+    return shard_phases(shard, carrier_phase, code_phase, carrier_frequency, code_frequency,
+                        nominal_carrier_frequency, nominal_code_frequency)
 
 
 def time_piece(x: torch.Tensor, t: int, num_time: int, device: torch.device) -> torch.Tensor:
@@ -121,15 +134,6 @@ def time_piece(x: torch.Tensor, t: int, num_time: int, device: torch.device) -> 
     `shard_map`'s ``in_specs`` cut the signal."""
     local_n = x.shape[-1] // num_time
     return x[..., t * local_n:(t + 1) * local_n].to(device).contiguous()
-
-
-def sum_in_order(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
-    """``parts[0] + parts[1] + ...`` on ``device``, in that order (the port's
-    ``psum``): each part is copied there first, a no-op where it lies."""
-    total = parts[0].to(device, non_blocking=True)
-    for p in parts[1:]:
-        total = total + p.to(device, non_blocking=True)
-    return total
 
 
 def correlate_sharded(

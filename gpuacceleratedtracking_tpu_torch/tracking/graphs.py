@@ -254,10 +254,19 @@ class Sink(NamedTuple):
     """Where a body writes one block's outputs itself: ``outs``, a
     ``[chunk, ...]`` buffer per output leaf in the output tree's order, and
     ``index``, the block's row, an int64 0-d tensor on their device (read
-    on the device, never on the host)."""
+    on the device, never on the host). With a ``window`` ``(first, total)``
+    the buffers' rows hold ``total`` channels and the writer's ``K`` are
+    columns ``first:first + K`` of each (`channel_window`): a channel shard
+    writing its part of the whole bank's outputs."""
 
     outs: tuple
     index: torch.Tensor
+    window: tuple | None = None
+
+    def channel_window(self, first: int, total: int) -> "Sink":
+        """This sink for the writer of channels ``first:first + K`` of rows
+        of ``total`` channels."""
+        return self._replace(window=(int(first), int(total)))
 
 
 def writes_outputs(step):
@@ -318,9 +327,10 @@ def writes_prepared(prepare):
 def check_sink(sink: Sink, leaves: list, device: torch.device) -> int:
     """Raise unless ``sink`` takes one block of outputs of the ``(shape,
     dtype)`` pairs ``leaves`` on ``device``: a contiguous ``[chunk, *shape]``
-    buffer of that dtype on ``device`` per leaf, and an int64 0-d index
-    tensor there. Returns the chunk."""
-    outs, index = sink
+    buffer of that dtype on ``device`` per leaf (with a window ``(first,
+    total)``, ``[chunk, total, *shape[1:]]``, ``first + shape[0] <=
+    total``), and an int64 0-d index tensor there. Returns the chunk."""
+    outs, index, window = sink
     if not isinstance(index, torch.Tensor):
         raise TypeError(f"a sink's index is an int64 0-d tensor on {device}, not "
                         f"{type(index).__name__}")
@@ -332,6 +342,12 @@ def check_sink(sink: Sink, leaves: list, device: torch.device) -> int:
     chunk = outs[0].shape[0] if isinstance(outs[0], torch.Tensor) and outs[0].ndim else 0
     for i, (buf, (shape, dtype)) in enumerate(zip(outs, leaves)):
         want = (chunk,) + tuple(shape)
+        if window is not None:
+            first, total = window
+            if not shape or first < 0 or first + shape[0] > total:
+                raise ValueError(f"a sink window {window} does not hold leaf {i}'s "
+                                 f"{tuple(shape)} channels")
+            want = (chunk, total) + tuple(shape[1:])
         if not isinstance(buf, torch.Tensor) or buf.device != device or buf.dtype != dtype \
                 or tuple(buf.shape) != want or not buf.is_contiguous() or chunk == 0:
             got = (f"{tuple(buf.shape)} {buf.dtype} on {buf.device}"
@@ -350,6 +366,8 @@ def write_sink(sink: Sink, carry, new_carry, out):
     check_sink(sink, [(x.shape, x.dtype) for x in leaves], leaves[0].device)
     index = sink.index.view(1)
     for buf, x in zip(sink.outs, leaves):
+        if sink.window is not None:
+            buf = buf.narrow(1, sink.window[0], x.shape[0])
         buf.index_copy_(0, index, x.unsqueeze(0))
     _write_carry(_leaves(carry), _leaves(new_carry))
     return carry, _rebuild(out, iter([WRITTEN] * len(leaves)))

@@ -145,7 +145,9 @@ def test_the_kernels_source_holds_the_roundings_of_the_plain_expressions():
     assert src.code_frequency == float(np.float32(channels.code_frequency))
     assert src.inv_two_pi == loop_kernel._recip(_TWO_PI_F32)
     assert src.d_min == -9.0 and src.modulus == channels.carrier_doppler.shape[0]
-    assert ctypes.sizeof(epl_kernels._Source) == 88
+    # No time shard: the whole row of each antenna, the phases as they are.
+    assert src.sample_offset == 0 and src.plane_stride == 4096 and src.shard == 0
+    assert ctypes.sizeof(epl_kernels._Source) == 128
     explicit = epl_kernels.BankRowsCall(chunk_re[0], chunk_im[0], *state_args[:2],
                                         torch.zeros(4), 8.192e6, torch.zeros(4), torch.zeros(4),
                                         torch.zeros(4), *state_args[-2:],

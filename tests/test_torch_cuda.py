@@ -1844,6 +1844,146 @@ def test_a_replayed_block_is_its_kernels_alone(cuda, path):
     assert all("code_tiles_kernel" in name for name in prologue), prologue
 
 
+# path -> (algorithm, A, taps, kernels of a replayed block), K=1024 GPS L1
+# at N=32768 on a one-card 2 x 2 mesh
+SHARDED_BLOCK_PATHS = {
+    "rows_2x2": ("pallas_bank_auto", None, 3, ("bank_rows_kernel", "bank_rows_finish")),
+    "comp_a4_l7_2x2": ("pallas_bank_auto", 4, 7, ("bank_comp_kernel", "bank_comp_finish")),
+    "onehot_2x2": ("pallas_bank_onehot", None, 3, ("bank_rows_kernel", "bank_rows_finish")),
+}
+
+
+@pytest.mark.parametrize("path", sorted(SHARDED_BLOCK_PATHS))
+def test_a_replayed_sharded_block_is_its_kernels_alone(cuda, path):
+    # The JAX shard_map body's counterpart: per (chan, time) shard one bank
+    # launch, per channel shard one finish and one loop kernel (writing
+    # through the sink), and the index's add: chan (T + 2) + 1 device ops, no
+    # index_copy_, parameter op, piece copy or add of partials.
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+
+    algorithm, num_ants, taps, kernels = SHARDED_BLOCK_PATHS[path]
+    fs, codes, states, sre, sim = _sharded_case(cuda, n=32768, blocks=2, k=1024,
+                                                num_ants=num_ants)
+    config = TrackConfig.for_system(SYSTEM, fs, 32768, algorithm=algorithm,
+                                    num_correlators=taps)
+    states = init_state(states.prn.cpu().numpy(), num_taps=taps, device=cuda)
+    mesh = channel_time_mesh(2, 2, devices=[cuda] * 4)
+    replays = 3
+    _, block = _replay_op_names(
+        lambda: track_bank_sharded(config, codes, states, sre, sim, mesh=mesh), replays)
+    assert sum(block.values()) <= (2 * (2 + 2) + 1) * replays, block
+    bank, finish = kernels
+    # (torch.profiler may drop a session's first events: at most, and some.)
+    for kernel, per_block in ((bank, 4), (finish, 2), ("loop_update", 2)):
+        assert 1 <= sum(n for name, n in block.items() if kernel in name) <= per_block * replays, \
+            (kernel, block)
+    glue = ("indexselect", "index_select", "index_copy", "catarray", "div", "mul", "stack",
+            "copy", "remainder", "floor", "sub")
+    assert not any(op in name.lower() for name in block for op in glue), block
+    assert sum(n for name, n in block.items() if "add" in name.lower()) <= replays, block
+
+
+@pytest.mark.parametrize("route", ["transition", "onehot", "comp_f32", "comp_bf16"])
+def test_sharded_bank_routes_graph_equal_eager_with_chan_x_time_launches(cuda, route):
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+
+    algorithm, k, num_ants, extra, _ = GRAPH_CASES[route]
+    blocks = 4
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=blocks, k=k, num_ants=num_ants)
+    if route == "transition":
+        fs, codes, states, sre, sim = _sharded_case(cuda, n=4096, blocks=blocks, k=k)
+    config = TrackConfig.for_system(SYSTEM, fs, sre.shape[-1], algorithm=algorithm, **extra)
+    states = init_state(states.prn.cpu().numpy(), num_taps=len(config.sample_shifts),
+                        device=cuda)
+    fn = {"transition": epl_kernels.correlate_pallas_bank,
+          "onehot": epl_kernels.correlate_pallas_bank_onehot}.get(
+        route, bank_comp.correlate_pallas_bank_comp)
+    for chan, time_ in ((2, 2), (1, 2), (2, 1)):
+        mesh = channel_time_mesh(chan, time_, devices=_mesh_devices(cuda)[:chan * time_])
+        before = fn.launches
+        _graph_against_eager(lambda: track_bank_sharded(config, codes, states, sre, sim,
+                                                        mesh=mesh))
+        assert fn.launches - before == 3 * chan * time_ * blocks
+
+
+# route -> (wrapper, plain version's route, N, fs, A, taps, extra keyword arguments)
+SHARD_ROUTES = {
+    "rows": ("correlate_pallas_bank_rows", "pallas_bank_rows", 32768, 32.768e6, 1, 3, {}),
+    "transition": ("correlate_pallas_bank", "pallas_bank", 8192, 4.096e6, 1, 3, {}),
+    "onehot": ("correlate_pallas_bank_onehot", "pallas_bank_onehot", 8192, 8.192e6, 2, 3, {}),
+    "comp_f32": ("comp", None, 16384, 16.384e6, 4, 7, {}),
+    "comp_bf16": ("comp", None, 16384, 16.384e6, 2, 5, {"z_dtype": torch.bfloat16}),
+}
+
+
+@pytest.mark.parametrize("route", sorted(SHARD_ROUTES))
+def test_shard_form_kernels_match_their_plain_versions(cuda, route):
+    # Each time shard of 4 reads its piece of a [chunk, A, N] buffer's row at
+    # the device index (the last piece ends the row: the halo case) and
+    # advances the state's phases to it: the parameters bit for bit against
+    # the torch expressions on the card, each shard's accumulators and the
+    # shards' in-order sum (one joint finish) against the plain version.
+    from gpuacceleratedtracking_tpu_torch.parallel import nominal_advance_tables, time_shard
+    from gpuacceleratedtracking_tpu_torch.parallel.correlate import sum_in_order
+
+    name, plain_route, n, fs, num_ants, taps, extra = SHARD_ROUTES[route]
+    rng = np.random.default_rng(11)
+    chunk, k, num_time = 3, 70, 4
+    shape = (chunk, num_ants, n)
+    sre, sim = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=cuda)
+                for _ in range(2))
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    prn = torch.as_tensor(np.arange(k) % 32, device=cuda)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)  # noqa: E731
+    phi_car = rng.uniform(0, 2 * np.pi, k)
+    phi_car[:3] = [0.0, 1e-7, np.nextafter(np.float32(2 * np.pi), 0)]
+    phi_code = rng.uniform(0, 1023, k)
+    phi_code[3:6] = [0.0, 1e-6, np.nextafter(np.float32(1023), 0)]
+    channels = dict(intermediate_frequency=0.0,
+                    carrier_doppler=t(rng.uniform(-4000, 4000, k)), carrier_phase=t(phi_car),
+                    code_frequency=SYSTEM.code_frequency,
+                    code_doppler=t(rng.uniform(-3, 3, k)), code_phase=t(phi_code))
+    shifts = tuple(int(s) for s in correlator_sample_shifts(SYSTEM, EPLCorrelator(taps), fs))
+    tables = nominal_advance_tables(0.0, SYSTEM.code_frequency, fs, n // num_time, num_time,
+                                    1023)
+    tiles = epl_kernels.pack_code_tiles(codes, prn)
+    index = torch.tensor(1, dtype=torch.int64, device=cuda)
+    args = (codes, prn, None, fs, None, None, None, shifts, 1023)
+    kw = dict(nominal_code_frequency=SYSTEM.code_frequency, code_tiles=tiles, **extra)
+    if name == "comp":
+        fn, plain = bank_comp.correlate_pallas_bank_comp, bank_comp.correlate_bank_comp_reference
+        call = bank_comp.BankCompCall
+    else:
+        fn = getattr(epl_kernels, name)
+        plain = lambda *a, **w: epl_kernels.correlate_bank_rows_reference(  # noqa: E731
+            *a, **w, route=plain_route)
+        call = lambda *a, **w: epl_kernels.BankRowsCall(*a, **w, route=plain_route)  # noqa: E731
+        if route == "onehot":
+            del kw["nominal_code_frequency"]
+    total = epl_kernels.ShardSum(num_time, cuda)
+    got, want = [], []
+    for i in range(num_time):
+        ch = epl_kernels.BankChannels(**channels, shard=time_shard(i, tables, fs, n // num_time,
+                                                                   1023))
+        bank = call(sre, sim, *args, **kw, channels=ch, block_index=index)
+        assert torch.equal(epl_kernels.launch_channel_params(bank), bank.params), i
+        got.append(fn(sre, sim, *args, **kw, channels=ch, block_index=index))
+        want.append(plain(sre, sim, *args, **kw, channels=ch, block_index=index))
+        assert fn(sre, sim, *args, **kw, channels=ch, block_index=index, shard_sum=total) is None
+    summed = total.finish()
+    torch.cuda.synchronize()
+    ref = [sum_in_order([w[j] for w in want], cuda) for j in range(2)]
+    scale = float(max(w[0].abs().max() for w in want))
+    # test_comp_kernel_matches_plain_version's and J0's rows tolerances.
+    atol, rtol = (3e-5 * scale + 1e-3, 0.0) if name == "comp" else (4.5, 2e-3)
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            torch.testing.assert_close(x, y, atol=atol, rtol=rtol)
+    for x, y, z in zip(summed, ref, (sum_in_order([g[j] for g in got], cuda) for j in range(2))):
+        torch.testing.assert_close(x, y, atol=2 * atol, rtol=rtol)
+        assert torch.equal(x, z)         # the joint finish is the in-order sum, bit for bit
+
+
 # path -> (algorithm, K, A, TrackConfig extras), on 8192-sample GPS L1 blocks
 # but "dual" (GPS L5 data and pilot)
 PROLOGUE_PATHS = {

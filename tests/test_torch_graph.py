@@ -6,9 +6,10 @@ call of the body, so the static-buffer path (copy-in, device-side block
 index, chunked stacked outputs, copy-out, launch-count replay) runs on CPU
 tensors and is held, bit for bit, against the eager loop, and against the
 JAX `track_bank` and `track_bank_dual`. The bodies of `track`, `track_bank`
-and `track_bank_dual` write their outputs and carry through the entry's
-sink (the plain versions' `graphs.write_sink` here, the loop kernel on the
-card); the sharded bank's bodies take none.
+and `track_bank_dual`, and the sharded bank's on the bank kernels' routes,
+write their outputs and carry through the entry's sink (the plain
+versions' `graphs.write_sink` here, the loop kernel on the card); the
+sharded bank's bodies for other correlators take none.
 """
 
 import functools
@@ -193,6 +194,28 @@ def test_sharded_dual_bank_on_a_cpu_mesh_replays_the_eager_trajectory(captured):
     _assert_same(got, ttracking.track_bank_dual(config, codes_i, codes_q, states, sre, sim))
 
 
+@pytest.mark.parametrize("algorithm", ["pallas_bank_auto", "xla_bank"])
+def test_sharded_dual_bank_on_one_device_is_one_graph_writing_each_shards_sink(
+        captured, sink_writes, algorithm):
+    # On one device every channel shard's dual body runs in one entry (one
+    # graph on the card), each writing its 13 output leaves through its part
+    # of the entry's sink, bit for bit the eager run and the unsharded bank.
+    sys_i, sys_q, fs, states, sre, sim = _l5_case(k=4)
+    config = ttracking.dual_config(ttracking.TrackConfig.for_system(
+        sys_i, fs, 16384, algorithm=algorithm, use_secondary=False))
+    codes_i, codes_q = torch.as_tensor(sys_i.codes), torch.as_tensor(sys_q.codes)
+    mesh = channel_time_mesh(2, 1, devices=["cpu"] * 2)
+    with graphs.eager():
+        want = track_bank_dual_sharded(config, codes_i, codes_q, states, sre, sim, mesh=mesh)
+    assert not captured and not sink_writes
+    got = track_bank_dual_sharded(config, codes_i, codes_q, states, sre, sim, mesh=mesh)
+    assert len(captured[torch.device("cpu")]) == 1
+    assert sink_writes == [13] * 2 * (BLOCKS + 1)
+    _assert_same(got, want)
+    graphs.clear()
+    _assert_same(got, ttracking.track_bank_dual(config, codes_i, codes_q, states, sre, sim))
+
+
 def test_captured_track_bank_matches_jax(captured):
     # The slice end to end: the captured path against the JAX `track_bank`
     # (plain XLA correlator on both sides), at tests/test_tracking.py's
@@ -272,13 +295,33 @@ def test_captured_bodies_write_their_outputs_and_carry_through_the_sink(captured
 
 
 def test_sharded_bank_bodies_take_no_sink(captured, sink_writes):
-    # Their bodies gather the shards' outputs inside the block.
+    # A correlator that takes no code tiles keeps the body that cuts each
+    # shard's piece and returns its outputs: the entry copies them.
     system, codes, states, sre, sim = _l1_case(8192, 8.192e6, 4)
-    config = ttracking.TrackConfig.for_system(system, 8.192e6, 8192,
-                                              algorithm="pallas_bank_auto")
+    config = ttracking.TrackConfig.for_system(system, 8.192e6, 8192, algorithm="xla_bank")
     mesh = channel_time_mesh(2, 2, devices=["cpu"] * 4)
     track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
     assert captured and not sink_writes
+
+
+@pytest.mark.parametrize("chan,time_", [(2, 2), (1, 2), (2, 1)])
+@pytest.mark.parametrize("name", ["rows", "transition", "onehot", "comp_a2"])
+def test_sharded_bank_kernel_bodies_write_through_each_channel_shards_sink(
+        captured, sink_writes, name, chan, time_):
+    # On the bank kernels' routes each channel shard's loop closure writes
+    # its 11 output leaves and its carry through its own part of the
+    # entry's sink, in the capture and in every replayed block, and the run
+    # is the eager one bit for bit.
+    algorithm, n, fs, k, num_ants, extra = BANK_CASES[name]
+    system, codes, states, sre, sim = _l1_case(n, fs, k, num_ants)
+    config = ttracking.TrackConfig.for_system(system, fs, n, algorithm=algorithm, **extra)
+    mesh = channel_time_mesh(chan, time_, devices=["cpu"] * (chan * time_))
+    with graphs.eager():
+        want = track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    assert not sink_writes
+    _assert_same(track_bank_sharded(config, codes, states, sre, sim, mesh=mesh), want)
+    assert len(captured[torch.device("cpu")]) == 1
+    assert sink_writes == [11] * chan * (BLOCKS + 1)
 
 
 def _sink_step(carry, consts, block, sink=None):

@@ -438,6 +438,36 @@ def test_a_sink_the_body_cannot_take_raises(fault, match):
         assert torch.equal(x, y)
 
 
+def _halves_under_a_window(update, config, state, acc, out, device):
+    """``update`` on each half of ``state``'s channels (contiguous views of
+    a copy of it), each writing its columns of one whole sink's rows
+    (`graphs.Sink.channel_window`); returns the copy and the sink."""
+    carry, sink = _clone(state), _sink(out, device)
+    for first in (0, 2):
+        half = type(carry)(*(type(x)(*(y[first:first + 2] for y in x)) if isinstance(x, tuple)
+                             else x[first:first + 2] for x in carry))
+        update(config, half, acc[first:first + 2], -acc[first:first + 2], None,
+               sink.channel_window(first, 4))
+    return carry, sink
+
+
+def test_a_channel_window_writes_the_shards_columns_as_one_call_writes_them():
+    # Two channel shards writing their columns of one sink's rows (the
+    # sharded bank on one device) give the whole call's rows and state.
+    config, state, acc, out = _sink_case()
+    carry, sink = _halves_under_a_window(loop_update, config, state, acc, out, "cpu")
+    whole, want = _clone(state), _sink(out, "cpu")
+    loop_update(config, whole, acc, -acc, None, want)
+    for x, y in zip(graphs._leaves(carry), graphs._leaves(whole)):
+        assert torch.equal(x, y)
+    for x, y in zip(sink.outs, want.outs):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="does not hold"):
+        graphs.check_sink(sink.channel_window(3, 4), [(x.shape, x.dtype)
+                                                      for x in graphs._leaves(out)],
+                          torch.device("cpu"))
+
+
 def test_the_kernel_wrappers_refuse_what_they_cannot_write_in_place():
     # On the CPU the wrappers stop at the device; their in-place check of a
     # state leaf refuses a strided one.
@@ -588,6 +618,25 @@ def test_kernel_matches_plain_version_under_a_sink(cuda, name, k):
     _assert_bitwise(_fields(got, out), _fields(want, out), f"{name} state")
     for i, (x, y) in enumerate(zip(*(s.outs for s in sinks))):
         assert torch.equal(x, y), f"{name} output leaf {i}"
+
+
+@pytest.mark.cuda
+def test_kernel_under_a_channel_window_matches_plain_version(cuda):
+    # Each channel shard's launch writes its columns of the whole sink's
+    # rows and its part of the state in place, bit for bit the plain
+    # version's writes.
+    config, state, acc, out = _sink_case()
+    state, out = (graphs._rebuild(t, iter([x.to(cuda) for x in graphs._leaves(t)]))
+                  for t in (state, out))
+    acc = acc.to(cuda)
+    before = loop_kernel.loop_update_kernel.launches
+    got = _halves_under_a_window(loop_update, config, state, acc, out, cuda)
+    assert loop_kernel.loop_update_kernel.launches == before + 2
+    want = _halves_under_a_window(loop_update_plain, config, state, acc, out, cuda)
+    for x, y in zip(graphs._leaves(got[0]), graphs._leaves(want[0])):
+        assert torch.equal(x, y)
+    for x, y in zip(got[1].outs, want[1].outs):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

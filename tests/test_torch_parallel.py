@@ -27,7 +27,7 @@ from gpuacceleratedtracking_tpu import tracking as jtracking
 from gpuacceleratedtracking_tpu_torch import models as tmodels
 from gpuacceleratedtracking_tpu_torch import parallel as tparallel
 from gpuacceleratedtracking_tpu_torch import tracking as ttracking
-from gpuacceleratedtracking_tpu_torch.ops import bank_comp
+from gpuacceleratedtracking_tpu_torch.ops import bank_comp, epl_kernels
 
 torch.set_num_threads(1)
 
@@ -85,6 +85,59 @@ def test_advance_phases_match_jax_bit_for_bit(case, n):
             fs, local_n, lc)
         for w, g in zip(want, got):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _shard_form_case(case, n, size=512):
+    """Channel values of ``case``'s family as a tracking state holds them
+    (Dopplers, phases in [0, 2 pi) and [0, Lc), the ends included), and a
+    zero ``[n]`` block with its code tiles."""
+    fcar, fcode, fs, lc = ADVANCE_CASES[case]
+    rng = np.random.default_rng(n + lc + 7)
+    car_dop = rng.uniform(-5000.0, 5000.0, size).astype(np.float32)
+    code_dop = (car_dop * fcode / 1.57542e9 + rng.uniform(-2.0, 2.0, size)).astype(np.float32)
+    two_pi = np.float32(2 * np.pi)
+    phi_car = rng.uniform(0.0, 2 * np.pi, size).astype(np.float32)
+    phi_code = rng.uniform(0.0, lc, size).astype(np.float32)
+    edges = np.array([0.0, 1e-7, 1e-3, two_pi - 1e-6, np.nextafter(two_pi, 0)], np.float32)
+    phi_car[:len(edges)] = edges
+    phi_code[:6] = np.array([0.0, 1e-6, 0.5, lc - 1e-3, lc - 0.5, np.nextafter(np.float32(lc), 0)],
+                            np.float32)
+    codes = torch.ones((lc, 4), dtype=torch.float32)
+    tiles = epl_kernels.prepare_bank_code_tiles_rows(codes, torch.zeros(size, dtype=torch.long))
+    zeros = torch.zeros(n)
+    return (fcar, fcode, fs, lc), tuple(_t(x) for x in (car_dop, phi_car, code_dop, phi_code)), \
+        (zeros, zeros, codes, tiles)
+
+
+@pytest.mark.parametrize("n", [4096, 1 << 15, 1 << 18])
+@pytest.mark.parametrize("case", sorted(ADVANCE_CASES))
+def test_shard_form_equals_advance_phases_then_channel_params(case, n):
+    # A bank call in the state form with a time shard (what the bank kernels
+    # derive on the card) against the torch ops the sharded bank ran before:
+    # `advance_phases` on IF + Doppler, then `_channel_params`, bit for bit,
+    # for every shard of 8, shard 0 included.
+    (fcar, fcode, fs, lc), (car_dop, phi_car, code_dop, phi_code), (sre, sim, codes, tiles) = \
+        _shard_form_case(case, n)
+    local_n = n // 8
+    tables = tparallel.nominal_advance_tables(fcar, fcode, fs, local_n, 8, lc)
+    shifts = (-3, 0, 3)
+    f_car, f_code = fcar + car_dop, fcode + code_dop
+    for t in range(8):
+        shard = tparallel.time_shard(t, tables, fs, local_n, lc)
+        assert (shard.index, shard.num_samples, shard.offset) == (t, local_n, t * local_n)
+        call = epl_kernels.BankRowsCall(
+            sre, sim, codes, torch.zeros(512), None, fs, None, None, None, shifts, lc,
+            code_tiles=tiles,
+            route="pallas_bank_onehot",
+            channels=epl_kernels.BankChannels(fcar, car_dop, phi_car, fcode, code_dop, phi_code,
+                                              shard))
+        assert call.num_samples == local_n and call.offset == t * local_n
+        phases = tparallel.advance_phases(phi_car, phi_code, f_car, f_code, t, tables, fcar,
+                                          fcode, fs, local_n, lc)
+        want = epl_kernels._channel_params(f_car, fs, phases[0], f_code, phases[1], -3, "cpu")
+        assert torch.equal(call.params, want), t
+        assert bool((phases[0] >= 0).all() and (phases[0] < np.float32(2 * np.pi)).all())
+        assert bool((phases[1] >= 0).all() and (phases[1] < lc).all())
 
 
 # --- correlate_sharded against the JAX correlate_sharded.
@@ -356,6 +409,132 @@ def test_time_sharded_rows_bank_matches_track_bank():
     _, out = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
     torch.testing.assert_close(out.prompt_re, want.prompt_re, rtol=2e-3, atol=1e-2 * 8192)
     torch.testing.assert_close(out.carrier_doppler, want.carrier_doppler, rtol=2e-3, atol=1e-2)
+
+
+# name -> (algorithm, N, fs, blocks, antennas)
+ROUTES = {
+    "rows": ("pallas_bank_rows", 8192, 8.192e6, 4, None),
+    "transition": ("pallas_bank", 2048, 2.048e6, 8, None),
+    "onehot": ("pallas_bank_onehot", 4096, 4.096e6, 4, None),
+    "comp_a4": ("pallas_bank_auto", 8192, 8.192e6, 2, 4),
+}
+
+
+@pytest.mark.parametrize("axes", [(2, 2), (1, 2), (2, 1)])
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_every_bank_route_shards_as_in_jax_on_every_mesh(route, axes):
+    # The bank kernels' body (each shard's advance and piece inside the bank
+    # call, the shards summed in order by one finish) against the JAX
+    # `track_bank_sharded` (its kernels in Pallas interpret mode) on the
+    # same mesh, at tests/test_parallel.py's tolerances.
+    algorithm, n, fs, blocks, num_ants = ROUTES[route]
+    config, states, sre, sim = _bank_scenario(SYSTEM, 4, blocks, n, num_ants=num_ants,
+                                              algorithm=algorithm)
+    assert config.sampling_frequency == fs
+    want_final, want = _run_jax(SYSTEM, config, states, sre, sim, axes)
+    final, out = _run_port(SYSTEM, config, states, sre, sim, axes)
+    assert out.accum_re.shape == (blocks, 4) + ((num_ants,) if num_ants else ()) + (3,)
+    _assert_tracks_match(final, out, want_final, want)
+
+
+@pytest.mark.parametrize("algorithm", ["pallas_bank_rows", "pallas_bank_comp", "xla_bank"])
+@pytest.mark.parametrize("axes", [(2, 2), (4, 1)])
+def test_distinct_device_branches_equal_the_one_device_branch(algorithm, axes):
+    # Mesh devices named apart ("cpu:0".."cpu:3", whose tensors all lie on
+    # the CPU) take the distinct-card branches: a time axis runs the eager
+    # loop over per-shard pieces (a bank kernel's shard reading its own
+    # piece at offset 0), time 1 a scan per channel shard. Both give the
+    # one-device branch's results bit for bit.
+    config, states, sre, sim = _port_bank_case(algorithm, num_ms=3)
+    if algorithm == "pallas_bank_comp":
+        sre, sim = (torch.stack([x, 0.5 * x], dim=1) for x in (sre, sim))
+    codes = torch.as_tensor(TSYSTEM.codes)
+    distinct = tparallel.make_mesh({"chan": axes[0], "time": axes[1]},
+                                   devices=[torch.device("cpu", i) for i in range(4)])
+    assert len({str(d) for d in distinct.devices.flat}) == 4
+    got = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=distinct)
+    want = tparallel.track_bank_sharded(config, codes, states, sre, sim,
+                                        mesh=tparallel.channel_time_mesh(*axes, devices=CPUS))
+    for g, w in zip(jax.tree.leaves(tuple(got)), jax.tree.leaves(tuple(want))):
+        assert torch.equal(g, w)
+
+
+def _piece_case(num_time=4, chunk=3, n=4096, num_ants=2):
+    rng = np.random.default_rng(5)
+    shape = (chunk, num_ants, n)
+    sre, sim = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                for _ in range(2))
+    codes = torch.as_tensor(TSYSTEM.codes)
+    prn = torch.arange(6) % 32
+    channels = dict(
+        intermediate_frequency=0.0,
+        carrier_doppler=torch.tensor(rng.uniform(-3000, 3000, 6), dtype=torch.float32),
+        carrier_phase=torch.tensor(rng.uniform(0, 2 * np.pi, 6), dtype=torch.float32),
+        code_frequency=TSYSTEM.code_frequency,
+        code_doppler=torch.tensor(rng.uniform(-3, 3, 6), dtype=torch.float32),
+        code_phase=torch.tensor(rng.uniform(0, 1023, 6), dtype=torch.float32))
+    fs = 4 * n / 1e-3                         # 0.06 chips per sample: the rows envelope
+    tables = tparallel.nominal_advance_tables(0.0, TSYSTEM.code_frequency, fs, n // num_time,
+                                              num_time, 1023)
+    shifts = (-4, 0, 4)
+    tiles = epl_kernels.prepare_bank_code_tiles_rows(codes, prn)
+    return sre, sim, codes, prn, channels, fs, tables, shifts, tiles
+
+
+@pytest.mark.parametrize("route", ["pallas_bank_rows", "pallas_bank_comp"])
+def test_a_piece_read_at_the_device_index_equals_time_piece_of_the_block(route):
+    # A time shard's call on a [chunk, A, N] buffer at a block index reads the
+    # piece `time_piece` cuts from that block, and computes bit for bit what
+    # the call on the cut piece (offset 0) computes; the shards' results meet
+    # in a ShardSum as `sum_in_order` adds them.
+    num_time, n = 4, 4096
+    sre, sim, codes, prn, channels, fs, tables, shifts, tiles = _piece_case(num_time, n=n)
+    index = torch.tensor(2)
+    fn = (bank_comp.correlate_pallas_bank_comp if route == "pallas_bank_comp"
+          else epl_kernels.correlate_pallas_bank_rows)
+    total = epl_kernels.ShardSum(num_time, torch.device("cpu"))
+    parts = []
+    for t in range(num_time):
+        args = (codes, prn, None, fs, None, None, None, shifts, 1023)
+        kw = dict(nominal_code_frequency=TSYSTEM.code_frequency, code_tiles=tiles)
+        shard = tparallel.time_shard(t, tables, fs, n // num_time, 1023)
+        at_index = epl_kernels.BankChannels(**channels, shard=shard)
+        call = epl_kernels.BankRowsCall(sre, sim, *args, **kw, route=route, channels=at_index,
+                                        block_index=index)
+        cut = [tparallel.correlate.time_piece(x[2], t, num_time, torch.device("cpu"))
+               for x in (sre, sim)]
+        assert all(torch.equal(got, want) for got, want in zip(call.planes(), cut))
+        piece = epl_kernels.BankChannels(**channels, shard=shard._replace(offset=0))
+        want = fn(*cut, *args, **kw, channels=piece)
+        got = fn(sre, sim, *args, **kw, channels=at_index, block_index=index)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert fn(sre, sim, *args, **kw, channels=at_index, block_index=index,
+                  shard_sum=total) is None
+        parts.append(want)
+    summed = total.finish()
+    for i in range(2):
+        assert torch.equal(summed[i],
+                           tparallel.correlate.sum_in_order([p[i] for p in parts],
+                                                            torch.device("cpu")))
+
+
+def test_a_shard_sum_refuses_a_call_without_a_shard_and_a_missing_shard():
+    sre, sim, codes, prn, channels, fs, tables, shifts, tiles = _piece_case()
+    args = (codes, prn, None, fs, None, None, None, shifts, 1023)
+    kw = dict(nominal_code_frequency=TSYSTEM.code_frequency, code_tiles=tiles)
+    total = epl_kernels.ShardSum(4, torch.device("cpu"))
+    with pytest.raises(ValueError, match="time shard's"):
+        epl_kernels.correlate_pallas_bank_rows(
+            sre[0], sim[0], *args, **kw, channels=epl_kernels.BankChannels(**channels),
+            shard_sum=total)
+    epl_kernels.correlate_pallas_bank_rows(
+        sre[0], sim[0], *args, **kw, shard_sum=total, channels=epl_kernels.BankChannels(
+            **channels, shard=tparallel.time_shard(1, tables, fs, 1024, 1023)))
+    with pytest.raises(ValueError, match="1 of 4 time shards"):
+        total.finish()
+    with pytest.raises(ValueError, match="not inside"):
+        epl_kernels.BankRowsCall(sre[0], sim[0], *args, **kw, channels=epl_kernels.BankChannels(
+            **channels, shard=tparallel.time_shard(3, tables, fs, 1024, 1023, offset=3500)))
 
 
 # --- The dual bank.
