@@ -33,7 +33,12 @@ entry points a user calls:
 - ``track_bank_sharded`` on one card: the rows bank on meshes 2 x 2, 2 x 1
   and 1 x 2 and the A=4 L=7 bank (no steering weights) on 2 x 2 and
   unsharded, ms and device ops per block of 10-block calls, and the device
-  ops of one replayed 2 x 2 rows block (torch.profiler over three replays).
+  ops of one replayed 2 x 2 rows block (torch.profiler over three replays);
+- on a machine with several cards, ``cards_leg``:
+  the rows bank on meshes of distinct cards, 4 x 1, 2 x 2, 2 x 1 and 1 x 2
+  at K=1024 and 4 x 1 at K=4096, beside the unsharded K=1024 and K=4096
+  banks on one card, ms and device ops per block of 10-block calls
+  (``--cards``: this leg alone, a turn in ~1 min).
 
 ``--dual ROUNDS`` instead times, in this tree and one process, the one-card
 ``track_bank_dual_sharded`` (one graph for every channel shard) against
@@ -61,8 +66,46 @@ ROOT = pathlib.Path(__file__).resolve().parent
 BLOCKS = 10
 
 
-def measure(root: pathlib.Path) -> dict:
-    """One turn, inside the process that imports ``root``'s package."""
+def cards_leg(system, codes, sre, sim, states, rows) -> dict:
+    """``track_bank_sharded`` of the rows bank on meshes of distinct cards
+    (every mesh the visible cards hold: 4 x 1, 2 x 2, 2 x 1, 1 x 2 at K=1024,
+    4 x 1 at K=4096) and the unsharded K=1024 and K=4096 banks on one card:
+    ms and device ops per block of 10-block calls."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from gpuacceleratedtracking_tpu_torch.parallel import make_mesh, track_bank_sharded
+    from gpuacceleratedtracking_tpu_torch.tracking import init_state, track_bank
+
+    cards = torch.cuda.device_count()
+    num_k = 4 * cs.NUM_K
+    dops = np.linspace(-4000.0, 4000.0, num_k)
+    dops[:len(cs.SAT_DOPPLERS)] = cs.SAT_DOPPLERS
+    phases = np.zeros(num_k)
+    phases[:len(cs.SAT_CODE_PHASES)] = cs.SAT_CODE_PHASES
+    states4k = init_state(np.arange(num_k) % 32, carrier_doppler=dops, code_phase=phases,
+                          device="cuda")
+    runs = {"unsharded_rows_K1024": lambda: track_bank(rows, codes, states, sre, sim),
+            "unsharded_rows_K4096": lambda: track_bank(rows, codes, states4k, sre, sim)}
+    for chan, time_, st, k in ((4, 1, states, 1024), (2, 2, states, 1024),
+                               (2, 1, states, 1024), (1, 2, states, 1024),
+                               (4, 1, states4k, 4096)):
+        if chan * time_ <= cards:
+            mesh = make_mesh({"chan": chan, "time": time_},
+                             devices=[torch.device("cuda", i) for i in range(chan * time_)])
+            runs[f"cards_{chan}x{time_}_rows_K{k}"] = (
+                lambda m=mesh, st=st: track_bank_sharded(rows, codes, st, sre, sim, mesh=m))
+    result = {}
+    for name, run in runs.items():
+        result[f"{name}_block_ms"] = cs.time_cuda(run, warmup=2)[0] / BLOCKS
+        result[f"{name}_device_ops_per_block"] = cs.device_profile(run, calls=2)[0] / BLOCKS
+    return result
+
+
+def measure(root: pathlib.Path, cards_only: bool = False) -> dict:
+    """One turn, inside the process that imports ``root``'s package (with
+    ``cards_only``, `cards_leg` alone)."""
     import numpy as np
     import torch
 
@@ -79,6 +122,9 @@ def measure(root: pathlib.Path) -> dict:
     sre, sim, _ = cs.mixed_blocks(system, BLOCKS)
     states = cs.bank_states(system, init_errors=False)
     rows = TrackConfig.for_system(system, cs.L1_FS, cs.N_1MS, algorithm="pallas_bank_auto")
+    if cards_only:
+        return dict({"tree": str(root), "card": cs.nvidia_smi()},
+                    **cards_leg(system, codes, sre, sim, states, rows))
     fused = TrackConfig.for_system(system, cs.L1_FS, cs.N_1MS, algorithm="pallas_fused")
     one = init_state(5, carrier_doppler=float(cs.SAT_DOPPLERS[5]) + 20.0,
                      code_phase=float(cs.SAT_CODE_PHASES[5]) - 0.2, device="cuda")
@@ -140,6 +186,8 @@ def measure(root: pathlib.Path) -> dict:
     _, block = cs.replay_op_names(sharded["mesh_2x2_rows_K1024"])
     result["mesh_2x2_rows_K1024_replayed_block_ops_per_block"] = sum(block.values()) / cs.REPLAYS
     result["mesh_2x2_rows_K1024_replayed_block_by_name"] = dict(block)
+    if torch.cuda.device_count() > 1:
+        result.update(cards_leg(system, codes, sre, sim, states, rows))
     r = run_track_benchmark({"GNSS": "GPSL1", "num_samples": cs.N_1MS,
                              "num_channels": cs.NUM_K, "algorithm": "pallas_bank_auto",
                              "processor": "GPU", "blocks": 8, "trials": 7})
@@ -198,10 +246,11 @@ def dual_pairs(rounds: int) -> dict:
     return result
 
 
-def turn(root: pathlib.Path) -> dict:
+def turn(root: pathlib.Path, cards_only: bool = False) -> dict:
     """A turn in a process of its own, with ``root`` first on its path."""
     env = dict(os.environ, PYTHONPATH=str(root))
-    proc = subprocess.run([sys.executable, str(ROOT / "block_ab.py"), "--measure", str(root)],
+    proc = subprocess.run([sys.executable, str(ROOT / "block_ab.py"), "--measure", str(root)]
+                          + (["--cards"] if cards_only else []),
                           cwd=root, env=env, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"turn in {root} failed:\n{proc.stdout}\n{proc.stderr}")
@@ -216,6 +265,8 @@ def main(argv=None) -> int:
                         help="rounds of turns old, new, new, old (default 1)")
     parser.add_argument("--dual", type=int, metavar="ROUNDS",
                         help="time the one-card dual bank's two graph layouts instead")
+    parser.add_argument("--cards", action="store_true",
+                        help="time only the rows bank on meshes of distinct cards")
     parser.add_argument("--measure", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.dual:
@@ -229,7 +280,7 @@ def main(argv=None) -> int:
         root = pathlib.Path(args.measure).resolve()
         sys.path[:] = [str(root)] + [p for p in sys.path
                                      if p not in ("", str(ROOT), str(root))]
-        print(json.dumps(measure(root)))
+        print(json.dumps(measure(root, args.cards)))
         return 0
     import torch
 
@@ -238,7 +289,7 @@ def main(argv=None) -> int:
     old = pathlib.Path(args.old).resolve()
     turns = []
     for label, root in (("old", old), ("new", ROOT), ("new", ROOT), ("old", old)) * args.rounds:
-        result = dict(turn(root), version=label)
+        result = dict(turn(root, args.cards), version=label)
         print(json.dumps(result), flush=True)
         turns.append(result)
     keys = [k for k in turns[0] if k.endswith(("_ms", "_per_block")) and k in turns[-1]]

@@ -233,8 +233,9 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      the index's fill; the one-card 2 x 2 meshes (rows, A=4 L=7, one-hot) at
      most chan (time + 2) + 1 = 9 ops a block (4 bank launches, 2 finishes,
      2 loop kernels, the index's add), none an ``index_copy_``, a phase
-     advance's op, a piece copy or an add of partials, and the index's fill
-     as prologue. Each path's first graph call starts from an empty cache, and
+     advance's op, a piece copy or an add of partials, and one launch of
+     the packing kernel as prologue (the whole bank's tiles; ``[L
+     prologue]``). Each path's first graph call starts from an empty cache, and
      its entries' buffers and the device memory it reserved are logged.
      Then eager and graph block times and real-time channels of the timed
      paths (and streaming's ``steady_block_s`` both ways, from H, whose
@@ -1564,15 +1565,15 @@ def glue_cells(system, seed, card):
     return wrong, times, record
 
 
-def bank_states(system, init_errors: bool, num_taps: int = 3):
+def bank_states(system, init_errors: bool, num_taps: int = 3, num_k: int = NUM_K):
     from gpuacceleratedtracking_tpu_torch.tracking import init_state
 
-    dops = np.linspace(-4000.0, 4000.0, NUM_K)
-    phases = np.zeros(NUM_K)
+    dops = np.linspace(-4000.0, 4000.0, num_k)
+    phases = np.zeros(num_k)
     nsat = len(SAT_DOPPLERS)
     dops[:nsat] = SAT_DOPPLERS + (20.0 if init_errors else 0.0)
     phases[:nsat] = (SAT_CODE_PHASES - (0.2 if init_errors else 0.0)) % system.code_length
-    return init_state(np.arange(NUM_K) % 32, carrier_doppler=dops,
+    return init_state(np.arange(num_k) % 32, carrier_doppler=dops,
                       code_phase=phases, num_taps=num_taps, device=DEVICE)
 
 
@@ -2942,7 +2943,10 @@ def sharded_bank_path(system, seed, sre, sim, card, num_blocks_lock: int = 100):
     torch.cuda.synchronize()
     counts = read_counts()
     check(counts == only(bank_rows=4 * num_blocks_lock), f"J2 lock run launches {counts}")
-    note_loop("parallel", 2 * num_blocks_lock)      # one closure per channel shard and block
+    # One closure per channel shard and block on one card; on distinct cards
+    # each time shard's card closes the loop on its own replica of the carry.
+    distinct = len({str(d) for d in meshes["2x2"].devices.flat}) > 1
+    note_loop("parallel", (4 if distinct else 2) * num_blocks_lock)
     launches += counts["bank_rows"]
     del noisy_re, noisy_im
     dop = out.carrier_doppler[-50:, :nsat].double().mean(0).cpu().numpy()
@@ -3385,45 +3389,68 @@ BLOCK_PATHS = ("rows_K1024_pallas_bank_auto", "array_K1024_A4_L7_f32",
 # Phase L's one-card 2 x 2 meshes, whose replayed block must be the JAX
 # shard_map body's kernels alone: chan x time bank launches, chan finishes,
 # chan loop kernels and the index's add, chan (time + 2) + 1 = 9 device ops;
-# their prologue is the index's fill (the code tiles are still built per
-# call outside the captured program).
+# their prologue is one launch of the packing kernel, the whole bank's code
+# tiles (each channel shard's are its rows of them).
 MESH_BLOCK_PATHS = {"mesh_2x2_rows_K1024": 9, "mesh_2x2_array_K1024_A4_L7": 9,
                     "mesh_2x2_onehot_K1024": 9}
-FILL_PROLOGUE_PATHS = ("track_fused",) + tuple(MESH_BLOCK_PATHS)   # no prepare: the index's fill
+FILL_PROLOGUE_PATHS = ("track_fused",)       # no prepare: the prologue is the index's fill
 GLUE_OPS = ("indexselect", "index_select", "catarray", "div", "mul", "stack", "copy")
 # A sharded block's glue besides: a phase advance's ops and a torch sum of
 # partials (the index's own add is one add a block).
 SHARD_GLUE_OPS = GLUE_OPS + ("remainder", "floor", "sub")
 REPLAYS = 3             # replays of a prologue and of a block per profiled session
+SPINS = 4               # spin kernels that open a profiled session
+SESSIONS = 5            # profiled sessions of one part before a lost trace is an error
+
+
+def traced_ops(part, replays: int = REPLAYS) -> collections.Counter:
+    """The device ops, by name and count, of ``replays`` calls of ``part``
+    under torch.profiler, between ``SPINS`` opening spin kernels and one
+    closing spin kernel, which are left out. torch.profiler sometimes loses
+    a session's first device events (or, rarely, all of them): a session
+    counts only where a spin kernel it recorded ran before every other op
+    and another after every other op (all ``SPINS + 1`` where it recorded
+    no other op), so the tracer was live across the counted calls. Such a
+    session is made anew, at most ``SESSIONS`` times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for session in range(SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPINS):
+                torch.cuda._sleep(100_000)
+            for _ in range(replays):
+                part()
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = sorted(e.time_range.start for e in device if "spin_kernel" in e.name)
+        ops = [e for e in device if "spin_kernel" not in e.name]
+        if ops:
+            live = (len(spins) >= 2 and spins[0] < min(e.time_range.start for e in ops)
+                    and spins[-1] > max(e.time_range.start for e in ops))
+        else:
+            live = len(spins) == SPINS + 1
+        if live:
+            return collections.Counter(e.name[:120] for e in ops)
+        log(f"[L block] profiled session {session + 1} of {SESSIONS} lost device events "
+            f"({len(spins)} of {SPINS + 1} spin kernels, {len(ops)} other ops): made anew")
+    raise RuntimeError(f"torch.profiler lost device events in {SESSIONS} sessions in a row")
 
 
 def replay_op_names(run, replays: int = REPLAYS) -> tuple:
     """The device ops, by name and count, of the prologue of ``run``'s entry
     replayed ``replays`` times and of as many blocks replayed after it
-    (torch.profiler, one session each, after spin kernels that are left
-    out: the first events of a session sometimes go missing), from an
-    empty cache (one call captures the entry)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (``traced_ops``, one session each), from an empty cache (one call
+    captures the entry)."""
     from gpuacceleratedtracking_tpu_torch.tracking import graphs
 
     graphs.clear()
     run()
     torch.cuda.synchronize()
     (entry,) = graphs._ENTRIES[torch.device(DEVICE, torch.cuda.current_device())].values()
-    names = []
-    for part in (entry.prologue, entry.replay):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                torch.cuda._sleep(100_000)
-            for _ in range(replays):
-                part()
-            torch.cuda.synchronize()
-        names.append(collections.Counter(
-            e.name[:120] for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name))
+    names = tuple(traced_ops(part, replays) for part in (entry.prologue, entry.replay))
     graphs.clear()
-    return tuple(names)
+    return names
 
 
 def flat(tree) -> list:
@@ -3807,10 +3834,10 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
         f"without waiting for the card: {host_ms!r} ms per call [{card}]")
     # A replayed block as its kernels alone, and the prologue as one launch
     # of the packing kernel (the fill, on a path without a prepare): device
-    # ops by name of one replay of each. torch.profiler may drop a session's
-    # first events, so a prologue counts at most one op a replay, at least
-    # one in all, each of them that kernel.
-    for name in BLOCK_PATHS + FILL_PROLOGUE_PATHS:
+    # ops by name of one replay of each, from sessions whose trace was live
+    # across the counted replays (``traced_ops``): a prologue counts at most
+    # one op a replay, at least one in all, each of them that kernel.
+    for name in BLOCK_PATHS + tuple(MESH_BLOCK_PATHS) + FILL_PROLOGUE_PATHS:
         prologue, block = replay_op_names(paths[name][0])
         mesh_budget = MESH_BLOCK_PATHS.get(name)
         glue = [op for op in block
@@ -3832,6 +3859,9 @@ def graph_path(system, sre, sim, sre_l5, sim_l5, l5_offsets, card, blocks: int =
                          ("finish", ("bank_rows_finish", "bank_comp_finish")),
                          ("loop", ("loop_update_kernel",)))}
             results[name].update(replayed_block_ops_before=OPS_BEFORE_SHARD_FORM.get(name))
+            log(f"[L prologue] {name}: the one-card mesh's prologue, {per_prologue!r} device "
+                f"ops a replay {dict(prologue)} (PR 17: the index's fill, the tiles packed per "
+                f"channel shard outside the program) [{card}]")
             log(f"[L block] {name}: {per_block!r} device ops per replayed block (budget "
                 f"{mesh_budget}; before: {OPS_BEFORE_SHARD_FORM.get(name, 'not recorded')}), "
                 f"bank launches {kinds['bank']!r}, finishes {kinds['finish']!r}, loop "

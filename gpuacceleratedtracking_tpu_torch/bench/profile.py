@@ -7,7 +7,9 @@ calls under torch.profiler (CPU and, with a card, CUDA activities) inside one
 ``record_function`` range and one NVTX range, and exports the Chrome trace;
 `extract_device_times` reads a trace back. Device events are the trace's
 kernels, memcpys and memsets; host events its ``cpu_op``, ``cuda_runtime``
-and ``user_annotation`` spans.
+and ``user_annotation`` spans. Each device event names its card (the
+trace's ``args.device``, else its ``pid``), so a call that runs on several
+cards is also split card by card (``per_device``).
 """
 
 from __future__ import annotations
@@ -72,6 +74,32 @@ def _gap_hosts(start: float, end: float, hosts: list) -> list:
             for name in ranked[:HOSTS_PER_GAP]]
 
 
+def _device_of(event: dict) -> int:
+    """The card a device event ran on: its ``args.device``, else its ``pid``."""
+    return int(event.get("args", {}).get("device", event.get("pid", 0)))
+
+
+def _per_device(device: list, first: float, last: float, reps: int) -> dict:
+    """Card by card over the window ``[first, last]`` of every card's device
+    events ``(start, end, name, card, copy)``: per call the device ms, the
+    copies' share of them, and the idle ms; the busy share."""
+    window = last - first
+    cards: dict = collections.defaultdict(list)
+    for event in device:
+        cards[event[3]].append(event)
+    result = {}
+    for card, events in sorted(cards.items()):
+        busy = sum(end - start for start, end in _union([(e[0], e[1]) for e in events]))
+        result[str(card)] = {
+            "device_events": len(events),
+            "device_per_call_ms": sum(e[1] - e[0] for e in events) / 1e3 / reps,
+            "copy_per_call_ms": sum(e[1] - e[0] for e in events if e[4]) / 1e3 / reps,
+            "idle_per_call_ms": (window - busy) / 1e3 / reps,
+            "busy_share": busy / window if window > 0 else 1.0,
+        }
+    return result
+
+
 def extract_device_times(trace, reps: int) -> dict:
     """Per-call device time and the device's idle gaps from a Chrome trace.
 
@@ -85,8 +113,12 @@ def extract_device_times(trace, reps: int) -> dict:
     window) and ``gaps``, the 8 longest idle stretches between device events
     (``start_ms`` from the window's start, ``ms``, and ``hosts``: the host
     events that overlap the gap most, by name, less the spans that cover the
-    whole window). With no device event the times are None, ``rows`` and
-    ``gaps`` empty.
+    whole window), and ``per_device``: for each card (by index, as a
+    string) its ``device_events``, ``device_per_call_ms``,
+    ``copy_per_call_ms`` (memcpys and memsets), ``idle_per_call_ms`` and
+    ``busy_share``, each over the window of every card's events. With no
+    device event the times are None, ``rows``, ``gaps`` and ``per_device``
+    empty.
     """
     trace_file = None
     if not isinstance(trace, dict):
@@ -99,13 +131,13 @@ def extract_device_times(trace, reps: int) -> dict:
         start = float(e["ts"])
         end = start + float(e.get("dur", 0.0))
         if e.get("cat") in DEVICE_CATEGORIES:
-            device.append((start, end, e["name"]))
+            device.append((start, end, e["name"], _device_of(e), e["cat"] != "kernel"))
         elif e.get("cat") in HOST_CATEGORIES:
             hosts.append((start, end, e["name"]))
     result = {"trace_file": trace_file, "device_events": len(device)}
     total: dict = collections.Counter()
     calls: dict = collections.Counter()
-    for start, end, name in device:
+    for start, end, name, _, _ in device:
         total[name] += end - start
         calls[name] += 1
     result["rows"] = {
@@ -114,9 +146,9 @@ def extract_device_times(trace, reps: int) -> dict:
     }
     if not device:
         result.update(device_per_call_ms=None, window_per_call_ms=None, busy_share=None,
-                      gaps=[])
+                      gaps=[], per_device={})
         return result
-    busy = _union([(start, end) for start, end, _ in device])
+    busy = _union([(e[0], e[1]) for e in device])
     first, last = busy[0][0], busy[-1][1]
     window = last - first
     busy_us = sum(end - start for start, end in busy)
@@ -132,6 +164,7 @@ def extract_device_times(trace, reps: int) -> dict:
         gaps=[{"start_ms": (start - first) / 1e3, "ms": (end - start) / 1e3,
                "hosts": _gap_hosts(start, end, hosts)}
               for start, end in gaps[:TOP_GAPS]],
+        per_device=_per_device(device, first, last, reps),
     )
     return result
 
@@ -146,8 +179,11 @@ def profile_calls(fn: Callable, args: tuple = (), reps: int = 10, label: str = "
     and, on a card, ``torch.cuda.nvtx.range(label)``, and the last output is
     fenced inside the trace. The Chrome trace goes to ``trace_path`` (a
     temporary file if None, removed after it is read). Returns ``wall_s`` and
-    ``per_call_ms`` (the host clock around the reps and the fence) and the
-    `extract_device_times` of the trace under ``device_timeline``.
+    ``per_call_ms`` (the host clock around the reps and the fence),
+    ``host_per_call_ms`` (the host clock until the last call returns, before
+    the fence: the host's own time per call where it does not wait on a
+    card) and the `extract_device_times` of the trace under
+    ``device_timeline``.
     """
     import tempfile
 
@@ -162,6 +198,7 @@ def profile_calls(fn: Callable, args: tuple = (), reps: int = 10, label: str = "
         with record_function(label), nvtx:
             for _ in range(reps):
                 out = fn(*args)
+            issued = time.perf_counter() - t0
             _fence(out)
         wall = time.perf_counter() - t0
     with contextlib.ExitStack() as stack:
@@ -176,4 +213,4 @@ def profile_calls(fn: Callable, args: tuple = (), reps: int = 10, label: str = "
     if trace_path is None:
         timeline["trace_file"] = None
     return {"label": label, "reps": reps, "wall_s": wall, "per_call_ms": wall / reps * 1e3,
-            "device_timeline": timeline}
+            "host_per_call_ms": issued / reps * 1e3, "device_timeline": timeline}

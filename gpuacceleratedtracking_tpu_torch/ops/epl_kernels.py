@@ -704,30 +704,50 @@ class ShardSum:
     """Where the time shards of one channel shard's bank call meet (the
     port's ``psum`` over ``time``): the call of each shard ``t`` (a
     `BankShard` in its ``channels``) given this as ``shard_sum=`` leaves its
-    result here, and `finish` returns ``(r_0 + r_1) + r_2 ...`` on ``device``,
-    the time shards' results added in shard order
-    (`sum_in_order`'s order).
+    result here, and `finish` returns ``(r_0 + r_1) + r_2 ...``, the time
+    shards' results added in shard order (`sum_in_order`'s order).
+
+    ``device`` is each time shard's device (a list), or one device that
+    runs every shard. Every one of them holds every shard's result, and
+    ``finish(device)`` runs on the device given, as the JAX package's
+    ``psum`` leaves the sum on every time shard (on distinct cards each
+    closes its channel shard's loop on its own replica of the carry: the
+    same kernels on the same slots, so the same result, bit for bit).
 
     CPU calls leave their plain versions' results, which `finish` adds with
     torch ops. CUDA calls launch their bank kernel alone, which writes its
     partials into shard t's slot of one ``[T, ...]`` buffer per launch group
-    on ``device`` (a shard on another card writes its own and copies it
-    there); `finish` is then one finish kernel per launch group, which sums
-    each shard's partials as a call's own finish does and adds the shards'
-    results in shard order, with no atomics. Every shard's call must come
-    before `finish`, shard 0's on ``device``."""
+    on its device; the first `finish` copies each shard's partials into its
+    slot on every other device, after every shard's launch, so no card's
+    launch waits for another's. `finish` is one finish kernel per launch
+    group, which sums each shard's partials as a call's own finish does and
+    adds the shards' results in shard order, with no atomics, through the
+    call of the device's first shard. Shard t's call runs on its device,
+    and every shard's call comes before `finish`."""
 
-    def __init__(self, num_shards: int, device: torch.device):
+    def __init__(self, num_shards: int, device):
         self.num_shards = int(num_shards)
+        if not isinstance(device, (list, tuple)):
+            device = [device] * self.num_shards
+        self.shard_devices = [self._device(d) for d in device]
+        if len(self.shard_devices) != self.num_shards:
+            raise ValueError(f"{len(self.shard_devices)} devices for {self.num_shards} "
+                             "time shards")
+        self.holders = list(dict.fromkeys(self.shard_devices))   # each holds every result
+        self.device = self.holders[0]
+        self.added: set = set()      # the shards whose calls came
+        self.results: dict = {}      # CPU: shard -> its (re, im)
+        self.partials: dict = {}     # CUDA: (holder, launch group) -> [T, ...] partials
+        self.finishers: dict = {}    # CUDA: (holder, launch group) -> finish of its buffer
+        self.leads: dict = {}        # holder -> its first shard's call (its finish and shape)
+        self.pending: list = []      # CUDA: (shard, group, partial) still to copy
+
+    @staticmethod
+    def _device(device) -> torch.device:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        self.device = torch.device("cpu") if device.type == "cpu" else device
-        self.added: set = set()      # the shards whose calls came
-        self.results: dict = {}      # CPU: shard -> its (re, im)
-        self.partials: dict = {}     # CUDA: launch group -> [T, ...] partials on device
-        self.finishers: dict = {}    # CUDA: launch group -> finish of its buffer (shard 0's)
-        self.lead = None             # shard 0's call: the finish's shape and squeeze
+        return torch.device("cpu") if device.type == "cpu" else device
 
     def _shard(self, bank: "BankRowsCall") -> int:
         shard = None if bank.channels is None else bank.channels.shard
@@ -737,11 +757,12 @@ class ShardSum:
         t = int(shard.index)
         if not 0 <= t < self.num_shards:
             raise ValueError(f"time shard {t} of {self.num_shards}")
-        if t == 0:
-            if bank.device != self.device:
-                raise ValueError(f"time shard 0 runs on the sum's device {self.device}, "
-                                 f"not {bank.device}")
-            self.lead = bank
+        if bank.device != self.shard_devices[t]:
+            raise ValueError(f"time shard {t} runs on {self.shard_devices[t]}, "
+                             f"not {bank.device}")
+        lead = self.leads.get(bank.device)
+        if lead is None or t < int(lead.channels.shard.index):
+            self.leads[bank.device] = bank
         self.added.add(t)
         return t
 
@@ -752,37 +773,50 @@ class ShardSum:
     def slot(self, bank: "BankRowsCall", group, shape: tuple, finisher=None) -> torch.Tensor:
         """Where the bank kernel of the call ``bank`` writes the ``shape``
         partials of launch group ``group``: its shard's slot of the group's
-        buffer (a tensor of its own on another card, which `copy_in` moves
-        there); shard 0's call gives the group's ``finisher(buffer) -> (re,
-        im)``."""
+        buffer on its device. The call a device takes its finish from gives
+        the group's ``finisher(buffer) -> (re, im)`` there."""
         t = self._shard(bank)
-        buf = self.partials.get(group)
-        if buf is None:
-            buf = self.partials[group] = torch.empty((self.num_shards,) + tuple(shape),
-                                                     dtype=torch.float32, device=self.device)
-        if t == 0:
-            self.finishers[group] = finisher
-        return buf[t] if bank.device == self.device else torch.empty(
-            shape, dtype=torch.float32, device=bank.device)
+        for holder in self.holders:
+            if (holder, group) not in self.partials:
+                self.partials[holder, group] = torch.empty(
+                    (self.num_shards,) + tuple(shape), dtype=torch.float32, device=holder)
+        if self.leads[bank.device] is bank:
+            self.finishers[bank.device, group] = finisher
+        return self.partials[bank.device, group][t]
 
     def copy_in(self, bank: "BankRowsCall", group, partial: torch.Tensor) -> None:
-        """``partial`` into its shard's slot, where it is not that slot."""
-        dst = self.partials[group][self._shard(bank)]
-        if partial.data_ptr() != dst.data_ptr():
-            dst.copy_(partial, non_blocking=True)
+        """``partial``, shard t's, into its slot on every other device, at
+        the first `finish`."""
+        self.pending.append((self._shard(bank), group, partial))
 
-    def finish(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The time shards' results added in shard order, on ``device``."""
+    def _share(self) -> None:
+        """Each pending shard's partials into its slot on every other
+        device (a peer copy on its card), after every shard's launch."""
+        for t, group, partial in self.pending:
+            for holder in self.holders:
+                dst = self.partials[holder, group][t]
+                if partial.data_ptr() != dst.data_ptr():
+                    dst.copy_(partial, non_blocking=True)
+        self.pending = []
+
+    def finish(self, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The time shards' results added in shard order, on ``device`` (a
+        time shard's device; the first by default)."""
         if len(self.added) != self.num_shards:
             raise ValueError(f"{len(self.added)} of {self.num_shards} time shards have "
                              "their results in the sum")
+        device = self.device if device is None else self._device(device)
+        if device not in self.holders:
+            raise ValueError(f"{device} holds no time shard's results: {self.holders}")
         if not self.partials:
             parts = [self.results[t] for t in range(self.num_shards)]
-            return tuple(sum_in_order([p[i] for p in parts], self.device) for i in range(2))
-        bank = self.lead
+            return tuple(sum_in_order([p[i] for p in parts], device) for i in range(2))
+        self._share()
+        bank = self.leads[device]
         return bank.finish(*split_launches(
-            lambda a0, a1, taps: self.finishers[(a0, a1, taps)](self.partials[(a0, a1, taps)]),
-            bank.num_ants, len(bank.deltas), (bank.num_k,), self.device))
+            lambda a0, a1, taps: self.finishers[device, (a0, a1, taps)](
+                self.partials[device, (a0, a1, taps)]),
+            bank.num_ants, len(bank.deltas), (bank.num_k,), device))
 
 
 def _tile_phases(bank: BankRowsCall, k0: int, k1: int):

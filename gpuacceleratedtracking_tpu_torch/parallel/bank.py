@@ -9,30 +9,38 @@ unit of scale, on a ``(chan, time)`` mesh where
   made per shard from phase-advanced NCOs, `parallel.correlate`; the partial
   ``[K_local, (A,) L]`` accumulators meet in one ordered sum per block).
 
-One process drives every shard, block by block: for each block it issues
-every shard's correlation on the shard's device (one kernel launch per shard
-for a bank algorithm, so chan x time launches per block), sums each channel
-shard's partials on its lead device (the shard at time index 0) in shard
-order, and closes the loop there once. That block body runs through
-`tracking.graphs.scan`: on one card (every mesh device the same) it is one
-CUDA graph replayed per block. The JAX package runs the loop closure
-redundantly on every time shard, which only its SPMD model needs; here the
-new phases and Dopplers are copied to the other time shards' devices at the
-next block, a no-op where the device repeats. The code tables are built
-once per call, so the loop copies nothing from the host and never waits on
-a card.
+One process drives every shard. On the bank kernels' routes
+(`tracking.track._takes_tiles`) a block is the kernels alone, as the JAX
+`shard_map` body is one program: per (chan, time) shard one bank launch in
+the state form with the shard's `ops.epl_kernels.BankShard`, which advances
+the state's phases to its piece and reads the piece of the block in place
+(in a capture, at the entry's device-side index); the time shards of a
+channel shard meet in one `ops.epl_kernels.ShardSum`, whose finish adds
+them in shard order; one loop-closure kernel per channel shard then writes
+its outputs and carry through the entry's sink.
 
-On the bank kernels' routes (`tracking.track._takes_tiles`) a block is the
-kernels alone, as the JAX `shard_map` body is one program: per (chan, time)
-shard one bank launch in the state form with the shard's
-`ops.epl_kernels.BankShard`, which advances the state's phases to its piece
-and reads the piece of the block in place (in a capture, at the entry's
-device-side index); per channel shard one finish, which adds its time
-shards' partials in shard order (`ops.epl_kernels.ShardSum`), and one
-loop-closure kernel, which writes that shard's outputs and carry through
-the entry's sink; then the entry's index add. Other correlators cut each
-shard's piece and advance its phases with torch ops, and their loop
-closure returns its outputs.
+- Where every mesh device is one card, the carry and the outputs are the
+  whole bank's (channel shard c a contiguous view of them, its loop kernel
+  writing its columns of the outputs), the code tiles of the whole bank are
+  packed by one launch in the call's prologue, and a block is one replayed
+  CUDA graph: the call cuts and joins nothing (`_bank_step`).
+- On distinct cards the call is `tracking.graphs.scan_mesh`: each card holds
+  its channel shard's carry for the whole call (loaded in one copy per
+  dtype from a cut of the caller's states on the mesh's first card,
+  `_stage_channels`), packs its shard's code tiles in its own prologue and
+  reads its own signal (whole where time is 1, its piece where it is more);
+  per block every (chan, time) card launches its bank kernel, its partials
+  go to every card of its channel shard, and every card closes the loop on
+  its own replica of the carry, redundantly but identically, as the JAX
+  package does after its ``psum``: no carry crosses cards inside a call
+  (`_card_step`). On the cards each channel shard's block is one CUDA graph
+  over its time shards' cards, replayed once per block. The results of each channel shard's time-0 card come back to the first
+  card in one copy per dtype, and one gather per dtype lays them out as an
+  unsharded call's (`_join_channels`).
+
+Other correlators cut each shard's piece and advance its phases with torch
+ops, sum each channel shard's partials on its lead device and close the
+loop there once; their loop closure returns its outputs (`_mesh_step`).
 """
 
 from __future__ import annotations
@@ -44,8 +52,7 @@ import torch
 from ..ops.epl_kernels import BankChannels, ShardSum
 from ..tracking import graphs
 from ..tracking.state import _NESTED, TrackConfig, TrackOutput, TrackState
-from ..tracking.track import (_bank_code_tile_kwargs, _takes_tiles, bank_correlator,
-                              loop_update)
+from ..tracking.track import _takes_tiles, bank_correlator, bank_prepare, loop_update
 from .correlate import (advance_phases, nominal_advance_tables, on_device, sum_in_order,
                         time_piece, time_shard)
 from .mesh import CHAN_AXIS, TIME_AXIS, Mesh
@@ -72,6 +79,70 @@ def _channel_shards(states: TrackState, num_chan: int, devices) -> list:
 def _gather(parts: list, device: torch.device, dim: int):
     """Per-shard tensors joined along ``dim`` on ``device``."""
     return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def _stage_channels(states, num_chan: int, device: torch.device) -> list:
+    """The cut of ``states`` (a tree of ``[K, ...]`` leaves) into ``num_chan``
+    channel shards on ``device``: each shard's leaves as views of one buffer
+    per dtype of its own, laid out as `graphs._layout` lays them out (as a
+    card's entry lays out its carry, so that the card loads it in one copy
+    per dtype), all filled by one multi-tensor copy per pair of dtypes."""
+    leaves = graphs._leaves(states)
+    per = leaves[0].shape[0] // num_chan
+    sizes, places = graphs._layout(tuple(((per,) + tuple(x.shape[1:]), x.dtype)
+                                         for x in leaves))
+    shards = [graphs._views({dtype: torch.empty(size, dtype=dtype, device=device)
+                             for dtype, size in sizes}, places) for _ in range(num_chan)]
+    graphs._copy([x for shard in shards for x in shard],
+                 [x[c * per:(c + 1) * per] for c in range(num_chan) for x in leaves])
+    return [graphs._rebuild(states, iter(shard)) for shard in shards]
+
+
+def _join_index(specs: tuple, num_carry: int, num_chan: int, device: torch.device) -> tuple:
+    """Where each element of an unsharded call's results comes from in the
+    channel shards' results laid end to end, one buffer per dtype (shard c's
+    `graphs._layout` of ``specs`` at ``c`` times its size): an index per
+    dtype on ``device`` (int32 where the shards' elements allow it;
+    alignment gaps read element 0), and the unsharded results' places in
+    their layout. The first ``num_carry`` leaves join along axis 0 (the
+    carry), the rest along axis 1 (outputs stacked ``[B, K, ...]``)."""
+    sizes, places = graphs._layout(specs)
+    size = dict(sizes)
+    origin = graphs._views({dtype: torch.arange(n, dtype=torch.int64) for dtype, n in sizes},
+                           places)
+    whole = [torch.cat([x + c * size[dtype] for c in range(num_chan)], 0 if i < num_carry else 1)
+             for i, (x, (_, dtype)) in enumerate(zip(origin, specs))]
+    whole_sizes, whole_places = graphs._layout(tuple((tuple(x.shape), dtype)
+                                                     for x, (_, dtype) in zip(whole, specs)))
+    index = {dtype: torch.zeros(n, dtype=torch.int32 if num_chan * size[dtype] < 2 ** 31
+                                else torch.int64) for dtype, n in whole_sizes}
+    for view, x in zip(graphs._views(index, whole_places), whole):
+        view.copy_(x)
+    return {dtype: x.to(device) for dtype, x in index.items()}, whole_places
+
+
+def _join_channels(results: list, device: torch.device):
+    """The channel shards' ``(final state, stacked outputs)`` (each on its
+    card) as an unsharded call's on ``device``: each shard's results, one
+    buffer per dtype (`graphs._flat`), copied to ``device`` in one copy per
+    dtype, end to end, and one gather per dtype (`_join_index`, kept per
+    layout as the graph entries are: `graphs.kept`) lays them out as
+    `graphs.scan` lays out a call's results: the final state and outputs as
+    views of one fresh buffer per dtype."""
+    num_carry = len(graphs._leaves(results[0][0]))
+    cards = [graphs._leaves(result) for result in results]
+    specs = graphs._specs(cards[0])
+    sizes, _ = graphs._layout(specs)
+    stage = {dtype: torch.empty(len(cards) * size, dtype=dtype, device=device)
+             for dtype, size in sizes}
+    for c, leaves in enumerate(cards):
+        for dtype, region in graphs._flat(leaves)[0].items():
+            stage[dtype][c * region.numel():(c + 1) * region.numel()].copy_(region)
+    index, whole_places = graphs.kept(
+        device, ("join", specs, num_carry, len(cards)),
+        lambda: _join_index(specs, num_carry, len(cards), device))
+    joined = {dtype: torch.index_select(stage[dtype], 0, index[dtype]) for dtype in stage}
+    return graphs._rebuild(results[0], iter(graphs._views(joined, whole_places)))
 
 
 def _per_device(x: torch.Tensor, cache: dict, device: torch.device) -> torch.Tensor:
@@ -125,76 +196,94 @@ def _mesh_step(config, corr, kwargs, advance, grid, pieces: list, shards: list):
     return step
 
 
-def _bank_step(config, corr, kwargs, grid, shards: list, time_shards: list,
-               pieces: list | None = None, per: int | None = None):
-    """The block body of the channel shards ``shards`` for a bank kernel,
-    as the JAX `shard_map` body: ``step(states, consts, block, sink=None)``,
-    ``states`` and ``consts`` their states and constants (per time shard,
-    the code table and code tiles on its device). ``block`` is one whole
-    block on the mesh's one device (a `graphs.Chunk` in a capture: the
-    kernels read it at the entry's index), or, with ``pieces``, each
-    ``(device, time shard)``'s ``(re, im)`` piece in their order;
-    ``time_shards[t]`` is time shard t's `BankShard`, its piece's offset in
-    what the body reads. Each (chan, time) shard is one bank launch in the
-    state form, which advances the shard's phases and reads its piece in
-    place; each channel shard's time shards meet in one `ShardSum` on its
-    lead device, whose finish adds them in shard order; its loop is closed
-    there, through its part of the entry's sink in a capture (the loop
-    kernel writes its outputs and carry in place). No torch op runs between
-    the carry and the kernels.
-
-    ``states`` is a tuple of the shards' states and the outputs a tuple of
-    their outputs; with ``per`` (every shard on one device), ``states`` is
-    the whole bank's, channel shard c its ``per`` channels from ``c * per``
-    (contiguous views, which the loop kernels write in place), and the
-    outputs are the whole bank's, each shard's loop kernel writing its
-    columns of the sink's rows (`graphs.Sink.channel_window`): the call cuts
-    and joins nothing."""
-    num_time = grid.shape[1]
-    where = None if pieces is None else {key: i for i, key in enumerate(pieces)}
-    num_out = len(TrackOutput._fields)
-
-    def own_sink(sink, i, c):
-        if sink is None or per is None:
-            return None if sink is None else graphs.Sink(
-                sink.outs[i * num_out:(i + 1) * num_out], sink.index)
-        return sink.channel_window(c * per, len(shards) * per)
+def _bank_step(config, corr, kwargs, grid, time_shards: list, per: int):
+    """The block body of a bank kernel with every shard on one device, as
+    the JAX `shard_map` body: ``step(states, (codes, code_tiles, None),
+    block, sink=None)``, ``states`` and ``code_tiles`` (`track.bank_prepare`'s
+    constants, the prologue's packing of the whole bank's tiles) the whole
+    bank's, channel shard c its ``per`` channels from ``c * per``
+    (contiguous views, which the loop kernels write in place, and rows of
+    the tiles). ``block`` is one whole block (a `graphs.Chunk` in a
+    capture: the kernels read it at the entry's index); ``time_shards[t]``
+    is time shard t's `BankShard`. Each (chan, time) shard is one bank
+    launch in the state form, which advances the shard's phases and reads
+    its piece in place; each channel shard's time shards meet in one
+    `ShardSum`, whose finish adds them in shard order; its loop is closed
+    there, through its channel window of the entry's sink in a capture
+    (`graphs.Sink.channel_window`: the loop kernel writes its columns of the
+    whole bank's rows and its carry in place). No torch op runs between the
+    carry and the kernels, and the call cuts and joins nothing."""
+    num_chan, num_time = grid.shape
+    device = grid[0, 0]
 
     @graphs.writes_outputs
     def step(states, consts, block, sink=None):
+        codes, code_tiles, _ = consts
         signal, index = ((block.xs, block.index) if isinstance(block, graphs.Chunk)
                          else (block, None))
-        parts = states if per is None else [
-            _map_state(lambda x: x[c * per:(c + 1) * per], states) for c in shards]
         new, outs = [], []
-        for i, (c, st, shard_consts) in enumerate(zip(shards, parts, consts)):
-            lead = grid[c, 0]
-            total = ShardSum(num_time, lead)
-            for t in range(num_time):
-                dev = grid[c, t]
-                codes, code_tiles = shard_consts[t]
-                sre, sim = signal if where is None else signal[where[dev, t]]
-                with on_device(dev):
-                    car_dop, car_ph, code_dop, code_ph, prn = (
-                        x.to(dev, non_blocking=True) for x in (
-                            st.carrier_doppler, st.carrier_phase, st.code_doppler,
-                            st.code_phase, st.prn))
-                    corr(sre, sim, codes, prn, None, config.sampling_frequency, None, None, None,
-                         config.sample_shifts, config.code_length, **kwargs,
-                         code_tiles=code_tiles, block_index=index, shard_sum=total,
-                         channels=BankChannels(config.intermediate_frequency, car_dop, car_ph,
-                                               config.code_frequency, code_dop, code_ph,
-                                               time_shards[t]))
-            with on_device(lead):
-                st, out = loop_update(config, st, *total.finish(), None, own_sink(sink, i, c))
+        for c in range(num_chan):
+            rows = slice(c * per, (c + 1) * per)
+            st = _map_state(lambda x: x[rows], states)
+            total = ShardSum(num_time, device)
+            with on_device(device):
+                for t in range(num_time):
+                    corr(signal[0], signal[1], codes, st.prn, None, config.sampling_frequency,
+                         None, None, None, config.sample_shifts, config.code_length, **kwargs,
+                         code_tiles=code_tiles[rows], block_index=index, shard_sum=total,
+                         channels=BankChannels(config.intermediate_frequency, st.carrier_doppler,
+                                               st.carrier_phase, config.code_frequency,
+                                               st.code_doppler, st.code_phase, time_shards[t]))
+                st, out = loop_update(config, st, *total.finish(), None, None if sink is None
+                                      else sink.channel_window(c * per, num_chan * per))
             new.append(st)
             outs.append(out)
-        if per is None:
-            return tuple(new), tuple(outs)
         if sink is not None:                 # every shard wrote its part in place
             return states, outs[0]
         return (_map_state(lambda *xs: torch.cat(xs), *new),
                 TrackOutput(*(torch.cat(xs) for xs in zip(*outs))))
+
+    return graphs.reads_chunk(step)
+
+
+def _card_step(config, corr, kwargs, time_shards: list):
+    """The block body of one channel shard of a bank kernel on distinct
+    cards, as the JAX `shard_map` body runs on each device:
+    ``step(states, consts, blocks, sinks=None)`` over its time shards' cards
+    (a `graphs.scan_mesh` group: the cards its states lie on), card t holding its replica of
+    the channel shard's carry (``states[t]``), its constants ``(codes,
+    code_tiles, None)`` (its prologue's tiles, `track.bank_prepare`) and its
+    own signal (``blocks[t]``, a `graphs.Chunk` in a capture;
+    ``time_shards[t]`` its `BankShard`, the piece at offset 0 of what it
+    reads). Every card launches its bank kernel first; then each card
+    finishes the shard's `ShardSum`, whose first finish copies every card's
+    partials to the other cards, adding the T shards in shard order, and
+    closes the loop on its own replica through its sink: the same kernels
+    over the same slots, so every replica holds the same carry, bit for bit,
+    and no carry crosses cards."""
+
+    @graphs.writes_outputs
+    def step(states, consts, blocks, sinks=None):
+        devices = [st.prn.device for st in states]
+        total = ShardSum(len(states), devices)
+        for t, (st, (codes, code_tiles, _), block) in enumerate(zip(states, consts, blocks)):
+            signal, index = ((block.xs, block.index) if isinstance(block, graphs.Chunk)
+                             else (block, None))
+            with on_device(devices[t]):
+                corr(signal[0], signal[1], codes, st.prn, None, config.sampling_frequency, None,
+                     None, None, config.sample_shifts, config.code_length, **kwargs,
+                     code_tiles=code_tiles, block_index=index, shard_sum=total,
+                     channels=BankChannels(config.intermediate_frequency, st.carrier_doppler,
+                                           st.carrier_phase, config.code_frequency,
+                                           st.code_doppler, st.code_phase, time_shards[t]))
+        new, outs = [], []
+        for t, st in enumerate(states):
+            with on_device(devices[t]):
+                st, out = loop_update(config, st, *total.finish(devices[t]), None,
+                                      None if sinks is None else sinks[t])
+            new.append(st)
+            outs.append(out)
+        return tuple(new), tuple(outs)
 
     return graphs.reads_chunk(step)
 
@@ -220,14 +309,16 @@ def track_bank_sharded(
     runs it. Returns the final states and the per-block outputs
     ``[B, K, ...]``, on the mesh's first device.
 
-    The block body runs through `graphs.scan`: where every device of the
-    mesh is one card, the whole mesh's block is one CUDA graph; on distinct
-    cards with a time axis of 1, each channel shard replays a graph of its
-    own on its own card, issued without waiting, so the cards overlap. A time
-    axis over distinct cards exchanges partials between cards every block,
-    and runs the eager loop. On the bank kernels' routes a replayed block is
-    ``chan x time`` bank launches, ``chan`` finishes, ``chan`` loop kernels
-    and the index's add (see the module).
+    On the bank kernels' routes, where every device of the mesh is one card,
+    the whole mesh's block is one replayed CUDA graph of ``chan x time``
+    bank launches, ``chan`` finishes, ``chan`` loop kernels and the index's
+    add (`graphs.scan`); on distinct cards each card holds its channel
+    shard's carry and closes its loop itself, and the block over every card
+    is one CUDA graph (`graphs.scan_mesh`; see the module). Other
+    correlators run through `graphs.scan` on one card and on distinct cards
+    with a time axis of 1 (a graph per channel shard, issued without
+    waiting, so the cards overlap), and the eager loop where a time axis
+    spans distinct cards.
     """
     num_chan = mesh.shape[chan_axis]
     num_time = mesh.shape[time_axis]
@@ -244,6 +335,58 @@ def track_bank_sharded(
         config.intermediate_frequency, config.code_frequency,
         config.sampling_frequency, local_n, num_time, config.code_length,
     )
+    corr, kwargs = bank_correlator(config)
+    grid = mesh.grid(chan_axis, time_axis)                # [chan shards, time shards]
+    first = mesh.devices.flat[0]
+    per = num_k // num_chan
+    one_device = len({str(d) for d in mesh.devices.flat}) == 1
+    key = ("track_bank_sharded", config, num_chan, num_time)
+    if not _takes_tiles(config):
+        return _sharded_without_tiles(config, corr, kwargs, codes, states, signal_re, signal_im,
+                                      grid, tables, one_device, key)
+    # Each time shard as a bank call takes it: its piece in the whole block
+    # (one device), or a piece of its own (offset 0, a card's).
+    shard_args = (tables, config.sampling_frequency, local_n, config.code_length)
+    if one_device:
+        # The carry and the outputs are the whole bank's, each channel shard
+        # its contiguous part of them; the prologue packs the whole bank's
+        # tiles, each shard's its rows.
+        with on_device(first):
+            return graphs.scan(
+                _bank_step(config, corr, kwargs, grid,
+                           [time_shard(t, *shard_args) for t in range(num_time)], per),
+                states if states.prn.device == first else _map_state(
+                    lambda x: x.to(first), states),
+                (signal_re.to(first), signal_im.to(first)), (codes.to(first), None),
+                key=key, prepare=bank_prepare(config))
+    with on_device(first):
+        staged = _stage_channels(states, num_chan, first)
+        signal = [x.to(first) for x in (signal_re, signal_im)]
+        codes = codes.to(first)
+    local = signal_re.shape[-1] // num_time
+    parts = [graphs.Part(staged[c], tuple(x[..., t * local:(t + 1) * local] for x in signal),
+                         (codes, None), grid[c, t])
+             for c in range(num_chan) for t in range(num_time)]
+    results = graphs.scan_mesh(
+        _card_step(config, corr, kwargs, [time_shard(t, *shard_args, offset=0)
+                                          for t in range(num_time)]),
+        parts, key=key, prepare=bank_prepare(config), group=num_time)
+    with on_device(first):
+        return _join_channels(results, first)
+
+
+def _sharded_without_tiles(config, corr, kwargs, codes, states, signal_re, signal_im, grid,
+                           tables, one_device: bool, key):
+    """`track_bank_sharded` for a correlator that takes no code tiles: each
+    channel shard's states cut onto its lead device; on one device one
+    `graphs.scan` of every shard's body (`_mesh_step`), on distinct cards
+    with a time axis of 1 a `graphs.scan` per channel shard on its card, and
+    the eager loop where a time axis spans distinct cards, each shard's
+    piece cut once per call; the shards' results joined on the first
+    device."""
+    num_chan, num_time = grid.shape
+    first = grid[0, 0]
+    local_n = signal_re.shape[-1] // num_time
     advance = functools.partial(
         advance_phases, tables=tables,
         nominal_carrier_frequency=config.intermediate_frequency,
@@ -251,36 +394,14 @@ def track_bank_sharded(
         sampling_frequency=config.sampling_frequency,
         samples_per_shard=local_n, code_length=config.code_length,
     )
-    corr, kwargs = bank_correlator(config)
-    grid = mesh.grid(chan_axis, time_axis)                # [chan shards, time shards]
-    first = mesh.devices.flat[0]
-
-    # The per-call constants: the code table per device, and each channel
-    # shard's code tiles (built on its lead device, copied to its other time
-    # shards').
-    per = num_k // num_chan
-    code_copies, consts = {}, []
-    for c in range(num_chan):
-        lead = grid[c, 0]
-        with on_device(lead):
-            tiles = _bank_code_tile_kwargs(
-                config, _per_device(codes, code_copies, lead),
-                states.prn[c * per:(c + 1) * per].to(lead)).get("code_tiles")
-        consts.append(tuple((_per_device(codes, code_copies, grid[c, t]),
-                             None if tiles is None else tiles.to(grid[c, t]))
-                            for t in range(num_time)))
+    code_copies = {}
+    consts = [tuple((_per_device(codes, code_copies, grid[c, t]), None)
+                    for t in range(num_time)) for c in range(num_chan)]
     pieces = list(dict.fromkeys((dev, t) for t in range(num_time) for dev in grid[:, t]))
-    tiles = _takes_tiles(config)
-    # Each time shard as a bank call takes it: its piece in the whole block,
-    # or a piece of its own (offset 0).
-    shard_args = (tables, config.sampling_frequency, local_n, config.code_length)
-    in_block = [time_shard(t, *shard_args) for t in range(num_time)]
-    in_piece = [time_shard(t, *shard_args, offset=0) for t in range(num_time)]
 
     def cut(shards, piece_keys):
-        """The body over ``shards`` from one whole block on their one device
-        for a correlator that takes no tiles: each time shard's piece is cut
-        inside the body."""
+        """The body over ``shards`` from one whole block on their one device:
+        each time shard's piece is cut inside the body."""
         step = _mesh_step(config, corr, kwargs, advance, grid, piece_keys, shards)
 
         def body(carry, shard_consts, block):
@@ -289,25 +410,12 @@ def track_bank_sharded(
 
         return body
 
-    one_device = len({str(d) for d in mesh.devices.flat}) == 1
-    if one_device and tiles:
-        # A bank kernel on one device: the carry and the outputs are the
-        # whole bank's, each channel shard its contiguous part of them.
-        with on_device(first):
-            return graphs.scan(
-                _bank_step(config, corr, kwargs, grid, list(range(num_chan)), in_block,
-                           per=per),
-                states if states.prn.device == first else _map_state(
-                    lambda x: x.to(first), states),
-                (signal_re.to(first), signal_im.to(first)), tuple(consts),
-                key=("track_bank_sharded", config, num_chan, num_time))
     local = _channel_shards(states, num_chan, grid[:, 0])
     if one_device:
         with on_device(first):
             final, outs = graphs.scan(
                 cut(list(range(num_chan)), pieces), tuple(local),
-                (signal_re.to(first), signal_im.to(first)), tuple(consts),
-                key=("track_bank_sharded", config, num_chan, num_time))
+                (signal_re.to(first), signal_im.to(first)), tuple(consts), key=key)
         finals, outs = list(final), list(outs)
     elif num_time == 1:
         finals, outs = [], []
@@ -315,18 +423,14 @@ def track_bank_sharded(
             dev = grid[c, 0]
             with on_device(dev):
                 final, out = graphs.scan(
-                    _bank_step(config, corr, kwargs, grid, [c], in_block) if tiles
-                    else cut([c], [(dev, 0)]), (local[c],),
-                    (signal_re.to(dev), signal_im.to(dev)), (consts[c],),
-                    key=("track_bank_sharded", config, num_chan, num_time, c))
+                    cut([c], [(dev, 0)]), (local[c],), (signal_re.to(dev), signal_im.to(dev)),
+                    (consts[c],), key=key + (c,))
             finals.append(final[0])
             outs.append(out[0])
     else:
         # Each shard's contiguous signal piece, cut once per call.
         xs = [time_piece(x, t, num_time, dev) for dev, t in pieces for x in (signal_re, signal_im)]
-        step = (_bank_step(config, corr, kwargs, grid, list(range(num_chan)), in_piece, pieces)
-                if tiles else
-                _mesh_step(config, corr, kwargs, advance, grid, pieces, list(range(num_chan))))
+        step = _mesh_step(config, corr, kwargs, advance, grid, pieces, list(range(num_chan)))
         final, outs = graphs.loop(
             lambda carry, c_, block: step(carry, c_, tuple(zip(block[::2], block[1::2]))),
             tuple(local), tuple(xs), tuple(consts))
@@ -409,31 +513,33 @@ def track_bank_dual_sharded(
         raise ValueError(f"K={num_k} not divisible by {num_chan} chan shards")
     devices = mesh.grid(chan_axis)
     first = mesh.devices.flat[0]
-    local = _channel_shards(states, num_chan, devices)
-    copies = {name: {} for name in ("data", "pilot", "re", "im")}
     if len({str(d) for d in mesh.devices.flat}) == 1:
         with on_device(first):
             finals, outs = _dual_one_graph(
-                config, codes_data.to(first), codes_pilot.to(first), local,
-                signal_re.to(first), signal_im.to(first), num_chan)
-        finals, outs = list(finals), list(outs)
-    else:
-        finals, outs = [], []
-        for c in range(num_chan):
-            dev = devices[c]
-            with on_device(dev):
-                final, out = track_bank_dual(
-                    config, _per_device(codes_data, copies["data"], dev),
-                    _per_device(codes_pilot, copies["pilot"], dev), local[c],
-                    _per_device(signal_re, copies["re"], dev),
-                    _per_device(signal_im, copies["im"], dev))
-            finals.append(final)
-            outs.append(out)
+                config, codes_data.to(first), codes_pilot.to(first),
+                _channel_shards(states, num_chan, devices), signal_re.to(first),
+                signal_im.to(first), num_chan)
+            final = _map_state(lambda *xs: _gather(xs, first, 0), *finals)
+            pilot = TrackOutput(*(_gather(xs, first, 1)
+                                  for xs in zip(*(o.pilot for o in outs))))
+            return final, DualTrackOutput(
+                pilot,
+                _gather([o.data_prompt_re for o in outs], first, 1),
+                _gather([o.data_prompt_im for o in outs], first, 1),
+            )
+    # Each card takes its channel shard in one copy per dtype (`_stage_channels`),
+    # and its results come back in one copy per dtype (`_join_channels`).
     with on_device(first):
-        final = _map_state(lambda *xs: _gather(xs, first, 0), *finals)
-        pilot = TrackOutput(*(_gather(xs, first, 1) for xs in zip(*(o.pilot for o in outs))))
-        return final, DualTrackOutput(
-            pilot,
-            _gather([o.data_prompt_re for o in outs], first, 1),
-            _gather([o.data_prompt_im for o in outs], first, 1),
-        )
+        staged = _stage_channels(states, num_chan, first)
+    copies = {name: {} for name in ("data", "pilot", "re", "im")}
+    results = []
+    for c in range(num_chan):
+        dev = devices[c]
+        with on_device(dev):
+            results.append(track_bank_dual(
+                config, _per_device(codes_data, copies["data"], dev),
+                _per_device(codes_pilot, copies["pilot"], dev), graphs._moved(staged[c], dev),
+                _per_device(signal_re, copies["re"], dev),
+                _per_device(signal_im, copies["im"], dev)))
+    with on_device(first):
+        return _join_channels(results, first)

@@ -75,6 +75,15 @@ the entry records how far each capture moved each kernel's count and adds
 that much per replay; the warm-up's launches, whose results are thrown away,
 and the captures' are not counted. A capture or replay that fails raises;
 nothing falls back to the eager loop.
+
+`scan_mesh` runs one block body over several cards in lockstep, the JAX
+``shard_map`` program: an entry per part (card) holds that part's buffers
+and prologue on its card, and each group of parts that exchange data inside
+a block (a channel shard's time shards) is one CUDA graph over its cards
+(`capture_mesh`: their streams join one capture, so the cross-card copies
+and the orders they set are the graph's own), replayed once per block; the
+host waits on no card inside a call. A group's parts end as replicas of
+one another, so a call returns each group's first part's results.
 """
 
 from __future__ import annotations
@@ -82,6 +91,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import itertools
 import math
 import warnings
 from typing import Callable, NamedTuple
@@ -95,6 +105,7 @@ ALIGN = 16            # bytes: each leaf of an entry's flat buffers starts on a 
 
 _EAGER = 0
 _ENTRIES: dict = {}   # device -> OrderedDict(signature -> _Entry)
+_KEPT: dict = {}      # device -> OrderedDict(key -> what `kept` made)
 
 
 @contextlib.contextmanager
@@ -126,14 +137,53 @@ def capture(body: Callable[[], None], device: torch.device) -> Callable[[], None
     return graph.replay
 
 
-def capture_counted(body: Callable[[], None], device: torch.device):
-    """`capture` ``body``, the launches counted in it taken back: returns the
-    replay and how far the capture moved each wrapper's launch count (in
-    `_counters` order), which the caller adds per replay (`count_replays`):
-    a replay runs no wrapper code."""
+def capture_mesh(body: Callable[[], None], devices: list) -> Callable[[], None]:
+    """Capture ``body`` as one CUDA graph over the distinct cards ``devices``:
+    the capture begins on a stream of ``devices[0]``, and a stream of each
+    other card joins it (an event of the first stream, waited on) and is
+    that card's current stream while ``body`` runs, so every op ``body``
+    issues on a card, and each order a cross-card copy sets between two
+    cards' streams, is a node and an edge of the one graph. Each other card
+    allocates from a pool of its own, kept with the graph (`torch.cuda.graph`
+    keeps the first card's). Returns the graph's replay, on the first card's
+    current stream: a replay runs every card's part, in the captured order,
+    and ends when the last card's part ends."""
+    origin = devices[0]
+    streams = [torch.cuda.Stream(d) for d in devices]
+    pools = []
+    for device in devices[1:]:
+        # A pool belongs to the card current where it is made: it holds the
+        # blocks the capture freed, which the graph's nodes still address.
+        with torch.cuda.device(device):
+            pools.append(torch.cuda.MemPool())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(origin), torch.cuda.graph(graph, stream=streams[0]):
+        with contextlib.ExitStack() as stack:
+            for device, stream, pool in zip(devices[1:], streams[1:], pools):
+                stream.wait_stream(streams[0])
+                stack.enter_context(torch.cuda.stream(stream))
+                stack.enter_context(torch.cuda.use_mem_pool(pool, device))
+            with torch.cuda.device(origin):
+                body()
+            for stream in streams[1:]:
+                streams[0].wait_stream(stream)
+
+    def replay():
+        graph.replay()
+
+    replay.keep = (graph, streams, pools)
+    return replay
+
+
+def capture_counted(body: Callable[[], None], device):
+    """`capture` ``body`` (on a list of cards, `capture_mesh`), the launches
+    counted in it taken back: returns the replay and how far the capture
+    moved each wrapper's launch count (in `_counters` order), which the
+    caller adds per replay (`count_replays`): a replay runs no wrapper
+    code."""
     before = _counts()
     try:
-        replay = capture(body, device)
+        replay = capture_mesh(body, device) if isinstance(device, list) else capture(body, device)
         launched = [c - b for c, b in zip(_counts(), before)]
     finally:
         _set_counts(before)
@@ -161,6 +211,28 @@ def uncounted():
 def clear() -> None:
     """Drop every cache entry, and with them their graphs and buffers."""
     _ENTRIES.clear()
+    _KEPT.clear()
+
+
+def _cached(store: dict, where, key, make: Callable[[], object]):
+    """``store[where][key]``, made by ``make()`` where it is missing: at
+    most `MAX_ENTRIES` kept per ``where``, the least recently used dropped
+    first."""
+    entries = store.setdefault(where, collections.OrderedDict())
+    value = entries.get(key)
+    if value is None:
+        value = entries[key] = make()
+        while len(entries) > MAX_ENTRIES:
+            entries.popitem(last=False)
+    entries.move_to_end(key)
+    return value
+
+
+def kept(device: torch.device, key, make: Callable[[], object]):
+    """``make()``, made once per ``device`` and ``key`` and kept as the
+    captured entries are (`MAX_ENTRIES` per device, all dropped by
+    `clear`)."""
+    return _cached(_KEPT, device, key, make)
 
 
 # --- Trees of tensors: tuples, NamedTuples and None, tensors at the leaves.
@@ -226,9 +298,10 @@ def _specs(leaves, drop: int = 0) -> tuple:
     return tuple([(x.shape[drop:], x.dtype) for x in leaves])
 
 
-def _like(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous buffer of ``x``'s shape and dtype on its device."""
-    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+def _like(x: torch.Tensor, device: torch.device | None = None) -> torch.Tensor:
+    """A contiguous buffer of ``x``'s shape and dtype on ``device`` (its own
+    by default)."""
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device if device is None else device)
 
 
 def _copy(dsts: list, srcs: list) -> None:
@@ -481,30 +554,82 @@ def _flat_source(leaves: list, offsets: tuple, size: int):
     return first.as_strided((size,), (1,), 0)
 
 
+def _flat(leaves: list) -> tuple:
+    """``leaves`` as one flat buffer per dtype laid out by `_layout`: their
+    own storage where a dtype's leaves lie so (`_flat_source`: a captured
+    call's results, a mesh's cut), else a buffer of their device filled by
+    one multi-tensor copy per pair of dtypes. Returns the buffers and the
+    leaves' places."""
+    sizes, places = _layout(_specs(leaves))
+    flat, dsts, srcs = {}, [], []
+    for dtype, size in sizes:
+        idx = [i for i, place in enumerate(places) if place[0] == dtype]
+        src = _flat_source([leaves[i] for i in idx], tuple(places[i][3] for i in idx), size)
+        if src is None:
+            src = torch.empty(size, dtype=dtype, device=leaves[idx[0]].device)
+            dsts += _views({dtype: src}, tuple(places[i] for i in idx))
+            srcs += [leaves[i] for i in idx]
+        flat[dtype] = src
+    _copy(dsts, srcs)
+    return flat, places
+
+
 # --- The captured loop.
+
+@contextlib.contextmanager
+def _warming():
+    """A warm-up's launches left uncounted, and a wrapper's warning said
+    once, at capture (JAX: at trace time)."""
+    with uncounted(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        yield
+
+
+def _chunk_of(xs) -> int:
+    """Blocks per chunk of an entry scanning ``xs``: `CHUNK`, fewer where
+    they would pass `CHUNK_BYTES`, one at least."""
+    block_bytes = sum(x[0].numel() * x.element_size() for x in xs)
+    return max(1, min(CHUNK, CHUNK_BYTES // max(block_bytes, 1)))
+
+
+def _chunks(num_blocks: int, chunk: int):
+    """``(first block, blocks)`` of each chunk of a call."""
+    return [(b0, min(chunk, num_blocks - b0)) for b0 in range(0, num_blocks, chunk)]
+
 
 class _Entry:
     """One captured signature: its two graphs (the call's prologue and the
-    block body) and every buffer they touch."""
+    block body) and every buffer they touch. A card of a `scan_mesh` is an
+    entry whose body graph is the mesh's (`_MeshEntry`): it is set up in
+    the same steps, less its own warm-up and body."""
 
     def __init__(self, step, prepare, carry, xs, consts, device):
+        self._setup(carry, xs, consts, device)
+        with _warming():
+            prepared, out = self._warm_up(step, prepare, self._warm_carry)
+        self._lay_out(prepare, carry, consts, xs, prepared, out)
+        self.replay, self.launches = capture_counted(self._body(step), device)
+
+    def _setup(self, carry, xs, consts, device, chunk: int | None = None) -> None:
+        """The constants' and the chunk's buffers, the index, and a copy of
+        the caller's carry, constants and first block for the warm-up."""
         self.device = device
-        self.const_leaves = [_like(x) for x in _leaves(consts)]
+        self.const_leaves = [_like(x, device) for x in _leaves(consts)]
         self.consts = _rebuild(consts, iter(self.const_leaves))
-        block_bytes = sum(x[0].numel() * x.element_size() for x in xs)
-        self.chunk = max(1, min(CHUNK, CHUNK_BYTES // max(block_bytes, 1)))
+        self.chunk = _chunk_of(xs) if chunk is None else chunk
         self.xs = [torch.empty((self.chunk,) + x.shape[1:], dtype=x.dtype, device=device)
                    for x in xs]
         self.index = torch.zeros((), dtype=torch.int64, device=device)
         # The warm-up runs on a carry of its own: the flat buffers are laid
         # out from the output shapes it finds.
-        warm_carry = _rebuild(carry, (_like(x) for x in _leaves(carry)))
-        _copy(_leaves(warm_carry) + _leaves(self.consts) + [x[:1] for x in self.xs],
+        self._warm_carry = _rebuild(carry, (_like(x, device) for x in _leaves(carry)))
+        _copy(_leaves(self._warm_carry) + _leaves(self.consts) + [x[:1] for x in self.xs],
               _leaves(carry) + _leaves(consts) + [x[:1] for x in xs])
-        with uncounted(), warnings.catch_warnings():
-            # A wrapper's warning is said once, at capture (JAX: at trace time).
-            warnings.simplefilter("ignore")
-            prepared, out = self._warm_up(step, prepare, warm_carry)
+
+    def _lay_out(self, prepare, carry, consts, xs, prepared, out) -> None:
+        """After the warm-up (its prepared constants and output): the flat
+        buffers, the prepared constants' buffers, the load of the caller's
+        call, and the prologue's capture."""
         self.out_tree = _rebuild(out, iter([_Leaf() for _ in _leaves(out)]))
         self.carry_specs = tuple((tuple(x.shape), x.dtype) for x in _leaves(carry))
         self.out_specs = tuple((tuple(x.shape), x.dtype) for x in _leaves(out))
@@ -512,7 +637,7 @@ class _Entry:
         # per dtype, the carry first: a call returns its results in the same
         # layout with B rows (`_result_layout`).
         sizes, places = self._result_layout(self.chunk)
-        self.flat = {dtype: torch.empty(size, dtype=dtype, device=device)
+        self.flat = {dtype: torch.empty(size, dtype=dtype, device=self.device)
                      for dtype, size in sizes}
         views = _views(self.flat, places)
         num_carry = len(self.carry_specs)
@@ -526,10 +651,11 @@ class _Entry:
                     self.flat[dtype][:size])
             for dtype, size in carry_sizes}
         self._heads = {self.chunk: (self.outs, self.xs)}
-        self.prepared, self._derived = self._prepared_buffers(prepared, warm_carry)
+        self.prepared, self._derived = self._prepared_buffers(prepared, self._warm_carry)
+        del self._warm_carry
         self._load(_leaves(carry), _leaves(consts), xs, 1)
-        self.prologue, self.prologue_launches = capture_counted(self._prologue(prepare), device)
-        self.replay, self.launches = capture_counted(self._body(step), device)
+        self.prologue, self.prologue_launches = capture_counted(self._prologue(prepare),
+                                                                self.device)
         self._spare = True
 
     def buffers(self) -> list:
@@ -572,7 +698,8 @@ class _Entry:
         """The caller's carry and constants (their leaves) and first ``num``
         blocks into the entry's buffers, one multi-tensor copy per pair of
         dtypes: a carry whose leaves of a dtype lie as the entry lays them
-        out (a call's own result passed back) is one region of that copy."""
+        out (a call's own result passed back, or a mesh's cut) is one region
+        of that copy."""
         dsts, srcs = [], []
         for dtype, (places, offsets, region) in self._carry_groups.items():
             src = _flat_source([leaves[i] for i in places], offsets, region.numel())
@@ -641,28 +768,84 @@ class _Entry:
 
         return prologue
 
+    def _sink(self, step):
+        return Sink(tuple(self.outs), self.index) if getattr(step, "takes_sink", False) else None
+
+    def _write(self, new_carry, out, sink) -> None:
+        """A block's writes after the body: each output leaf the body did not
+        write into its sink into its row at the index, the new carry over the
+        old, and the index's add."""
+        leaves = _leaves(out)
+        if len(leaves) != len(self.outs):
+            raise ValueError(f"the scan body returned {len(leaves)} output leaves, "
+                             f"its warm-up {len(self.outs)}")
+        index = self.index.view(1)
+        for buf, x in zip(self.outs, leaves):
+            if x is WRITTEN:
+                if sink is None:
+                    raise ValueError("a scan body without a sink returned WRITTEN")
+                continue
+            buf.index_copy_(0, index, x.unsqueeze(0))
+        _write_carry(self.carry_leaves, _leaves(new_carry))
+        self.index.add_(1)
+
     def _body(self, step):
-        sink = Sink(tuple(self.outs), self.index) if getattr(step, "takes_sink", False) else None
+        sink = self._sink(step)
 
         def body():
             block = self._block(step)
             new_carry, out = (step(self.carry, self.prepared, block) if sink is None
                               else step(self.carry, self.prepared, block, sink))
-            leaves = _leaves(out)
-            if len(leaves) != len(self.outs):
-                raise ValueError(f"the scan body returned {len(leaves)} output leaves, "
-                                 f"its warm-up {len(self.outs)}")
-            index = self.index.view(1)
-            for buf, x in zip(self.outs, leaves):
-                if x is WRITTEN:
-                    if sink is None:
-                        raise ValueError("a scan body without a sink returned WRITTEN")
-                    continue
-                buf.index_copy_(0, index, x.unsqueeze(0))
-            _write_carry(self.carry_leaves, _leaves(new_carry))
-            self.index.add_(1)
+            self._write(new_carry, out, sink)
 
         return body
+
+    def _start(self, carry, xs, consts) -> None:
+        """A call's load of the caller's carry, constants and first chunk,
+        and the prologue's replay."""
+        self._load(carry, consts, xs, min(self.chunk, xs[0].shape[0]))
+        self.prologue()
+        count_replays(self.prologue_launches)
+        self._fresh = None
+
+    def _next_chunk(self, xs, b0: int, num: int) -> None:
+        self.index.zero_()
+        self._load_chunk(xs, b0, num)
+
+    def _collect(self, b0: int, num: int, num_blocks: int) -> None:
+        """After a chunk's replays: its outputs, and after the last chunk
+        the carry, copied into the call's fresh buffers (made at the first
+        chunk, while the card runs its blocks)."""
+        if self._fresh is None:
+            self._sizes, places = self._result_layout(num_blocks)
+            self._fresh = {dtype: torch.empty(size, dtype=dtype, device=self.device)
+                           for dtype, size in self._sizes}
+            views = _views(self._fresh, places)
+            self._final = views[:len(self.carry_specs)]
+            self._stacked = views[len(self.carry_specs):]
+        stacked = self._stacked
+        dsts = stacked if num == num_blocks else [dst[b0:b0 + num] for dst in stacked]
+        srcs = self._head(num)[0]
+        if b0 + num == num_blocks:
+            dsts = dsts + [self._fresh[dtype][:region.numel()]
+                           for dtype, (_, _, region) in self._carry_groups.items()]
+            srcs = srcs + [region for _, _, region in self._carry_groups.values()]
+        _copy(dsts, srcs)
+
+    def _results(self):
+        """The call's final carry and stacked outputs, views of its fresh
+        buffers."""
+        if self._spare:
+            # A chained call holds its input, the last call's results, while
+            # it allocates its own: the first call leaves that much memory
+            # in the allocator's cache, so the next asks the device for none.
+            self._spare = False
+            spare = [torch.empty(size, dtype=dtype, device=self.device)
+                     for dtype, size in self._sizes]
+            del spare
+        final, stacked = self._final, self._stacked
+        self._fresh = self._final = self._stacked = None
+        return _rebuild(self.carry, iter(final)), _rebuild(self.out_tree, iter(stacked))
 
     def run(self, carry, xs, consts):
         """The scan over ``xs`` from ``carry`` with ``consts`` (the leaves of
@@ -670,41 +853,207 @@ class _Entry:
         carry and the stacked outputs come back as views of one fresh buffer
         per dtype."""
         num_blocks = xs[0].shape[0]
-        self._load(carry, consts, xs, min(self.chunk, num_blocks))
-        self.prologue()
-        count_replays(self.prologue_launches)
-        fresh = None
-        for b0 in range(0, num_blocks, self.chunk):
-            num = min(self.chunk, num_blocks - b0)
+        self._start(carry, xs, consts)
+        for b0, num in _chunks(num_blocks, self.chunk):
             if b0:
-                self.index.zero_()
-                self._load_chunk(xs, b0, num)
+                self._next_chunk(xs, b0, num)
             for _ in range(num):
                 self.replay()
             count_replays(self.launches, num)
-            if fresh is None:
-                # Made while the card runs the first chunk's blocks.
-                sizes, places = self._result_layout(num_blocks)
-                fresh = {dtype: torch.empty(size, dtype=dtype, device=self.device)
-                         for dtype, size in sizes}
-                views = _views(fresh, places)
-                final, stacked = views[:len(self.carry_specs)], views[len(self.carry_specs):]
-            dsts = stacked if num == num_blocks else [dst[b0:b0 + num] for dst in stacked]
-            srcs = self._head(num)[0]
-            if b0 + num == num_blocks:
-                dsts = dsts + [fresh[dtype][:region.numel()]
-                               for dtype, (_, _, region) in self._carry_groups.items()]
-                srcs = srcs + [region for _, _, region in self._carry_groups.values()]
-            _copy(dsts, srcs)
-        if self._spare:
-            # A chained call holds its input, the last call's results, while
-            # it allocates its own: the first call leaves that much memory
-            # in the allocator's cache, so the next asks the device for none.
-            self._spare = False
-            spare = [torch.empty(size, dtype=dtype, device=self.device)
-                     for dtype, size in sizes]
-            del spare
-        return _rebuild(self.carry, iter(final)), _rebuild(self.out_tree, iter(stacked))
+            self._collect(b0, num, num_blocks)
+        return self._results()
+
+
+class Part(NamedTuple):
+    """One card's part of a `scan_mesh`: its carry and constants (trees of
+    tensors) and its scanned inputs (``[B, ...]`` tensors), on any device
+    (the call loads them onto ``device``), and the card."""
+
+    carry: object
+    xs: tuple
+    consts: object
+    device: torch.device
+
+
+def _streams_of(devices: list):
+    """Each CUDA card's current stream (None for a CPU device)."""
+    return [torch.cuda.current_stream(d) if d.type == "cuda" else None for d in devices]
+
+
+def _wait_all(waiter, streams) -> None:
+    """``waiter`` waits for each other stream of ``streams`` (no host wait)."""
+    for stream in streams:
+        if waiter is not None and stream is not None and stream != waiter:
+            waiter.wait_stream(stream)
+
+
+class _MeshEntry:
+    """One captured signature of `scan_mesh`: an `_Entry` per part (its
+    buffers, its load and its prologue on its card) and, per group of parts,
+    one graph of the group's block over its cards (`capture_mesh`; a group
+    on one card, `capture`), each replayed once per block."""
+
+    def __init__(self, step, prepare, parts: list, groups: list):
+        self.groups = groups
+        self.cards = [_Entry.__new__(_Entry) for _ in parts]
+        self.chunk = min(_chunk_of(part.xs) for part in parts)
+        for card, part in zip(self.cards, parts):
+            with _on(part.device):
+                card._setup(part.carry, part.xs, part.consts, part.device, self.chunk)
+        with _warming():
+            prepared, outs = self._warm_up(step, prepare)
+        for card, part, prep, out in zip(self.cards, parts, prepared, outs):
+            with _on(part.device):
+                card._lay_out(prepare, part.carry, part.consts, part.xs, prep, out)
+        self.replays = []
+        for group in groups:
+            devices = self._devices(group)
+            self.replays.append(capture_counted(self._body(step, group),
+                                                devices if len(devices) > 1 else devices[0]))
+
+    def _devices(self, group: list) -> list:
+        """The distinct cards of ``group``'s parts, its first part's first."""
+        return list(dict.fromkeys(self.cards[i].device for i in group))
+
+    def _warm_up(self, step, prepare):
+        """Every part's ``prepare`` and one eager block of each group's body,
+        each card's work on a side stream of its own; returns each part's
+        prepared constants and output."""
+        devices = list(dict.fromkeys(card.device for card in self.cards))
+        computes = _streams_of(devices)
+        sides = [torch.cuda.Stream(d) if d.type == "cuda" else None for d in devices]
+        outs = []
+        with contextlib.ExitStack() as stack:
+            for side, compute in zip(sides, computes):
+                if side is not None:
+                    side.wait_stream(compute)
+                    stack.enter_context(torch.cuda.stream(side))
+            prepared = []
+            for card in self.cards:
+                with _on(card.device):
+                    prepared.append(card.consts if prepare is None
+                                    else prepare(card._warm_carry, card.consts))
+            for group in self.groups:
+                with _on(self.cards[group[0]].device):
+                    _, group_outs = step(tuple(self.cards[i]._warm_carry for i in group),
+                                         tuple(prepared[i] for i in group),
+                                         tuple(self.cards[i]._block(step) for i in group))
+                for out in group_outs:
+                    _tensors(out)
+                outs += list(group_outs)
+        for side, compute in zip(sides, computes):
+            if side is not None:
+                compute.wait_stream(side)
+        return prepared, outs
+
+    def _body(self, step, group: list):
+        cards = [self.cards[i] for i in group]
+        sinks = [card._sink(step) for card in cards]
+        takes_sink = getattr(step, "takes_sink", False)
+
+        def body():
+            args = (tuple(card.carry for card in cards), tuple(card.prepared for card in cards),
+                    tuple(card._block(step) for card in cards))
+            new, outs = step(*args, tuple(sinks)) if takes_sink else step(*args)
+            for card, new_carry, out, sink in zip(cards, new, outs, sinks):
+                with _on(card.device):
+                    card._write(new_carry, out, sink)
+
+        return body
+
+    def run(self, parts: list) -> list:
+        """The scan of every part (its carry's, constants' and inputs'
+        leaves): each card's load and prologue on its card, then per block
+        one replay of each group's graph, every group's before the next
+        block's, each issued on its first card after its cards' loads; each
+        group's first card's results copied after its last block (the
+        other cards' replicas stay in their entries). The host waits on no
+        card."""
+        cards = self.cards
+        firsts = [cards[group[0]] for group in self.groups]
+        num_blocks = parts[0][1][0].shape[0]
+        for card, (carry, xs, consts) in zip(cards, parts):
+            with _on(card.device):
+                card._start(carry, xs, consts)
+        streams = [_streams_of(self._devices(group)) for group in self.groups]
+        for b0, num in _chunks(num_blocks, self.chunk):
+            if b0:
+                for card, (_, xs, _) in zip(cards, parts):
+                    with _on(card.device):
+                        card._next_chunk(xs, b0, num)
+            for group_streams in streams:
+                _wait_all(group_streams[0], group_streams)
+            for _ in range(num):
+                for group, (replay, _) in zip(self.groups, self.replays):
+                    with _on(cards[group[0]].device):
+                        replay()
+            for _, launches in self.replays:
+                count_replays(launches, num)
+            for group_streams in streams:
+                for stream in group_streams[1:]:
+                    _wait_all(stream, group_streams[:1])
+            for card in firsts:
+                with _on(card.device):
+                    card._collect(b0, num, num_blocks)
+        results = []
+        for card in firsts:
+            with _on(card.device):
+                results.append(card._results())
+        return results
+
+
+def _moved(tree, device: torch.device):
+    """``tree`` on ``device``: one copy per dtype of its leaves' flat
+    buffers (`_flat`), the leaves views of them."""
+    leaves = _leaves(tree)
+    if not leaves:
+        return tree
+    flat, places = _flat(leaves)
+    return _rebuild(tree, iter(_views({dtype: x.to(device) for dtype, x in flat.items()},
+                                      places)))
+
+
+def loop_mesh(step, parts: list, prepare=None, group: int | None = None) -> list:
+    """`scan_mesh`'s eager block loop: `loop` over the tuple of every
+    part's carry, constants and inputs, each moved onto its card (the
+    inputs contiguous, as an entry's chunk is), each part's ``prepare`` on
+    its card, and per block ``step`` over each group of parts. Returns each
+    group's first part's final carry and outputs stacked ``[B, ...]``."""
+    groups = _groups(len(parts), group)
+    moved = [(_moved(p.carry, p.device), tuple(x.to(p.device).contiguous() for x in p.xs),
+              _moved(p.consts, p.device)) for p in parts]
+    ends = list(itertools.accumulate(len(p.xs) for p in parts))
+
+    def prepare_all(carries, consts):
+        prepared = []
+        for part, carry, const in zip(parts, carries, consts):
+            with _on(part.device):
+                prepared.append(const if prepare is None else prepare(carry, const))
+        return tuple(prepared)
+
+    def body(carries, consts, block):
+        blocks = [block[end - len(p.xs):end] for p, end in zip(parts, ends)]
+        new, outs = list(carries), [None] * len(parts)
+        for members in groups:
+            with _on(parts[members[0]].device):
+                group_new, group_outs = step(*(tuple(arg[i] for i in members)
+                                               for arg in (carries, consts, blocks)))
+            for i, carry, out in zip(members, group_new, group_outs):
+                new[i], outs[i] = carry, out
+        return tuple(new), tuple(outs)
+
+    carries, outs = loop(body, tuple(m[0] for m in moved), tuple(x for m in moved for x in m[1]),
+                         tuple(m[2] for m in moved), prepare_all)
+    return [(carries[g[0]], outs[g[0]]) for g in groups]
+
+
+def _groups(num_parts: int, group: int | None) -> list:
+    """The parts' indices in groups of ``group`` (every part in one group
+    for None)."""
+    size = num_parts if group is None else int(group)
+    if size < 1 or num_parts % size:
+        raise ValueError(f"{num_parts} parts do not fall into groups of {size}")
+    return [list(range(g, g + size)) for g in range(0, num_parts, size)]
 
 
 def _code(step):
@@ -745,13 +1094,54 @@ def scan(step, carry, xs: tuple, consts=None, *, key, prepare=None):
     signature = (_code(step), key, _flatten(carry, carry_leaves), _specs(carry_leaves),
                  _flatten(consts, const_leaves), _specs(const_leaves), _specs(xs, drop=1),
                  _code(prepare))
-    entries = _ENTRIES.setdefault(device, collections.OrderedDict())
     with _on(device):
-        entry = entries.get(signature)
-        if entry is None:
-            entry = _Entry(step, prepare, carry, xs, consts, device)
-            entries[signature] = entry
-            while len(entries) > MAX_ENTRIES:
-                entries.popitem(last=False)
-        entries.move_to_end(signature)
+        entry = _cached(_ENTRIES, device, signature,
+                        lambda: _Entry(step, prepare, carry, xs, consts, device))
         return entry.run(carry_leaves, xs, const_leaves)
+
+
+def scan_mesh(step, parts: list, *, key, prepare=None, group: int | None = None) -> list:
+    """`scan` of one block body over several cards in lockstep, as the JAX
+    package's ``shard_map`` over a mesh runs one program on every device:
+    ``parts`` is a `Part` per card (distinct cards, or a card named more
+    than once), taken in groups of ``group`` consecutive parts (all in one
+    by default) that exchange data inside a block, where parts of two
+    groups exchange none; ``step(carries, consts, blocks) -> (carries,
+    outs)`` one block of a group's parts, each argument and result a tuple
+    over them in their order; ``prepare(carry, consts)``, if given, derives
+    a part's constants once per call on its card (a card's prologue). A
+    body marked `writes_outputs` takes a tuple of the parts' `Sink` as a
+    fourth argument in the capture, and `reads_chunk` a `Chunk` per part.
+
+    On CUDA cards (outside `eager()`) each part has an entry of its own,
+    its buffers on its card, its carry loaded from the caller's in one copy
+    per dtype where the caller's leaves lie as the entry lays them out (a
+    mesh's cut: `_layout` of the carry's leaves in one buffer per dtype),
+    its prologue replayed on its card; a group's block is one CUDA graph
+    over its cards (`capture_mesh`; on one card, `capture`), so a block's
+    cross-card copies and the orders they set between the cards' streams
+    are the graph's own, and the host issues one replay per group and
+    block. Else `loop_mesh`. A group's parts end as replicas of one another
+    (each card of a channel shard closes the loop on its own): returns each
+    group's first part's final carry and outputs stacked ``[B, ...]``, on
+    its card (on the cards: views of one fresh buffer per dtype, laid out as
+    a `scan` call's results; the other parts' final carries stay in their
+    entries)."""
+    devices = list(dict.fromkeys(p.device for p in parts))
+    groups = _groups(len(parts), group)
+    if not all(enabled(d) for d in devices):
+        return loop_mesh(step, parts, prepare, group)
+    if parts[0].xs[0].shape[0] == 0:
+        raise ValueError("scan over zero blocks")
+    flat = []
+    signature = [_code(step), key, _code(prepare), len(groups)]
+    for part in parts:
+        carry_leaves, const_leaves = [], []
+        signature += [part.device, _flatten(part.carry, carry_leaves), _specs(carry_leaves),
+                      _flatten(part.consts, const_leaves), _specs(const_leaves),
+                      _specs(part.xs, drop=1)]
+        flat.append((carry_leaves, part.xs, const_leaves))
+    with _on(devices[0]):
+        entry = _cached(_ENTRIES, tuple(devices), tuple(signature),
+                        lambda: _MeshEntry(step, prepare, parts, groups))
+        return entry.run(flat)

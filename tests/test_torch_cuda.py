@@ -5,6 +5,7 @@ neither jax nor the JAX package, so it runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import collections
 import pathlib
 import subprocess
 import sys
@@ -18,7 +19,7 @@ from gpuacceleratedtracking_tpu_torch.models import (
     GPSL1, GPSL5, BeiDouB1I, GalileoE1, GLONASSL1, EPLCorrelator, correlator_sample_shifts, gen_carrier, gen_signal,
     gen_signal_mixed, soa)
 from gpuacceleratedtracking_tpu_torch.ops import (
-    bank_comp, channel_kernels, epl_kernels, registry, replica_kernel)
+    bank_comp, channel_kernels, epl_kernels, loop_kernel, registry, replica_kernel)
 from gpuacceleratedtracking_tpu_torch.tracking import (
     TrackConfig, dual_config, init_state, state_from_numpy, track, track_bank,
     track_bank_dual)
@@ -522,6 +523,23 @@ def test_channel_kernel_in_two_cuda_graphs_on_two_streams(cuda, kernel, name):
             _assert_channel_close(got, want[i], n)
 
 
+SPINS = 4              # spin kernels that open a counted profiler session
+
+
+def _spin_first() -> None:
+    """Open a profiler session with `SPINS` spin kernels (~0.1 ms each),
+    left out of its counts (`_counted_ops`): torch.profiler may drop a short
+    session's first device events, so the counted calls come after these."""
+    for _ in range(SPINS):
+        torch.cuda._sleep(100_000)
+
+
+def _counted_ops(prof) -> list:
+    """The names of a session's device ops, its opening spin kernels left out."""
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name]
+
+
 def test_pallas_fused_call_is_one_device_op(cuda):
     # The kernel derives its parameters and reads the PRN's column itself:
     # a wrapper call issues the kernel and nothing else on the card.
@@ -532,11 +550,11 @@ def test_pallas_fused_call_is_one_device_op(cuda):
     torch.cuda.synchronize()
     calls = 10
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _spin_first()
         for _ in range(calls):
             channel_kernels.correlate_pallas_fused(*args)
         torch.cuda.synchronize()
-    device_ops = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ops = _counted_ops(prof)
     assert sum("fused_kernel" in name for name in device_ops) == calls
     assert len(device_ops) <= 2 * calls, device_ops
 
@@ -818,12 +836,27 @@ def test_sharded_bank_matches_track_bank_and_launches_chan_x_time_per_block(cuda
                                    rtol=5e-3, atol=10.0)
 
 
-def test_sharded_block_loop_does_not_wait_on_the_card(cuda):
-    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+def _distinct_cards(count: int) -> list:
+    """``count`` distinct cards, or a skip that names how many are visible."""
+    visible = torch.cuda.device_count()
+    if visible < count:
+        pytest.skip(f"needs {count} distinct cards, {visible} visible")
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+@pytest.mark.parametrize("cards", ["mesh devices", "2 x 2 on distinct cards",
+                                   "1 x 2 on distinct cards"])
+def test_sharded_block_loop_does_not_wait_on_the_card(cuda, cards):
+    from gpuacceleratedtracking_tpu_torch.parallel import (
+        channel_time_mesh, make_mesh, track_bank_sharded)
 
     fs, codes, states, sre, sim = _sharded_case(cuda, blocks=3)
     config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
-    mesh = channel_time_mesh(2, 2, devices=_mesh_devices(cuda))
+    if cards == "mesh devices":
+        mesh = channel_time_mesh(2, 2, devices=_mesh_devices(cuda))
+    else:
+        chan, time_ = (2, 2) if cards.startswith("2 x 2") else (1, 2)
+        mesh = make_mesh({"chan": chan, "time": time_}, devices=_distinct_cards(chan * time_))
     track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)   # builds the caches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -832,6 +865,105 @@ def test_sharded_block_loop_does_not_wait_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+CARD_MESHES = [(2, 1), (1, 2), (2, 2)]
+
+
+@pytest.mark.parametrize("axes", CARD_MESHES)
+def test_every_card_mesh_graph_equals_eager_with_chan_x_time_launches(cuda, monkeypatch, axes):
+    # On distinct cards (`graphs.scan_mesh`): the captured call equals the
+    # eager one bit for bit with chan x time bank launches a block, every
+    # time shard's replica of the carry (the eager loop's final carries, the
+    # entry's cards' carries after a captured call) equals its time-0
+    # card's, and the results come back on the mesh's first card.
+    from gpuacceleratedtracking_tpu_torch.parallel import make_mesh, track_bank_sharded
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    tree_leaves = graphs._leaves
+    chan, time_ = axes
+    cards = _distinct_cards(chan * time_)
+    blocks = 4
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=blocks)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    mesh = make_mesh({"chan": chan, "time": time_}, devices=cards)
+    graphs.clear()
+    finals = []
+    loop = graphs.loop
+
+    def spy(*args, **kwargs):
+        carries, outs = loop(*args, **kwargs)
+        finals.append(carries)
+        return carries, outs
+
+    monkeypatch.setattr(graphs, "loop", spy)
+    before = (epl_kernels.correlate_pallas_bank_rows.launches,
+              loop_kernel.loop_update_kernel.launches)
+    _graph_against_eager(lambda: track_bank_sharded(config, codes, states, sre, sim, mesh=mesh))
+    # Three calls (eager, capture, replay): a bank launch and a loop kernel
+    # per card and block.
+    assert (epl_kernels.correlate_pallas_bank_rows.launches - before[0],
+            loop_kernel.loop_update_kernel.launches - before[1]) == (
+        3 * chan * time_ * blocks, 3 * chan * time_ * blocks)
+    assert len(finals) == 1
+    (entry,) = graphs._ENTRIES[tuple(cards)].values()
+    for carries in (finals[0], tuple(card.carry for card in entry.cards)):
+        for c in range(chan):
+            for t in range(1, time_):
+                # Each replica on its own card, the same bits.
+                _assert_bitwise(*(tuple(x.cpu() for x in tree_leaves(carries[c * time_ + s]))
+                                  for s in (t, 0)))
+    final, out = track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    assert out.prompt_re.device == cards[0] and final.prn.device == cards[0]
+
+
+@pytest.mark.parametrize("axes", CARD_MESHES)
+def test_a_replayed_block_on_distinct_cards_is_each_cards_kernels(cuda, axes):
+    # Per card and replayed block: its bank launch, its partials' copies to
+    # the channel shard's other cards, one finish, one loop kernel and its
+    # index's add, nothing else (torch.profiler, after spin kernels; it may
+    # drop a session's first events: at most, and some).
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpuacceleratedtracking_tpu_torch.parallel import make_mesh, track_bank_sharded
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    chan, time_ = axes
+    cards = _distinct_cards(chan * time_)
+    fs, codes, states, sre, sim = _sharded_case(cuda, n=32768, blocks=2, k=1024)
+    config = TrackConfig.for_system(SYSTEM, fs, 32768, algorithm="pallas_bank_auto")
+    mesh = make_mesh({"chan": chan, "time": time_}, devices=cards)
+    graphs.clear()
+    track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    torch.cuda.synchronize()
+    (entry,) = graphs._ENTRIES[tuple(cards)].values()
+    assert [len(group) for group in entry.groups] == [time_] * chan
+    replays = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _spin_first()
+        for _ in range(replays):
+            for replay, _ in entry.replays:
+                replay()
+        for card in cards:
+            torch.cuda.synchronize(card)
+    graphs.clear()
+    per_card: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
+            per_card.setdefault(e.device_index, collections.Counter())[e.name] += 1
+    assert set(per_card) <= {card.index for card in cards}, per_card
+    for index, names in per_card.items():
+        def count(*keys):
+            return sum(n for name, n in names.items() if any(k in name for k in keys))
+
+        copies = count("Memcpy", "memcpy", "copy")
+        assert 1 <= count("bank_rows_kernel") <= replays, (index, names)
+        assert count("bank_rows_finish") <= replays and count("loop_update") <= replays, names
+        assert count("add") <= replays, (index, names)
+        assert copies <= (time_ - 1) * replays, (index, names)
+        assert sum(names.values()) <= (4 + time_ - 1) * replays, (index, names)
+    assert sum(count for names in per_card.values() for name, count in names.items()
+               if "bank_rows_finish" in name) >= 1
 
 
 @pytest.mark.parametrize("kernel", ["taps", "fused"])
@@ -1452,6 +1584,7 @@ def test_pallas_taps_call_is_the_replica_and_taps_kernels(cuda):
     calls = 10
     before = (replica_kernel.code_replica.launches, channel_kernels.correlate_pallas_taps.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _spin_first()
         for _ in range(calls):
             channel_kernels.correlate_pallas_taps(*args)
         torch.cuda.synchronize()
@@ -1460,8 +1593,7 @@ def test_pallas_taps_call_is_the_replica_and_taps_kernels(cuda):
     launched = (replica_kernel.code_replica.launches - before[0],
                 channel_kernels.correlate_pallas_taps.launches - before[1])
     assert launched == (calls, calls), f"(replica, taps) launches {launched}, want {calls} each"
-    device_ops = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ops = _counted_ops(prof)
     traced = (sum("replica_kernel" in name for name in device_ops),
               sum("taps_kernel" in name for name in device_ops))
     assert traced[0] == calls, (f"the profiler recorded {traced[0]} replica_kernel events for "

@@ -12,6 +12,7 @@ versions' `graphs.write_sink` here, the loop kernel on the card); the
 sharded bank's bodies for other correlators take none.
 """
 
+import contextlib
 import functools
 
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from gpuacceleratedtracking_tpu import models as jmodels
 from gpuacceleratedtracking_tpu import tracking as jtracking
 from gpuacceleratedtracking_tpu_torch import models as tmodels
+from gpuacceleratedtracking_tpu_torch import parallel as tparallel
 from gpuacceleratedtracking_tpu_torch import tracking as ttracking
 from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
 from gpuacceleratedtracking_tpu_torch.parallel import (
@@ -56,6 +58,7 @@ def captured(monkeypatch):
     """`graphs.scan` takes its captured path on CPU tensors."""
     monkeypatch.setattr(graphs, "enabled", lambda device: not graphs._EAGER)
     monkeypatch.setattr(graphs, "capture", _plain_capture)
+    monkeypatch.setattr(graphs, "capture_mesh", _plain_capture)
     monkeypatch.setattr(graphs, "CHUNK", CHUNK_BLOCKS)
     graphs.clear()
     yield graphs._ENTRIES
@@ -980,3 +983,200 @@ def test_a_state_on_one_storage_in_another_layout_is_loaded_leaf_by_leaf(capture
     with graphs.eager():
         want = call(swapped, 2, BLOCKS)
     _assert_same(call(swapped, 2, BLOCKS), want)
+
+
+# --- The sharded bank on distinct devices: `graphs.scan_mesh`, a card per
+# (chan, time) shard. The CPU's devices named apart ("cpu:0".."cpu:3") take
+# the distinct-card path; their tensors all lie on the CPU.
+
+DISTINCT = [torch.device("cpu", i) for i in range(4)]
+MESH_ROUTES = ["rows", "comp_a2", "transition", "onehot"]
+
+
+def _mesh_case(name, axes):
+    algorithm, n, fs, k, num_ants, extra = BANK_CASES[name]
+    system, codes, states, sre, sim = _l1_case(n, fs, k, num_ants)
+    config = ttracking.TrackConfig.for_system(system, fs, n, algorithm=algorithm, **extra)
+    mesh = tparallel.make_mesh({"chan": axes[0], "time": axes[1]}, devices=DISTINCT)
+    return config, codes, states, sre, sim, mesh
+
+
+def _spy_scan_mesh(monkeypatch) -> list:
+    """Each `graphs.scan_mesh` call's per-part results, as it returns them."""
+    seen = []
+    scan_mesh = graphs.scan_mesh
+
+    def spy(*args, **kwargs):
+        results = scan_mesh(*args, **kwargs)
+        seen.append(results)
+        return results
+
+    monkeypatch.setattr(graphs, "scan_mesh", spy)
+    return seen
+
+
+@pytest.mark.parametrize("axes", [(2, 2), (1, 2), (2, 1), (4, 1)])
+@pytest.mark.parametrize("name", MESH_ROUTES)
+def test_a_distinct_card_mesh_replays_the_eager_loop_and_the_one_device_mesh(captured, name,
+                                                                             axes):
+    # The captured path (a card entry per shard, a graph per channel shard
+    # over its cards) against the eager loop over the same cards and the
+    # one-device mesh, bit for bit, over two chunks and a tail; a second
+    # call from the first's final state chains as a second eager call.
+    config, codes, states, sre, sim, mesh = _mesh_case(name, axes)
+    one = tparallel.channel_time_mesh(*axes, devices=["cpu"] * 4)
+    with graphs.eager():
+        want = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+        want2 = tparallel.track_bank_sharded(config, codes, want[0], sre, sim, mesh=mesh)
+        _assert_same(tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=one),
+                     want)
+    got = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    (entry,) = captured[tuple(DISTINCT[:axes[0] * axes[1]])].values()
+    assert type(entry).__name__ == "_MeshEntry" and len(entry.cards) == axes[0] * axes[1]
+    assert [len(group) for group in entry.groups] == [axes[1]] * axes[0]
+    _assert_same(got, want)
+    _assert_same(tparallel.track_bank_sharded(config, codes, got[0], sre, sim, mesh=mesh), want2)
+
+
+@pytest.mark.parametrize("path", ["eager", "captured"])
+@pytest.mark.parametrize("axes", [(2, 2), (1, 2)])
+def test_every_time_shards_replica_of_the_carry_equals_the_time_zero_cards(
+        captured, monkeypatch, axes, path):
+    # Every card of a channel shard closes the loop on its own replica of the
+    # carry, from the same partials in the same order: each time shard's
+    # final carry (the eager loop's, or its card entry's after a captured
+    # call) equals its time-0 card's bit for bit, and the call returns the
+    # time-0 cards' results.
+    config, codes, states, sre, sim, mesh = _mesh_case("rows", axes)
+    seen = _spy_scan_mesh(monkeypatch)
+    finals = []
+    loop = graphs.loop
+
+    def spy(*args, **kwargs):
+        carries, outs = loop(*args, **kwargs)
+        finals.append(carries)
+        return carries, outs
+
+    monkeypatch.setattr(graphs, "loop", spy)
+    with graphs.eager() if path == "eager" else contextlib.nullcontext():
+        final, out = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    num_chan, num_time = axes
+    if path == "captured":
+        assert not finals
+        (entry,) = captured[tuple(DISTINCT[:num_chan * num_time])].values()
+        finals.append(tuple(card.carry for card in entry.cards))
+    (results,), (carries,) = seen, finals
+    assert len(results) == num_chan and len(carries) == num_chan * num_time
+    per = states.prn.shape[0] // num_chan
+    for c in range(num_chan):
+        lead_final, lead_out = results[c]
+        for t in range(num_time):
+            _assert_same(carries[c * num_time + t], lead_final)
+        rows = slice(c * per, (c + 1) * per)
+        for g, w in zip(_leaves(lead_final), _leaves(final)):
+            assert torch.equal(g, w[rows])
+        for g, w in zip(_leaves(lead_out), _leaves(out)):
+            assert torch.equal(g, w[:, rows])
+
+
+@pytest.mark.parametrize("name", MESH_ROUTES)
+def test_distinct_cards_run_no_eager_loop_and_pack_their_shards_tiles(captured, monkeypatch,
+                                                                      name):
+    # The bank routes on distinct cards never reach `graphs.loop` outside
+    # `graphs.eager()` (where `graphs.loop_mesh` is that loop); each card's
+    # prologue packs the code tiles of its channel shard's PRNs, as
+    # `_bank_code_tile_kwargs` packs them.
+    from gpuacceleratedtracking_tpu_torch.tracking.track import _bank_code_tile_kwargs
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the eager block loop ran")
+
+    config, codes, states, sre, sim, mesh = _mesh_case(name, (2, 2))
+    with graphs.eager():
+        want = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    monkeypatch.setattr(graphs, "loop", refused)
+    got = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    _assert_same(got, want)
+    (entry,) = captured[tuple(DISTINCT)].values()
+    per = states.prn.shape[0] // 2
+    for i, card in enumerate(entry.cards):
+        c = i // 2
+        tiles = _bank_code_tile_kwargs(config, codes,
+                                       states.prn[c * per:(c + 1) * per])["code_tiles"]
+        assert card.device == DISTINCT[i]
+        assert torch.equal(card.prepared[1], tiles)
+        assert torch.equal(card.carry.prn, states.prn[c * per:(c + 1) * per])
+
+
+def test_a_distinct_card_call_cuts_and_joins_one_copy_per_dtype_per_card(captured,
+                                                                          monkeypatch):
+    # A steady 2 x 2 call's copies outside its replays: the cut is one
+    # multi-tensor copy per dtype on the first device, each card loads its
+    # carry as one region per dtype (with its code table and first chunk, one
+    # multi-tensor copy per pair of dtypes), each channel shard's time-0 card
+    # copies its results once per pair of dtypes (the other cards' replicas
+    # stay in their entries), and the join moves each channel shard's results in one
+    # copy per dtype and gathers them in one op per dtype. The results lie
+    # as an unsharded call's: one buffer per dtype, each leaf where
+    # `track_bank`'s results put it.
+    monkeypatch.setattr(graphs, "CHUNK", BLOCKS)
+    config, codes, states, sre, sim, mesh = _mesh_case("rows", (2, 2))
+    tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    counting = [True]
+    calls = {"foreach": 0, "copy_": 0, "index_select": 0, "loaded_regions": 0}
+
+    def replays_uncounted(replay):
+        def run():
+            counting[0] = False
+            try:
+                replay()
+            finally:
+                counting[0] = True
+        return run
+
+    for entry in graphs._ENTRIES[tuple(DISTINCT)].values():
+        entry.replays = [(replays_uncounted(r), n) for r, n in entry.replays]
+        for card in entry.cards:
+            card.prologue = replays_uncounted(card.prologue)
+    foreach, copy_, select = torch._foreach_copy_, torch.Tensor.copy_, torch.index_select
+    flat_source = graphs._flat_source
+
+    def count(name, fn):
+        def wrapped(*args, **kwargs):
+            if counting[0]:
+                calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def regions(*args, **kwargs):
+        src = flat_source(*args, **kwargs)
+        calls["loaded_regions"] += src is not None
+        return src
+
+    with monkeypatch.context() as spies:
+        spies.setattr(torch, "_foreach_copy_", count("foreach", foreach))
+        spies.setattr(torch.Tensor, "copy_", count("copy_", copy_))
+        spies.setattr(torch, "index_select", count("index_select", select))
+        spies.setattr(graphs, "_flat_source", regions)
+        final, out = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    carry_dtypes = {x.dtype for x in _leaves(states)}
+    result_dtypes = carry_dtypes | {x.dtype for x in _leaves(out)}
+    load_pairs = len(carry_dtypes | {codes.dtype, sre.dtype})
+    cards, shards = 4, 2
+    assert calls == {
+        "foreach": len(carry_dtypes) + cards * load_pairs + shards * len(result_dtypes),
+        "copy_": shards * len(result_dtypes),
+        "index_select": len(result_dtypes),
+        # each card's carry, and each channel shard's results, one region a dtype
+        "loaded_regions": cards * len(carry_dtypes) + shards * len(result_dtypes),
+    }
+    with graphs.eager():
+        _, want = ttracking.track_bank(config, codes, states, sre, sim)
+    unsharded = ttracking.track_bank(config, codes, states, sre, sim)
+    for tree in ((final, out), unsharded):
+        for dtype in result_dtypes:
+            assert len({x.untyped_storage().data_ptr() for x in _leaves(tree)
+                        if x.dtype == dtype}) == 1
+    assert ([x.storage_offset() for x in _leaves((final, out))]
+            == [x.storage_offset() for x in _leaves(unsharded)])
+    torch.testing.assert_close(out.prompt_re, want.prompt_re, rtol=2e-3, atol=1e-2 * 4096)

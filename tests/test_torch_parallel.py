@@ -437,21 +437,24 @@ def test_every_bank_route_shards_as_in_jax_on_every_mesh(route, axes):
     _assert_tracks_match(final, out, want_final, want)
 
 
-@pytest.mark.parametrize("algorithm", ["pallas_bank_rows", "pallas_bank_comp", "xla_bank"])
-@pytest.mark.parametrize("axes", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("algorithm", ["pallas_bank_rows", "pallas_bank_comp", "pallas_bank",
+                                       "pallas_bank_onehot", "xla_bank"])
+@pytest.mark.parametrize("axes", [(2, 2), (4, 1), (1, 2), (2, 1)])
 def test_distinct_device_branches_equal_the_one_device_branch(algorithm, axes):
     # Mesh devices named apart ("cpu:0".."cpu:3", whose tensors all lie on
-    # the CPU) take the distinct-card branches: a time axis runs the eager
-    # loop over per-shard pieces (a bank kernel's shard reading its own
-    # piece at offset 0), time 1 a scan per channel shard. Both give the
-    # one-device branch's results bit for bit.
+    # the CPU) take the distinct-card branches: a bank route runs
+    # `graphs.scan_mesh`, each card closing the loop on its own replica of
+    # its channel shard (a time shard reading its own piece at offset 0);
+    # another correlator's time axis runs the eager loop over per-shard
+    # pieces, time 1 a scan per channel shard. All give the one-device
+    # branch's results bit for bit.
     config, states, sre, sim = _port_bank_case(algorithm, num_ms=3)
     if algorithm == "pallas_bank_comp":
         sre, sim = (torch.stack([x, 0.5 * x], dim=1) for x in (sre, sim))
     codes = torch.as_tensor(TSYSTEM.codes)
     distinct = tparallel.make_mesh({"chan": axes[0], "time": axes[1]},
                                    devices=[torch.device("cpu", i) for i in range(4)])
-    assert len({str(d) for d in distinct.devices.flat}) == 4
+    assert len({str(d) for d in distinct.devices.flat}) == axes[0] * axes[1]
     got = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=distinct)
     want = tparallel.track_bank_sharded(config, codes, states, sre, sim,
                                         mesh=tparallel.channel_time_mesh(*axes, devices=CPUS))
@@ -539,7 +542,10 @@ def test_a_shard_sum_refuses_a_call_without_a_shard_and_a_missing_shard():
 
 # --- The dual bank.
 
-def test_dual_bank_sharded_matches_jax():
+@pytest.mark.parametrize("devices", ["repeated", "distinct"])
+def test_dual_bank_sharded_matches_jax(devices):
+    # "distinct": the channel shards on devices named apart, each its own
+    # `track_bank_dual` call, cut and joined one copy per dtype.
     sys_i, sys_q = jmodels.GPSL5(), jmodels.GPSL5(quadrature=True)
     n, num_ms, k = 16384, 6, 4
     fs = n / 1e-3
@@ -554,9 +560,10 @@ def test_dual_bank_sharded_matches_jax():
         jnp.asarray(sre), jnp.asarray(sim), mesh=jparallel.channel_time_mesh(4, 1))
     tcfg, tstates = _port_config(cfg), _port_states(states)
     codes_i, codes_q = torch.as_tensor(sys_i.codes), torch.as_tensor(sys_q.codes)
+    mesh_devices = CPUS if devices == "repeated" else [torch.device("cpu", i) for i in range(4)]
     final, out = tparallel.track_bank_dual_sharded(
         tcfg, codes_i, codes_q, tstates, _t(sre), _t(sim),
-        mesh=tparallel.channel_time_mesh(4, 1, devices=CPUS))
+        mesh=tparallel.channel_time_mesh(4, 1, devices=mesh_devices))
     assert out.pilot.prompt_re.shape == (num_ms, k) and out.data_prompt_re.shape == (num_ms, k)
     # tests/test_parallel.py:352-363, over the first 3 blocks. No channel
     # starts on its signal (channel 0 is 1600 Hz off it), so the loops are

@@ -228,14 +228,40 @@ def test_extract_device_times_on_a_hand_made_trace(tmp_path):
     assert extract_device_times(path, 2)["trace_file"] == str(path)
 
 
+def test_extract_device_times_splits_the_cards():
+    # Two cards: card 0 a kernel and a peer copy, card 1 (named by
+    # args.device, its pid another) a kernel; each card's idle time and busy
+    # share over the window of both, 100..200 us, over 2 reps.
+    def x(cat, name, ts, dur, card, pid=None):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "pid": card if pid is None else pid, "args": {"device": card}}
+
+    trace = {"traceEvents": [
+        x("kernel", "bank", 100.0, 20.0, 0),
+        x("gpu_memcpy", "Memcpy PtoP (Device -> Device)", 120.0, 10.0, 0),
+        x("kernel", "bank", 110.0, 30.0, 1, pid=7),
+        x("kernel", "finish", 190.0, 10.0, 1, pid=7),
+    ]}
+    got = extract_device_times(trace, reps=2)
+    assert got["busy_share"] == 0.5 and got["window_per_call_ms"] == 0.05
+    assert got["per_device"] == {
+        "0": {"device_events": 2, "device_per_call_ms": 0.015, "copy_per_call_ms": 0.005,
+              "idle_per_call_ms": 0.035, "busy_share": 0.3},
+        "1": {"device_events": 2, "device_per_call_ms": 0.02, "copy_per_call_ms": 0.0,
+              "idle_per_call_ms": 0.03, "busy_share": 0.4},
+    }
+
+
 def test_profile_of_cpu_calls_has_the_keys_and_no_device_rows(tmp_path):
     a = torch.randn(64, 64)
     got = profile_calls(lambda x: x @ x, (a,), reps=3, label="matmul", trace_path=tmp_path / "t.json")
     assert got["reps"] == 3 and got["wall_s"] > 0 and (tmp_path / "t.json").exists()
+    assert 0 < got["host_per_call_ms"] <= got["per_call_ms"]
     line = got["device_timeline"]
     assert set(line) == {"trace_file", "device_events", "rows", "device_per_call_ms",
-                         "window_per_call_ms", "busy_share", "gaps"}
+                         "window_per_call_ms", "busy_share", "gaps", "per_device"}
     assert line["device_events"] == 0 and line["rows"] == {} and line["gaps"] == []
+    assert line["per_device"] == {}
     assert line["busy_share"] is None and line["device_per_call_ms"] is None
     assert profile_calls(lambda: a + 1, reps=1)["device_timeline"]["trace_file"] is None
 
