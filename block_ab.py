@@ -37,8 +37,12 @@ entry points a user calls:
 - on a machine with several cards, ``cards_leg``:
   the rows bank on meshes of distinct cards, 4 x 1, 2 x 2, 2 x 1 and 1 x 2
   at K=1024 and 4 x 1 at K=4096, beside the unsharded K=1024 and K=4096
-  banks on one card, ms and device ops per block of 10-block calls
-  (``--cards``: this leg alone, a turn in ~1 min).
+  banks on one card, ms and device ops per block of 10-block calls; and
+  the correlators without code tiles (`CHANNEL_RUNS`: ``pallas_fused`` and
+  ``pallas_taps`` at K=32, N=2^18, A=4, L=7 on 1 x 2, 2 x 2, 2 x 1 and 4 x 1,
+  ``fused_xla`` and ``xla_bank`` at K=1024, N=32768 on 2 x 2 and 4 x 1),
+  each beside its unsharded call, with also a steady call's host ops and
+  each card's busy share (``--cards``: this leg alone).
 
 ``--dual ROUNDS`` instead times, in this tree and one process, the one-card
 ``track_bank_dual_sharded`` (one graph for every channel shard) against
@@ -66,15 +70,63 @@ ROOT = pathlib.Path(__file__).resolve().parent
 BLOCKS = 10
 
 
+def channel_bank_case(algorithm: str, num_k: int = 32, n: int = 1 << 18, num_ants=4,
+                      taps: int = 7, blocks: int = BLOCKS, device="cuda"):
+    """A GPS L1 bank of ``num_k`` channels (PRN k mod 32) over ``blocks``
+    noiseless 1 ms blocks of ``n`` samples (fs = n kHz) on ``num_ants``
+    antennas (None: ``[B, N]`` planes), PRNs 0-2 in the signal at -900,
+    100 and 1500 Hz and the other channels' Dopplers spread over +-4 kHz,
+    ``taps`` correlators: ``(config, codes, states, sre, sim)`` for
+    ``algorithm``. By default the per-channel kernels' sharded shape, the
+    top corner of the paper's sweep (K=32, N=2^18, A=4, L=7); K=1024,
+    N=32768, A=None, L=3 is the batched correlators'."""
+    import numpy as np
+    import torch
+
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1, gen_signal_mixed, soa
+    from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, init_state
+
+    system = GPSL1()
+    dops = np.linspace(-4000.0, 4000.0, num_k)
+    dops[:3] = [-900.0, 100.0, 1500.0]
+    sig, fs = gen_signal_mixed(system, [0, 1, 2], dops[:3], n * blocks, num_ants=num_ants,
+                               duration=blocks * 1e-3, device=device)
+    if num_ants:
+        sre, sim = (x.reshape(num_ants, blocks, n).transpose(0, 1).contiguous()
+                    for x in soa(sig))
+    else:
+        sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    del sig
+    config = TrackConfig.for_system(system, fs, n, num_correlators=taps, algorithm=algorithm)
+    states = init_state(np.arange(num_k) % 32, carrier_doppler=dops, num_taps=taps,
+                        device=device)
+    return config, torch.as_tensor(system.codes, device=device), states, sre, sim
+
+
+# The correlators without code tiles on distinct cards: algorithm ->
+# (`channel_bank_case`'s shape, the meshes beside the unsharded call).
+CHANNEL_RUNS = {
+    "pallas_fused": ({}, ((1, 2), (2, 2), (2, 1), (4, 1))),
+    "pallas_taps": ({}, ((1, 2), (2, 2), (2, 1), (4, 1))),
+    "fused_xla": (dict(num_k=1024, n=1 << 15, num_ants=None, taps=3), ((2, 2), (4, 1))),
+    "xla_bank": (dict(num_k=1024, n=1 << 15, num_ants=None, taps=3), ((2, 2), (4, 1))),
+}
+
+
 def cards_leg(system, codes, sre, sim, states, rows) -> dict:
     """``track_bank_sharded`` of the rows bank on meshes of distinct cards
     (every mesh the visible cards hold: 4 x 1, 2 x 2, 2 x 1, 1 x 2 at K=1024,
     4 x 1 at K=4096) and the unsharded K=1024 and K=4096 banks on one card:
-    ms and device ops per block of 10-block calls."""
+    ms and device ops per block of 10-block calls. Then the correlators
+    without code tiles of `CHANNEL_RUNS`, unsharded and on their meshes
+    that the cards hold: ms and device ops per block, a steady call's host
+    ops (`chip_smoke.host_ops`: dispatched ops, CUDA runtime calls) and each
+    card's busy share (`bench.profile.profile_calls`)."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
+    from gpuacceleratedtracking_tpu_torch.bench.profile import profile_calls
     from gpuacceleratedtracking_tpu_torch.parallel import make_mesh, track_bank_sharded
     from gpuacceleratedtracking_tpu_torch.tracking import init_state, track_bank
 
@@ -100,6 +152,30 @@ def cards_leg(system, codes, sre, sim, states, rows) -> dict:
     for name, run in runs.items():
         result[f"{name}_block_ms"] = cs.time_cuda(run, warmup=2)[0] / BLOCKS
         result[f"{name}_device_ops_per_block"] = cs.device_profile(run, calls=2)[0] / BLOCKS
+    for algorithm, (shape, meshes) in CHANNEL_RUNS.items():
+        config, codes_a, states_a, sre_a, sim_a = channel_bank_case(algorithm, **shape)
+        label = (f"{algorithm.removeprefix('pallas_')}_K{states_a.prn.shape[0]}"
+                 f"_A{sre_a.shape[1] if sre_a.ndim == 3 else 1}_L{len(config.sample_shifts)}")
+        calls = {f"unsharded_{label}": lambda st, c=config: track_bank(c, codes_a, st, sre_a,
+                                                                       sim_a)}
+        for chan, time_ in meshes:
+            if chan * time_ <= cards:
+                mesh = make_mesh({"chan": chan, "time": time_},
+                                 devices=[torch.device("cuda", i) for i in range(chan * time_)])
+                calls[f"cards_{chan}x{time_}_{label}"] = (
+                    lambda st, c=config, m=mesh: track_bank_sharded(c, codes_a, st, sre_a,
+                                                                    sim_a, mesh=m))
+        for name, call in calls.items():
+            run = lambda call=call: call(states_a)   # noqa: E731
+            result[f"{name}_block_ms"] = cs.time_cuda(run, warmup=2)[0] / BLOCKS
+            result[f"{name}_device_ops_per_block"] = cs.device_profile(run, calls=2)[0] / BLOCKS
+            ops = cs.host_ops(call, states_a)
+            result[f"{name}_host_ops_per_call"] = ops["dispatched_ops"]
+            result[f"{name}_runtime_calls_per_call"] = sum(ops["runtime_calls"].values())
+            busy = profile_calls(run, reps=5, label=name)["device_timeline"]["per_device"]
+            for card, line in busy.items():
+                result[f"{name}_card{card}_busy_share"] = line["busy_share"]
+        del sre_a, sim_a
     return result
 
 
@@ -292,7 +368,8 @@ def main(argv=None) -> int:
         result = dict(turn(root, args.cards), version=label)
         print(json.dumps(result), flush=True)
         turns.append(result)
-    keys = [k for k in turns[0] if k.endswith(("_ms", "_per_block")) and k in turns[-1]]
+    keys = [k for k in turns[0]
+            if k.endswith(("_ms", "_per_block", "_per_call", "_share")) and k in turns[-1]]
     summary = {label: {k: statistics.median(t[k] for t in turns if t["version"] == label)
                        for k in keys} for label in ("old", "new")}
     summary["card"] = turns[0]["card"]

@@ -178,8 +178,10 @@ Drives the port's main paths once on the card and exits nonzero on any failure:
      chan 2; J5 ``correlate_sharded`` through ``pallas_taps`` and
      ``pallas_fused`` at N=2^18 A=4 L=7 over ant 4 x time 2 and N=2^17 over
      time 8, against the unsharded call; J6 the one-hot route at K=64 on
-     2 x 2. Each kernel's launches here are ``parallel`` in
-     ``launches_by_path``;
+     2 x 2; J7 ``track_bank_sharded`` through ``pallas_fused`` and
+     ``pallas_taps`` at K=32, N=2^18, A=4, L=7 on 1 x 2 and 2 x 2 against
+     ``track_bank`` (K x time launches a block). Each kernel's launches
+     here are ``parallel`` in ``launches_by_path``;
    - K, the figures: ``bench.plots.plot_kernel_benchmarks`` from C's
      ``kernel_sweep/`` records and ``plot_track_benchmark`` from the
      ``run_track_benchmark`` records of D and E (written to
@@ -2678,9 +2680,11 @@ def shard_cells(seed):
         worst[kernel] = max(worst.get(kernel, 0.0), err)
         log(f"[J0] {kernel} {cell}: {system.name} N={n} K={k} A={a} L={taps}: "
             f"max|kernel-plain|={err!r} ok")
-    # J5's shards: N=2^18 A=4 over ant 4 x time 2, N=2^17 over time 8.
-    for cell, n, taps in (("j5_n131072_l7", 1 << 17, 7), ("j5_n16384_l3", 1 << 14, 3)):
-        args = channel_args("GPSL1", n, 1, taps, 0, 1500.0, 0.3, 17.5)
+    # J5's shards: N=2^18 A=4 over ant 4 x time 2, N=2^17 over time 8; J7's
+    # time shard of N=2^18 A=4 L=7.
+    for cell, n, a, taps in (("j5_n131072_l7", 1 << 17, 1, 7), ("j5_n16384_l3", 1 << 14, 1, 3),
+                             ("j7_n131072_a4_l7", 1 << 17, NUM_ANTS, 7)):
+        args = channel_args("GPSL1", n, a, taps, 0, 1500.0, 0.3, 17.5)
         for kind in ("taps", "fused"):
             got = getattr(channel_kernels, f"correlate_pallas_{kind}")(*args)
             want = getattr(channel_kernels, f"correlate_{kind}_reference")(*args)
@@ -2688,7 +2692,7 @@ def shard_cells(seed):
             err = max(within(f"[J0] {kind} {cell}", g, w, 1e-6 * n + 1e-3, 0.0)
                       for g, w in zip(got, want))
             worst[kind] = max(worst.get(kind, 0.0), err)
-            log(f"[J0] {kind} {cell}: N={n} A=1 L={taps}: max|kernel-plain|={err!r} ok")
+            log(f"[J0] {kind} {cell}: N={n} A={a} L={taps}: max|kernel-plain|={err!r} ok")
     for kernel, err in shard_form_cells(seed).items():
         worst[f"{kernel}_shard_form"] = err
     return worst
@@ -3121,6 +3125,52 @@ def sharded_onehot_path(system, blocks: int = 10, k: int = 64, n: int = 8192):
     return counts["bank_onehot"]
 
 
+def sharded_channel_path(blocks: int = 10):
+    """J7: `track_bank_sharded` on the per-channel kernels at their sharded
+    shape (`block_ab.channel_bank_case`: K=32 GPS L1 channels, N=2^18 at
+    262.144 MHz, A=4, L=7; PRNs 0-2 in the signal) on 1 x 2 and 2 x 2 over
+    `mesh_devices`, for ``blocks`` blocks, against unsharded `track_bank`
+    on the same kernel (J6's tolerances). Per block: K x time correlator
+    launches (``pallas_taps``: as many replica launches) and a loop kernel
+    per channel shard (on distinct cards, per card)."""
+    from block_ab import channel_bank_case
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+    from gpuacceleratedtracking_tpu_torch.tracking import track_bank
+
+    launches = {"taps": 0, "fused": 0, "replica": 0}
+    for algorithm in ("pallas_fused", "pallas_taps"):
+        kind = algorithm[len("pallas_"):]
+        config, codes, states, sre, sim = channel_bank_case(algorithm, blocks=blocks)
+        num_k = states.prn.shape[0]
+        _, ref = track_bank(config, codes, states, sre, sim)
+        for chan, time_ in ((1, 2), (2, 2)):
+            mesh = channel_time_mesh(chan, time_, devices=mesh_devices(chan * time_))
+            distinct = len({str(d) for d in mesh.devices.flat}) > 1
+            reset_counts()
+            final, out = track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            per = num_k * time_ * blocks
+            expected = {kind: per, "replica": per} if kind == "taps" else {kind: per}
+            check(counts == only(**expected), f"J7 {kind} {chan}x{time_}: K x time launches a "
+                  f"block, got {counts}")
+            loops = note_loop("parallel", (chan * time_ if distinct else chan) * blocks)
+            for name in expected:
+                launches[name] += counts[name]
+            check(out.accum_re.shape == (blocks, num_k, 4, 7), f"J7 {kind} accum shape")
+            for field, x in (*out._asdict().items(), ("final code_phase", final.code_phase)):
+                check(bool(torch.isfinite(x.float()).all()), f"J7 {kind} {field} finite")
+            d0, dl = close_prompts(f"J7 {kind} {chan}x{time_}", out.prompt_re, ref.prompt_re, 3,
+                                   atol=10.0)
+            where = "distinct cards" if distinct else "one card"
+            log(f"[J7] track_bank_sharded K={num_k} N={config.num_samples} A=4 L=7 {blocks} "
+                f"blocks via {algorithm} on {chan}x{time_} ({where}): {counts[kind]} {kind} "
+                f"launches ({num_k * time_} per block), {loops} loop kernels; vs track_bank "
+                f"block 0 max|d prompt_re| {d0!r}, 3 locked channels {dl!r}")
+        del sre, sim, ref, out
+    return launches
+
+
 def parallel_path(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
     """Phase J, the distributed layer: each leg with the counts set to 0 just
     before it and read just after. Returns each kernel's launches in all legs,
@@ -3143,6 +3193,8 @@ def parallel_path(system, seed, sre, sim, sre_l5, sim_l5, l5_offsets, card):
     for kernel, count in sharded_correlate_path().items():
         launches[kernel] += count
     launches["bank_onehot"] += sharded_onehot_path(system)
+    for kernel, count in sharded_channel_path().items():
+        launches[kernel] += count
     check(all(launches.values()), f"phase J launched every kernel: {launches}")
     return launches, errs, {"rows_K1024": times, "array_K1024_A4_L7": times_a,
                             "l5_dual_K64": times_l5,
@@ -3403,7 +3455,7 @@ SPINS = 4               # spin kernels that open a profiled session
 SESSIONS = 5            # profiled sessions of one part before a lost trace is an error
 
 
-def traced_ops(part, replays: int = REPLAYS) -> collections.Counter:
+def traced_ops(part, replays: int = REPLAYS, by_card: bool = False) -> collections.Counter:
     """The device ops, by name and count, of ``replays`` calls of ``part``
     under torch.profiler, between ``SPINS`` opening spin kernels and one
     closing spin kernel, which are left out. torch.profiler sometimes loses
@@ -3411,15 +3463,20 @@ def traced_ops(part, replays: int = REPLAYS) -> collections.Counter:
     counts only where a spin kernel it recorded ran before every other op
     and another after every other op (all ``SPINS + 1`` where it recorded
     no other op), so the tracer was live across the counted calls. Such a
-    session is made anew, at most ``SESSIONS`` times in all."""
+    session is made anew, at most ``SESSIONS`` times in all. With
+    ``by_card`` the counts are by (card index, name), over every visible
+    card: the closing spin kernel waits for every card's work."""
     from torch.profiler import ProfilerActivity, profile
 
+    cards = range(torch.cuda.device_count()) if by_card else ()
     for session in range(SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(SPINS):
                 torch.cuda._sleep(100_000)
             for _ in range(replays):
                 part()
+            for i in cards:
+                torch.cuda.current_stream().wait_stream(torch.cuda.current_stream(i))
             torch.cuda._sleep(100_000)
             torch.cuda.synchronize()
         device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -3431,7 +3488,8 @@ def traced_ops(part, replays: int = REPLAYS) -> collections.Counter:
         else:
             live = len(spins) == SPINS + 1
         if live:
-            return collections.Counter(e.name[:120] for e in ops)
+            return collections.Counter((e.device_index, e.name[:120]) if by_card
+                                       else e.name[:120] for e in ops)
         log(f"[L block] profiled session {session + 1} of {SESSIONS} lost device events "
             f"({len(spins)} of {SPINS + 1} spin kernels, {len(ops)} other ops): made anew")
     raise RuntimeError(f"torch.profiler lost device events in {SESSIONS} sessions in a row")

@@ -38,9 +38,21 @@ its outputs and carry through the entry's sink.
   card in one copy per dtype, and one gather per dtype lays them out as an
   unsharded call's (`_join_channels`).
 
-Other correlators cut each shard's piece and advance its phases with torch
-ops, sum each channel shard's partials on its lead device and close the
-loop there once; their loop closure returns its outputs (`_mesh_step`).
+Other correlators (`pallas_fused`, `pallas_taps`, `fused_xla`,
+`unfused_xla`, `xla_bank`) advance each time shard's phases with torch ops
+(`parallel.correlate.advance_phases`) and correlate its piece with the
+bank's correlator (K_local launches of a per-channel kernel).
+
+- Where every mesh device is one card, one `graphs.scan` runs every channel
+  shard's body: each shard's piece is cut inside the block, the partials
+  summed in order on the shard's lead device and the loop closed there once,
+  its loop closure returning its outputs (`_mesh_step`).
+- On distinct cards the call is the bank routes' `graphs.scan_mesh`, with
+  the body `_card_step_without_tiles`: each card advances its own replica of
+  the carry to its piece and correlates it, every card's partials go to
+  every card of its channel shard after every card's correlator is
+  launched, and every card adds them in shard order and closes the loop on
+  its replica through its sink.
 """
 
 from __future__ import annotations
@@ -152,43 +164,32 @@ def _per_device(x: torch.Tensor, cache: dict, device: torch.device) -> torch.Ten
     return cache[device]
 
 
-def _mesh_step(config, corr, kwargs, advance, grid, pieces: list, shards: list):
-    """The block body of the channel shards ``shards`` for a correlator that
-    takes no code tiles: ``step(states, consts, block)``, ``states`` and
-    ``consts`` their states and constants (per time shard, the code table
-    on its device and None), ``block`` the signal pieces of one block,
-    ``(re, im)`` per ``(device, time shard)`` of ``pieces``. Each channel
-    shard's time shards are correlated on their devices from phases
-    advanced to their pieces, their partials summed in order on its lead
-    device, and its loop closed there once."""
-    num_time = grid.shape[1]
-    where = {key: i for i, key in enumerate(pieces)}
+def _mesh_step(config, corr, kwargs, advance, num_time: int):
+    """The block body of every channel shard on one device for a correlator
+    that takes no code tiles: ``step(states, codes, block)``, ``states`` the
+    channel shards' states, ``block`` one whole block. Each time shard's
+    piece is cut (`time_piece`) and correlated from phases advanced to it,
+    each channel shard's partials summed in shard order and its loop closed
+    once; the loop closure returns its outputs."""
 
-    def step(states, consts, block):
+    def step(states, codes, block):
+        device = block[0].device
+        pieces = [tuple(time_piece(x, t, num_time, device) for x in block)
+                  for t in range(num_time)]
         new, outs = [], []
-        for c, st, shard_consts in zip(shards, states, consts):
-            lead = grid[c, 0]
+        for st in states:
             parts_re, parts_im = [], []
-            for t in range(num_time):
-                dev = grid[c, t]
-                codes, _ = shard_consts[t]
-                sre, sim = block[where[dev, t]]
-                with on_device(dev):
-                    f_car = config.intermediate_frequency + st.carrier_doppler.to(
-                        dev, non_blocking=True)
-                    f_code = config.code_frequency + st.code_doppler.to(dev, non_blocking=True)
-                    phi_car, phi_code = advance(
-                        st.carrier_phase.to(dev, non_blocking=True),
-                        st.code_phase.to(dev, non_blocking=True), f_car, f_code, t)
-                    are, aim = corr(
-                        sre, sim, codes, st.prn.to(dev, non_blocking=True), f_car,
-                        config.sampling_frequency, phi_car, f_code, phi_code,
-                        config.sample_shifts, config.code_length, **kwargs)
+            for t, (sre, sim) in enumerate(pieces):
+                f_car = config.intermediate_frequency + st.carrier_doppler
+                f_code = config.code_frequency + st.code_doppler
+                phi_car, phi_code = advance(st.carrier_phase, st.code_phase, f_car, f_code, t)
+                are, aim = corr(sre, sim, codes, st.prn, f_car, config.sampling_frequency,
+                                phi_car, f_code, phi_code, config.sample_shifts,
+                                config.code_length, **kwargs)
                 parts_re.append(are)
                 parts_im.append(aim)
-            with on_device(lead):
-                st, out = loop_update(config, st, sum_in_order(parts_re, lead),
-                                      sum_in_order(parts_im, lead))
+            st, out = loop_update(config, st, sum_in_order(parts_re, device),
+                                  sum_in_order(parts_im, device))
             new.append(st)
             outs.append(out)
         return tuple(new), tuple(outs)
@@ -288,6 +289,55 @@ def _card_step(config, corr, kwargs, time_shards: list):
     return graphs.reads_chunk(step)
 
 
+def _card_step_without_tiles(config, corr, kwargs, advance):
+    """`_card_step` for a correlator that takes no code tiles:
+    ``step(states, consts, blocks, sinks=None)`` over one channel shard's
+    time shards' cards, card t holding its replica of the carry
+    (``states[t]``), its constants ``(codes, None)`` and its own piece of
+    the block (``blocks[t]``, the whole block where time is 1). Card t
+    advances its replica's phases to piece t (``advance``, its table entries
+    Python floats) and correlates the piece; once every card's correlator
+    is launched, each card's ``[2, K_local, (A,) L]`` partials (re and im in
+    one buffer) go to every other card, and every card adds the T partials
+    in shard order (`sum_in_order`) and closes the loop on its own replica
+    through its sink: every card adds the same partials in the same order,
+    so every replica holds the same carry, bit for bit, and no carry
+    crosses cards."""
+
+    @graphs.writes_outputs
+    def step(states, consts, blocks, sinks=None):
+        devices = [st.prn.device for st in states]
+        parts = []
+        for t, (st, (codes, _), block) in enumerate(zip(states, consts, blocks)):
+            with on_device(devices[t]):
+                f_car = config.intermediate_frequency + st.carrier_doppler
+                f_code = config.code_frequency + st.code_doppler
+                phi_car, phi_code = advance(st.carrier_phase, st.code_phase, f_car, f_code, t)
+                parts.append(corr(block[0], block[1], codes, st.prn, f_car,
+                                  config.sampling_frequency, phi_car, f_code, phi_code,
+                                  config.sample_shifts, config.code_length, **kwargs))
+        if len(parts) > 1:
+            # Every card's partials to every card, after every correlator.
+            for t, dev in enumerate(devices):
+                with on_device(dev):
+                    parts[t] = torch.stack(parts[t])
+            shared = []
+            for dev in devices:
+                with on_device(dev):
+                    shared.append([p.to(dev, non_blocking=True) for p in parts])
+        new, outs = [], []
+        for t, st in enumerate(states):
+            with on_device(devices[t]):
+                total = parts[0] if len(parts) == 1 else sum_in_order(shared[t], devices[t])
+                st, out = loop_update(config, st, total[0], total[1], None,
+                                      None if sinks is None else sinks[t])
+            new.append(st)
+            outs.append(out)
+        return tuple(new), tuple(outs)
+
+    return step
+
+
 def track_bank_sharded(
     config: TrackConfig,
     codes: torch.Tensor,
@@ -315,10 +365,11 @@ def track_bank_sharded(
     add (`graphs.scan`); on distinct cards each card holds its channel
     shard's carry and closes its loop itself, and the block over every card
     is one CUDA graph (`graphs.scan_mesh`; see the module). Other
-    correlators run through `graphs.scan` on one card and on distinct cards
-    with a time axis of 1 (a graph per channel shard, issued without
-    waiting, so the cards overlap), and the eager loop where a time axis
-    spans distinct cards.
+    correlators run through `graphs.scan` on one card, and on distinct
+    cards through `graphs.scan_mesh` as the bank routes do, for a time axis
+    of 1 and of more than 1 alike: each card advances and correlates its own
+    piece and closes the loop on its own replica of its channel shard's
+    carry (`_card_step_without_tiles`).
     """
     num_chan = mesh.shape[chan_axis]
     num_time = mesh.shape[time_axis]
@@ -341,9 +392,10 @@ def track_bank_sharded(
     per = num_k // num_chan
     one_device = len({str(d) for d in mesh.devices.flat}) == 1
     key = ("track_bank_sharded", config, num_chan, num_time)
-    if not _takes_tiles(config):
-        return _sharded_without_tiles(config, corr, kwargs, codes, states, signal_re, signal_im,
-                                      grid, tables, one_device, key)
+    tiles = _takes_tiles(config)
+    if not tiles and one_device:
+        return _one_device_without_tiles(config, corr, kwargs, codes, states, signal_re,
+                                         signal_im, num_chan, num_time, tables, first, key)
     # Each time shard as a bank call takes it: its piece in the whole block
     # (one device), or a piece of its own (offset 0, a card's).
     shard_args = (tables, config.sampling_frequency, local_n, config.code_length)
@@ -363,82 +415,47 @@ def track_bank_sharded(
         staged = _stage_channels(states, num_chan, first)
         signal = [x.to(first) for x in (signal_re, signal_im)]
         codes = codes.to(first)
-    local = signal_re.shape[-1] // num_time
-    parts = [graphs.Part(staged[c], tuple(x[..., t * local:(t + 1) * local] for x in signal),
+    parts = [graphs.Part(staged[c], tuple(x[..., t * local_n:(t + 1) * local_n] for x in signal),
                          (codes, None), grid[c, t])
              for c in range(num_chan) for t in range(num_time)]
-    results = graphs.scan_mesh(
-        _card_step(config, corr, kwargs, [time_shard(t, *shard_args, offset=0)
-                                          for t in range(num_time)]),
-        parts, key=key, prepare=bank_prepare(config), group=num_time)
+    if tiles:
+        step = _card_step(config, corr, kwargs, [time_shard(t, *shard_args, offset=0)
+                                                 for t in range(num_time)])
+    else:
+        step = _card_step_without_tiles(config, corr, kwargs, _advance(config, tables, local_n))
+    results = graphs.scan_mesh(step, parts, key=key, prepare=bank_prepare(config) if tiles
+                               else None, group=num_time)
     with on_device(first):
         return _join_channels(results, first)
 
 
-def _sharded_without_tiles(config, corr, kwargs, codes, states, signal_re, signal_im, grid,
-                           tables, one_device: bool, key):
-    """`track_bank_sharded` for a correlator that takes no code tiles: each
-    channel shard's states cut onto its lead device; on one device one
-    `graphs.scan` of every shard's body (`_mesh_step`), on distinct cards
-    with a time axis of 1 a `graphs.scan` per channel shard on its card, and
-    the eager loop where a time axis spans distinct cards, each shard's
-    piece cut once per call; the shards' results joined on the first
-    device."""
-    num_chan, num_time = grid.shape
-    first = grid[0, 0]
-    local_n = signal_re.shape[-1] // num_time
-    advance = functools.partial(
+def _advance(config, tables, local_n: int):
+    """`advance_phases` of ``config``'s time shards of ``local_n`` samples:
+    ``advance(carrier_phase, code_phase, carrier_frequency, code_frequency,
+    t)``."""
+    return functools.partial(
         advance_phases, tables=tables,
         nominal_carrier_frequency=config.intermediate_frequency,
         nominal_code_frequency=config.code_frequency,
         sampling_frequency=config.sampling_frequency,
         samples_per_shard=local_n, code_length=config.code_length,
     )
-    code_copies = {}
-    consts = [tuple((_per_device(codes, code_copies, grid[c, t]), None)
-                    for t in range(num_time)) for c in range(num_chan)]
-    pieces = list(dict.fromkeys((dev, t) for t in range(num_time) for dev in grid[:, t]))
 
-    def cut(shards, piece_keys):
-        """The body over ``shards`` from one whole block on their one device:
-        each time shard's piece is cut inside the body."""
-        step = _mesh_step(config, corr, kwargs, advance, grid, piece_keys, shards)
 
-        def body(carry, shard_consts, block):
-            return step(carry, shard_consts, tuple(
-                tuple(time_piece(x, t, num_time, dev) for x in block) for dev, t in piece_keys))
-
-        return body
-
-    local = _channel_shards(states, num_chan, grid[:, 0])
-    if one_device:
-        with on_device(first):
-            final, outs = graphs.scan(
-                cut(list(range(num_chan)), pieces), tuple(local),
-                (signal_re.to(first), signal_im.to(first)), tuple(consts), key=key)
-        finals, outs = list(final), list(outs)
-    elif num_time == 1:
-        finals, outs = [], []
-        for c in range(num_chan):
-            dev = grid[c, 0]
-            with on_device(dev):
-                final, out = graphs.scan(
-                    cut([c], [(dev, 0)]), (local[c],), (signal_re.to(dev), signal_im.to(dev)),
-                    (consts[c],), key=key + (c,))
-            finals.append(final[0])
-            outs.append(out[0])
-    else:
-        # Each shard's contiguous signal piece, cut once per call.
-        xs = [time_piece(x, t, num_time, dev) for dev, t in pieces for x in (signal_re, signal_im)]
-        step = _mesh_step(config, corr, kwargs, advance, grid, pieces, list(range(num_chan)))
-        final, outs = graphs.loop(
-            lambda carry, c_, block: step(carry, c_, tuple(zip(block[::2], block[1::2]))),
-            tuple(local), tuple(xs), tuple(consts))
-        finals, outs = list(final), list(outs)
-
-    with on_device(first):
-        final = _map_state(lambda *xs: _gather(xs, first, 0), *finals)
-        return final, TrackOutput(*(_gather(xs, first, 1) for xs in zip(*outs)))
+def _one_device_without_tiles(config, corr, kwargs, codes, states, signal_re, signal_im,
+                              num_chan: int, num_time: int, tables, device, key):
+    """`track_bank_sharded` for a correlator that takes no code tiles where
+    every mesh device is ``device``: the channel shards' states cut onto it,
+    one `graphs.scan` of every shard's body (`_mesh_step`), and the shards'
+    results joined."""
+    step = _mesh_step(config, corr, kwargs,
+                      _advance(config, tables, signal_re.shape[-1] // num_time), num_time)
+    with on_device(device):
+        final, outs = graphs.scan(
+            step, tuple(_channel_shards(states, num_chan, [device] * num_chan)),
+            (signal_re.to(device), signal_im.to(device)), codes.to(device), key=key)
+        final = _map_state(lambda *xs: _gather(xs, device, 0), *final)
+        return final, TrackOutput(*(_gather(xs, device, 1) for xs in zip(*outs)))
 
 
 def _dual_one_graph(config, codes_data, codes_pilot, shards: list, signal_re, signal_im,

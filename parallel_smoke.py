@@ -15,7 +15,12 @@ loops (`graph_leg`): on distinct cards a bank route runs
 `graphs.scan_mesh`, each channel shard's block one CUDA graph over its time
 shards' cards; each mesh once under ``tracking.eager()`` and once through
 the graphs, equal bit for bit with equal launch counts, both block times, a
-steady call's host ops and each card's busy share. ``--split`` runs only
+steady call's host ops and each card's busy share; the correlators without
+code tiles take the same path (`parallel/bank.py::_card_step_without_tiles`):
+``pallas_fused`` and ``pallas_taps`` at K=32, N=2^18, A=4, L=7 on 1 x 2,
+2 x 2, 2 x 1 and 4 x 1, ``fused_xla`` and ``xla_bank`` at K=1024, N=32768 on
+2 x 2 and 4 x 1, each beside its unsharded call, with the device ops of a
+replayed block card by card on distinct cards. ``--split`` runs only
 `split_leg` (where a 10-block call's time goes, card by card), ``--spike``
 only `ordering_spike` (the two cross-card orderings of a time-sharded
 block). Exits nonzero on any failed check.
@@ -32,14 +37,34 @@ import torch
 import chip_smoke
 
 
+def replayed_ops_per_card(mesh) -> dict:
+    """The device ops of one replayed block of the mesh call's `_MeshEntry`
+    (its latest), card by card: ``{card: {name: ops per block}}``
+    (`chip_smoke.traced_ops` over ``REPLAYS`` replays of every group's
+    graph)."""
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    entry = list(graphs._ENTRIES[tuple(mesh.devices.flat)].values())[-1]
+    ops = chip_smoke.traced_ops(lambda: [replay() for replay, _ in entry.replays],
+                                by_card=True)
+    per_card: dict = {}
+    for (index, name), count in ops.items():
+        per_card.setdefault(index, {})[name] = count / chip_smoke.REPLAYS
+    return per_card
+
+
 def graph_leg(system, sre, sim, sre5, sim5, offsets, card, blocks: int = 10):
     """The K=1024 GPS L1 bank unsharded and on meshes 4 x 1, 2 x 2, 2 x 1 and
-    1 x 2, the K=4096 bank unsharded and on 4 x 1, and the K=64 GPS L5 dual
-    bank on chan 4, over ``blocks`` noiseless blocks: graph against eager,
-    bit for bit, launches alike; both block times; a steady call's host ops
-    (`chip_smoke.host_ops`, each call from the last one's final state) and
-    each card's busy share over graph calls (`bench.profile.profile_calls`,
-    ``per_device``)."""
+    1 x 2, the K=4096 bank unsharded and on 4 x 1, the K=64 GPS L5 dual
+    bank on chan 4, and the correlators without code tiles of
+    `block_ab.CHANNEL_RUNS` unsharded and on their meshes, over ``blocks``
+    noiseless blocks: graph against eager, bit for bit, launches alike; both
+    block times; a steady call's host ops (`chip_smoke.host_ops`, each call from
+    the last one's final state) and each card's busy share over graph calls
+    (`bench.profile.profile_calls`, ``per_device``); for a correlator
+    without tiles on distinct cards, its replayed block's device ops card
+    by card (`replayed_ops_per_card`)."""
+    from block_ab import CHANNEL_RUNS, channel_bank_case
     from gpuacceleratedtracking_tpu_torch.bench.profile import profile_calls
     from gpuacceleratedtracking_tpu_torch.models import GPSL5
     from gpuacceleratedtracking_tpu_torch.parallel import (
@@ -77,6 +102,23 @@ def graph_leg(system, sre, sim, sre5, sim5, offsets, card, blocks: int = 10):
     runs["L5 dual mesh chan 4"] = (
         lambda st: track_bank_dual_sharded(cfg5, codes_i, codes_q, st, sre5, sim5, mesh=mesh4),
         states5, chip_smoke.DUAL_K)
+    meshes = {}                 # run name -> its mesh, where its replayed block is counted
+    for algorithm, (shape, axes) in CHANNEL_RUNS.items():
+        cfg, codes_c, states_c, sre_c, sim_c = channel_bank_case(algorithm, blocks=blocks,
+                                                                 **shape)
+        num_k = states_c.prn.shape[0]
+        num_ants = sre_c.shape[1] if sre_c.ndim == 3 else 1
+        label = f"{algorithm} K={num_k} N={cfg.num_samples} A={num_ants} L={len(cfg.sample_shifts)}"
+        runs[f"{label} unsharded"] = (
+            lambda st, c=cfg, x=(codes_c, sre_c, sim_c): track_bank(c, x[0], st, x[1], x[2]),
+            states_c, num_k)
+        for chan, time_ in axes:
+            mesh = channel_time_mesh(chan, time_, devices=chip_smoke.mesh_devices(chan * time_))
+            name = f"{label} mesh {chan}x{time_}"
+            runs[name] = (lambda st, c=cfg, m=mesh, x=(codes_c, sre_c, sim_c):
+                          track_bank_sharded(c, x[0], st, x[1], x[2], mesh=m), states_c, num_k)
+            if len({str(d) for d in mesh.devices.flat}) > 1:
+                meshes[name] = mesh
     results = {}
     for name, (call, start, channels) in runs.items():
         run = lambda call=call, start=start: call(start)   # noqa: E731
@@ -99,6 +141,10 @@ def graph_leg(system, sre, sim, sre5, sim5, offsets, card, blocks: int = 10):
                          "device_ops_per_call": ops["device_ops"],
                          "busy_share_per_card": {k: v["busy_share"]
                                                  for k, v in busy["per_device"].items()}}
+        if name in meshes:
+            results[name]["replayed_ops_per_card"] = replayed_ops_per_card(meshes[name])
+            print(f"[J graph] {name}: a replayed block's device ops per card "
+                  f"{json.dumps(results[name]['replayed_ops_per_card'])} [{card}]", flush=True)
         print(f"[J graph] {name} on {torch.cuda.device_count()} card(s): graph equals eager "
               f"bit for bit, launches per call {dict((k, v) for k, v in graph_counts.items() if v)}; "
               f"block eager {e_med / blocks!r} ms (min {e_min / blocks!r}), graph "

@@ -844,14 +844,16 @@ def _distinct_cards(count: int) -> list:
     return [torch.device("cuda", i) for i in range(count)]
 
 
-@pytest.mark.parametrize("cards", ["mesh devices", "2 x 2 on distinct cards",
-                                   "1 x 2 on distinct cards"])
-def test_sharded_block_loop_does_not_wait_on_the_card(cuda, cards):
+@pytest.mark.parametrize("cards,algorithm", [
+    ("mesh devices", "pallas_bank_auto"), ("2 x 2 on distinct cards", "pallas_bank_auto"),
+    ("1 x 2 on distinct cards", "pallas_bank_auto"), ("mesh devices", "pallas_fused"),
+    ("2 x 2 on distinct cards", "pallas_fused")])
+def test_sharded_block_loop_does_not_wait_on_the_card(cuda, cards, algorithm):
     from gpuacceleratedtracking_tpu_torch.parallel import (
         channel_time_mesh, make_mesh, track_bank_sharded)
 
     fs, codes, states, sre, sim = _sharded_case(cuda, blocks=3)
-    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm=algorithm)
     if cards == "mesh devices":
         mesh = channel_time_mesh(2, 2, devices=_mesh_devices(cuda))
     else:
@@ -867,14 +869,25 @@ def test_sharded_block_loop_does_not_wait_on_the_card(cuda, cards):
     torch.cuda.synchronize()
 
 
-CARD_MESHES = [(2, 1), (1, 2), (2, 2)]
+CARD_MESHES = [(2, 1), (1, 2), (2, 2), (4, 1)]
+# A sharded bank's correlator -> the wrappers each card launches K_local
+# times a block (a bank route: once).
+MESH_CORRELATORS = {
+    "pallas_bank_auto": (epl_kernels.correlate_pallas_bank_rows,),
+    "pallas_fused": (channel_kernels.correlate_pallas_fused,),
+    "pallas_taps": (channel_kernels.correlate_pallas_taps, replica_kernel.code_replica),
+    "xla_bank": (),
+}
 
 
+@pytest.mark.parametrize("algorithm", sorted(MESH_CORRELATORS))
 @pytest.mark.parametrize("axes", CARD_MESHES)
-def test_every_card_mesh_graph_equals_eager_with_chan_x_time_launches(cuda, monkeypatch, axes):
+def test_every_card_mesh_graph_equals_eager_with_chan_x_time_launches(cuda, monkeypatch, axes,
+                                                                     algorithm):
     # On distinct cards (`graphs.scan_mesh`): the captured call equals the
-    # eager one bit for bit with chan x time bank launches a block, every
-    # time shard's replica of the carry (the eager loop's final carries, the
+    # eager one bit for bit with chan x time bank launches a block (a
+    # per-channel kernel: K_local launches per card and block), every time
+    # shard's replica of the carry (the eager loop's final carries, the
     # entry's cards' carries after a captured call) equals its time-0
     # card's, and the results come back on the mesh's first card.
     from gpuacceleratedtracking_tpu_torch.parallel import make_mesh, track_bank_sharded
@@ -883,9 +896,9 @@ def test_every_card_mesh_graph_equals_eager_with_chan_x_time_launches(cuda, monk
     tree_leaves = graphs._leaves
     chan, time_ = axes
     cards = _distinct_cards(chan * time_)
-    blocks = 4
-    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=blocks)
-    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_bank_auto")
+    blocks, k = 4, 64
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=blocks, k=k)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm=algorithm)
     mesh = make_mesh({"chan": chan, "time": time_}, devices=cards)
     graphs.clear()
     finals = []
@@ -897,14 +910,16 @@ def test_every_card_mesh_graph_equals_eager_with_chan_x_time_launches(cuda, monk
         return carries, outs
 
     monkeypatch.setattr(graphs, "loop", spy)
-    before = (epl_kernels.correlate_pallas_bank_rows.launches,
-              loop_kernel.loop_update_kernel.launches)
+    wrappers = MESH_CORRELATORS[algorithm] + (loop_kernel.loop_update_kernel,)
+    before = [fn.launches for fn in wrappers]
     _graph_against_eager(lambda: track_bank_sharded(config, codes, states, sre, sim, mesh=mesh))
-    # Three calls (eager, capture, replay): a bank launch and a loop kernel
-    # per card and block.
-    assert (epl_kernels.correlate_pallas_bank_rows.launches - before[0],
-            loop_kernel.loop_update_kernel.launches - before[1]) == (
-        3 * chan * time_ * blocks, 3 * chan * time_ * blocks)
+    # Three calls (eager, capture, replay): per card and block a bank
+    # launch or K_local launches of each per-channel wrapper, and a loop
+    # kernel.
+    per_card = 1 if algorithm == "pallas_bank_auto" else k // chan
+    assert [fn.launches - b for fn, b in zip(wrappers, before)] == (
+        [3 * chan * time_ * blocks * per_card] * len(MESH_CORRELATORS[algorithm])
+        + [3 * chan * time_ * blocks])
     assert len(finals) == 1
     (entry,) = graphs._ENTRIES[tuple(cards)].values()
     for carries in (finals[0], tuple(card.carry for card in entry.cards)):
@@ -964,6 +979,90 @@ def test_a_replayed_block_on_distinct_cards_is_each_cards_kernels(cuda, axes):
         assert sum(names.values()) <= (4 + time_ - 1) * replays, (index, names)
     assert sum(count for names in per_card.values() for name, count in names.items()
                if "bank_rows_finish" in name) >= 1
+
+
+@pytest.mark.parametrize("algorithm", ["pallas_fused", "pallas_taps"])
+@pytest.mark.parametrize("axes", CARD_MESHES)
+def test_a_replayed_block_on_distinct_cards_launches_each_cards_channels(cuda, axes,
+                                                                         algorithm):
+    # A per-channel kernel on distinct cards: each channel shard's replayed
+    # block launches K_local kernels (`pallas_taps`: K_local replica and
+    # K_local taps launches) and one loop kernel per card, as its capture
+    # counted them; torch.profiler finds them on each card, none elsewhere,
+    # and at most T - 1 partials' copies per card (it may drop a session's
+    # first events: at most, and some).
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpuacceleratedtracking_tpu_torch.parallel import make_mesh, track_bank_sharded
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    chan, time_ = axes
+    cards = _distinct_cards(chan * time_)
+    k = 16
+    fs, codes, states, sre, sim = _sharded_case(cuda, n=32768, blocks=2, k=k, num_ants=4)
+    config = TrackConfig.for_system(SYSTEM, fs, 32768, algorithm=algorithm)
+    mesh = make_mesh({"chan": chan, "time": time_}, devices=cards)
+    graphs.clear()
+    track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+    torch.cuda.synchronize()
+    (entry,) = graphs._ENTRIES[tuple(cards)].values()
+    assert [len(group) for group in entry.groups] == [time_] * chan
+    kernels = {"pallas_fused": ("fused_kernel",), "pallas_taps": ("taps_kernel", "replica_kernel")}
+    expected = dict.fromkeys(MESH_CORRELATORS[algorithm], time_ * k // chan)
+    expected[loop_kernel.loop_update_kernel] = time_
+    for _, launched in entry.replays:
+        assert {fn: n for fn, n in zip(graphs._counters(), launched) if n} == expected
+    replays = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _spin_first()
+        for _ in range(replays):
+            for replay, _ in entry.replays:
+                replay()
+        for card in cards:
+            torch.cuda.synchronize(card)
+    graphs.clear()
+    per_card: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
+            per_card.setdefault(e.device_index, collections.Counter())[e.name] += 1
+    assert set(per_card) <= {card.index for card in cards}, per_card
+    for index, names in per_card.items():
+        def count(*keys):
+            return sum(n for name, n in names.items() if any(key in name for key in keys))
+
+        for name in kernels[algorithm]:
+            assert count(name) <= k // chan * replays, (index, names)
+        assert count("loop_update") <= replays, (index, names)
+        assert count("Memcpy", "memcpy") <= (time_ - 1) * replays, (index, names)
+    assert all(sum(count for name, count in names.items() if kernels[algorithm][0] in name) >= 1
+               for names in per_card.values())
+
+
+def test_a_per_channel_bank_on_mesh_devices_of_one_card_matches_track_bank(cuda):
+    # `pallas_fused` through `track_bank_sharded` with every shard on
+    # cuda:0 (the one-card branch): K x time launches a block; a
+    # channel-only mesh equals `track_bank` bit for bit (each channel its
+    # own launches), a time-sharded one within the main path's bound (each
+    # shard from advanced phases).
+    from gpuacceleratedtracking_tpu_torch.parallel import channel_time_mesh, track_bank_sharded
+
+    blocks, k = 5, 16
+    fs, codes, states, sre, sim = _sharded_case(cuda, blocks=blocks, k=k)
+    config = TrackConfig.for_system(SYSTEM, fs, 8192, algorithm="pallas_fused")
+    want_final, want = track_bank(config, codes, states, sre, sim)
+    for chan, time_ in ((4, 1), (2, 2), (1, 4)):
+        mesh = channel_time_mesh(chan, time_, devices=[cuda] * 4)
+        before = channel_kernels.correlate_pallas_fused.launches
+        final, got = track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
+        torch.cuda.synchronize()
+        assert channel_kernels.correlate_pallas_fused.launches - before == k * time_ * blocks
+        assert got.prompt_re.shape == (blocks, k) and bool(torch.isfinite(got.prompt_re).all())
+        if time_ == 1:
+            _assert_bitwise((final, got), (want_final, want))
+            continue
+        torch.testing.assert_close(got.prompt_re[0], want.prompt_re[0], rtol=5e-3, atol=10.0)
+        torch.testing.assert_close(got.prompt_re[:, :3], want.prompt_re[:, :3],
+                                   rtol=5e-3, atol=10.0)
 
 
 @pytest.mark.parametrize("kernel", ["taps", "fused"])

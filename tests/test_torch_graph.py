@@ -990,12 +990,17 @@ def test_a_state_on_one_storage_in_another_layout_is_loaded_leaf_by_leaf(capture
 # the distinct-card path; their tensors all lie on the CPU.
 
 DISTINCT = [torch.device("cpu", i) for i in range(4)]
-MESH_ROUTES = ["rows", "comp_a2", "transition", "onehot"]
+# The bank routes, then the correlators that take no code tiles (the
+# per-channel kernels, batched over [K] or one call per channel).
+MESH_ROUTES = ["rows", "comp_a2", "transition", "onehot", "fused", "taps", "fused_xla",
+               "xla_bank"]
+WITHOUT_TILES = ["fused", "taps", "fused_xla", "xla_bank"]
 
 
 def _mesh_case(name, axes):
+    # K a multiple of 4, so that every mesh's channel shards divide it.
     algorithm, n, fs, k, num_ants, extra = BANK_CASES[name]
-    system, codes, states, sre, sim = _l1_case(n, fs, k, num_ants)
+    system, codes, states, sre, sim = _l1_case(n, fs, -(-k // 4) * 4, num_ants)
     config = ttracking.TrackConfig.for_system(system, fs, n, algorithm=algorithm, **extra)
     mesh = tparallel.make_mesh({"chan": axes[0], "time": axes[1]}, devices=DISTINCT)
     return config, codes, states, sre, sim, mesh
@@ -1040,14 +1045,15 @@ def test_a_distinct_card_mesh_replays_the_eager_loop_and_the_one_device_mesh(cap
 
 @pytest.mark.parametrize("path", ["eager", "captured"])
 @pytest.mark.parametrize("axes", [(2, 2), (1, 2)])
+@pytest.mark.parametrize("name", ["rows"] + WITHOUT_TILES)
 def test_every_time_shards_replica_of_the_carry_equals_the_time_zero_cards(
-        captured, monkeypatch, axes, path):
+        captured, monkeypatch, name, axes, path):
     # Every card of a channel shard closes the loop on its own replica of the
     # carry, from the same partials in the same order: each time shard's
     # final carry (the eager loop's, or its card entry's after a captured
     # call) equals its time-0 card's bit for bit, and the call returns the
     # time-0 cards' results.
-    config, codes, states, sre, sim, mesh = _mesh_case("rows", axes)
+    config, codes, states, sre, sim, mesh = _mesh_case(name, axes)
     seen = _spy_scan_mesh(monkeypatch)
     finals = []
     loop = graphs.loop
@@ -1082,10 +1088,12 @@ def test_every_time_shards_replica_of_the_carry_equals_the_time_zero_cards(
 @pytest.mark.parametrize("name", MESH_ROUTES)
 def test_distinct_cards_run_no_eager_loop_and_pack_their_shards_tiles(captured, monkeypatch,
                                                                       name):
-    # The bank routes on distinct cards never reach `graphs.loop` outside
-    # `graphs.eager()` (where `graphs.loop_mesh` is that loop); each card's
-    # prologue packs the code tiles of its channel shard's PRNs, as
-    # `_bank_code_tile_kwargs` packs them.
+    # No route on distinct cards reaches `graphs.loop` outside
+    # `graphs.eager()` (where `graphs.loop_mesh` is that loop): the call is
+    # one `_MeshEntry`, a group of 2 cards per channel shard. On a bank
+    # route each card's prologue packs the code tiles of its channel
+    # shard's PRNs, as `_bank_code_tile_kwargs` packs them; another route
+    # has no prologue, and each card's constants are its code table.
     from gpuacceleratedtracking_tpu_torch.tracking.track import _bank_code_tile_kwargs
 
     def refused(*args, **kwargs):
@@ -1098,18 +1106,23 @@ def test_distinct_cards_run_no_eager_loop_and_pack_their_shards_tiles(captured, 
     got = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
     _assert_same(got, want)
     (entry,) = captured[tuple(DISTINCT)].values()
+    assert type(entry).__name__ == "_MeshEntry" and entry.groups == [[0, 1], [2, 3]]
     per = states.prn.shape[0] // 2
     for i, card in enumerate(entry.cards):
         c = i // 2
+        assert card.device == DISTINCT[i]
+        assert torch.equal(card.carry.prn, states.prn[c * per:(c + 1) * per])
+        if name in WITHOUT_TILES:
+            assert torch.equal(card.prepared[0], codes) and card.prepared[1] is None
+            continue
         tiles = _bank_code_tile_kwargs(config, codes,
                                        states.prn[c * per:(c + 1) * per])["code_tiles"]
-        assert card.device == DISTINCT[i]
         assert torch.equal(card.prepared[1], tiles)
-        assert torch.equal(card.carry.prn, states.prn[c * per:(c + 1) * per])
 
 
+@pytest.mark.parametrize("name", ["rows"] + WITHOUT_TILES)
 def test_a_distinct_card_call_cuts_and_joins_one_copy_per_dtype_per_card(captured,
-                                                                          monkeypatch):
+                                                                          monkeypatch, name):
     # A steady 2 x 2 call's copies outside its replays: the cut is one
     # multi-tensor copy per dtype on the first device, each card loads its
     # carry as one region per dtype (with its code table and first chunk, one
@@ -1120,7 +1133,7 @@ def test_a_distinct_card_call_cuts_and_joins_one_copy_per_dtype_per_card(capture
     # as an unsharded call's: one buffer per dtype, each leaf where
     # `track_bank`'s results put it.
     monkeypatch.setattr(graphs, "CHUNK", BLOCKS)
-    config, codes, states, sre, sim, mesh = _mesh_case("rows", (2, 2))
+    config, codes, states, sre, sim, mesh = _mesh_case(name, (2, 2))
     tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=mesh)
     counting = [True]
     calls = {"foreach": 0, "copy_": 0, "index_select": 0, "loaded_regions": 0}

@@ -437,29 +437,69 @@ def test_every_bank_route_shards_as_in_jax_on_every_mesh(route, axes):
     _assert_tracks_match(final, out, want_final, want)
 
 
+DISTINCT = [torch.device("cpu", i) for i in range(4)]
+
+
+def _distinct_mesh(axes):
+    return tparallel.make_mesh({"chan": axes[0], "time": axes[1]}, devices=DISTINCT)
+
+
 @pytest.mark.parametrize("algorithm", ["pallas_bank_rows", "pallas_bank_comp", "pallas_bank",
-                                       "pallas_bank_onehot", "xla_bank"])
+                                       "pallas_bank_onehot", "xla_bank", "pallas_fused",
+                                       "pallas_taps", "fused_xla", "unfused_xla"])
 @pytest.mark.parametrize("axes", [(2, 2), (4, 1), (1, 2), (2, 1)])
 def test_distinct_device_branches_equal_the_one_device_branch(algorithm, axes):
     # Mesh devices named apart ("cpu:0".."cpu:3", whose tensors all lie on
-    # the CPU) take the distinct-card branches: a bank route runs
-    # `graphs.scan_mesh`, each card closing the loop on its own replica of
-    # its channel shard (a time shard reading its own piece at offset 0);
-    # another correlator's time axis runs the eager loop over per-shard
-    # pieces, time 1 a scan per channel shard. All give the one-device
+    # the CPU) take the distinct-card branch, `graphs.scan_mesh`, for every
+    # correlator: each card reads its own piece of the block and closes the
+    # loop on its own replica of its channel shard's carry (a bank route
+    # advances the phases and reads the piece inside its kernel, another
+    # correlator advances them with torch ops, and each card adds its
+    # channel shard's partials in shard order). All give the one-device
     # branch's results bit for bit.
     config, states, sre, sim = _port_bank_case(algorithm, num_ms=3)
     if algorithm == "pallas_bank_comp":
         sre, sim = (torch.stack([x, 0.5 * x], dim=1) for x in (sre, sim))
     codes = torch.as_tensor(TSYSTEM.codes)
-    distinct = tparallel.make_mesh({"chan": axes[0], "time": axes[1]},
-                                   devices=[torch.device("cpu", i) for i in range(4)])
+    distinct = _distinct_mesh(axes)
     assert len({str(d) for d in distinct.devices.flat}) == axes[0] * axes[1]
     got = tparallel.track_bank_sharded(config, codes, states, sre, sim, mesh=distinct)
     want = tparallel.track_bank_sharded(config, codes, states, sre, sim,
                                         mesh=tparallel.channel_time_mesh(*axes, devices=CPUS))
     for g, w in zip(jax.tree.leaves(tuple(got)), jax.tree.leaves(tuple(want))):
         assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="session")
+def jax_sharded_runs():
+    """``run(algorithm, axes)``: the K=4, 3-block, N=4096 scenario and the
+    JAX `track_bank_sharded` of ``algorithm`` on mesh ``axes`` (its kernels
+    in Pallas interpret mode), each made once per session."""
+    runs = {}
+
+    def run(algorithm, axes):
+        if (algorithm, axes) not in runs:
+            scenario = _bank_scenario(SYSTEM, 4, 3, 4096, algorithm=algorithm)
+            runs[algorithm, axes] = scenario, _run_jax(SYSTEM, *scenario, axes)
+        return runs[algorithm, axes]
+
+    return run
+
+
+@pytest.mark.parametrize("axes", [(2, 2), (1, 2), (2, 1)])
+@pytest.mark.parametrize("algorithm", ["fused_xla", "pallas_fused"])
+def test_distinct_devices_without_tiles_shard_as_in_jax(jax_sharded_runs, algorithm, axes):
+    # A correlator that takes no code tiles on devices named apart (a card
+    # entry per shard, each card advancing and correlating its own piece
+    # and closing the loop on its own replica) against the JAX
+    # `track_bank_sharded` on the same axes, at tests/test_parallel.py's
+    # tolerances.
+    (config, states, sre, sim), (want_final, want) = jax_sharded_runs(algorithm, axes)
+    final, out = tparallel.track_bank_sharded(
+        _port_config(config), torch.as_tensor(np.asarray(SYSTEM.codes)), _port_states(states),
+        _t(sre), _t(sim), mesh=_distinct_mesh(axes))
+    assert out.accum_re.shape == (3, 4, 3) and final.ms_elapsed.tolist() == [3] * 4
+    _assert_tracks_match(final, out, want_final, want)
 
 
 def _piece_case(num_time=4, chunk=3, n=4096, num_ants=2):
