@@ -1,0 +1,13 @@
+"""``csrc/bank_comp.cu``'s share of its roofline (its kernel and its finish),
+against the bank correlation's own count (`yardstick.bank_correlation`)."""
+
+from benchmark import yardstick
+
+LAYER = "bank correlator kernel"
+UNIT, SOURCE, MOVES = "%", "device_trace", "realtime_channels"
+WORKLOADS = ["gpsl1_a4l7_k1024.epoch20"]
+KERNELS = r"\bbank_comp_(kernel|finish)\b"
+
+
+def read(run):
+    return yardstick.roofline_pct(run, KERNELS, yardstick.bank_correlation(run.cell.config))

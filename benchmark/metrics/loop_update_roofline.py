@@ -1,0 +1,13 @@
+"""``csrc/loop_update.cu``'s share of its roofline, against the loop
+closure's own bytes (`yardstick.loop_closure`): the kernel is bound by them."""
+
+from benchmark import yardstick
+
+LAYER = "loop closure kernel"
+UNIT, SOURCE, MOVES = "%", "device_trace", "realtime_channels"
+WORKLOADS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"]
+KERNELS = r"\bloop_update_kernel\b"
+
+
+def read(run):
+    return yardstick.roofline_pct(run, KERNELS, yardstick.loop_closure(run.cell.config))
