@@ -3631,7 +3631,9 @@ def host_ops(run, state) -> dict:
     cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     return {"dispatched_ops": len(mode.ops),
             "dispatched_by_name": dict(collections.Counter(mode.ops)), "views": mode.views,
-            "aten_top_level": sum(e.name.startswith("aten::") and e.cpu_parent is None
+            # Top level: under no other aten op (under the call's spans, or none).
+            "aten_top_level": sum(e.name.startswith("aten::") and not (
+                e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::"))
                                   for e in cpu),
             "runtime_calls": dict(collections.Counter(e.name for e in cpu
                                                       if e.name.startswith("cuda"))),

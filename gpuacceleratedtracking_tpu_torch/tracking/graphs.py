@@ -73,8 +73,18 @@ allocator's cache, so that a chained second call asks the device for none.
 The wrappers count their launches on the host, which a replay does not run:
 the entry records how far each capture moved each kernel's count and adds
 that much per replay; the warm-up's launches, whose results are thrown away,
-and the captures' are not counted. A capture or replay that fails raises;
-nothing falls back to the eager loop.
+and the captures' are not counted. `scan` counts, on itself, the entries it
+made (``scan.captures``, a `scan_mesh` entry one), the entries the cache
+dropped (``scan.evictions``), the blocks replayed (``scan.replays``) and
+the device ops those replays ran (``scan.replayed_nodes``: each body
+graph's node count, taken once at capture from the graph before it is
+instantiated, per block; a `scan_mesh` block every group's graph's);
+`uncounted()` and the warm-up leave these alone. An `_Entry`'s phases are
+`spans` (on only while a profiler session records), inside the entry
+point's: ``scan.load`` (the carry, constants and first chunk),
+``scan.prologue``, ``scan.replay`` (a chunk's replays), ``scan.next_chunk``,
+``scan.collect`` (a chunk's output copies) and ``scan.results``. A capture
+or replay that fails raises; nothing falls back to the eager loop.
 
 `scan_mesh` runs one block body over several cards in lockstep, the JAX
 ``shard_map`` program: an entry per part (card) holds that part's buffers
@@ -90,6 +100,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import functools
 import itertools
 import math
@@ -97,6 +108,8 @@ import warnings
 from typing import Callable, NamedTuple
 
 import torch
+
+from . import spans
 
 CHUNK = 64            # blocks per chunk of a cache entry
 CHUNK_BYTES = 64 << 20  # at most this much scanned input per chunk (one block at least)
@@ -126,15 +139,40 @@ def enabled(device: torch.device) -> bool:
     return device.type == "cuda" and not _EAGER
 
 
+@functools.cache
+def _graph_get_nodes():
+    """``cuGraphGetNodes`` of ``libcuda.so.1`` (loaded with the CUDA
+    context), through ctypes; it takes the runtime's graph handle."""
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _instantiated(graph) -> Callable[[], None]:
+    """The replay of ``graph`` (captured with ``keep_graph=True``), its node
+    count read from the graph and kept as the replay's ``nodes``, then the
+    graph instantiated, before its first replay."""
+    count = ctypes.c_size_t(0)
+    err = _graph_get_nodes()(graph.raw_cuda_graph(), None, ctypes.byref(count))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed with error {err}")
+    graph.instantiate()
+    replay = functools.partial(graph.replay)
+    replay.nodes = count.value
+    return replay
+
+
 def capture(body: Callable[[], None], device: torch.device) -> Callable[[], None]:
     """Capture ``body`` as a CUDA graph on ``device``, in a memory pool of
-    its own; returns the graph's replay. The capture runs on a stream of
-    ``device``: `torch.cuda.graph`'s default capture stream belongs to the
-    device that was current when it was first made."""
-    graph = torch.cuda.CUDAGraph()
+    its own; returns the graph's replay, its node count as ``nodes``. The
+    capture runs on a stream of ``device``: `torch.cuda.graph`'s default
+    capture stream belongs to the device that was current when it was first
+    made."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
         body()
-    return graph.replay
+    return _instantiated(graph)
 
 
 def capture_mesh(body: Callable[[], None], devices: list) -> Callable[[], None]:
@@ -145,9 +183,10 @@ def capture_mesh(body: Callable[[], None], devices: list) -> Callable[[], None]:
     issues on a card, and each order a cross-card copy sets between two
     cards' streams, is a node and an edge of the one graph. Each other card
     allocates from a pool of its own, kept with the graph (`torch.cuda.graph`
-    keeps the first card's). Returns the graph's replay, on the first card's
-    current stream: a replay runs every card's part, in the captured order,
-    and ends when the last card's part ends."""
+    keeps the first card's). Returns the graph's replay, its node count as
+    ``nodes``, on the first card's current stream: a replay runs every
+    card's part, in the captured order, and ends when the last card's part
+    ends."""
     origin = devices[0]
     streams = [torch.cuda.Stream(d) for d in devices]
     pools = []
@@ -156,7 +195,7 @@ def capture_mesh(body: Callable[[], None], devices: list) -> Callable[[], None]:
         # blocks the capture freed, which the graph's nodes still address.
         with torch.cuda.device(device):
             pools.append(torch.cuda.MemPool())
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.device(origin), torch.cuda.graph(graph, stream=streams[0]):
         with contextlib.ExitStack() as stack:
             for device, stream, pool in zip(devices[1:], streams[1:], pools):
@@ -167,10 +206,8 @@ def capture_mesh(body: Callable[[], None], devices: list) -> Callable[[], None]:
                 body()
             for stream in streams[1:]:
                 streams[0].wait_stream(stream)
-
-    def replay():
-        graph.replay()
-
+    with torch.cuda.device(origin):
+        replay = _instantiated(graph)
     replay.keep = (graph, streams, pools)
     return replay
 
@@ -217,13 +254,17 @@ def clear() -> None:
 def _cached(store: dict, where, key, make: Callable[[], object]):
     """``store[where][key]``, made by ``make()`` where it is missing: at
     most `MAX_ENTRIES` kept per ``where``, the least recently used dropped
-    first."""
+    first. The captured entries' makes and drops are counted in
+    ``scan.captures`` and ``scan.evictions``."""
     entries = store.setdefault(where, collections.OrderedDict())
     value = entries.get(key)
     if value is None:
         value = entries[key] = make()
+        counted = store is _ENTRIES
+        scan.captures += counted
         while len(entries) > MAX_ENTRIES:
             entries.popitem(last=False)
+            scan.evictions += counted
     entries.move_to_end(key)
     return value
 
@@ -609,6 +650,8 @@ class _Entry:
             prepared, out = self._warm_up(step, prepare, self._warm_carry)
         self._lay_out(prepare, carry, consts, xs, prepared, out)
         self.replay, self.launches = capture_counted(self._body(step), device)
+        # A replay that is no CUDA graph (a test's stand-in) counts no nodes.
+        self.nodes = getattr(self.replay, "nodes", 0)
 
     def _setup(self, carry, xs, consts, device, chunk: int | None = None) -> None:
         """The constants' and the chunk's buffers, the index, and a copy of
@@ -803,8 +846,10 @@ class _Entry:
     def _start(self, carry, xs, consts) -> None:
         """A call's load of the caller's carry, constants and first chunk,
         and the prologue's replay."""
-        self._load(carry, consts, xs, min(self.chunk, xs[0].shape[0]))
-        self.prologue()
+        with spans.span("scan.load"):
+            self._load(carry, consts, xs, min(self.chunk, xs[0].shape[0]))
+        with spans.span("scan.prologue"):
+            self.prologue()
         count_replays(self.prologue_launches)
         self._fresh = None
 
@@ -856,12 +901,17 @@ class _Entry:
         self._start(carry, xs, consts)
         for b0, num in _chunks(num_blocks, self.chunk):
             if b0:
-                self._next_chunk(xs, b0, num)
-            for _ in range(num):
-                self.replay()
+                with spans.span("scan.next_chunk"):
+                    self._next_chunk(xs, b0, num)
+            with spans.span("scan.replay"):
+                for _ in range(num):
+                    self.replay()
             count_replays(self.launches, num)
-            self._collect(b0, num, num_blocks)
-        return self._results()
+            _count_blocks(num, self.nodes)
+            with spans.span("scan.collect"):
+                self._collect(b0, num, num_blocks)
+        with spans.span("scan.results"):
+            return self._results()
 
 
 class Part(NamedTuple):
@@ -910,6 +960,7 @@ class _MeshEntry:
             devices = self._devices(group)
             self.replays.append(capture_counted(self._body(step, group),
                                                 devices if len(devices) > 1 else devices[0]))
+        self.nodes = sum(getattr(replay, "nodes", 0) for replay, _ in self.replays)
 
     def _devices(self, group: list) -> list:
         """The distinct cards of ``group``'s parts, its first part's first."""
@@ -989,6 +1040,7 @@ class _MeshEntry:
                         replay()
             for _, launches in self.replays:
                 count_replays(launches, num)
+            _count_blocks(num, self.nodes)
             for group_streams in streams:
                 for stream in group_streams[1:]:
                     _wait_all(stream, group_streams[:1])
@@ -1056,6 +1108,12 @@ def _groups(num_parts: int, group: int | None) -> list:
     return [list(range(g, g + size)) for g in range(0, num_parts, size)]
 
 
+def _count_blocks(num: int, nodes: int) -> None:
+    """``num`` blocks replayed, ``nodes`` device ops each."""
+    scan.replays += num
+    scan.replayed_nodes += num * nodes
+
+
 def _code(step):
     """The code object of ``step`` (of the function a `functools.partial`
     wraps), which tells two bodies apart whatever their shapes."""
@@ -1098,6 +1156,9 @@ def scan(step, carry, xs: tuple, consts=None, *, key, prepare=None):
         entry = _cached(_ENTRIES, device, signature,
                         lambda: _Entry(step, prepare, carry, xs, consts, device))
         return entry.run(carry_leaves, xs, const_leaves)
+
+
+scan.captures = scan.evictions = scan.replays = scan.replayed_nodes = 0
 
 
 def scan_mesh(step, parts: list, *, key, prepare=None, group: int | None = None) -> list:

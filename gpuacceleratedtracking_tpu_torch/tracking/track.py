@@ -7,7 +7,10 @@ torch ops (`loop_update_plain`) on the CPU. `track` and `track_bank` run
 their block body through `graphs.scan`, the port's `lax.scan`: a CUDA graph
 of the body replayed once per block on CUDA tensors, a Python loop over
 blocks on the CPU (or inside `graphs.eager()`), with no host sync inside the
-loop either way.
+loop either way. A `track_bank` call is the root span of `graphs.scan`'s
+``scan.*`` spans (`spans`, recorded only while a profiler session records).
+The hand kernels' wrappers count their launches; `graphs.scan` counts its
+captures, its evictions, the blocks it replayed and the device ops they ran.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from ..ops import loop_kernel, registry
 from . import cn0 as cn0_mod
-from . import discriminators, graphs, loop_filter
+from . import discriminators, graphs, loop_filter, spans
 from .loop_filter import LoopFilterState
 from .state import TrackConfig, TrackOutput, TrackState
 
@@ -416,6 +419,7 @@ def bank_step(config: TrackConfig, corr, kwargs: dict):
     return graphs.reads_chunk(step) if _takes_tiles(config) else step
 
 
+@spans.spanned("track_bank")
 def track_bank(
     config: TrackConfig,
     codes: torch.Tensor,
@@ -428,7 +432,11 @@ def track_bank(
 
     ``states`` carries a leading channel axis ``[K]``; the signal is shared by
     all channels. A bank algorithm correlates the whole bank in one call per
-    block (one kernel launch for ``pallas_bank*`` on CUDA tensors). The plain
+    block (for ``pallas_bank*`` on CUDA tensors one counted launch of the
+    bank kernel, which runs as the kernel and its finish; a replayed block
+    of the K=1024 GPS L1 banks, one antenna or four, is those two, the
+    loop-closure kernel and the index's add: four device ops, as
+    ``graphs.scan.replayed_nodes`` over ``graphs.scan.replays`` counts). The plain
     per-channel algorithms ``fused_xla`` and ``unfused_xla`` run batched over
     ``[K]``. The per-channel kernels ``pallas_taps`` and ``pallas_fused`` run
     one channel at a time: K launches per block, where the JAX package maps

@@ -953,6 +953,9 @@ def test_a_replayed_block_on_distinct_cards_is_each_cards_kernels(cuda, axes):
     torch.cuda.synchronize()
     (entry,) = graphs._ENTRIES[tuple(cards)].values()
     assert [len(group) for group in entry.groups] == [time_] * chan
+    # Every group's graph's nodes, counted at capture: per card at least its
+    # bank launch, finish, loop kernel and index add, at most T - 1 copies more.
+    assert 4 * chan * time_ <= entry.nodes <= (3 + time_) * chan * time_, entry.nodes
     replays = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _spin_first()
@@ -2303,3 +2306,54 @@ def test_a_captured_call_checks_the_chips_of_its_table(cuda, fault):
         assert "third call ran" not in proc.stdout
     else:
         assert proc.returncode == 0 and "third call ran" in proc.stdout, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("num_ants", [1, 4])
+def test_block_graph_nodes_are_a_replayed_blocks_device_ops(cuda, num_ants):
+    # `graphs.scan` reads its body graph's node count once, at capture, and
+    # counts one replay a block; torch.profiler finds as many device ops in
+    # each replayed block (after spin kernels: it may drop a session's first
+    # events). The benchmark's `block_graph_nodes` reads the counters' ratio.
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    n, blocks, k = 32768, 5, 1024
+    sig, fs = gen_signal(SYSTEM, 0, 1500.0, n * blocks, duration=blocks * 1e-3,
+                         num_ants=None if num_ants == 1 else num_ants, device=cuda)
+    sre, sim = soa(sig)
+    if num_ants > 1:
+        sre, sim = (x.reshape(num_ants, blocks, n).transpose(0, 1).contiguous()
+                    for x in (sre, sim))
+    else:
+        sre, sim = sre.reshape(blocks, n), sim.reshape(blocks, n)
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    taps = 3 if num_ants == 1 else 7
+    config = TrackConfig.for_system(SYSTEM, fs, n, num_correlators=taps,
+                                    algorithm="pallas_bank_auto")
+    states = init_state(np.arange(k) % 32, device=cuda, num_taps=taps)
+    weights = None if num_ants == 1 else (torch.ones(num_ants), torch.zeros(num_ants))
+    graphs.clear()
+    captures = graphs.scan.captures
+    state, _ = track_bank(config, codes, states, sre, sim, ant_weights=weights)
+    (entry,) = graphs._ENTRIES[torch.device("cuda", torch.cuda.current_device())].values()
+    replays, nodes = graphs.scan.replays, graphs.scan.replayed_nodes
+    track_bank(config, codes, state, sre, sim, ant_weights=weights)
+    torch.cuda.synchronize()
+    assert graphs.scan.captures == captures + 1
+    assert graphs.scan.replays - replays == blocks
+    assert graphs.scan.replayed_nodes - nodes == blocks * entry.nodes
+    assert 3 <= entry.nodes <= 8, entry.nodes
+    counted = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _spin_first()
+            for _ in range(blocks):
+                entry.replay()
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        counted.append(len(_counted_ops(prof)))
+        if counted[-1] == blocks * entry.nodes:
+            break
+    graphs.clear()
+    assert counted[-1] == blocks * entry.nodes, (counted, entry.nodes)
