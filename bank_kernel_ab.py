@@ -35,7 +35,14 @@ the largest difference between the two versions' outputs.
   one-hot, composite A=4 L=7 f32 and bf16; rows at N=2^18; GPS L5 K=128
   transition), then the current rows and composite kernels' device time
   side by side over A in {1, 2, 4} and L in {3, 7}, the evidence a routing
-  rule needs.
+  rule needs. Then the rows kernel's two replica-row builds (`rows_builds`):
+  GPS L1 K=1024 N=32768 at sampling rates where a chip lasts 2 to 32
+  samples, and N=2^18 (256), the old kernel against the current one with
+  its boundary build and with its per-position build, in turns, and
+  whether the two builds' accumulators are equal to the bit: the evidence
+  ``epl_kernels.MIN_CHIP_RUN`` rests on. An old ``bank_rows.cu`` from
+  before the boundary build (no ``min_run`` argument) is launched through
+  `OldRowsLibrary`, which drops that argument.
 - Per-channel kernels, at the paper sweep's corners N=32768 A=1 L=3 (where
   most of its launches are) and N=2^18 A=4 L=7, and its smallest block
   N=2^11; with the host time of a wrapper call (2000 calls enqueued without
@@ -114,11 +121,31 @@ def build_old(old_dir: pathlib.Path, stems, params_interface: bool) -> dict:
             else _build.SIGNATURES[stem]
         if stem == "code_tiles" and first_tiles_interface(old_dir / "code_tiles.cu"):
             sigs = first_tiles_sig
+        old_rows = stem == "bank_rows" and "min_run" not in (old_dir / "bank_rows.cu").read_text()
+        if old_rows:
+            launch_sig = sigs["bank_rows_launch"]
+            sigs = dict(sigs, bank_rows_launch=(launch_sig[0][:-2] + launch_sig[0][-1:],
+                                                launch_sig[1]))
         for name, (argtypes, restype) in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
-        libs[stem] = lib
+        libs[stem] = OldRowsLibrary(lib) if old_rows else lib
     return libs
+
+
+class OldRowsLibrary:
+    """An old ``bank_rows.cu`` library, from before the boundary build,
+    whose ``bank_rows_launch`` takes the current arguments but ``min_run``
+    (the one before the stream), which it drops."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def bank_rows_launch(self, *args):
+        return self.lib.bank_rows_launch(*args[:-2], args[-1])
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
 
 
 def first_tiles_interface(source: pathlib.Path) -> bool:
@@ -256,14 +283,17 @@ def compare(name, old, new, card, extra=None) -> dict:
     return res
 
 
-def bank_case(system, n, k, num_ants, taps, seed):
-    """Bank inputs on the card: PRN 0 at 1500 Hz, random channels."""
+def bank_case(system, n, k, num_ants, taps, seed, fs=None):
+    """Bank inputs on the card: PRN 0 at 1500 Hz, random channels; a block
+    of 1 ms unless ``fs`` is given."""
     from gpuacceleratedtracking_tpu_torch.models import (
         EPLCorrelator, correlator_sample_shifts, gen_signal, soa)
 
     rng = np.random.default_rng(seed)
-    fs = n / 1e-3
-    signal, _ = gen_signal(system, 0, 1500.0, n, num_ants=None if num_ants == 1 else num_ants)
+    duration = 1e-3 if fs is None else n / fs
+    fs = n / duration if fs is None else fs
+    signal, _ = gen_signal(system, 0, 1500.0, n, duration=duration,
+                           num_ants=None if num_ants == 1 else num_ants)
     sre, sim = soa(signal)
     t = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device="cuda")  # noqa: E731
     return dict(
@@ -331,6 +361,62 @@ def bank_ab(libs, card) -> dict:
             print(f"[ab] K=1024 N=32768 A={a} L={taps}, device time: rows "
                   f"{res['rows_device_ms']!r} ms, comp f32 {res['comp_f32_device_ms']!r} ms, "
                   f"comp bf16 {res['comp_bf16_device_ms']!r} ms [{card}]", flush=True)
+    if "bank_rows" in libs:
+        results["rows_builds"] = rows_builds(libs, card)
+    return results
+
+
+@contextlib.contextmanager
+def forced_min_run(min_run: int):
+    """The bank_rows launches inside pass ``min_run`` whatever their rate."""
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+
+    current = epl_kernels.rows_min_run
+    epl_kernels.rows_min_run = lambda rho_nom: min_run
+    try:
+        yield
+    finally:
+        epl_kernels.rows_min_run = current
+
+
+def rows_builds(libs, card) -> dict:
+    """The old rows kernel against the current one's boundary build (every
+    channel's rows from its chip boundaries, ``min_run`` 1) and its
+    per-position build (``min_run`` 0), GPS L1 K=1024 L=3 at ``run``
+    samples a chip, device time in turns; and whether the two builds'
+    accumulators are equal bit for bit."""
+    from gpuacceleratedtracking_tpu_torch.models import GPSL1
+    from gpuacceleratedtracking_tpu_torch.ops import epl_kernels
+
+    system = GPSL1()
+    results = {}
+    for run, n in ((2, 32768), (3, 32768), (4, 32768), (6, 32768), (8, 32768), (12, 32768),
+                   (16, 32768), (24, 32768), (32, 32768), (256, 1 << 18)):
+        fs = run * system.code_frequency
+        c = bank_case(system, n, 1024, 1, 3, seed=40 + run, fs=fs)
+        # The transition route below the rows route's ~0.17 chips a sample.
+        _, launch = bank_prepared(c, "pallas_bank_rows" if run >= 6 else "pallas_bank")
+
+        def build(min_run):
+            def run_it():
+                with forced_min_run(min_run):
+                    return launch()
+            return run_it
+        old, runs, each = with_library(libs, launch), build(1), build(0)
+        same = all(torch.equal(x, y) for x, y in zip(runs(), each()))
+        o1, r1, e1 = (time_ms(f, graph=True) for f in (old, runs, each))
+        e2, r2, o2 = (time_ms(f, graph=True) for f in (each, runs, old))
+        res = {"samples_a_chip": run, "n": n, "fs": fs,
+               "old_device_ms": statistics.median([o1[0], o2[0]]),
+               "boundary_device_ms": statistics.median([r1[0], r2[0]]),
+               "position_device_ms": statistics.median([e1[0], e2[0]]),
+               "bit_for_bit": same,
+               "rule_min_run": epl_kernels.rows_min_run(system.code_frequency / fs)}
+        results[f"run{run}_n{n}"] = res
+        print(f"[ab rows builds] {run} samples a chip, N={n}: device time old "
+              f"{res['old_device_ms']!r} ms, boundary build {res['boundary_device_ms']!r} ms, "
+              f"per-position build {res['position_device_ms']!r} ms; builds bit for bit {same}; "
+              f"the rule's min_run {res['rule_min_run']} [{card}]", flush=True)
     return results
 
 

@@ -15,6 +15,11 @@
 // work is (6 + 4L) A flops of derotation and tap MACs (0.6 GFLOP at K=1024,
 // A=1, L=3, N=32768: 9 us at the f32 peak); device memory carries only the
 // 0.26 MB signal block, the packed code columns and the per-chunk partials.
+// With the rows built from the chip boundaries, the MAC with its carrier
+// and the staging is most of what a tile issues (~25 warp-instructions per
+// 32 sample-channels at A=1 L=3: the carrier's 6, 5 shared loads, 4 of
+// derotation, 6 tap FMAs and the loop), at about half the issue rate: the
+// kernel with no row at all takes ~48 of the ~62 us at K=1024 N=32768.
 //
 // What the design does about it (bank.cuh holds the shared arithmetic):
 // - A CTA takes 8 channels, one per warp (2AL sums in each lane's
@@ -29,9 +34,29 @@
 //   rounds bit for bit like the per-tap formula. The CTA's packed code
 //   columns sit in shared memory. Where a channel's chips over the tile stay
 //   in [0, 2 Lc) (always inside the routes' chip-rate envelopes, checked per
-//   channel and tile), the row is built by a loop of ~15 instructions per
-//   position (one unsigned min for the wrap, one rotate and one logic op
-//   for the +/-1); else by the general wrap (bank.cuh).
+//   channel and tile), the row is built one of two ways, bit for bit alike:
+//   * from the chip boundaries (replica_row_runs), where the launch's
+//     min_run asks for it (ops/epl_kernels.rows_min_run: a chip lasts
+//     MIN_CHIP_RUN = 16 samples or more at the nominal rate) and the
+//     channel's own chips last that long (its rho). A lane
+//     per group of 32 positions evaluates the chip formula at the group's
+//     two ends, finds where each chip starting inside it starts (an
+//     estimate from 1 / rho, corrected by the formula itself, which never
+//     decreases with the position), and keeps the group's sign mask in the
+//     warp's table, carried to the next tile of the chunk; then each lane
+//     writes four positions from one mask with a 16-byte store. At 32
+//     samples a chip that is ~7.5 warp-instructions per 32 positions, half
+//     masks and half fill, against the formula's ~15. The crossover, on the
+//     H100 at K=1024 A=1 L=3 (bank_kernel_ab.py's rows_builds against the
+//     per-position kernel): even at 12 samples a chip, 2.8 % faster at 16,
+//     8.6 % at 32, 13 % at 256. The build has a kernel of its own whose
+//     launch bounds keep each instantiation's CTAs an SM (min_ctas): with
+//     its temporaries at 80 registers, 3 CTAs an SM, it was slower than the
+//     per-position kernel;
+//   * else by that formula at every position (replica_row: one unsigned min
+//     for the wrap, one rotate and one logic op for the +/-1; the general
+//     wrap outside chips_near, bank.cuh), in a kernel compiled as it was
+//     before the boundary build (PositionRows).
 // - The carrier is the row x lane phasor product: a lane's samples
 //   i = 32 q + lane sit at four fixed in-row positions, so its four lane
 //   phasors are computed once per channel and the row phasor (8 per tile)
@@ -84,22 +109,116 @@ __device__ __forceinline__ void replica_row(float* rep, const unsigned* col,
   }
 }
 
+// The unwrapped chip of row position m: bank::chip_unwrapped at j0 + m.
+__device__ __forceinline__ int row_chip(const bank::Phases& ch, int j0, int m) {
+  return bank::chip_unwrapped(ch, static_cast<float>(j0 + m));
+}
+
+// All ones where chip c (unwrapped, in [0, 2 Lc): chips_near) is -1, else 0.
+__device__ __forceinline__ unsigned chip_sign(const unsigned* col, int c, int code_length) {
+  const int ci = static_cast<int>(
+      min(static_cast<unsigned>(c), static_cast<unsigned>(c - code_length)));
+  return static_cast<unsigned>(static_cast<int>(bank::chip_rotated(col, ci)) >> 31);
+}
+
+// +1.0f, or -1.0f where bit 31 of w is set.
+__device__ __forceinline__ float sign_value(unsigned w) {
+  unsigned v;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(v) : "r"(w), "r"(0x80000000u), "r"(0x3f800000u));
+  return __uint_as_float(v);
+}
+
+// The first row position in [lo, hi] whose chip reaches c, given that
+// position lo - 1's chip is below c and position hi's is not: an estimate
+// from the rate, then corrected by the formula itself, which never
+// decreases with the position (rho >= 0), so the result is exact.
+__device__ __forceinline__ int chip_start(const bank::Phases& ch, float inv_rho, int j0, int c,
+                                          int lo, int hi) {
+  const float x = __fmul_rn(__fsub_rn(static_cast<float>(c - ch.chip0), ch.frac), inv_rho);
+  int b = static_cast<int>(fminf(fmaxf(ceilf(x - static_cast<float>(j0)),
+                                       static_cast<float>(lo)), static_cast<float>(hi)));
+  // Both neighbours at once (position lo - 1's chip is below c): the
+  // estimate is off by one at most but at rates far from the nominal one.
+  const int below = row_chip(ch, j0, b - 1);
+  const int at = row_chip(ch, j0, b);
+  if (below >= c) {
+    do --b; while (b > lo && row_chip(ch, j0, b - 1) >= c);
+  } else if (at < c) {
+    do ++b; while (row_chip(ch, j0, b) < c);
+  }
+  return b;
+}
+
+// The replica row from its chip boundaries, where chips_near holds. Lane j
+// takes the groups of 32 positions j, j + 32, ...: from the chips at the
+// group's ends and the first position of each chip that starts inside it
+// (chip_start), the group's sign mask (bit i: position 32 g + i is -1),
+// into the warp's table `masks`. With `carry` (the last tile of the chunk
+// took this build for this channel) the last tile's whole groups from 32 on
+// are this tile's first ones, the same positions of the phase tile, so that
+// a tile of span <= 1024 computes 32 groups, one a lane. Each position's
+// +/-1 is then one bit of its group's mask: four positions a lane and one
+// 16-byte store where the row's width allows, else one. The chips are those
+// of the per-position formula, bit for bit.
+__device__ __forceinline__ void replica_row_runs(float* rep, unsigned* masks, const unsigned* col,
+                                                 const bank::Phases& ch, float inv_rho, int j0,
+                                                 int width, int code_length, int lane,
+                                                 bool carry) {
+  int g_first = 0;
+  if (carry && width >= 32 * 33) {
+    g_first = width / 32 - 32;
+    for (int g = lane; g < g_first; g += 32) masks[g] = masks[g + 32];
+    __syncwarp();
+  }
+  for (int p0 = 32 * (g_first + lane); p0 < width; p0 += 32 * 32) {
+    const int last = min(p0 + 31, width - 1);
+    const int c_lo = row_chip(ch, j0, p0);
+    const int c_hi = row_chip(ch, j0, last);
+    unsigned mask = chip_sign(col, c_lo, code_length);
+    for (int c = c_lo + 1; c <= c_hi; ++c) {
+      const unsigned above = ~0u << (chip_start(ch, inv_rho, j0, c, p0 + 1, last) - p0);
+      mask = (mask & ~above) | (chip_sign(col, c, code_length) & above);
+    }
+    masks[p0 >> 5] = mask;
+  }
+  __syncwarp();
+  if ((width & 3) == 0) {
+    const int sh = 28 - 4 * (lane & 7);     // moves bit 4 (lane & 7) + i to bit 28 + i
+#pragma unroll 2
+    for (int m = 4 * lane; m < width; m += 128) {
+      const unsigned w = masks[m >> 5] << sh;
+      *reinterpret_cast<float4*>(rep + m) =
+          make_float4(sign_value(w << 3), sign_value(w << 2), sign_value(w << 1), sign_value(w));
+    }
+  } else {
+    const unsigned rot = ~static_cast<unsigned>(lane);  // moves bit `lane` to bit 31
+#pragma unroll 4
+    for (int m = lane; m < width; m += 32) {
+      const unsigned w = masks[m >> 5];
+      rep[m] = sign_value(__funnelshift_l(w, w, rot));
+    }
+  }
+}
+
 // A CTA takes a chunk of `chunk` consecutive tiles, all in one phase tile,
 // and kWarps channels, one per warp. A channel's phases, lane phasors and
 // sums carry across the chunk's tiles; the signal tile is restaged per tile.
-template <int A, int L>
-__global__ void __launch_bounds__(kThreads)
-bank_rows_kernel(const float* __restrict__ sre,          // [A, N], or the chunk (src)
-                 const float* __restrict__ sim,          // [A, N], or the chunk (src)
-                 const unsigned* __restrict__ code,      // [K, words] packed columns
-                 const bank::Source src,                 // the block's row, the channels
-                 const float2* __restrict__ base,        // [phase tiles]: carrier cyc, code chips
-                 const int* __restrict__ deltas,         // [L]
-                 float* __restrict__ partial,            // [K, chunks, A, L, 2]
-                 int num_samples, int plane, int num_k, int code_length, int words,
-                 int phase_tile, int span, int chunk, float rho_nom, float fcar_nom_cyc) {
-  extern __shared__ float smem[];
+// kRuns: the launch asks for the boundary build (min_run > 0); without it
+// the kernel is the per-position build alone.
+template <int A, int L, bool kRuns>
+__device__ __forceinline__ void bank_rows_body(
+    const float* __restrict__ sre,          // [A, N], or the chunk (src)
+    const float* __restrict__ sim,          // [A, N], or the chunk (src)
+    const unsigned* __restrict__ code,      // [K, words] packed columns
+    const bank::Source src,                 // the block's row, the channels
+    const float2* __restrict__ base,        // [phase tiles]: carrier cyc, code chips
+    const int* __restrict__ deltas,         // [L]
+    float* __restrict__ partial,            // [K, chunks, A, L, 2]
+    int num_samples, int plane, int num_k, int code_length, int words, int phase_tile,
+    int span, int chunk, float rho_nom, float fcar_nom_cyc, int min_run) {
+  extern __shared__ __align__(16) float smem[];
   const int width = kTile + span;            // replica row: positions [0, kTile + span)
+  const int groups = (width + 31) / 32;      // its groups of 32 positions
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float* s_re = smem;                        // [A][kTile]
@@ -107,6 +226,7 @@ bank_rows_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
   float* rep = s_im + A * kTile + warp * width;
   unsigned* code_s =                         // [kWarps][words]
       reinterpret_cast<unsigned*>(s_im + A * kTile + kWarps * width);
+  unsigned* masks = code_s + kWarps * words + warp * groups;  // [kWarps][groups], min_run > 0
   const size_t block = bank::block_offset(src);
   sre += block;
   sim += block;
@@ -132,10 +252,14 @@ bank_rows_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
   const bank::Phases ch = bank::tile_phases(bank::channel_params(src, min(k, num_k - 1)), b,
                                             n0, static_cast<float>(code_length), rho_nom,
                                             fcar_nom_cyc);
+  const float inv_rho = __frcp_rn(ch.rho);
+  // The boundary build where this channel's chips last min_run samples.
+  const bool runs = kRuns && ch.rho * static_cast<float>(min_run) <= 1.0f;
   float2 lp[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) lp[q] = bank::lane_phasor(ch, static_cast<float>(32 * q + lane));
 
+  bool built = false;                                     // masks hold the last tile's groups
   float acc_re[A][L];
   float acc_im[A][L];
 #pragma unroll
@@ -158,9 +282,16 @@ bank_rows_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
     if (!active) continue;
 
     if (bank::chips_near(ch, static_cast<float>(j0 + width - 1), code_length)) {
-      replica_row<true>(rep, col, ch, j0, width, code_length, lane);
+      if (runs) {
+        replica_row_runs(rep, masks, col, ch, inv_rho, j0, width, code_length, lane, built);
+        built = true;
+      } else {
+        replica_row<true>(rep, col, ch, j0, width, code_length, lane);
+        built = false;
+      }
     } else {
       replica_row<false>(rep, col, ch, j0, width, code_length, lane);
+      built = false;
     }
     // Lane r < kRows holds row r's phasor; the others compute a copy.
     const float2 rp = bank::row_phasor(ch, static_cast<float>(j0 + bank::kRow * (lane % kRows)));
@@ -211,6 +342,39 @@ bank_rows_kernel(const float* __restrict__ sre,          // [A, N], or the chunk
         out[(a * L + l) * 2 + 1] = vi;
       }
     }
+}
+
+// The kernel's parameters (bank_rows_body's), and a last one that says its
+// row build: a tag of its own for each, so that the two kernels share the
+// name bank_rows_kernel<A, L> and each has its own launch bounds.
+#define BANK_ROWS_PARAMS                                                                   \
+  const float* __restrict__ sre, const float* __restrict__ sim,                            \
+      const unsigned* __restrict__ code, const bank::Source src,                           \
+      const float2* __restrict__ base, const int* __restrict__ deltas,                     \
+      float* __restrict__ partial, int num_samples, int plane, int num_k, int code_length, \
+      int words, int phase_tile, int span, int chunk, float rho_nom, float fcar_nom_cyc,   \
+      int min_run
+#define BANK_ROWS_ARGS                                                                     \
+  sre, sim, code, src, base, deltas, partial, num_samples, plane, num_k, code_length,      \
+      words, phase_tile, span, chunk, rho_nom, fcar_nom_cyc, min_run
+
+struct PositionRows {};  // the per-position build alone
+struct BoundaryRows {};  // the boundary build where it holds
+
+// CTAs per SM that the boundary build's kernel keeps: the per-position
+// kernel's registers (64 at A L <= 6, 80 to 12, up to 128 above), so that
+// the build's temporaries take no occupancy from the MAC.
+constexpr int min_ctas(int a, int l) { return a * l <= 6 ? 4 : a * l <= 12 ? 3 : 2; }
+
+template <int A, int L>
+__global__ void __launch_bounds__(kThreads) bank_rows_kernel(BANK_ROWS_PARAMS, PositionRows) {
+  bank_rows_body<A, L, false>(BANK_ROWS_ARGS);
+}
+
+template <int A, int L>
+__global__ void __launch_bounds__(kThreads, min_ctas(A, L))
+    bank_rows_kernel(BANK_ROWS_PARAMS, BoundaryRows) {
+  bank_rows_body<A, L, true>(BANK_ROWS_ARGS);
 }
 
 // Sum the per-chunk partials in chunk order: out[k, a, l] (re and im
@@ -278,21 +442,21 @@ cudaError_t finish(const float* partial, float* out_re, float* out_im, int num_a
   return cudaGetLastError();
 }
 
-template <int A, int L>
+template <int A, int L, class Rows>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre,
                    const float* sim, const unsigned* code, const bank::Source& src,
                    const float* base, const int* deltas, float* partial, int num_samples,
                    int num_k, int code_length, int words, int phase_tile, int span,
-                   int chunk, float rho_nom, float fcar_nom_cyc) {
+                   int chunk, float rho_nom, float fcar_nom_cyc, int min_run) {
+  void (*kernel)(BANK_ROWS_PARAMS, Rows) = bank_rows_kernel<A, L>;
   // Above 48 KB, dynamic shared memory needs the kernel's opt-in.
-  cudaError_t err = cudaFuncSetAttribute(bank_rows_kernel<A, L>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  bank_rows_kernel<A, L><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       sre, sim, code, src, reinterpret_cast<const float2*>(base), deltas, partial,
       num_samples, static_cast<int>(src.plane_stride), num_k, code_length, words, phase_tile,
-      span, chunk, rho_nom, fcar_nom_cyc);
+      span, chunk, rho_nom, fcar_nom_cyc, min_run, Rows{});
   return cudaGetLastError();
 }
 
@@ -303,14 +467,20 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* sre
 // two launches (cudaErrorInvalidValue for an antenna/tap count with no
 // instantiation, or a phase tile that kTile does not divide). With out_re
 // null, only the bank kernel runs: its partials wait for
-// bank_rows_finish_launch (a time shard's).
+// bank_rows_finish_launch (a time shard's). min_run > 0 builds the rows
+// from the chip boundaries where a channel's chips last min_run samples or
+// more (and its mask table takes shared memory); 0 keeps the per-position
+// build.
 extern "C" int bank_rows_launch(const float* sre, const float* sim, const int* code,
                                 const bank::Source* source, const float* base, const int* deltas,
                                 float* partial, float* out_re, float* out_im,
                                 int num_ants, int num_taps, int num_samples, int num_k,
                                 int code_length, int phase_tile, int span,
-                                float rho_nom, float fcar_nom_cyc, void* stream) {
-  if (phase_tile % kTile != 0 || span < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                float rho_nom, float fcar_nom_cyc, int min_run,
+                                void* stream) {
+  if (phase_tile % kTile != 0 || span < 0 || min_run < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bank::Source src = *source;
   const int num_tiles = (num_samples + kTile - 1) / kTile;
   const int words = (code_length + 31) / 32;
@@ -318,17 +488,20 @@ extern "C" int bank_rows_launch(const float* sre, const float* sim, const int* c
   const int chunk = chunk_tiles(num_k, num_samples, phase_tile);
   const int num_chunks = (num_tiles + chunk - 1) / chunk;
   const dim3 grid(num_chunks, groups);
+  const size_t mask_words = min_run > 0 ? static_cast<size_t>(kWarps) * ((kTile + span + 31) / 32)
+                                         : 0;
   const size_t smem = (2 * static_cast<size_t>(num_ants) * kTile +
                        static_cast<size_t>(kWarps) * (kTile + span) +
-                       static_cast<size_t>(kWarps) * words) * sizeof(float);
+                       static_cast<size_t>(kWarps) * words + mask_words) * sizeof(float);
   const unsigned* words_ptr = reinterpret_cast<const unsigned*>(code);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define BANK_ROWS_CASE(A_, L_)                                                        \
-  if (num_ants == A_ && num_taps == L_) {                                             \
-    err = launch<A_, L_>(grid, smem, s, sre, sim, words_ptr, src, base, deltas,       \
-                         partial, num_samples, num_k, code_length, words, phase_tile, \
-                         span, chunk, rho_nom, fcar_nom_cyc);                         \
+#define BANK_ROWS_CASE(A_, L_)                                                         \
+  if (num_ants == A_ && num_taps == L_) {                                              \
+    err = (min_run > 0 ? launch<A_, L_, BoundaryRows> : launch<A_, L_, PositionRows>)( \
+        grid, smem, s, sre, sim, words_ptr, src, base, deltas, partial, num_samples,   \
+        num_k, code_length, words, phase_tile, span, chunk, rho_nom, fcar_nom_cyc,     \
+        min_run);                                                                      \
   }
   BANK_ROWS_CASE(1, 3) BANK_ROWS_CASE(1, 5) BANK_ROWS_CASE(1, 7)
   BANK_ROWS_CASE(2, 3) BANK_ROWS_CASE(2, 5) BANK_ROWS_CASE(2, 7)

@@ -40,7 +40,7 @@ SIGNATURES = {
         "bank_rows_launch": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # sre sim code source base deltas partial out_re out_im
              _I, _I, _I, _I, _I, _I, _I,           # ants taps samples k code_length phase_tile span
-             _F, _F,                               # rho_nom fcar_nom_cyc
+             _F, _F, _I,                           # rho_nom fcar_nom_cyc min_run
              _P],                                  # stream
             _I,
         ),

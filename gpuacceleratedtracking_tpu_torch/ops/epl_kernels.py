@@ -86,6 +86,11 @@ TILE = 4096                  # samples per phase base
 ROWS_TILE = 1024             # samples per tile of the bank_rows kernel; divides TILE
 MAX_CODE_LENGTH = 12288      # longest code the kernels take (GPS L5: 10230)
 MAX_SPAN = 4096              # widest tap span: the kernels' replica rows fit shared memory
+# Samples a chip lasts, at the nominal rate, from which the bank_rows kernel
+# builds its replica rows from the chip boundaries (`rows_min_run`): on the
+# H100 at K=1024 that build is no faster than the per-position one at 12
+# samples a chip and faster from 16 (bank_kernel_ab.py's `rows_builds`).
+MIN_CHIP_RUN = 16
 KERNEL_ANTENNAS = 4          # antennas per launch at most: the kernels' instantiations
 KERNEL_TAPS = (3, 5, 7)      # taps per launch: the kernels' instantiations
 _LANES = 128                 # samples per carrier row
@@ -865,6 +870,65 @@ def _replica_chips(rho: torch.Tensor, pc_whole: torch.Tensor, pc_frac: torch.Ten
     return torch.remainder(chip, code_length)
 
 
+def _replica_chips_from_runs(rho: torch.Tensor, pc_whole: torch.Tensor,
+                             pc_frac: torch.Tensor, span: int,
+                             code_length: int) -> torch.Tensor:
+    """`_replica_chips` as ``csrc/bank_rows.cu`` builds them from the chips'
+    boundaries, ``[kc, nt, TILE // ROWS_TILE, ROWS_TILE + span]``: the row
+    of each kernel tile (``j0 = 0, ROWS_TILE, ...`` of each phase tile). Per
+    group of 32 positions, the chips at its ends; each chip ``c`` that
+    starts inside it starts at the first position whose chip reaches ``c``,
+    found from the estimate ``ceil((c - c0 - frac) / rho) - j0`` and then
+    moved by the formula itself. A plain version of the kernel's search, on
+    no path of its own."""
+    dev = rho.device
+    width = ROWS_TILE + span
+    j0 = torch.arange(0, TILE, ROWS_TILE, device=dev)[:, None]             # [R, 1]
+    rho4, frac4 = rho[:, None, None, None], pc_frac[:, :, None, None]
+    whole4 = pc_whole.long()[:, :, None, None]
+
+    def chip(m: torch.Tensor) -> torch.Tensor:
+        return torch.floor((j0 + m).float() * rho4 + frac4).long() + whole4
+
+    p0 = torch.arange(0, width, 32, device=dev)                              # [G]
+    last = torch.clamp(p0 + 31, max=width - 1)
+    c_lo, c_hi = chip(p0), chip(last)                                        # [kc, nt, R, G]
+    inv_rho = torch.reciprocal(rho4)
+    lo, hi = (p0 + 1).expand_as(c_lo), last.expand_as(c_lo)
+    m = torch.arange(width, device=dev)
+    row = c_lo[..., m // 32]
+    starts = int((c_hi - c_lo).max()) if c_lo.numel() else 0    # chips starting in a group
+    for i in range(1, starts + 1):
+        c = c_lo + i
+        live = c <= c_hi
+        x = ((c - whole4).float() - frac4) * inv_rho
+        b = torch.ceil(x - j0.float()).clamp(-1.0, float(width)).long()
+        b = torch.minimum(torch.maximum(b, lo), hi)
+        while True:
+            down = live & (b > lo) & (chip(b - 1) >= c)
+            if not down.any():
+                break
+            b = b - down.long()
+        while True:
+            up = live & (chip(b) < c)
+            if not up.any():
+                break
+            b = b + up.long()
+        start = torch.where(live, b, width)
+        row = row + (start[..., m // 32] <= m).long()
+    return torch.remainder(row, code_length)
+
+
+def rows_min_run(rho_nom: float) -> int:
+    """The ``min_run`` a ``csrc/bank_rows.cu`` launch passes at the nominal
+    rate ``rho_nom`` (chips a sample): `MIN_CHIP_RUN` where a chip lasts at
+    least that many samples, and the kernel builds each channel's rows from
+    the chip boundaries (where its own rate gives chips that long);
+    else 0, the per-position build (high chip rates, and a launch without a
+    nominal rate)."""
+    return MIN_CHIP_RUN if 0.0 < rho_nom * MIN_CHIP_RUN <= 1.0 else 0
+
+
 def _bank_rows_plain(bank: BankRowsCall) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-sample PyTorch evaluation of the kernel's formula, chunked over
     channels: the row x lane carrier and one replica row of ``TILE + span``
@@ -1025,7 +1089,9 @@ def launch_bank_rows(bank: "BankRowsCall", shard_sum: ShardSum | None = None):
     call's route (``correlate_pallas_bank_rows.launches``,
     ``correlate_pallas_bank.launches`` or
     ``correlate_pallas_bank_onehot.launches``) per launch: one inside the
-    kernel's instantiations, else one per group of `launch_groups`. With a
+    kernel's instantiations, else one per group of `launch_groups`; and one
+    to ``boundary_rows.launches`` or ``position_rows.launches``, the row
+    build the launch asks for (`rows_min_run`). With a
     ``shard_sum`` (a time shard's call) each launch writes only its partials
     there and nothing is returned: `ShardSum.finish` sums them. Raises on
     anything the kernel does not take, and if a launch fails.
@@ -1039,6 +1105,8 @@ def launch_bank_rows(bank: "BankRowsCall", shard_sum: ShardSum | None = None):
     lib = _build.load_library("bank_rows")
     source = bank.source()
     num_ctiles = -(-bank.num_samples // ROWS_TILE)     # partials: at most one per tile
+    min_run = rows_min_run(bank.rho_nom)
+    build = boundary_rows if min_run else position_rows
     stream = torch.cuda.current_stream(bank.device).cuda_stream
 
     def finisher(a0, a1, taps):
@@ -1079,11 +1147,12 @@ def launch_bank_rows(bank: "BankRowsCall", shard_sum: ShardSum | None = None):
             None if out_re is None else out_re.data_ptr(),
             None if out_im is None else out_im.data_ptr(), a1 - a0, len(deltas),
             bank.num_samples, bank.num_k, bank.code_length, TILE, bank.span,
-            ctypes.c_float(bank.rho_nom), ctypes.c_float(bank.fcar_nom_cyc), stream,
+            ctypes.c_float(bank.rho_nom), ctypes.c_float(bank.fcar_nom_cyc), min_run, stream,
         )
         if err != 0:
             raise RuntimeError(f"bank_rows_launch failed with CUDA error {err}")
         wrapper.launches += 1
+        build.launches += 1
         if shard_sum is not None:
             shard_sum.copy_in(bank, (a0, a1, taps), partial)
         return out_re, out_im
@@ -1115,6 +1184,21 @@ def launch_channel_params(bank: "BankRowsCall") -> torch.Tensor:
 
 
 correlate_pallas_bank_rows.launches = 0
+
+
+class LaunchCount:
+    """A count of launches kept as the wrappers keep theirs (``launches``),
+    which a replayed graph moves as it moves theirs
+    (`tracking.graphs._counters`)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# bank_rows launches that build the replica rows from the chip boundaries,
+# and those that keep the per-position build (`rows_min_run`).
+boundary_rows = LaunchCount()
+position_rows = LaunchCount()
 
 
 def correlate_pallas_bank(

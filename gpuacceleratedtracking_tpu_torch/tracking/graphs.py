@@ -512,7 +512,8 @@ def _counters() -> tuple:
     from ..ops import bank_comp, channel_kernels, epl_kernels, loop_kernel, replica_kernel
 
     return (epl_kernels.correlate_pallas_bank_rows, epl_kernels.correlate_pallas_bank,
-            epl_kernels.correlate_pallas_bank_onehot, bank_comp.correlate_pallas_bank_comp,
+            epl_kernels.correlate_pallas_bank_onehot, epl_kernels.boundary_rows,
+            epl_kernels.position_rows, bank_comp.correlate_pallas_bank_comp,
             channel_kernels.correlate_pallas_taps, channel_kernels.correlate_pallas_fused,
             epl_kernels.pack_code_tiles, replica_kernel.code_replica,
             loop_kernel.dual_update_kernel, loop_kernel.loop_update_kernel)

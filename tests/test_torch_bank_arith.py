@@ -67,6 +67,91 @@ def test_replica_row_chips_equal_per_tap_chips(gnss, shifts):
         assert torch.equal(row[..., delta:delta + epl_kernels.TILE], per_tap)
 
 
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("gnss", sorted(SYSTEMS))
+def test_boundary_search_gives_the_per_position_chips(gnss, seed):
+    # bank_rows.cu's boundary build (its plain version) against the
+    # per-position formula, every kernel tile's row chip for chip: 1 ms
+    # blocks from 4096 to 2^18 samples (a chip lasts under one sample to 256),
+    # and channels at exactly 1/32 chip a sample whose code phases lie a
+    # few f32 ulps either side of a chip boundary (one falls on sample 16 of
+    # the first tile) and just below Lc.
+    system = SYSTEMS[gnss]
+    n = (4096, 8192, 32768, 65536, 1 << 18, 20000)[seed]
+    shifts = ((-16, 0, 16), (-160, 0, 170), (-5, 0, 325))[seed % 3]
+    bank, _, _ = _bank(system, n, 24, shifts, seed=100 + seed)
+    f32, c = np.float32, np.float32(412)
+    lc = f32(system.code_length)
+    near = [np.nextafter(c, f32(0)), c, np.nextafter(c, f32(1e4)), c - 3 * np.spacing(c),
+            c + 3 * np.spacing(c), np.nextafter(lc, f32(0)), lc - 4 * np.spacing(lc), f32(0)]
+    bank.params[:8, 2] = 1 / 32
+    bank.params[:8, 3] = torch.as_tensor(np.asarray(near, dtype=f32)) - 0.5
+    _, pc_whole, pc_frac = epl_kernels._tile_phases(bank, 0, bank.num_k)
+    rho = bank.params[:, 2]
+    runs = epl_kernels._replica_chips_from_runs(rho, pc_whole, pc_frac, bank.span,
+                                                system.code_length)
+    row = epl_kernels._replica_chips(rho, pc_whole, pc_frac, epl_kernels.TILE + bank.span,
+                                     system.code_length)
+    width = epl_kernels.ROWS_TILE + bank.span
+    assert runs.shape == (*row.shape[:2], epl_kernels.TILE // epl_kernels.ROWS_TILE, width)
+    for r in range(runs.shape[2]):
+        j0 = r * epl_kernels.ROWS_TILE
+        assert torch.equal(runs[:, :, r], row[..., j0:j0 + width]), r
+
+
+def _rows_call(system, fs, route, nominal=True):
+    zeros = torch.zeros(1, 4096)
+    one = torch.zeros(1)
+    return epl_kernels.BankRowsCall(
+        zeros, zeros, torch.as_tensor(system.codes), torch.zeros(1, dtype=torch.int32), one, fs,
+        one, one + system.code_frequency, one, (-1, 0, 1), system.code_length,
+        nominal_code_frequency=system.code_frequency if nominal else None, route=route)
+
+
+@pytest.mark.parametrize("name,system,fs,route,boundary", [
+    ("gpsl1_k1024 cell, 32 samples a chip", tmodels.GPSL1(), 32.768e6, "pallas_bank_rows", True),
+    ("the paper's N=2^18, 256", tmodels.GPSL1(), 262.144e6, "pallas_bank_rows", True),
+    ("the crossover", tmodels.GPSL1(), epl_kernels.MIN_CHIP_RUN * 1.023e6, "pallas_bank_rows",
+     True),
+    ("the rows route's top rate, ~6", tmodels.GPSL1(), 6.1e6, "pallas_bank_rows", False),
+    ("GPS L1 at 4.092 MHz, transition", tmodels.GPSL1(), 4.092e6, "pallas_bank", False),
+    ("GPS L5 at 32.768 MHz, transition", tmodels.GPSL5(), 32.768e6, "pallas_bank", False),
+    ("the transition route's top rate", tmodels.GPSL5(), 10.26e6, "pallas_bank", False),
+    ("one-hot, no nominal rate", tmodels.GPSL1(), 32.768e6, "pallas_bank_onehot", False),
+])
+def test_the_row_build_follows_the_samples_a_chip_lasts(name, system, fs, route, boundary):
+    bank = _rows_call(system, fs, route, nominal=route != "pallas_bank_onehot")
+    min_run = epl_kernels.rows_min_run(bank.rho_nom)
+    assert min_run == (epl_kernels.MIN_CHIP_RUN if boundary else 0), name
+    assert (min_run > 0) == (bank.rho_nom > 0 and 1 / bank.rho_nom >= epl_kernels.MIN_CHIP_RUN)
+
+
+def test_a_replay_moves_the_row_build_counts_as_it_moves_the_launches(monkeypatch):
+    # A stand-in capture (a plain call of the body): the body's launch at the
+    # main path's rate counts one rows launch and one boundary build, which
+    # `graphs.count_replays` adds per replayed block.
+    from gpuacceleratedtracking_tpu_torch.tracking import graphs
+
+    def stand_in(body, device):
+        body()
+        return body
+
+    def launch():
+        min_run = epl_kernels.rows_min_run(1.023e6 / 32.768e6)
+        epl_kernels.correlate_pallas_bank_rows.launches += 1
+        (epl_kernels.boundary_rows if min_run else epl_kernels.position_rows).launches += 1
+
+    monkeypatch.setattr(graphs, "capture", stand_in)
+    for counter in (epl_kernels.correlate_pallas_bank_rows, epl_kernels.boundary_rows,
+                    epl_kernels.position_rows):
+        monkeypatch.setattr(counter, "launches", 0)
+    replay, launched = graphs.capture_counted(launch, torch.device("cpu"))
+    assert (epl_kernels.boundary_rows.launches, epl_kernels.position_rows.launches) == (0, 0)
+    graphs.count_replays(launched, 5)
+    assert (epl_kernels.correlate_pallas_bank_rows.launches, epl_kernels.boundary_rows.launches,
+            epl_kernels.position_rows.launches) == (5, 5, 0)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_row_lane_carrier_matches_the_direct_carrier(seed):
     # N = 2^18 at 262.144 MHz, Dopplers within +/-5 kHz, against the JAX

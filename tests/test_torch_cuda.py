@@ -196,6 +196,177 @@ def test_channels_outside_the_envelope_take_the_general_chip_wrap(cuda, route):
         torch.testing.assert_close(g, w, **tol)
 
 
+# The rows kernel's two replica-row builds, bit for bit: its boundary build
+# (`epl_kernels.rows_min_run` > 0) against its per-position build (0).
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _both_builds(monkeypatch, launch):
+    """``launch()``'s tensors with every bank_rows launch forced to the
+    boundary build (``min_run`` 1: wherever chips_near holds) and to the
+    per-position build, and the build counters' moves."""
+    results, moved = [], []
+    for min_run in (1, 0):
+        monkeypatch.setattr(epl_kernels, "rows_min_run", lambda rho_nom, m=min_run: m)
+        before = (epl_kernels.boundary_rows.launches, epl_kernels.position_rows.launches)
+        results.append(launch())
+        torch.cuda.synchronize()
+        moved.append((epl_kernels.boundary_rows.launches - before[0],
+                      epl_kernels.position_rows.launches - before[1]))
+    monkeypatch.undo()
+    return results, moved
+
+
+def _assert_same_bits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(_bits(g), _bits(w))
+
+
+def _near_boundaries(case):
+    """The case's first channels at exactly 1/32 chip a sample, so that in the
+    first phase tile a chip boundary falls on a sample, with code phases a
+    few f32 ulps either side of it (the sample's chip flips with them), and
+    just below Lc (the wrap)."""
+    f32, c = np.float32, np.float32(412)
+    lc = f32(case["code_length"])
+    near = [np.nextafter(c, f32(0)), c, np.nextafter(c, f32(1e4)), c - 3 * np.spacing(c),
+            c + 3 * np.spacing(c), np.nextafter(lc, f32(0)), lc - 4 * np.spacing(lc), f32(0)]
+    count = min(len(near), case["code_phase"].numel())
+    case["code_phase"][:count] = torch.as_tensor(np.asarray(near[:count], dtype=f32),
+                                                 device=case["code_phase"].device)
+    case["code_frequency"][:count] = case["sampling_frequency"] / 32
+    return case
+
+
+ROW_BUILD_CASES = {
+    "k1024": dict(n=32768, k=1024),
+    "k13_ragged": dict(n=10000, k=13, seed=2),
+    **{f"a{a}_l{taps}_k11": dict(n=8192, k=11, num_ants=a, taps=taps, seed=10 * a + taps)
+       for a in (1, 2, 3, 4) for taps in (3, 5, 7)},
+    **{f"shifts_{i}": dict(n=32768, k=13, shifts=shifts, seed=20 + i)
+       for i, shifts in enumerate([(-16, 0, 16), (-160, 0, 170),
+                                   (-48, -32, -16, 0, 16, 32, 48), (-5, 0, 325)])},
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROW_BUILD_CASES))
+def test_boundary_rows_equal_per_position_rows_bit_for_bit(cuda, monkeypatch, name):
+    # The boundary build's rows are the per-position formula's chips, so the
+    # accumulators agree to the bit, phases beside chip boundaries included.
+    case = _near_boundaries(_case(cuda, **ROW_BUILD_CASES[name]))
+    (runs, each), moved = _both_builds(
+        monkeypatch, lambda: epl_kernels.correlate_pallas_bank_rows(**case))
+    _assert_same_bits(runs, each)
+    launches = len(epl_kernels.launch_groups(case["signal_re"].shape[0]
+                                             if case["signal_re"].ndim == 2 else 1,
+                                             len(case["sample_shifts"])))
+    assert moved == [(launches, 0), (0, launches)]
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_row_builds_agree_either_side_of_the_crossover(cuda, monkeypatch, offset):
+    # GPS L1 where a chip lasts MIN_CHIP_RUN - 1, MIN_CHIP_RUN and
+    # MIN_CHIP_RUN + 1 samples, some channels' rates 2 % either side of the
+    # nominal one: the launch takes the rule's build (the boundary build
+    # from MIN_CHIP_RUN on, for each channel whose own rate gives chips that
+    # long), equal to both builds forced, to the bit.
+    run = epl_kernels.MIN_CHIP_RUN + offset
+    fs = run * SYSTEM.code_frequency
+    case = _near_boundaries(_case(cuda, 8192, 64, fs=fs, seed=30 + run))
+    case["code_frequency"][-16:] = SYSTEM.code_frequency * (
+        1.0 + torch.linspace(-0.02, 0.02, 16, device=cuda))
+    fn = (epl_kernels.correlate_pallas_bank_rows if run >= 6
+          else epl_kernels.correlate_pallas_bank)
+    before = (epl_kernels.boundary_rows.launches, epl_kernels.position_rows.launches)
+    rule = fn(**case)
+    torch.cuda.synchronize()
+    boundary = offset >= 0
+    assert (epl_kernels.boundary_rows.launches - before[0],
+            epl_kernels.position_rows.launches - before[1]) == (int(boundary), int(not boundary))
+    (runs, each), _ = _both_builds(monkeypatch, lambda: fn(**case))
+    _assert_same_bits(rule, each)
+    _assert_same_bits(runs, each)
+
+
+def test_row_builds_agree_on_channels_outside_the_envelope(cuda, monkeypatch):
+    # A negative rate and ~2 chips a sample take the general wrap; a NaN code
+    # phase converts to chip 0 and keeps chips_near; so do a zero rate and
+    # 0.2 chips a sample (several boundaries in a group of 32 positions).
+    case = _near_boundaries(_case(cuda, 16384, 13, seed=11))
+    case["code_frequency"][:4] = torch.tensor(
+        [-SYSTEM.code_frequency, 70 * SYSTEM.code_frequency, 0.0, 0.2 * 16384e3], device=cuda)
+    case["code_phase"][4] = float("nan")
+    (runs, each), _ = _both_builds(
+        monkeypatch, lambda: epl_kernels.correlate_pallas_bank_rows(**case))
+    _assert_same_bits(runs, each)
+
+
+def test_row_builds_agree_on_time_shards(cuda, monkeypatch):
+    # Four time shards of a [chunk, N] buffer's row at the device index, each
+    # at its sample offset: every shard's partials and the joint finish.
+    from gpuacceleratedtracking_tpu_torch.parallel import nominal_advance_tables, time_shard
+
+    rng = np.random.default_rng(12)
+    n, k, num_time, fs = 32768, 21, 4, 32.768e6
+    sre, sim = (torch.as_tensor(rng.standard_normal((3, n)), dtype=torch.float32, device=cuda)
+                for _ in range(2))
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    prn = torch.as_tensor(np.arange(k) % 32, device=cuda)
+    t = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float32), device=cuda)  # noqa: E731
+    phi_code = rng.uniform(0, 1023, k).astype(np.float32)
+    phi_code[:3] = [np.nextafter(np.float32(7), np.float32(0)), 7.0,
+                    np.nextafter(np.float32(1023), np.float32(0))]
+    channels = dict(intermediate_frequency=0.0, carrier_doppler=t(rng.uniform(-4000, 4000, k)),
+                    carrier_phase=t(rng.uniform(0, 2 * np.pi, k)),
+                    code_frequency=SYSTEM.code_frequency,
+                    code_doppler=t(rng.uniform(-3, 3, k)), code_phase=t(phi_code))
+    shifts = tuple(int(s) for s in correlator_sample_shifts(SYSTEM, EPLCorrelator(3), fs))
+    tables = nominal_advance_tables(0.0, SYSTEM.code_frequency, fs, n // num_time, num_time,
+                                    1023)
+    tiles = epl_kernels.pack_code_tiles(codes, prn)
+    index = torch.tensor(2, dtype=torch.int64, device=cuda)
+
+    def launch():
+        total = epl_kernels.ShardSum(num_time, cuda)
+        for i in range(num_time):
+            ch = epl_kernels.BankChannels(**channels, shard=time_shard(i, tables, fs,
+                                                                       n // num_time, 1023))
+            assert ch.shard.offset == i * (n // num_time)
+            epl_kernels.correlate_pallas_bank_rows(
+                sre, sim, codes, prn, None, fs, None, None, None, shifts, 1023,
+                nominal_code_frequency=SYSTEM.code_frequency, code_tiles=tiles, channels=ch,
+                block_index=index, shard_sum=total)
+        return list(total.finish()) + list(total.partials.values())
+
+    (runs, each), moved = _both_builds(monkeypatch, launch)
+    assert moved == [(num_time, 0), (0, num_time)]
+    _assert_same_bits(runs, each)
+
+
+def test_track_bank_at_the_main_paths_shape_takes_the_boundary_build(cuda):
+    # K=1024 GPS L1 at 32.768 MHz, captured: every replayed block's bank_rows
+    # launch counts as a boundary build.
+    n, blocks, k = 32768, 3, 1024
+    sig, fs = gen_signal_mixed(SYSTEM, [0, 1, 2], [-900.0, 100.0, 1500.0], n * blocks,
+                               duration=blocks * 1e-3, device=cuda)
+    sre, sim = (x.reshape(blocks, n) for x in soa(sig))
+    states = init_state(np.arange(k) % 32, carrier_doppler=np.linspace(-4000.0, 4000.0, k),
+                        device=cuda)
+    config = TrackConfig.for_system(SYSTEM, fs, n, algorithm="pallas_bank_auto")
+    codes = torch.as_tensor(SYSTEM.codes, device=cuda)
+    for _ in range(2):                               # the capture, then a replayed call
+        before = (epl_kernels.boundary_rows.launches, epl_kernels.position_rows.launches,
+                  epl_kernels.correlate_pallas_bank_rows.launches)
+        track_bank(config, codes, states, sre, sim)
+        torch.cuda.synchronize()
+        assert (epl_kernels.boundary_rows.launches - before[0],
+                epl_kernels.position_rows.launches - before[1],
+                epl_kernels.correlate_pallas_bank_rows.launches - before[2]) == (blocks, 0, blocks)
+
+
 def test_comp_golden_prompt(cuda):
     n = 32768
     case = _case(cuda, n, 3)
@@ -1117,9 +1288,16 @@ def test_channel_kernels_launch_on_every_card(cuda, kernel, n):
 # CUDA graph of its block body on the card; `graphs.eager()` runs the loop.
 
 def _launch_counts():
+    """Each wrapper's launch count in `graphs._counters` order, but the rows
+    kernel's build counts, which split the rows routes' launches."""
     from gpuacceleratedtracking_tpu_torch.tracking import graphs
 
-    return [fn.launches for fn in graphs._counters()]
+    builds = _build_counters()
+    return [fn.launches for fn in graphs._counters() if fn not in builds]
+
+
+def _build_counters():
+    return (epl_kernels.boundary_rows, epl_kernels.position_rows)
 
 
 def _assert_bitwise(got, want):
@@ -1138,20 +1316,25 @@ def _graph_against_eager(run):
     every launch count by as much as the eager loop does."""
     from gpuacceleratedtracking_tpu_torch.tracking import graphs
 
-    c0 = _launch_counts()
+    def counts():
+        return _launch_counts() + [fn.launches for fn in _build_counters()]
+
+    c0 = counts()
     with graphs.eager():
         want = run()
     torch.cuda.synchronize()
-    c1 = _launch_counts()
+    c1 = counts()
     got = run()
     torch.cuda.synchronize()
-    c2 = _launch_counts()
+    c2 = counts()
     again = run()
     torch.cuda.synchronize()
-    c3 = _launch_counts()
-    eager = [b - a for a, b in zip(c0, c1)]
-    assert [b - a for a, b in zip(c1, c2)] == eager
-    assert [b - a for a, b in zip(c2, c3)] == eager
+    c3 = counts()
+    moves = [b - a for a, b in zip(c0, c1)]
+    assert [b - a for a, b in zip(c1, c2)] == moves
+    assert [b - a for a, b in zip(c2, c3)] == moves
+    eager, builds = moves[:-2], moves[-2:]
+    assert sum(builds) == sum(eager[:3])          # the rows routes' launches, split by build
     _assert_bitwise(got, want)
     _assert_bitwise(again, want)
     return eager
