@@ -12,6 +12,15 @@ work.
 `run` takes the program (``track_bank``'s signature) as an argument: the
 command passes the port's, the control passes the reference's
 (`reference.track_bank_control`), and tests pass a broken one.
+
+A configuration with a ``mesh`` key (``{"chan": 4, "time": 1}``) runs the
+bank spread over the cell's cards: the port's program is then
+`parallel.track_bank_sharded` on that layout of ``cuda:0`` up (`cards`),
+behind ``track_bank``'s signature. The capture, the set-up states and the
+code table stay on the first card, and the results come back joined onto
+it, so the loop, the read-back and the check are the same for every cell.
+Every card of the cell is synchronised at the end of an epoch, its peak
+memory read, and traced.
 """
 
 from __future__ import annotations
@@ -39,16 +48,43 @@ def forbidden_modules() -> list:
 
 # --- The program under test.
 
+def cards(cell: Cell, device: torch.device) -> list:
+    """The cell's cards, the first one first: ``device`` alone, or one for
+    each place of the configuration's ``mesh`` (``chan x time``), ``cuda:0``
+    up on a card and the CPU repeated off it (a mesh of repeated devices)."""
+    layout = cell.config.get("mesh")
+    if layout is None:
+        return [device]
+    count = int(layout["chan"]) * int(layout["time"])
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(count)]
+    return [device] * count
+
+
 def port_program(cell: Cell, device) -> tuple[Callable, object]:
     """The port's ``track_bank`` and the `TrackConfig` of the cell, and a
-    function that frees the port's cached graphs."""
+    function that frees the port's cached graphs. Where the configuration
+    names a ``mesh``, the program is `parallel.track_bank_sharded` on that
+    layout of the cell's cards, behind ``track_bank``'s signature."""
     from gpuacceleratedtracking_tpu_torch.tracking import TrackConfig, graphs, track_bank
 
     fields = dict(cell.config["track"])
     for key in ("sample_shifts", "secondary_code"):
         if key in fields:
             fields[key] = tuple(fields[key])
-    return track_bank, TrackConfig(**fields), graphs.clear
+    layout = cell.config.get("mesh")
+    if layout is None:
+        return track_bank, TrackConfig(**fields), graphs.clear
+    from gpuacceleratedtracking_tpu_torch.parallel import make_mesh, track_bank_sharded
+
+    mesh = make_mesh(layout, cards(cell, torch.device(device)))
+
+    def sharded(config, codes, states, signal_re, signal_im, ant_weights=None):
+        if ant_weights is not None:
+            raise ValueError("the sharded bank takes no steering weights")
+        return track_bank_sharded(config, codes, states, signal_re, signal_im, mesh=mesh)
+
+    return sharded, TrackConfig(**fields), graphs.clear
 
 
 def port_state(state_np, device):
@@ -178,9 +214,10 @@ class Run(NamedTuple):
     reading: Optional[trace.Reading]
 
 
-def sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def sync(devices: list) -> None:
+    for device in dict.fromkeys(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 class Loop:
@@ -188,10 +225,10 @@ class Loop:
     consumer's read-back."""
 
     def __init__(self, cell: Cell, program: Callable, track_config, codes, setup_state,
-                 signal: tuple, weights, keeper: Keeper, device):
+                 signal: tuple, weights, keeper: Keeper, devices: list):
         self.cell, self.program, self.config, self.codes = cell, program, track_config, codes
         self.setup_state, self.signal, self.weights = setup_state, signal, weights
-        self.keeper, self.device = keeper, device
+        self.keeper, self.devices = keeper, devices
         self.per_call = int(cell.traffic["blocks_per_call"])
         self.capture_blocks = int(signal[0].shape[0])
         if self.capture_blocks % self.per_call:
@@ -211,8 +248,9 @@ class Loop:
         self.pending = self.keeper.decide()
 
     def epoch(self, keep: bool) -> None:
-        """One call, its read-back and the consumer's synchronise. The next
-        call's keeping is drawn now: a kept call's input is this call's state."""
+        """One call, its read-back and the consumer's synchronise of every
+        card. The next call's keeping is drawn now: a kept call's input is
+        this call's state."""
         slot = self.pending if keep else None
         if keep:
             self.pending = self.keeper.decide()
@@ -223,7 +261,7 @@ class Loop:
         self.host_call_s += time.perf_counter() - start
         dest = self.keeper.take()
         dest.fill(flatten((state, out), []))
-        sync(self.device)
+        sync(self.devices)
         self.epoch_s.append(time.perf_counter() - start)
         source = self.prev if b0 else None
         if slot is not None:
@@ -245,6 +283,7 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device, *,
     process's start on the host clock (set-up is counted from it)."""
     t_start = time.perf_counter() if t_start is None else t_start
     device = torch.device(device)
+    devices = cards(cell, device)
     config, traffic = cell.config, cell.traffic
     ref = cell.reference
 
@@ -268,16 +307,18 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device, *,
     names = leaf_names(*probe)
     keeper = Keeper(int(traffic["check_calls"]), seed, flatten(probe, []), pinned)
     del probe
-    loop = Loop(cell, program, track_config, table, setup_state, signal, weights, keeper, device)
+    loop = Loop(cell, program, track_config, table, setup_state, signal, weights, keeper,
+                devices)
     warm_until = time.perf_counter() + float(traffic["warm_seconds"])
     warm = 0
     while warm < int(traffic["warm_calls"]) or time.perf_counter() < warm_until:
         loop.epoch(keep=False)
         warm += 1
     loop.start_window()
-    sync(device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    sync(devices)
+    on_card = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+    for d in on_card:
+        torch.cuda.reset_peak_memory_stats(d)
 
     # The measured window.
     t0 = time.perf_counter()
@@ -299,16 +340,17 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device, *,
                 loop.epoch(keep=False)
             return traced_epochs * per_call
 
-        reading = trace.traced(run_epochs)
-    memory_peak = int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0
+        reading = trace.traced(run_epochs, [d.index or 0 for d in on_card])
+    memory_peak = max((int(torch.cuda.max_memory_allocated(d)) for d in on_card), default=0)
 
     # Free the program's state before the reference runs.
     kept = list(keeper.kept)
     loop.state = loop.setup_state = setup_state = None
     del loop
     free_program()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    for d in on_card:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
     checks, wrong = judge(cell, ref, kept, names, signal, table, state_np, weights_np, seed,
                           device)
@@ -331,7 +373,7 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device, *,
         "failed": wrong,
         "metrics": metrics,
         "device": {"platform": "gpu" if device.type == "cuda" else "cpu", "kind": kind,
-                   "count": 1, "memory_peak_bytes": memory_peak},
+                   "count": len(devices), "memory_peak_bytes": memory_peak},
     }
     if reading is not None:
         result["device"].update(busy_s=reading.busy_s, window_s=reading.window_s)

@@ -5,7 +5,6 @@ from benchmark import yardstick
 
 LAYER = "bank correlator kernel"
 UNIT, SOURCE, MOVES = "%", "device_trace", "realtime_channels"
-WORKLOADS = ["gpsl1_a4l7_k1024.epoch20"]
 KERNELS = r"\bbank_comp_(kernel|finish)\b"
 
 

@@ -5,7 +5,6 @@ from benchmark import yardstick
 
 LAYER = "bank correlator kernel"
 UNIT, SOURCE, MOVES = "%", "device_trace", "realtime_channels"
-WORKLOADS = ["gpsl1_k1024.epoch20"]
 KERNELS = r"\bbank_rows_(kernel|finish)\b"
 
 

@@ -6,7 +6,6 @@ block, reads None."""
 
 LAYER = "entry and graph replay"
 UNIT, SOURCE, MOVES = "nodes", "program_counter", "realtime_channels"
-WORKLOADS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"]
 
 
 def read(run):

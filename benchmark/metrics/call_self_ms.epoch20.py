@@ -7,7 +7,6 @@ reads None."""
 
 LAYER = "entry and graph replay"
 UNIT, SOURCE, MOVES = "ms", "program_span", "epoch_p95_ms"
-WORKLOADS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"]
 
 
 def read(run):

@@ -1,9 +1,9 @@
 """The device's idle share of the traced sub-window, in percent:
-1 - (the union of its kernels, copies and fills) / (the traced wall span)."""
+1 - (the union of a card's kernels, copies and fills) / (the traced wall
+span), averaged over the cell's cards (`trace.Reading.busy_s`)."""
 
 LAYER = "device"
 UNIT, SOURCE, MOVES = "%", "device_trace", "realtime_channels"
-WORKLOADS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"]
 
 
 def read(run):

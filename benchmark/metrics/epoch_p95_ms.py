@@ -6,7 +6,6 @@ the window's epochs, not of chunks."""
 import statistics
 
 UNIT, BETTER, SOURCE = "ms", "lower", "host_clock"
-WORKLOADS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"]
 
 
 def read(run):

@@ -5,7 +5,6 @@ window's calls and divided by their count: the benchmark's own span around
 
 LAYER = "entry and graph replay"
 UNIT, SOURCE, MOVES = "ms", "program_span", "epoch_p95_ms"
-WORKLOADS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"]
 
 
 def read(run):

@@ -5,7 +5,6 @@ from benchmark import yardstick
 
 LAYER = "loop closure kernel"
 UNIT, SOURCE, MOVES = "%", "device_trace", "realtime_channels"
-WORKLOADS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"]
 KERNELS = r"\bloop_update_kernel\b"
 
 

@@ -6,7 +6,6 @@ while the profiler does); a program without them reads None."""
 
 LAYER = "entry and graph replay"
 UNIT, SOURCE, MOVES = "ms", "program_span", "epoch_p95_ms"
-WORKLOADS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"]
 SPANS = ("scan.load", "scan.prologue", "scan.next_chunk")
 
 

@@ -1,7 +1,13 @@
 """The check that decides ``correct``, on the CPU at a tiny size: the
 program's CPU path against the plain reference, the control (the reference
 one precision step below f32 in the program's place) and the faults a cell
-can have, each planted underneath the timed path, all read as not correct."""
+can have, each planted underneath the timed path, all read as not correct.
+
+`tiny.MESH_CELL` runs the program on a mesh of four repeated CPU devices,
+which `track_bank_sharded` takes down its one-device branch (`graphs.scan`):
+these tests cover the mesh program's entry and its results, not the
+staging, `graphs.scan_mesh` and the join of distinct cards, which the
+`cuda` test of a four-card cell in `test_benchmark_card.py` covers."""
 
 import importlib
 
@@ -10,13 +16,14 @@ import pytest
 import tiny
 import torch
 
-from benchmark import capture, gold
+from benchmark import capture, gold, harness
 from gpuacceleratedtracking_tpu_torch.ops import bank_comp, epl_kernels
 
 # The module, not the function of that name that `tracking` exports.
 port_track = importlib.import_module("gpuacceleratedtracking_tpu_torch.tracking.track")
 
-CELLS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"]
+MESH_CELL = tiny.MESH_CELL                   # off the card: a mesh of four repeated CPUs
+CELLS = ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20", MESH_CELL]
 
 
 @pytest.fixture(scope="module")
@@ -29,6 +36,7 @@ def test_the_programs_cpu_path_agrees_with_the_reference(root, cell):
     result = tiny.run(root, cell)
     checks = result["checks"]
     assert result["correct"] and result["failed"] == 0, checks
+    assert result["device"]["count"] == tiny.spec.load_cell(cell, root).chips
     assert checks["loop_gap"]["value"] == 0.0          # the same ops on the same device
     assert checks["accum_gap"]["value"] < 1e-5
     assert list(result)[-1] == "checks"
@@ -81,11 +89,12 @@ def altered_answer(plain):
 
 
 def altered_loop_output(plain):
-    """One channel's carrier Doppler altered where the loop closure produces it."""
+    """One channel's carrier Doppler altered where the loop closure produces it (the
+    last of the channels it closes: a shard's on a mesh)."""
     def broken(*args, **kwargs):
         state, out = plain(*args, **kwargs)
         doppler = out.carrier_doppler.clone()
-        doppler[2] += 1.0
+        doppler[-1] += 1.0
         return state, out._replace(carrier_doppler=doppler)
 
     return broken
@@ -108,6 +117,30 @@ def test_each_fault_reads_not_correct(root, cell, fault, monkeypatch):
     result = tiny.run(root, cell, program=program)
     assert not result["correct"], result["checks"]
     assert result["failed"] >= 1
+
+
+def test_the_mesh_program_is_the_sharded_bank_and_gives_track_banks_results_bit_for_bit(root):
+    cell = tiny.spec.load_cell(MESH_CELL, root)
+    cpu = torch.device("cpu")
+    assert harness.cards(cell, cpu) == [cpu] * 4
+    sharded, config, _ = harness.port_program(cell, cpu)
+    assert sharded is not port_track.track_bank
+    table = torch.from_numpy(gold.code_table())
+    scenario = capture.draw_scenario(cell.config, cell.traffic, tiny.SEED)
+    sre, sim = capture.synthesise(cell.config, cell.traffic, scenario, table, tiny.SEED, cpu)
+    states = harness.port_state(capture.initial_state(cell.config, scenario), cpu)
+    per_call = cell.traffic["blocks_per_call"]
+    got = want = (states, None)
+    for b0 in range(0, sre.shape[0], per_call):        # two chained calls
+        got = sharded(config, table, got[0], sre[b0:b0 + per_call], sim[b0:b0 + per_call])
+        want = port_track.track_bank(config, table, want[0], sre[b0:b0 + per_call],
+                                     sim[b0:b0 + per_call])
+        got_leaves, want_leaves = harness.flatten(got, []), harness.flatten(want, [])
+        assert harness.leaf_names(*got) == harness.leaf_names(*want)
+        assert all(torch.equal(g, w) for g, w in zip(got_leaves, want_leaves))
+    with pytest.raises(ValueError, match="steering weights"):
+        sharded(config, table, states, sre[:per_call], sim[:per_call],
+                (torch.ones(1), torch.zeros(1)))
 
 
 def test_the_gold_codes_match_is_gps_200():

@@ -37,8 +37,10 @@ def test_benchmark_json_keeps_to_its_contract():
     for m in BENCH["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
     for w in BENCH["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         assert len(w["why"]) <= 200 and w["name"] == f"{w['config']}.{w['traffic']}"
         reported = [m for m in spec.cell_metrics(BENCH, w["name"])]
         assert "setup_s" in {m["name"] for m in reported}
@@ -62,18 +64,20 @@ def test_each_metric_has_a_reader_that_declares_what_benchmark_json_says(metric)
     assert reader.UNIT == entry["unit"] and reader.SOURCE == entry["source"]
     if "layer" in entry:
         assert (reader.LAYER, reader.MOVES) == (entry["layer"], entry["moves"])
-        # A later cell joins an entry's list; the reader's own stays as written.
-        assert set(reader.WORKLOADS) <= set(entry["workloads"])
     else:
         assert reader.BETTER == entry["better"]
-        assert set(getattr(reader, "WORKLOADS", [])) <= set(entry.get("workloads", []))
+    # Which cells report a metric is said in BENCHMARK.json alone.
+    assert not hasattr(reader, "WORKLOADS")
 
 
-def test_a_configuration_a_traffic_mix_a_metric_and_a_cell_added_as_files(tmp_path):
+@pytest.mark.parametrize("layout", [None, {"chan": 4, "time": 1}])
+def test_a_configuration_a_traffic_mix_a_metric_and_a_cell_added_as_files(tmp_path, layout):
     root = tiny.tiny_root(tmp_path)
     bench_dir = root / "benchmark"
     config = json.loads((bench_dir / "configs" / "gpsl1_k1024.json").read_text())
     config.update(name="gpsl1_k16_l5")
+    if layout is not None:
+        config["mesh"] = layout                        # the bank over four cards
     config["bank"]["channels"] = 16
     config["track"]["sample_shifts"] = [-8, -4, 0, 4, 8]
     (bench_dir / "configs" / "gpsl1_k16_l5.json").write_text(json.dumps(config))
@@ -82,7 +86,7 @@ def test_a_configuration_a_traffic_mix_a_metric_and_a_cell_added_as_files(tmp_pa
     (bench_dir / "traffic" / "epoch1.json").write_text(json.dumps(traffic))
     (bench_dir / "metrics" / "blocks_per_call.py").write_text(
         'LAYER = "entry and graph replay"\nUNIT, SOURCE, MOVES = "blocks", "program_counter", '
-        '"realtime_channels"\nWORKLOADS = ["gpsl1_k16_l5.epoch1"]\n\n\ndef read(run):\n'
+        '"realtime_channels"\n\n\ndef read(run):\n'
         '    return run.blocks / run.calls\n')
     limits = json.loads((bench_dir / "limits" / "gpsl1_k1024.epoch20.json").read_text())
     (bench_dir / "limits" / "gpsl1_k16_l5.epoch1.json").write_text(json.dumps(limits))
@@ -90,8 +94,9 @@ def test_a_configuration_a_traffic_mix_a_metric_and_a_cell_added_as_files(tmp_pa
     bench["configs"].append({"name": "gpsl1_k16_l5", "source": "a test",
                              "file": "benchmark/configs/gpsl1_k16_l5.json", "reduced": [],
                              "why": "a test"})
+    chips = 1 if layout is None else layout["chan"] * layout["time"]
     bench["workloads"].append({"name": "gpsl1_k16_l5.epoch1", "config": "gpsl1_k16_l5",
-                               "traffic": "epoch1", "chips": 1, "why": "a test"})
+                               "traffic": "epoch1", "chips": chips, "why": "a test"})
     bench["per_layer"].append({"name": "blocks_per_call", "unit": "blocks", "better": "higher",
                                "source": "program_counter", "layer": "entry and graph replay",
                                "moves": "realtime_channels", "workloads": ["gpsl1_k16_l5.epoch1"]})
@@ -103,6 +108,7 @@ def test_a_configuration_a_traffic_mix_a_metric_and_a_cell_added_as_files(tmp_pa
     result = tiny.run(root, "gpsl1_k16_l5.epoch1")
     assert result["correct"], result["checks"]
     assert set(result["metrics"]) == {"realtime_channels", "setup_s"}
+    assert result["device"]["count"] == chips
     layer = harness.run(cell, tiny.SEED, 0.2, True, "cpu", log=lambda _: None)
     assert layer["metrics"]["blocks_per_call"]["value"] == 1.0
 

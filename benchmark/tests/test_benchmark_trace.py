@@ -9,8 +9,11 @@ import tiny  # noqa: F401
 from benchmark import spec, trace
 
 
-def X(name, cat, ts, dur):
-    return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+def X(name, cat, ts, dur, card=None):
+    event = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+    if card is not None:
+        event.update(pid=card, args={"device": card})
+    return event
 
 
 def session(lost_first=False):
@@ -41,6 +44,7 @@ def test_idle_share_is_taken_over_the_traced_wall_span():
     # after the last copy is idle, as a first-to-last window would not count it
     assert reading.window_s == pytest.approx(1000e-6)
     assert reading.busy_s == pytest.approx(450e-6)
+    assert reading.busy_by_card == {0: pytest.approx(450e-6)}
     assert reading.kernel_seconds(r"bank_rows_") == pytest.approx(300e-6)
     assert reading.kernel_seconds(r"spin") == 0.0            # the markers are left out
     gaps = [(round(s * 1e6), names) for s, names in reading.gaps]
@@ -59,6 +63,49 @@ def test_idle_share_is_taken_over_the_traced_wall_span():
     parts = trace.breakdown(reading)
     assert parts["device_ops"][0] == ["bank_rows_kernel<1, 3>", pytest.approx(300e-6)]
     assert len(parts["idle_gaps"]) == 3 and len(parts["device_ops"]) == 3
+
+
+def two_cards(lost_second=False):
+    """A session on cards 0 and 1: card 1 busy [400, 500] and [600, 1000],
+    a peer-to-peer copy on each card."""
+    events = [X("spin_kernel", "kernel", ts, 100.0, card)
+              for card in (0, 1) for ts in (0.0, 100.0, 1400.0)]
+    events += [
+        X(trace.WINDOW, "user_annotation", 300.0, 1000.0),
+        X("cudaDeviceSynchronize", "cuda_runtime", 1000.0, 250.0),
+        X("bank_rows_kernel<1, 3>", "kernel", 400.0, 300.0, 0),
+        X("Memcpy PtoP (Device -> Device)", "gpu_memcpy", 900.0, 100.0, 0),
+        X("bank_rows_kernel<1, 3>", "kernel", 400.0, 100.0, 1),
+        X("loop_update_kernel", "kernel", 600.0, 300.0, 1),
+        X("Memcpy PtoP (Device -> Device)", "gpu_memcpy", 850.0, 150.0, 1),
+    ]
+    if lost_second:
+        events = [e for e in events if not (e["name"] == "spin_kernel" and e["ts"] < 300
+                                             and e["pid"] == 1)]
+    return {"traceEvents": events}
+
+
+def test_each_card_is_read_on_its_own_and_the_busy_time_averaged_over_the_cards():
+    device, hosts, window = trace.read_events(two_cards())
+    assert {card for *_, card in device} == {0, 1}
+    assert trace.live(device, (0, 1))
+    reading = trace.reduce(device, hosts, window, blocks=40, cards=(0, 1))
+    assert reading.busy_by_card == {0: pytest.approx(400e-6), 1: pytest.approx(500e-6)}
+    assert reading.busy_s == pytest.approx(450e-6)          # the mean over the two cards
+    assert reading.kernel_seconds(r"bank_rows_") == pytest.approx(400e-6)   # summed
+    assert reading.kernel_seconds(r"^Memcpy PtoP") == pytest.approx(250e-6)
+    # the idle gaps are the first card's: [300, 400), [700, 900), [1000, 1300)
+    assert sorted(round(s * 1e6) for s, _ in reading.gaps) == [100, 200, 300]
+    # a card whose opening spins were lost makes the session not live, on
+    # that card alone
+    device, _, _ = trace.read_events(two_cards(lost_second=True))
+    assert trace.live(device, (0,)) and not trace.live(device, (0, 1))
+
+
+def test_the_card_of_an_event_is_its_device_else_its_pid():
+    assert trace.card_of({"args": {"device": 3}, "pid": 1}) == 3
+    assert trace.card_of({"pid": 2}) == 2
+    assert trace.card_of({}) == 0
 
 
 def test_a_session_that_lost_its_opening_events_is_not_live():

@@ -1,5 +1,6 @@
 """The yardstick's counts and peaks, and the whole-window end-to-end readers."""
 
+import copy
 import json
 import statistics
 
@@ -46,11 +47,12 @@ def test_least_time_takes_the_larger_bound_against_the_stated_peak():
 
 
 def fake_run(cell_name, window_s, calls, blocks, kernels=None, reading_window=None,
-             epoch_s=None):
-    cell = spec.load_cell(cell_name)
+             epoch_s=None, cell=None, cards=1):
+    cell = spec.load_cell(cell_name) if cell is None else cell
     reading = None
     if kernels is not None:
-        reading = trace.Reading(reading_window, reading_window / 2, kernels, [], blocks)
+        reading = trace.Reading(reading_window, reading_window / 2, kernels, [], blocks,
+                                {c: reading_window / 2 for c in range(cards)})
     epoch_s = (window_s / calls,) * calls if epoch_s is None else tuple(epoch_s)
     return Run(cell, yardstick.peaks("NVIDIA H100 80GB HBM3"), 9.5,
                window_s, calls, blocks, 0.25 * window_s, epoch_s, reading)
@@ -70,6 +72,30 @@ def test_roofline_reads_the_kernels_by_name_against_the_blocks_traced():
     empty = fake_run(cell, 10.0, 100, 2000, {"loop_update_kernel": 1.0}, 1.0)
     assert reader.read(empty) is None                   # nothing to read: no value, never 0
     assert reader.read(fake_run(cell, 10.0, 100, 2000)) is None
+
+
+def test_a_four_card_cell_reads_one_cards_share_and_the_peak_of_all_four():
+    # gpsl1_k1024 cut over four cards at ten times its channels, 10240 a card:
+    # each card's kernel takes 0.6 ms a block, and its time summed over the
+    # cards against the whole bank's work at one card's peak is the share
+    # each card's own kernel reads.
+    base = spec.load_cell("gpsl1_k1024.epoch20")
+    config = copy.deepcopy(base.config)
+    config["bank"]["channels"] = 40960
+    config["mesh"] = {"chan": 4, "time": 1}
+    cell = base._replace(name="four_cards", chips=4, config=config)
+    per_card_block = 0.6e-3
+    run = fake_run(None, 10.0, 100, 2000,
+                   {"bank_rows_kernel<1, 3>": 4 * per_card_block * 2000,
+                    "Memcpy PtoP (Device -> Device)": 2e-3,
+                    "Memcpy DtoH (Device -> Pinned)": 1.0}, 1.5, cell=cell, cards=4)
+    metrics = ROOT / "benchmark" / "metrics"
+    rows = spec.load_module(metrics / "bank_rows_roofline.py", "metric")
+    one_card = 100 * (10240 / 1024) * (603_979_776 / 495e12) / per_card_block
+    assert rows.read(run) == pytest.approx(one_card)
+    mfu = spec.load_module(metrics / "step_mfu.py", "metric")
+    flops = 40 * 603_979_776 * 2000
+    assert mfu.read(run) == pytest.approx(100 * flops / (1.5 * 4 * 495e12))
 
 
 def test_rates_take_all_the_work_over_all_the_time_so_a_stall_shows():

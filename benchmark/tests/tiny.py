@@ -15,6 +15,7 @@ if str(ROOT) not in sys.path:
 from benchmark import harness, spec  # noqa: E402
 
 SEED = 2**31 + 12345          # larger than 32 signed bits hold
+MESH_CELL = "gpsl1_k1024_4card.epoch20"      # `add_mesh_cell`'s
 
 
 def copy_benchmark(dest: pathlib.Path) -> pathlib.Path:
@@ -47,8 +48,37 @@ def shrink(root: pathlib.Path, channels: int = 8, blocks: int = 8) -> pathlib.Pa
     return root
 
 
+def add_mesh_cell(root: pathlib.Path, base: str = "gpsl1_k1024.epoch20") -> pathlib.Path:
+    """Add `MESH_CELL` to the copy at ``root``: ``base``'s configuration with
+    a ``mesh`` of four cards (chan 4, time 1), ``base``'s traffic and limits,
+    on 4 chips, reporting what ``base`` reports. Off the card its mesh is
+    four repeated CPU devices, which `track_bank_sharded` runs on its
+    one-device branch (`graphs.scan`); only a run on four distinct cards
+    takes the staging, `graphs.scan_mesh` and the join."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cells = {w["name"]: w for w in bench["workloads"]}
+    configs = {c["name"]: c for c in bench["configs"]}
+    entry = cells[base]
+    name, traffic = MESH_CELL.split(".", 1)
+    config = json.loads((root / configs[entry["config"]]["file"]).read_text())
+    config.update(name=name, mesh={"chan": 4, "time": 1})
+    path = root / "benchmark" / "configs" / f"{name}.json"
+    path.write_text(json.dumps(config))
+    shutil.copy(root / "benchmark" / "limits" / f"{base}.json",
+                root / "benchmark" / "limits" / f"{MESH_CELL}.json")
+    bench["configs"].append(dict(configs[entry["config"]], name=name,
+                                 file=f"benchmark/configs/{name}.json"))
+    bench["workloads"].append(dict(entry, name=MESH_CELL, config=name, chips=4))
+    for metric in bench["end_to_end"] + bench["per_layer"]:
+        if base in metric.get("workloads", ()):
+            metric["workloads"].append(MESH_CELL)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
+
+
 def tiny_root(tmp: pathlib.Path) -> pathlib.Path:
-    return shrink(copy_benchmark(tmp))
+    """A copy of the benchmark cut to a CPU's size, with `MESH_CELL` added."""
+    return add_mesh_cell(shrink(copy_benchmark(tmp)))
 
 
 def run(root: pathlib.Path, workload: str, seconds: float = 0.3, seed: int = SEED, **kwargs):
