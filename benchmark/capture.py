@@ -118,20 +118,30 @@ def steering_weights(scenario: Scenario) -> tuple[np.ndarray, np.ndarray]:
 def initial_state(config: dict, scenario: Scenario) -> TrackState:
     """The bank's set-up states, as numpy leaves: channel k tracks PRN
     ``k % prn_cycle`` from a Doppler spread evenly over the bank's range, and
-    the first channel of each satellite's PRN starts within pull-in range of
-    that satellite (its Doppler and code phase off by the scenario's errors)."""
+    one channel of each satellite's PRN starts within pull-in range of that
+    satellite (its Doppler and code phase off by the scenario's errors).
+
+    The live channels are spread over the channel shards of the
+    configuration's ``mesh`` (``chan`` contiguous shards of ``K / chan``
+    channels; one without a mesh): satellite s, in the scenario's order,
+    takes the first channel of its PRN in shard ``s % chan``, channel
+    ``shard * K / chan + prn``; each shard has to hold whole PRN cycles.
+    Without a mesh that is channel ``prn``."""
     bank, track = config["bank"], config["track"]
     num_k = int(bank["channels"])
     cycle = int(bank["prn_cycle"])
     span = float(bank["doppler_span_hz"])
     window = int(track["cn0_window"])
     taps = len(track["sample_shifts"])
+    chan = int(config.get("mesh", {}).get("chan", 1))
+    per = num_k // chan
+    if num_k % chan or per % cycle:
+        raise ValueError(f"K={num_k} channels are not {chan} shards of whole PRN cycles "
+                         f"of {cycle}")
     dops = np.linspace(-span, span, num_k)
     code_phases = np.zeros(num_k)
     for s, prn in enumerate(scenario.prns):
-        k = int(prn)                       # the first channel of this PRN
-        if k >= num_k:
-            raise ValueError(f"PRN {k} has no channel in a bank of {num_k}")
+        k = (s % chan) * per + int(prn)    # the first channel of this PRN in its shard
         dops[k] = scenario.dopplers[s] + scenario.doppler_errors[s]
         code_phases[k] = (scenario.code_phases[s] + scenario.code_errors[s]) % track["code_length"]
     f32 = lambda x: np.asarray(x, dtype=np.float32).copy()  # noqa: E731

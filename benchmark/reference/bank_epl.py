@@ -7,7 +7,9 @@ chip, and summed (`correlate`). No kernel's tiling or phase formulation
 enters it. An f32 formulation puts a sample whose exact code phase lies
 within a few f32 roundings of a chip boundary on one side or the other, so
 `correlate` lists those samples (`Flips`) and `explained_gap` lets each take
-either side before it reads a gap.
+either side before it reads a gap: subset by subset where an accumulator has
+up to `SEARCH_FLIPS` of them, else by the box that every subset's sum lies in
+(at 256 samples a chip an accumulator has ~63, 2^63 subsets).
 
 The loop closure is a frozen copy, rewritten to import nothing of the
 program, of (commit d8875d6) `gpuacceleratedtracking_tpu_torch/tracking/
@@ -33,6 +35,7 @@ import torch
 
 CHUNK_ELEMENTS = 1 << 23     # float64 elements of one channel chunk's planes
 SEARCH_ELEMENTS = 1 << 24    # elements of one chunk of the subset search
+SEARCH_FLIPS = 24            # most ambiguous samples of one accumulator searched subset by subset
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,7 +252,8 @@ def explained_gap(got: tuple, want: tuple, flips: Flips) -> torch.Tensor:
     """Per accumulator ``(k, tap)``, the widest gap over antennas and the
     real and imaginary parts, after the best choice of sides for its
     ambiguous samples: ``min over S of max |got - want - sum_{i in S} delta_i|``,
-    each subset ``S`` of its flips tried (a float64 ``[K, L]``)."""
+    each subset ``S`` of its flips tried (a float64 ``[K, L]``). An
+    accumulator with more than `SEARCH_FLIPS` flips reads its `_box_gap`."""
     got_re, got_im = (g.double() for g in got)
     want_re, want_im = (w.double() for w in want)
     if got_re.ndim == 2:
@@ -267,8 +271,23 @@ def explained_gap(got: tuple, want: tuple, flips: Flips) -> torch.Tensor:
     for m in sorted(set(counts.tolist()) - {0}):
         acc = torch.nonzero(counts == m).flatten()
         rows = delta[starts[acc][:, None] + torch.arange(m, device=delta.device)]  # [G, m, 2A]
-        gap[acc] = _best_subset(diff[acc], rows)
+        search = _best_subset if m <= SEARCH_FLIPS else _box_gap
+        gap[acc] = search(diff[acc], rows)
     return gap.view(num_k, taps)
+
+
+def _box_gap(target: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``max |target - clamp(target, lo, hi)|`` for each of ``G`` targets
+    ``[G, C]``, where component c's ``[lo, hi]`` spans the sums of every
+    subset of its ``m`` rows ``[G, m, C]``: every subset's sum lies in that
+    box, so this bounds `_best_subset` from below. Inside the box, where a
+    program's own flips put its accumulators, many rows' 2^m sums lie far
+    closer together than any limit, and the two read alike; a gap that no
+    choice of sides explains (a wrong channel, a lost half of the bank) lies
+    far outside it."""
+    lo = rows.clamp(max=0.0).sum(1)
+    hi = rows.clamp(min=0.0).sum(1)
+    return (target - torch.maximum(torch.minimum(target, hi), lo)).abs().amax(-1)
 
 
 def _best_subset(target: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -171,6 +171,107 @@ def test_the_capture_is_the_seeds_and_every_seed_draws_the_same_work(root):
         assert abs(state.carrier_doppler[prn] - a.dopplers[s]) <= 20.0
 
 
+def live_channels(config, scenario, state):
+    """The channels whose set-up Doppler is not the bank's even spread."""
+    bank = config["bank"]
+    spread = np.linspace(-bank["doppler_span_hz"], bank["doppler_span_hz"],
+                         bank["channels"]).astype(np.float32)
+    return np.flatnonzero(state.carrier_doppler != spread).tolist()
+
+
+def full_size(name):
+    cell = tiny.spec.load_cell(name)
+    return cell.config, cell.traffic
+
+
+@pytest.mark.parametrize("cell", ["gpsl1_k1024.epoch20", "gpsl1_a4l7_k1024.epoch20"])
+@pytest.mark.parametrize("seed", [tiny.SEED, 7, 2**33 + 5])
+def test_without_a_mesh_the_set_up_states_are_the_old_rules_bit_for_bit(cell, seed):
+    config, traffic = full_size(cell)
+    scenario = capture.draw_scenario(config, traffic, seed)
+    state = capture.initial_state(config, scenario)
+    num_k = config["bank"]["channels"]
+    dops = np.linspace(-config["bank"]["doppler_span_hz"], config["bank"]["doppler_span_hz"],
+                       num_k)
+    phases = np.zeros(num_k)
+    for s, k in enumerate(int(prn) for prn in scenario.prns):    # the old rule: k = PRN
+        dops[k] = scenario.dopplers[s] + scenario.doppler_errors[s]
+        phases[k] = (scenario.code_phases[s] + scenario.code_errors[s]) % 1023
+    assert np.array_equal(state.carrier_doppler, dops.astype(np.float32))
+    assert np.array_equal(state.pll_filter.x1, dops.astype(np.float32))
+    assert np.array_equal(state.code_phase, phases.astype(np.float32))
+    assert np.array_equal(state.prn, (np.arange(num_k) % config["bank"]["prn_cycle"]))
+    for leaf in harness.flatten(capture.to_torch(state, "cpu"), []):
+        assert leaf.shape[0] == num_k
+
+
+@pytest.mark.parametrize("seed", [tiny.SEED, 7, 2**33 + 5, 11])
+def test_on_a_mesh_of_four_every_shard_holds_live_channels_of_their_satellites_prns(seed):
+    config, traffic = full_size("gpsl1_n262k_k2048_4card.epoch20")
+    chan = config["mesh"]["chan"]
+    per = config["bank"]["channels"] // chan
+    scenario = capture.draw_scenario(config, traffic, seed)
+    state = capture.initial_state(config, scenario)
+    live = live_channels(config, scenario, state)
+    assert len(live) == traffic["satellites"] == 8
+    assert sorted({k // per for k in live}) == list(range(chan))
+    assert [sum(k // per == c for k in live) for c in range(chan)] == [2] * chan
+    for s, prn in enumerate(scenario.prns):
+        k = (s % chan) * per + int(prn)
+        assert k in live and state.prn[k] == prn
+        assert abs(state.carrier_doppler[k] - scenario.dopplers[s]) <= 20.0
+
+
+@pytest.mark.parametrize("channels", [
+    2050,                       # K not divisible into 4 shards
+    2064,                       # a shard of 516 holds no whole PRN cycles of 32
+    64,                         # a shard of 16 has no channel of PRNs 16 to 31
+])
+def test_a_shard_that_cannot_hold_a_prns_channel_raises(channels):
+    config, traffic = full_size("gpsl1_n262k_k2048_4card.epoch20")
+    config = dict(config, bank=dict(config["bank"], channels=channels))
+    scenario = capture.draw_scenario(config, traffic, tiny.SEED)
+    with pytest.raises(ValueError, match="whole PRN cycles"):
+        capture.initial_state(config, scenario)
+
+
+def test_many_ambiguous_samples_are_read_by_their_box_which_bounds_the_search_below():
+    ref = tiny.spec.load_module(tiny.ROOT / "benchmark" / "reference" / "bank_epl.py",
+                                "reference")
+    gen = torch.Generator().manual_seed(3)
+    groups, m = 64, 10
+    rows = torch.randn(groups, m, 2, generator=gen, dtype=torch.float64) * 2.0
+    picks = torch.rand(groups, m, generator=gen) < 0.3
+    inside = (rows * picks[..., None]).sum(1) + 1e-3 * torch.randn(groups, 2, generator=gen,
+                                                                  dtype=torch.float64)
+    outside = inside + 100.0
+    for target in (inside, outside):
+        box, best = ref._box_gap(target, rows), ref._best_subset(target, rows)
+        assert bool((box <= best + 1e-12).all())
+    assert float(ref._best_subset(inside, rows).max()) < 1e-2
+    assert float(ref._box_gap(inside, rows).max()) == 0.0
+    far = ref._box_gap(outside, rows)
+    reach = rows.clamp(min=0.0).sum(1)
+    assert torch.allclose(far, (outside - reach).amax(-1))
+    # explained_gap searches up to SEARCH_FLIPS flips of an accumulator and
+    # reads the box above
+    flips = ref.Flips(channel=torch.zeros(m, dtype=torch.int64),
+                      tap=torch.zeros(m, dtype=torch.int64),
+                      delta_re=rows[0, :, :1], delta_im=rows[0, :, 1:])
+    want = (torch.zeros(1, 1, dtype=torch.float64), torch.zeros(1, 1, dtype=torch.float64))
+    got = (outside[:1, :1] - 100.0 + 3.0, outside[:1, 1:] - 100.0 + 3.0)
+    searched = ref.explained_gap(got, want, flips)
+    assert ref.SEARCH_FLIPS >= 20 and m <= ref.SEARCH_FLIPS
+    assert float(searched) == pytest.approx(float(ref._best_subset(
+        torch.cat(got, 1), rows[:1])))
+    boxed = ref._box_gap(torch.cat(got, 1), rows[:1])
+    old, ref.SEARCH_FLIPS = ref.SEARCH_FLIPS, m - 1
+    try:
+        assert float(ref.explained_gap(got, want, flips)) == pytest.approx(float(boxed))
+    finally:
+        ref.SEARCH_FLIPS = old
+
+
 def test_a_sample_at_a_chip_boundary_counts_on_either_side_and_no_other():
     ref = tiny.spec.load_module(tiny.ROOT / "benchmark" / "reference" / "bank_epl.py",
                                 "reference")

@@ -12,7 +12,7 @@ import sys
 import pytest
 import tiny
 
-from benchmark import harness, spec
+from benchmark import capture, harness, spec
 
 ROOT = tiny.ROOT
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -70,6 +70,34 @@ def test_each_metric_has_a_reader_that_declares_what_benchmark_json_says(metric)
     assert not hasattr(reader, "WORKLOADS")
 
 
+@pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
+def test_each_configuration_parses_and_states_what_benchmark_json_says(entry):
+    config = json.loads((ROOT / entry["file"]).read_text())
+    assert config["name"] == entry["name"] and config["source"] == entry["source"]
+    assert {"deployment", "precision", "reference", "bank", "track", "routes_to",
+            "assumed"} <= set(config)
+    assert (ROOT / "benchmark" / "reference" / f"{config['reference']}.py").exists()
+    assert {"channels", "antennas", "prn_cycle", "doppler_span_hz", "table_prns"} <= set(
+        config["bank"])
+    cells = [w for w in BENCH["workloads"] if w["config"] == entry["name"]]
+    assert cells
+    layout = config.get("mesh", {"chan": 1, "time": 1})
+    assert all(w["chips"] == layout["chan"] * layout["time"] for w in cells)
+    for w in cells:
+        traffic = spec.load_cell(w["name"]).traffic
+        scenario = capture.draw_scenario(config, traffic, tiny.SEED)
+        assert capture.initial_state(config, scenario).prn.shape == (
+            config["bank"]["channels"],)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_each_cells_limits_parse_and_lie_between_their_readings(cell):
+    limits = spec.load_cell(cell).limits
+    assert set(limits) == {"accum_gap", "loop_gap"}
+    for v in limits.values():
+        assert v["lower"] <= v["limit"] < v["upper"] and v["from"]
+
+
 @pytest.mark.parametrize("layout", [None, {"chan": 4, "time": 1}])
 def test_a_configuration_a_traffic_mix_a_metric_and_a_cell_added_as_files(tmp_path, layout):
     root = tiny.tiny_root(tmp_path)
@@ -78,6 +106,7 @@ def test_a_configuration_a_traffic_mix_a_metric_and_a_cell_added_as_files(tmp_pa
     config.update(name="gpsl1_k16_l5")
     if layout is not None:
         config["mesh"] = layout                        # the bank over four cards
+        config["bank"]["prn_cycle"] = 4                # a shard of 4 channels holds the cycle
     config["bank"]["channels"] = 16
     config["track"]["sample_shifts"] = [-8, -4, 0, 4, 8]
     (bench_dir / "configs" / "gpsl1_k16_l5.json").write_text(json.dumps(config))

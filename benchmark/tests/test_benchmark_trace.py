@@ -115,3 +115,28 @@ def test_a_session_that_lost_its_opening_events_is_not_live():
 
 def test_union_merges_overlaps():
     assert trace.union([(5, 6), (0, 2), (1, 3), (3, 4)]) == [[0, 4], [5, 6]]
+
+
+def test_peer_copies_are_summed_over_the_cards_and_read_per_traced_call():
+    reader = spec.load_module(tiny.ROOT / "benchmark" / "metrics" / "peer_copy_ms.epoch20.py",
+                              "metric")
+    cell = spec.load_cell("gpsl1_n262k_k2048_4card.epoch20")
+
+    class Run:
+        pass
+
+    run = Run()
+    run.cell = cell
+    device, hosts, window = trace.read_events(two_cards())
+    # 40 blocks are two calls of 20; card 0 copied 100 us, card 1 150 us
+    run.reading = trace.reduce(device, hosts, window, blocks=40, cards=(0, 1))
+    assert reader.read(run) == pytest.approx(1e3 * 250e-6 / 2)
+    # two cards with no peer copy, one card, no trace: nothing to read
+    run.reading = trace.reduce([e for e in device if "PtoP" not in e[2]], hosts, window,
+                               blocks=40, cards=(0, 1))
+    assert reader.read(run) is None
+    device, hosts, window = trace.read_events(session())
+    run.reading = trace.reduce(device, hosts, window, blocks=40)
+    assert reader.read(run) is None
+    run.reading = None
+    assert reader.read(run) is None

@@ -28,13 +28,15 @@ def copy_benchmark(dest: pathlib.Path) -> pathlib.Path:
 
 def shrink(root: pathlib.Path, channels: int = 8, blocks: int = 8) -> pathlib.Path:
     """Cut every configuration and traffic mix under ``root`` to a CPU's size:
-    K=8 channels at 8.192 MHz (N = 8192, taps every 4 samples, still the
-    rows and composite routes), 3 satellites, an 8-block capture, 4 blocks
-    to an epoch20 call, no warm-up time."""
+    K=8 channels a channel shard (8 without a mesh, 32 on a mesh of 4), each
+    shard every PRN of a cycle of 8, at 8.192 MHz (N = 8192, taps every 4
+    samples, still the rows and composite routes), 3 satellites, an 8-block
+    capture, 4 blocks to an epoch20 call, no warm-up time."""
     for path in (root / "benchmark" / "configs").glob("*.json"):
         config = json.loads(path.read_text())
         taps = len(config["track"]["sample_shifts"])
-        config["bank"].update(channels=channels, prn_cycle=channels)
+        shards = int(config.get("mesh", {}).get("chan", 1))
+        config["bank"].update(channels=channels * shards, prn_cycle=channels)
         config["track"].update(sampling_frequency=8.192e6, num_samples=8192,
                                sample_shifts=[4 * (i - taps // 2) for i in range(taps)])
         path.write_text(json.dumps(config))
@@ -50,8 +52,9 @@ def shrink(root: pathlib.Path, channels: int = 8, blocks: int = 8) -> pathlib.Pa
 
 def add_mesh_cell(root: pathlib.Path, base: str = "gpsl1_k1024.epoch20") -> pathlib.Path:
     """Add `MESH_CELL` to the copy at ``root``: ``base``'s configuration with
-    a ``mesh`` of four cards (chan 4, time 1), ``base``'s traffic and limits,
-    on 4 chips, reporting what ``base`` reports. Off the card its mesh is
+    a ``mesh`` of four cards (chan 4, time 1) and four times its channels, so
+    that each channel shard holds ``base``'s PRN cycle, ``base``'s traffic and
+    limits, on 4 chips, reporting what ``base`` reports. Off the card its mesh is
     four repeated CPU devices, which `track_bank_sharded` runs on its
     one-device branch (`graphs.scan`); only a run on four distinct cards
     takes the staging, `graphs.scan_mesh` and the join."""
@@ -62,6 +65,7 @@ def add_mesh_cell(root: pathlib.Path, base: str = "gpsl1_k1024.epoch20") -> path
     name, traffic = MESH_CELL.split(".", 1)
     config = json.loads((root / configs[entry["config"]]["file"]).read_text())
     config.update(name=name, mesh={"chan": 4, "time": 1})
+    config["bank"]["channels"] *= 4
     path = root / "benchmark" / "configs" / f"{name}.json"
     path.write_text(json.dumps(config))
     shutil.copy(root / "benchmark" / "limits" / f"{base}.json",
